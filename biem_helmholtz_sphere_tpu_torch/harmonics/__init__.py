@@ -1,0 +1,21 @@
+"""Hyperspherical harmonics over branching trees."""
+
+from ._eval import harmonics
+from ._index import (
+    HarmonicBasis,
+    assume_n_end_from_num,
+    basis,
+    harm_n_ndim,
+    harm_n_ndim_le,
+)
+from ._quad import sphere_quadrature
+
+__all__ = [
+    "HarmonicBasis",
+    "basis",
+    "harmonics",
+    "harm_n_ndim",
+    "harm_n_ndim_le",
+    "assume_n_end_from_num",
+    "sphere_quadrature",
+]

@@ -1,0 +1,70 @@
+"""Hyperspherical harmonic evaluation Y_h at arbitrary angles.
+
+Each tree node evaluates a table of its distinct 1-D factors, then the
+flat harmonic axis is assembled by gathers and a product.  Factor
+conventions (orthonormal w.r.t. the node's surface measure), as in
+biem_helmholtz_sphere_tpu.harmonics._eval:
+
+  'a'  : e^{i m phi} / sqrt(2 pi)
+  'b'  : (sin th)^{nc} p~_{l-nc}^{(lam,lam)}(cos th),  lam = nc + (s-1)/2
+
+'c' nodes are not ported yet (ROADMAP queue 1 item 9).
+"""
+
+import numpy as np
+import torch
+
+from ..special._jacobi import orthonormal_jacobi_table
+from ._index import basis
+
+
+def _int_powers(x, n_max):
+    """[..., n_max+1] with entry i = x**i."""
+    ones = torch.ones_like(x)[..., None]
+    if n_max == 0:
+        return ones
+    rep = x[..., None].expand(*x.shape, n_max)
+    return torch.cumprod(torch.cat([ones, rep], dim=-1), dim=-1)
+
+
+def _node_table(node, jobs, spherical):
+    """[..., n_jobs] factor values for one node at its angle (real tensor)."""
+    ang = spherical[node.nid]
+    if node.kind == "a":
+        ms = torch.as_tensor([p[0] for p in jobs], dtype=ang.dtype, device=ang.device)
+        return torch.polar(
+            torch.full_like(ang[..., None] * ms, 1.0 / np.sqrt(2.0 * np.pi)),
+            ang[..., None] * ms,
+        )
+    if node.kind in ("b", "bp"):
+        s = node.children[0].sdim
+        ncs = sorted({p[0] for p in jobs})
+        fam_of = {nc: i for i, nc in enumerate(ncs)}
+        maxdeg = max(p[1] - p[0] for p in jobs)
+        alphas = [nc + (s - 1) / 2.0 for nc in ncs]
+        table = orthonormal_jacobi_table(torch.cos(ang), maxdeg, alphas, alphas)
+        sinpow = _int_powers(torch.sin(ang), max(ncs))[..., ncs]  # [..., F]
+        fidx = [fam_of[p[0]] for p in jobs]
+        didx = [p[1] - p[0] for p in jobs]
+        return sinpow[..., fidx] * table[..., fidx, didx]
+    raise NotImplementedError(
+        "'c' tree nodes are not ported yet (ROADMAP queue 1 item 9)"
+    )
+
+
+def harmonics(c, spherical, n_end):
+    """Evaluate all Y_h, h = 0..num-1, at the given angles: complex [..., num].
+
+    `spherical` maps node id -> real angle tensor (broadcastable shapes);
+    the radius entry "r", if present, is ignored.
+    """
+    b = basis(c, n_end)
+    out = None
+    for node in c.nodes:
+        tab = _node_table(node, b.node_jobs[node.nid], spherical)
+        idx = torch.as_tensor(b.node_job_index[node.nid], device=tab.device)
+        v = tab.index_select(-1, idx)
+        out = v if out is None else out * v
+    return out if out.is_complex() else out.to(
+        torch.complex128 if out.dtype == torch.float64 else torch.complex64
+    )

@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels of the port.
+
+The sources under `csrc/*.cu` expose a plain C interface and are compiled
+at first use with `nvcc` for Hopper (sm_90a) into one shared library under
+`build/kernels/` at the repository root, then loaded with ctypes.  The
+library name carries a hash of the sources and flags, so an edit rebuilds
+it.  Nothing here runs at import: the CPU tests import every module on a
+machine without `nvcc` or a card.
+
+There is no fallback: a missing compiler, a failed build or a kernel that
+reports a CUDA error raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu")
+HEADERS = ("common.cuh",)
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+# C entry points: name -> argtypes (every entry returns a cudaError_t)
+_SIGNATURES = {
+    # x, sx_d, sx_k, sx_p, kx, centers, k, w2, coef_a, coef_b1, coef_bb,
+    # p0, out, P, K, B, n, far, per_ball, lim, rescale, dbl, stream
+    "bhs_fused_ba_eval": [_P, _L, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _I, _I, _I, _D, _D, _I, _P],
+    # vals, offs, sizes, voffs, x, y, n_stack, n_mat, nnz, P, H, nblk,
+    # g_max, adjoint, dbl, stream
+    "bhs_block_diag_cmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
+    # x, blc, pm, src, lanes, K, B, L, H, dbl, stream
+    "bhs_lane_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # y, x, diag, reg, pm, csr_ptr, csr_lane, csr_dn, out, K, B, L, H,
+    # dbl, stream
+    "bhs_lane_scatter": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc():
+    cand = shutil.which("nvcc")
+    if cand is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME or /usr/local/cuda/bin): the "
+            "port's CUDA kernels cannot be built"
+        )
+    return cand
+
+
+def library_path():
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libbhs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compile the sources (if this exact build is missing); return the path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library():
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def launch(name, *args):
+    """Call C entry `name` on the current stream; raise on a CUDA error."""
+    fn = getattr(library(), name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def ptr(t):
+    """Device address of a contiguous tensor (complex tensors as their
+    interleaved real storage)."""
+    if not t.is_contiguous():
+        raise ValueError("kernel operands must be contiguous")
+    return t.data_ptr()

@@ -1,0 +1,23 @@
+"""Special functions: spherical Bessel/Hankel families, orthonormal Jacobi
+recurrences and Gauss-Jacobi rules."""
+
+from ._family import (
+    family_jh,
+    spherical_h_scaled,
+    spherical_jh_all,
+    spherical_jh_scaled,
+)
+from ._jacobi import jacobi_mu0, jacobi_recurrence, orthonormal_jacobi_table
+from ._quad import gauss_jacobi, uniform_circle
+
+__all__ = [
+    "family_jh",
+    "spherical_jh_all",
+    "spherical_jh_scaled",
+    "spherical_h_scaled",
+    "jacobi_mu0",
+    "jacobi_recurrence",
+    "orthonormal_jacobi_table",
+    "gauss_jacobi",
+    "uniform_circle",
+]

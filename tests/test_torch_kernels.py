@@ -1,0 +1,267 @@
+"""The port's kernel modules against the JAX stages they replace.
+
+On the CPU every wrapper runs its plain PyTorch version, so these tests
+hold the plain versions to the JAX package (float64, same numpy inputs):
+KA fused_ba_eval vs _fused_ba_dot_blocked with the _h_clamped radial
+table; KB block_diag_cmm vs the three einsums of the factored matvec; KC
+lane_gather/lane_scatter vs the one-hot routing; and the whole matvec.
+The CUDA kernels themselves are held to the plain versions by the
+`requires_cuda` tests of test_torch_cuda.py (skipped without a card) and
+by chip_smoke.py.
+
+Tolerances: float64, different summation order (dense einsum vs
+blocks, one-hot matmul vs gather/index_add, scan vs loop): 1e-12 of the
+largest entry.
+"""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from biem_helmholtz_sphere_tpu.biem._core import (
+    _check_biem_inputs as j_check_inputs,
+    _matfree_operator as j_matfree_operator,
+    _pair_routing as j_pair_routing,
+)
+from biem_helmholtz_sphere_tpu.biem._eval import _h_clamped as j_h_clamped
+from biem_helmholtz_sphere_tpu.biem._eval_fused import (
+    _fused_ba_dot_blocked as j_fused_ba_dot_blocked,
+)
+from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
+from biem_helmholtz_sphere_tpu.coords import from_cartesian as j_from_cartesian
+from biem_helmholtz_sphere_tpu.ops import cplx
+from biem_helmholtz_sphere_tpu.ops.cplx import C
+from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
+from biem_helmholtz_sphere_tpu_torch.biem._core import (
+    _child_state_blocks,
+    _factored_operator,
+    _pair_routing,
+)
+from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
+    _fused_ba_eval_plain,
+    fused_ba_eval,
+    regroup,
+)
+from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+from biem_helmholtz_sphere_tpu_torch.ops import kernels
+from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+    _block_diag_cmm_plain,
+    block_diag_cmm,
+    pack,
+    unpack,
+)
+from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
+    _lane_gather_plain,
+    _lane_scatter_plain,
+    lane_gather,
+    lane_scatter,
+    make_route,
+)
+from biem_helmholtz_sphere_tpu_torch.translation import coaxial_scaled, rotation_matrix
+
+
+def _lattice(n_side=4, spacing=4.0):
+    g = (np.arange(n_side) - (n_side - 1) / 2) * spacing
+    xx, yy = np.meshgrid(g, g)
+    return np.stack([xx.ravel(), yy.ravel(), np.zeros(n_side * n_side)], axis=1)
+
+
+def _randc(rng, shape):
+    return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+
+def _close(got, ref, rel=1e-12):
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rel * np.abs(ref).max())
+
+
+def _weights(rng, n_balls, n_end):
+    """Random densities decaying with degree like a converged solution."""
+    ell = basis(create_from_branching_types("ba"), n_end).n_root
+    return _randc(rng, (n_balls, n_end * n_end)) * np.exp(-0.7 * ell)
+
+
+def _points_outside(rng, centers, n, scale=6.0):
+    x = rng.normal(size=(3, 4 * n)) * scale
+    r = np.linalg.norm(x[:, :, None] - centers.T[:, None, :], axis=0)
+    return x[:, (r > 1.05).all(axis=1)][:, :n]
+
+
+def test_fused_ba_eval_plain_matches_jax_near_field():
+    n_end, k = 9, 2.3
+    rng = np.random.default_rng(21)
+    centers = _lattice(2, 4.0)
+    w = _weights(rng, len(centers), n_end)
+    x = _points_outside(rng, centers, 40)
+    c_j = j_tree("ba")
+    sph = j_from_cartesian(c_j, x[:, :, None] - centers.T[:, None, :])
+    h = j_h_clamped(3, n_end, k * sph["r"])
+    u_j = tonp(j_fused_ba_dot_blocked(c_j, n_end, C.of(w), sph[0], sph[1], rad=h)).sum(-1)
+    c_t = create_from_branching_types("ba")
+    u_t = fused_ba_eval(
+        torch.as_tensor(x)[:, None, :], torch.as_tensor(centers),
+        torch.tensor([k], dtype=torch.float64), regroup(c_t, n_end, torch.as_tensor(w)[None]),
+    )
+    _close(u_t[:, 0].numpy(), u_j)
+
+
+def test_fused_ba_eval_plain_matches_jax_far_field():
+    n_end = 7
+    rng = np.random.default_rng(22)
+    centers = _lattice(2, 4.0)
+    w = _weights(rng, len(centers), n_end)
+    x = rng.normal(size=(3, 25))
+    x /= np.linalg.norm(x, axis=0)
+    c_j = j_tree("ba")
+    sph = j_from_cartesian(c_j, x)
+    u_j = tonp(j_fused_ba_dot_blocked(
+        c_j, n_end, C.of(w), sph[0][:, None], sph[1][:, None]))  # [P, B]
+    c_t = create_from_branching_types("ba")
+    u_t = fused_ba_eval(
+        torch.as_tensor(x)[:, None, :], torch.as_tensor(centers),
+        torch.tensor([1.0], dtype=torch.float64),
+        regroup(c_t, n_end, torch.as_tensor(w)[None]), far=True, per_ball=True,
+    )
+    _close(u_t[:, 0].numpy(), u_j)
+
+
+def test_pair_routing_counts_on_the_bench_lattice():
+    """24 distinct offsets on the 4x4 lattice fall on 9 radii; padded to
+    g_max = 4 slots per radius: 36 slots x 2 * 12 lanes = 864 lanes."""
+    centers = _lattice()
+    rt = _pair_routing(centers)
+    assert (len(rt.uniq), len(rt.uniq_r), rt.g_max, rt.p_max) == (36, 9, 4, 12)
+    assert len(rt.src) == len(rt.dst) == 864
+    uniq, gth, sct, p_max, uniq_r, g_max = j_pair_routing(centers, radius_slots=True)
+    assert p_max == rt.p_max and g_max == rt.g_max
+    np.testing.assert_array_equal(rt.uniq, uniq)
+    np.testing.assert_array_equal(rt.uniq_r, uniq_r)
+    # the index tables route exactly like the one-hot matrices
+    gth_t = np.zeros_like(gth)
+    sct_t = np.zeros_like(sct)
+    used = rt.src >= 0
+    gth_t[np.nonzero(used)[0], rt.src[used]] = 1.0
+    sct_t[rt.dst[used], np.nonzero(used)[0]] = 1.0
+    np.testing.assert_array_equal(gth_t, gth)
+    np.testing.assert_array_equal(sct_t, sct)
+
+
+def test_lane_route_plain_matches_jax_one_hot():
+    n_end, n_k = 4, 2
+    rng = np.random.default_rng(23)
+    centers = _lattice()
+    nb, h = len(centers), n_end * n_end
+    _, gth, sct, p_max, _, _ = j_pair_routing(centers, radius_slots=True)
+    rt = _pair_routing(centers)
+    route = make_route(rt.src, rt.dst, rt.p_max, nb, torch.device("cpu"))
+    pm = (-1.0) ** (basis(create_from_branching_types("ba"), n_end).n_root % 2)
+    x, blc, diag, reg = (_randc(rng, (n_k, nb, h)) for _ in range(4))
+    y = _randc(rng, (n_k, len(rt.src), h))
+    z = blc * x
+    lanes_j = np.einsum("pq,kqh->kph", gth, np.concatenate([z, z * pm], axis=1))
+    t = torch.as_tensor
+    lanes_t = lane_gather(t(x), t(blc), t(pm), route)
+    _close(lanes_t.numpy(), lanes_j)
+    y_all = y.reshape(n_k, -1, 2 * p_max, h).copy()
+    y_all[:, :, p_max:] *= pm
+    out_j = diag * x + reg * np.einsum("bp,kph->kbh", sct, y_all.reshape(y.shape))
+    _close(lane_scatter(t(y), t(x), t(diag), t(reg), t(pm), route).numpy(), out_j)
+
+
+@pytest.mark.parametrize("which", ["D^H", "X", "D"])
+def test_block_diag_cmm_plain_matches_jax_einsum(which):
+    """The three products of the factored matvec, as JAX writes them."""
+    n_end, n_k, n_slots, n_rad, lanes = 5, 2, 6, 3, 4
+    rng = np.random.default_rng(24)
+    c = create_from_branching_types("ba")
+    h = n_end * n_end
+    if which == "X":
+        sizes, perm = _child_state_blocks(c, n_end)
+        stack, x_shape = (n_k, n_rad), (n_k, n_rad, lanes * n_slots // n_rad, h)
+    else:
+        sizes, perm = 2 * np.arange(n_end) + 1, None
+        stack, x_shape = (n_slots,), (n_k, n_slots, lanes, h)
+    blocks = pack(torch.zeros(stack + (h, h), dtype=torch.complex128), sizes, perm)
+    blocks = replace(blocks, vals=torch.as_tensor(_randc(rng, blocks.vals.shape)))
+    dense = unpack(blocks).numpy()
+    w = _randc(rng, x_shape)
+    if which == "D^H":
+        y_j = cplx.einsum("ogh,...opg->...oph", C.of(dense).conj(), C.of(w))
+    elif which == "X":
+        y_j = cplx.einsum("...rhg,...rpg->...rph", C.of(dense), C.of(w))
+    else:
+        y_j = cplx.einsum("ohg,...opg->...oph", C.of(dense), C.of(w))
+    y_t = block_diag_cmm(blocks, torch.as_tensor(w), adjoint=which == "D^H")
+    _close(y_t.numpy(), tonp(y_j))
+
+
+def test_packing_is_exact_for_the_operator_tables():
+    """D and the coaxial factor X vanish exactly off their blocks, so the
+    packed form is the same function as the dense einsum."""
+    c = create_from_branching_types("ba")
+    n_end = 6
+    rng = np.random.default_rng(25)
+    t_hat = torch.as_tensor(rng.normal(size=(5, 3)))
+    d = rotation_matrix(c, t_hat / t_hat.norm(dim=-1, keepdim=True), n_end)
+    x, _ = coaxial_scaled(c, torch.tensor([4.0, 8.0], dtype=torch.float64), n_end,
+                          torch.tensor([[1.3], [2.2]], dtype=torch.float64))
+    for dense, (sizes, perm) in ((d, (2 * np.arange(n_end) + 1, None)),
+                                 (x, _child_state_blocks(c, n_end))):
+        bd = pack(dense, sizes, perm)
+        assert torch.equal(unpack(bd), dense)
+        lanes = torch.as_tensor(_randc(rng, dense.shape[:-2] + (3, dense.shape[-1])))
+        assert torch.equal(block_diag_cmm(bd, lanes), _block_diag_cmm_plain(dense, lanes, False))
+
+
+def test_factored_matvec_matches_jax():
+    n_end, n_k = 4, 2
+    rng = np.random.default_rng(26)
+    centers = _lattice()
+    nb = len(centers)
+    ks = np.array([1.1, 1.9])
+    c_j = j_tree("ba")
+    _, rad, kc, eta_c, al, be = j_check_inputs(
+        c_j, np.broadcast_to(centers, (n_k, nb, 3)), np.ones((n_k, nb)), ks, None, 1.0, 0.0
+    )
+    mv_j, diag_j = j_matfree_operator(
+        c_j, n_end, centers, rad, kc, eta_c, al, be, None, stable=True
+    )
+    x = _randc(rng, (n_k, nb * n_end * n_end))
+    y_j = tonp(mv_j(C.of(x)))
+    f64 = dict(dtype=torch.float64)
+    mv_t, diag_t = _factored_operator(
+        create_from_branching_types("ba"), n_end, centers, torch.ones(n_k, nb, **f64),
+        torch.as_tensor(ks), torch.ones(n_k, **f64),
+        torch.ones(n_k, nb, dtype=torch.complex128),
+        torch.zeros(n_k, nb, dtype=torch.complex128),
+    )
+    _close(diag_t.numpy(), tonp(diag_j))
+    _close(mv_t(torch.as_tensor(x)).numpy(), y_j)
+
+
+def test_cpu_wrappers_never_touch_the_kernel_library(monkeypatch):
+    """On CPU tensors the wrappers take their plain versions, build and
+    load nothing, and count no launch."""
+    def no_library():
+        raise AssertionError("the kernel library was requested for CPU tensors")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    counts = (fused_ba_eval.launches, block_diag_cmm.launches,
+              lane_gather.launches, lane_scatter.launches)
+    test_lane_route_plain_matches_jax_one_hot()
+    test_block_diag_cmm_plain_matches_jax_einsum("X")
+    test_fused_ba_eval_plain_matches_jax_far_field()
+    assert counts == (fused_ba_eval.launches, block_diag_cmm.launches,
+                      lane_gather.launches, lane_scatter.launches)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No fallback: without a CUDA compiler the build raises."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+    assert not (tmp_path / "kernels").exists()
