@@ -13,9 +13,12 @@ is never formed.  For 'b'-rooted trees in d >= 3 the scale-compensated
 (S|R) factors as SR(t) = D(t^) X(|t|) D(t^)^H: D is the k-independent
 rotation (built once per geometry and cached), X the coaxial factor per
 distinct pair distance with the ball-maximum radial exponents folded in.
-One matvec routes the spheres into pair lanes (KC), applies D^H, X and D
-to the lanes (KB) and sums the lanes back into their destination spheres
-(KC); GMRES (ops/gmres.py) solves the system.
+The k-dependent build runs the radial special functions (K5,
+special/_family.py) and writes X straight into its packed blocks (K2,
+translation/_scaled.py::coax_fold_packed).  One matvec routes the
+spheres into pair lanes (KC), applies D^H, X and D to the lanes (KB) and
+sums the lanes back into their destination spheres (KC); GMRES
+(ops/gmres.py) solves the system.
 
 This is the route `biem()` of biem_helmholtz_sphere_tpu takes at the
 bench configuration (biem/_core.py: `_matfree_operator`, factored
@@ -33,11 +36,12 @@ import torch
 from ..harmonics._index import basis
 from ..ops.block_diag import block_diag_cmm, pack
 from ..ops.gmres import gmres_solve_op
+from ..ops.kernels import default_device
 from ..ops.lane_route import lane_gather, lane_scatter, make_route
 from ..special._family import spherical_jh_all, spherical_jh_scaled
 from ..translation._ops import _a_const, ipow
-from ..translation._rotation import _coax_tables, rotation_matrix
-from ..translation._scaled import coaxial_scaled
+from ..translation._rotation import rotation_matrix
+from ..translation._scaled import coax_fold_packed
 
 _ROUTES = "ROADMAP queue 1 item 8"
 _TREES = "ROADMAP queue 1 item 9"
@@ -80,10 +84,12 @@ class BIEMResultCalculator:
 
 
 def _device_of(*xs):
+    """The device of the first tensor argument; the card when none is a
+    tensor (CPU tensors are how a caller asks for the CPU)."""
     for x in xs:
         if isinstance(x, torch.Tensor):
             return x.device
-    return torch.device("cpu")
+    return default_device()
 
 
 def _real(x, device):
@@ -326,14 +332,6 @@ def _rotation_stack(c, n_end, uniq_bytes, n_slots, dtype, device):
     return pack(d_rot, 2 * np.arange(n_end) + 1)
 
 
-@lru_cache(maxsize=8)
-def _child_state_blocks(c, n_end):
-    """(sizes, perm) of the coaxial factor's blocks: the harmonics of each
-    child state (the order m on "ba"), in basis order, made contiguous."""
-    cs = _coax_tables(c, n_end)[5]
-    return np.bincount(cs), np.argsort(cs, kind="stable")
-
-
 def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     """The factored matrix-free operator: (mv, diag) on [K, B*H] vectors."""
     h_num = basis(c, n_end).num
@@ -355,21 +353,16 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     lanes_per_slot = 2 * routing.p_max
     route = make_route(routing.src, routing.dst, routing.p_max, n_balls, dev)
 
-    mant, s_mat = coaxial_scaled(
-        c, torch.as_tensor(routing.uniq_r, dtype=rdt, device=dev), n_end, k[:, None]
-    )  # [K, NR, H, H]
-    # degree-level fold of the ball-max exponents (constant on degree
-    # blocks, which D preserves): F .* (D X D^H) = D (F .* X) D^H
+    # the coaxial factor with the degree-level fold of the ball-max
+    # exponents (constant on degree blocks, which D preserves:
+    # F .* (D X D^H) = D (F .* X) D^H), packed into its child-state
+    # blocks: K5 + K2, no [K, NR, H, H] tensor
     n_root = basis(c, n_end).n_root
     starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
-    ell = torch.as_tensor(n_root, dtype=torch.long, device=dev)
-    s_small = s_mat[..., starts, :][..., starts]  # [K, NR, L, L]
-    factor = torch.exp(
-        e_r_max[:, None, starts, None] + s_small + e_b_max[:, None, None, starts]
+    x_blocks = coax_fold_packed(
+        c, n_end, torch.as_tensor(routing.uniq_r, dtype=rdt, device=dev), k,
+        e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
     )
-    xf = mant * factor[..., ell, :][..., ell]  # folded coax [K, NR, H, H]
-    sizes, perm = _child_state_blocks(c, n_end)
-    x_blocks = pack(xf, sizes, perm)
     d_blocks = _rotation_stack(
         c, n_end, routing.uniq.astype(np.float64).tobytes(), n_slots, rdt, dev
     )
@@ -433,13 +426,15 @@ def biem(
     Same parameters, shapes and result as biem_helmholtz_sphere_tpu's
     `biem` ([..., B, d] centers, [..., B] radii, [...] k with at most one
     batch axis here, [...(,B)] alpha/beta, [...] eta); complex outputs are
-    native torch complex tensors on the device of the inputs (CPU for
-    numpy inputs).  Only the scale-compensated factored matrix-free route
-    is ported: a 3D 'b'-rooted tree, B >= 2, stable=True (the default in
-    float32), a plane-wave incident field and solver="matfree" (or "auto"
-    where the JAX package's policy picks the matrix-free solve, as at the
-    16-sphere n_end=32 bench configuration).  Every other route raises
-    NotImplementedError.  density0 warm-starts GMRES.
+    native torch complex tensors on the device of the input tensors; with
+    no tensor input (numpy or Python numbers) the solve runs on the card,
+    and raises where CUDA is absent.  Only the scale-compensated factored
+    matrix-free route is ported: a 3D 'b'-rooted tree, B >= 2, stable=True
+    (the default in float32), a plane-wave incident field and
+    solver="matfree" (or "auto" where the JAX package's policy picks the
+    matrix-free solve, as at the 16-sphere n_end=32 bench configuration).
+    Every other route raises NotImplementedError.  density0 warm-starts
+    GMRES.
 
     The reference README problem (two sound-soft unit spheres at
     (0, +-2, 0), k=1, plane wave along x0) on the factored route:

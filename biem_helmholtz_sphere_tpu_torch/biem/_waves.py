@@ -8,11 +8,15 @@ Point sources are not ported yet (ROADMAP queue 1 item 8).
 
 import torch
 
+from ..ops.kernels import default_device
+
 
 def _as_real(x, like=None):
+    """x as a tensor on like's device; with no like, on the card (CPU
+    tensors are how a caller asks for the CPU)."""
     if isinstance(x, torch.Tensor):
         return x
-    dev = like.device if like is not None else None
+    dev = like.device if like is not None else default_device()
     t = torch.as_tensor(x, device=dev)
     return t if t.is_floating_point() else t.to(torch.get_default_dtype())
 
@@ -21,7 +25,8 @@ def plane_wave(*, k, direction):
     r"""Plane wave u(x) = e^{i k d.x} with d = direction/|direction|.
 
     k: real [...]; direction: real [c_ndim, ...].  Returns (u_in, grad_u_in);
-    both produce complex tensors.
+    both produce complex tensors, on k's device (the card where k is not a
+    tensor).
 
     >>> import torch
     >>> uin, grad = plane_wave(k=torch.tensor(2.0, dtype=torch.float64),

@@ -11,16 +11,21 @@ import torch
 
 from .biem._core import BIEMResultCalculator
 from .harmonics._index import basis
+from .ops.kernels import default_device
 
 
 def from_numpy(c, n_end, centers, radii, k, eta, density, *, kind="outer",
-               device="cpu", dtype=None):
+               device=None, dtype=None):
     """BIEMResultCalculator from numpy arrays.
 
     centers [..., B, d], radii [..., B], k [...], eta [...] real;
-    density [..., B, H] complex.  dtype is the complex dtype of the result
-    (default: complex128 for float64 inputs, else complex64).
+    density [..., B, H] complex.  device: None means the card (raises where
+    CUDA is absent); pass device="cpu" for the CPU.  dtype is the complex
+    dtype of the result (default: complex128 for float64 inputs, else
+    complex64).
     """
+    if device is None:
+        device = default_device()
     density = np.asarray(density)
     if dtype is None:
         dtype = torch.complex128 if density.dtype == np.complex128 else torch.complex64

@@ -11,7 +11,7 @@ CUDA tensors and the dense einsum (`_block_diag_cmm_plain`) on CPU
 tensors.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ class BlockDiag:
     vals[..., voffs[b] + i*size + j] holds entry (i, j) of block b.
     """
 
-    vals: torch.Tensor  # complex [..., nnz]
+    vals: torch.Tensor | None  # complex [..., nnz] (None: a layout only)
     offs: torch.Tensor  # int32 [nblk]
     sizes: torch.Tensor  # int32 [nblk]
     voffs: torch.Tensor  # int32 [nblk]
@@ -40,11 +40,11 @@ class BlockDiag:
     g_max: int
 
 
-def pack(dense, sizes, perm=None):
-    """Pack dense [..., H, H] matrices that vanish off the given diagonal
-    blocks (block sizes in the packed layout; perm maps packed -> basis)."""
+def pack_layout(sizes, perm, h, device):
+    """The packed layout of block-diagonal [h, h] matrices, without values
+    (vals=None): block sizes in the packed layout, perm maps packed ->
+    basis (None: identity)."""
     sizes = np.asarray(sizes, dtype=np.int64)
-    h = int(dense.shape[-1])
     if sizes.sum() != h:
         raise ValueError(f"block sizes sum to {sizes.sum()}, not H={h}")
     offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
@@ -52,20 +52,25 @@ def pack(dense, sizes, perm=None):
     p = np.arange(h) if perm is None else np.asarray(perm, dtype=np.int64)
     rows = np.concatenate([np.repeat(p[o : o + g], g) for o, g in zip(offs, sizes)])
     cols = np.concatenate([np.tile(p[o : o + g], g) for o, g in zip(offs, sizes)])
-    dev = dense.device
 
     def t(a, dt=torch.int32):
-        return torch.as_tensor(a, dtype=dt, device=dev)
+        return torch.as_tensor(a, dtype=dt, device=device)
 
-    rows_t, cols_t = t(rows, torch.int64), t(cols, torch.int64)
     return BlockDiag(
-        vals=dense[..., rows_t, cols_t].contiguous(),
+        vals=None,
         offs=t(offs), sizes=t(sizes), voffs=t(voffs),
-        rows=rows_t, cols=cols_t,
+        rows=t(rows, torch.int64), cols=t(cols, torch.int64),
         perm=None if perm is None else t(p, torch.int64),
         inv_perm=None if perm is None else t(np.argsort(p), torch.int64),
         h=h, g_max=int(sizes.max()),
     )
+
+
+def pack(dense, sizes, perm=None):
+    """Pack dense [..., H, H] matrices that vanish off the given diagonal
+    blocks (block sizes in the packed layout; perm maps packed -> basis)."""
+    lay = pack_layout(sizes, perm, int(dense.shape[-1]), dense.device)
+    return replace(lay, vals=dense[..., lay.rows, lay.cols].contiguous())
 
 
 def unpack(a):

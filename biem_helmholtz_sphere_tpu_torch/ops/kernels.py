@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 The sources under `csrc/*.cu` expose a plain C interface and are compiled
-at first use with `nvcc` for Hopper (sm_90a) into one shared library under
-`build/kernels/` at the repository root, then loaded with ctypes.  The
+at first use with `nvcc` for Hopper (sm_90a), one `nvcc` per source, all
+started together, then linked into one shared library under
+`build/kernels/` at the repository root and loaded with ctypes.  The
 library name carries a hash of the sources and flags, so an edit rebuilds
 it.  Nothing here runs at import: the CPU tests import every module on a
 machine without `nvcc` or a card.
@@ -23,12 +24,13 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu")
+SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
+           "spherical_jh.cu", "coax_fold.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -51,10 +53,33 @@ _SIGNATURES = {
     # dbl, stream
     "bhs_lane_scatter": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P],
+    # z, jm, je, jpm, jpe, hm, he, hpm, hpe, N, n_end, m, mode, d, c_d,
+    # rescale, dbl, stream
+    "bhs_spherical_jh": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _D, _D, _I, _P],
+    # radm, rade, iazf, u, l_row, l_col, e_r, e_b, out, P, n_rad, nb, ng,
+    # nnz, L, dbl, stream
+    "bhs_coax_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+
+
+def default_device():
+    """The device of an entry point given no tensor: the card.
+
+    The port runs on the card unless the caller asks for the CPU (CPU
+    tensors, or device="cpu"); without CUDA this raises instead of
+    carrying on quietly on the CPU.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the card unless the caller "
+            "asks for the CPU (pass CPU tensors, or device='cpu')"
+        )
+    return torch.device("cuda")
 
 
 def _nvcc():
@@ -79,6 +104,20 @@ def library_path():
     return BUILD_DIR / f"libbhs_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise if any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build():
     """Compile the sources (if this exact build is missing); return the path."""
     out = library_path()
@@ -87,13 +126,12 @@ def build():
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    objs = [tmp.with_name(f"{Path(s).stem}.{os.getpid()}.o") for s in SOURCES]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 

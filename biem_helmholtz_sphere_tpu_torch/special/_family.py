@@ -13,14 +13,23 @@ Order recurrence: f_{n-1} + f_{n+1} = c_n f_n with c_n = (2n + base - 2)/z.
 h_n by upward recurrence; j_n upward where n <= |z| and by a normalized
 downward (Miller) recurrence elsewhere.  The scaled variants carry every
 value as mantissa * exp(exponent) so nothing overflows in float32.
-Inputs are complex tensors; the loops over the order run eagerly.
+
+K5: on CUDA tensors `spherical_jh_scaled`, `spherical_h_scaled` and
+`spherical_jh_all` launch one kernel, `csrc/spherical_jh.cu` (one thread
+per z, the order loops in registers); on CPU tensors they run the plain
+versions below (`_*_plain`), whose loops over the order run eagerly and
+which are the kernel's oracle.
 """
 
 import numpy as np
 import torch
 from scipy.special import gamma as _sp_gamma
 
+from ..ops import kernels
+
 _MILLER_BUFFER = 36
+# kernel modes (csrc/spherical_jh.cu)
+_SCALED, _H_ONLY, _UNSCALED = 0, 1, 2
 
 
 def _rescale_for(dtype):
@@ -135,13 +144,8 @@ def _shift_deriv(base, m, f, z, inv_zm):
     return inv_zm[..., None] * (fp - f * ((1.0 / z) * m)[..., None])
 
 
-def spherical_jh_all(d, n_end, z):
-    """j_n^{(d)}, j_n', h_n^{(d)}, h_n' for n = 0..n_end-1 at z.
-
-    Returns (j, jp, h, hp), complex, each [..., n_end].
-    """
+def _spherical_jh_all_plain(d, n_end, z):
     base, m = _base_and_shift(d)
-    z = _as_complex(z)
     at_zero = z == 0
     zs = torch.where(at_zero, torch.ones_like(z), z)
     n_top = n_end + m
@@ -154,8 +158,7 @@ def spherical_jh_all(d, n_end, z):
     jp = jp_full[..., m : m + n_end]
     hp = hp_full[..., m : m + n_end]
     # z = 0 limits: j_n(0) = c_d delta_{n0}, j_n'(0) = (c_d/d) delta_{n1}
-    nu = 0.5 * (d - 2.0)
-    c_d = float(np.sqrt(np.pi / 2.0) * 2.0 ** (-nu) / _sp_gamma(nu + 1.0))
+    c_d = _c_d(d)
     n_arr = torch.arange(n_end, device=z.device)
     z0 = at_zero[..., None]
     zero = torch.zeros((), dtype=z.dtype, device=z.device)
@@ -222,13 +225,8 @@ def _normalize(mant, e):
     return mant * torch.exp(-ln), e + ln
 
 
-def spherical_jh_scaled(d, n_end, z):
-    """Scaled j, j', h, h' for n = 0..n_end-1: ((jm,je),(jpm,jpe),(hm,he),(hpm,hpe)).
-
-    Each value is mant * exp(e) with |mant| ~ 1.  z must be nonzero.
-    """
+def _spherical_jh_scaled_plain(d, n_end, z):
     base, m = _base_and_shift(d)
-    z = _as_complex(z)
     n_top = n_end + m
     j0, j1, h0, h1 = _seeds(base, z)
     hm, he = _upward_scaled(base, n_top, h0, h1, z)
@@ -280,13 +278,8 @@ def spherical_jh_scaled(d, n_end, z):
     )
 
 
-def spherical_h_scaled(d, n_end, z):
-    """Scaled outgoing h_n only: (mant, e) with h_n = mant * exp(e).
-
-    Upward recurrence only (no Miller pass); |mant| normalized to ~1.
-    """
+def _spherical_h_scaled_plain(d, n_end, z):
     base, m = _base_and_shift(d)
-    z = _as_complex(z)
     _, _, h0, h1 = _seeds(base, z)
     hm, he = _upward_scaled(base, n_end + m, h0, h1, z)
     out_m = hm[..., m : m + n_end]
@@ -295,3 +288,86 @@ def spherical_h_scaled(d, n_end, z):
         out_e = out_e - m * torch.log(z.abs())[..., None]
         out_m = ((z / z.abs()) ** (-m))[..., None] * out_m
     return _normalize(out_m, out_e)
+
+
+def _c_d(d):
+    """j_n^{(d)}(0) = c_d delta_{n0}."""
+    nu = 0.5 * (d - 2.0)
+    return float(np.sqrt(np.pi / 2.0) * 2.0 ** (-nu) / _sp_gamma(nu + 1.0))
+
+
+def spherical_jh(mode, d, n_end, z):
+    """K5 wrapper: the kernel's outputs for complex z [...] in one mode.
+
+    mode _SCALED: ((jm, je), (jpm, jpe), (hm, he), (hpm, hpe)); _H_ONLY:
+    (hm, he); _UNSCALED: (j, jp, h, hp); each [..., n_end].  On CPU
+    tensors this runs the plain version of the mode; on CUDA tensors it
+    launches csrc/spherical_jh.cu or raises.
+    """
+    _, m = _base_and_shift(d)
+    z = _as_complex(z)
+    if z.device.type == "cpu":
+        plain = {_SCALED: _spherical_jh_scaled_plain, _H_ONLY: _spherical_h_scaled_plain,
+                 _UNSCALED: _spherical_jh_all_plain}[mode]
+        return plain(d, n_end, z)
+    if z.device.type != "cuda":
+        raise RuntimeError(f"spherical_jh: unsupported device {z.device}")
+    if n_end < 1:
+        raise ValueError(f"n_end must be >= 1, got {n_end}")
+    rdt = z.real.dtype
+    zc = z.contiguous()
+    shape = tuple(z.shape) + (n_end,)
+
+    def c():
+        return torch.empty(shape, dtype=z.dtype, device=z.device)
+
+    def r():
+        return torch.empty(shape, dtype=rdt, device=z.device)
+
+    if mode == _SCALED:
+        outs = [c(), r(), c(), r(), c(), r(), c(), r()]
+    elif mode == _H_ONLY:
+        outs = [None, None, None, None, c(), r(), None, None]
+    elif mode == _UNSCALED:
+        outs = [c(), None, c(), None, c(), None, c(), None]
+    else:
+        raise ValueError(f"unknown spherical_jh mode {mode}")
+    kernels.launch(
+        "bhs_spherical_jh", kernels.ptr(zc),
+        *(None if t is None else kernels.ptr(t) for t in outs),
+        zc.numel(), n_end, m, mode, d, _c_d(d), _rescale_for(rdt),
+        int(rdt == torch.float64),
+    )
+    spherical_jh.launches += 1
+    if mode == _SCALED:
+        return tuple(zip(outs[0::2], outs[1::2]))
+    if mode == _H_ONLY:
+        return outs[4], outs[5]
+    return tuple(outs[0::2])
+
+
+spherical_jh.launches = 0
+
+
+def spherical_jh_all(d, n_end, z):
+    """j_n^{(d)}, j_n', h_n^{(d)}, h_n' for n = 0..n_end-1 at z.
+
+    Returns (j, jp, h, hp), complex, each [..., n_end].
+    """
+    return spherical_jh(_UNSCALED, d, n_end, z)
+
+
+def spherical_jh_scaled(d, n_end, z):
+    """Scaled j, j', h, h' for n = 0..n_end-1: ((jm,je),(jpm,jpe),(hm,he),(hpm,hpe)).
+
+    Each value is mant * exp(e) with |mant| ~ 1.  z must be nonzero.
+    """
+    return spherical_jh(_SCALED, d, n_end, z)
+
+
+def spherical_h_scaled(d, n_end, z):
+    """Scaled outgoing h_n only: (mant, e) with h_n = mant * exp(e).
+
+    Upward recurrence only (no Miller pass); |mant| normalized to ~1.
+    """
+    return spherical_jh(_H_ONLY, d, n_end, z)

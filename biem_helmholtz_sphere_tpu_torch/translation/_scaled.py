@@ -8,12 +8,25 @@ _GROUP consecutive bands, each group normalized to its own max exponent,
 and the groups are combined with per-entry factors exp(sig_g - S) <= 1
 (the Gaunt mask guarantees n <= l + l' inside every surviving entry).
 Same math as biem_helmholtz_sphere_tpu.translation._scaled.coaxial_scaled.
+
+K2: the factored operator needs the coaxial factor only folded with the
+ball-max radial exponents and packed into its child-state blocks.
+`coax_fold_packed` computes exactly those values: on CUDA tensors one
+launch of `csrc/coax_fold.cu` after the K5 launch for h_n(k r), on CPU
+tensors `_coax_fold_packed_plain`.  Its radius-independent bands are kept
+at the packed entries only ([NG * G, nnz], 2.1% of the dense [NB, H, H]
+at n_end=32).  `coaxial_scaled` keeps the dense (mant, S) for the
+translation surface.
 """
 
+from dataclasses import dataclass, replace
 from functools import lru_cache
 
+import numpy as np
 import torch
 
+from ..ops import kernels
+from ..ops.block_diag import BlockDiag, pack_layout
 from ..special._family import spherical_h_scaled
 from ._ops import _a_const, ipow
 from ._rotation import _coax_tables, _root_axis
@@ -21,6 +34,18 @@ from ._rotation import _coax_tables, _root_axis
 # Bands per scale group: the within-group exponent spread (G-1) *
 # ln(2N/(e k t)) stays inside the float32 exp range for k t > ~1e-4 N.
 _GROUP = 8
+
+
+def _band_groups(radm, rade, iazf, ng):
+    """The band coefficients i^n a_d zf_n radm_n in ng groups of _GROUP,
+    each scaled to its largest exponent: (coefm_g [..., NG, G], sig_g
+    [..., NG], rade [..., NG * G] padded with its last value)."""
+    pad = ng * _GROUP - radm.shape[-1]
+    coefm = torch.nn.functional.pad(iazf * radm, (0, pad))
+    rade = torch.cat([rade, rade[..., -1:].expand(*rade.shape[:-1], pad)], dim=-1)
+    rade_g = rade.reshape(*rade.shape[:-1], ng, _GROUP)
+    sig_g = rade_g.amax(dim=-1)
+    return coefm.reshape(rade_g.shape) * torch.exp(rade_g - sig_g[..., None]), sig_g, rade
 
 
 @lru_cache(maxsize=4)
@@ -57,18 +82,12 @@ def coaxial_scaled(c, r, n_end, k):
     u_g = _coax_bands(c, n_end, rdt, dev)  # [NG, G, H, H]
     ng, h_num = u_g.shape[0], u_g.shape[-1]
     n_bands = 2 * n_end - 1
-    pad = ng * _GROUP - n_bands
 
     radm, rade = spherical_h_scaled(d, n_bands, k * r)  # [..., NB]
-    bands = torch.arange(n_bands, device=dev)
-    coefm = ipow(bands, cdt, dev) * torch.as_tensor(
+    iazf = ipow(torch.arange(n_bands, device=dev), cdt, dev) * torch.as_tensor(
         _a_const(d) * zf, dtype=rdt, device=dev
-    ) * radm
-    coefm = torch.nn.functional.pad(coefm, (0, pad))
-    rade = torch.cat([rade, rade[..., -1:].expand(*rade.shape[:-1], pad)], dim=-1)
-    rade_g = rade.reshape(*rade.shape[:-1], ng, _GROUP)
-    sig_g = rade_g.amax(dim=-1)  # [..., NG]
-    coefm_g = coefm.reshape(rade_g.shape) * torch.exp(rade_g - sig_g[..., None])
+    )
+    coefm_g, sig_g, rade = _band_groups(radm, rade, iazf, ng)
 
     # S = rade[l + l'] and the group factors exp(sig_g - S) are constant on
     # (degree x degree) blocks: exponentiate the [.., L, L] degree table
@@ -81,7 +100,7 @@ def coaxial_scaled(c, r, n_end, k):
         torch.clamp(sig_g[..., None, None] - rade_ll[..., None, :, :], max=80.0)
     )  # [..., NG, L, L]
     s_mat = rade_ll[..., ell_t, :][..., ell_t]
-    batch = coefm.shape[:-1]
+    batch = coefm_g.shape[:-2]
     acc = torch.zeros(batch + (h_num, h_num), dtype=cdt, device=dev)
     for g in range(ng):
         cm = coefm_g[..., g, :].reshape(-1, _GROUP)
@@ -94,3 +113,136 @@ def coaxial_scaled(c, r, n_end, k):
     same_cs = torch.as_tensor(cs[:, None] == cs[None, :], device=dev)
     mant = torch.where(same_cs, (acc * p[:, None]) * p.conj()[None, :], 0.0)
     return mant, s_mat
+
+
+@lru_cache(maxsize=8)
+def _child_state_blocks(c, n_end):
+    """(sizes, perm) of the coaxial factor's blocks: the harmonics of each
+    child state (the order m on "ba"), in basis order, made contiguous."""
+    cs = _coax_tables(c, n_end)[5]
+    return np.bincount(cs), np.argsort(cs, kind="stable")
+
+
+@dataclass(frozen=True)
+class CoaxPacked:
+    """Radius-independent tables of the packed coaxial factor."""
+
+    layout: BlockDiag  # the child-state blocks (vals=None)
+    u: torch.Tensor  # real [NG * G, nnz] bands at the packed entries
+    iazf: torch.Tensor  # complex [NB] i^n a_d zf_n
+    l_row: torch.Tensor  # int32 [nnz] root degree of each packed row
+    l_col: torch.Tensor  # int32 [nnz] root degree of each packed column
+
+
+@lru_cache(maxsize=4)
+def _coax_packed(c, n_end, dtype, device):
+    """CoaxPacked for (tree, n_end) in real dtype on device.
+
+    U_n[a, b] = sum_q t[q, a] tz[q, n] w[q] t[q, b], masked to the Gaunt
+    support l_a + l_b >= n, is formed at the packed (a, b) only, in float64
+    on the host; bands are zero-padded to whole groups of _GROUP.
+    """
+    zf, w, tz, t_cols, ell, _ = _coax_tables(c, n_end)
+    sizes, perm = _child_state_blocks(c, n_end)
+    layout = pack_layout(sizes, perm, len(ell), device)
+    rows, cols = layout.rows.cpu().numpy(), layout.cols.cpu().numpy()
+    n_bands = 2 * n_end - 1
+    ng = -(-n_bands // _GROUP)
+    u = (tz * w[:, None]).T @ (t_cols[:, rows] * t_cols[:, cols])  # [NB, nnz]
+    lsum = ell[rows] + ell[cols]
+    u = np.where(lsum[None, :] >= np.arange(n_bands)[:, None], u, 0.0)
+    u = np.concatenate([u, np.zeros((ng * _GROUP - n_bands, u.shape[1]))])
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    kw = dict(dtype=dtype, device=device)
+    iazf = ipow(np.arange(n_bands), cdt, device) * torch.as_tensor(
+        _a_const(c.c_ndim) * zf, **kw
+    )
+    return CoaxPacked(
+        layout=layout,
+        u=torch.as_tensor(u, **kw),
+        iazf=iazf,
+        l_row=torch.as_tensor(ell[rows], dtype=torch.int32, device=device),
+        l_col=torch.as_tensor(ell[cols], dtype=torch.int32, device=device),
+    )
+
+
+def _coax_fold_packed_plain(radm, rade, e_r, e_b, tab):
+    """Plain version of the K2 kernel (and its CPU path).
+
+    radm, rade [K, NR, NB]: scaled h_n(k r) of the bands; e_r, e_b [K, L]:
+    degree-level ball-max radial exponents.  Returns the packed folded
+    coaxial values [K, NR, nnz]: the same operations, in the same order, as
+    coaxial_scaled followed by the fold exp(e_r[l] + S + e_b[l']) of
+    biem/_core.py, at the packed entries only.
+    """
+    n_k, n_rad, _ = radm.shape
+    nbp, nnz = tab.u.shape
+    coefm_g, sig_g, rade = _band_groups(radm, rade, tab.iazf, nbp // _GROUP)
+    l_row, l_col = tab.l_row.long(), tab.l_col.long()
+    rade_l = rade[..., l_row + l_col]  # S at the packed entries [K, NR, nnz]
+    acc = torch.zeros((n_k, n_rad, nnz), dtype=radm.dtype, device=radm.device)
+    for g in range(nbp // _GROUP):
+        cm = coefm_g[..., g, :].reshape(-1, _GROUP)
+        u = tab.u[g * _GROUP : (g + 1) * _GROUP]
+        t_g = torch.complex(cm.real @ u, cm.imag @ u).reshape(acc.shape)
+        acc += t_g * torch.exp(torch.clamp(sig_g[..., g, None] - rade_l, max=80.0))
+    p_row = ipow(l_row, radm.dtype, radm.device)
+    p_col = ipow(l_col, radm.dtype, radm.device)
+    mant = (acc * p_row) * p_col.conj()
+    factor = torch.exp(e_r[:, None, l_row] + rade_l + e_b[:, None, l_col])
+    return mant * factor
+
+
+def coax_fold(radm, rade, e_r, e_b, tab):
+    """K2 wrapper: the packed folded coaxial values [K, NR, nnz].
+
+    Arguments as `_coax_fold_packed_plain`.  On CPU tensors this runs the
+    plain version; on CUDA tensors it launches csrc/coax_fold.cu or
+    raises.
+    """
+    n_k, n_rad, n_bands = radm.shape
+    nbp, nnz = tab.u.shape
+    if rade.shape != radm.shape or e_r.shape != e_b.shape or e_r.shape[0] != n_k:
+        raise ValueError(
+            f"coax_fold: radm {tuple(radm.shape)}, rade {tuple(rade.shape)}, "
+            f"e_r {tuple(e_r.shape)}, e_b {tuple(e_b.shape)} do not match"
+        )
+    if radm.device.type == "cpu":
+        return _coax_fold_packed_plain(radm, rade, e_r, e_b, tab)
+    if radm.device.type != "cuda":
+        raise RuntimeError(f"coax_fold: unsupported device {radm.device}")
+    rdt = rade.dtype
+    if radm.dtype != tab.iazf.dtype or rdt != tab.u.dtype or e_r.dtype != rdt:
+        raise TypeError(
+            f"coax_fold: dtypes radm {radm.dtype}, rade {rdt}, e_r {e_r.dtype}, "
+            f"tables {tab.u.dtype}"
+        )
+    radm, rade, e_r, e_b = (t.contiguous() for t in (radm, rade, e_r, e_b))
+    out = torch.empty((n_k, n_rad, nnz), dtype=radm.dtype, device=radm.device)
+    kernels.launch(
+        "bhs_coax_fold",
+        kernels.ptr(radm), kernels.ptr(rade), kernels.ptr(tab.iazf), kernels.ptr(tab.u),
+        kernels.ptr(tab.l_row), kernels.ptr(tab.l_col), kernels.ptr(e_r),
+        kernels.ptr(e_b), kernels.ptr(out), n_k * n_rad, n_rad, n_bands,
+        nbp // _GROUP, nnz, e_r.shape[-1], int(rdt == torch.float64),
+    )
+    coax_fold.launches += 1
+    return out
+
+
+coax_fold.launches = 0
+
+
+def coax_fold_packed(c, n_end, r, k, e_r, e_b):
+    """The folded coaxial factor X of the factored operator, packed.
+
+    r: real [NR] distinct pair distances; k: real [K]; e_r, e_b [K, L]:
+    degree-level ball-max exponents of the regular and combined-field
+    radial rows.  Returns the BlockDiag of X = mant * exp(e_r[l] + S +
+    e_b[l']) on the child-state blocks, vals [K, NR, nnz]: one K5 launch
+    (h_n(k r) of the bands) and one K2 launch on CUDA tensors.
+    """
+    _root_axis(c)
+    tab = _coax_packed(c, n_end, r.dtype, r.device)
+    radm, rade = spherical_h_scaled(c.c_ndim, 2 * n_end - 1, k[:, None] * r)
+    return replace(tab.layout, vals=coax_fold(radm, rade, e_r, e_b, tab))

@@ -7,16 +7,30 @@ and no JAX.  Phases (each prints its lines; any failure raises and exits
 non-zero before the result line):
 
 0. require CUDA; print the card's name and power limit (nvidia-smi);
-1. build the CUDA kernels from biem_helmholtz_sphere_tpu_torch/csrc;
+1. build the CUDA kernels from biem_helmholtz_sphere_tpu_torch/csrc
+   (one nvcc per source, all at once, then one link), and time one launch
+   of a trivial kernel (the launch latency);
 2. hold each kernel against its plain PyTorch version on the card at the
-   bench shapes, in complex64 and complex128, and time both;
+   bench shapes, in complex64 and complex128, and time both; compute each
+   kernel's bound from its shapes (the larger of its bytes over 3.35 TB/s
+   and its operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, the
+   H100 SXM's published rates; padding counts as no work: only the lanes
+   that route a pair, the offset slots that hold one, the bands inside
+   the mask l + l' >= n and the (m, l) pairs with l >= |m|) and time the
+   one PyTorch call that computes the same function where there is one;
 3. the README golden (two unit spheres, k=1, n_end=6) through the port in
    complex128, to 6 decimal places;
 4. the bench configuration (16 unit spheres on a 4x4 lattice, n_end=32,
    complex64, two k-blocks of 4 with warm starts) through `biem()`:
    launch counts of every kernel, GMRES residuals, uscat(0) against the
    committed float64 golden of the JAX package, the sound-soft boundary
-   residual, a bit-for-bit repeat of the sweep, and uscat throughput.
+   residual, the peak device memory, a bit-for-bit repeat of the sweep,
+   a stage split with synchronising timers in a pass of its own, and
+   uscat throughput.
+
+The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
+against mant_p, entry by entry; their max_abs_err is on those aligned
+mantissas (|mant| ~ 1) and on the unscaled values, relative above 1.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -41,6 +55,10 @@ K0 = 8.0
 EVAL_POINTS = 1 << 17
 GOLDEN_README = (-0.741333, -0.669657)
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 /
+# FP64 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
 
 
 def lattice_centers(n_side=N_SIDE, spacing=SPACING):
@@ -83,10 +101,57 @@ def randc(torch, rng, shape, dtype, dev):
     return torch.as_tensor(z, dtype=dtype, device=dev)
 
 
+def bound(nbytes, flops, name):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def add_bounds(parts):
+    """Sum of per-launch bounds; named by the largest part's limit."""
+    ms = sum(b[0] for b in parts)
+    return ms, max(parts, key=lambda b: b[0])[1]
+
+
+def scaled_err(torch, got, ref):
+    """(max abs, max rel) error of scaled values (mant, e): mant_k
+    exp(e_k - e_p) against mant_p, entry by entry."""
+    (mk, ek), (mp, ep) = got, ref
+    if not (bool(torch.isfinite(mk).all()) and bool(torch.isfinite(ek).all())):
+        raise RuntimeError("kernel output is not finite")
+    d = (mk * torch.exp(ek - ep) - mp).abs()
+    return float(d.max()), float((d / mp.abs().clamp_min(torch.finfo(ek.dtype).tiny)).max())
+
+
+def unscaled_err(torch, got, ref):
+    """(max abs error, relative above 1; max rel error) of unscaled values,
+    which must be finite where the plain ones are."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise RuntimeError("kernel and plain version differ in where they are finite")
+    d, r = (got - ref).abs()[fin], ref.abs()[fin]
+    return (float((d / r.clamp_min(1.0)).max()),
+            float((d / r.clamp_min(torch.finfo(r.dtype).tiny)).max()))
+
+
+def launch_latency_us(torch, dev):
+    """Microseconds per launch of a trivial kernel, back to back."""
+    t = torch.zeros(1, device=dev)
+    n = 200
+    t.add_(1.0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        t.add_(1.0)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
+
+
 def check_kernels(torch, dev, card):
     """Phase 2: each kernel against its plain version at the bench shapes."""
-    from biem_helmholtz_sphere_tpu_torch.biem._core import (
-        _child_state_blocks, _pair_routing)
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing, _radial_rows_scaled
     from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
         _fused_ba_eval_plain, fused_ba_eval, regroup)
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
@@ -96,6 +161,11 @@ def check_kernels(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
         _lane_gather_plain, _lane_scatter_plain, lane_gather, lane_scatter,
         make_route)
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _H_ONLY, _SCALED, _UNSCALED, _spherical_h_scaled_plain,
+        _spherical_jh_all_plain, _spherical_jh_scaled_plain, spherical_jh)
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
+        _child_state_blocks, _coax_fold_packed_plain, _coax_packed, coax_fold)
 
     c = create_from_branching_types("ba")
     n_root = basis(c, N_END).n_root
@@ -110,8 +180,84 @@ def check_kernels(torch, dev, card):
     for cdt in (torch.complex64, torch.complex128):
         name = str(cdt).split(".")[-1]
         rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+        cs, rs = (8, 4) if cdt == torch.complex64 else (16, 8)  # bytes per value
         rng = np.random.default_rng(1234)
         tol = TOL_REL[name]
+
+        # K5: the four launches of a k-block, at its shapes and arguments
+        k4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
+        z_rows = (k4[:, None] * torch.ones(nb, dtype=rdt, device=dev)).to(cdt)
+        r_uniq = torch.as_tensor(routing.uniq_r, dtype=rdt, device=dev)
+        z_coax = (k4[:, None] * r_uniq).to(cdt)
+        n_bands = 2 * N_END - 1
+        k5 = {"ms": 0.0, "plain_ms": 0.0, "abs": 0.0, "rel": 0.0, "bounds": []}
+        for label, mode, n_end, z, plain, reps in (
+            ("scaled j/j'/h/h' (radial rows)", _SCALED, N_END, z_rows,
+             _spherical_jh_scaled_plain, 1),
+            ("unscaled j/j'/h/h' (RHS, uscat's blc)", _UNSCALED, N_END, z_rows,
+             _spherical_jh_all_plain, 2),
+            ("scaled h (coax bands)", _H_ONLY, n_bands, z_coax,
+             _spherical_h_scaled_plain, 1),
+        ):
+            got = spherical_jh(mode, 3, n_end, z)
+            ref = plain(3, n_end, z)
+            if mode == _SCALED:
+                errs = [scaled_err(torch, g, r) for g, r in zip(got, ref)]
+            elif mode == _H_ONLY:
+                errs = [scaled_err(torch, got, ref)]
+            else:
+                errs = [unscaled_err(torch, g, r) for g, r in zip(got, ref)]
+            ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+            ms = cuda_ms(torch, lambda: spherical_jh(mode, 3, n_end, z), 20)
+            pms = cuda_ms(torch, lambda: plain(3, n_end, z), 5)
+            n_z, n_top = z.numel(), n_end
+            steps = {_SCALED: 3 * n_top + 36, _H_ONLY: n_top, _UNSCALED: 3 * n_top + 36}[mode]
+            per_order = {_SCALED: 4 * 8 + 2 * 30, _H_ONLY: 8, _UNSCALED: 2 * 20}[mode]
+            n_out = {_SCALED: 4, _H_ONLY: 1, _UNSCALED: 4}[mode]
+            out_bytes = n_z * n_end * n_out * (cs + (rs if mode != _UNSCALED else 0))
+            b = bound(n_z * cs + out_bytes, n_z * (15 * steps + per_order * n_end), name)
+            print(f"[2] spherical_jh {label} z {tuple(z.shape)} x {n_end} {name}: "
+                  f"max_abs_err {ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms "
+                  f"plain {pms:.4f} ms bound {b[0]:.6f} ms ({card})")
+            if er > tol:
+                raise RuntimeError(f"spherical_jh {label} {name}: rel err {er:.3e} > {tol}")
+            k5 = {"ms": k5["ms"] + reps * ms, "plain_ms": k5["plain_ms"] + reps * pms,
+                  "abs": max(k5["abs"], ea), "rel": max(k5["rel"], er),
+                  "bounds": k5["bounds"] + [b] * reps}
+        k5["bound_ms"], k5["bound_by"] = add_bounds(k5.pop("bounds"))
+        k5["library_ms"] = None  # no one PyTorch call computes these functions
+        results.setdefault("spherical_jh", {})[name] = k5
+
+        # K2: the packed folded coax factor of a k-block (4 k x 9 radii)
+        (_, _), (_, e_r), (_, e_b) = _radial_rows_scaled(
+            c, N_END, torch.ones(KB, nb, dtype=rdt, device=dev), k4,
+            torch.ones(KB, dtype=rdt, device=dev), torch.ones(KB, nb, dtype=cdt, device=dev),
+            torch.zeros(KB, nb, dtype=cdt, device=dev))
+        starts = torch.as_tensor(np.searchsorted(n_root, np.arange(N_END)), device=dev)
+        e_r, e_b = (e.amax(dim=-2)[:, starts].contiguous() for e in (e_r, e_b))
+        radm, rade = spherical_jh(_H_ONLY, 3, n_bands, z_coax)
+        tab = _coax_packed(c, N_END, rdt, dev)
+        args = (radm, rade, e_r, e_b, tab)
+        ea, er = rel_err(torch, coax_fold(*args), _coax_fold_packed_plain(*args))
+        ms = cuda_ms(torch, lambda: coax_fold(*args), 20)
+        pms = cuda_ms(torch, lambda: _coax_fold_packed_plain(*args), 5)
+        nnz = tab.u.shape[1]
+        n_pair = KB * n_rad
+        # U entries and band groups inside the mask l + l' >= n (the zero
+        # padding of U is no work)
+        top = torch.clamp(tab.l_row + tab.l_col, max=n_bands - 1).long()
+        n_u, n_grp = int((top + 1).sum()), int((top // 8 + 1).sum())
+        b = bound(n_u * rs + n_pair * n_bands * (cs + rs) + n_bands * cs
+                  + 2 * nnz * 4 + 2 * KB * N_END * rs + n_pair * nnz * cs,
+                  n_pair * (4 * n_u + 7 * n_grp + 10 * nnz) + n_pair * n_bands * 10, name)
+        print(f"[2] coax_fold {KB} k x {n_rad} radii x {nnz} packed {name}: max_abs_err "
+              f"{ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+              f"bound {b[0]:.6f} ms ({card})")
+        if er > tol:
+            raise RuntimeError(f"coax_fold {name}: rel err {er:.3e} > {tol}")
+        results.setdefault("coax_fold", {})[name] = {
+            "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
 
         # KB: D^H, X (permuted child-state blocks), D on the bench lanes
         d_bd = pack(torch.zeros((n_slots, h, h), dtype=cdt, device=dev),
@@ -123,24 +269,35 @@ def check_kernels(torch, dev, card):
         d_dense, x_dense = unpack(d_bd), unpack(x_bd)
         lanes = randc(torch, rng, (KB, n_slots, lps, h), cdt, dev)
         lanes_x = lanes.reshape(KB, n_rad, -1, h)
+        # the work the matvec needs: the lanes that route a pair (src >= 0)
+        # and the offset slots that hold one; the rest is padding
+        n_used = int((routing.src >= 0).sum())
+        n_real = int((routing.src.reshape(n_slots, lps) >= 0).any(axis=1).sum())
         cases = [
             ("D^H", lambda: block_diag_cmm(d_bd, lanes, adjoint=True),
-             lambda: _block_diag_cmm_plain(d_dense, lanes, True)),
+             lambda: _block_diag_cmm_plain(d_dense, lanes, True), d_bd, n_real),
             ("X", lambda: block_diag_cmm(x_bd, lanes_x),
-             lambda: _block_diag_cmm_plain(x_dense, lanes_x, False)),
+             lambda: _block_diag_cmm_plain(x_dense, lanes_x, False), x_bd, KB * n_rad),
             ("D", lambda: block_diag_cmm(d_bd, lanes),
-             lambda: _block_diag_cmm_plain(d_dense, lanes, False)),
+             lambda: _block_diag_cmm_plain(d_dense, lanes, False), d_bd, n_real),
         ]
-        kb = {"ms": 0.0, "plain_ms": 0.0, "abs": 0.0, "rel": 0.0}
-        for label, kfn, pfn in cases:
+        kb = {"ms": 0.0, "plain_ms": 0.0, "abs": 0.0, "rel": 0.0, "bounds": []}
+        for label, kfn, pfn, bd, n_mat in cases:
             ea, er = rel_err(torch, kfn(), pfn())
             ms, pms = cuda_ms(torch, kfn, 10), cuda_ms(torch, pfn, 5)
+            nnz = bd.vals.shape[-1]
+            b = bound(n_mat * nnz * cs + 2 * KB * n_used * h * cs,
+                      8 * KB * n_used * nnz, name)
             print(f"[2] block_diag_cmm {label:3s} {name}: max_abs_err {ea:.3e} "
-                  f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms ({card})")
+                  f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain (one matmul) "
+                  f"{pms:.4f} ms bound {b[0]:.6f} ms ({card})")
             if er > tol:
                 raise RuntimeError(f"block_diag_cmm {label} {name}: rel err {er:.3e} > {tol}")
             kb = {"ms": kb["ms"] + ms, "plain_ms": kb["plain_ms"] + pms,
-                  "abs": max(kb["abs"], ea), "rel": max(kb["rel"], er)}
+                  "abs": max(kb["abs"], ea), "rel": max(kb["rel"], er),
+                  "bounds": kb["bounds"] + [b]}
+        kb["bound_ms"], kb["bound_by"] = add_bounds(kb.pop("bounds"))
+        kb["library_ms"] = kb["plain_ms"]  # the plain version is one matmul
         results.setdefault("block_diag_cmm", {})[name] = kb
 
         # KC: gather and scatter with the bench routing
@@ -148,20 +305,26 @@ def check_kernels(torch, dev, card):
         pm = torch.as_tensor((-1.0) ** (n_root % 2), dtype=rdt, device=dev)
         xv, blc, diag, reg = (randc(torch, rng, (KB, nb, h), cdt, dev) for _ in range(4))
         y = randc(torch, rng, (KB, len(routing.src), h), cdt, dev)
-        for kname, kfn, pfn in (
+        n_lanes, small = y.shape[1], h * rs + 2 * n_used * 4
+        used = KB * n_used * h  # lane entries that route a pair
+        for kname, kfn, pfn, b in (
             ("lane_gather", lambda: lane_gather(xv, blc, pm, route),
-             lambda: _lane_gather_plain(xv, blc, pm, route)),
+             lambda: _lane_gather_plain(xv, blc, pm, route),
+             bound(2 * xv.numel() * cs + small + used * cs, 8 * used, name)),
             ("lane_scatter", lambda: lane_scatter(y, xv, diag, reg, pm, route),
-             lambda: _lane_scatter_plain(y, xv, diag, reg, pm, route)),
+             lambda: _lane_scatter_plain(y, xv, diag, reg, pm, route),
+             bound(used * cs + 4 * xv.numel() * cs + small,
+                   4 * used + 14 * xv.numel(), name)),
         ):
             ea, er = rel_err(torch, kfn(), pfn())
             ms, pms = cuda_ms(torch, kfn, 20), cuda_ms(torch, pfn, 20)
-            print(f"[2] {kname} {name}: max_abs_err {ea:.3e} max_rel_err {er:.3e} "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms ({card})")
+            print(f"[2] {kname} {n_lanes} lanes {name}: max_abs_err {ea:.3e} max_rel_err "
+                  f"{er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms ({card})")
             if er > tol:
                 raise RuntimeError(f"{kname} {name}: rel err {er:.3e} > {tol}")
-            results.setdefault(kname, {})[name] = {"ms": ms, "plain_ms": pms,
-                                                   "abs": ea, "rel": er}
+            results.setdefault(kname, {})[name] = {
+                "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None}
 
         # KA: near field at 131072 points (k=8) and uscat(0) for a k-block
         ell = torch.as_tensor(n_root, device=dev)
@@ -179,12 +342,21 @@ def check_kernels(torch, dev, card):
         ea, er = rel_err(torch, ka[:, 0], _fused_ba_eval_plain(pts, cen, k1, w2, False, False)[:, 0], outside)
         ms = cuda_ms(torch, lambda: fused_ba_eval(pts, cen, k1, w2), 10)
         pms = cuda_ms(torch, lambda: _fused_ba_eval_plain(pts, cen, k1, w2, False, False), 3)
+        # per (point, ball): the geometry, the h recurrence, 13 per (m, l)
+        # pair with l >= |m| (sum_m (N_END - |m|) = N_END^2 of them; the
+        # Legendre recurrence shared by +-m, the product and the sum) and
+        # the phase of each of the 2 N_END - 1 orders
+        n_m = 2 * N_END - 1
+        b = bound(3 * EVAL_POINTS * rs + 4 * nb * rs + w2.numel() * cs + EVAL_POINTS * cs,
+                  EVAL_POINTS * nb * (30 + 15 * N_END + 13 * N_END * N_END + 10 * n_m), name)
         print(f"[2] fused_ba_eval near {EVAL_POINTS} pts {name}: max_abs_err {ea:.3e} "
-              f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms ({card})")
+              f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+              f"bound {b[0]:.6f} ms ({card})")
         if er > tol:
             raise RuntimeError(f"fused_ba_eval {name}: rel err {er:.3e} > {tol}")
-        results.setdefault("fused_ba_eval", {})[name] = {"ms": ms, "plain_ms": pms,
-                                                         "abs": ea, "rel": er}
+        results.setdefault("fused_ba_eval", {})[name] = {
+            "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
         kb4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
         w2b = regroup(c, N_END, randc(torch, rng, (KB, nb, h), cdt, dev)
                       * torch.exp(-ell.to(rdt)))
@@ -221,16 +393,16 @@ def readme_golden(torch, dev):
         raise RuntimeError(f"README golden mismatch: {u} vs {GOLDEN_README}")
 
 
-def bench_config(torch, dev, card):
-    """Phase 4: the bench configuration through biem(); returns launches."""
-    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
-    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
-    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
-    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
-    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
+def bench_sweep(torch, dev):
+    """The bench configuration's k sweep through biem(): (block, sweep, ks).
 
-    wrappers = {"fused_ba_eval": fused_ba_eval, "block_diag_cmm": block_diag_cmm,
-                "lane_gather": lane_gather, "lane_scatter": lane_scatter}
+    block(kb, dens0) solves one k-block and evaluates uscat(0); sweep()
+    runs the 2 blocks of KB k with warm starts and returns their
+    (calculator, uscat(0)) pairs.
+    """
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+
     c = create_from_branching_types("ba")
     f = dict(dtype=torch.float32, device=dev)
     centers_np = lattice_centers()
@@ -255,6 +427,31 @@ def bench_config(torch, dev, card):
             out.append((calc, u0))
         return out
 
+    return block, sweep, ks
+
+
+def bench_config(torch, dev, card):
+    """Phase 4: the bench configuration through biem(); returns launches."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
+    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
+
+    wrappers = {"fused_ba_eval": fused_ba_eval, "block_diag_cmm": block_diag_cmm,
+                "lane_gather": lane_gather, "lane_scatter": lane_scatter,
+                "spherical_jh": spherical_jh, "coax_fold": coax_fold}
+    c = create_from_branching_types("ba")
+    f = dict(dtype=torch.float32, device=dev)
+    centers_np = lattice_centers()
+    nb = len(centers_np)
+    centers = torch.as_tensor(centers_np, **f)
+    direction = torch.tensor([1.0, 0.0, 0.0], **f)
+    block, sweep, ks = bench_sweep(torch, dev)
+
+    torch.cuda.reset_peak_memory_stats()
     block(ks[:KB] - 0.5, None)  # warm-up block: caches, allocator, kernel load
     torch.cuda.synchronize()
     for wrap in wrappers.values():
@@ -264,10 +461,18 @@ def bench_config(torch, dev, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: wrap.launches for name, wrap in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[4] launches in the sweep: {launches}")
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"the main path never launched {name}")
+    n_blocks = len(ks) // KB
+    # per k-block: K5 for the RHS, the radial rows, the coax bands and
+    # uscat(0)'s blc; K2 once
+    if launches["spherical_jh"] < 4 * n_blocks or launches["coax_fold"] < n_blocks:
+        raise RuntimeError(f"K5/K2 launched fewer times than the {n_blocks} blocks need")
+    print(f"[4] peak device memory {peak:.3f} GiB (warm-up block and sweep, "
+          f"torch.cuda.max_memory_allocated) ({card})")
 
     iters = [calc.iters.tolist() for calc, _ in run1]
     relres = [calc.relres.tolist() for calc, _ in run1]
@@ -320,6 +525,7 @@ def bench_config(torch, dev, card):
     print(f"[4] repeated sweep bit-for-bit equal: {same}")
     if not same:
         raise RuntimeError("the repeated sweep differs")
+    stage_split(torch, sweep, len(ks), card)
 
     uin, _ = plane_wave(k=torch.tensor(K0, **f), direction=direction)
     calc = biem(c, centers=centers, radii=torch.ones(nb, **f), k=torch.tensor(K0, **f),
@@ -338,6 +544,48 @@ def bench_config(torch, dev, card):
     print(f"[4] uscat throughput {EVAL_POINTS / best:.1f} pts/s "
           f"({EVAL_POINTS} points, best of 5: {best:.6f} s) ({card})")
     return launches
+
+
+def stage_split(torch, sweep, n_k, card):
+    """Phase 4's stage split: one more sweep with each stage wrapped in
+    synchronising host timers (they add their own syncs, so the total
+    exceeds the timed sweep's)."""
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+
+    acc = {}
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    stages = {"_rhs_dispatch": "RHS", "_radial_rows_scaled": "radial rows",
+              "coax_fold_packed": "K2 (with its K5)", "gmres_solve_op": "solve"}
+    saved = {name: getattr(_core, name) for name in stages}
+    saved_uscat = _core.BIEMResultCalculator.uscat
+    try:
+        for name, key in stages.items():
+            setattr(_core, name, timed(saved[name], key))
+        _core.BIEMResultCalculator.uscat = timed(saved_uscat, "uscat(0)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(_core, name, fn)
+        _core.BIEMResultCalculator.uscat = saved_uscat
+    parts = ", ".join(f"{key} {acc.get(key, 0.0) / n_k:.6f}"
+                      for key in list(stages.values()) + ["uscat(0)"])
+    other = total - sum(acc.values())
+    print(f"[4] stage split, s per k (synchronising timers, {n_k} k): {parts}, "
+          f"other {other / n_k:.6f}, total {total / n_k:.6f} ({card})")
 
 
 def main():
@@ -370,7 +618,9 @@ def main():
     t0 = time.perf_counter()
     kernels.library()
     print(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-          f"({kernels.library_path().name})")
+          f"({kernels.library_path().name} from {', '.join(kernels.SOURCES)})")
+    print(f"[1] launch latency {launch_latency_us(torch, dev):.2f} us per launch of a "
+          f"trivial kernel, back to back ({card})")
 
     results = check_kernels(torch, dev, card)
     readme_golden(torch, dev)
@@ -385,6 +635,10 @@ def main():
                         "biem_helmholtz_sphere_tpu/biem/_core.py:632"),
         "lane_scatter": ("csrc/lane_route.cu",
                          "biem_helmholtz_sphere_tpu/biem/_core.py:647"),
+        "spherical_jh": ("csrc/spherical_jh.cu",
+                         "biem_helmholtz_sphere_tpu/special/_family.py:215"),
+        "coax_fold": ("csrc/coax_fold.cu",
+                      "biem_helmholtz_sphere_tpu/translation/_scaled.py:86"),
     }
     record = {"kernels": [
         {
@@ -396,6 +650,9 @@ def main():
             "max_abs_err": results[name]["complex64"]["abs"],
             "ms": results[name]["complex64"]["ms"],
             "plain_ms": results[name]["complex64"]["plain_ms"],
+            "bound_ms": results[name]["complex64"]["bound_ms"],
+            "bound_by": results[name]["complex64"]["bound_by"],
+            "library_ms": results[name]["complex64"]["library_ms"],
         }
         for name, (src, rep) in sources.items()
     ]}

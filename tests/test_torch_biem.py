@@ -91,7 +91,7 @@ def test_uscat_on_a_jax_density(jax_lattice):
     calc = BIEMResultCalculator.from_numpy(
         create_from_branching_types("ba"), N_END,
         np.broadcast_to(_lattice(), (len(KS), 16, 3)), np.ones((len(KS), 16)), KS,
-        None, jax_lattice["density"],
+        None, jax_lattice["density"], device="cpu",
     )
     _assert_field(calc.uscat(torch.tensor(X_NEAR)).numpy(), jax_lattice["near"])
     _assert_field(calc.uscat(torch.tensor(X_FAR), far_field=True).numpy(),
@@ -200,3 +200,27 @@ def test_unported_routes_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [89]"):
         biem(c, centers=centers, radii=torch.ones(n_balls, **F64), k=k, n_end=3,
              uin=uin, **kw)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without tensor inputs (numpy, Python numbers) the entry points run on
+    the card and, with no CUDA, raise instead of running on the CPU; CPU
+    tensors or device="cpu" are how a caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = create_from_branching_types("ba")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        plane_wave(k=1.0, direction=np.array([1.0, 0.0, 0.0]))
+    uin, _ = plane_wave(k=torch.tensor(1.0, **F64), direction=torch.tensor([1.0, 0.0, 0.0]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        biem(c, centers=np.array([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]]), radii=np.ones(2),
+             k=1.0, n_end=3, uin=uin, solver="matfree", stable=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BIEMResultCalculator.from_numpy(c, 2, np.zeros((2, 3)), np.ones(2), 1.0, None,
+                                        np.zeros((2, 4), np.complex128))
+    calc = _two_spheres(torch.float64, 3)
+    assert calc.density.device.type == "cpu"
+    assert calc.uscat(torch.zeros(3, 1, **F64)).device.type == "cpu"
+    assert uin(np.zeros((3, 1))).device.type == "cpu"
+    cpu = BIEMResultCalculator.from_numpy(c, 2, np.zeros((2, 3)), np.ones(2), 1.0, None,
+                                          np.zeros((2, 4), np.complex128), device="cpu")
+    assert cpu.density.device.type == "cpu"

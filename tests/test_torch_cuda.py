@@ -7,7 +7,9 @@ without the suite's conftest (which configures JAX):
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
 Tolerances: complex64 1e-4 and complex128 1e-10 of the largest plain
-value (the kernels sum in another order; float32 keeps ~7 digits).
+value (the kernels sum in another order; float32 keeps ~7 digits).  The
+special functions (K5) are compared entry by entry on values,
+mant_k exp(e_k - e_p) against mant_p, to the same relative tolerances.
 """
 
 from dataclasses import replace
@@ -16,7 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from biem_helmholtz_sphere_tpu_torch.biem._core import _child_state_blocks, _pair_routing
+from biem_helmholtz_sphere_tpu_torch import special
+from biem_helmholtz_sphere_tpu_torch.biem._core import (
+    _factored_operator,
+    _pair_routing,
+    _radial_rows_scaled,
+)
 from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
     _fused_ba_eval_plain,
     fused_ba_eval,
@@ -36,6 +43,21 @@ from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
     lane_gather,
     lane_scatter,
     make_route,
+)
+from biem_helmholtz_sphere_tpu_torch.special._family import (
+    _H_ONLY,
+    _SCALED,
+    _UNSCALED,
+    _spherical_h_scaled_plain,
+    _spherical_jh_all_plain,
+    _spherical_jh_scaled_plain,
+    spherical_jh,
+)
+from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
+    _child_state_blocks,
+    _coax_fold_packed_plain,
+    _coax_packed,
+    coax_fold,
 )
 
 
@@ -115,3 +137,157 @@ def test_cuda_launch_failure_raises(cuda):
     ok = pack(torch.eye(4, dtype=torch.complex128, device=cuda)[None], np.array([1, 3]))
     v = torch.ones((1, 2, 4), dtype=torch.complex128, device=cuda)
     assert torch.equal(block_diag_cmm(ok, v), v)
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == torch.complex64 else 1e-10
+
+
+def _scaled_rel(got, ref, keep=None):
+    """Largest entrywise relative error of scaled values (mant, e)."""
+    (mk, ek), (mp, ep) = got, ref
+    assert bool(torch.isfinite(mk).all()) and bool(torch.isfinite(ek).all())
+    rel = (mk * torch.exp(ek - ep) - mp).abs() / mp.abs().clamp_min(torch.finfo(ek.dtype).tiny)
+    return float(rel.max() if keep is None else rel[keep].max())
+
+
+def _unscaled_rel(got, ref, keep):
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fin)
+    tiny = torch.finfo(ref.real.dtype).tiny
+    return float(((got - ref).abs() / ref.abs().clamp_min(tiny))[fin & keep].max())
+
+
+def _keep(d, name, z, n_end):
+    """The entries compared: all but j_0' of d >= 5 at |z| < 2.  There
+    j_0' = -z/15 + ... is the difference of O(1) terms, so each version
+    loses ~15/|z|^2 ulps of it (all of float32's digits at |z| = 1e-3) and
+    two roundings of it cannot agree to the tolerance; every other order
+    is held over the whole |z| range."""
+    keep = torch.ones(z.shape + (n_end,), dtype=torch.bool, device=z.device)
+    if d > 3 and name == "jp":
+        keep[..., 0] = z.abs() >= 2.0
+    return keep
+
+
+# |z| from 1e-3 to 60 across the n <= |z| switch, complex z, and z = 0.5
+# where h_n in float32 passes the overflow wall (|h_40(0.5)| ~ 1e74)
+_Z = np.concatenate([np.geomspace(1e-3, 60.0, 29), [8.0, 3.0 + 2.0j, 15.0 - 0.5j, 0.5]])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("d", [3, 5])
+def test_spherical_jh_kernel_matches_plain(cuda, dtype, d):
+    """K5 in its three modes against the plain versions on the card."""
+    z = torch.as_tensor(_Z, dtype=dtype, device=cuda).reshape(-1, 1)
+    tol = _tol(dtype)
+    names = ("j", "jp", "h", "hp")
+    n0 = spherical_jh.launches
+    for n_end in (1, 24, 41):
+        got = spherical_jh(_SCALED, d, n_end, z)
+        ref = _spherical_jh_scaled_plain(d, n_end, z)
+        for name, g, r in zip(names, got, ref):
+            assert g[0].shape == r[0].shape == z.shape + (n_end,)
+            assert _scaled_rel(g, r, _keep(d, name, z, n_end)) < tol, (n_end, name)
+        assert _scaled_rel(spherical_jh(_H_ONLY, d, 2 * n_end - 1, z),
+                           _spherical_h_scaled_plain(d, 2 * n_end - 1, z)) < tol
+    zu = torch.cat([torch.zeros(1, dtype=dtype, device=cuda), z.reshape(-1)])
+    for name, g, r in zip(names, spherical_jh(_UNSCALED, d, 16, zu),
+                          _spherical_jh_all_plain(d, 16, zu)):
+        keep = _keep(d, name, zu, 16)
+        keep[0] = True  # the z = 0 limits are exact
+        assert _unscaled_rel(g, r, keep) < tol, name
+    assert spherical_jh.launches == n0 + 7
+
+
+@pytest.mark.requires_cuda
+def test_small_argument_seeds_use_the_series_on_the_card(cuda):
+    """The kernel's seeds follow the port at |z| < 1e-4 (the series for j,
+    the closed form for h), as test_small_argument_seeds_use_the_series
+    holds the plain version."""
+    z = np.array([5e-5, 2e-4])
+    zt = torch.tensor(z, dtype=torch.float64, device=cuda)
+    j, _, h, _ = special.spherical_jh_all(3, 3, zt)
+    j, h = j.cpu().numpy(), h.cpu().numpy()
+    np.testing.assert_allclose(j[:, 0].real, np.sin(z) / z, rtol=1e-15)
+    np.testing.assert_allclose(j[:, 1].real, z / 3 * (1 - z * z / 10), rtol=1e-12)
+    np.testing.assert_allclose(j[:, 2].real, z * z / 15, rtol=1e-8)
+    np.testing.assert_allclose(h[:, 0], -1j * np.exp(1j * z) / z, rtol=1e-15)
+    hm, he = special.spherical_h_scaled(3, 3, zt)
+    h_s = (hm * torch.exp(he)).cpu().numpy()
+    np.testing.assert_allclose(h_s[:, 1], -np.exp(1j * z) * (z + 1j) / z**2, rtol=1e-14)
+
+
+@pytest.mark.requires_cuda
+def test_spherical_jh_even_dimension_raises_before_launch(cuda):
+    n0 = spherical_jh.launches
+    with pytest.raises(NotImplementedError, match="even dimension"):
+        special.spherical_jh_scaled(4, 5, torch.ones(3, dtype=torch.complex64, device=cuda))
+    assert spherical_jh.launches == n0
+
+
+def _coax_inputs(cuda, rdt, n_end, ks, centers):
+    """K2's inputs as the factored operator makes them on the card."""
+    c = create_from_branching_types("ba")
+    rt = _pair_routing(centers)
+    n_k, nb = len(ks), len(centers)
+    f = dict(dtype=rdt, device=cuda)
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    k = torch.as_tensor(ks, **f)
+    (_, _), (_, e_r), (_, e_b) = _radial_rows_scaled(
+        c, n_end, torch.ones(n_k, nb, **f), k, torch.ones(n_k, **f),
+        torch.ones(n_k, nb, dtype=cdt, device=cuda), torch.zeros(n_k, nb, dtype=cdt, device=cuda),
+    )
+    starts = torch.as_tensor(np.searchsorted(basis(c, n_end).n_root, np.arange(n_end)),
+                             device=cuda)
+    e_r, e_b = (e.amax(dim=-2)[:, starts].contiguous() for e in (e_r, e_b))
+    r = torch.as_tensor(rt.uniq_r, **f)
+    radm, rade = special.spherical_h_scaled(3, 2 * n_end - 1, k[:, None] * r)
+    return radm, rade, e_r, e_b, _coax_packed(c, n_end, rdt, cuda)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["bench", "overflow-wall"])
+def test_coax_fold_kernel_matches_plain(cuda, dtype, case):
+    """K2 at the bench shapes (4 k x 9 radii, n_end=32) and past the float32
+    overflow wall (two spheres at t=4, k=1, n_end=24: S > 88)."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    if case == "bench":
+        args = _coax_inputs(cuda, rdt, 32, np.linspace(7.0, 7.06, 4), _lattice())
+    else:
+        args = _coax_inputs(cuda, rdt, 24, np.array([1.0]),
+                            np.array([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]]))
+    n0 = coax_fold.launches
+    got = coax_fold(*args)
+    ref = _coax_fold_packed_plain(*args)
+    assert coax_fold.launches == n0 + 1
+    assert got.shape == ref.shape and bool(torch.isfinite(ref).all())
+    assert float((got - ref).abs().max() / ref.abs().max()) < _tol(dtype)
+
+
+@pytest.mark.requires_cuda
+def test_factored_operator_on_the_card_matches_the_cpu(cuda):
+    """The k-dependent build (K5 x 2 + K2) and the matvec on the card agree
+    with the CPU in float64, and the build launched its kernels."""
+    n_end, n_k = 8, 2
+    centers = _lattice()
+    nb = len(centers)
+    rng = np.random.default_rng(28)
+    x = _randc(rng, (n_k, nb * n_end * n_end))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        f = dict(dtype=torch.float64, device=dev)
+        counts = (spherical_jh.launches, coax_fold.launches)
+        mv, diag = _factored_operator(
+            create_from_branching_types("ba"), n_end, centers, torch.ones(n_k, nb, **f),
+            torch.tensor([1.3, 2.1], **f), torch.ones(n_k, **f),
+            torch.ones(n_k, nb, dtype=torch.complex128, device=dev),
+            torch.zeros(n_k, nb, dtype=torch.complex128, device=dev),
+        )
+        launched = (spherical_jh.launches - counts[0], coax_fold.launches - counts[1])
+        assert launched == ((0, 0) if dev.type == "cpu" else (2, 1))
+        out[dev.type] = (mv(torch.as_tensor(x, device=dev)).cpu(), diag.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-10

@@ -35,7 +35,6 @@ from biem_helmholtz_sphere_tpu.ops import cplx
 from biem_helmholtz_sphere_tpu.ops.cplx import C
 from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
 from biem_helmholtz_sphere_tpu_torch.biem._core import (
-    _child_state_blocks,
     _factored_operator,
     _pair_routing,
 )
@@ -60,7 +59,9 @@ from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
     lane_scatter,
     make_route,
 )
+from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
 from biem_helmholtz_sphere_tpu_torch.translation import coaxial_scaled, rotation_matrix
+from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks, coax_fold
 
 
 def _lattice(n_side=4, spacing=4.0):
@@ -248,13 +249,14 @@ def test_cpu_wrappers_never_touch_the_kernel_library(monkeypatch):
         raise AssertionError("the kernel library was requested for CPU tensors")
 
     monkeypatch.setattr(kernels, "library", no_library)
-    counts = (fused_ba_eval.launches, block_diag_cmm.launches,
-              lane_gather.launches, lane_scatter.launches)
+    wrappers = (fused_ba_eval, block_diag_cmm, lane_gather, lane_scatter, spherical_jh,
+                coax_fold)
+    counts = [w.launches for w in wrappers]
     test_lane_route_plain_matches_jax_one_hot()
     test_block_diag_cmm_plain_matches_jax_einsum("X")
     test_fused_ba_eval_plain_matches_jax_far_field()
-    assert counts == (fused_ba_eval.launches, block_diag_cmm.launches,
-                      lane_gather.launches, lane_scatter.launches)
+    test_factored_matvec_matches_jax()  # K5 (radial rows, coax bands) and K2
+    assert counts == [w.launches for w in wrappers]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -165,3 +165,48 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "biem"
+
+
+# the K5 kernel's oracles (the plain versions) on values, |z| from 1e-3 to 60
+Z_WIDE = np.geomspace(1e-3, 60.0, 23)
+
+
+def _value_rel(mant_t, e_t, mant_j, e_j, keep=True):
+    """Largest entrywise relative error of mant_t exp(e_t) against
+    mant_j exp(e_j), over the entries in `keep`."""
+    got = mant_t * np.exp(e_t - e_j)
+    return np.max((np.abs(got - mant_j) / np.abs(mant_j))[np.broadcast_to(keep, got.shape)])
+
+
+def _keep(d, name, n_end):
+    """The entries compared: all but j_0' of d >= 5 at |z| < 0.5.  There
+    j_0' = -z/15 + ... is the difference of O(1) terms: both packages lose
+    ~15/|z|^2 ulps of it (~7 of the 16 digits at |z| = 1e-3).  Every other
+    order is held to 1e-12 over the whole |z| range."""
+    keep = np.ones((len(Z_WIDE), n_end), bool)
+    if d > 3 and name == "jp":
+        keep[:, 0] = Z_WIDE >= 0.5
+    return keep
+
+
+@pytest.mark.parametrize("d", [3, 5])
+def test_k5_plain_versions_match_jax_on_values(d):
+    """spherical_jh_scaled, spherical_h_scaled and spherical_jh_all (the
+    kernel's plain versions on CPU tensors) against the JAX package."""
+    n_end = 20
+    z = _t(Z_WIDE)
+    names = ("j", "jp", "h", "hp")
+    for name, (mt, et), (mj, ej) in zip(names, special.spherical_jh_scaled(d, n_end, z),
+                                        j_jh_scaled(d, n_end, Z_WIDE)):
+        assert _value_rel(mt.numpy(), et.numpy(), tonp(mj), np.asarray(ej),
+                          _keep(d, name, n_end)) <= 1e-12, name
+    hm, he = special.spherical_h_scaled(d, 2 * n_end - 1, z)
+    hm_j, he_j = j_h_scaled(d, 2 * n_end - 1, Z_WIDE)
+    assert _value_rel(hm.numpy(), he.numpy(), tonp(hm_j), np.asarray(he_j)) <= 1e-12
+    for name, a_t, a_j in zip(names, special.spherical_jh_all(d, n_end, z),
+                              jspecial.spherical_jh_all(d, n_end, Z_WIDE)):
+        a_t, a_j = a_t.numpy(), tonp(a_j)
+        fin = np.isfinite(a_j)
+        np.testing.assert_array_equal(np.isfinite(a_t), fin)
+        cmp = fin & _keep(d, name, n_end)
+        np.testing.assert_allclose(a_t[cmp], a_j[cmp], rtol=1e-12, atol=0, err_msg=name)

@@ -18,11 +18,19 @@ from biem_helmholtz_sphere_tpu.translation._rotation import (
 from biem_helmholtz_sphere_tpu.translation._scaled import (
     coaxial_scaled as j_coaxial_scaled,
 )
+from biem_helmholtz_sphere_tpu_torch.biem._core import _radial_rows_scaled
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+from biem_helmholtz_sphere_tpu_torch.ops.block_diag import pack
 from biem_helmholtz_sphere_tpu_torch.translation import (
     coaxial_scaled,
     rotation_matrix,
+)
+from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coax_tables
+from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
+    _child_state_blocks,
+    coax_fold,
+    coax_fold_packed,
 )
 
 
@@ -85,3 +93,88 @@ def test_coaxial_scaled_float32_past_overflow_is_finite():
     np.testing.assert_allclose(
         m32.numpy(), m64.numpy(), rtol=0, atol=2e-5 * float(m64.abs().max())
     )
+
+
+def _fold_exponents(c, n_end, ks, rdt=torch.float64):
+    """Degree-level ball-max exponents (e_r, e_b) [K, L] of the radial rows
+    of unit sound-soft spheres, as the factored operator folds them."""
+    n_k = len(ks)
+    f = dict(dtype=rdt)
+    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    (_, _), (_, e_r), (_, e_b) = _radial_rows_scaled(
+        c, n_end, torch.ones(n_k, 2, **f), torch.as_tensor(ks, **f), torch.ones(n_k, **f),
+        torch.ones(n_k, 2, dtype=cdt), torch.zeros(n_k, 2, dtype=cdt),
+    )
+    starts = np.searchsorted(basis(c, n_end).n_root, np.arange(n_end))
+    return tuple(e.amax(dim=-2)[:, starts].contiguous() for e in (e_r, e_b))
+
+
+def _dense_fold(mant, s_mat, e_r, e_b, ell):
+    """The fold of biem_helmholtz_sphere_tpu/biem/_core.py:557-584 on dense
+    (mant, S) [K, NR, H, H] with degree-level e_r, e_b [K, L]."""
+    starts = np.searchsorted(ell, np.arange(e_r.shape[-1]))
+    s_small = s_mat[..., starts, :][..., starts]
+    factor = np.exp(e_r[:, None, :, None] + s_small + e_b[:, None, None, :])
+    return mant * factor[..., ell, :][..., ell]
+
+
+def test_coax_fold_packed_plain_matches_jax_fold():
+    """K2's plain version (the CPU path of coax_fold_packed) against the JAX
+    package's coaxial_scaled + degree-level fold, at the packed entries."""
+    c_t, c_j = create_from_branching_types("ba"), j_tree("ba")
+    n_end = 8
+    r = np.array([4.0, 4.0 * np.sqrt(2.0), 8.0])
+    ks = np.array([1.3, 6.5])
+    e_r, e_b = _fold_exponents(c_t, n_end, ks)
+    m_j, s_j = j_coaxial_scaled(c_j, r, n_end, ks[:, None], kind="SR")
+    ell = basis(c_t, n_end).n_root
+    xf_j = _dense_fold(tonp(m_j), np.asarray(s_j), e_r.numpy(), e_b.numpy(), ell)
+    n0 = coax_fold.launches
+    x = coax_fold_packed(c_t, n_end, torch.as_tensor(r), torch.as_tensor(ks), e_r, e_b)
+    assert coax_fold.launches == n0  # CPU tensors take the plain version
+    ref = xf_j[..., x.rows.numpy(), x.cols.numpy()]
+    assert x.vals.shape == ref.shape == (2, 3, int((x.sizes.long() ** 2).sum()))
+    np.testing.assert_allclose(x.vals.numpy(), ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    # nothing of the dense fold lies off the packed blocks
+    off = np.ones(xf_j.shape[-2:], bool)
+    off[x.rows.numpy(), x.cols.numpy()] = False
+    assert not np.any(xf_j[..., off])
+
+
+def test_coaxial_mant_is_exactly_zero_off_the_child_state_blocks():
+    """The equal-child-state mask is exact, so the packed layout of K2 drops
+    nothing: off the child-state blocks the dense mant is exactly zero."""
+    c = create_from_branching_types("ba")
+    n_end = 8
+    mant, _ = coaxial_scaled(c, torch.tensor([4.0, 8.0], dtype=torch.float64), n_end,
+                             torch.tensor([[1.3], [6.5]], dtype=torch.float64))
+    cs = _coax_tables(c, n_end)[5]
+    off = torch.as_tensor(cs[:, None] != cs[None, :])
+    assert int(off.sum()) > 0 and bool((mant[..., off] == 0).all())
+    assert bool((mant[..., ~off] != 0).any())
+
+
+@pytest.mark.parametrize("rdt", [torch.float64, torch.float32])
+def test_coax_fold_packed_matches_the_dense_route_past_the_overflow_wall(rdt):
+    """Two spheres at t = 4, k = 1, n_end = 24, where S = log|h_{l+l'}|
+    passes float32's exp range: the packed K2 values equal the dense route
+    (coaxial_scaled, fold, pack) in each dtype, and float32 stays within
+    float32 precision of float64."""
+    c = create_from_branching_types("ba")
+    n_end = 24
+    r, ks = torch.tensor([4.0], dtype=rdt), np.array([1.0])
+    e_r, e_b = _fold_exponents(c, n_end, ks, rdt)
+    x = coax_fold_packed(c, n_end, r, torch.as_tensor(ks, dtype=rdt), e_r, e_b)
+    mant, s_mat = coaxial_scaled(c, r, n_end, torch.as_tensor(ks, dtype=rdt)[:, None])
+    assert float(s_mat.max()) > 88.0
+    ell = basis(c, n_end).n_root
+    dense = _dense_fold(mant.numpy(), s_mat.numpy(), e_r.numpy(), e_b.numpy(), ell)
+    ref = pack(torch.as_tensor(dense), *_child_state_blocks(c, n_end)).vals.numpy()
+    assert np.isfinite(x.vals.numpy()).all()
+    tol = 1e-12 if rdt == torch.float64 else 2e-6
+    np.testing.assert_allclose(x.vals.numpy(), ref, rtol=0, atol=tol * np.abs(ref).max())
+    if rdt == torch.float32:
+        e_r64, e_b64 = _fold_exponents(c, n_end, ks)
+        x64 = coax_fold_packed(c, n_end, r.double(), torch.as_tensor(ks), e_r64, e_b64)
+        np.testing.assert_allclose(x.vals.numpy(), x64.vals.numpy(), rtol=0,
+                                   atol=2e-5 * float(x64.vals.abs().max()))
