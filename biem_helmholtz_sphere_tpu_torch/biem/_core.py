@@ -16,8 +16,8 @@ distinct pair distance with the ball-maximum radial exponents folded in.
 The k-dependent build runs the radial special functions (K5,
 special/_family.py) and writes X straight into its packed blocks (K2,
 translation/_scaled.py::coax_fold_packed).  One matvec routes the
-spheres into pair lanes (KC), applies D^H, X and D to the lanes (KB) and
-sums the lanes back into their destination spheres (KC); GMRES
+spheres into the compacted pair lanes (KC), applies D^H, X and D to the
+lanes (KB) and sums the lanes back into their destination spheres (KC); GMRES
 (ops/gmres.py) solves the system.
 
 This is the route `biem()` of biem_helmholtz_sphere_tpu takes at the
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..harmonics._index import basis
-from ..ops.block_diag import block_diag_cmm, pack
+from ..ops.block_diag import LaneSegments, block_diag_cmm, pack
 from ..ops.gmres import gmres_solve_op
 from ..ops.kernels import default_device
 from ..ops.lane_route import lane_gather, lane_scatter, make_route
@@ -265,14 +265,22 @@ def _radial_rows_scaled(c, n_end, radii, k, eta, alpha, beta):
 
 @dataclass(frozen=True)
 class PairRouting:
-    """Pair lanes of the factored matvec (see `_pair_routing`)."""
+    """Compacted pair lanes of the factored matvec (see `_pair_routing`)."""
 
     uniq: np.ndarray  # [NO, d] offset vector per slot (unit dummies pad)
-    src: np.ndarray  # [L] source row of [z; z*pm] per lane, -1 unused
-    dst: np.ndarray  # [L] destination ball per lane, -1 unused
+    lane: np.ndarray  # [L] padded lane index slot * 2 p_max + p of each lane
+    src: np.ndarray  # [L] source row of [z; z*pm]: b' or B + b
+    dst: np.ndarray  # [L] destination ball
+    dn: np.ndarray  # [L] bool: mirror lane (parity applied to its output)
+    slot_ptr: np.ndarray  # [NO + 1] lanes of each slot (CSR over lanes)
     p_max: int
     uniq_r: np.ndarray  # [NR] distinct pair distances
     g_max: int  # offset slots per distance
+
+    @property
+    def rad_ptr(self):
+        """[NR + 1] lanes of each radius: its g_max slots are contiguous."""
+        return self.slot_ptr[:: self.g_max]
 
 
 def _pair_routing(centers_np):
@@ -280,10 +288,13 @@ def _pair_routing(centers_np):
 
     The b < b' offset vectors are deduplicated and ordered by |t|; each
     distinct radius owns g_max offset SLOTS (dummy slots route nothing),
-    so the coaxial factor applies per contiguous radius group.  Lanes are
-    flat, i = slot * 2 p_max + p: the first p_max lanes of a slot hold its
-    b < b' pairs, the next p_max their mirrors.  Integer index tables
-    replace the JAX package's one-hot gather/scatter matrices.
+    so the coaxial factor applies per contiguous radius group.  In the
+    padded layout of the JAX package lane i = slot * 2 p_max + p: the
+    first p_max lanes of a slot hold its b < b' pairs, the next p_max
+    their mirrors.  Only the lanes that route a pair are kept, in that
+    order: every slot's lanes, and every radius's, form one contiguous
+    segment (`slot_ptr`, `rad_ptr`).  Integer index tables replace the
+    JAX package's one-hot gather/scatter matrices.
     """
     n_balls = centers_np.shape[0]
     bu, bv = np.triu_indices(n_balls, k=1)
@@ -317,7 +328,11 @@ def _pair_routing(centers_np):
     dn_src = np.where(up_dst >= 0, up_dst + n_balls, -1)
     src = np.concatenate([up_src, dn_src], axis=1).ravel()
     dst = np.concatenate([up_dst, up_src], axis=1).ravel()
-    return PairRouting(slot_uniq, src, dst, p_max, uniq_r, g_max)
+    lane = np.nonzero(src >= 0)[0]
+    dn = (lane % (2 * p_max)) >= p_max
+    slot_ptr = np.searchsorted(lane // (2 * p_max), np.arange(n_slots + 1))
+    return PairRouting(slot_uniq, lane, src[lane], dst[lane], dn, slot_ptr, p_max,
+                       uniq_r, g_max)
 
 
 @lru_cache(maxsize=4)
@@ -349,9 +364,10 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     blc_col = blc_m * torch.exp(e_b - e_b_max[:, None, :])
 
     routing = _pair_routing(centers_np)
-    n_slots, n_rad, g_max = len(routing.uniq), len(routing.uniq_r), routing.g_max
-    lanes_per_slot = 2 * routing.p_max
-    route = make_route(routing.src, routing.dst, routing.p_max, n_balls, dev)
+    n_slots = len(routing.uniq)
+    route = make_route(routing.src, routing.dst, routing.dn, n_balls, dev)
+    d_seg = LaneSegments(tuple(int(v) for v in routing.slot_ptr))
+    x_seg = LaneSegments(tuple(int(v) for v in routing.rad_ptr))
 
     # the coaxial factor with the degree-level fold of the ball-max
     # exponents (constant on degree blocks, which D preserves:
@@ -373,15 +389,11 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
 
     def mv(x_flat):
         x = x_flat.reshape(n_k, n_balls, h_num)
-        lanes = lane_gather(x, blc_col, pm, route)  # [K, L, H]
-        w = block_diag_cmm(
-            d_blocks, lanes.reshape(n_k, n_slots, lanes_per_slot, h_num), adjoint=True
-        )
-        v = block_diag_cmm(
-            x_blocks, w.reshape(n_k, n_rad, g_max * lanes_per_slot, h_num)
-        )
-        y = block_diag_cmm(d_blocks, v.reshape(n_k, n_slots, lanes_per_slot, h_num))
-        out = lane_scatter(y.reshape(n_k, -1, h_num), x, diag, reg_row, pm, route)
+        lanes = lane_gather(x, blc_col, pm, route)  # [K, L, H], L compacted
+        w = block_diag_cmm(d_blocks, lanes, d_seg, adjoint=True)
+        v = block_diag_cmm(x_blocks, w, x_seg)  # X reads its permutation itself
+        y = block_diag_cmm(d_blocks, v, d_seg)
+        out = lane_scatter(y, x, diag, reg_row, pm, route)
         return out.reshape(n_k, n_balls * h_num)
 
     return mv, diag.reshape(n_k, n_balls * h_num)

@@ -17,7 +17,10 @@ outgoing radial factor h_l(k r) (near field) or 1 (far field).
 `fused_ba_eval` takes evaluation points and sphere centers, computes the
 per (point, ball) angles and clamped h_l(k r) itself, and sums the balls:
 on CUDA tensors it launches `csrc/fused_ba_eval.cu`, which keeps every
-recurrence in registers; on CPU tensors it runs `_fused_ba_eval_plain`,
+recurrence in registers, in one of two modes chosen by the shape of the
+call (many points: points over threads; few points, P * K < _FEW_POINTS,
+e.g. uscat(0): balls over warps and orders over lanes); on CPU tensors it
+runs `_fused_ba_eval_plain`,
 the degree-major recurrence of the JAX package's
 biem_helmholtz_sphere_tpu/biem/_eval_fused.py::_fused_ba_dot_blocked with
 the radial table of biem/_eval.py::_h_clamped.
@@ -35,6 +38,9 @@ from ..special._family import _rescale_for, spherical_h_scaled
 from ..special._jacobi import jacobi_recurrence
 
 _EVAL_CHUNK = 8192  # points per pass of the plain version (bounds [P, K, B, M])
+# P * K below this takes the few-point mode: fewer (point, k) pairs than
+# 4 per SM of a 132-SM H100 cannot fill the card one point per thread
+_FEW_POINTS = 4 * 132
 
 
 def is_ba_tree(c):
@@ -115,20 +121,21 @@ def regroup(c, n_end, w):
 
 @lru_cache(maxsize=8)
 def _kernel_coefs(n_end, dtype, device):
-    """Per (|m|, step j) recurrence tables for the kernel: a, 1/b_{j+1},
-    b_j/b_{j+1} as [n, n], and p0 [n]."""
-    ca = np.zeros((n_end, n_end))
+    """Per (|m|, step j) recurrence tables for the kernel: -a_j/b_{j+1},
+    1/b_{j+1}, b_j/b_{j+1} as [n, n], and p0 [n] (the kernel steps
+    p_{j+1} = (cos th / b_{j+1} - a_j / b_{j+1}) p_j - b_j/b_{j+1} p_{j-1})."""
+    cab = np.zeros((n_end, n_end))
     cb1 = np.zeros((n_end, n_end))
     cbb = np.zeros((n_end, n_end))
     p0 = np.zeros(n_end)
     for f in range(n_end):
         a, b = jacobi_recurrence(n_end, float(f), float(f))
-        ca[f] = a[:n_end]
+        cab[f] = -a[:n_end] / b[1 : n_end + 1]
         cb1[f] = 1.0 / b[1 : n_end + 1]
         cbb[f] = b[:n_end] / b[1 : n_end + 1]
         p0[f] = 1.0 / b[0]
     return tuple(
-        torch.as_tensor(t, dtype=dtype, device=device) for t in (ca, cb1, cbb, p0)
+        torch.as_tensor(t, dtype=dtype, device=device) for t in (cab, cb1, cbb, p0)
     )
 
 
@@ -184,6 +191,8 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
     `regroup`).  Near field (far=False): angles of x - c_b and
     rad_l = h_l(k |x - c_b|) clamped; far field: angles of x itself and
     rad = 1.  Returns complex [P, K], or [P, K, B] with per_ball=True.
+    Launches of the many-point kernel count in `fused_ba_eval.launches`,
+    those of the few-point kernel in `fused_ba_eval.few_launches`.
     """
     n_k, n_b, n_m, n = w2.shape
     if x.shape[0] != 3 or x.shape[1] not in (1, n_k) or n_m != 2 * n - 1:
@@ -206,22 +215,27 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
             f"k {k.dtype}, w2 {w2.dtype}"
         )
     centers, k, w2 = centers.contiguous(), k.contiguous(), w2.contiguous()
-    ca, cb1, cbb, p0 = _kernel_coefs(n, rdt, x.device)
+    cab, cb1, cbb, p0 = _kernel_coefs(n, rdt, x.device)
     n_p = x.shape[-1]
     out = torch.empty(
         (n_p, n_k, n_b) if per_ball else (n_p, n_k), dtype=cdt, device=x.device
     )
     sx = x.stride()
+    few = n_p * n_k < _FEW_POINTS
     kernels.launch(
         "bhs_fused_ba_eval",
         x.data_ptr(), sx[0], sx[1], sx[2], x.shape[1],
         kernels.ptr(centers), kernels.ptr(k), kernels.ptr(w2),
-        kernels.ptr(ca), kernels.ptr(cb1), kernels.ptr(cbb), kernels.ptr(p0),
-        kernels.ptr(out), n_p, n_k, n_b, n, int(far), int(per_ball),
+        kernels.ptr(cab), kernels.ptr(cb1), kernels.ptr(cbb), kernels.ptr(p0),
+        kernels.ptr(out), n_p, n_k, n_b, n, int(far), int(per_ball), int(few),
         _clamp_limit(rdt), _rescale_for(rdt), int(rdt == torch.float64),
     )
-    fused_ba_eval.launches += 1
+    if few:
+        fused_ba_eval.few_launches += 1
+    else:
+        fused_ba_eval.launches += 1
     return out
 
 
 fused_ba_eval.launches = 0
+fused_ba_eval.few_launches = 0

@@ -1,17 +1,21 @@
-// KC: routing of sphere vectors into the pair lanes of the factored
-// (S|R) matvec and back.
+// KC: routing of sphere vectors into the compacted pair lanes of the
+// factored (S|R) matvec and back.
 //
 // Replaces the one-hot routing matmuls and the diagonal/coupling epilogue
 // of biem_helmholtz_sphere_tpu/biem/_core.py (_matfree_operator, factored
 // `mv`: the `gth` gather, the mirror parity and the `sct` scatter):
 //
 //   gather:  lanes[k, l, h] = (blc * x)[k, b, h] * (src[l] >= B ? pm[h] : 1),
-//            b = src[l] mod B, 0 where src[l] < 0
+//            b = src[l] mod B
 //   scatter: out[k, b, h] = diag*x + reg * sum_{q in csr(b)} y[k, lane[q], h]
 //                                         * (dn[q] ? pm[h] : 1)
 //
+// The lanes are compacted: only the lanes that route a pair (240 of the
+// 864 a padded [slot, 2 p_max] layout has at the bench), so neither
+// kernel reads or writes a padding lane.
+//
 // What bounds it on the H100: device memory bandwidth (a few flops per
-// 8-16 bytes moved; the lanes are 864 x 1024 x K complex).  Design: one
+// 8-16 bytes moved; the lanes are 240 x 1024 x K complex).  Design: one
 // thread per output element, consecutive threads on consecutive h so every
 // access is coalesced.  The scatter sums each ball's lanes in the fixed
 // ascending CSR order, with no atomics, so a k sweep is bit-for-bit
@@ -34,13 +38,10 @@ lane_gather_kernel(const c2_t<T>* __restrict__ x, const c2_t<T>* __restrict__ bl
   const int l = (int)(t % L);
   const int k = (int)(t / L);
   const int s = src[l];
-  c2_t<T> v = cmake<T>(0, 0);
-  if (s >= 0) {
-    const int b = s < B ? s : s - B;
-    const size_t o = ((size_t)k * B + b) * H + h;
-    v = cmul<T>(blc[o], x[o]);
-    if (s >= B) v = cscale<T>(v, pm[h]);
-  }
+  const int b = s < B ? s : s - B;
+  const size_t o = ((size_t)k * B + b) * H + h;
+  c2_t<T> v = cmul<T>(blc[o], x[o]);
+  if (s >= B) v = cscale<T>(v, pm[h]);
   lanes[idx] = v;
 }
 

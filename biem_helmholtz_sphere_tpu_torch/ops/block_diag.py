@@ -1,22 +1,37 @@
-"""KB: products with stacks of block-diagonal complex matrices.
+"""KB: products of block-diagonal complex matrices with compacted lanes.
 
 The factored (S|R) matvec applies, per offset slot, the rotation D (degree
 blocks of size 2l+1, 4.2% nonzero at n_end=32) and its adjoint, and per
-radius the folded coaxial factor X (child-state m-blocks of size n-|m|
-after an l<->m permutation, 2.1% nonzero).  The JAX package applies all
-three as dense [H, H] einsums (biem_helmholtz_sphere_tpu/biem/_core.py,
-the factored `mv`).  Here the matrices are packed to their diagonal
-blocks; `block_diag_cmm` runs the CUDA kernel `csrc/block_diag_cmm.cu` on
-CUDA tensors and the dense einsum (`_block_diag_cmm_plain`) on CPU
-tensors.
+(k, radius) the folded coaxial factor X (child-state m-blocks of size
+n-|m| after an l<->m permutation, 2.1% nonzero).  The JAX package applies
+all three as dense [H, H] einsums over padded lanes
+(biem_helmholtz_sphere_tpu/biem/_core.py, the factored `mv`).  Here the
+matrices are packed to their diagonal blocks and the lanes are compacted:
+x [K, L, H] holds only the lanes that route a pair, sorted so that each
+matrix's lanes form one contiguous segment (`LaneSegments`, a CSR over
+lanes).  `block_diag_cmm` runs the CUDA kernel `csrc/block_diag_cmm.cu`
+on CUDA tensors, from a work list built on the host once per shape
+(`work_list`), and the dense per-segment matmuls
+(`_block_diag_cmm_plain`) on CPU tensors.
 """
 
 from dataclasses import dataclass, replace
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from . import kernels
+
+# work item columns: vals matrix, first k, k count, first lane of the
+# segment, segment length, blocks [b0, b1), item lanes [q0, q1) of the
+# nk * nl lanes (k-major)
+ITEM_FIELDS = 9
+_ROW_TILE = 4  # rows of a thread's register tile (csrc/block_diag_cmm.cu)
+_LANE_TILE = 2  # lanes of a thread's register tile
+_ITEMS_PER_LAUNCH = 264  # work target: two items per SM of a 132-SM H100
+_BUF_BYTES = 56 * 1024  # one staging buffer: two per CTA, two CTAs per SM
+_SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
 
 
 @dataclass(frozen=True)
@@ -34,10 +49,20 @@ class BlockDiag:
     voffs: torch.Tensor  # int32 [nblk]
     rows: torch.Tensor  # int64 [nnz] basis row of each packed value
     cols: torch.Tensor  # int64 [nnz] basis column of each packed value
-    perm: torch.Tensor | None  # int64 [H] packed index -> basis index
-    inv_perm: torch.Tensor | None
+    perm: torch.Tensor | None  # int32 [H] packed index -> basis index
     h: int
-    g_max: int
+    block_sizes: tuple  # sizes, on the host
+
+
+@dataclass(frozen=True)
+class LaneSegments:
+    """Lanes ptr[m] .. ptr[m+1] of x [K, L, H] are multiplied by matrix m.
+
+    A matrix stack [M, nnz] is shared by the K k's; a stack [K, M, nnz]
+    has one matrix m per k.
+    """
+
+    ptr: tuple  # M + 1 nondecreasing lane offsets, ptr[0] = 0, ptr[-1] = L
 
 
 def pack_layout(sizes, perm, h, device):
@@ -60,9 +85,8 @@ def pack_layout(sizes, perm, h, device):
         vals=None,
         offs=t(offs), sizes=t(sizes), voffs=t(voffs),
         rows=t(rows, torch.int64), cols=t(cols, torch.int64),
-        perm=None if perm is None else t(p, torch.int64),
-        inv_perm=None if perm is None else t(np.argsort(p), torch.int64),
-        h=h, g_max=int(sizes.max()),
+        perm=None if perm is None else t(p),
+        h=h, block_sizes=tuple(int(g) for g in sizes),
     )
 
 
@@ -80,49 +104,147 @@ def unpack(a):
     return dense
 
 
-def _block_diag_cmm_plain(dense, x, adjoint):
-    """y[..., s, p, :] = op(A_s) x[..., s, p, :] with dense A [..., S, H, H]."""
-    if adjoint:
-        return x @ dense.conj()  # y_h = sum_g conj(A[g, h]) x_g
-    return x @ dense.transpose(-1, -2)  # y_h = sum_g A[h, g] x_g
+def _round_up(v, m):
+    return -(-v // m) * m
 
 
-def block_diag_cmm(a, x, adjoint=False):
-    """op(A_s) applied to every lane of x: x, y complex [..., S, P, H].
+def work_list(block_sizes, seg_ptr, n_k, per_k, budget):
+    """The kernel's work items, largest first: int32 [n, ITEM_FIELDS].
 
-    A's stack shape a.vals.shape[:-1] must be a suffix of x.shape[:-2]
-    (leading x axes share the matrices, e.g. D shared by the k's of a
-    block).  op is the identity or, with adjoint=True, the conjugate
+    One item applies a run of consecutive diagonal blocks of one matrix to
+    a run of its lanes (all K k's for a shared matrix).  Items aim at the
+    total work over _ITEMS_PER_LAUNCH, work counted as g^2 x lanes; a
+    block whose work alone exceeds that target has its lanes split into
+    even chunks (its values are then read once per chunk).  `budget` bounds an item's
+    staging footprint in complex elements: each block takes g x gp for
+    op(A) (gp: g rounded up to the row tile) and lanes x g for the lanes'
+    slices (lanes rounded up to the lane tile).  Matrices with no lanes get
+    no item.  Every (matrix, block, k, lane) is covered exactly once.
+    """
+    g = np.asarray(block_sizes, dtype=np.int64)
+    gp = _round_up(g, _ROW_TILE)
+    seg = np.asarray(seg_ptr, dtype=np.int64)
+    n_mat = len(seg) - 1
+    units = []  # (vals matrix, k0, nk, lane0, nl)
+    for m in range(n_mat):
+        nl = int(seg[m + 1] - seg[m])
+        if nl == 0:
+            continue
+        if per_k:
+            units += [(k * n_mat + m, k, 1, int(seg[m]), nl) for k in range(n_k)]
+        else:
+            units.append((m, 0, n_k, int(seg[m]), nl))
+    g2 = g * g
+    target = max(1, sum(u[2] * u[4] for u in units) * int(g2.sum()) // _ITEMS_PER_LAUNCH)
+    fit = (budget - g * gp) // g // _LANE_TILE * _LANE_TILE  # most lanes per block
+    if (fit < _LANE_TILE).any():
+        raise ValueError(f"a diagonal block of size {int(g.max())} does not fit the "
+                         f"kernel's shared memory")
+    items, work = [], []
+    for mat, k0, nk, lane0, nl in units:
+        q_all = nk * nl
+        # lanes per chunk for each block: the whole segment unless the
+        # block's work exceeds the target or its footprint the budget
+        chunks = np.maximum(-(-g2 * q_all // target), -(-q_all // fit))
+        chunk = np.minimum(_round_up(-(-q_all // chunks), _LANE_TILE), fit)
+        run = None  # open item over whole lanes: [b0, b1, work, footprint]
+        for b in range(len(g)):
+            if chunk[b] < q_all:
+                for q0 in range(0, q_all, int(chunk[b])):
+                    q1 = min(q_all, q0 + int(chunk[b]))
+                    items.append((mat, k0, nk, lane0, nl, b, b + 1, q0, q1))
+                    work.append(int(g2[b]) * (q1 - q0))
+                continue
+            w_b = int(g2[b]) * q_all
+            f_b = int(g[b] * gp[b] + _round_up(q_all, _LANE_TILE) * g[b])
+            if run is not None and (run[1] != b or run[2] + w_b > target
+                                    or run[3] + f_b > budget):
+                items.append((mat, k0, nk, lane0, nl, run[0], run[1], 0, q_all))
+                work.append(run[2])
+                run = None
+            if run is None:
+                run = [b, b, 0, 0]
+            run[1], run[2], run[3] = b + 1, run[2] + w_b, run[3] + f_b
+        if run is not None:
+            items.append((mat, k0, nk, lane0, nl, run[0], run[1], 0, q_all))
+            work.append(run[2])
+    order = np.argsort(-np.asarray(work, dtype=np.int64), kind="stable")
+    return np.asarray(items, dtype=np.int32).reshape(-1, ITEM_FIELDS)[order]
+
+
+def item_footprint(items, block_sizes):
+    """Staging footprint of each work item in complex elements."""
+    g = np.asarray(block_sizes, dtype=np.int64)
+    gp = _round_up(g, _ROW_TILE)
+    per = g * gp
+    return np.array([
+        int(per[b0:b1].sum() + _round_up(q1 - q0, _LANE_TILE) * g[b0:b1].sum())
+        for b0, b1, q0, q1 in items[:, [5, 6, 7, 8]]
+    ], dtype=np.int64)
+
+
+@lru_cache(maxsize=32)
+def _plan(block_sizes, seg_ptr, n_k, per_k, elem_bytes, device):
+    """(items on the device, item count, elements per staging buffer)."""
+    budget = _BUF_BYTES // elem_bytes
+    need = max(g * _round_up(g, _ROW_TILE) + _LANE_TILE * g for g in block_sizes)
+    if need > budget:  # one block and two lanes must fit a buffer
+        budget = _SMEM_MAX // 2 // elem_bytes
+    items = work_list(block_sizes, seg_ptr, n_k, per_k, budget)
+    # a multiple of 4 elements keeps the second buffer 16-byte aligned
+    buf = _round_up(int(item_footprint(items, block_sizes).max()), 4) if len(items) else 0
+    return torch.as_tensor(items, device=device), len(items), buf
+
+
+def _block_diag_cmm_plain(dense, x, seg, adjoint):
+    """y[k, l] = op(A_m) x[k, l] for the lanes l of segment m; dense
+    [M, H, H] shared by the k's, or [K, M, H, H]."""
+    y = torch.zeros_like(x)
+    for m, (lo, hi) in enumerate(zip(seg.ptr[:-1], seg.ptr[1:])):
+        if lo == hi:
+            continue
+        a = dense[..., m, :, :]
+        # adjoint: y_h = sum_g conj(A[g, h]) x_g; else y_h = sum_g A[h, g] x_g
+        y[:, lo:hi] = x[:, lo:hi] @ (a.conj() if adjoint else a.transpose(-1, -2))
+    return y
+
+
+def block_diag_cmm(a, x, seg, adjoint=False):
+    """op(A_m) applied to the lanes of each segment m: x, y complex [K, L, H].
+
+    a.vals is [M, nnz] (shared by the k's, e.g. D) or [K, M, nnz] (one
+    matrix per k, e.g. X); seg is a LaneSegments with M + 1 offsets ending
+    at L.  op is the identity or, with adjoint=True, the conjugate
     transpose.
     """
-    stack = a.vals.shape[:-1]
-    if tuple(x.shape[-2 - len(stack):-2]) != tuple(stack) or x.shape[-1] != a.h:
+    n_k, n_lanes, h = x.shape
+    stack = tuple(a.vals.shape[:-1])
+    n_mat = len(seg.ptr) - 1
+    per_k = len(stack) == 2
+    if stack not in ((n_mat,), (n_k, n_mat)) or seg.ptr[-1] != n_lanes or h != a.h:
         raise ValueError(
-            f"x {tuple(x.shape)} does not match the matrix stack {tuple(stack)} "
-            f"of [{a.h}, {a.h}] matrices"
+            f"x {tuple(x.shape)} does not match the matrix stack {stack} of "
+            f"[{a.h}, {a.h}] matrices over {n_mat} lane segments ending at {seg.ptr[-1]}"
         )
     if x.device.type == "cpu":
-        return _block_diag_cmm_plain(unpack(a), x, adjoint)
+        return _block_diag_cmm_plain(unpack(a), x, seg, adjoint)
     if x.device.type != "cuda":
         raise RuntimeError(f"block_diag_cmm: unsupported device {x.device}")
     if x.dtype not in (torch.complex64, torch.complex128) or a.vals.dtype != x.dtype:
         raise TypeError(f"block_diag_cmm: dtypes {a.vals.dtype}, {x.dtype}")
-    if a.perm is not None:
-        x = x.index_select(-1, a.perm)
+    items, n_items, buf = _plan(a.block_sizes, tuple(seg.ptr), n_k, per_k,
+                                x.element_size(), x.device)
     x = x.contiguous()
     y = torch.empty_like(x)
-    n_mat = int(np.prod(stack))
-    n_stack = x.numel() // (x.shape[-2] * x.shape[-1])
     kernels.launch(
         "bhs_block_diag_cmm",
         kernels.ptr(a.vals), kernels.ptr(a.offs), kernels.ptr(a.sizes),
-        kernels.ptr(a.voffs), kernels.ptr(x), kernels.ptr(y),
-        n_stack, n_mat, a.vals.shape[-1], x.shape[-2], a.h, len(a.sizes),
-        a.g_max, int(adjoint), int(x.dtype == torch.complex128),
+        kernels.ptr(a.voffs), 0 if a.perm is None else kernels.ptr(a.perm),
+        kernels.ptr(items), n_items, kernels.ptr(x), kernels.ptr(y),
+        a.vals.shape[-1], n_lanes, h, buf, int(adjoint),
+        int(x.dtype == torch.complex128),
     )
     block_diag_cmm.launches += 1
-    if a.perm is not None:
-        y = y.index_select(-1, a.inv_perm)
     return y
 
 

@@ -39,13 +39,13 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns a cudaError_t)
 _SIGNATURES = {
-    # x, sx_d, sx_k, sx_p, kx, centers, k, w2, coef_a, coef_b1, coef_bb,
-    # p0, out, P, K, B, n, far, per_ball, lim, rescale, dbl, stream
+    # x, sx_d, sx_k, sx_p, kx, centers, k, w2, coef_ab, coef_b1, coef_bb,
+    # p0, out, P, K, B, n, far, per_ball, few, lim, rescale, dbl, stream
     "bhs_fused_ba_eval": [_P, _L, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _I, _I, _I, _I, _I, _I, _D, _D, _I, _P],
-    # vals, offs, sizes, voffs, x, y, n_stack, n_mat, nnz, P, H, nblk,
-    # g_max, adjoint, dbl, stream
-    "bhs_block_diag_cmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _P],
+    # vals, offs, sizes, voffs, perm, items, n_items, x, y, nnz, L, H,
+    # buf_elems, adjoint, dbl, stream
+    "bhs_block_diag_cmm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P],
     # x, blc, pm, src, lanes, K, B, L, H, dbl, stream
     "bhs_lane_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -1,12 +1,12 @@
 """KC: routing of sphere vectors into pair lanes and back.
 
 The factored (S|R) matvec works on "lanes": one row per (offset slot,
-pair), the first p_max of each slot's 2*p_max lanes for the pairs b < b'
-and the rest for their mirrors.  `lane_gather` fills the lanes with
-blc * x of each lane's source ball, times the parity (-1)^n on mirror
-sources; `lane_scatter` applies the parity to the mirror lanes, sums each
-destination ball's lanes in a fixed CSR order and adds the diagonal:
-out = diag * x + reg * sum.  The JAX package does both with one-hot
+pair) that routes a pair, a b < b' pair or its mirror, compacted (no
+padding lane) and sorted by slot (see biem._core._pair_routing).
+`lane_gather` fills the lanes with blc * x of each lane's source ball,
+times the parity (-1)^n on mirror sources; `lane_scatter` applies the
+parity to the mirror lanes, sums each destination ball's lanes in a
+fixed CSR order and adds the diagonal: out = diag * x + reg * sum.  The JAX package does both with one-hot
 routing matmuls (biem_helmholtz_sphere_tpu/biem/_core.py, the factored
 `mv`).  On CUDA tensors both run the kernels of `csrc/lane_route.cu`,
 with no atomics, so the sum order never changes between runs; on CPU
@@ -25,8 +25,8 @@ from . import kernels
 class LaneRoute:
     """Integer routing tables of the pair lanes (on the operator's device)."""
 
-    src: torch.Tensor  # int32 [L]: source row of [z; z*pm] (b' or B + b), -1 unused
-    dst: torch.Tensor  # int64 [L]: destination ball, -1 unused
+    src: torch.Tensor  # int32 [L]: source row of [z; z*pm] (b' or B + b)
+    dst: torch.Tensor  # int64 [L]: destination ball
     dn: torch.Tensor  # bool [L]: mirror lane (parity applied to its output)
     csr_ptr: torch.Tensor  # int32 [B+1]
     csr_lane: torch.Tensor  # int32 [nnz]: lanes of each ball, ascending
@@ -34,12 +34,14 @@ class LaneRoute:
     n_balls: int
 
 
-def make_route(src, dst, p_max, n_balls, device):
-    """Tables from flat lane arrays (src/dst as from biem._core._pair_routing)."""
+def make_route(src, dst, dn, n_balls, device):
+    """Tables from the compacted lane arrays (src, dst, dn as from
+    biem._core._pair_routing)."""
     src = np.asarray(src)
     dst = np.asarray(dst)
-    n_lanes = len(src)
-    dn = (np.arange(n_lanes) % (2 * p_max)) >= p_max
+    dn = np.asarray(dn, dtype=bool)
+    if (src < 0).any() or (dst < 0).any():
+        raise ValueError("make_route: every lane must route a pair")
     lanes = [np.nonzero(dst == b)[0] for b in range(n_balls)]
     ptr = np.concatenate([[0], np.cumsum([len(v) for v in lanes])])
     csr_lane = np.concatenate(lanes)
@@ -71,12 +73,11 @@ def _check(name, pm, *tensors):
 def _lane_gather_plain(x, blc, pm, route):
     z = blc * x
     zs = torch.cat([z, z * pm], dim=-2)  # [K, 2B, H]
-    lanes = zs.index_select(-2, route.src.clamp(min=0).long())
-    return lanes * (route.src >= 0)[:, None]
+    return zs.index_select(-2, route.src.long())
 
 
 def lane_gather(x, blc, pm, route):
-    """lanes[k, l, :] = [blc*x; blc*x*pm][k, src[l], :] (0 on unused lanes).
+    """lanes[k, l, :] = [blc*x; blc*x*pm][k, src[l], :].
 
     x, blc: complex [K, B, H]; pm: real [H]; returns complex [K, L, H].
     """
@@ -102,10 +103,7 @@ lane_gather.launches = 0
 
 def _lane_scatter_plain(y, x, diag, reg, pm, route):
     y = torch.where(route.dn[:, None], y * pm, y)
-    used = torch.nonzero(route.dst >= 0)[:, 0]
-    cpl = torch.zeros_like(x).index_add_(
-        -2, route.dst[used], y.index_select(-2, used)
-    )
+    cpl = torch.zeros_like(x).index_add_(-2, route.dst, y)
     return diag * x + reg * cpl
 
 

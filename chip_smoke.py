@@ -11,22 +11,29 @@ non-zero before the result line):
    (one nvcc per source, all at once, then one link), and time one launch
    of a trivial kernel (the launch latency);
 2. hold each kernel against its plain PyTorch version on the card at the
-   bench shapes, in complex64 and complex128, and time both; compute each
+   bench shapes, in complex64 and complex128, and time both (KB and KC on
+   the bench routing's 240 compacted lanes with X's actual child-state
+   permutation; KA in its many-point mode at 131,072 points and its
+   few-point mode at 1 point x 4 k, near and far, summed and per ball;
+   KA and KB launched twice and required bit-for-bit equal); compute each
    kernel's bound from its shapes (the larger of its bytes over 3.35 TB/s
    and its operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, the
    H100 SXM's published rates; padding counts as no work: only the lanes
    that route a pair, the offset slots that hold one, the bands inside
    the mask l + l' >= n and the (m, l) pairs with l >= |m|) and time the
-   one PyTorch call that computes the same function where there is one;
+   one PyTorch call that computes the same function where there is one
+   (KB: one dense matmul over the padded lanes);
 3. the README golden (two unit spheres, k=1, n_end=6) through the port in
    complex128, to 6 decimal places;
 4. the bench configuration (16 unit spheres on a 4x4 lattice, n_end=32,
    complex64, two k-blocks of 4 with warm starts) through `biem()`:
-   launch counts of every kernel, GMRES residuals, uscat(0) against the
-   committed float64 golden of the JAX package, the sound-soft boundary
-   residual, the peak device memory, a bit-for-bit repeat of the sweep,
-   a stage split with synchronising timers in a pass of its own, and
-   uscat throughput.
+   launch counts of every kernel over the sweep, GMRES residuals,
+   uscat(0) against the committed float64 golden of the JAX package, the
+   sound-soft boundary residual, the peak device memory, a bit-for-bit
+   repeat of the sweep, a stage split with synchronising timers in a pass
+   of its own, one matvec with at most 3 block_diag_cmm launches and no
+   index_select, and the field evaluation path (uscat at 131,072 points
+   for one k, its launch counts read around it) with its throughput.
 
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
@@ -101,6 +108,13 @@ def randc(torch, rng, shape, dtype, dev):
     return torch.as_tensor(z, dtype=dtype, device=dev)
 
 
+def same_bits(torch, a, b):
+    """Bitwise equal complex tensors (NaN included)."""
+    def bits(t):
+        return torch.view_as_real(t).contiguous().view(torch.uint8)
+    return torch.equal(bits(a), bits(b))
+
+
 def bound(nbytes, flops, name):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
@@ -157,7 +171,7 @@ def check_kernels(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
     from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
-        _block_diag_cmm_plain, block_diag_cmm, pack, unpack)
+        LaneSegments, _block_diag_cmm_plain, block_diag_cmm, pack, unpack)
     from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
         _lane_gather_plain, _lane_scatter_plain, lane_gather, lane_scatter,
         make_route)
@@ -259,7 +273,8 @@ def check_kernels(torch, dev, card):
             "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
             "bound_by": b[1], "library_ms": None}
 
-        # KB: D^H, X (permuted child-state blocks), D on the bench lanes
+        # KB: D^H, X (its child-state permutation read by the kernel), D on
+        # the bench routing's 240 compacted lanes
         d_bd = pack(torch.zeros((n_slots, h, h), dtype=cdt, device=dev),
                     2 * np.arange(N_END) + 1)
         d_bd = replace(d_bd, vals=randc(torch, rng, d_bd.vals.shape, cdt, dev))
@@ -267,46 +282,60 @@ def check_kernels(torch, dev, card):
                     cs_sizes, cs_perm)
         x_bd = replace(x_bd, vals=randc(torch, rng, x_bd.vals.shape, cdt, dev))
         d_dense, x_dense = unpack(d_bd), unpack(x_bd)
-        lanes = randc(torch, rng, (KB, n_slots, lps, h), cdt, dev)
-        lanes_x = lanes.reshape(KB, n_rad, -1, h)
-        # the work the matvec needs: the lanes that route a pair (src >= 0)
-        # and the offset slots that hold one; the rest is padding
-        n_used = int((routing.src >= 0).sum())
-        n_real = int((routing.src.reshape(n_slots, lps) >= 0).any(axis=1).sum())
+        n_used = len(routing.src)
+        lanes = randc(torch, rng, (KB, n_used, h), cdt, dev)
+        d_seg = LaneSegments(tuple(int(v) for v in routing.slot_ptr))
+        x_seg = LaneSegments(tuple(int(v) for v in routing.rad_ptr))
+        # the library yardstick: one dense matmul over the padded lanes
+        padded = torch.zeros((KB, n_slots * lps, h), dtype=cdt, device=dev)
+        padded[:, torch.as_tensor(routing.lane, device=dev)] = lanes
+        pad_d = padded.reshape(KB, n_slots, lps, h)
+        pad_x = padded.reshape(KB, n_rad, -1, h)
+        # the matrices a product needs: the slots that hold an offset, the
+        # (k, radius) pairs (every radius holds one)
+        n_real = int((np.diff(routing.slot_ptr) > 0).sum())
         cases = [
-            ("D^H", lambda: block_diag_cmm(d_bd, lanes, adjoint=True),
-             lambda: _block_diag_cmm_plain(d_dense, lanes, True), d_bd, n_real),
-            ("X", lambda: block_diag_cmm(x_bd, lanes_x),
-             lambda: _block_diag_cmm_plain(x_dense, lanes_x, False), x_bd, KB * n_rad),
-            ("D", lambda: block_diag_cmm(d_bd, lanes),
-             lambda: _block_diag_cmm_plain(d_dense, lanes, False), d_bd, n_real),
+            ("D^H", lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True),
+             lambda: _block_diag_cmm_plain(d_dense, lanes, d_seg, True),
+             lambda: torch.matmul(pad_d, d_dense.conj()), d_bd, n_real),
+            ("X", lambda: block_diag_cmm(x_bd, lanes, x_seg),
+             lambda: _block_diag_cmm_plain(x_dense, lanes, x_seg, False),
+             lambda: torch.matmul(pad_x, x_dense.transpose(-1, -2)), x_bd, KB * n_rad),
+            ("D", lambda: block_diag_cmm(d_bd, lanes, d_seg),
+             lambda: _block_diag_cmm_plain(d_dense, lanes, d_seg, False),
+             lambda: torch.matmul(pad_d, d_dense.transpose(-1, -2)), d_bd, n_real),
         ]
-        kb = {"ms": 0.0, "plain_ms": 0.0, "abs": 0.0, "rel": 0.0, "bounds": []}
-        for label, kfn, pfn, bd, n_mat in cases:
-            ea, er = rel_err(torch, kfn(), pfn())
-            ms, pms = cuda_ms(torch, kfn, 10), cuda_ms(torch, pfn, 5)
+        kb = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "abs": 0.0, "rel": 0.0,
+              "bounds": []}
+        for label, kfn, pfn, lfn, bd, n_mat in cases:
+            got = kfn()
+            ea, er = rel_err(torch, got, pfn())
+            if not same_bits(torch, kfn(), got):
+                raise RuntimeError(f"block_diag_cmm {label} {name}: two launches differ")
+            ms, pms, lms = cuda_ms(torch, kfn, 20), cuda_ms(torch, pfn, 5), cuda_ms(torch, lfn, 5)
             nnz = bd.vals.shape[-1]
             b = bound(n_mat * nnz * cs + 2 * KB * n_used * h * cs,
                       8 * KB * n_used * nnz, name)
-            print(f"[2] block_diag_cmm {label:3s} {name}: max_abs_err {ea:.3e} "
-                  f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain (one matmul) "
-                  f"{pms:.4f} ms bound {b[0]:.6f} ms ({card})")
+            print(f"[2] block_diag_cmm {label:3s} {KB} k x {n_used} lanes {name}: max_abs_err "
+                  f"{ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+                  f"library (dense matmul, padded lanes) {lms:.4f} ms bound {b[0]:.6f} ms "
+                  f"({b[1]}) ({card})")
             if er > tol:
                 raise RuntimeError(f"block_diag_cmm {label} {name}: rel err {er:.3e} > {tol}")
             kb = {"ms": kb["ms"] + ms, "plain_ms": kb["plain_ms"] + pms,
+                  "library_ms": kb["library_ms"] + lms,
                   "abs": max(kb["abs"], ea), "rel": max(kb["rel"], er),
                   "bounds": kb["bounds"] + [b]}
         kb["bound_ms"], kb["bound_by"] = add_bounds(kb.pop("bounds"))
-        kb["library_ms"] = kb["plain_ms"]  # the plain version is one matmul
         results.setdefault("block_diag_cmm", {})[name] = kb
 
-        # KC: gather and scatter with the bench routing
-        route = make_route(routing.src, routing.dst, routing.p_max, nb, dev)
+        # KC: gather and scatter with the bench routing's compacted lanes
+        route = make_route(routing.src, routing.dst, routing.dn, nb, dev)
         pm = torch.as_tensor((-1.0) ** (n_root % 2), dtype=rdt, device=dev)
         xv, blc, diag, reg = (randc(torch, rng, (KB, nb, h), cdt, dev) for _ in range(4))
-        y = randc(torch, rng, (KB, len(routing.src), h), cdt, dev)
-        n_lanes, small = y.shape[1], h * rs + 2 * n_used * 4
-        used = KB * n_used * h  # lane entries that route a pair
+        y = randc(torch, rng, (KB, n_used, h), cdt, dev)
+        small = h * rs + 2 * n_used * 4
+        used = KB * n_used * h  # lane entries, all of which route a pair
         for kname, kfn, pfn, b in (
             ("lane_gather", lambda: lane_gather(xv, blc, pm, route),
              lambda: _lane_gather_plain(xv, blc, pm, route),
@@ -318,7 +347,7 @@ def check_kernels(torch, dev, card):
         ):
             ea, er = rel_err(torch, kfn(), pfn())
             ms, pms = cuda_ms(torch, kfn, 20), cuda_ms(torch, pfn, 20)
-            print(f"[2] {kname} {n_lanes} lanes {name}: max_abs_err {ea:.3e} max_rel_err "
+            print(f"[2] {kname} {n_used} lanes {name}: max_abs_err {ea:.3e} max_rel_err "
                   f"{er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms ({card})")
             if er > tol:
                 raise RuntimeError(f"{kname} {name}: rel err {er:.3e} > {tol}")
@@ -326,48 +355,65 @@ def check_kernels(torch, dev, card):
                 "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
                 "bound_by": b[1], "library_ms": None}
 
-        # KA: near field at 131072 points (k=8) and uscat(0) for a k-block
+        # KA in both modes: 131,072 points for one k (the many-point mode)
+        # and uscat(0) for a k-block, 1 point x 4 k (the few-point mode);
+        # near and far, summed and per ball
         ell = torch.as_tensor(n_root, device=dev)
-        w = randc(torch, rng, (1, nb, h), cdt, dev) * torch.exp(-ell.to(rdt))
-        w2 = regroup(c, N_END, w)
         cen = torch.as_tensor(centers_np, dtype=rdt, device=dev)
-        pts = torch.as_tensor(
-            np.random.default_rng(0).normal(size=(3, EVAL_POINTS)) * 20.0,
-            dtype=rdt, device=dev,
-        )[:, None, :]
-        k1 = torch.full((1,), K0, dtype=rdt, device=dev)
+        raw = np.random.default_rng(0).normal(size=(3, EVAL_POINTS))
+        pts = torch.as_tensor(raw * 20.0, dtype=rdt, device=dev)[:, None, :]
+        dirs = torch.as_tensor(raw / np.linalg.norm(raw, axis=0), dtype=rdt,
+                               device=dev)[:, None, :]
         outside = (torch.linalg.vector_norm(
             pts[:, 0, :, None] - cen.T[:, None, :], dim=0) > 1.0).all(-1)
-        ka = fused_ba_eval(pts, cen, k1, w2)
-        ea, er = rel_err(torch, ka[:, 0], _fused_ba_eval_plain(pts, cen, k1, w2, False, False)[:, 0], outside)
-        ms = cuda_ms(torch, lambda: fused_ba_eval(pts, cen, k1, w2), 10)
-        pms = cuda_ms(torch, lambda: _fused_ba_eval_plain(pts, cen, k1, w2, False, False), 3)
-        # per (point, ball): the geometry, the h recurrence, 13 per (m, l)
-        # pair with l >= |m| (sum_m (N_END - |m|) = N_END^2 of them; the
-        # Legendre recurrence shared by +-m, the product and the sum) and
-        # the phase of each of the 2 N_END - 1 orders
-        n_m = 2 * N_END - 1
-        b = bound(3 * EVAL_POINTS * rs + 4 * nb * rs + w2.numel() * cs + EVAL_POINTS * cs,
-                  EVAL_POINTS * nb * (30 + 15 * N_END + 13 * N_END * N_END + 10 * n_m), name)
-        print(f"[2] fused_ba_eval near {EVAL_POINTS} pts {name}: max_abs_err {ea:.3e} "
-              f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
-              f"bound {b[0]:.6f} ms ({card})")
-        if er > tol:
-            raise RuntimeError(f"fused_ba_eval {name}: rel err {er:.3e} > {tol}")
-        results.setdefault("fused_ba_eval", {})[name] = {
-            "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": None}
+        k1 = torch.full((1,), K0, dtype=rdt, device=dev)
+        w2 = regroup(c, N_END, randc(torch, rng, (1, nb, h), cdt, dev) * torch.exp(-ell.to(rdt)))
         kb4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
         w2b = regroup(c, N_END, randc(torch, rng, (KB, nb, h), cdt, dev)
                       * torch.exp(-ell.to(rdt)))
         zero = torch.zeros((3, 1, 1), dtype=rdt, device=dev)
-        for far in (False, True):
-            ea, er = rel_err(torch, fused_ba_eval(zero, cen, kb4, w2b, far=far),
-                             _fused_ba_eval_plain(zero, cen, kb4, w2b, far, False))
-            print(f"[2] fused_ba_eval {'far' if far else 'near'} 1 pt x K={KB} {name}: "
-                  f"max_abs_err {ea:.3e} max_rel_err {er:.3e}")
-            if er > tol:
-                raise RuntimeError(f"fused_ba_eval K={KB} {name}: rel err {er:.3e} > {tol}")
+        n_m = 2 * N_END - 1
+        # (near points, far directions) of each mode
+        for row, label, xs, kk, ww, mask, n_pts in (
+            ("fused_ba_eval", f"{EVAL_POINTS} pts x 1 k", (pts, dirs), k1, w2, outside,
+             EVAL_POINTS),
+            ("fused_ba_eval_few", f"1 pt x {KB} k", (zero, dirs[:, :, :1].contiguous()),
+             kb4, w2b, None, 1),
+        ):
+            n_launch = (fused_ba_eval.launches, fused_ba_eval.few_launches)
+            for far in (False, True):
+                xx = xs[1] if far else xs[0]
+                for per_ball in (False, True):
+                    got = fused_ba_eval(xx, cen, kk, ww, far=far, per_ball=per_ball)
+                    ref = _fused_ba_eval_plain(xx, cen, kk, ww, far, per_ball)
+                    ea, er = rel_err(torch, got, ref, None if far else mask)
+                    again = fused_ba_eval(xx, cen, kk, ww, far=far, per_ball=per_ball)
+                    if not same_bits(torch, again, got):
+                        raise RuntimeError(f"{row} {label}: two launches differ")
+                    print(f"[2] {row} {label} {'far' if far else 'near'}"
+                          f"{' per_ball' if per_ball else ''} {name}: max_abs_err {ea:.3e} "
+                          f"max_rel_err {er:.3e}")
+                    if er > tol:
+                        raise RuntimeError(f"{row} {label} {name}: rel err {er:.3e} > {tol}")
+                    if not (far or per_ball):
+                        near_err = (ea, er)
+            mode = (fused_ba_eval.launches - n_launch[0], fused_ba_eval.few_launches - n_launch[1])
+            if mode != ((8, 0) if row == "fused_ba_eval" else (0, 8)):
+                raise RuntimeError(f"{row} {label}: launched (many, few) = {mode}")
+            ms = cuda_ms(torch, lambda: fused_ba_eval(xs[0], cen, kk, ww), 10)
+            pms = cuda_ms(torch, lambda: _fused_ba_eval_plain(xs[0], cen, kk, ww, False, False), 3)
+            # per (point, k, ball): the geometry, the h recurrence, 13 per
+            # (m, l) pair with l >= |m| (sum_m (N_END - |m|) = N_END^2 of
+            # them; the Legendre recurrence shared by +-m, the product and
+            # the sum) and the phase of each of the 2 N_END - 1 orders
+            n_pk = n_pts * len(kk)
+            b = bound(3 * n_pts * rs + 4 * nb * rs + ww.numel() * cs + n_pk * cs,
+                      n_pk * nb * (30 + 15 * N_END + 13 * N_END * N_END + 10 * n_m), name)
+            print(f"[2] {row} near {label} {name}: kernel {ms:.4f} ms plain {pms:.4f} ms "
+                  f"bound {b[0]:.6f} ms ({b[1]}) ({card})")
+            results.setdefault(row, {})[name] = {
+                "ms": ms, "plain_ms": pms, "abs": near_err[0], "rel": near_err[1],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     return results
 
 
@@ -440,9 +486,22 @@ def bench_config(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
 
-    wrappers = {"fused_ba_eval": fused_ba_eval, "block_diag_cmm": block_diag_cmm,
-                "lane_gather": lane_gather, "lane_scatter": lane_scatter,
-                "spherical_jh": spherical_jh, "coax_fold": coax_fold}
+    # each kernel's launch count: (wrapper, attribute)
+    counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
+                "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
+                "block_diag_cmm": (block_diag_cmm, "launches"),
+                "lane_gather": (lane_gather, "launches"),
+                "lane_scatter": (lane_scatter, "launches"),
+                "spherical_jh": (spherical_jh, "launches"),
+                "coax_fold": (coax_fold, "launches")}
+
+    def reset():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+
     c = create_from_branching_types("ba")
     f = dict(dtype=torch.float32, device=dev)
     centers_np = lattice_centers()
@@ -454,17 +513,18 @@ def bench_config(torch, dev, card):
     torch.cuda.reset_peak_memory_stats()
     block(ks[:KB] - 0.5, None)  # warm-up block: caches, allocator, kernel load
     torch.cuda.synchronize()
-    for wrap in wrappers.values():
-        wrap.launches = 0
+    reset()
     t0 = time.perf_counter()
     run1 = sweep()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: wrap.launches for name, wrap in wrappers.items()}
+    launches = read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[4] launches in the sweep: {launches}")
     for name, n in launches.items():
-        if n <= 0:
+        # the sweep evaluates uscat(0) only: the many-point KA runs in the
+        # field evaluation path below
+        if n <= 0 and name != "fused_ba_eval":
             raise RuntimeError(f"the main path never launched {name}")
     n_blocks = len(ks) // KB
     # per k-block: K5 for the RHS, the radial rows, the coax bands and
@@ -526,15 +586,28 @@ def bench_config(torch, dev, card):
     if not same:
         raise RuntimeError("the repeated sweep differs")
     stage_split(torch, sweep, len(ks), card)
+    matvec_path(torch, dev, run1[0][0])
 
+    # the field evaluation path: uscat at EVAL_POINTS points for one k
     uin, _ = plane_wave(k=torch.tensor(K0, **f), direction=direction)
     calc = biem(c, centers=centers, radii=torch.ones(nb, **f), k=torch.tensor(K0, **f),
                 n_end=N_END, uin=uin)
     x = torch.as_tensor(
         np.random.default_rng(0).normal(size=(3, EVAL_POINTS)).astype(np.float32) * 20.0,
         device=dev)
-    calc.uscat(x)
     torch.cuda.synchronize()
+    reset()
+    u = calc.uscat(x)
+    torch.cuda.synchronize()
+    field = read()
+    print(f"[4] launches in the field evaluation ({EVAL_POINTS} points): {field}")
+    if field["fused_ba_eval"] <= 0:
+        raise RuntimeError("the field evaluation never launched the many-point fused_ba_eval")
+    outside = (torch.linalg.vector_norm(x[:, :, None] - centers.T[:, None, :], dim=0)
+               > 1.0).all(-1)
+    if not bool(torch.isfinite(u[outside]).all()):
+        raise RuntimeError("uscat is not finite outside the spheres")
+    launches["fused_ba_eval"] = field["fused_ba_eval"]
     best = float("inf")
     for _ in range(5):
         t0 = time.perf_counter()
@@ -544,6 +617,35 @@ def bench_config(torch, dev, card):
     print(f"[4] uscat throughput {EVAL_POINTS / best:.1f} pts/s "
           f"({EVAL_POINTS} points, best of 5: {best:.6f} s) ({card})")
     return launches
+
+
+def matvec_path(torch, dev, calc):
+    """One matvec of the bench operator: at most 3 block_diag_cmm launches
+    and no index_select (X's permutation is read inside the kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
+
+    n_k = calc.k.numel()
+    mv, _ = _core._factored_operator(
+        calc.c, N_END, calc.centers[0].cpu().numpy().astype(np.float64), calc.radii,
+        calc.k, torch.ones(n_k, dtype=torch.float32, device=dev),
+        torch.ones(calc.radii.shape, dtype=torch.complex64, device=dev),
+        torch.zeros(calc.radii.shape, dtype=torch.complex64, device=dev))
+    x = calc.density.reshape(n_k, -1)
+    mv(x)
+    torch.cuda.synchronize()
+    n0 = block_diag_cmm.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mv(x)
+        torch.cuda.synchronize()
+    n_kb = block_diag_cmm.launches - n0
+    ops = {e.key: e.count for e in prof.key_averages()}
+    print(f"[4] one matvec: {n_kb} block_diag_cmm launches, index_select "
+          f"{ops.get('aten::index_select', 0)} times")
+    if n_kb > 3 or "aten::index_select" in ops:
+        raise RuntimeError("the matvec permutes X's lanes outside block_diag_cmm")
 
 
 def stage_split(torch, sweep, n_k, card):
@@ -629,6 +731,8 @@ def main():
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
                           "biem_helmholtz_sphere_tpu/biem/_eval_fused.py:114"),
+        "fused_ba_eval_few": ("csrc/fused_ba_eval.cu",
+                              "biem_helmholtz_sphere_tpu/biem/_eval_fused.py:114"),
         "block_diag_cmm": ("csrc/block_diag_cmm.cu",
                            "biem_helmholtz_sphere_tpu/biem/_core.py:640"),
         "lane_gather": ("csrc/lane_route.cu",

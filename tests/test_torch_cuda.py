@@ -32,6 +32,7 @@ from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
 from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+    LaneSegments,
     _block_diag_cmm_plain,
     block_diag_cmm,
     pack,
@@ -78,10 +79,23 @@ def _randc(rng, shape):
     return rng.normal(size=shape) + 1j * rng.normal(size=shape)
 
 
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _same_bits(a, b):
+    """Bitwise equal (NaN included)."""
+    def bits(t):
+        return torch.view_as_real(t).contiguous().view(torch.uint8)
+    return torch.equal(bits(a), bits(b))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_cuda_kernels_match_plain_versions(cuda, dtype):
-    tol = 1e-4 if dtype == torch.complex64 else 1e-10
+    """KB and KC on the lattice routing's compacted lanes, and KA, at
+    n_end = 8 (KA's generic instance)."""
+    tol = _tol(dtype)
     rdt = torch.float32 if dtype == torch.complex64 else torch.float64
     rng = np.random.default_rng(27)
     c = create_from_branching_types("ba")
@@ -94,25 +108,24 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype):
     def t(a, dt=dtype):
         return torch.as_tensor(a, dtype=dt, device=cuda)
 
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max())
-
-    for sizes, perm, stack in ((2 * np.arange(n_end) + 1, None, (len(rt.uniq),)),
-                               (*_child_state_blocks(c, n_end), (n_k, len(rt.uniq_r)))):
+    x = t(_randc(rng, (n_k, len(rt.src), h)))
+    for sizes, perm, stack, ptr in (
+        (2 * np.arange(n_end) + 1, None, (len(rt.uniq),), rt.slot_ptr),
+        (*_child_state_blocks(c, n_end), (n_k, len(rt.uniq_r)), rt.rad_ptr),
+    ):
         bd = pack(t(np.zeros(stack + (h, h))), sizes, perm)
         bd = replace(bd, vals=t(_randc(rng, bd.vals.shape)))
-        x = t(_randc(rng, (n_k,) + stack[-1:] + (8, h)))
+        seg = LaneSegments(tuple(int(v) for v in ptr))
         for adj in (False, True):
-            assert rel(block_diag_cmm(bd, x, adj),
-                       _block_diag_cmm_plain(unpack(bd), x, adj)) < tol
+            assert _rel(block_diag_cmm(bd, x, seg, adj),
+                        _block_diag_cmm_plain(unpack(bd), x, seg, adj)) < tol
 
-    route = make_route(rt.src, rt.dst, rt.p_max, nb, cuda)
+    route = make_route(rt.src, rt.dst, rt.dn, nb, cuda)
     pm = t((-1.0) ** (ell % 2), rdt)
-    x, blc, diag, reg = (t(_randc(rng, (n_k, nb, h))) for _ in range(4))
-    y = t(_randc(rng, (n_k, len(rt.src), h)))
-    assert rel(lane_gather(x, blc, pm, route), _lane_gather_plain(x, blc, pm, route)) < tol
-    assert rel(lane_scatter(y, x, diag, reg, pm, route),
-               _lane_scatter_plain(y, x, diag, reg, pm, route)) < tol
+    xb, blc, diag, reg = (t(_randc(rng, (n_k, nb, h))) for _ in range(4))
+    assert _rel(lane_gather(xb, blc, pm, route), _lane_gather_plain(xb, blc, pm, route)) < tol
+    assert _rel(lane_scatter(x, xb, diag, reg, pm, route),
+                _lane_scatter_plain(x, xb, diag, reg, pm, route)) < tol
 
     w2 = regroup(c, n_end, t(_randc(rng, (n_k, nb, h)) * np.exp(-0.7 * ell)))
     pts = rng.normal(size=(3, 1200)) * 10.0
@@ -121,22 +134,88 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype):
     cen, ks = t(centers, rdt), t([1.5, 2.5], rdt)
     for far in (False, True):
         for per_ball in (False, True):
-            assert rel(fused_ba_eval(pts, cen, ks, w2, far=far, per_ball=per_ball),
-                       _fused_ba_eval_plain(pts, cen, ks, w2, far, per_ball)) < tol
+            assert _rel(fused_ba_eval(pts, cen, ks, w2, far=far, per_ball=per_ball),
+                        _fused_ba_eval_plain(pts, cen, ks, w2, far, per_ball)) < tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_block_diag_cmm_unit_blocks_and_empty_segments(cuda, dtype):
+    """KB with g = 1 blocks (a diagonal matrix), a matrix with no lanes,
+    a shared and a per-k stack, and X's permutation; two launches are
+    bitwise equal and no lane is left unwritten."""
+    rng = np.random.default_rng(41)
+    h, n_k = 9, 3
+    seg = LaneSegments((0, 0, 5, 5, 7))  # matrices 0 and 2 have no lanes
+    x = torch.as_tensor(_randc(rng, (n_k, 7, h)), dtype=dtype, device=cuda)
+    for sizes, perm, stack in ((np.ones(h, int), None, (4,)),
+                               (np.array([1, 3, 1, 4]), rng.permutation(h), (n_k, 4)),
+                               (np.array([1, 3, 5]), None, (4,))):
+        bd = pack(torch.zeros(stack + (h, h), dtype=dtype, device=cuda), sizes, perm)
+        bd = replace(bd, vals=torch.as_tensor(_randc(rng, bd.vals.shape), dtype=dtype,
+                                              device=cuda))
+        for adj in (False, True):
+            got = block_diag_cmm(bd, x, seg, adj)
+            assert _rel(got, _block_diag_cmm_plain(unpack(bd), x, seg, adj)) < _tol(dtype)
+            assert _same_bits(block_diag_cmm(bd, x, seg, adj), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n_pts", [1, 131072])
+def test_fused_ba_eval_both_modes(cuda, dtype, n_pts):
+    """KA at the bench widths (n_end = 32, 16 balls) in its few-point mode
+    (1 point x 4 k, uscat(0)) and its many-point mode (131,072 points x
+    1 k): near, far and per ball against the plain version; the mode the
+    shape selects is the one launched; two launches are bitwise equal."""
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import _FEW_POINTS
+
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    rng = np.random.default_rng(43)
+    c = create_from_branching_types("ba")
+    n_end, centers = 32, _lattice()
+    n_k = 4 if n_pts == 1 else 1
+    ell = basis(c, n_end).n_root
+    w2 = regroup(c, n_end, torch.as_tensor(
+        _randc(rng, (n_k, len(centers), n_end * n_end)) * np.exp(-ell), dtype=dtype,
+        device=cuda))
+    cen = torch.as_tensor(centers, dtype=rdt, device=cuda)
+    ks = torch.as_tensor(np.linspace(7.0, 8.0, n_k), dtype=rdt, device=cuda)
+    raw = rng.normal(size=(3, n_pts))
+    # uscat(0) for one point: the origin lies outside every sphere of the lattice
+    near = torch.as_tensor(raw * (0.0 if n_pts == 1 else 20.0), dtype=rdt,
+                           device=cuda)[:, None, :]
+    far_x = torch.as_tensor(raw / np.linalg.norm(raw, axis=0), dtype=rdt,
+                            device=cuda)[:, None, :]
+    keep = (torch.linalg.vector_norm(near[:, 0, :, None] - cen.T[:, None, :], dim=0)
+            > 1.0).all(-1)
+    few = n_pts * n_k < _FEW_POINTS
+    for far, xx in ((False, near), (True, far_x)):
+        for per_ball in (False, True):
+            counts = (fused_ba_eval.launches, fused_ba_eval.few_launches)
+            got = fused_ba_eval(xx, cen, ks, w2, far=far, per_ball=per_ball)
+            assert (fused_ba_eval.launches - counts[0],
+                    fused_ba_eval.few_launches - counts[1]) == ((0, 1) if few else (1, 0))
+            ref = _fused_ba_eval_plain(xx, cen, ks, w2, far, per_ball)
+            m = slice(None) if far else keep
+            assert _rel(got[m], ref[m]) < _tol(dtype), (far, per_ball)
+            assert _same_bits(fused_ba_eval(xx, cen, ks, w2, far=far, per_ball=per_ball), got)
 
 
 @pytest.mark.requires_cuda
 def test_cuda_launch_failure_raises(cuda):
-    """A launch the card refuses (a block larger than shared memory) raises,
-    and the next launch is not poisoned by the stale error."""
-    bd = pack(torch.zeros((1, 400, 400), dtype=torch.complex128, device=cuda),
-              np.array([400]))
-    x = torch.zeros((1, 1, 400), dtype=torch.complex128, device=cuda)
+    """A launch the card refuses (more shared memory than a block may have:
+    KA's generic instance at n_end = 200 in complex128) raises, and the
+    next launch is not poisoned by the stale error."""
+    def call(n_end):
+        w2 = torch.zeros((1, 1, 2 * n_end - 1, n_end), dtype=torch.complex128, device=cuda)
+        x = torch.ones((3, 1, 600), dtype=torch.float64, device=cuda)
+        cen = torch.zeros((1, 3), dtype=torch.float64, device=cuda)
+        return fused_ba_eval(x, cen, torch.ones(1, dtype=torch.float64, device=cuda), w2)
+
     with pytest.raises(RuntimeError, match="CUDA error"):
-        block_diag_cmm(bd, x)
-    ok = pack(torch.eye(4, dtype=torch.complex128, device=cuda)[None], np.array([1, 3]))
-    v = torch.ones((1, 2, 4), dtype=torch.complex128, device=cuda)
-    assert torch.equal(block_diag_cmm(ok, v), v)
+        call(200)
+    assert torch.equal(call(4), torch.zeros((600, 1), dtype=torch.complex128, device=cuda))
 
 
 def _tol(dtype):

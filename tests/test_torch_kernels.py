@@ -47,8 +47,12 @@ from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
 from biem_helmholtz_sphere_tpu_torch.ops import kernels
 from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+    ITEM_FIELDS,
+    LaneSegments,
     _block_diag_cmm_plain,
+    _plan,
     block_diag_cmm,
+    item_footprint,
     pack,
     unpack,
 )
@@ -128,25 +132,53 @@ def test_fused_ba_eval_plain_matches_jax_far_field():
     _close(u_t[:, 0].numpy(), u_j)
 
 
+def test_fused_ba_eval_plain_matches_jax_at_one_point_four_k():
+    """The shape of uscat(0) for a k-block (P = 1, K = 4), which takes the
+    kernel's few-point mode on the card: each k against the JAX package."""
+    n_end, ks = 8, np.array([1.3, 1.7, 2.1, 2.6])
+    rng = np.random.default_rng(30)
+    centers = _lattice(2, 4.0)
+    w = np.stack([_weights(rng, len(centers), n_end) for _ in ks])
+    x = np.zeros((3, 1))
+    c_j = j_tree("ba")
+    sph = j_from_cartesian(c_j, x[:, :, None] - centers.T[:, None, :])
+    u_j = np.stack([
+        tonp(j_fused_ba_dot_blocked(c_j, n_end, C.of(w[i]), sph[0], sph[1],
+                                    rad=j_h_clamped(3, n_end, k * sph["r"]))).sum(-1)
+        for i, k in enumerate(ks)
+    ], axis=-1)  # [P, K]
+    u_t = fused_ba_eval(
+        torch.as_tensor(x)[:, None, :], torch.as_tensor(centers), torch.as_tensor(ks),
+        regroup(create_from_branching_types("ba"), n_end, torch.as_tensor(w)),
+    )
+    assert u_t.shape == (1, len(ks))
+    _close(u_t.numpy(), u_j)
+
+
 def test_pair_routing_counts_on_the_bench_lattice():
     """24 distinct offsets on the 4x4 lattice fall on 9 radii; padded to
-    g_max = 4 slots per radius: 36 slots x 2 * 12 lanes = 864 lanes."""
+    g_max = 4 slots per radius they make 36 slots x 2 * 12 = 864 padded
+    lanes, of which the 240 that route a pair (120 pairs and their
+    mirrors) are kept, sorted by slot."""
     centers = _lattice()
     rt = _pair_routing(centers)
     assert (len(rt.uniq), len(rt.uniq_r), rt.g_max, rt.p_max) == (36, 9, 4, 12)
-    assert len(rt.src) == len(rt.dst) == 864
+    assert len(rt.src) == len(rt.dst) == len(rt.dn) == len(rt.lane) == 240
+    assert (rt.slot_ptr[0], rt.slot_ptr[-1], len(rt.slot_ptr)) == (0, 240, 37)
+    assert (np.diff(rt.slot_ptr) > 0).sum() == 24  # slots that hold an offset
+    np.testing.assert_array_equal(rt.rad_ptr, rt.slot_ptr[::4])
     uniq, gth, sct, p_max, uniq_r, g_max = j_pair_routing(centers, radius_slots=True)
-    assert p_max == rt.p_max and g_max == rt.g_max
+    assert gth.shape[0] == 864 and p_max == rt.p_max and g_max == rt.g_max
     np.testing.assert_array_equal(rt.uniq, uniq)
     np.testing.assert_array_equal(rt.uniq_r, uniq_r)
-    # the index tables route exactly like the one-hot matrices
+    # the compacted index tables route exactly like the one-hot matrices
     gth_t = np.zeros_like(gth)
     sct_t = np.zeros_like(sct)
-    used = rt.src >= 0
-    gth_t[np.nonzero(used)[0], rt.src[used]] = 1.0
-    sct_t[rt.dst[used], np.nonzero(used)[0]] = 1.0
+    gth_t[rt.lane, rt.src] = 1.0
+    sct_t[rt.dst, rt.lane] = 1.0
     np.testing.assert_array_equal(gth_t, gth)
     np.testing.assert_array_equal(sct_t, sct)
+    np.testing.assert_array_equal(rt.dn, rt.lane % (2 * p_max) >= p_max)
 
 
 def test_lane_route_plain_matches_jax_one_hot():
@@ -156,7 +188,7 @@ def test_lane_route_plain_matches_jax_one_hot():
     nb, h = len(centers), n_end * n_end
     _, gth, sct, p_max, _, _ = j_pair_routing(centers, radius_slots=True)
     rt = _pair_routing(centers)
-    route = make_route(rt.src, rt.dst, rt.p_max, nb, torch.device("cpu"))
+    route = make_route(rt.src, rt.dst, rt.dn, nb, torch.device("cpu"))
     pm = (-1.0) ** (basis(create_from_branching_types("ba"), n_end).n_root % 2)
     x, blc, diag, reg = (_randc(rng, (n_k, nb, h)) for _ in range(4))
     y = _randc(rng, (n_k, len(rt.src), h))
@@ -164,16 +196,30 @@ def test_lane_route_plain_matches_jax_one_hot():
     lanes_j = np.einsum("pq,kqh->kph", gth, np.concatenate([z, z * pm], axis=1))
     t = torch.as_tensor
     lanes_t = lane_gather(t(x), t(blc), t(pm), route)
-    _close(lanes_t.numpy(), lanes_j)
-    y_all = y.reshape(n_k, -1, 2 * p_max, h).copy()
+    _close(lanes_t.numpy(), lanes_j[:, rt.lane])
+    # the padded lanes the JAX package routes hold zeros off the used lanes
+    y_all = np.zeros((n_k, gth.shape[0], h), complex)
+    y_all[:, rt.lane] = y
+    y_all = y_all.reshape(n_k, -1, 2 * p_max, h)
     y_all[:, :, p_max:] *= pm
-    out_j = diag * x + reg * np.einsum("bp,kph->kbh", sct, y_all.reshape(y.shape))
+    out_j = diag * x + reg * np.einsum("bp,kph->kbh", sct, y_all.reshape(n_k, -1, h))
     _close(lane_scatter(t(y), t(x), t(diag), t(reg), t(pm), route).numpy(), out_j)
+
+
+def _segments(rng, n_mat, lanes_per_mat):
+    """Random compacted lanes: each matrix keeps some of its padded lanes
+    (one keeps none).  Returns (LaneSegments, padded index of each lane)."""
+    keep = rng.random((n_mat, lanes_per_mat)) < 0.6
+    keep[0] = False
+    padded = np.nonzero(keep.ravel())[0]
+    ptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    return LaneSegments(tuple(int(v) for v in ptr)), padded
 
 
 @pytest.mark.parametrize("which", ["D^H", "X", "D"])
 def test_block_diag_cmm_plain_matches_jax_einsum(which):
-    """The three products of the factored matvec, as JAX writes them."""
+    """The three products of the factored matvec, as JAX writes them on
+    padded lanes, held to the port's compacted lanes (the used lanes)."""
     n_end, n_k, n_slots, n_rad, lanes = 5, 2, 6, 3, 4
     rng = np.random.default_rng(24)
     c = create_from_branching_types("ba")
@@ -187,15 +233,19 @@ def test_block_diag_cmm_plain_matches_jax_einsum(which):
     blocks = pack(torch.zeros(stack + (h, h), dtype=torch.complex128), sizes, perm)
     blocks = replace(blocks, vals=torch.as_tensor(_randc(rng, blocks.vals.shape)))
     dense = unpack(blocks).numpy()
-    w = _randc(rng, x_shape)
+    seg, padded = _segments(rng, x_shape[1], x_shape[2])
+    w = np.zeros(x_shape, complex).reshape(n_k, -1, h)
+    w[:, padded] = _randc(rng, (n_k, len(padded), h))
+    w = w.reshape(x_shape)
     if which == "D^H":
         y_j = cplx.einsum("ogh,...opg->...oph", C.of(dense).conj(), C.of(w))
     elif which == "X":
         y_j = cplx.einsum("...rhg,...rpg->...rph", C.of(dense), C.of(w))
     else:
         y_j = cplx.einsum("ohg,...opg->...oph", C.of(dense), C.of(w))
-    y_t = block_diag_cmm(blocks, torch.as_tensor(w), adjoint=which == "D^H")
-    _close(y_t.numpy(), tonp(y_j))
+    x_c = torch.as_tensor(w.reshape(n_k, -1, h)[:, padded])
+    y_t = block_diag_cmm(blocks, x_c, seg, adjoint=which == "D^H")
+    _close(y_t.numpy(), tonp(y_j).reshape(n_k, -1, h)[:, padded])
 
 
 def test_packing_is_exact_for_the_operator_tables():
@@ -212,8 +262,12 @@ def test_packing_is_exact_for_the_operator_tables():
                                  (x, _child_state_blocks(c, n_end))):
         bd = pack(dense, sizes, perm)
         assert torch.equal(unpack(bd), dense)
-        lanes = torch.as_tensor(_randc(rng, dense.shape[:-2] + (3, dense.shape[-1])))
-        assert torch.equal(block_diag_cmm(bd, lanes), _block_diag_cmm_plain(dense, lanes, False))
+        n_mat = dense.shape[-3]
+        seg = LaneSegments(tuple(range(0, 3 * n_mat + 1, 3)))
+        n_k = dense.shape[0] if dense.ndim == 4 else 2
+        lanes = torch.as_tensor(_randc(rng, (n_k, 3 * n_mat, dense.shape[-1])))
+        assert torch.equal(block_diag_cmm(bd, lanes, seg),
+                           _block_diag_cmm_plain(dense, lanes, seg, False))
 
 
 def test_factored_matvec_matches_jax():
@@ -251,12 +305,13 @@ def test_cpu_wrappers_never_touch_the_kernel_library(monkeypatch):
     monkeypatch.setattr(kernels, "library", no_library)
     wrappers = (fused_ba_eval, block_diag_cmm, lane_gather, lane_scatter, spherical_jh,
                 coax_fold)
-    counts = [w.launches for w in wrappers]
+    counts = [w.launches for w in wrappers] + [fused_ba_eval.few_launches]
     test_lane_route_plain_matches_jax_one_hot()
     test_block_diag_cmm_plain_matches_jax_einsum("X")
     test_fused_ba_eval_plain_matches_jax_far_field()
     test_factored_matvec_matches_jax()  # K5 (radial rows, coax bands) and K2
-    assert counts == [w.launches for w in wrappers]
+    test_fused_ba_eval_plain_matches_jax_at_one_point_four_k()
+    assert counts == [w.launches for w in wrappers] + [fused_ba_eval.few_launches]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -267,3 +322,97 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build()
     assert not (tmp_path / "kernels").exists()
+
+
+_GEOMETRIES = {
+    "bench": _lattice(),
+    "2-sphere": np.array([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]]),
+    "3-sphere": np.array([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [0.0, 4.0, 1.0]]),
+}
+
+
+@pytest.mark.parametrize("elem_bytes", [8, 16])
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+def test_work_list_covers_every_block_and_lane_once(geometry, elem_bytes):
+    """KB's host-built work list, for D (shared by the k's, slot segments)
+    and X (one matrix per (k, radius), radius segments) at n_end=32: every
+    (matrix, block, k, lane) that a product needs is in exactly one item,
+    nothing else is, every item fits its staging buffer, and the list runs
+    largest first."""
+    n_end, n_k = 32, 4
+    rt = _pair_routing(_GEOMETRIES[geometry])
+    n_lanes = len(rt.src)
+    cs_sizes, _ = _child_state_blocks(create_from_branching_types("ba"), n_end)
+    for sizes, seg, per_k in ((2 * np.arange(n_end) + 1, rt.slot_ptr, False),
+                              (cs_sizes, rt.rad_ptr, True)):
+        sizes = tuple(int(v) for v in sizes)
+        seg = tuple(int(v) for v in seg)
+        n_mat = len(seg) - 1
+        items_t, n_items, buf = _plan(sizes, seg, n_k, per_k, elem_bytes, torch.device("cpu"))
+        items = items_t.numpy()
+        assert items.shape == (n_items, ITEM_FIELDS) and 2 * buf * elem_bytes <= 232448
+        assert (item_footprint(items, sizes) <= buf).all()
+        cover = np.zeros(((n_k if per_k else 1) * n_mat, len(sizes), n_k, n_lanes), int)
+        for mat, k0, nk, lane0, nl, b0, b1, q0, q1 in items:
+            m = mat % n_mat
+            assert (lane0, nl) == (seg[m], seg[m + 1] - seg[m]) and 0 <= q0 < q1 <= nk * nl
+            assert (k0, nk) == ((mat // n_mat, 1) if per_k else (0, n_k))
+            for q in range(q0, q1):
+                cover[mat, b0:b1, k0 + q // nl, lane0 + q % nl] += 1
+        want = np.zeros_like(cover)
+        for m in range(n_mat):
+            for k in range(n_k):
+                want[k * n_mat + m if per_k else m, :, k, seg[m] : seg[m + 1]] = 1
+        np.testing.assert_array_equal(cover, want)
+        g2 = np.asarray(sizes) ** 2
+        work = [g2[b0:b1].sum() * (q1 - q0) for b0, b1, q0, q1 in items[:, 5:]]
+        assert work == sorted(work, reverse=True)
+
+
+def test_compacted_route_matches_the_padded_route():
+    """KC gather -> KB D^H, X, D -> KC scatter on the 240 compacted lanes of
+    the bench lattice equals the padded route (864 lanes, 36 slots, dense
+    matrices, as PR 1's port and the JAX package lay it out), f64."""
+    n_end, n_k = 4, 2
+    rng = np.random.default_rng(29)
+    c = create_from_branching_types("ba")
+    centers = _lattice()
+    nb, h = len(centers), n_end * n_end
+    rt = _pair_routing(centers)
+    n_slots, n_rad, lps = len(rt.uniq), len(rt.uniq_r), 2 * rt.p_max
+    d_bd = pack(torch.zeros((n_slots, h, h), dtype=torch.complex128), 2 * np.arange(n_end) + 1)
+    d_bd = replace(d_bd, vals=torch.as_tensor(_randc(rng, d_bd.vals.shape)))
+    x_bd = pack(torch.zeros((n_k, n_rad, h, h), dtype=torch.complex128),
+                *_child_state_blocks(c, n_end))
+    x_bd = replace(x_bd, vals=torch.as_tensor(_randc(rng, x_bd.vals.shape)))
+    pm = torch.as_tensor((-1.0) ** (basis(c, n_end).n_root % 2))
+    x, blc, diag, reg = (torch.as_tensor(_randc(rng, (n_k, nb, h))) for _ in range(4))
+    route = make_route(rt.src, rt.dst, rt.dn, nb, torch.device("cpu"))
+    lanes = lane_gather(x, blc, pm, route)
+    w = block_diag_cmm(d_bd, lanes, LaneSegments(tuple(rt.slot_ptr.tolist())), adjoint=True)
+    v = block_diag_cmm(x_bd, w, LaneSegments(tuple(rt.rad_ptr.tolist())))
+    y = block_diag_cmm(d_bd, v, LaneSegments(tuple(rt.slot_ptr.tolist())))
+    out = lane_scatter(y, x, diag, reg, pm, route)
+
+    # the padded route: every slot's 2 p_max lanes, zeros on unused lanes
+    d, xm = unpack(d_bd).numpy(), unpack(x_bd).numpy()
+    z = (blc * x).numpy()
+    zs = np.concatenate([z, z * pm.numpy()], axis=1)
+    lanes_p = np.zeros((n_k, n_slots * lps, h), complex)
+    lanes_p[:, rt.lane] = zs[:, rt.src]
+    lanes_p = lanes_p.reshape(n_k, n_slots, lps, h)
+    np.testing.assert_array_equal(lanes_p.reshape(n_k, -1, h)[:, rt.lane], lanes.numpy())
+    w_p = np.einsum("ogh,kopg->koph", d.conj(), lanes_p)
+    v_p = np.einsum("krhg,krpg->krph", xm, w_p.reshape(n_k, n_rad, -1, h))
+    y_p = np.einsum("ohg,kopg->koph", d, v_p.reshape(n_k, n_slots, lps, h)).reshape(n_k, -1, h)
+    for got, ref in ((w, w_p), (v, v_p), (y, y_p)):
+        ref = ref.reshape(n_k, -1, h)
+        _close(got.numpy(), ref[:, rt.lane])
+        unused = np.setdiff1d(np.arange(ref.shape[1]), rt.lane)
+        assert np.abs(ref[:, unused]).max() == 0.0  # padding carried nothing
+    y_mir = y_p.copy().reshape(n_k, n_slots, lps, h)
+    y_mir[:, :, rt.p_max:] *= pm.numpy()
+    cpl = np.zeros((n_k, nb, h), complex)
+    for i, l in enumerate(rt.lane):
+        cpl[:, rt.dst[i]] += y_mir.reshape(n_k, -1, h)[:, l]
+    _close(out.numpy(), (diag * x).numpy() + reg.numpy() * cpl)

@@ -1,0 +1,143 @@
+"""A/B device times of KB and KA source variants on one card.
+
+    python tools/torch_kernel_ab.py DIR [DIR ...]
+
+Run from the repository root on a machine with a CUDA card and nvcc (no
+JAX needed).  Each DIR holds a full copy of
+biem_helmholtz_sphere_tpu_torch/csrc/ with the variant's edits, and may
+hold a file `py_params` of Python assignments applied to
+ops/block_diag.py (e.g. `_LANE_TILE = 4` when a variant changes KB's
+register tile).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
+DIR.  For each variant the script builds the kernel library from DIR,
+checks every case against its plain version (relative error printed),
+then profiles each case in turns (v1 .. vn, vn .. v1, three times; the
+device time of the port's kernels per launch, torch.profiler) and prints
+the median device microseconds per launch of each case and variant, in
+complex64 and complex128.  Cases, at the bench widths (16 spheres on the
+4x4 lattice, n_end = 32, 4 k): KB's three products on the compacted
+lanes, KA at 131,072 points x 1 k and at 1 point x 4 k.
+"""
+
+import os
+import statistics
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def cases(torch, dev, cdt):
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
+        _fused_ba_eval_plain, fused_ba_eval, regroup)
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+        LaneSegments, _block_diag_cmm_plain, block_diag_cmm, pack, unpack)
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks
+    from chip_smoke import EVAL_POINTS, KB, N_END, lattice_centers
+
+    c = create_from_branching_types("ba")
+    h = N_END * N_END
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    rng = np.random.default_rng(5)
+
+    def randc(shape):
+        z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(z, dtype=cdt, device=dev)
+
+    centers_np = lattice_centers()
+    rt = _pair_routing(centers_np)
+    n_slots, n_rad = len(rt.uniq), len(rt.uniq_r)
+    d_bd = pack(torch.zeros((n_slots, h, h), dtype=cdt, device=dev), 2 * np.arange(N_END) + 1)
+    d_bd = replace(d_bd, vals=randc(d_bd.vals.shape))
+    x_bd = pack(torch.zeros((KB, n_rad, h, h), dtype=cdt, device=dev),
+                *_child_state_blocks(c, N_END))
+    x_bd = replace(x_bd, vals=randc(x_bd.vals.shape))
+    lanes = randc((KB, len(rt.src), h))
+    d_seg = LaneSegments(tuple(int(v) for v in rt.slot_ptr))
+    x_seg = LaneSegments(tuple(int(v) for v in rt.rad_ptr))
+    dd, xd = unpack(d_bd), unpack(x_bd)
+    cen = torch.as_tensor(centers_np, dtype=rdt, device=dev)
+    ell = torch.as_tensor(basis(c, N_END).n_root, device=dev)
+    w1 = regroup(c, N_END, randc((1, len(centers_np), h)) * torch.exp(-ell.to(rdt)))
+    w4 = regroup(c, N_END, randc((KB, len(centers_np), h)) * torch.exp(-ell.to(rdt)))
+    pts = torch.as_tensor(rng.normal(size=(3, 1, EVAL_POINTS)) * 20.0, dtype=rdt, device=dev)
+    zero = torch.zeros((3, 1, 1), dtype=rdt, device=dev)
+    k1 = torch.full((1,), 8.0, dtype=rdt, device=dev)
+    k4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
+    outside = (torch.linalg.vector_norm(pts[:, 0, :, None] - cen.T[:, None, :], dim=0)
+               > 1.0).all(-1)
+    return {  # name: (kernel call, plain call, mask of compared entries, reps)
+        "KB D^H": (lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True),
+                   lambda: _block_diag_cmm_plain(dd, lanes, d_seg, True), None, 50),
+        "KB X": (lambda: block_diag_cmm(x_bd, lanes, x_seg),
+                 lambda: _block_diag_cmm_plain(xd, lanes, x_seg, False), None, 50),
+        "KB D": (lambda: block_diag_cmm(d_bd, lanes, d_seg),
+                 lambda: _block_diag_cmm_plain(dd, lanes, d_seg, False), None, 50),
+        f"KA {EVAL_POINTS} pts": (lambda: fused_ba_eval(pts, cen, k1, w1),
+                                  lambda: _fused_ba_eval_plain(pts, cen, k1, w1, False, False),
+                                  outside, 5),
+        f"KA 1 pt x {KB} k": (lambda: fused_ba_eval(zero, cen, k4, w4),
+                              lambda: _fused_ba_eval_plain(zero, cen, k4, w4, False, False),
+                              None, 50),
+    }
+
+
+def main():
+    import torch
+
+    from biem_helmholtz_sphere_tpu_torch.ops import block_diag, kernels
+    from tools.torch_profile_sweep import _per_launch_us
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    variants = sys.argv[1:]
+    if not variants:
+        print(__doc__, file=sys.stderr)
+        return 2
+    defaults = {k: getattr(block_diag, k) for k in
+                ("_BUF_BYTES", "_ITEMS_PER_LAUNCH", "_ROW_TILE", "_LANE_TILE")}
+
+    def use(vdir):
+        kernels.CSRC = Path(vdir).resolve()
+        kernels.BUILD_DIR = Path(vdir).resolve() / "out"
+        kernels._lib = None
+        for name, val in defaults.items():
+            setattr(block_diag, name, val)
+        params = Path(vdir) / "py_params"
+        if params.exists():
+            exec(params.read_text(), vars(block_diag))
+        block_diag._plan.cache_clear()
+        kernels.library()
+
+    dev = torch.device("cuda", 0)
+    for cdt in (torch.complex64, torch.complex128):
+        cs = cases(torch, dev, cdt)
+        times = {v: {name: [] for name in cs} for v in variants}
+        for v in variants:
+            use(v)
+            for name, (kfn, pfn, mask, _) in cs.items():
+                got, ref = kfn(), pfn()
+                if mask is not None:
+                    got, ref = got[mask], ref[mask]
+                err = float((got - ref).abs().max() / ref.abs().max())
+                print(f"{v} {cdt} {name}: max rel err {err:.3e}")
+        for _ in range(3):
+            for v in variants + variants[::-1]:
+                use(v)
+                for name, (kfn, _, _, reps) in cs.items():
+                    times[v][name].append(_per_launch_us(torch, kfn, reps))
+        for v in variants:
+            med = {name: round(statistics.median(t), 2) for name, t in times[v].items()}
+            print(f"{v} {cdt} device us per launch: {med}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,11 @@ warm starts) once to warm up and once under torch.profiler, then prints:
 - the card's name and power limit;
 - the wall time of the profiled sweep and the device's busy time (the
   union of the intervals in which any kernel ran), hence its idle share;
-- the device time of each kernel name, largest first, with its count.
+- the device time of each kernel name, largest first, with its count;
+- the device time per launch of KB's three products (D^H, X, D) on the
+  bench routing's compacted lanes, and of KA in both of its modes
+  (131,072 points x 1 k, and 1 point x 4 k as uscat(0) runs it), each
+  profiled alone over 20 launches at the bench widths (complex64).
 
 Numbers from a profiled run include the profiler's own overhead on the
 host; compare device times, not the wall time, with unprofiled runs.
@@ -53,6 +57,75 @@ def _busy_us(prof):
     return busy, len(spans)
 
 
+def _per_launch_us(torch, fn, reps=20):
+    """Device microseconds per launch of the kernels fn() runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, _device_time(e)) for e in prof.key_averages()]
+    return sum(t for key, t in rows if "(anonymous namespace)::" in key) / reps
+
+
+def kernel_device_times(torch, dev):
+    """KB per product and KA in both modes, each alone on the card."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval, regroup
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+        LaneSegments, block_diag_cmm, pack)
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks
+    from chip_smoke import EVAL_POINTS, KB, N_END, lattice_centers
+
+    c = create_from_branching_types("ba")
+    h = N_END * N_END
+    cdt, rdt = torch.complex64, torch.float32
+    rng = np.random.default_rng(5)
+
+    def randc(shape):
+        z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(z, dtype=cdt, device=dev)
+
+    centers_np = lattice_centers()
+    rt = _pair_routing(centers_np)
+    n_slots, n_rad = len(rt.uniq), len(rt.uniq_r)
+    d_bd = pack(torch.zeros((n_slots, h, h), dtype=cdt, device=dev), 2 * np.arange(N_END) + 1)
+    d_bd = replace(d_bd, vals=randc(d_bd.vals.shape))
+    x_bd = pack(torch.zeros((KB, n_rad, h, h), dtype=cdt, device=dev),
+                *_child_state_blocks(c, N_END))
+    x_bd = replace(x_bd, vals=randc(x_bd.vals.shape))
+    lanes = randc((KB, len(rt.src), h))
+    d_seg = LaneSegments(tuple(int(v) for v in rt.slot_ptr))
+    x_seg = LaneSegments(tuple(int(v) for v in rt.rad_ptr))
+    cen = torch.as_tensor(centers_np, dtype=rdt, device=dev)
+    ell = torch.as_tensor(basis(c, N_END).n_root, device=dev)
+    w1 = regroup(c, N_END, randc((1, len(centers_np), h)) * torch.exp(-ell.to(rdt)))
+    w4 = regroup(c, N_END, randc((KB, len(centers_np), h)) * torch.exp(-ell.to(rdt)))
+    pts = torch.as_tensor(rng.normal(size=(3, 1, EVAL_POINTS)) * 20.0, dtype=rdt, device=dev)
+    zero = torch.zeros((3, 1, 1), dtype=rdt, device=dev)
+    k1 = torch.full((1,), 8.0, dtype=rdt, device=dev)
+    k4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
+    return {
+        "block_diag_cmm D^H": _per_launch_us(
+            torch, lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True)),
+        "block_diag_cmm X": _per_launch_us(torch, lambda: block_diag_cmm(x_bd, lanes, x_seg)),
+        "block_diag_cmm D": _per_launch_us(torch, lambda: block_diag_cmm(d_bd, lanes, d_seg)),
+        f"fused_ba_eval {EVAL_POINTS} pts x 1 k": _per_launch_us(
+            torch, lambda: fused_ba_eval(pts, cen, k1, w1), 5),
+        f"fused_ba_eval 1 pt x {KB} k": _per_launch_us(
+            torch, lambda: fused_ba_eval(zero, cen, k4, w4)),
+    }
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -90,6 +163,9 @@ def main():
     for key, t_us, n in rows:
         if "(anonymous namespace)::" in key:
             print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
+    print("each alone, device us per launch (bench widths, complex64):")
+    for label, us in kernel_device_times(torch, torch.device("cuda", 0)).items():
+        print(f"  {us:9.2f} us  {label}")
     return 0
 
 
