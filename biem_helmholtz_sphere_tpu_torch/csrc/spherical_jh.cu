@@ -24,21 +24,40 @@
 // so their values agree to rounding.
 //
 // What bounds it on the H100: neither bytes nor operations.  A launch on
-// the main path holds 36-64 z's, each a dependent chain of ~100-200
-// complex steps, and writes under 130 KB: the bound is one launch plus one
-// serial chain, a few microseconds.  Design: one thread per z, the
-// recurrence state in registers; the Miller table (n_top + 1 complex
-// values and exponents) sits in shared memory strided by thread, since
-// n_end is a runtime value.  The upward pass then writes each order as
-// soon as it reaches it, derivatives included.
+// the main path holds 36-64 z's and writes under 130 KB; its floor is one
+// launch plus the longest dependent chain, Miller's n_top + 36 complex
+// steps.  Design: one warp per z.
+//   phase 1  the three recurrences run on three lanes of the warp in one
+//            instruction stream (lane 0 Miller downward, lane 1 h upward,
+//            lane 2 j upward while n <= |z|), so they overlap instead of
+//            running one after the other; each lane only steps and stores
+//            its raw (mantissa, exponent) per order into the warp's tables
+//            in shared memory.  The step has no divergent branch: a lane
+//            past its chain steps on into entries nothing reads, the
+//            rescale is a select, and the rescale test computes the hypot
+//            only where max(|re|, |im|) >= rescale / 2 (below that |f| <=
+//            sqrt(2) max < rescale, so the answer is the plain version's),
+//            in a branch the whole warp takes or skips (__any_sync).  The
+//            h-only mode runs lane 1 alone.
+//   phase 2  after a __syncwarp every lane forms the Wronskian normaliser
+//            from the tables (the same instructions on every lane);
+//   phase 3  lane l takes the output orders n - m = l, l + 32, ...: the
+//            Miller-or-upward choice, the normalisation, the
+//            renormalisation (a log and an exp each), the derivatives from
+//            orders n - 1 and n, the z^{-m} phase and the stores, which are
+//            coalesced across the warp.
+// Outputs are planes [N, n_end] of one buffer: the complex planes (j, j',
+// h, h' or h alone) first, then the exponent planes in the same order.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;       // z's per CUDA block
+constexpr int kWarps = 4;          // z's per CUDA block, a warp each
 constexpr int kMillerBuffer = 36;  // _MILLER_BUFFER of special/_family.py
+constexpr int kChains = 3;         // tables per warp: Miller, h, j
 
 enum { kScaled = 0, kHOnly = 1, kUnscaled = 2 };
+enum { kMiller = 0, kH = 1, kJ = 2 };  // the lane, and the table, of each chain
 
 __device__ __forceinline__ float t_sinh(float a) { return sinhf(a); }
 __device__ __forceinline__ double t_sinh(double a) { return sinh(a); }
@@ -46,6 +65,8 @@ __device__ __forceinline__ float t_cosh(float a) { return coshf(a); }
 __device__ __forceinline__ double t_cosh(double a) { return cosh(a); }
 __device__ __forceinline__ float t_fabs(float a) { return fabsf(a); }
 __device__ __forceinline__ double t_fabs(double a) { return fabs(a); }
+__device__ __forceinline__ float t_fmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double t_fmax(double a, double b) { return fmax(a, b); }
 
 template <typename T>
 __device__ __forceinline__ c2_t<T> csub(c2_t<T> a, c2_t<T> b) {
@@ -116,31 +137,6 @@ __device__ void seeds(c2_t<T> z, c2_t<T>* j0, c2_t<T>* j1, c2_t<T>* h0, c2_t<T>*
                 cmul<T>(zh, zh));
 }
 
-// Upward recurrence f_{n+1} = ((2n+1)/z) f_n - f_{n-1}; fm, fn hold the
-// last two orders, e the exponent of the scaled form.
-template <typename T>
-struct Upward {
-  c2_t<T> fm, fn;
-  T e;
-  // advance to order i >= 2
-  __device__ __forceinline__ void step(c2_t<T> inv, int i, bool scaled, T rescale,
-                                       T inv_rescale, T log_rescale) {
-    c2_t<T> fp = csub<T>(cscale<T>(cmul<T>(fn, inv), T(2 * i - 1)), fm);
-    if (scaled && cabs<T>(fp) > rescale) {
-      fp = cscale<T>(fp, inv_rescale);
-      fn = cscale<T>(fn, inv_rescale);
-      e = e + log_rescale;
-    }
-    fm = fn;
-    fn = fp;
-  }
-  // the order-n value (stored mantissa, exponent) for n = 0, 1 or the last step
-  __device__ __forceinline__ void at(int n, c2_t<T> f0, c2_t<T>* v, T* ve) const {
-    *v = n == 0 ? f0 : fn;
-    *ve = n <= 1 ? T(0) : e;
-  }
-};
-
 // renormalise to max(|re|, |im|) = 1 (the port's _normalize) and store
 template <typename T>
 __device__ __forceinline__ void put_scaled(c2_t<T>* mo, T* eo, size_t o, c2_t<T> v, T e) {
@@ -171,21 +167,27 @@ __device__ __forceinline__ void deriv_scaled(c2_t<T> pm, T pe, c2_t<T> cm, T ce,
 }
 
 template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ jm,
-                    T* __restrict__ je, c2_t<T>* __restrict__ jpm, T* __restrict__ jpe,
-                    c2_t<T>* __restrict__ hm, T* __restrict__ he, c2_t<T>* __restrict__ hpm,
-                    T* __restrict__ hpe, int N, int n_end, int m, int d, double c_d,
-                    double rescale_d) {
+__global__ void __launch_bounds__(kWarps * 32)
+spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out, int N,
+                    int n_end, int m, int d, double c_d, double rescale_d,
+                    double inv_rescale_d, double log_rescale_d) {
   using T2 = c2_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= N) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + warp;
+  if (i >= N) return;  // the whole warp: i is the warp's z
   constexpr bool kScaledMode = kMode != kUnscaled;
   const int n_top = n_end + m;
+  const int n_tab = n_top + 1;
+  const int n_last = max(n_top - 1, 1);  // the highest order any output reads
   const T rescale = (T)rescale_d;
-  const T inv_rescale = (T)(1.0 / rescale_d);
-  const T log_rescale = (T)log(rescale_d);
+  const T inv_rescale = (T)inv_rescale_d;
+  const T log_rescale = (T)log_rescale_d;
+  // this warp's tables: [chain][order] mantissas, then exponents
+  T2* tab_m = reinterpret_cast<T2*>(smem_raw) + (size_t)warp * kChains * n_tab;
+  T* tab_e = reinterpret_cast<T*>(reinterpret_cast<T2*>(smem_raw) +
+                                  (size_t)kWarps * kChains * n_tab) +
+             (size_t)warp * kChains * n_tab;
 
   T2 z = z_in[i];
   const bool at_zero = kMode == kUnscaled && z.x == T(0) && z.y == T(0);
@@ -195,6 +197,70 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ jm,
   T2 j0, j1, h0, h1;
   seeds<T>(z, &j0, &j1, &h0, &h1);
 
+  // phase 1: lane kMiller f_{n-1} = ((2n+1)/z) f_n - f_{n+1}, n = n_top+36..1,
+  // storing orders <= n_top (always log-scaled); lanes kH and kJ
+  // f_n = ((2n-1)/z) f_{n-1} - f_{n-2}, n = 2..n_last (j while n <= |z|)
+  const int n_start = n_top + kMillerBuffer;
+  int steps = 0, coef = 3, at = n_top + 1, dir = 0;  // at > n_top: stores nothing
+  T2 fm = cmake<T>(0, 0), fn = cmake<T>(1, 0);
+  if (lane == kMiller && kMode != kHOnly) {
+    steps = n_start;
+    coef = 2 * n_start + 1;
+    at = n_start - 1;
+    dir = -1;
+  } else if (lane == kH) {
+    steps = n_last - 1;
+    at = 2;
+    dir = 1;
+    fm = h0;
+    fn = h1;
+  } else if (lane == kJ && kMode != kHOnly) {
+    // the orders 2..n_last with n <= |z| (n is exact in T, so n <= |z|
+    // exactly when n <= floor(|z|))
+    steps = max((absz >= T(n_last) ? n_last : (int)absz) - 1, 0);
+    at = 2;
+    dir = 1;
+    fm = j0;
+    fn = j1;
+  }
+  const bool rescales = lane == kMiller || kScaledMode;
+  T2* my_m = tab_m + (size_t)min(lane, kChains - 1) * n_tab;
+  T* my_e = tab_e + (size_t)min(lane, kChains - 1) * n_tab;
+  if (lane == kH || (lane == kJ && kMode != kHOnly)) {
+    my_m[0] = fm;
+    my_m[1] = fn;
+    my_e[0] = T(0);
+    my_e[1] = T(0);
+  }
+  const int max_steps = kMode == kHOnly ? n_last - 1 : n_start;
+  // one step for every lane, without divergence.  A lane past its chain
+  // steps on, unscaled, into table entries nothing reads (orders past
+  // n_last, or j past |z|).  The rescale is a select; its test is the
+  // plain version's |f| > rescale, with the hypot only where it can be
+  // true (max(|re|, |im|) < rescale / 2 gives |f| < rescale; NaN and inf
+  // take the hypot's answer), in a branch the whole warp takes or skips
+  const T half = T(0.5) * rescale;
+  const T dc = T(2 * dir);
+  T c = T(coef), e = T(0);
+  for (int t = 0; t < max_steps; ++t) {
+    const T2 fp = csub<T>(cscale<T>(cmul<T>(fn, inv), c), fm);
+    const bool maybe = t < steps && rescales && t_fmax(t_fabs(fp.x), t_fabs(fp.y)) >= half;
+    bool big = false;
+    if (__any_sync(0xffffffffu, maybe)) big = maybe && cabs<T>(fp) > rescale;
+    fm = big ? cscale<T>(fn, inv_rescale) : fn;
+    fn = big ? cscale<T>(fp, inv_rescale) : fp;
+    e = big ? e + log_rescale : e;
+    if (at <= n_top) {
+      my_m[at] = fn;
+      my_e[at] = e;
+    }
+    at += dir;
+    c += dc;
+  }
+  __syncwarp();
+
+  const T2* Hm = tab_m + kH * n_tab;
+  const T* He = tab_e + kH * n_tab;
   // the shift z^{-m}: (z/|z|)^{-m} and -m log|z| scaled, z^{-m} unscaled
   T2 zm = cmake<T>(1, 0);
   T zm_log = T(0);
@@ -203,166 +269,149 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ jm,
     for (int q = 0; q < m; ++q) zm = cmul<T>(zm, r);
     if (kScaledMode) zm_log = T(-m) * t_log(absz);
   }
+  const size_t plane = (size_t)N * n_end;
   const size_t row = (size_t)i * n_end;
 
-  Upward<T> hu{h0, h1, T(0)};
   if (kMode == kHOnly) {
-    for (int n = 0; n < n_top; ++n) {
-      if (n >= 2) hu.step(inv, n, true, rescale, inv_rescale, log_rescale);
-      if (n < m) continue;
-      T2 v;
-      T ve;
-      hu.at(n, h0, &v, &ve);
+    T* out_e = reinterpret_cast<T*>(out + plane);
+    for (int pos = lane; pos < n_end; pos += 32) {
+      const int n = pos + m;
+      T2 v = Hm[n];
+      T ve = He[n];
       if (m > 0) {
         v = cmul<T>(zm, v);
         ve = ve + zm_log;
       }
-      put_scaled<T>(hm, he, row + n - m, v, ve);
+      put_scaled<T>(out, out_e, row + pos, v, ve);
     }
     return;
   }
 
-  // Miller's downward recurrence, unnormalised, with log-scaling: A[n] S[n]
-  T2* A = reinterpret_cast<T2*>(smem_raw) + threadIdx.x;
-  T* S = reinterpret_cast<T*>(reinterpret_cast<T2*>(smem_raw) + (size_t)(n_top + 1) * kThreads) +
-         threadIdx.x;
-  {
-    T2 fn1 = cmake<T>(0, 0), fn = cmake<T>(1, 0);
-    T sig = T(0);
-    for (int n = n_top + kMillerBuffer; n >= 1; --n) {
-      T2 fm = csub<T>(cscale<T>(cmul<T>(fn, inv), T(2 * n + 1)), fn1);
-      if (cabs<T>(fm) > rescale) {
-        fm = cscale<T>(fm, inv_rescale);
-        fn = cscale<T>(fn, inv_rescale);
-        sig = sig + log_rescale;
-      }
-      fn1 = fn;
-      fn = fm;
-      if (n - 1 <= n_top) {
-        A[(n - 1) * kThreads] = fm;
-        S[(n - 1) * kThreads] = sig;
-      }
-    }
-  }
-  // Wronskian normalisation: s = (i / z^2) / (a_1 e^{sig_1 - sig_0} h_0 - a_0 h_1)
-  const T S0 = S[0];
+  // phase 2: Wronskian normalisation
+  // s = (i / z^2) / (a_1 e^{sig_1 - sig_0} h_0 - a_0 h_1)
+  const T2* Am = tab_m + kMiller * n_tab;
+  const T* Ae = tab_e + kMiller * n_tab;
+  const T2* Jm = tab_m + kJ * n_tab;
+  const T* Je = tab_e + kJ * n_tab;
+  const T S0 = Ae[0];
   const T2 w_target = [&] {
     const T2 r = crecip<T>(cmul<T>(z, z));
     return cmake<T>(-r.y, r.x);
   }();
-  const T2 denom = csub<T>(cmul<T>(cscale<T>(A[kThreads], t_exp(S[kThreads] - S0)), h0),
-                           cmul<T>(A[0], h1));
+  const T2 denom = csub<T>(cmul<T>(cscale<T>(Am[1], t_exp(Ae[1] - S0)), h0), cmul<T>(Am[0], h1));
   const T2 s = cdiv<T>(w_target, denom);
   const T s_abs = cabs<T>(s);
   const T2 s_hat = s_abs > T(0) ? cscale<T>(s, T(1) / s_abs) : s;
   const T ln_s = t_log(s_abs > T(0) ? s_abs : T(1));
 
-  Upward<T> ju{j0, j1, T(0)};
-  T2 jv_p = j0, hv_p = h0;
-  T je_p = T(0), he_p = T(0);
-  const int n_last = max(m + n_end - 1, 1);
-  for (int n = 0; n <= n_last; ++n) {
-    // order-n values: h upward; j upward where n <= |z|, else Miller
-    if (n >= 2) hu.step(inv, n, kScaledMode, rescale, inv_rescale, log_rescale);
-    T2 hv, jv;
-    T hev, jev;
-    hu.at(n, h0, &hv, &hev);
+  // j at order n: upward where n <= |z|, else Miller, normalised
+  auto j_at = [&](int n, T2* v, T* ve) {
     if ((T)n <= absz) {
-      if (n >= 2) ju.step(inv, n, kScaledMode, rescale, inv_rescale, log_rescale);
-      ju.at(n, j0, &jv, &jev);
+      *v = Jm[n];
+      *ve = Je[n];
     } else if (kScaledMode) {
-      jv = cmul<T>(s_hat, A[n * kThreads]);
-      jev = (S[n * kThreads] - S0) + ln_s;
+      *v = cmul<T>(s_hat, Am[n]);
+      *ve = (Ae[n] - S0) + ln_s;
     } else {
-      jv = cscale<T>(cmul<T>(s, A[n * kThreads]), t_exp(S[n * kThreads] - S0));
-      jev = T(0);
+      *v = cscale<T>(cmul<T>(s, Am[n]), t_exp(Ae[n] - S0));
+      *ve = T(0);
     }
+  };
 
-    const bool in_win = n >= m && n < m + n_end;
-    const size_t o = row + (n - m);
+  // phase 3: lane l takes the output orders n - m = l, l + 32, ...
+  T2* const jo = out;
+  T2* const jpo = out + plane;
+  T2* const ho = out + 2 * plane;
+  T2* const hpo = out + 3 * plane;
+  for (int pos = lane; pos < n_end; pos += 32) {
+    const int n = pos + m;
+    const size_t o = row + pos;
+    // order n - 1, or order 1 for f'_0 = -f_1 (n = 0 only when m = 0)
+    const int np = n >= 1 ? n - 1 : 1;
+    const T2 hv = Hm[n], hv_p = Hm[np];
+    const T hev = He[n], he_p = He[np];
+    T2 jv, jv_p;
+    T jev, je_p;
+    j_at(n, &jv, &jev);
+    j_at(np, &jv_p, &je_p);
     if (kScaledMode) {
-      if (in_win) {
-        put_scaled<T>(jm, je, o, m > 0 ? cmul<T>(zm, jv) : jv, m > 0 ? jev + zm_log : jev);
-        put_scaled<T>(hm, he, o, m > 0 ? cmul<T>(zm, hv) : hv, m > 0 ? hev + zm_log : hev);
-        if (n >= 1) {
-          T2 dv;
-          T de;
-          deriv_scaled<T>(jv_p, je_p, jv, jev, n, m, inv, zm, zm_log, &dv, &de);
-          put_scaled<T>(jpm, jpe, o, dv, de);
-          deriv_scaled<T>(hv_p, he_p, hv, hev, n, m, inv, zm, zm_log, &dv, &de);
-          put_scaled<T>(hpm, hpe, o, dv, de);
-        }
-      }
-      if (n == 1 && m == 0) {  // f'_0 = -f_1
-        put_scaled<T>(jpm, jpe, row, cmake<T>(-jv.x, -jv.y), jev);
-        put_scaled<T>(hpm, hpe, row, cmake<T>(-hv.x, -hv.y), hev);
+      T* const je = reinterpret_cast<T*>(out + 4 * plane);
+      T* const jpe = je + plane;
+      T* const he = je + 2 * plane;
+      T* const hpe = je + 3 * plane;
+      put_scaled<T>(jo, je, o, m > 0 ? cmul<T>(zm, jv) : jv, m > 0 ? jev + zm_log : jev);
+      put_scaled<T>(ho, he, o, m > 0 ? cmul<T>(zm, hv) : hv, m > 0 ? hev + zm_log : hev);
+      if (n >= 1) {
+        T2 dv;
+        T de;
+        deriv_scaled<T>(jv_p, je_p, jv, jev, n, m, inv, zm, zm_log, &dv, &de);
+        put_scaled<T>(jpo, jpe, o, dv, de);
+        deriv_scaled<T>(hv_p, he_p, hv, hev, n, m, inv, zm, zm_log, &dv, &de);
+        put_scaled<T>(hpo, hpe, o, dv, de);
+      } else {  // f'_0 = -f_1
+        put_scaled<T>(jpo, jpe, o, cmake<T>(-jv_p.x, -jv_p.y), je_p);
+        put_scaled<T>(hpo, hpe, o, cmake<T>(-hv_p.x, -hv_p.y), he_p);
       }
     } else {
-      const int pos = n - m;
-      if (in_win) {
-        T2 jo = m > 0 ? cmul<T>(zm, jv) : jv;
-        T2 ho = m > 0 ? cmul<T>(zm, hv) : hv;
-        if (at_zero) {  // j_n(0) = c_d delta_{n0}; h is infinite
-          jo = cmake<T>(pos == 0 ? (T)c_d : T(0), T(0));
-          ho = cmake<T>(INFINITY, INFINITY);
-        }
-        jm[o] = jo;
-        hm[o] = ho;
-        if (n >= 1) {
-          T2 jd = csub<T>(jv_p, cmul<T>(jv, cscale<T>(inv, T(n + 1))));
-          T2 hd = csub<T>(hv_p, cmul<T>(hv, cscale<T>(inv, T(n + 1))));
-          if (m > 0) {
-            jd = cmul<T>(zm, csub<T>(jd, cmul<T>(jv, cscale<T>(inv, T(m)))));
-            hd = cmul<T>(zm, csub<T>(hd, cmul<T>(hv, cscale<T>(inv, T(m)))));
-          }
-          if (at_zero) {  // j_n'(0) = (c_d / d) delta_{n1}
-            jd = cmake<T>(pos == 1 ? (T)(c_d / d) : T(0), T(0));
-            hd = cmake<T>(INFINITY, INFINITY);
-          }
-          jpm[o] = jd;
-          hpm[o] = hd;
-        }
+      T2 jw = m > 0 ? cmul<T>(zm, jv) : jv;
+      T2 hw = m > 0 ? cmul<T>(zm, hv) : hv;
+      if (at_zero) {  // j_n(0) = c_d delta_{n0}; h is infinite
+        jw = cmake<T>(pos == 0 ? (T)c_d : T(0), T(0));
+        hw = cmake<T>(INFINITY, INFINITY);
       }
-      if (n == 1 && m == 0) {  // f'_0 = -f_1
-        jpm[row] = at_zero ? cmake<T>(T(0), T(0)) : cmake<T>(-jv.x, -jv.y);
-        hpm[row] = at_zero ? cmake<T>(INFINITY, INFINITY) : cmake<T>(-hv.x, -hv.y);
+      jo[o] = jw;
+      ho[o] = hw;
+      T2 jd, hd;
+      if (n >= 1) {
+        jd = csub<T>(jv_p, cmul<T>(jv, cscale<T>(inv, T(n + 1))));
+        hd = csub<T>(hv_p, cmul<T>(hv, cscale<T>(inv, T(n + 1))));
+        if (m > 0) {
+          jd = cmul<T>(zm, csub<T>(jd, cmul<T>(jv, cscale<T>(inv, T(m)))));
+          hd = cmul<T>(zm, csub<T>(hd, cmul<T>(hv, cscale<T>(inv, T(m)))));
+        }
+        if (at_zero) {  // j_n'(0) = (c_d / d) delta_{n1}
+          jd = cmake<T>(pos == 1 ? (T)(c_d / d) : T(0), T(0));
+          hd = cmake<T>(INFINITY, INFINITY);
+        }
+      } else {  // f'_0 = -f_1
+        jd = at_zero ? cmake<T>(T(0), T(0)) : cmake<T>(-jv_p.x, -jv_p.y);
+        hd = at_zero ? cmake<T>(INFINITY, INFINITY) : cmake<T>(-hv_p.x, -hv_p.y);
       }
+      jpo[o] = jd;
+      hpo[o] = hd;
     }
-    jv_p = jv;
-    je_p = jev;
-    hv_p = hv;
-    he_p = hev;
   }
 }
 
 template <typename T, int kMode>
-cudaError_t run(const void* z, void* const* outs, int N, int n_end, int m, int d, double c_d,
-                double rescale, cudaStream_t stream) {
+cudaError_t run(const void* z, void* out, int N, int n_end, int m, int d, double c_d,
+                double rescale, double inv_rescale, double log_rescale, cudaStream_t stream) {
   if (N == 0) return cudaSuccess;
-  const size_t smem = kMode == kHOnly ? 0
-                                      : (size_t)kThreads * (n_end + m + 1) *
-                                            (sizeof(c2_t<T>) + sizeof(T));
+  const size_t smem =
+      (size_t)kWarps * kChains * (n_end + m + 1) * (sizeof(c2_t<T>) + sizeof(T));
   const cudaError_t err = allow_smem(spherical_jh_kernel<T, kMode>, smem);
   if (err != cudaSuccess) return err;
   using T2 = c2_t<T>;
-  spherical_jh_kernel<T, kMode><<<(N + kThreads - 1) / kThreads, kThreads, smem, stream>>>(
-      static_cast<const T2*>(z), static_cast<T2*>(outs[0]), static_cast<T*>(outs[1]),
-      static_cast<T2*>(outs[2]), static_cast<T*>(outs[3]), static_cast<T2*>(outs[4]),
-      static_cast<T*>(outs[5]), static_cast<T2*>(outs[6]), static_cast<T*>(outs[7]), N, n_end,
-      m, d, c_d, rescale);
+  spherical_jh_kernel<T, kMode><<<(N + kWarps - 1) / kWarps, kWarps * 32, smem, stream>>>(
+      static_cast<const T2*>(z), static_cast<T2*>(out), N, n_end, m, d, c_d, rescale,
+      inv_rescale, log_rescale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int mode, const void* z, void* const* outs, int N, int n_end, int m, int d,
-                     double c_d, double rescale, cudaStream_t stream) {
+cudaError_t dispatch(int mode, const void* z, void* out, int N, int n_end, int m, int d,
+                     double c_d, double rescale, double inv_rescale, double log_rescale,
+                     cudaStream_t stream) {
   switch (mode) {
     case kScaled:
-      return run<T, kScaled>(z, outs, N, n_end, m, d, c_d, rescale, stream);
+      return run<T, kScaled>(z, out, N, n_end, m, d, c_d, rescale, inv_rescale, log_rescale,
+                             stream);
     case kHOnly:
-      return run<T, kHOnly>(z, outs, N, n_end, m, d, c_d, rescale, stream);
+      return run<T, kHOnly>(z, out, N, n_end, m, d, c_d, rescale, inv_rescale, log_rescale,
+                            stream);
     case kUnscaled:
-      return run<T, kUnscaled>(z, outs, N, n_end, m, d, c_d, rescale, stream);
+      return run<T, kUnscaled>(z, out, N, n_end, m, d, c_d, rescale, inv_rescale, log_rescale,
+                               stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -370,15 +419,18 @@ cudaError_t dispatch(int mode, const void* z, void* const* outs, int N, int n_en
 
 }  // namespace
 
-// Outputs (null where a mode does not write them), each [N, n_end]:
-// mode 0: jm je jpm jpe hm he hpm hpe; mode 1: hm he; mode 2: j - jp - h - hp -.
-extern "C" int bhs_spherical_jh(const void* z, void* jm, void* je, void* jpm, void* jpe,
-                                void* hm, void* he, void* hpm, void* hpe, int N, int n_end,
-                                int m, int mode, int d, double c_d, double rescale, int dbl,
-                                void* stream) {
-  if (n_end < 1 || m < 0) return (int)cudaErrorInvalidValue;
-  void* const outs[8] = {jm, je, jpm, jpe, hm, he, hpm, hpe};
+// out: one buffer of planes [N, n_end], the complex planes first, then the
+// exponent planes: mode 0 j j' h h' | je j'e he h'e; mode 1 h | he; mode 2
+// j j' h h'.  The rescale constants come from the caller, so both versions
+// use the same rounding of 1/rescale and log(rescale).
+extern "C" int bhs_spherical_jh(const void* z, void* out, int N, int n_end, int m, int mode,
+                                int d, double c_d, double rescale, double inv_rescale,
+                                double log_rescale, int dbl, void* stream) {
+  if (n_end < 1 || m < 0 || N < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dbl) return (int)dispatch<double>(mode, z, outs, N, n_end, m, d, c_d, rescale, st);
-  return (int)dispatch<float>(mode, z, outs, N, n_end, m, d, c_d, rescale, st);
+  if (dbl)
+    return (int)dispatch<double>(mode, z, out, N, n_end, m, d, c_d, rescale, inv_rescale,
+                                 log_rescale, st);
+  return (int)dispatch<float>(mode, z, out, N, n_end, m, d, c_d, rescale, inv_rescale,
+                              log_rescale, st);
 }

@@ -47,21 +47,23 @@ _SIGNATURES = {
     # buf_elems, adjoint, dbl, stream
     "bhs_block_diag_cmm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                            _I, _I, _I, _P],
-    # x, blc, pm, src, lanes, K, B, L, H, dbl, stream
-    "bhs_lane_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, blc, pm, src_ptr, src_lane, lanes, K, B, L, H, dbl, stream
+    "bhs_lane_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # y, x, diag, reg, pm, csr_ptr, csr_lane, csr_dn, out, K, B, L, H,
     # dbl, stream
     "bhs_lane_scatter": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P],
-    # z, jm, je, jpm, jpe, hm, he, hpm, hpe, N, n_end, m, mode, d, c_d,
-    # rescale, dbl, stream
-    "bhs_spherical_jh": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _D, _D, _I, _P],
+    # z, out, N, n_end, m, mode, d, c_d, rescale, inv_rescale, log_rescale,
+    # dbl, stream
+    "bhs_spherical_jh": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _I, _P],
     # radm, rade, iazf, u, l_row, l_col, e_r, e_b, out, P, n_rad, nb, ng,
     # nnz, L, dbl, stream
     "bhs_coax_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _P],
 }
+
+# the real dtype of each complex dtype the kernels take
+REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 _lock = threading.Lock()
 _lib = None
@@ -150,10 +152,17 @@ def library():
     return _lib
 
 
+def current_stream_handle():
+    """The current stream's handle, as torch.cuda.current_stream().cuda_stream
+    gives it, without building a Stream object (the query torch's own
+    generated kernels launch with)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
 def launch(name, *args):
     """Call C entry `name` on the current stream; raise on a CUDA error."""
     fn = getattr(library(), name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, current_stream_handle())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 

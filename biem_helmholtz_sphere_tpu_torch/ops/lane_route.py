@@ -4,7 +4,8 @@ The factored (S|R) matvec works on "lanes": one row per (offset slot,
 pair) that routes a pair, a b < b' pair or its mirror, compacted (no
 padding lane) and sorted by slot (see biem._core._pair_routing).
 `lane_gather` fills the lanes with blc * x of each lane's source ball,
-times the parity (-1)^n on mirror sources; `lane_scatter` applies the
+times the parity (-1)^n on mirror sources, one source row at a time
+(the by-source CSR `src_ptr`/`src_lane`); `lane_scatter` applies the
 parity to the mirror lanes, sums each destination ball's lanes in a
 fixed CSR order and adds the diagonal: out = diag * x + reg * sum.  The JAX package does both with one-hot
 routing matmuls (biem_helmholtz_sphere_tpu/biem/_core.py, the factored
@@ -31,6 +32,8 @@ class LaneRoute:
     csr_ptr: torch.Tensor  # int32 [B+1]
     csr_lane: torch.Tensor  # int32 [nnz]: lanes of each ball, ascending
     csr_dn: torch.Tensor  # int32 [nnz]: mirror flag of each listed lane
+    src_ptr: torch.Tensor  # int32 [2B+1]: lanes of each source row (by-source CSR)
+    src_lane: torch.Tensor  # int32 [L]: the lanes of each source row, ascending
     n_balls: int
 
 
@@ -42,9 +45,14 @@ def make_route(src, dst, dn, n_balls, device):
     dn = np.asarray(dn, dtype=bool)
     if (src < 0).any() or (dst < 0).any():
         raise ValueError("make_route: every lane must route a pair")
+    if (src >= 2 * n_balls).any() or (dst >= n_balls).any():
+        raise ValueError("make_route: a lane routes a ball that does not exist")
     lanes = [np.nonzero(dst == b)[0] for b in range(n_balls)]
     ptr = np.concatenate([[0], np.cumsum([len(v) for v in lanes])])
     csr_lane = np.concatenate(lanes)
+    # the gather's CSR: the lanes of each source row, ascending
+    src_lane = np.argsort(src, kind="stable")
+    src_ptr = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=2 * n_balls))])
 
     def t(a, dt=torch.int32):
         return torch.as_tensor(a, dtype=dt, device=device)
@@ -52,7 +60,7 @@ def make_route(src, dst, dn, n_balls, device):
     return LaneRoute(
         src=t(src), dst=t(dst, torch.int64), dn=t(dn, torch.bool),
         csr_ptr=t(ptr), csr_lane=t(csr_lane), csr_dn=t(dn[csr_lane]),
-        n_balls=n_balls,
+        src_ptr=t(src_ptr), src_lane=t(src_lane), n_balls=n_balls,
     )
 
 
@@ -61,13 +69,13 @@ def _check(name, pm, *tensors):
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {dev}")
     dt = tensors[0].dtype
-    if dt not in (torch.complex64, torch.complex128):
+    if dt not in kernels.REAL_OF:
         raise TypeError(f"{name}: dtype {dt}")
     for t in tensors:
         if t.device != dev or t.dtype != dt:
             raise TypeError(f"{name}: operands differ in device or dtype")
-    if pm.device != dev or pm.dtype != tensors[0].real.dtype:
-        raise TypeError(f"{name}: parity must be real {tensors[0].real.dtype}")
+    if pm.device != dev or pm.dtype != kernels.REAL_OF[dt]:
+        raise TypeError(f"{name}: parity must be real {kernels.REAL_OF[dt]}")
 
 
 def _lane_gather_plain(x, blc, pm, route):
@@ -85,13 +93,13 @@ def lane_gather(x, blc, pm, route):
         return _lane_gather_plain(x, blc, pm, route)
     _check("lane_gather", pm, x, blc)
     n_k, n_b, h = x.shape
-    n_lanes = route.src.shape[0]
+    n_lanes = route.src_lane.shape[0]
     x, blc, pm = x.contiguous(), blc.contiguous(), pm.contiguous()
     lanes = torch.empty((n_k, n_lanes, h), dtype=x.dtype, device=x.device)
     kernels.launch(
         "bhs_lane_gather",
-        kernels.ptr(x), kernels.ptr(blc), kernels.ptr(pm),
-        kernels.ptr(route.src), kernels.ptr(lanes), n_k, n_b, n_lanes, h,
+        kernels.ptr(x), kernels.ptr(blc), kernels.ptr(pm), kernels.ptr(route.src_ptr),
+        kernels.ptr(route.src_lane), kernels.ptr(lanes), n_k, n_b, n_lanes, h,
         int(x.dtype == torch.complex128),
     )
     lane_gather.launches += 1

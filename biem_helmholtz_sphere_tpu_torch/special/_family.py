@@ -15,11 +15,13 @@ downward (Miller) recurrence elsewhere.  The scaled variants carry every
 value as mantissa * exp(exponent) so nothing overflows in float32.
 
 K5: on CUDA tensors `spherical_jh_scaled`, `spherical_h_scaled` and
-`spherical_jh_all` launch one kernel, `csrc/spherical_jh.cu` (one thread
-per z, the order loops in registers); on CPU tensors they run the plain
-versions below (`_*_plain`), whose loops over the order run eagerly and
-which are the kernel's oracle.
+`spherical_jh_all` launch one kernel, `csrc/spherical_jh.cu` (a warp per
+z: the three recurrences on three lanes, the per-order epilogue across
+the warp); on CPU tensors they run the plain versions below (`_*_plain`),
+whose loops over the order run eagerly and which are the kernel's oracle.
 """
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -296,13 +298,25 @@ def _c_d(d):
     return float(np.sqrt(np.pi / 2.0) * 2.0 ** (-nu) / _sp_gamma(nu + 1.0))
 
 
+# per mode: (complex planes, exponent planes) of the kernel's output buffer
+_PLANES = {_SCALED: (4, 4), _H_ONLY: (1, 1), _UNSCALED: (4, 0)}
+
+
+@lru_cache(maxsize=None)
+def _launch_consts(d, rdt):
+    """(c_d, rescale, 1 / rescale, log(rescale)): the kernel's constants."""
+    rescale = _rescale_for(rdt)
+    return _c_d(d), rescale, 1.0 / rescale, float(np.log(rescale))
+
+
 def spherical_jh(mode, d, n_end, z):
     """K5 wrapper: the kernel's outputs for complex z [...] in one mode.
 
     mode _SCALED: ((jm, je), (jpm, jpe), (hm, he), (hpm, hpe)); _H_ONLY:
     (hm, he); _UNSCALED: (j, jp, h, hp); each [..., n_end].  On CPU
     tensors this runs the plain version of the mode; on CUDA tensors it
-    launches csrc/spherical_jh.cu or raises.
+    launches csrc/spherical_jh.cu or raises.  The kernel's outputs are
+    views of one buffer.
     """
     _, m = _base_and_shift(d)
     z = _as_complex(z)
@@ -314,36 +328,27 @@ def spherical_jh(mode, d, n_end, z):
         raise RuntimeError(f"spherical_jh: unsupported device {z.device}")
     if n_end < 1:
         raise ValueError(f"n_end must be >= 1, got {n_end}")
-    rdt = z.real.dtype
-    zc = z.contiguous()
-    shape = tuple(z.shape) + (n_end,)
-
-    def c():
-        return torch.empty(shape, dtype=z.dtype, device=z.device)
-
-    def r():
-        return torch.empty(shape, dtype=rdt, device=z.device)
-
-    if mode == _SCALED:
-        outs = [c(), r(), c(), r(), c(), r(), c(), r()]
-    elif mode == _H_ONLY:
-        outs = [None, None, None, None, c(), r(), None, None]
-    elif mode == _UNSCALED:
-        outs = [c(), None, c(), None, c(), None, c(), None]
-    else:
+    if mode not in _PLANES:
         raise ValueError(f"unknown spherical_jh mode {mode}")
-    kernels.launch(
-        "bhs_spherical_jh", kernels.ptr(zc),
-        *(None if t is None else kernels.ptr(t) for t in outs),
-        zc.numel(), n_end, m, mode, d, _c_d(d), _rescale_for(rdt),
-        int(rdt == torch.float64),
-    )
+    n_c, n_r = _PLANES[mode]
+    rdt = kernels.REAL_OF[z.dtype]
+    zc = z.contiguous()
+    n_z = zc.numel()
+    plane = n_z * n_end
+    # the complex planes, then the exponent planes two to a complex element
+    buf = torch.empty(n_c * plane + (n_r * plane + 1) // 2, dtype=z.dtype, device=z.device)
+    kernels.launch("bhs_spherical_jh", kernels.ptr(zc), kernels.ptr(buf), n_z, n_end, m, mode,
+                   d, *_launch_consts(d, rdt), int(rdt == torch.float64))
     spherical_jh.launches += 1
-    if mode == _SCALED:
-        return tuple(zip(outs[0::2], outs[1::2]))
+    shape = tuple(z.shape) + (n_end,)
+    if mode == _UNSCALED:
+        f = buf.view((4,) + shape)
+        return f[0], f[1], f[2], f[3]
     if mode == _H_ONLY:
-        return outs[4], outs[5]
-    return tuple(outs[0::2])
+        return buf[:plane].view(shape), buf.view(rdt)[2 * plane : 3 * plane].view(shape)
+    f = buf.view((6,) + shape)
+    e = f[4:].view(rdt).view((4,) + shape)
+    return (f[0], e[0]), (f[1], e[1]), (f[2], e[2]), (f[3], e[3])
 
 
 spherical_jh.launches = 0

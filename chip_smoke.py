@@ -15,7 +15,7 @@ non-zero before the result line):
    the bench routing's 240 compacted lanes with X's actual child-state
    permutation; KA in its many-point mode at 131,072 points and its
    few-point mode at 1 point x 4 k, near and far, summed and per ball;
-   KA and KB launched twice and required bit-for-bit equal); compute each
+   every kernel launched twice and required bit-for-bit equal); compute each
    kernel's bound from its shapes (the larger of its bytes over 3.35 TB/s
    and its operations over 67 TFLOP/s float32 / 34 TFLOP/s float64, the
    H100 SXM's published rates; padding counts as no work: only the lanes
@@ -109,9 +109,12 @@ def randc(torch, rng, shape, dtype, dev):
 
 
 def same_bits(torch, a, b):
-    """Bitwise equal complex tensors (NaN included)."""
+    """Bitwise equal tensors, or nested tuples of them (NaN included)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_bits(torch, x, y) for x, y in zip(a, b))
+
     def bits(t):
-        return torch.view_as_real(t).contiguous().view(torch.uint8)
+        return (torch.view_as_real(t) if t.is_complex() else t).contiguous().view(torch.uint8)
     return torch.equal(bits(a), bits(b))
 
 
@@ -215,6 +218,8 @@ def check_kernels(torch, dev, card):
         ):
             got = spherical_jh(mode, 3, n_end, z)
             ref = plain(3, n_end, z)
+            if not same_bits(torch, spherical_jh(mode, 3, n_end, z), got):
+                raise RuntimeError(f"spherical_jh {label} {name}: two launches differ")
             if mode == _SCALED:
                 errs = [scaled_err(torch, g, r) for g, r in zip(got, ref)]
             elif mode == _H_ONLY:
@@ -252,7 +257,10 @@ def check_kernels(torch, dev, card):
         radm, rade = spherical_jh(_H_ONLY, 3, n_bands, z_coax)
         tab = _coax_packed(c, N_END, rdt, dev)
         args = (radm, rade, e_r, e_b, tab)
-        ea, er = rel_err(torch, coax_fold(*args), _coax_fold_packed_plain(*args))
+        got = coax_fold(*args)
+        ea, er = rel_err(torch, got, _coax_fold_packed_plain(*args))
+        if not same_bits(torch, coax_fold(*args), got):
+            raise RuntimeError(f"coax_fold {name}: two launches differ")
         ms = cuda_ms(torch, lambda: coax_fold(*args), 20)
         pms = cuda_ms(torch, lambda: _coax_fold_packed_plain(*args), 5)
         nnz = tab.u.shape[1]
@@ -345,7 +353,10 @@ def check_kernels(torch, dev, card):
              bound(used * cs + 4 * xv.numel() * cs + small,
                    4 * used + 14 * xv.numel(), name)),
         ):
-            ea, er = rel_err(torch, kfn(), pfn())
+            got = kfn()
+            ea, er = rel_err(torch, got, pfn())
+            if not same_bits(torch, kfn(), got):
+                raise RuntimeError(f"{kname} {name}: two launches differ")
             ms, pms = cuda_ms(torch, kfn, 20), cuda_ms(torch, pfn, 20)
             print(f"[2] {kname} {n_used} lanes {name}: max_abs_err {ea:.3e} max_rel_err "
                   f"{er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms ({card})")

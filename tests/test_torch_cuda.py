@@ -31,6 +31,7 @@ from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
 )
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+from biem_helmholtz_sphere_tpu_torch.ops import kernels
 from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
     LaneSegments,
     _block_diag_cmm_plain,
@@ -84,9 +85,12 @@ def _rel(a, b):
 
 
 def _same_bits(a, b):
-    """Bitwise equal (NaN included)."""
+    """Bitwise equal tensors, or nested tuples of them (NaN included)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+
     def bits(t):
-        return torch.view_as_real(t).contiguous().view(torch.uint8)
+        return (torch.view_as_real(t) if t.is_complex() else t).contiguous().view(torch.uint8)
     return torch.equal(bits(a), bits(b))
 
 
@@ -258,26 +262,46 @@ _Z = np.concatenate([np.geomspace(1e-3, 60.0, 29), [8.0, 3.0 + 2.0j, 15.0 - 0.5j
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("d", [3, 5])
 def test_spherical_jh_kernel_matches_plain(cuda, dtype, d):
-    """K5 in its three modes against the plain versions on the card."""
+    """K5 in its three modes against the plain versions on the card, at
+    n_end from 1 to 64 (a lane per order, past 32 orders; the m > 0
+    window), h alone over 2 n_end - 1 bands (up to 127) and at z = 0 in
+    the unscaled mode; two launches are bit for bit equal."""
     z = torch.as_tensor(_Z, dtype=dtype, device=cuda).reshape(-1, 1)
     tol = _tol(dtype)
     names = ("j", "jp", "h", "hp")
+    zu = torch.cat([torch.zeros(1, dtype=dtype, device=cuda), z.reshape(-1)])
+    # past n_end = 16 the unscaled float32 values stay finite at every
+    # order only where |z| >= 20
+    zu_far = torch.cat([zu[:1], zu[zu.abs() >= 20.0]])
     n0 = spherical_jh.launches
-    for n_end in (1, 24, 41):
+    n_ends = (1, 2, 16, 24, 31, 32, 33, 41, 63, 64)
+    for n_end in n_ends:
         got = spherical_jh(_SCALED, d, n_end, z)
         ref = _spherical_jh_scaled_plain(d, n_end, z)
         for name, g, r in zip(names, got, ref):
             assert g[0].shape == r[0].shape == z.shape + (n_end,)
             assert _scaled_rel(g, r, _keep(d, name, z, n_end)) < tol, (n_end, name)
-        assert _scaled_rel(spherical_jh(_H_ONLY, d, 2 * n_end - 1, z),
-                           _spherical_h_scaled_plain(d, 2 * n_end - 1, z)) < tol
-    zu = torch.cat([torch.zeros(1, dtype=dtype, device=cuda), z.reshape(-1)])
-    for name, g, r in zip(names, spherical_jh(_UNSCALED, d, 16, zu),
-                          _spherical_jh_all_plain(d, 16, zu)):
-        keep = _keep(d, name, zu, 16)
-        keep[0] = True  # the z = 0 limits are exact
-        assert _unscaled_rel(g, r, keep) < tol, name
-    assert spherical_jh.launches == n0 + 7
+        assert _same_bits(spherical_jh(_SCALED, d, n_end, z), got)
+        # h alone over the coax's 2 n_end - 1 bands.  Past |e| = 1024 one
+        # float32 ulp of an exponent (1.2e-4) exceeds the tolerance, and
+        # e + ln rounds independently in the two versions; past 81 bands
+        # |e| reaches 1024 only at |z| < 0.03, so complex64 holds the values
+        # there to being finite and compares them from |z| = 0.03 on
+        n_h = 2 * n_end - 1
+        keep_h = torch.ones(z.shape + (n_h,), dtype=torch.bool, device=cuda)
+        if dtype == torch.complex64 and n_h > 81:
+            keep_h &= (z.abs() >= 0.03)[..., None]
+        got = spherical_jh(_H_ONLY, d, n_h, z)
+        assert _scaled_rel(got, _spherical_h_scaled_plain(d, n_h, z), keep_h) < tol, n_end
+        assert _same_bits(spherical_jh(_H_ONLY, d, n_h, z), got)
+        zz = zu if n_end <= 16 else zu_far
+        got = spherical_jh(_UNSCALED, d, n_end, zz)
+        for name, g, r in zip(names, got, _spherical_jh_all_plain(d, n_end, zz)):
+            keep = _keep(d, name, zz, n_end)
+            keep[0] = True  # the z = 0 limits are exact
+            assert _unscaled_rel(g, r, keep) < tol, (n_end, name)
+        assert _same_bits(spherical_jh(_UNSCALED, d, n_end, zz), got)
+    assert spherical_jh.launches == n0 + 6 * len(n_ends)
 
 
 @pytest.mark.requires_cuda
@@ -370,3 +394,75 @@ def test_factored_operator_on_the_card_matches_the_cpu(cuda):
         out[dev.type] = (mv(torch.as_tensor(x, device=dev)).cpu(), diag.cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-10
+
+
+def _gather_case(case, cuda, dtype, rng):
+    """(x, blc, pm, route) for the KC gather tests."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    if case == "empty-and-crowded":
+        nb, n_end = 3, 5
+        src = np.array([4, 0, 4, 4, 2, 4, 0, 5, 4, 3, 4])  # source row 1 has no lane
+        dst = rng.integers(0, nb, size=len(src))
+        route = make_route(src, dst, src >= nb, nb, cuda)
+    else:
+        centers = _lattice()
+        nb, n_end = len(centers), (32 if case == "bench" else 5)
+        rt = _pair_routing(centers)
+        route = make_route(rt.src, rt.dst, rt.dn, nb, cuda)
+    h = n_end * n_end
+    pm = torch.as_tensor((-1.0) ** (basis(create_from_branching_types("ba"), n_end).n_root % 2),
+                         dtype=rdt, device=cuda)
+    x, blc = (torch.as_tensor(_randc(rng, (4, nb, h)), dtype=dtype, device=cuda)
+              for _ in range(2))
+    return x, blc, pm, route
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", ["bench", "empty-and-crowded", "odd-H"])
+def test_lane_gather_by_source_kernel(cuda, dtype, case):
+    """The KC gather (a CTA per chunk x source row x k over the by-source
+    CSR) against _lane_gather_plain on the bench routing, on one where a
+    source row has no lane and one has many, and at an odd H (n_end = 5,
+    H = 25: complex64 rows start off 16 bytes); also with x at an odd
+    element offset; two launches bit for bit."""
+    rng = np.random.default_rng(44)
+    x, blc, pm, route = _gather_case(case, cuda, dtype, rng)
+    n0 = lane_gather.launches
+    got = lane_gather(x, blc, pm, route)
+    assert lane_gather.launches == n0 + 1
+    ref = _lane_gather_plain(x, blc, pm, route)
+    assert got.shape == ref.shape and _rel(got, ref) < _tol(dtype)
+    assert _same_bits(lane_gather(x, blc, pm, route), got)
+    # x contiguous but one element off its allocation (off 16 bytes in complex64)
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous()
+    assert _same_bits(lane_gather(shifted, blc, pm, route), got)
+
+
+@pytest.mark.requires_cuda
+def test_kernels_launch_on_the_current_stream(cuda):
+    """kernels.launch takes the stream handle torch.cuda.current_stream()
+    gives, on the default stream and under a side stream; the KC gather
+    and K5 launched on a side stream, behind a copy that a sleep on that
+    stream delays, read the copied inputs and give the default stream's
+    bits."""
+    assert kernels.current_stream_handle() == torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(45)
+    x, blc, pm, route = _gather_case("bench", cuda, torch.complex64, rng)
+    z = torch.as_tensor(_Z, dtype=torch.complex64, device=cuda).reshape(-1, 1)
+    ref = (lane_gather(x, blc, pm, route), spherical_jh(_SCALED, 3, 32, z))
+    xs, zs = torch.zeros_like(x), torch.zeros_like(z)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        handle = kernels.current_stream_handle()
+        assert handle == torch.cuda.current_stream().cuda_stream == side.cuda_stream
+        assert handle != torch.cuda.default_stream(cuda).cuda_stream
+        torch.cuda._sleep(100_000_000)
+        xs.copy_(x)
+        zs.copy_(z)
+        got = (lane_gather(xs, blc, pm, route), spherical_jh(_SCALED, 3, 32, zs))
+    torch.cuda.current_stream().wait_stream(side)
+    assert _same_bits(got, ref)

@@ -416,3 +416,61 @@ def test_compacted_route_matches_the_padded_route():
     for i, l in enumerate(rt.lane):
         cpl[:, rt.dst[i]] += y_mir.reshape(n_k, -1, h)[:, l]
     _close(out.numpy(), (diag * x).numpy() + reg.numpy() * cpl)
+
+
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+def test_make_route_by_source_csr_lists_every_lane_once(geometry):
+    """The KC gather's by-source CSR (src_ptr, src_lane): every lane is
+    listed exactly once, under its own source row of [z; z*pm], and each
+    source's lanes ascend."""
+    centers = _GEOMETRIES[geometry]
+    nb = len(centers)
+    rt = _pair_routing(centers)
+    route = make_route(rt.src, rt.dst, rt.dn, nb, torch.device("cpu"))
+    ptr, lanes = route.src_ptr.numpy(), route.src_lane.numpy()
+    assert ptr.shape == (2 * nb + 1,) and (ptr[0], ptr[-1]) == (0, len(rt.src))
+    assert (np.diff(ptr) >= 0).all()
+    np.testing.assert_array_equal(np.sort(lanes), np.arange(len(rt.src)))
+    for s in range(2 * nb):
+        own = lanes[ptr[s] : ptr[s + 1]]
+        np.testing.assert_array_equal(own, np.nonzero(rt.src == s)[0])
+
+
+def _gather_by_source(x, blc, pm, route):
+    """The gather as the kernel walks it: each source row once, written to
+    every lane of its CSR entry."""
+    z = blc * x
+    n_b = x.shape[1]
+    lanes = torch.full((x.shape[0], route.src_lane.shape[0], x.shape[2]), complex("nan"),
+                       dtype=x.dtype)
+    ptr = route.src_ptr.tolist()
+    for s in range(2 * n_b):
+        row = z[:, s % n_b] * (pm if s >= n_b else 1.0)
+        for q in range(ptr[s], ptr[s + 1]):
+            lanes[:, int(route.src_lane[q])] = row
+    return lanes
+
+
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES) + ["empty-and-crowded"])
+def test_plain_gather_by_source_csr_matches_the_plain_gather(geometry):
+    """A gather driven by make_route's by-source CSR equals
+    _lane_gather_plain, bit for bit; also on a routing where one source
+    row has no lane and one has many, at an odd H (n_end = 5)."""
+    n_end, n_k = 5, 2
+    rng = np.random.default_rng(31)
+    if geometry == "empty-and-crowded":
+        nb = 3
+        src = np.array([4, 0, 4, 4, 2, 4, 0, 5, 4, 3, 4])  # row 1 has no lane
+        dst = rng.integers(0, nb, size=len(src))
+        dn = src >= nb
+    else:
+        centers = _GEOMETRIES[geometry]
+        nb = len(centers)
+        rt = _pair_routing(centers)
+        src, dst, dn = rt.src, rt.dst, rt.dn
+    route = make_route(src, dst, dn, nb, torch.device("cpu"))
+    h = n_end * n_end
+    pm = torch.as_tensor((-1.0) ** (basis(create_from_branching_types("ba"), n_end).n_root % 2))
+    x, blc = (torch.as_tensor(_randc(rng, (n_k, nb, h))) for _ in range(2))
+    got = _gather_by_source(x, blc, pm, route)
+    assert torch.equal(got, _lane_gather_plain(x, blc, pm, route))

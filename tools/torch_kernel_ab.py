@@ -1,4 +1,4 @@
-"""A/B device times of KB and KA source variants on one card.
+"""A/B device times of KB, KA, K5 and KC source variants on one card.
 
     python tools/torch_kernel_ab.py DIR [DIR ...]
 
@@ -15,7 +15,10 @@ device time of the port's kernels per launch, torch.profiler) and prints
 the median device microseconds per launch of each case and variant, in
 complex64 and complex128.  Cases, at the bench widths (16 spheres on the
 4x4 lattice, n_end = 32, 4 k): KB's three products on the compacted
-lanes, KA at 131,072 points x 1 k and at 1 point x 4 k.
+lanes, KA at 131,072 points x 1 k and at 1 point x 4 k, K5's three launch
+shapes of a k-block (scaled and unscaled at 4 k x 16 radii x 32 orders,
+h only at 4 k x 9 distances x 63 bands; compared on the values
+mant exp(e)) and the KC gather.
 """
 
 import os
@@ -38,6 +41,11 @@ def cases(torch, dev, cdt):
     from biem_helmholtz_sphere_tpu_torch.harmonics import basis
     from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
         LaneSegments, _block_diag_cmm_plain, block_diag_cmm, pack, unpack)
+    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
+        _lane_gather_plain, lane_gather, make_route)
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _H_ONLY, _SCALED, _UNSCALED, _spherical_h_scaled_plain, _spherical_jh_all_plain,
+        _spherical_jh_scaled_plain, spherical_jh)
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks
     from chip_smoke import EVAL_POINTS, KB, N_END, lattice_centers
 
@@ -72,6 +80,21 @@ def cases(torch, dev, cdt):
     k4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
     outside = (torch.linalg.vector_norm(pts[:, 0, :, None] - cen.T[:, None, :], dim=0)
                > 1.0).all(-1)
+    nb = len(centers_np)
+    z_rows = (k4[:, None] * torch.ones(nb, dtype=rdt, device=dev)).to(cdt)
+    z_coax = (k4[:, None] * torch.as_tensor(rt.uniq_r, dtype=rdt, device=dev)).to(cdt)
+
+    def values(out):
+        """K5's outputs as one tensor of values (mant exp(e) where scaled)."""
+        if isinstance(out[0], tuple):
+            return torch.stack([m * torch.exp(e) for m, e in out])
+        if out[1].is_complex():
+            return torch.stack(out)
+        return out[0] * torch.exp(out[1])
+
+    route = make_route(rt.src, rt.dst, rt.dn, nb, dev)
+    pm = ((-1.0) ** (ell % 2)).to(rdt)
+    xv, blc = randc((KB, nb, h)), randc((KB, nb, h))
     return {  # name: (kernel call, plain call, mask of compared entries, reps)
         "KB D^H": (lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True),
                    lambda: _block_diag_cmm_plain(dd, lanes, d_seg, True), None, 50),
@@ -85,6 +108,15 @@ def cases(torch, dev, cdt):
         f"KA 1 pt x {KB} k": (lambda: fused_ba_eval(zero, cen, k4, w4),
                               lambda: _fused_ba_eval_plain(zero, cen, k4, w4, False, False),
                               None, 50),
+        "K5 scaled": (lambda: values(spherical_jh(_SCALED, 3, N_END, z_rows)),
+                      lambda: values(_spherical_jh_scaled_plain(3, N_END, z_rows)), None, 50),
+        "K5 unscaled": (lambda: values(spherical_jh(_UNSCALED, 3, N_END, z_rows)),
+                        lambda: values(_spherical_jh_all_plain(3, N_END, z_rows)), None, 50),
+        "K5 h only": (lambda: values(spherical_jh(_H_ONLY, 3, 2 * N_END - 1, z_coax)),
+                      lambda: values(_spherical_h_scaled_plain(3, 2 * N_END - 1, z_coax)),
+                      None, 50),
+        "KC gather": (lambda: lane_gather(xv, blc, pm, route),
+                      lambda: _lane_gather_plain(xv, blc, pm, route), None, 50),
     }
 
 

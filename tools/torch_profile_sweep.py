@@ -1,7 +1,7 @@
 """Profile the port's bench sweep on the card: device time per kernel and
 the device's idle share.
 
-    python tools/torch_profile_sweep.py
+    python tools/torch_profile_sweep.py [--host-only]
 
 Run from the repository root on a machine with a CUDA card (no JAX
 needed).  It drives chip_smoke.py's bench sweep (`chip_smoke.bench_sweep`: 16 unit
@@ -13,9 +13,13 @@ warm starts) once to warm up and once under torch.profiler, then prints:
   union of the intervals in which any kernel ran), hence its idle share;
 - the device time of each kernel name, largest first, with its count;
 - the device time per launch of KB's three products (D^H, X, D) on the
-  bench routing's compacted lanes, and of KA in both of its modes
-  (131,072 points x 1 k, and 1 point x 4 k as uscat(0) runs it), each
-  profiled alone over 20 launches at the bench widths (complex64).
+  bench routing's compacted lanes, of KA in both of its modes (131,072
+  points x 1 k, and 1 point x 4 k as uscat(0) runs it), of K5's three
+  launch shapes of a k-block and of the KC gather and scatter, each
+  profiled alone over 20 launches at the bench widths (complex64);
+- the host microseconds per call of the K5 wrapper in its three modes and
+  of the KC gather wrapper at the same shapes, with a `torch.empty` and
+  the stream queries beside them (only these with --host-only).
 
 Numbers from a profiled run include the profiler's own overhead on the
 host; compare device times, not the wall time, with unprofiled runs.
@@ -72,7 +76,8 @@ def _per_launch_us(torch, fn, reps=20):
 
 
 def kernel_device_times(torch, dev):
-    """KB per product and KA in both modes, each alone on the card."""
+    """KB per product, KA in both modes, K5 per launch shape and KC, each
+    alone on the card."""
     from dataclasses import replace
 
     import numpy as np
@@ -83,6 +88,10 @@ def kernel_device_times(torch, dev):
     from biem_helmholtz_sphere_tpu_torch.harmonics import basis
     from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
         LaneSegments, block_diag_cmm, pack)
+    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
+        lane_gather, lane_scatter, make_route)
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _H_ONLY, _SCALED, _UNSCALED, spherical_jh)
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks
     from chip_smoke import EVAL_POINTS, KB, N_END, lattice_centers
 
@@ -114,6 +123,12 @@ def kernel_device_times(torch, dev):
     zero = torch.zeros((3, 1, 1), dtype=rdt, device=dev)
     k1 = torch.full((1,), 8.0, dtype=rdt, device=dev)
     k4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
+    nb = len(centers_np)
+    z_rows = (k4[:, None] * torch.ones(nb, dtype=rdt, device=dev)).to(cdt)
+    z_coax = (k4[:, None] * torch.as_tensor(rt.uniq_r, dtype=rdt, device=dev)).to(cdt)
+    route = make_route(rt.src, rt.dst, rt.dn, nb, dev)
+    pm = ((-1.0) ** (ell % 2)).to(rdt)
+    xv, blc, diag, reg = (randc((KB, nb, h)) for _ in range(4))
     return {
         "block_diag_cmm D^H": _per_launch_us(
             torch, lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True)),
@@ -123,7 +138,75 @@ def kernel_device_times(torch, dev):
             torch, lambda: fused_ba_eval(pts, cen, k1, w1), 5),
         f"fused_ba_eval 1 pt x {KB} k": _per_launch_us(
             torch, lambda: fused_ba_eval(zero, cen, k4, w4)),
+        f"spherical_jh scaled {KB} k x {nb} radii x {N_END}": _per_launch_us(
+            torch, lambda: spherical_jh(_SCALED, 3, N_END, z_rows)),
+        f"spherical_jh unscaled {KB} k x {nb} radii x {N_END}": _per_launch_us(
+            torch, lambda: spherical_jh(_UNSCALED, 3, N_END, z_rows)),
+        f"spherical_jh h only {KB} k x {len(rt.uniq_r)} distances x {2 * N_END - 1}":
+            _per_launch_us(torch, lambda: spherical_jh(_H_ONLY, 3, 2 * N_END - 1, z_coax)),
+        f"lane_gather {KB} k x {len(rt.src)} lanes": _per_launch_us(
+            torch, lambda: lane_gather(xv, blc, pm, route)),
+        f"lane_scatter {KB} k x {len(rt.src)} lanes": _per_launch_us(
+            torch, lambda: lane_scatter(lanes, xv, diag, reg, pm, route)),
     }
+
+
+def _host_us(torch, fn, reps=2000):
+    """Host microseconds per call of fn(), called back to back up to one
+    final synchronize.  The kernels of these rows take less device time
+    than their calls take to issue, so the row reads the host's time."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def wrapper_host_times(torch, dev):
+    """K5 per mode and the KC gather, each through its wrapper, on the host."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.ops import kernels
+    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, make_route
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _H_ONLY, _SCALED, _UNSCALED, spherical_jh)
+    from chip_smoke import KB, N_END, lattice_centers
+
+    centers = lattice_centers()
+    nb, h = len(centers), N_END * N_END
+    rt = _pair_routing(centers)
+    k4 = torch.linspace(7.0, 7.06, KB, device=dev)
+    z_rows = (k4[:, None] * torch.ones(nb, device=dev)).to(torch.complex64)
+    z_coax = (k4[:, None] * torch.as_tensor(rt.uniq_r, dtype=torch.float32,
+                                            device=dev)).to(torch.complex64)
+    route = make_route(rt.src, rt.dst, rt.dn, nb, dev)
+    x, blc = (torch.randn(KB, nb, h, dtype=torch.complex64, device=dev) for _ in range(2))
+    pm = torch.ones(h, device=dev)
+    rows = {
+        f"spherical_jh scaled {KB} k x {nb} radii x {N_END}":
+            lambda: spherical_jh(_SCALED, 3, N_END, z_rows),
+        f"spherical_jh unscaled {KB} k x {nb} radii x {N_END}":
+            lambda: spherical_jh(_UNSCALED, 3, N_END, z_rows),
+        f"spherical_jh h only {KB} k x {len(rt.uniq_r)} distances x {2 * N_END - 1}":
+            lambda: spherical_jh(_H_ONLY, 3, 2 * N_END - 1, z_coax),
+        f"lane_gather {KB} k x {len(rt.src)} lanes": lambda: lane_gather(x, blc, pm, route),
+        f"torch.empty of {KB * nb * N_END} complex64": lambda: torch.empty(
+            KB * nb * N_END, dtype=torch.complex64, device=dev),
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    # the raw query kernels.launch makes, where the checkout has one
+    if hasattr(kernels, "current_stream_handle"):
+        rows["kernels.current_stream_handle()"] = kernels.current_stream_handle
+    return {label: _host_us(torch, fn) for label, fn in rows.items()}
+
+
+def _print_host_times(torch, dev):
+    print("host us per call (bench widths, complex64):")
+    for label, us in wrapper_host_times(torch, dev).items():
+        print(f"  {us:9.2f} us  {label}")
 
 
 def main():
@@ -139,7 +222,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    _, sweep, ks = bench_sweep(torch, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if "--host-only" in sys.argv[1:]:
+        print(f"card: {card}")
+        _print_host_times(torch, dev)
+        return 0
+    _, sweep, ks = bench_sweep(torch, dev)
 
     sweep()
     torch.cuda.synchronize()
@@ -164,8 +252,9 @@ def main():
         if "(anonymous namespace)::" in key:
             print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
     print("each alone, device us per launch (bench widths, complex64):")
-    for label, us in kernel_device_times(torch, torch.device("cuda", 0)).items():
+    for label, us in kernel_device_times(torch, dev).items():
         print(f"  {us:9.2f} us  {label}")
+    _print_host_times(torch, dev)
     return 0
 
 
