@@ -56,10 +56,10 @@ _SIGNATURES = {
     # z, out, N, n_end, m, mode, d, c_d, rescale, inv_rescale, log_rescale,
     # dbl, stream
     "bhs_spherical_jh": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _I, _P],
-    # radm, rade, iazf, u, l_row, l_col, e_r, e_b, out, P, n_rad, nb, ng,
-    # nnz, L, dbl, stream
+    # radm, rade, iazf, u_tiles, units, order, e_r, e_b, out, P, n_rad, nb,
+    # ng, nnz, n_units, unit_slabs, L, dbl, stream
     "bhs_coax_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

@@ -15,12 +15,14 @@ ball-max radial exponents and packed into its child-state blocks.
 launch of `csrc/coax_fold.cu` after the K5 launch for h_n(k r), on CPU
 tensors `_coax_fold_packed_plain`.  Its radius-independent bands are kept
 at the packed entries only ([NG * G, nnz], 2.1% of the dense [NB, H, H]
-at n_end=32).  `coaxial_scaled` keeps the dense (mant, S) for the
-translation surface.
+at n_end=32), and for the kernel also as tiles of _TILE entries of one
+top group (l + l') // _GROUP, each with only the bands below its top
+group's end (`_coax_tiles`).  `coaxial_scaled` keeps the dense (mant, S)
+for the translation surface.
 """
 
 from dataclasses import dataclass, replace
-from functools import lru_cache
+from functools import cached_property, lru_cache
 
 import numpy as np
 import torch
@@ -34,6 +36,13 @@ from ._rotation import _coax_tables, _root_axis
 # Bands per scale group: the within-group exponent spread (G-1) *
 # ln(2N/(e k t)) stays inside the float32 exp range for k t > ~1e-4 N.
 _GROUP = 8
+# Packed entries per tile of the K2 kernel (= csrc/coax_fold.cu kTile), and
+# the most U slabs (groups of _GROUP bands of a tile) a K2 work unit holds
+_TILE = 64
+_UNIT_SLABS = 24
+# A tile's cost in the K2 kernel beside its slabs' (its entries, phases,
+# fold factors and stores), in slabs: tools/torch_k2_trace.py on an H100
+_TILE_COST = 2.56
 
 
 def _band_groups(radm, rade, iazf, ng):
@@ -132,6 +141,76 @@ class CoaxPacked:
     iazf: torch.Tensor  # complex [NB] i^n a_d zf_n
     l_row: torch.Tensor  # int32 [nnz] root degree of each packed row
     l_col: torch.Tensor  # int32 [nnz] root degree of each packed column
+    order: torch.Tensor  # int32 [nnz, 2] (packed index, l_row + 65536 l_col) by top group
+    units: torch.Tensor  # int32 [n_units, 4] (first entry of order, entries, top group, slab)
+    u_tiles: torch.Tensor  # real [slabs, 2, _TILE, 4] the tiles' bands, slab by slab
+    unit_slabs: int  # the most slabs of a unit
+
+    @cached_property
+    def kernel_tables(self):
+        """The K2 kernel's table arguments, fixed for the tables' life:
+        (iazf, u_tiles, units, order addresses, ng, nnz, n_units, the most
+        slabs of a unit, float64 flag)."""
+        ptrs = (kernels.ptr(t) for t in (self.iazf, self.u_tiles, self.units, self.order))
+        return (*ptrs, self.u.shape[0] // _GROUP, self.u.shape[1], self.units.shape[0],
+                self.unit_slabs, int(self.u.dtype == torch.float64))
+
+
+def _coax_tiles(u, lsum, n_sm):
+    """The K2 kernel's tiles and work units of the packed entries (numpy).
+
+    u [NG * G, nnz] bands at the packed entries; lsum [nnz] l + l' of
+    each; n_sm the card's multiprocessors.  Entries are ordered by top
+    group lsum // _GROUP, largest first (stable), and each run of one top
+    group is cut into tiles of _TILE (the run's last one ragged).  A tile
+    of top group g holds its bands 0 .. G (g + 1) - 1 as g + 1 slabs of the
+    image, slab s at [h, j, b] = u[G s + 4 h + b, order[tile start + j]],
+    zero for j past the tile.  Each run is dealt out in work units of
+    consecutive tiles (counts differing by at most one), at most
+    _UNIT_SLABS slabs a unit where a tile fits, and the runs' unit counts
+    grow, the run with the costliest unit first (a tile costs its slabs
+    and _TILE_COST), until there are n_sm units.  Bands above lsum are
+    zero in u (the Gaunt mask), so no entry needs a group above its top.
+
+    Returns (order [nnz], units [n_units, 4] = (first entry of order,
+    entries, top group, first slab), image [slabs, 2, _TILE, 4], the most
+    slabs of a unit).
+    """
+    top = lsum // _GROUP
+    order = np.argsort(-top, kind="stable")
+    cuts = np.flatnonzero(np.diff(top[order])) + 1
+    runs = [(int(a), int(b), int(top[order[a]])) for a, b in
+            zip(np.r_[0, cuts], np.r_[cuts, len(order)])]
+    n_tiles = [-(-(b - a) // _TILE) for a, b, _ in runs]
+    size = [g + 1 for _, _, g in runs]  # slabs per tile
+    n_units = [-(-n // max(1, _UNIT_SLABS // s)) for n, s in zip(n_tiles, size)]
+
+    def heaviest(r):  # the cost of run r's largest unit
+        return -(-n_tiles[r] // n_units[r]) * (size[r] + _TILE_COST)
+
+    while sum(n_units) < n_sm:
+        r = max((r for r in range(len(runs)) if n_units[r] < n_tiles[r]), key=heaviest,
+                default=None)
+        if r is None:
+            break
+        n_units[r] += 1
+    units, slab = [], 0
+    image = np.zeros((sum(n * s for n, s in zip(n_tiles, size)), 2, _TILE, 4))
+    for (a, b, g), n, k in zip(runs, n_tiles, n_units):
+        t0 = 0
+        for i in range(k):
+            t1 = t0 + n // k + (i < n % k)
+            e0, e1 = a + t0 * _TILE, min(b, a + t1 * _TILE)
+            units.append((e0, e1 - e0, g, slab))
+            for s0 in range(e0, e1, _TILE):
+                ent = order[s0 : min(s0 + _TILE, e1)]
+                blk = u[: (g + 1) * _GROUP, ent].reshape(g + 1, 2, 4, len(ent))
+                image[slab : slab + g + 1, :, : len(ent)] = blk.transpose(0, 1, 3, 2)
+                slab += g + 1
+            t0 = t1
+    units = np.asarray(units, dtype=np.int64).reshape(-1, 4)
+    most = int(((-(-units[:, 1] // _TILE)) * (units[:, 2] + 1)).max())
+    return order, units, image, most
 
 
 @lru_cache(maxsize=4)
@@ -140,7 +219,8 @@ def _coax_packed(c, n_end, dtype, device):
 
     U_n[a, b] = sum_q t[q, a] tz[q, n] w[q] t[q, b], masked to the Gaunt
     support l_a + l_b >= n, is formed at the packed (a, b) only, in float64
-    on the host; bands are zero-padded to whole groups of _GROUP.
+    on the host; bands are zero-padded to whole groups of _GROUP.  The K2
+    kernel reads it as `_coax_tiles` lays it out.
     """
     zf, w, tz, t_cols, ell, _ = _coax_tables(c, n_end)
     sizes, perm = _child_state_blocks(c, n_end)
@@ -152,8 +232,14 @@ def _coax_packed(c, n_end, dtype, device):
     lsum = ell[rows] + ell[cols]
     u = np.where(lsum[None, :] >= np.arange(n_bands)[:, None], u, 0.0)
     u = np.concatenate([u, np.zeros((ng * _GROUP - n_bands, u.shape[1]))])
+    n_sm = 132  # the H100's; the card's own where the tables live on one
+    if torch.device(device).type == "cuda":
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    order, units, image, unit_slabs = _coax_tiles(u, lsum, n_sm)
+    l_pair = ell[rows] + 65536 * ell[cols]
     cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
     kw = dict(dtype=dtype, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
     iazf = ipow(np.arange(n_bands), cdt, device) * torch.as_tensor(
         _a_const(c.c_ndim) * zf, **kw
     )
@@ -161,8 +247,12 @@ def _coax_packed(c, n_end, dtype, device):
         layout=layout,
         u=torch.as_tensor(u, **kw),
         iazf=iazf,
-        l_row=torch.as_tensor(ell[rows], dtype=torch.int32, device=device),
-        l_col=torch.as_tensor(ell[cols], dtype=torch.int32, device=device),
+        l_row=torch.as_tensor(ell[rows], **i32),
+        l_col=torch.as_tensor(ell[cols], **i32),
+        order=torch.as_tensor(np.stack([order, l_pair[order]], axis=1), **i32),
+        units=torch.as_tensor(units, **i32),
+        u_tiles=torch.as_tensor(image, **kw),
+        unit_slabs=unit_slabs,
     )
 
 
@@ -201,7 +291,6 @@ def coax_fold(radm, rade, e_r, e_b, tab):
     raises.
     """
     n_k, n_rad, n_bands = radm.shape
-    nbp, nnz = tab.u.shape
     if rade.shape != radm.shape or e_r.shape != e_b.shape or e_r.shape[0] != n_k:
         raise ValueError(
             f"coax_fold: radm {tuple(radm.shape)}, rade {tuple(rade.shape)}, "
@@ -217,14 +306,14 @@ def coax_fold(radm, rade, e_r, e_b, tab):
             f"coax_fold: dtypes radm {radm.dtype}, rade {rdt}, e_r {e_r.dtype}, "
             f"tables {tab.u.dtype}"
         )
-    radm, rade, e_r, e_b = (t.contiguous() for t in (radm, rade, e_r, e_b))
+    radm, rade = radm.contiguous(), rade.contiguous()
+    e_r, e_b = e_r.contiguous(), e_b.contiguous()
+    iazf, u_tiles, units, order, ng, nnz, n_units, unit_slabs, dbl = tab.kernel_tables
     out = torch.empty((n_k, n_rad, nnz), dtype=radm.dtype, device=radm.device)
     kernels.launch(
-        "bhs_coax_fold",
-        kernels.ptr(radm), kernels.ptr(rade), kernels.ptr(tab.iazf), kernels.ptr(tab.u),
-        kernels.ptr(tab.l_row), kernels.ptr(tab.l_col), kernels.ptr(e_r),
-        kernels.ptr(e_b), kernels.ptr(out), n_k * n_rad, n_rad, n_bands,
-        nbp // _GROUP, nnz, e_r.shape[-1], int(rdt == torch.float64),
+        "bhs_coax_fold", radm.data_ptr(), rade.data_ptr(), iazf, u_tiles, units, order,
+        e_r.data_ptr(), e_b.data_ptr(), out.data_ptr(), n_k * n_rad, n_rad, n_bands, ng, nnz,
+        n_units, unit_slabs, e_r.shape[-1], dbl,
     )
     coax_fold.launches += 1
     return out

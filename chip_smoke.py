@@ -166,9 +166,34 @@ def launch_latency_us(torch, dev):
     return start.elapsed_time(end) * 1e3 / n
 
 
+def coax_args(torch, dev, rdt):
+    """K2's arguments (radm, rade, e_r, e_b, tables) for a k-block of the
+    bench (4 k x 9 radii), as the factored operator makes them."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing, _radial_rows_scaled
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.special._family import _H_ONLY, spherical_jh
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _coax_packed
+
+    c = create_from_branching_types("ba")
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    f = dict(dtype=rdt, device=dev)
+    nb = N_SIDE * N_SIDE
+    k4 = torch.linspace(7.0, 7.06, KB, **f)
+    (_, _), (_, e_r), (_, e_b) = _radial_rows_scaled(
+        c, N_END, torch.ones(KB, nb, **f), k4, torch.ones(KB, **f),
+        torch.ones(KB, nb, dtype=cdt, device=dev), torch.zeros(KB, nb, dtype=cdt, device=dev))
+    starts = torch.as_tensor(np.searchsorted(basis(c, N_END).n_root, np.arange(N_END)),
+                             device=dev)
+    e_r, e_b = (e.amax(dim=-2)[:, starts].contiguous() for e in (e_r, e_b))
+    r = torch.as_tensor(_pair_routing(lattice_centers()).uniq_r, **f)
+    radm, rade = spherical_jh(_H_ONLY, 3, 2 * N_END - 1, (k4[:, None] * r).to(cdt))
+    return radm, rade, e_r, e_b, _coax_packed(c, N_END, rdt, dev)
+
+
 def check_kernels(torch, dev, card):
     """Phase 2: each kernel against its plain version at the bench shapes."""
-    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing, _radial_rows_scaled
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
     from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
         _fused_ba_eval_plain, fused_ba_eval, regroup)
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
@@ -182,7 +207,7 @@ def check_kernels(torch, dev, card):
         _H_ONLY, _SCALED, _UNSCALED, _spherical_h_scaled_plain,
         _spherical_jh_all_plain, _spherical_jh_scaled_plain, spherical_jh)
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
-        _child_state_blocks, _coax_fold_packed_plain, _coax_packed, coax_fold)
+        _child_state_blocks, _coax_fold_packed_plain, coax_fold)
 
     c = create_from_branching_types("ba")
     n_root = basis(c, N_END).n_root
@@ -248,15 +273,8 @@ def check_kernels(torch, dev, card):
         results.setdefault("spherical_jh", {})[name] = k5
 
         # K2: the packed folded coax factor of a k-block (4 k x 9 radii)
-        (_, _), (_, e_r), (_, e_b) = _radial_rows_scaled(
-            c, N_END, torch.ones(KB, nb, dtype=rdt, device=dev), k4,
-            torch.ones(KB, dtype=rdt, device=dev), torch.ones(KB, nb, dtype=cdt, device=dev),
-            torch.zeros(KB, nb, dtype=cdt, device=dev))
-        starts = torch.as_tensor(np.searchsorted(n_root, np.arange(N_END)), device=dev)
-        e_r, e_b = (e.amax(dim=-2)[:, starts].contiguous() for e in (e_r, e_b))
-        radm, rade = spherical_jh(_H_ONLY, 3, n_bands, z_coax)
-        tab = _coax_packed(c, N_END, rdt, dev)
-        args = (radm, rade, e_r, e_b, tab)
+        args = coax_args(torch, dev, rdt)
+        tab = args[-1]
         got = coax_fold(*args)
         ea, er = rel_err(torch, got, _coax_fold_packed_plain(*args))
         if not same_bits(torch, coax_fold(*args), got):

@@ -330,44 +330,59 @@ def test_spherical_jh_even_dimension_raises_before_launch(cuda):
     assert spherical_jh.launches == n0
 
 
-def _coax_inputs(cuda, rdt, n_end, ks, centers):
-    """K2's inputs as the factored operator makes them on the card."""
+def _coax_inputs(cuda, rdt, n_end, ks, r):
+    """K2's inputs as the factored operator makes them on the card, for
+    wavenumbers ks and pair distances r."""
     c = create_from_branching_types("ba")
-    rt = _pair_routing(centers)
-    n_k, nb = len(ks), len(centers)
+    n_k = len(ks)
     f = dict(dtype=rdt, device=cuda)
     cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
     k = torch.as_tensor(ks, **f)
     (_, _), (_, e_r), (_, e_b) = _radial_rows_scaled(
-        c, n_end, torch.ones(n_k, nb, **f), k, torch.ones(n_k, **f),
-        torch.ones(n_k, nb, dtype=cdt, device=cuda), torch.zeros(n_k, nb, dtype=cdt, device=cuda),
+        c, n_end, torch.ones(n_k, 2, **f), k, torch.ones(n_k, **f),
+        torch.ones(n_k, 2, dtype=cdt, device=cuda), torch.zeros(n_k, 2, dtype=cdt, device=cuda),
     )
     starts = torch.as_tensor(np.searchsorted(basis(c, n_end).n_root, np.arange(n_end)),
                              device=cuda)
     e_r, e_b = (e.amax(dim=-2)[:, starts].contiguous() for e in (e_r, e_b))
-    r = torch.as_tensor(rt.uniq_r, **f)
+    r = torch.as_tensor(r, **f)
     radm, rade = special.spherical_h_scaled(3, 2 * n_end - 1, k[:, None] * r)
     return radm, rade, e_r, e_b, _coax_packed(c, n_end, rdt, cuda)
 
 
+# (n_end, k, distances) of the K2 cases: the bench block (4 k x 9 radii);
+# past the float32 overflow wall (k t = 4, n_end = 24: S > 88); pair
+# counts that fill no pass (1 and 21 pairs) and one that takes two in
+# both dtypes (45 pairs); 85 packed entries (ragged tiles); one band
+# group (n_end = 2); ten (n_end = 40)
+_COAX_CASES = {
+    "bench": (32, np.linspace(7.0, 7.06, 4), _pair_routing(_lattice()).uniq_r),
+    "overflow-wall": (24, np.array([1.0]), np.array([4.0])),
+    "1k-1r": (32, np.array([7.0]), np.array([4.0])),
+    "3k-7r": (32, np.array([6.0, 7.0, 8.5]), np.linspace(4.0, 13.0, 7)),
+    "5k-9r": (32, np.linspace(7.0, 7.08, 5), _pair_routing(_lattice()).uniq_r),
+    "85-entries": (5, np.array([1.5, 3.0]), np.array([4.0, 6.0, 9.0])),
+    "n_end-2": (2, np.array([1.0, 2.0]), np.array([4.0, 5.0])),
+    "n_end-40": (40, np.linspace(7.0, 7.06, 4), np.array([4.0, 8.0, 12.0])),
+}
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("case", ["bench", "overflow-wall"])
+@pytest.mark.parametrize("case", list(_COAX_CASES))
 def test_coax_fold_kernel_matches_plain(cuda, dtype, case):
-    """K2 at the bench shapes (4 k x 9 radii, n_end=32) and past the float32
-    overflow wall (two spheres at t=4, k=1, n_end=24: S > 88)."""
+    """K2 against its plain version on the card at each of _COAX_CASES;
+    one launch per call, and two launches are bit for bit equal."""
     rdt = torch.float32 if dtype == torch.complex64 else torch.float64
-    if case == "bench":
-        args = _coax_inputs(cuda, rdt, 32, np.linspace(7.0, 7.06, 4), _lattice())
-    else:
-        args = _coax_inputs(cuda, rdt, 24, np.array([1.0]),
-                            np.array([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]]))
+    n_end, ks, r = _COAX_CASES[case]
+    args = _coax_inputs(cuda, rdt, n_end, ks, r)
     n0 = coax_fold.launches
     got = coax_fold(*args)
     ref = _coax_fold_packed_plain(*args)
     assert coax_fold.launches == n0 + 1
     assert got.shape == ref.shape and bool(torch.isfinite(ref).all())
     assert float((got - ref).abs().max() / ref.abs().max()) < _tol(dtype)
+    assert _same_bits(coax_fold(*args), got)
 
 
 @pytest.mark.requires_cuda

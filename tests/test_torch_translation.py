@@ -26,9 +26,16 @@ from biem_helmholtz_sphere_tpu_torch.translation import (
     coaxial_scaled,
     rotation_matrix,
 )
+from biem_helmholtz_sphere_tpu_torch.special import spherical_h_scaled
+from biem_helmholtz_sphere_tpu_torch.translation._ops import ipow
 from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coax_tables
 from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
+    _GROUP,
+    _TILE,
+    _UNIT_SLABS,
     _child_state_blocks,
+    _coax_fold_packed_plain,
+    _coax_packed,
     coax_fold,
     coax_fold_packed,
 )
@@ -178,3 +185,98 @@ def test_coax_fold_packed_matches_the_dense_route_past_the_overflow_wall(rdt):
         x64 = coax_fold_packed(c, n_end, r.double(), torch.as_tensor(ks), e_r64, e_b64)
         np.testing.assert_allclose(x.vals.numpy(), x64.vals.numpy(), rtol=0,
                                    atol=2e-5 * float(x64.vals.abs().max()))
+
+
+def _tiles(tab):
+    """(start, count, top, first slab) of every tile of the K2 work units."""
+    for start, cnt, g, slab in tab.units.tolist():
+        for t in range(0, cnt, _TILE):
+            yield start + t, min(_TILE, cnt - t), g, slab + (t // _TILE) * (g + 1)
+
+
+@pytest.mark.parametrize("n_end", [2, 5, 32, 40])
+def test_coax_tiles_cover_every_packed_entry_once(n_end):
+    """The K2 kernel's host-built tables: `order` lists every packed entry
+    once, with its degrees l_row + 65536 l_col; the work units cut it into
+    runs of one top group (l + l') // _GROUP, largest first, each of at
+    most unit_slabs slabs and, up to n_end = 32, at most 132 units (the
+    H100's SMs); each tile's slabs hold its bands 0 .. 8 (top + 1) - 1 at
+    [group, half, entry, band], zero past its entries; and no entry has a
+    nonzero band above its top group."""
+    c = create_from_branching_types("ba")
+    tab = _coax_packed(c, n_end, torch.float64, torch.device("cpu"))
+    u, (order, l_pair) = tab.u.numpy(), tab.order.numpy().T
+    nbp, nnz = u.shape
+    assert np.array_equal(np.sort(order), np.arange(nnz))
+    np.testing.assert_array_equal(l_pair, (tab.l_row + 65536 * tab.l_col).numpy()[order])
+    lsum = (tab.l_row + tab.l_col).numpy()
+    top = lsum // _GROUP
+    rows = np.arange(nbp)[:, None]
+    assert not np.any(u[rows >= _GROUP * (top[None, :] + 1)])
+    units = tab.units.numpy()
+    assert 1 <= len(units) <= (132 if n_end <= 32 else nnz)
+    assert units[0, 0] == 0 and np.array_equal(units[1:, 0], np.cumsum(units[:-1, 1]))
+    assert units[-1, 0] + units[-1, 1] == nnz and np.all(units[:, 1] >= 1)
+    assert np.all(np.diff(units[:, 2]) <= 0)  # largest top group first
+    slabs = -(-units[:, 1] // _TILE) * (units[:, 2] + 1)
+    assert tab.unit_slabs == slabs.max() <= max(_UNIT_SLABS, nbp // _GROUP)
+    assert units[0, 3] == 0 and np.array_equal(units[1:, 3], np.cumsum(slabs[:-1]))
+    image = tab.u_tiles.numpy()
+    assert image.shape == (slabs.sum(), 2, _TILE, 4)
+    for start, cnt, g, slab in _tiles(tab):
+        ent = order[start : start + cnt]
+        assert np.all(top[ent] == g)
+        blk = image[slab : slab + g + 1].transpose(0, 1, 3, 2).reshape((g + 1) * _GROUP, _TILE)
+        np.testing.assert_array_equal(blk[:, :cnt], u[: (g + 1) * _GROUP, ent])
+        assert not np.any(blk[:, cnt:])
+
+
+def _coax_fold_tiled(radm, rade, e_r, e_b, tab):
+    """csrc/coax_fold.cu's computation in torch: tile by tile of the work
+    units from the tile image, groups 0 .. top only, each group's scale
+    from the unit's values of l + l', the fold at the end, written through
+    `order`."""
+    n_k, n_rad, nb = radm.shape
+    n_p, (nbp, nnz) = n_k * n_rad, tab.u.shape
+    radm, rade = radm.reshape(n_p, nb), rade.reshape(n_p, nb)
+    re = rade[:, torch.clamp(torch.arange(nbp), max=nb - 1)]
+    sig = re.reshape(n_p, nbp // _GROUP, _GROUP).amax(-1)
+    coef = torch.nn.functional.pad(tab.iazf * radm, (0, nbp - nb))
+    coef = coef * torch.exp(re - sig.repeat_interleave(_GROUP, dim=1))
+    k = torch.arange(n_p) // n_rad
+    out = torch.full((n_p, nnz), float("nan"), dtype=radm.dtype)
+    for start, cnt, top, slab in _tiles(tab):
+        dst = tab.order[start : start + cnt, 0].long()
+        la, lb = tab.l_row[dst].long(), tab.l_col[dst].long()
+        s = la + lb - _GROUP * top
+        assert bool(((s >= 0) & (s < _GROUP)).all())
+        u = tab.u_tiles[slab : slab + top + 1].permute(0, 1, 3, 2).reshape(-1, _TILE)[:, :cnt]
+        rl = re[:, _GROUP * top + s]
+        acc = torch.zeros((n_p, cnt), dtype=radm.dtype)
+        for g in range(top + 1):
+            t = coef[:, g * _GROUP : (g + 1) * _GROUP] @ u[g * _GROUP : (g + 1) * _GROUP].to(
+                radm.dtype)
+            acc += t * torch.exp(torch.clamp(sig[:, g, None] - rl, max=80.0))
+        mant = acc * ipow(la, radm.dtype, "cpu") * ipow(lb, radm.dtype, "cpu").conj()
+        out[:, dst] = mant * torch.exp(e_r[k][:, la] + rl + e_b[k][:, lb])
+    return out.reshape(n_k, n_rad, nnz)
+
+
+@pytest.mark.parametrize("n_end,n_rad", [(2, 1), (5, 7), (24, 3), (40, 2)])
+def test_coax_fold_tiled_order_matches_plain(n_end, n_rad):
+    """The kernel's tiled order of work (groups above an entry's top group
+    skipped, scales by tile) gives the plain K2 values in float64, at one
+    band group (n_end = 2), ragged tiles (n_end = 5: 85 entries), past the
+    float32 overflow wall (n_end = 24, k t = 4) and at ten band groups
+    (n_end = 40)."""
+    c = create_from_branching_types("ba")
+    ks = np.array([1.0, 2.5, 6.5])
+    r = torch.as_tensor(np.linspace(4.0, 11.0, n_rad))
+    e_r, e_b = _fold_exponents(c, n_end, ks)
+    radm, rade = spherical_h_scaled(3, 2 * n_end - 1, torch.as_tensor(ks)[:, None] * r)
+    tab = _coax_packed(c, n_end, torch.float64, torch.device("cpu"))
+    ref = _coax_fold_packed_plain(radm, rade, e_r, e_b, tab)
+    got = _coax_fold_tiled(radm, rade, e_r, e_b, tab)
+    assert bool(torch.isfinite(ref).all())
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-12 * float(ref.abs().max()))

@@ -1,6 +1,6 @@
-"""A/B device times of KB, KA, K5 and KC source variants on one card.
+"""A/B device times of KB, KA, K5, KC and K2 source variants on one card.
 
-    python tools/torch_kernel_ab.py DIR [DIR ...]
+    python tools/torch_kernel_ab.py [-k SUBSTRING] DIR [DIR ...]
 
 Run from the repository root on a machine with a CUDA card and nvcc (no
 JAX needed).  Each DIR holds a full copy of
@@ -18,7 +18,8 @@ complex64 and complex128.  Cases, at the bench widths (16 spheres on the
 lanes, KA at 131,072 points x 1 k and at 1 point x 4 k, K5's three launch
 shapes of a k-block (scaled and unscaled at 4 k x 16 radii x 32 orders,
 h only at 4 k x 9 distances x 63 bands; compared on the values
-mant exp(e)) and the KC gather.
+mant exp(e)), the KC gather and K2 for a k-block (4 k x 9 radii).  With
+-k, only the cases whose name contains SUBSTRING run.
 """
 
 import os
@@ -46,8 +47,9 @@ def cases(torch, dev, cdt):
     from biem_helmholtz_sphere_tpu_torch.special._family import (
         _H_ONLY, _SCALED, _UNSCALED, _spherical_h_scaled_plain, _spherical_jh_all_plain,
         _spherical_jh_scaled_plain, spherical_jh)
-    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks
-    from chip_smoke import EVAL_POINTS, KB, N_END, lattice_centers
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
+        _child_state_blocks, _coax_fold_packed_plain, coax_fold)
+    from chip_smoke import EVAL_POINTS, KB, N_END, coax_args, lattice_centers
 
     c = create_from_branching_types("ba")
     h = N_END * N_END
@@ -95,6 +97,7 @@ def cases(torch, dev, cdt):
     route = make_route(rt.src, rt.dst, rt.dn, nb, dev)
     pm = ((-1.0) ** (ell % 2)).to(rdt)
     xv, blc = randc((KB, nb, h)), randc((KB, nb, h))
+    k2 = coax_args(torch, dev, rdt)
     return {  # name: (kernel call, plain call, mask of compared entries, reps)
         "KB D^H": (lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True),
                    lambda: _block_diag_cmm_plain(dd, lanes, d_seg, True), None, 50),
@@ -117,6 +120,7 @@ def cases(torch, dev, cdt):
                       None, 50),
         "KC gather": (lambda: lane_gather(xv, blc, pm, route),
                       lambda: _lane_gather_plain(xv, blc, pm, route), None, 50),
+        "K2": (lambda: coax_fold(*k2), lambda: _coax_fold_packed_plain(*k2), None, 50),
     }
 
 
@@ -130,6 +134,9 @@ def main():
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
     variants = sys.argv[1:]
+    only = ""
+    if variants[:1] == ["-k"]:
+        only, variants = variants[1], variants[2:]
     if not variants:
         print(__doc__, file=sys.stderr)
         return 2
@@ -150,7 +157,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     for cdt in (torch.complex64, torch.complex128):
-        cs = cases(torch, dev, cdt)
+        cs = {name: case for name, case in cases(torch, dev, cdt).items() if only in name}
         times = {v: {name: [] for name in cs} for v in variants}
         for v in variants:
             use(v)

@@ -15,11 +15,17 @@ warm starts) once to warm up and once under torch.profiler, then prints:
 - the device time per launch of KB's three products (D^H, X, D) on the
   bench routing's compacted lanes, of KA in both of its modes (131,072
   points x 1 k, and 1 point x 4 k as uscat(0) runs it), of K5's three
-  launch shapes of a k-block and of the KC gather and scatter, each
-  profiled alone over 20 launches at the bench widths (complex64);
+  launch shapes of a k-block, of the KC gather and scatter and of K2 for
+  a k-block (4 k x 9 radii), each profiled alone over 20 launches at the
+  bench widths (complex64);
 - the host microseconds per call of the K5 wrapper in its three modes and
-  of the KC gather wrapper at the same shapes, with a `torch.empty` and
-  the stream queries beside them (only these with --host-only).
+  of the KC gather and K2 wrappers at the same shapes, with a
+  `torch.empty` and the stream queries beside them (only these with
+  --host-only).
+
+Copied with chip_smoke.py into an unpacked parent (its `tools/` and its
+root), it times the parent's kernels and wrappers: run both copies in one
+call, in turns, to compare them.
 
 Numbers from a profiled run include the profiler's own overhead on the
 host; compare device times, not the wall time, with unprofiled runs.
@@ -92,8 +98,9 @@ def kernel_device_times(torch, dev):
         lane_gather, lane_scatter, make_route)
     from biem_helmholtz_sphere_tpu_torch.special._family import (
         _H_ONLY, _SCALED, _UNSCALED, spherical_jh)
-    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks
-    from chip_smoke import EVAL_POINTS, KB, N_END, lattice_centers
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
+        _child_state_blocks, coax_fold)
+    from chip_smoke import EVAL_POINTS, KB, N_END, coax_args, lattice_centers
 
     c = create_from_branching_types("ba")
     h = N_END * N_END
@@ -129,6 +136,7 @@ def kernel_device_times(torch, dev):
     route = make_route(rt.src, rt.dst, rt.dn, nb, dev)
     pm = ((-1.0) ** (ell % 2)).to(rdt)
     xv, blc, diag, reg = (randc((KB, nb, h)) for _ in range(4))
+    k2 = coax_args(torch, dev, rdt)
     return {
         "block_diag_cmm D^H": _per_launch_us(
             torch, lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True)),
@@ -148,6 +156,7 @@ def kernel_device_times(torch, dev):
             torch, lambda: lane_gather(xv, blc, pm, route)),
         f"lane_scatter {KB} k x {len(rt.src)} lanes": _per_launch_us(
             torch, lambda: lane_scatter(lanes, xv, diag, reg, pm, route)),
+        f"coax_fold {KB} k x {n_rad} radii": _per_launch_us(torch, lambda: coax_fold(*k2)),
     }
 
 
@@ -166,13 +175,15 @@ def _host_us(torch, fn, reps=2000):
 
 
 def wrapper_host_times(torch, dev):
-    """K5 per mode and the KC gather, each through its wrapper, on the host."""
+    """K5 per mode, the KC gather and K2, each through its wrapper, on the
+    host."""
     from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
     from biem_helmholtz_sphere_tpu_torch.ops import kernels
     from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, make_route
     from biem_helmholtz_sphere_tpu_torch.special._family import (
         _H_ONLY, _SCALED, _UNSCALED, spherical_jh)
-    from chip_smoke import KB, N_END, lattice_centers
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
+    from chip_smoke import KB, N_END, coax_args, lattice_centers
 
     centers = lattice_centers()
     nb, h = len(centers), N_END * N_END
@@ -184,6 +195,7 @@ def wrapper_host_times(torch, dev):
     route = make_route(rt.src, rt.dst, rt.dn, nb, dev)
     x, blc = (torch.randn(KB, nb, h, dtype=torch.complex64, device=dev) for _ in range(2))
     pm = torch.ones(h, device=dev)
+    k2 = coax_args(torch, dev, torch.float32)
     rows = {
         f"spherical_jh scaled {KB} k x {nb} radii x {N_END}":
             lambda: spherical_jh(_SCALED, 3, N_END, z_rows),
@@ -192,6 +204,7 @@ def wrapper_host_times(torch, dev):
         f"spherical_jh h only {KB} k x {len(rt.uniq_r)} distances x {2 * N_END - 1}":
             lambda: spherical_jh(_H_ONLY, 3, 2 * N_END - 1, z_coax),
         f"lane_gather {KB} k x {len(rt.src)} lanes": lambda: lane_gather(x, blc, pm, route),
+        f"coax_fold {KB} k x {len(rt.uniq_r)} radii": lambda: coax_fold(*k2),
         f"torch.empty of {KB * nb * N_END} complex64": lambda: torch.empty(
             KB * nb * N_END, dtype=torch.complex64, device=dev),
         "torch.cuda.current_stream().cuda_stream":
