@@ -3,9 +3,10 @@
 The PyTorch counterpart of `biem_helmholtz_sphere_tpu` (the JAX package,
 kept as the reference): the same module layout and public names, native
 torch complex dtypes, eager loops, and CUDA kernels for Hopper on the hot
-stages.  This slice covers the factored matrix-free route of `biem`
-(3D 'b'-rooted trees, plane-wave incidence) and the "ba" field
-evaluation; other routes raise NotImplementedError.
+stages.  It covers `biem` for 3D 'b'-rooted trees with plane-wave
+incidence (the diagonal, direct LU, dense GMRES and factored matrix-free
+routes) and the "ba" field evaluation; other routes raise
+NotImplementedError.
 
 TF32 stays off: reduced-precision matmuls took the float32 sound-soft
 boundary residual of the reference from 6e-4 to 2.7e-2.

@@ -1,4 +1,4 @@
-r"""BIEM assembly and solve on the factored matrix-free route.
+r"""BIEM assembly and solve: the dense routes and the factored matrix-free one.
 
 Combined-field indirect formulation: the unknown density on each sphere
 is expanded in hyperspherical harmonics; on-sphere traces are diagonal per
@@ -9,38 +9,44 @@ operator.  The system
         delta_{hh'} (alpha_b h_n(k rho_b) + beta_b k h_n'(k rho_b))
       : (S|R)[h,h'](c_b - c_b') (alpha_b j_n(k rho_b) + beta_b k j_n'(k rho_b)) )
 
-is never formed.  For 'b'-rooted trees in d >= 3 the scale-compensated
-(S|R) factors as SR(t) = D(t^) X(|t|) D(t^)^H: D is the k-independent
-rotation (built once per geometry and cached), X the coaxial factor per
-distinct pair distance with the ball-maximum radial exponents folded in.
-The k-dependent build runs the radial special functions (K5,
-special/_family.py) and writes X straight into its packed blocks (K2,
-translation/_scaled.py::coax_fold_packed).  One matvec routes the
-spheres into the compacted pair lanes (KC), applies D^H, X and D to the
-lanes (KB) and sums the lanes back into their destination spheres (KC); GMRES
-(ops/gmres.py) solves the system.
+is solved by one of the routes of biem_helmholtz_sphere_tpu's `biem()`,
+chosen by the same policy (`_route`):
 
-This is the route `biem()` of biem_helmholtz_sphere_tpu takes at the
-bench configuration (biem/_core.py: `_matfree_operator`, factored
-branch).  Every other route raises NotImplementedError.
+* one sphere: the system is diagonal;
+* dense (LU, or GMRES on the pair-major matrix): `_assemble` builds (S|R)
+  once per distinct offset (translation/: rotation D, coaxial factor X by
+  the K5 and K2 kernels, D X D^H by degree groups) and the KD kernel
+  (ops/dense.py) gathers it into the dense matrix with the radial factors
+  and the mirror parity;
+* factored matrix-free (scale-compensated): SR(t) = D(t^) X(|t|) D(t^)^H
+  is never formed.  D is cached per geometry; X is folded with the
+  ball-maximum radial exponents and packed into its child-state blocks
+  (K5 + K2).  One matvec routes the spheres into the compacted pair lanes
+  (KC), applies D^H, X and D (KB) and sums the lanes back (KC); GMRES
+  (ops/gmres.py) solves the system.
+
+Both scale-compensated (stable) and plain assembly are ported for the
+dense routes; the matrix-free route is ported scale-compensated and
+factored only.  Every other route raises NotImplementedError naming its
+ROADMAP item.
 """
 
 import warnings
 from dataclasses import dataclass
-from functools import lru_cache
 from typing import Any, Literal
 
 import numpy as np
 import torch
 
 from ..harmonics._index import basis
-from ..ops.block_diag import LaneSegments, block_diag_cmm, pack
+from ..ops.block_diag import LaneSegments, block_diag_cmm, unpack
+from ..ops.dense import dense_assemble
 from ..ops.gmres import gmres_solve_op
 from ..ops.kernels import default_device
 from ..ops.lane_route import lane_gather, lane_scatter, make_route
 from ..special._family import spherical_jh_all, spherical_jh_scaled
-from ..translation._ops import _a_const, ipow
-from ..translation._rotation import rotation_matrix
+from ..translation._ops import _a_const, check_method, ipow, translation_matrix
+from ..translation._rotation import _sandwich, rotation_d, unique_radii
 from ..translation._scaled import coax_fold_packed
 
 _ROUTES = "ROADMAP queue 1 item 8"
@@ -95,7 +101,7 @@ def _device_of(*xs):
 def _real(x, device):
     t = torch.as_tensor(x, device=device)
     if t.is_complex():
-        raise NotImplementedError(f"complex k is not ported yet ({_ROUTES})")
+        raise NotImplementedError(f"complex k is not ported yet ({_ROUTES}c)")
     return t if t.is_floating_point() else t.to(torch.float64)
 
 
@@ -211,7 +217,7 @@ def _rhs_dispatch(c, n_end, centers, radii, alpha, beta, uin, uin_grad, n_k):
     if not (tags and all(t is tags[0] for t in tags) and tags[0] is not None):
         raise NotImplementedError(
             "only a plane-wave incident field (plane_wave(...)) is ported; the "
-            f"boundary-quadrature right-hand side is {_ROUTES}"
+            f"boundary-quadrature right-hand side is {_ROUTES}d"
         )
     _, kw, direction = tags[0]
     dev, rdt = radii.device, radii.dtype
@@ -223,6 +229,23 @@ def _rhs_dispatch(c, n_end, centers, radii, alpha, beta, uin, uin_grad, n_k):
         c, n_end, centers, radii, alpha, beta, kw, direction,
         has_uin=uin is not None, has_grad=uin_grad is not None,
     )
+
+
+def _radial_rows(c, n_end, radii, k, eta, alpha, beta):
+    """Unscaled radial rows (sing, reg, blc), complex [K, B, H], from one
+    K5 launch (unscaled mode): sing = alpha h_n + beta k h_n', reg =
+    alpha j_n + beta k j_n', blc = i k^{d-2} rho^{d-1} (k j_n' - i eta j_n).
+    radii/alpha/beta [K, B], k/eta [K]."""
+    d = c.c_ndim
+    n_idx = torch.as_tensor(basis(c, n_end).n_root, dtype=torch.long, device=radii.device)
+    j, jp, h, hp = (t.index_select(-1, n_idx)
+                    for t in spherical_jh_all(d, n_end, k[:, None] * radii))
+    k_b = k[:, None, None]
+    sing = alpha[..., None] * h + beta[..., None] * (hp * k_b)
+    reg = alpha[..., None] * j + beta[..., None] * (jp * k_b)
+    pref = (1j * k[:, None] ** (d - 2) * radii ** (d - 1))[..., None]
+    blc = pref * k_b * jp - (pref * j) * (1j * eta)[:, None, None]
+    return sing, reg, blc
 
 
 def _radial_rows_scaled(c, n_end, radii, k, eta, alpha, beta):
@@ -263,6 +286,23 @@ def _radial_rows_scaled(c, n_end, radii, k, eta, alpha, beta):
     return (sing_m, e_sing), (reg_m, e_reg), (blc_m, e_blc)
 
 
+def _offsets(centers_np):
+    """(uniq [NO, d], pid [B, B], uniq_r [NR], r_inv [NO]) on the host: the
+    distinct b < b' offset vectors c_b - c_b' (rounded to 12 decimals, so a
+    lattice's repeats merge), each pair's index into them (the mirror b > b'
+    pair sharing its pair's; the diagonal 0), their distinct lengths and
+    each offset's index into those."""
+    n_balls = centers_np.shape[0]
+    bu, bv = np.triu_indices(n_balls, k=1)
+    uniq, inv = np.unique(np.round(centers_np[bu] - centers_np[bv], 12), axis=0,
+                          return_inverse=True)
+    pid = np.zeros((n_balls, n_balls), np.int64)
+    pid[bu, bv] = inv.reshape(-1)
+    pid[bv, bu] = inv.reshape(-1)
+    uniq_r, r_inv = unique_radii(np.linalg.norm(uniq, axis=1))
+    return uniq, pid, uniq_r, r_inv
+
+
 @dataclass(frozen=True)
 class PairRouting:
     """Compacted pair lanes of the factored matvec (see `_pair_routing`)."""
@@ -298,12 +338,9 @@ def _pair_routing(centers_np):
     """
     n_balls = centers_np.shape[0]
     bu, bv = np.triu_indices(n_balls, k=1)
-    t_np = np.round(centers_np[bu] - centers_np[bv], 12)
-    uniq, inv = np.unique(t_np, axis=0, return_inverse=True)
-    inv = inv.reshape(-1)
+    uniq, pid, uniq_r, r_inv = _offsets(centers_np)
+    inv = pid[bu, bv]
     groups = [np.nonzero(inv == o)[0] for o in range(len(uniq))]
-    r_np = np.round(np.linalg.norm(uniq, axis=1), 10)
-    uniq_r, r_inv = np.unique(r_np, return_inverse=True)
     n_rad = len(uniq_r)
     g_max = int(np.max(np.bincount(r_inv)))
     slot_uniq = np.zeros((n_rad * g_max, uniq.shape[1]))
@@ -335,18 +372,6 @@ def _pair_routing(centers_np):
                        uniq_r, g_max)
 
 
-@lru_cache(maxsize=4)
-def _rotation_stack(c, n_end, uniq_bytes, n_slots, dtype, device):
-    """Packed rotation blocks D [NO] (k-independent), cached per geometry."""
-    t_vec = torch.as_tensor(
-        np.frombuffer(uniq_bytes, dtype=np.float64).reshape(n_slots, -1).copy(),
-        dtype=dtype, device=device,
-    )
-    t_hat = t_vec / torch.linalg.vector_norm(t_vec, dim=-1, keepdim=True)
-    d_rot = rotation_matrix(c, t_hat, n_end)  # [NO, H, H]
-    return pack(d_rot, 2 * np.arange(n_end) + 1)
-
-
 def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     """The factored matrix-free operator: (mv, diag) on [K, B*H] vectors."""
     h_num = basis(c, n_end).num
@@ -364,7 +389,6 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     blc_col = blc_m * torch.exp(e_b - e_b_max[:, None, :])
 
     routing = _pair_routing(centers_np)
-    n_slots = len(routing.uniq)
     route = make_route(routing.src, routing.dst, routing.dn, n_balls, dev)
     d_seg = LaneSegments(tuple(int(v) for v in routing.slot_ptr))
     x_seg = LaneSegments(tuple(int(v) for v in routing.rad_ptr))
@@ -379,9 +403,7 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
         c, n_end, torch.as_tensor(routing.uniq_r, dtype=rdt, device=dev), k,
         e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
     )
-    d_blocks = _rotation_stack(
-        c, n_end, routing.uniq.astype(np.float64).tobytes(), n_slots, rdt, dev
-    )
+    d_blocks = rotation_d(c, n_end, routing.uniq, rdt, dev).packed
     pm = torch.as_tensor((-1.0) ** (n_root % 2), dtype=rdt, device=dev)
     blc_col, reg_row, diag = (
         t.expand(n_k, n_balls, h_num).contiguous() for t in (blc_col, reg_row, diag)
@@ -399,19 +421,122 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     return mv, diag.reshape(n_k, n_balls * h_num)
 
 
-def _auto_is_matfree(centers_np, n_balls, n_sys, rdt, device):
-    """biem_helmholtz_sphere_tpu's auto policy: True where it picks the
-    unique-offset matrix-free GMRES (accelerators: LU up to 6144
-    unknowns, dense up to 6 GB; CPU: 12288 and 40 GB)."""
+def _assemble(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
+              stable=False, pair_major=False):
+    """The dense system matrix: complex [K, B, H, B', H'], or pair-major
+    [K, B, B', H, H'] (biem_helmholtz_sphere_tpu: `_assemble`, block-gather
+    branch and the single-sphere diagonal): the KD kernel (ops/dense.py)
+    on `_assembly_parts`."""
+    return dense_assemble(
+        *_assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method, stable),
+        pair_major=pair_major,
+    )
+
+
+def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
+                    stable=False):
+    """KD's arguments (table [K, NO, H, H], pid [B, B], rowf, colf [K, B, H],
+    sgn [H], diag [K, B, H]) for the dense matrix.
+
+    centers_np [B, d] (host); radii/alpha/beta [K, B], k/eta [K].  The
+    (S|R) is built once per distinct offset; KD gathers it per pair with
+    the row factor reg, the column factor blc and the mirror parity.
+    stable=False: the unscaled radial rows and
+    translation_matrix(method=method), which overflow float32 from n_end ~
+    k t_min + 20 as the JAX package's do.  stable=True: each factor as
+    mantissa x exponent; the ball-maximum exponents fold into the coaxial
+    factor (K2, exactly as on the factored route: the fold is constant on
+    degree blocks, which the rotation preserves) and the per-ball deficits
+    exp(e - max_b e) <= 1 ride the row and column factors.  For uniform
+    radii the deficits are 1 and this is the JAX package's unique-offset
+    fold; otherwise it is the same matrix in exact arithmetic as its
+    per-pair exponents.
+    """
+    n_k, n_balls = radii.shape
+    dev, rdt = radii.device, radii.dtype
+    n_root = basis(c, n_end).n_root
+    h_num = len(n_root)
+    sgn = torch.as_tensor(1.0 - 2.0 * (n_root % 2), dtype=rdt, device=dev)
+    if stable:
+        (sing_m, e_s), (reg_m, e_r), (blc_m, e_b) = _radial_rows_scaled(
+            c, n_end, radii, k, eta, alpha, beta
+        )
+        diag = (sing_m * blc_m) * torch.exp(e_s + e_b)
+        e_r_max, e_b_max = e_r.amax(dim=-2), e_b.amax(dim=-2)  # [K, H]
+        rowf = reg_m * torch.exp(e_r - e_r_max[:, None, :])
+        colf = blc_m * torch.exp(e_b - e_b_max[:, None, :])
+    else:
+        sing, rowf, colf = _radial_rows(c, n_end, radii, k, eta, alpha, beta)
+        diag = sing * colf
+    cdt = rowf.dtype
+    if n_balls == 1:
+        table = torch.zeros((n_k, 0, h_num, h_num), dtype=cdt, device=dev)
+        pid = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    else:
+        uniq, pid_np, uniq_r, r_inv = _offsets(centers_np)
+        pid = torch.as_tensor(pid_np, device=dev)
+        if stable:
+            starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
+            x = coax_fold_packed(
+                c, n_end, torch.as_tensor(uniq_r, dtype=rdt, device=dev), k,
+                e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
+            )
+            coax = unpack(x)[:, torch.as_tensor(r_inv, device=dev)]
+            table = _sandwich(coax, rotation_d(c, n_end, uniq, rdt, dev))
+        else:
+            t_cart = torch.as_tensor(uniq.T.copy(), dtype=rdt, device=dev)  # [d, NO]
+            table = translation_matrix(c, t_cart, n_end, k[:, None], kind="SR",
+                                       method=method)
+    return table, pid, rowf, colf, sgn, diag
+
+
+def _route(solver, n_balls, n_sys, rdt, device, has_rhs, force_matrix, centers_np):
+    """biem_helmholtz_sphere_tpu's route for a solve, by its thresholds.
+
+    Returns "diagonal" (one sphere with a right-hand side), "matrix" (no
+    right-hand side: the matrix alone), "lu", "gmres" (dense GMRES on the
+    pair-major matrix), "matfree" (the unique-offset matrix-free GMRES) or
+    "lattice" (the lattice-FFT matrix-free GMRES).  On an accelerator LU
+    takes up to 6144 unknowns and the dense matrix up to 6 GB; on the CPU
+    12288 and 40 GB.  "auto" beyond the LU tier prefers matrix-free for
+    8 <= B < 64 spheres with at most half as many distinct offsets as
+    pairs, and the lattice form from B = 64.
+    """
+    if has_rhs and n_balls == 1 and not force_matrix:
+        return "diagonal"
     accel = device.type != "cpu"
     dense_bytes = (2 if rdt == torch.float32 else 4) * 4 * n_sys * n_sys
-    if dense_bytes > (6e9 if accel else 40e9):
-        return True
-    if 8 <= n_balls < 64 and n_sys > (6144 if accel else 12288):
-        bu, bv = np.triu_indices(n_balls, k=1)
-        n_uniq = len(np.unique(np.round(centers_np[bu] - centers_np[bv], 12), axis=0))
-        return n_uniq * 2 <= n_balls * (n_balls - 1) // 2
-    return False
+    lu_limit = 6144 if accel else 12288
+    use_matfree = solver == "matfree" or (
+        solver == "auto" and dense_bytes > (6e9 if accel else 40e9))
+    matfree_ok = has_rhs and not force_matrix and n_balls > 1
+    if matfree_ok and n_balls >= 64 and (use_matfree or solver == "auto"):
+        return "lattice"
+    if (matfree_ok and not use_matfree and solver == "auto" and 8 <= n_balls < 64
+            and n_sys > lu_limit):
+        n_pairs = n_balls * (n_balls - 1) // 2
+        use_matfree = len(_offsets(centers_np)[0]) * 2 <= n_pairs
+    if matfree_ok and use_matfree:
+        return "matfree"
+    if not has_rhs:
+        return "matrix"
+    if use_matfree or solver == "gmres" or (solver == "auto" and n_sys > lu_limit):
+        return "gmres"
+    return "lu"
+
+
+def _pairs_operator(a5):
+    """(mv, diag) of the pair-major matrix a5 [K, B, B', H, H'] on [K, B*H]
+    vectors: a product batched over the source ball b', then a sum over it
+    (biem_helmholtz_sphere_tpu: ops/cplx.py::gmres_solve_pairs)."""
+    n_k, n_balls, _, h_num, _ = a5.shape
+    diag = torch.diagonal(torch.diagonal(a5, dim1=1, dim2=2), dim1=1, dim2=2)  # [K, B, H]
+
+    def mv(x_flat):
+        x = x_flat.reshape(n_k, 1, n_balls, h_num, 1)
+        return (a5 @ x).sum(dim=2).reshape(n_k, n_balls * h_num)
+
+    return mv, diag.reshape(n_k, n_balls * h_num)
 
 
 def biem(
@@ -429,27 +554,46 @@ def biem(
     eta=None,
     kind: Literal["inner", "outer"] = "outer",
     force_matrix=False,
+    translational_coefficients_method=None,
     solver="auto",
     stable=None,
     density0=None,
 ):
     """Solve the Helmholtz BIEM for non-overlapping spheres.
 
-    Same parameters, shapes and result as biem_helmholtz_sphere_tpu's
+    Same parameters, shapes, routes and result as biem_helmholtz_sphere_tpu's
     `biem` ([..., B, d] centers, [..., B] radii, [...] k with at most one
     batch axis here, [...(,B)] alpha/beta, [...] eta); complex outputs are
     native torch complex tensors on the device of the input tensors; with
     no tensor input (numpy or Python numbers) the solve runs on the card,
-    and raises where CUDA is absent.  Only the scale-compensated factored
-    matrix-free route is ported: a 3D 'b'-rooted tree, B >= 2, stable=True
-    (the default in float32), a plane-wave incident field and
-    solver="matfree" (or "auto" where the JAX package's policy picks the
-    matrix-free solve, as at the 16-sphere n_end=32 bench configuration).
-    Every other route raises NotImplementedError.  density0 warm-starts
-    GMRES.
+    and raises where CUDA is absent.  Ported for 3D 'b'-rooted trees and a
+    plane-wave incident field:
+
+    * solver="auto" picks the JAX package's route (`_route`): the diagonal
+      solve for one sphere; LU up to 6144 unknowns on the card (12288 on
+      the CPU); the factored matrix-free GMRES for 8 <= B < 64 spheres with
+      repeated offsets beyond that; dense GMRES while the matrix fits 6 GB
+      (40 GB on the CPU), matrix-free beyond;
+    * "direct" (LU), "gmres" (dense GMRES) and "matfree" force a route;
+    * stable (default: True in float32, False in float64) selects the
+      scale-compensated assembly; the matrix-free route is ported for
+      stable=True only;
+    * with no incident field the result holds the matrix alone
+      (calc.matrix [..., B, H, B', H'], density None); force_matrix builds
+      it on every route and solves with it;
+    * translational_coefficients_method is validated as
+      translation_matrix does, used by the plain (stable=False) dense
+      assembly and ignored by the scale-compensated routes.
+
+    relres/iters are the GMRES diagnostics (None on the direct routes);
+    density0 warm-starts GMRES.  The lattice-FFT route (B >= 64), the
+    unscaled matrix-free operator, the boundary-quadrature right-hand
+    side, complex k and other trees raise NotImplementedError naming
+    their ROADMAP item.
 
     The reference README problem (two sound-soft unit spheres at
-    (0, +-2, 0), k=1, plane wave along x0) on the factored route:
+    (0, +-2, 0), k=1, plane wave along x0), on the default route, a direct
+    LU in float64:
 
     >>> import torch
     >>> from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
@@ -461,12 +605,14 @@ def biem(
     ...                     direction=torch.tensor([1.0, 0.0, 0.0], **f64))
     >>> calc = biem(c, centers=torch.tensor([[0., 2., 0.], [0., -2., 0.]], **f64),
     ...             radii=torch.ones(2, **f64), k=torch.tensor(1.0, **f64),
-    ...             n_end=6, uin=uin, solver="matfree", stable=True)
+    ...             n_end=6, uin=uin)
     >>> print(f"{complex(calc.uscat(torch.zeros(3, 1, **f64))[0]):.5f}")
     -0.74133-0.66966j
     """
     if solver not in ("auto", "direct", "gmres", "matfree"):
         raise ValueError(f"unknown solver {solver!r}")
+    method = translational_coefficients_method
+    check_method("SR", method)
     centers, radii, k, eta, alpha, beta, rdt = _check_biem_inputs(
         c, centers, radii, k, eta, alpha, beta
     )
@@ -480,16 +626,13 @@ def biem(
     n_balls = radii.shape[-1]
     h_num = basis(c, n_end).num
     n_sys = n_balls * h_num
-    if uin is None and uin_grad is None:
-        raise NotImplementedError(
-            f"a solve without an incident field (matrix only) is {_ROUTES}"
-        )
-    if bool((alpha != 0).any()) and uin is None:
+    has_rhs = uin is not None or uin_grad is not None
+    if has_rhs and bool((alpha != 0).any()) and uin is None:
         raise ValueError(
             "alpha is not zero, but uin is None. uin must be provided to "
             "compute the boundary condition."
         )
-    if bool((beta != 0).any()) and uin_grad is None:
+    if has_rhs and bool((beta != 0).any()) and uin_grad is None:
         raise ValueError(
             "beta is not zero, but uin_grad is None. uin_grad must be "
             "provided to compute the boundary condition."
@@ -498,27 +641,19 @@ def biem(
     flat = centers_np.reshape((-1,) + centers_np.shape[-2:])
     if not (flat == flat[:1]).all():
         raise NotImplementedError(
-            f"geometry that varies along the batch axis is {_ROUTES}"
+            f"geometry that varies along the batch axis is {_ROUTES}c"
         )
     centers_np = flat[0]
-    if n_balls < 2 or n_balls >= 64 or force_matrix or not stable:
-        route = (
-            "the single-sphere diagonal solve" if n_balls < 2
-            else "the lattice-FFT operator" if n_balls >= 64
-            else "the dense matrix" if force_matrix
-            else "the unscaled (stable=False) operator"
-        )
-        raise NotImplementedError(f"{route} is not ported yet ({_ROUTES})")
-    if solver != "matfree" and not (
-        solver == "auto"
-        and _auto_is_matfree(centers_np, n_balls, n_sys, rdt, radii.device)
-    ):
-        raise NotImplementedError(
-            f"solver={solver!r} selects the direct/dense-GMRES route here, which "
-            f"is not ported yet ({_ROUTES}); pass solver='matfree'"
-        )
     if k.ndim > 1:
-        raise NotImplementedError("at most one batch axis is ported")
+        raise NotImplementedError(f"at most one batch axis is ported ({_ROUTES}c)")
+    route = _route(solver, n_balls, n_sys, rdt, radii.device, has_rhs, force_matrix,
+                   centers_np)
+    if route == "lattice":
+        raise NotImplementedError(f"the lattice-FFT operator (B >= 64) is {_ROUTES}e")
+    if route == "matfree" and not stable:
+        raise NotImplementedError(
+            f"the unscaled (stable=False) matrix-free operator is {_ROUTES}b"
+        )
 
     batch = tuple(k.shape)
     n_k = max(1, k.numel())
@@ -528,20 +663,42 @@ def biem(
     alpha_f = alpha.expand(batch + (n_balls,)).reshape(n_k, n_balls)
     beta_f = beta.expand(batch + (n_balls,)).reshape(n_k, n_balls)
     centers_t = torch.as_tensor(centers_np, dtype=rdt, device=radii.device)
+    args = (c, n_end, radii_f, k_f, eta_f, alpha_f, beta_f)
 
-    f_exp = _rhs_dispatch(
-        c, n_end, centers_t, radii_f, alpha_f, beta_f, uin, uin_grad, n_k
-    )
-    mv, diag = _factored_operator(
-        c, n_end, centers_np, radii_f, k_f, eta_f, alpha_f, beta_f
-    )
+    f_exp = None
+    if has_rhs:
+        f_exp = _rhs_dispatch(
+            c, n_end, centers_t, radii_f, alpha_f, beta_f, uin, uin_grad, n_k
+        ).reshape(n_k, n_sys)
     x0 = None
-    if density0 is not None:
-        x0 = torch.as_tensor(density0, device=radii.device).to(diag.dtype)
+    if density0 is not None and route in ("gmres", "matfree"):
+        x0 = torch.as_tensor(density0, device=radii.device).to(f_exp.dtype)
         x0 = x0.expand(batch + (n_balls, h_num)).reshape(n_k, n_sys)
-    density, relres, iters = gmres_solve_op(
-        mv, diag, f_exp.reshape(n_k, n_sys), x0=x0
-    )
+    density = matrix = relres = iters = None
+    if route == "diagonal":
+        if stable:
+            (sing_m, e_s), _, (blc_m, e_b) = _radial_rows_scaled(*args)
+            density = f_exp / ((sing_m * blc_m) * torch.exp(e_s + e_b)).reshape(n_k, n_sys)
+        else:
+            sing, _, blc_v = _radial_rows(*args)
+            density = f_exp / (blc_v * sing).reshape(n_k, n_sys)
+    elif route == "matfree":
+        mv, diag = _factored_operator(c, n_end, centers_np, *args[2:])
+        density, relres, iters = gmres_solve_op(mv, diag, f_exp, x0=x0)
+    else:
+        a = _assemble(c, n_end, centers_np, *args[2:], method=method, stable=stable,
+                      pair_major=route == "gmres")
+        if route == "gmres":
+            mv, diag = _pairs_operator(a)
+            density, relres, iters = gmres_solve_op(mv, diag, f_exp, x0=x0)
+            a = a.transpose(2, 3)  # the [B, H, B', H'] view of the pair-major matrix
+        elif route == "lu":
+            density = torch.linalg.solve(a.reshape(n_k, n_sys, n_sys), f_exp)  # cuSOLVER
+        matrix = a.reshape(batch + a.shape[1:])
+    if density is not None:
+        density = density.reshape(batch + (n_balls, h_num))
+    if relres is not None:
+        relres, iters = relres.reshape(batch), iters.reshape(batch)
 
     if uin is None:
         uin_wrapped = None
@@ -559,10 +716,11 @@ def biem(
         radii=radii,
         k=k,
         eta=eta,
-        density=density.reshape(batch + (n_balls, h_num)),
+        density=density,
+        matrix=matrix,
         uin=uin_wrapped,
         n_end=n_end,
         kind=kind,
-        relres=relres.reshape(batch),
-        iters=iters.reshape(batch),
+        relres=relres,
+        iters=iters,
     )

@@ -223,11 +223,8 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
     sx = x.stride()
     few = n_p * n_k < _FEW_POINTS
     kernels.launch(
-        "bhs_fused_ba_eval",
-        x.data_ptr(), sx[0], sx[1], sx[2], x.shape[1],
-        kernels.ptr(centers), kernels.ptr(k), kernels.ptr(w2),
-        kernels.ptr(cab), kernels.ptr(cb1), kernels.ptr(cbb), kernels.ptr(p0),
-        kernels.ptr(out), n_p, n_k, n_b, n, int(far), int(per_ball), int(few),
+        "bhs_fused_ba_eval", x, sx[0], sx[1], sx[2], x.shape[1], centers, k, w2,
+        cab, cb1, cbb, p0, out, n_p, n_k, n_b, n, int(far), int(per_ball), int(few),
         _clamp_limit(rdt), _rescale_for(rdt), int(rdt == torch.float64),
     )
     if few:

@@ -237,10 +237,8 @@ def block_diag_cmm(a, x, seg, adjoint=False):
     x = x.contiguous()
     y = torch.empty_like(x)
     kernels.launch(
-        "bhs_block_diag_cmm",
-        kernels.ptr(a.vals), kernels.ptr(a.offs), kernels.ptr(a.sizes),
-        kernels.ptr(a.voffs), 0 if a.perm is None else kernels.ptr(a.perm),
-        kernels.ptr(items), n_items, kernels.ptr(x), kernels.ptr(y),
+        "bhs_block_diag_cmm", a.vals, a.offs, a.sizes, a.voffs,
+        0 if a.perm is None else a.perm, items, n_items, x, y,
         a.vals.shape[-1], n_lanes, h, buf, int(adjoint),
         int(x.dtype == torch.complex128),
     )

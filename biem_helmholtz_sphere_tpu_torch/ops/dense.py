@@ -1,0 +1,106 @@
+"""KD: the dense BIEM matrix, gathered from the unique-offset (S|R) table.
+
+The dense routes (direct LU and dense GMRES) solve with the assembled
+matrix
+
+    A[k, b, b', h, h'] = rowf[k, b, h] s T[k, pid[b, b'], h, h'] s' colf[k, b', h']
+
+off the diagonal blocks, with s = (-1)^{n_h} on the mirror blocks (b > b',
+whose offset is the negative of its pair's: SR(-t)[h, h'] =
+(-1)^{n_h + n_h'} SR(t)[h, h']) and 1 elsewhere, and delta_{hh'} diag[k,
+b, h] on the diagonal blocks.  The JAX package builds it in one fused XLA
+pass (biem_helmholtz_sphere_tpu/biem/_core.py::_assemble, block-gather
+branch, and `_diag_scatter` for one sphere).  `dense_assemble` runs the
+CUDA kernel `csrc/dense_assemble.cu` on CUDA tensors and
+`_dense_assemble_plain` on CPU tensors, in either layout: pair-major
+[K, B, B', H, H'] (dense GMRES) or [K, B, H, B', H'] (the [N, N] matrix of
+LU and `calc.matrix`), written directly, with no transposing copy.
+"""
+
+import torch
+
+from . import kernels
+
+
+def _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major):
+    """Plain version of the KD kernel (and its CPU path); arguments as
+    `dense_assemble`."""
+    n_k, n_b, h = rowf.shape
+    dev = rowf.device
+    out = torch.zeros((n_k, n_b, n_b, h, h), dtype=rowf.dtype, device=dev)
+    if n_b > 1:
+        lower = torch.ones(n_b, n_b, dtype=torch.bool, device=dev).tril(-1)
+        s = torch.where(lower[..., None], sgn, torch.ones_like(sgn))  # [B, B', H]
+        rowm = rowf[:, :, None, :] * s
+        colm = colf[:, None, :, :] * s
+        off = ~torch.eye(n_b, dtype=torch.bool, device=dev)
+        ids = pid.long()[off]  # the off-diagonal pairs, row-major
+        for k in range(n_k):  # one k at a time bounds the temporaries
+            out[k, off] = (rowm[k, off][..., None] * table[k, ids]) * colm[k, off][..., None, :]
+    out[:, torch.eye(n_b, dtype=torch.bool, device=dev)] = torch.diag_embed(diag)
+    return out if pair_major else out.transpose(2, 3).contiguous()
+
+
+def _pair_order(pid):
+    """int32 [B * B, 3] (b, b', offset id) for the kernel's CTAs: the
+    off-diagonal pairs sorted by offset id (stable), then the diagonal
+    pairs (id 0, unused)."""
+    n_b = pid.shape[0]
+    dev = pid.device
+    bb = torch.arange(n_b, device=dev)
+    b, bp = torch.meshgrid(bb, bb, indexing="ij")
+    diag = b == bp
+    ids = torch.where(diag, 0, pid.long())
+    key = torch.where(diag, n_b * n_b + b, ids)  # diagonal pairs last
+    order = torch.sort(key.reshape(-1), stable=True).indices
+    rows = torch.stack([b.reshape(-1), bp.reshape(-1), ids.reshape(-1)], dim=1)
+    return rows[order].to(torch.int32).contiguous()
+
+
+def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
+    """The dense BIEM matrix from its unique-offset table.
+
+    table: complex [K, NO, H, H] (the (S|R) of each distinct offset, folded
+    or plain); pid: int [B, B] offset id of each pair (the diagonal
+    ignored); rowf, colf, diag: complex [K, B, H] (row factor, column
+    factor, diagonal); sgn: real [H], (-1)^{n_h}.  Returns complex
+    [K, B, B', H, H'] if pair_major, else [K, B, H, B', H'].  On CPU
+    tensors this runs the plain version; on CUDA tensors it launches
+    csrc/dense_assemble.cu or raises.
+    """
+    n_k, n_b, h = rowf.shape
+    if (table.shape[0] != n_k or table.shape[2:] != (h, h) or pid.shape != (n_b, n_b)
+            or colf.shape != rowf.shape or diag.shape != rowf.shape or sgn.shape != (h,)):
+        raise ValueError(
+            f"dense_assemble: table {tuple(table.shape)}, pid {tuple(pid.shape)}, rowf "
+            f"{tuple(rowf.shape)}, colf {tuple(colf.shape)}, diag {tuple(diag.shape)}, "
+            f"sgn {tuple(sgn.shape)} do not match"
+        )
+    if rowf.device.type == "cpu":
+        return _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major)
+    cdt = rowf.dtype
+    if (cdt not in kernels.REAL_OF or any(t.dtype != cdt for t in (table, colf, diag))
+            or sgn.dtype != kernels.REAL_OF[cdt]):
+        raise TypeError(
+            f"dense_assemble: dtypes table {table.dtype}, rowf {cdt}, colf {colf.dtype}, "
+            f"diag {diag.dtype}, sgn {sgn.dtype}"
+        )
+    table, rowf, colf, diag, sgn = (
+        t.contiguous() for t in (table, rowf, colf, diag, sgn))
+    pairs = _pair_order(pid.to(rowf.device))
+    shape = (n_k, n_b, n_b, h, h) if pair_major else (n_k, n_b, h, n_b, h)
+    out = torch.empty(shape, dtype=cdt, device=rowf.device)
+    # element strides of (b, b', h) in the output
+    strides = (n_b * h * h, h * h, h) if pair_major else (h * n_b * h, h, n_b * h)
+    dbl = cdt == torch.complex128
+    vec = not dbl and h % 2 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (table, out))
+    kernels.launch(
+        "bhs_dense_assemble", table, pairs, rowf, colf, sgn, diag, out, n_k, n_b,
+        table.shape[1], h, n_b * n_b, *strides, int(vec), int(dbl),
+    )
+    dense_assemble.launches += 1
+    return out
+
+
+dense_assemble.launches = 0

@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
-           "spherical_jh.cu", "coax_fold.cu")
+           "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -60,6 +60,10 @@ _SIGNATURES = {
     # ng, nnz, n_units, unit_slabs, L, dbl, stream
     "bhs_coax_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P],
+    # table, pairs, rowf, colf, sgn, diag, out, K, B, NO, H, n_pairs, s_b,
+    # s_bp, s_h, vec, dbl, stream
+    "bhs_dense_assemble": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take
@@ -152,24 +156,47 @@ def library():
     return _lib
 
 
-def current_stream_handle():
-    """The current stream's handle, as torch.cuda.current_stream().cuda_stream
-    gives it, without building a Stream object (the query torch's own
-    generated kernels launch with)."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+def current_stream_handle(index=None):
+    """The current stream's handle on device `index` (default: the current
+    device), as torch.cuda.current_stream(index).cuda_stream gives it,
+    without building a Stream object (the query torch's own generated
+    kernels launch with)."""
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _device_error(name, operands):
+    """Raise for kernel operands that lie on different devices (a kernel
+    reads every pointer on one card) or off the card."""
+    devs = sorted({str(t.device) for t in operands})
+    if len(devs) != 1:
+        raise RuntimeError(f"{name}: operands lie on different devices {devs}")
+    raise RuntimeError(f"{name}: unsupported device {devs[0]}")
 
 
 def launch(name, *args):
-    """Call C entry `name` on the current stream; raise on a CUDA error."""
+    """Call C entry `name` with `args`, each tensor passed by its address
+    (the wrapper has made it contiguous, or passes its strides), on the
+    current stream of the tensors' device, with that device current; raise
+    if they lie on different devices or the kernel reports a CUDA error."""
+    cargs, index = [], None
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            i = a.get_device()  # -1 off the card; cheaper than .device
+            if i != index:
+                if index is not None or i < 0:  # two devices, or not CUDA
+                    _device_error(name, [t for t in args if isinstance(t, torch.Tensor)])
+                index = i
+            a = a.data_ptr()
+        cargs.append(a)
+    if index is None:
+        raise RuntimeError(f"{name}: no tensor operands")
     fn = getattr(library(), name)
-    err = fn(*args, current_stream_handle())
+    if index == torch.cuda.current_device():
+        err = fn(*cargs, current_stream_handle(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*cargs, current_stream_handle(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-
-
-def ptr(t):
-    """Device address of a contiguous tensor (complex tensors as their
-    interleaved real storage)."""
-    if not t.is_contiguous():
-        raise ValueError("kernel operands must be contiguous")
-    return t.data_ptr()

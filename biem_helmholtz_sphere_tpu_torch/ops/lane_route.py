@@ -97,9 +97,8 @@ def lane_gather(x, blc, pm, route):
     x, blc, pm = x.contiguous(), blc.contiguous(), pm.contiguous()
     lanes = torch.empty((n_k, n_lanes, h), dtype=x.dtype, device=x.device)
     kernels.launch(
-        "bhs_lane_gather",
-        kernels.ptr(x), kernels.ptr(blc), kernels.ptr(pm), kernels.ptr(route.src_ptr),
-        kernels.ptr(route.src_lane), kernels.ptr(lanes), n_k, n_b, n_lanes, h,
+        "bhs_lane_gather", x, blc, pm, route.src_ptr, route.src_lane, lanes, n_k, n_b,
+        n_lanes, h,
         int(x.dtype == torch.complex128),
     )
     lane_gather.launches += 1
@@ -128,11 +127,8 @@ def lane_scatter(y, x, diag, reg, pm, route):
     y, x, diag, reg, pm = (t.contiguous() for t in (y, x, diag, reg, pm))
     out = torch.empty_like(x)
     kernels.launch(
-        "bhs_lane_scatter",
-        kernels.ptr(y), kernels.ptr(x), kernels.ptr(diag), kernels.ptr(reg),
-        kernels.ptr(pm), kernels.ptr(route.csr_ptr),
-        kernels.ptr(route.csr_lane), kernels.ptr(route.csr_dn),
-        kernels.ptr(out), n_k, n_b, y.shape[1], h,
+        "bhs_lane_scatter", y, x, diag, reg, pm, route.csr_ptr, route.csr_lane,
+        route.csr_dn, out, n_k, n_b, y.shape[1], h,
         int(x.dtype == torch.complex128),
     )
     lane_scatter.launches += 1

@@ -337,8 +337,8 @@ def spherical_jh(mode, d, n_end, z):
     plane = n_z * n_end
     # the complex planes, then the exponent planes two to a complex element
     buf = torch.empty(n_c * plane + (n_r * plane + 1) // 2, dtype=z.dtype, device=z.device)
-    kernels.launch("bhs_spherical_jh", kernels.ptr(zc), kernels.ptr(buf), n_z, n_end, m, mode,
-                   d, *_launch_consts(d, rdt), int(rdt == torch.float64))
+    kernels.launch("bhs_spherical_jh", zc, buf, n_z, n_end, m, mode, d,
+                   *_launch_consts(d, rdt), int(rdt == torch.float64))
     spherical_jh.launches += 1
     shape = tuple(z.shape) + (n_end,)
     if mode == _UNSCALED:

@@ -1,7 +1,17 @@
-"""Addition-theorem translation: the rotation + scale-compensated coaxial
-factors of the factored (S|R) operator."""
+"""Addition-theorem translation: (S|R) / (R|R) by rotation + coaxial for
+'b'-rooted trees, unscaled and scale-compensated, and the factored
+route's rotation and packed coaxial factors."""
 
-from ._rotation import rotation_blocks, rotation_matrix
-from ._scaled import coaxial_scaled
+from ._ops import translation_matrix
+from ._rotation import coaxial_sr, rotation_blocks, rotation_matrix, sr_rotation
+from ._scaled import coaxial_scaled, sr_scaled
 
-__all__ = ["rotation_blocks", "rotation_matrix", "coaxial_scaled"]
+__all__ = [
+    "translation_matrix",
+    "sr_rotation",
+    "sr_scaled",
+    "coaxial_sr",
+    "coaxial_scaled",
+    "rotation_blocks",
+    "rotation_matrix",
+]

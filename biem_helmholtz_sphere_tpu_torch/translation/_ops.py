@@ -1,9 +1,18 @@
-"""Constants of the d-dimensional plane-wave expansion.
+"""Addition-theorem translation operators (S|R) and (R|R).
 
-e^{i k x.s^} = A_d sum_h i^{n_h} j_{n_h}(k|x|) Y_h(x^) conj(Y_h(s^)),
-A_d = 2^{(d+1)/2} pi^{(d-1)/2}.  The translation operators themselves
-(translation_matrix, the band scan, Graf) are not ported yet (ROADMAP
-queue 1 item 9); the factored route needs only these constants and i**n.
+With R_h(x) = j_{n_h}(k|x|) Y_h(x^) and S_h(x) = h_{n_h}(k|x|) Y_h(x^):
+
+    S_h(y + t) = sum_{h'} (S|R)[h', h](t) R_{h'}(y)          (|y| < |t|)
+    R_h(y + t) = sum_{h'} (R|R)[h', h](t) R_{h'}(y)
+
+and from the plane-wave expansion e^{i k x.s^} = A_d sum_h i^{n_h}
+j_{n_h}(k|x|) Y_h(x^) conj(Y_h(s^)), A_d = 2^{(d+1)/2} pi^{(d-1)/2}.
+
+`translation_matrix` dispatches as the JAX package's does: method None or
+"rotation" on 'b'/'bp'-rooted trees in d >= 3 is the rotation + coaxial
+decomposition (_rotation.sr_rotation).  The band scan ("triplet", and the
+default on other trees), Gumerov's recurrences ("gumerov"), Graf's closed
+form (2D) and the plane-wave (R|R) kernel are ROADMAP queue 1 item 9.
 """
 
 import numpy as np
@@ -25,3 +34,59 @@ def ipow(n, dtype, device):
     re = (m == 0).to(torch.int8) - (m == 2).to(torch.int8)
     im = (m == 1).to(torch.int8) - (m == 3).to(torch.int8)
     return torch.complex(re.double(), im.double()).to(dtype)
+
+
+_METHODS = (None, "triplet", "plane_wave", "gumerov", "rotation")
+_LATER = "ROADMAP queue 1 item 9"
+
+
+def check_method(kind, method):
+    """The JAX package's validation of (kind, method): ValueError on an
+    unknown method, on "plane_wave" with (S|R), and on an unknown kind."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown translation method {method!r}")
+    if kind == "SR" and method == "plane_wave":
+        raise ValueError(
+            'method="plane_wave" is only available for same-type (R|R) translation'
+        )
+    if kind not in ("SR", "RR"):
+        raise ValueError(f"kind must be 'SR' or 'RR', got {kind!r}")
+
+
+def translation_matrix(c, t, n_end, k, kind="SR", n_end_add=None, method=None):
+    """Translation operator matrix, complex [..., H_out, H_in], for offsets t.
+
+    t: cartesian offsets [d, ...] (tensor or array) or a spherical mapping
+    (from_cartesian); k: real wavenumber broadcastable to t's batch shape;
+    kind "SR" (the BIEM inter-sphere coupling) or "RR"; n_end_add: input
+    degree cutoff (default n_end); method: None | "triplet" | "plane_wave"
+    | "gumerov" | "rotation", as in the JAX package.  Convention:
+    S_h(y + t) = sum_{h'} M[..., h', h] R_{h'}(y).  It runs on the device
+    of t (or of k when t is not a tensor; on the card when neither is).
+    """
+    from ..ops.kernels import default_device
+    from ._rotation import sr_rotation
+
+    n_in = n_end if n_end_add is None else n_end_add
+    check_method(kind, method)
+    if method in ("gumerov", "triplet"):
+        raise NotImplementedError(f'method="{method}" is {_LATER}')
+    if isinstance(t, dict):
+        t_sph, t_cart = t, None
+        dev = next(iter(t.values())).device
+    else:
+        dev = t.device if isinstance(t, torch.Tensor) else (
+            k.device if isinstance(k, torch.Tensor) else default_device())
+        t_cart, t_sph = torch.as_tensor(t, device=dev), None
+    k = torch.as_tensor(k, device=dev)
+    if c.c_ndim == 2:
+        raise NotImplementedError(f"Graf's 2D translation is {_LATER}")
+    use_rotation = method == "rotation" or (
+        method is None and c.root.kind in ("b", "bp") and n_in == n_end
+    )
+    if not use_rotation:
+        raise NotImplementedError(
+            f"the band-scan / plane-wave translation (tree "
+            f"{c.branching_types_expression_str!r}, n_end_add={n_in}) is {_LATER}"
+        )
+    return sr_rotation(c, t_sph, n_end, k, kind=kind, t_cart=t_cart)

@@ -31,7 +31,7 @@ from ..ops import kernels
 from ..ops.block_diag import BlockDiag, pack_layout
 from ..special._family import spherical_h_scaled
 from ._ops import _a_const, ipow
-from ._rotation import _coax_tables, _root_axis
+from ._rotation import _coax_tables, _offsets_of, _root_axis, _sandwich
 
 # Bands per scale group: the within-group exponent spread (G-1) *
 # ln(2N/(e k t)) stays inside the float32 exp range for k t > ~1e-4 N.
@@ -148,11 +148,9 @@ class CoaxPacked:
 
     @cached_property
     def kernel_tables(self):
-        """The K2 kernel's table arguments, fixed for the tables' life:
-        (iazf, u_tiles, units, order addresses, ng, nnz, n_units, the most
-        slabs of a unit, float64 flag)."""
-        ptrs = (kernels.ptr(t) for t in (self.iazf, self.u_tiles, self.units, self.order))
-        return (*ptrs, self.u.shape[0] // _GROUP, self.u.shape[1], self.units.shape[0],
+        """The K2 kernel's scalar table arguments, fixed for the tables'
+        life: (ng, nnz, n_units, the most slabs of a unit, float64 flag)."""
+        return (self.u.shape[0] // _GROUP, self.u.shape[1], self.units.shape[0],
                 self.unit_slabs, int(self.u.dtype == torch.float64))
 
 
@@ -213,15 +211,23 @@ def _coax_tiles(u, lsum, n_sm):
     return order, units, image, most
 
 
-@lru_cache(maxsize=4)
 def _coax_packed(c, n_end, dtype, device):
-    """CoaxPacked for (tree, n_end) in real dtype on device.
+    """CoaxPacked for (tree, n_end) in real dtype on device (a bare "cuda"
+    is the current card: the tables live there, sized by its SM count).
 
     U_n[a, b] = sum_q t[q, a] tz[q, n] w[q] t[q, b], masked to the Gaunt
     support l_a + l_b >= n, is formed at the packed (a, b) only, in float64
     on the host; bands are zero-padded to whole groups of _GROUP.  The K2
     kernel reads it as `_coax_tiles` lays it out.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _coax_packed_on(c, n_end, dtype, device)
+
+
+@lru_cache(maxsize=4)
+def _coax_packed_on(c, n_end, dtype, device):
     zf, w, tz, t_cols, ell, _ = _coax_tables(c, n_end)
     sizes, perm = _child_state_blocks(c, n_end)
     layout = pack_layout(sizes, perm, len(ell), device)
@@ -233,7 +239,7 @@ def _coax_packed(c, n_end, dtype, device):
     u = np.where(lsum[None, :] >= np.arange(n_bands)[:, None], u, 0.0)
     u = np.concatenate([u, np.zeros((ng * _GROUP - n_bands, u.shape[1]))])
     n_sm = 132  # the H100's; the card's own where the tables live on one
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     order, units, image, unit_slabs = _coax_tiles(u, lsum, n_sm)
     l_pair = ell[rows] + 65536 * ell[cols]
@@ -308,12 +314,11 @@ def coax_fold(radm, rade, e_r, e_b, tab):
         )
     radm, rade = radm.contiguous(), rade.contiguous()
     e_r, e_b = e_r.contiguous(), e_b.contiguous()
-    iazf, u_tiles, units, order, ng, nnz, n_units, unit_slabs, dbl = tab.kernel_tables
+    ng, nnz, n_units, unit_slabs, dbl = tab.kernel_tables
     out = torch.empty((n_k, n_rad, nnz), dtype=radm.dtype, device=radm.device)
     kernels.launch(
-        "bhs_coax_fold", radm.data_ptr(), rade.data_ptr(), iazf, u_tiles, units, order,
-        e_r.data_ptr(), e_b.data_ptr(), out.data_ptr(), n_k * n_rad, n_rad, n_bands, ng, nnz,
-        n_units, unit_slabs, e_r.shape[-1], dbl,
+        "bhs_coax_fold", radm, rade, tab.iazf, tab.u_tiles, tab.units, tab.order, e_r, e_b,
+        out, n_k * n_rad, n_rad, n_bands, ng, nnz, n_units, unit_slabs, e_r.shape[-1], dbl,
     )
     coax_fold.launches += 1
     return out
@@ -335,3 +340,25 @@ def coax_fold_packed(c, n_end, r, k, e_r, e_b):
     tab = _coax_packed(c, n_end, r.dtype, r.device)
     radm, rade = spherical_h_scaled(c.c_ndim, 2 * n_end - 1, k[:, None] * r)
     return replace(tab.layout, vals=coax_fold(radm, rade, e_r, e_b, tab))
+
+
+def sr_scaled(c, t_sph, n_end, k, kind="SR", t_cart=None, method=None):
+    """(mant, S) full (S|R) operator for 'b'/'bp'-rooted trees in d >= 3:
+    SR = mant * exp(S), overflow-free in any dtype.
+
+    mant = D X_mant D^H per offset (the rotation sandwich, by degree
+    groups) and S the coaxial log-scale, which is constant on degree
+    blocks and so passes D unchanged.  Like the JAX package this ignores
+    `method` (the scaled path has its own exact algorithm).  2D trees and
+    other roots are ROADMAP queue 1 item 9.
+    """
+    if c.c_ndim == 2 or c.root.kind not in ("b", "bp"):
+        raise NotImplementedError(
+            "the scaled (S|R) of 2D trees and of trees not rooted at a 'b'/'bp' "
+            "node is ROADMAP queue 1 item 9"
+        )
+    if kind != "SR":
+        raise ValueError("scaled translation is (S|R)-only (RR is bounded)")
+    r, pick, rot = _offsets_of(c, n_end, t_sph, t_cart, k)
+    mant, s_mat = coaxial_scaled(c, r, n_end, k)
+    return _sandwich(pick(mant), rot), pick(s_mat)

@@ -24,7 +24,9 @@ non-zero before the result line):
    one PyTorch call that computes the same function where there is one
    (KB: one dense matmul over the padded lanes);
 3. the README golden (two unit spheres, k=1, n_end=6) through the port in
-   complex128, to 6 decimal places;
+   complex128, to 6 decimal places, and in complex64 (within 1e-4 of
+   complex128): on the factored route, and with the default solver, which
+   takes the direct LU;
 4. the bench configuration (16 unit spheres on a 4x4 lattice, n_end=32,
    complex64, two k-blocks of 4 with warm starts) through `biem()`:
    launch counts of every kernel over the sweep, GMRES residuals,
@@ -33,7 +35,26 @@ non-zero before the result line):
    repeat of the sweep, a stage split with synchronising timers in a pass
    of its own, one matvec with at most 3 block_diag_cmm launches and no
    index_select, and the field evaluation path (uscat at 131,072 points
-   for one k, its launch counts read around it) with its throughput.
+   for one k, its launch counts read around it) with its throughput;
+5. the dense route on the 4x4 lattice, the first KB k of the sweep:
+   (a) n_end=19 (5,776 unknowns, the LU tier) in complex64 with the
+   default solver, which must pick LU, against the factored route (1e-3)
+   and the boundary residual (1e-3); (b) the same in complex128 with
+   stable=False (K5's unscaled mode and K2's zero-exponent mode at full
+   width) against the factored route in complex128 (1e-8); (c) the bench
+   configuration (n_end=32, 16,384 unknowns) with solver="gmres" in
+   complex64, a dense matrix of 8.6 GB: relres, uscat(0) against the
+   golden, the boundary residual, the assembled matrix repeated bit for
+   bit, the peak device memory, the launch counts of the run (KD
+   `dense_assemble` among them) and a stage split of each of (a)-(c).
+
+Phase 2 also holds KD against its plain version (complex64 at the bench's
+pair-major shapes, complex128 at the LU tier's [B, H, B', H'] shapes, both
+launched twice and required bit-for-bit equal, and equal to the plain
+version entry for entry: the kernel forms the same products in the same
+order) and K2 in its zero-exponent mode (coaxial_sr's unscaled band sum)
+at the LU tier's n_end, its error relative to the largest entry of each
+(k, radius, l, l') degree block.
 
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
@@ -55,6 +76,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_END = 32
+N_END_LU = 19  # the 4x4 lattice's largest n_end on the LU tier (16 n_end^2 <= 6144)
 N_SIDE = 4
 SPACING = 4.0
 KB = 4
@@ -66,6 +88,11 @@ TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
 # FP64 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
+
+
+def sweep_ks():
+    """The bench sweep's wavenumbers (float32, as bench.py makes them)."""
+    return np.linspace(7.0, 9.0, 100).astype(np.float32)
 
 
 def lattice_centers(n_side=N_SIDE, spacing=SPACING):
@@ -124,10 +151,68 @@ def bound(nbytes, flops, name):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def coax_bound(tab, n_pair, n_e, n_l, cs, rs, name):
+    """K2's bound for n_pair (k, radius) pairs, n_e rows of L = n_l
+    exponents: U's entries and band groups inside the mask l + l' >= n
+    (the zero padding of U is no work), the bands in, the packed values
+    out."""
+    n_bands = 2 * n_l - 1
+    nnz = tab.u.shape[1]
+    top = (tab.l_row + tab.l_col).clamp(max=n_bands - 1).long()
+    n_u, n_grp = int((top + 1).sum()), int((top // 8 + 1).sum())
+    return bound(n_u * rs + n_pair * n_bands * (cs + rs) + n_bands * cs
+                 + 2 * nnz * 4 + 2 * n_e * n_l * rs + n_pair * nnz * cs,
+                 n_pair * (4 * n_u + 7 * n_grp + 10 * nnz) + n_pair * n_bands * 10, name)
+
+
 def add_bounds(parts):
     """Sum of per-launch bounds; named by the largest part's limit."""
     ms = sum(b[0] for b in parts)
     return ms, max(parts, key=lambda b: b[0])[1]
+
+
+def equal_by_k(torch, got, ref):
+    """(torch.equal, max abs difference, max |ref|) over the leading axis
+    one slice at a time (matrices of gigabytes: the difference of a slice is
+    all that is held)."""
+    same, d, m = True, 0.0, 0.0
+    for g, r in zip(got, ref):
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError("kernel output is not finite")
+        same = same and torch.equal(g, r)
+        d, m = max(d, float((g - r).abs().max())), max(m, float(r.abs().max()))
+    return same, d, m
+
+
+def degree_block_rel_err(torch, got, ref, l_row, l_col, n_end):
+    """(max abs error, max relative error) of packed entries [..., nnz],
+    relative to the largest |ref| of each (leading index, l, l') block: the
+    entries of one root-degree pair are alike in size (~|h_{l+l'}|), while
+    across blocks they span many orders of magnitude."""
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("kernel output is not finite")
+    nnz = got.shape[-1]
+    d, r = (x.abs().reshape(-1, nnz) for x in (got - ref, ref))
+    g = (l_row.long() * n_end + l_col.long()).expand_as(d)
+    dm = d.new_zeros(d.shape[0], n_end * n_end).scatter_reduce(1, g, d, "amax")
+    rm = r.new_zeros(d.shape[0], n_end * n_end).scatter_reduce(1, g, r, "amax")
+    return float(d.max()), float((dm / rm.clamp_min(torch.finfo(rm.dtype).tiny)).max())
+
+
+def dense_parts(torch, dev, rdt, n_end, stable):
+    """KD's arguments for the first k-block of the sweep on the 4x4 lattice,
+    as the dense route makes them (unit sound-soft spheres)."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _assembly_parts
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+
+    f = dict(dtype=rdt, device=dev)
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    nb = N_SIDE * N_SIDE
+    return _assembly_parts(
+        create_from_branching_types("ba"), n_end, lattice_centers(), torch.ones(KB, nb, **f),
+        torch.as_tensor(sweep_ks()[:KB], **f), torch.ones(KB, **f),
+        torch.ones(KB, nb, dtype=cdt, device=dev), torch.zeros(KB, nb, dtype=cdt, device=dev),
+        stable=stable)
 
 
 def scaled_err(torch, got, ref):
@@ -206,8 +291,9 @@ def check_kernels(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.special._family import (
         _H_ONLY, _SCALED, _UNSCALED, _spherical_h_scaled_plain,
         _spherical_jh_all_plain, _spherical_jh_scaled_plain, spherical_jh)
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import _dense_assemble_plain, dense_assemble
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
-        _child_state_blocks, _coax_fold_packed_plain, coax_fold)
+        _child_state_blocks, _coax_fold_packed_plain, _coax_packed, coax_fold)
 
     c = create_from_branching_types("ba")
     n_root = basis(c, N_END).n_root
@@ -282,20 +368,75 @@ def check_kernels(torch, dev, card):
         ms = cuda_ms(torch, lambda: coax_fold(*args), 20)
         pms = cuda_ms(torch, lambda: _coax_fold_packed_plain(*args), 5)
         nnz = tab.u.shape[1]
-        n_pair = KB * n_rad
-        # U entries and band groups inside the mask l + l' >= n (the zero
-        # padding of U is no work)
-        top = torch.clamp(tab.l_row + tab.l_col, max=n_bands - 1).long()
-        n_u, n_grp = int((top + 1).sum()), int((top // 8 + 1).sum())
-        b = bound(n_u * rs + n_pair * n_bands * (cs + rs) + n_bands * cs
-                  + 2 * nnz * 4 + 2 * KB * N_END * rs + n_pair * nnz * cs,
-                  n_pair * (4 * n_u + 7 * n_grp + 10 * nnz) + n_pair * n_bands * 10, name)
+        b = coax_bound(tab, KB * n_rad, KB, N_END, cs, rs, name)
         print(f"[2] coax_fold {KB} k x {n_rad} radii x {nnz} packed {name}: max_abs_err "
               f"{ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
               f"bound {b[0]:.6f} ms ({card})")
         if er > tol:
             raise RuntimeError(f"coax_fold {name}: rel err {er:.3e} > {tol}")
         results.setdefault("coax_fold", {})[name] = {
+            "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
+
+        # K2 in its zero-exponent mode: coaxial_sr's unscaled band sum for
+        # the plain dense route, 4 k x 9 radii at the LU tier's n_end
+        nb_lu = 2 * N_END_LU - 1
+        hz = spherical_jh(_UNSCALED, 3, nb_lu, z_coax.reshape(1, -1))[2]
+        e0 = torch.zeros((1, N_END_LU), dtype=rdt, device=dev)
+        zargs = (hz, torch.zeros_like(hz.real), e0, e0, _coax_packed(c, N_END_LU, rdt, dev))
+        got = coax_fold(*zargs)
+        ea, er = degree_block_rel_err(torch, got, _coax_fold_packed_plain(*zargs),
+                                      zargs[-1].l_row, zargs[-1].l_col, N_END_LU)
+        if not same_bits(torch, coax_fold(*zargs), got):
+            raise RuntimeError(f"coax_fold zero-exponent {name}: two launches differ")
+        ms = cuda_ms(torch, lambda: coax_fold(*zargs), 20)
+        pms = cuda_ms(torch, lambda: _coax_fold_packed_plain(*zargs), 5)
+        b = coax_bound(zargs[-1], KB * n_rad, 1, N_END_LU, cs, rs, name)
+        print(f"[2] coax_fold zero-exponent mode (coaxial_sr) n_end {N_END_LU} {KB} k x "
+              f"{n_rad} radii x {got.shape[-1]} packed {name}: max_abs_err {ea:.3e} "
+              f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms "
+              f"({b[1]}) ({card})")
+        if er > tol:
+            raise RuntimeError(f"coax_fold zero-exponent {name}: rel err {er:.3e} > {tol}")
+
+        # KD: the dense matrix of a k-block at the shapes phase 5 gives it:
+        # complex64 stable and pair-major at the bench (dense GMRES),
+        # complex128 plain in the [B, H, B', H'] layout at the LU tier
+        n_kd, pair_major, stable = ((N_END, True, True) if cdt == torch.complex64
+                                    else (N_END_LU, False, False))
+        parts = dense_parts(torch, dev, rdt, n_kd, stable)
+        got = dense_assemble(*parts, pair_major=pair_major)
+        again = dense_assemble(*parts, pair_major=pair_major)
+        if not torch.equal(again, got):
+            raise RuntimeError(f"dense_assemble {name}: two launches differ")
+        del again
+        ref = _dense_assemble_plain(*parts, pair_major)
+        # the kernel forms each entry by the plain version's products in its
+        # order, so the two must be equal: a tolerance relative to the largest
+        # entry would pass a kernel that spoils the small high-degree blocks
+        same, ea, top = equal_by_k(torch, got, ref)
+        er = ea / top
+        del got, ref
+        ms = cuda_ms(torch, lambda: dense_assemble(*parts, pair_major=pair_major), 10)
+        pms = cuda_ms(torch, lambda: _dense_assemble_plain(*parts, pair_major), 3)
+        table = parts[0]
+        h_kd = table.shape[-1]
+        # each output entry written once, the table and the factors read
+        # once; two complex products per off-diagonal entry
+        b = bound(KB * nb * nb * h_kd * h_kd * cs + table.numel() * cs
+                  + 3 * KB * nb * h_kd * cs + h_kd * rs + nb * nb * 12,
+                  12 * KB * nb * (nb - 1) * h_kd * h_kd, name)
+        layout = "[K, B, B', H, H']" if pair_major else "[K, B, H, B', H']"
+        print(f"[2] dense_assemble {KB} k x {nb}x{nb} blocks of {h_kd}x{h_kd} from "
+              f"{table.shape[1]} offsets {layout} {name}: equal to the plain version {same}, "
+              f"max_abs_err {ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) "
+              f"({card})")
+        if not same:
+            raise RuntimeError(f"dense_assemble {name}: differs from its plain version "
+                               f"(max abs err {ea:.3e})")
+        del parts, table
+        torch.cuda.empty_cache()
+        results.setdefault("dense_assemble", {})[name] = {
             "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
             "bound_by": b[1], "library_ms": None}
 
@@ -447,25 +588,31 @@ def check_kernels(torch, dev, card):
 
 
 def readme_golden(torch, dev):
-    """Phase 3: the README problem through the port on the card."""
+    """Phase 3: the README problem through the port on the card, on the
+    factored route and with the default solver (a direct LU)."""
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 
     c = create_from_branching_types("ba")
-    vals = {}
-    for rdt in (torch.float64, torch.float32):
-        f = dict(dtype=rdt, device=dev)
-        uin, _ = plane_wave(k=torch.tensor(1.0, **f),
-                            direction=torch.tensor([1.0, 0.0, 0.0], **f))
-        calc = biem(c, centers=torch.tensor([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]], **f),
-                    radii=torch.ones(2, **f), k=torch.tensor(1.0, **f), n_end=6,
-                    uin=uin, solver="matfree", stable=True)
-        vals[rdt] = complex(calc.uscat(torch.zeros(3, 1, **f))[0])
-    u = vals[torch.float64]
-    print(f"[3] README golden complex128 uscat(0) = {u.real:.6f}{u.imag:+.6f}j "
-          f"(complex64 {vals[torch.float32]:.6f})")
-    if (round(u.real, 6), round(u.imag, 6)) != GOLDEN_README:
-        raise RuntimeError(f"README golden mismatch: {u} vs {GOLDEN_README}")
+    for route, kw in (("factored", dict(solver="matfree", stable=True)), ("auto (LU)", {})):
+        vals = {}
+        for rdt in (torch.float64, torch.float32):
+            f = dict(dtype=rdt, device=dev)
+            uin, _ = plane_wave(k=torch.tensor(1.0, **f),
+                                direction=torch.tensor([1.0, 0.0, 0.0], **f))
+            calc = biem(c, centers=torch.tensor([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]], **f),
+                        radii=torch.ones(2, **f), k=torch.tensor(1.0, **f), n_end=6,
+                        uin=uin, **kw)
+            if not kw and (calc.relres is not None or calc.matrix is None):
+                raise RuntimeError("the default solver did not take the direct LU")
+            vals[rdt] = complex(calc.uscat(torch.zeros(3, 1, **f))[0])
+        u, u32 = vals[torch.float64], vals[torch.float32]
+        print(f"[3] README golden, {route}: complex128 uscat(0) = {u.real:.6f}{u.imag:+.6f}j "
+              f"(complex64 {u32:.6f}, rel diff {abs(u32 - u) / abs(u):.2e})")
+        if (round(u.real, 6), round(u.imag, 6)) != GOLDEN_README:
+            raise RuntimeError(f"README golden mismatch ({route}): {u} vs {GOLDEN_README}")
+        if abs(u32 - u) > 1e-4 * abs(u):
+            raise RuntimeError(f"README golden ({route}): complex64 off by {abs(u32 - u):.2e}")
 
 
 def bench_sweep(torch, dev):
@@ -484,7 +631,7 @@ def bench_sweep(torch, dev):
     nb = len(centers_np)
     centers = torch.as_tensor(centers_np, **f)
     direction = torch.tensor([1.0, 0.0, 0.0], **f)
-    ks = np.linspace(7.0, 9.0, 100).astype(np.float32)[: 2 * KB]
+    ks = sweep_ks()[: 2 * KB]
 
     def block(kb, dens0):
         kt = torch.as_tensor(kb, **f)
@@ -589,18 +736,9 @@ def bench_config(torch, dev, card):
         if err > 1e-3:
             raise RuntimeError(f"uscat(0) at k={ks[i]} off the JAX f64 golden by {err:.2e}")
 
-    rng = np.random.default_rng(7)
-    pts = []
-    for b in (0, 5, 10, 15):
-        v = rng.normal(size=(3, 64))
-        v /= np.linalg.norm(v, axis=0)
-        pts.append(centers_np[b][:, None] + 1.0000005 * v)
-    xb = torch.as_tensor(np.concatenate(pts, axis=1), **f)
-    calc0 = run1[0][0]
-    res = (torch.exp(1j * calc0.k[None, :] * xb[0][:, None]) + calc0.uscat(xb)).abs()
-    res_max = float(res.max())
+    res_max, res_mean = bc_residual(torch, run1[0][0])
     print(f"[4] sound-soft BC residual at 256 points on spheres 0,5,10,15: "
-          f"max {res_max:.3e} mean {float(res.mean()):.3e}")
+          f"max {res_max:.3e} mean {res_mean:.3e}")
     if not res_max <= 1e-3:
         raise RuntimeError(f"BC residual {res_max:.3e} > 1e-3")
 
@@ -648,6 +786,23 @@ def bench_config(torch, dev, card):
     return launches
 
 
+def bc_residual(torch, calc):
+    """(max, mean) of |u_in + u_scat| at 256 points just outside spheres 0,
+    5, 10 and 15 of the lattice (sound-soft: zero on the boundary), for
+    each k of the calculator's batch."""
+    rng = np.random.default_rng(7)
+    centers_np = lattice_centers()
+    pts = []
+    for b in (0, 5, 10, 15):
+        v = rng.normal(size=(3, 64))
+        v /= np.linalg.norm(v, axis=0)
+        pts.append(centers_np[b][:, None] + 1.0000005 * v)
+    xb = torch.as_tensor(np.concatenate(pts, axis=1), dtype=calc.radii.dtype,
+                         device=calc.radii.device)
+    res = (torch.exp(1j * calc.k[None, :] * xb[0][:, None]) + calc.uscat(xb)).abs()
+    return float(res.max()), float(res.mean())
+
+
 def matvec_path(torch, dev, calc):
     """One matvec of the bench operator: at most 3 block_diag_cmm launches
     and no index_select (X's permutation is read inside the kernel)."""
@@ -677,46 +832,196 @@ def matvec_path(torch, dev, calc):
         raise RuntimeError("the matvec permutes X's lanes outside block_diag_cmm")
 
 
-def stage_split(torch, sweep, n_k, card):
-    """Phase 4's stage split: one more sweep with each stage wrapped in
-    synchronising host timers (they add their own syncs, so the total
-    exceeds the timed sweep's)."""
-    from biem_helmholtz_sphere_tpu_torch.biem import _core
-
+def split_stages(torch, run, stages):
+    """Run run() once with each (module, attribute, label) of stages
+    wrapped in synchronising host timers (they add their own syncs, so the
+    total exceeds an untimed run's); returns ({label: s}, total s)."""
     acc = {}
 
     def timed(fn, key):
-        def run(*args, **kw):
+        def wrapped(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
             return out
-        return run
+        return wrapped
 
-    stages = {"_rhs_dispatch": "RHS", "_radial_rows_scaled": "radial rows",
-              "coax_fold_packed": "K2 (with its K5)", "gmres_solve_op": "solve"}
-    saved = {name: getattr(_core, name) for name in stages}
-    saved_uscat = _core.BIEMResultCalculator.uscat
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     try:
-        for name, key in stages.items():
-            setattr(_core, name, timed(saved[name], key))
-        _core.BIEMResultCalculator.uscat = timed(saved_uscat, "uscat(0)")
+        for (obj, attr, fn), (_, _, label) in zip(saved, stages):
+            setattr(obj, attr, timed(fn, label))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sweep()
+        run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for name, fn in saved.items():
-            setattr(_core, name, fn)
-        _core.BIEMResultCalculator.uscat = saved_uscat
-    parts = ", ".join(f"{key} {acc.get(key, 0.0) / n_k:.6f}"
-                      for key in list(stages.values()) + ["uscat(0)"])
-    other = total - sum(acc.values())
-    print(f"[4] stage split, s per k (synchronising timers, {n_k} k): {parts}, "
-          f"other {other / n_k:.6f}, total {total / n_k:.6f} ({card})")
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    return acc, total
+
+
+def format_split(acc, total, labels, n_k):
+    parts = ", ".join(f"{key} {acc.get(key, 0.0) / n_k:.6f}" for key in labels)
+    return f"{parts}, other {(total - sum(acc.values())) / n_k:.6f}, total {total / n_k:.6f}"
+
+
+def stage_split(torch, sweep, n_k, card):
+    """Phase 4's stage split: one more sweep with each stage timed."""
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+
+    stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
+              (_core, "coax_fold_packed", "K2 (with its K5)"),
+              (_core, "gmres_solve_op", "solve"),
+              (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+    acc, total = split_stages(torch, sweep, stages)
+    print(f"[4] stage split, s per k (synchronising timers, {n_k} k): "
+          f"{format_split(acc, total, [label for _, _, label in stages], n_k)} ({card})")
+
+
+def dense_route(torch, dev, card):
+    """Phase 5: the dense route at full width; returns the launch counts of
+    its bench run (c)."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
+
+    counters = {"dense_assemble": (dense_assemble, "launches"),
+                "spherical_jh": (spherical_jh, "launches"),
+                "coax_fold": (coax_fold, "launches"),
+                "fused_ba_eval_few": (fused_ba_eval, "few_launches")}
+
+    def reset():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+
+    c = create_from_branching_types("ba")
+    centers_np = lattice_centers()
+    nb = len(centers_np)
+    ks = sweep_ks()[:KB]
+
+    def solve(rdt, n_end, **kw):
+        f = dict(dtype=rdt, device=dev)
+        kt = torch.as_tensor(ks, **f)
+        uin, _ = plane_wave(k=kt, direction=torch.tensor([1.0, 0.0, 0.0], **f)[:, None]
+                            .expand(3, KB))
+        return biem(c, centers=torch.as_tensor(centers_np, **f).expand(KB, nb, 3),
+                    radii=torch.ones(KB, nb, **f), k=kt, n_end=n_end, uin=uin, **kw)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def split(label, rdt, n_end, stages, **kw):
+        def run():
+            calc = solve(rdt, n_end, **kw)
+            calc.uscat(torch.zeros(3, 1, dtype=rdt, device=dev))
+        stages = stages + [(_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+        acc, total = split_stages(torch, run, stages)
+        print(f"[5] {label} stage split, s per k-block of {KB} (synchronising timers): "
+              f"{format_split(acc, total, [s[2] for s in stages], 1)} ({card})")
+
+    scaled = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
+              (_core, "coax_fold_packed", "coax (K5 + K2)"), (_core, "_sandwich", "sandwich"),
+              (_core, "dense_assemble", "KD")]
+    plain = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows", "radial rows"),
+             (_rotation, "coaxial_sr", "coax (K5 + K2)"), (_rotation, "_sandwich", "sandwich"),
+             (_core, "dense_assemble", "KD")]
+    n_lu = nb * N_END_LU * N_END_LU
+    for rdt, tol, label in ((torch.float32, 1e-3, "(a) complex64"),
+                            (torch.float64, 1e-8, "(b) complex128 stable=False")):
+        route = _core._route("auto", nb, n_lu, rdt, dev, True, False, centers_np)
+        if route != "lu":
+            raise RuntimeError(f"auto picks {route!r} for the n_end={N_END_LU} lattice")
+        torch.cuda.synchronize()
+        reset()
+        calc = solve(rdt, N_END_LU)
+        torch.cuda.synchronize()
+        counts = read()
+        if calc.relres is not None or calc.matrix is None:
+            raise RuntimeError(f"{label}: the default solver did not take the direct LU")
+        ref = solve(rdt, N_END_LU, solver="matfree", stable=True)
+        err = rel(calc.density, ref.density)
+        res_max, res_mean = bc_residual(torch, calc)
+        print(f"[5] {label} lattice n_end={N_END_LU} ({n_lu} unknowns), auto -> LU: launches "
+              f"{counts}; density vs the factored route rel err {err:.3e}; BC residual max "
+              f"{res_max:.3e} mean {res_mean:.3e} ({card})")
+        if not bool(torch.isfinite(calc.density).all()) or not err <= tol:
+            raise RuntimeError(f"{label}: density off the factored route by {err:.3e} > {tol}")
+        if rdt == torch.float32 and not res_max <= 1e-3:
+            raise RuntimeError(f"{label}: BC residual {res_max:.3e} > 1e-3")
+        if min(counts["dense_assemble"], counts["spherical_jh"], counts["coax_fold"]) <= 0:
+            raise RuntimeError(f"{label}: the dense route skipped a kernel: {counts}")
+        del calc, ref
+        split(label, rdt, N_END_LU,
+              (scaled if rdt == torch.float32 else plain) + [(torch.linalg, "solve", "LU")])
+
+    # (c) the bench configuration on the dense GMRES route
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(torch.float32, N_END, solver="gmres")
+    u0 = calc.uscat(torch.zeros(3, 1, device=dev))[0].cpu().numpy()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_sys = nb * N_END * N_END
+    print(f"[5] (c) bench lattice n_end={N_END} ({n_sys} unknowns), solver='gmres', dense "
+          f"matrix {calc.matrix.numel() * 8 / 1e9:.2f} GB: {dt:.3f} s for {KB} k, launches "
+          f"{launches}, peak device memory {peak:.3f} GiB ({card})")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the dense route never launched {name}")
+    worst = float(calc.relres.max())
+    print(f"[5] (c) GMRES iters {calc.iters.tolist()}, max relres {worst:.3e}")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5:
+        raise RuntimeError(f"(c) relres {worst:.3e} > 3e-5 or non-finite density")
+    with open(os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data",
+                           "bench_golden_f64.json")) as fh:
+        golden = json.load(fh)["points"]
+    for i, g in enumerate(golden[:KB]):
+        ref = complex(*g["uscat0"])
+        err = abs(u0[i] - ref) / abs(ref)
+        print(f"[5] (c) k={ks[i]:.6f} uscat(0) = {u0[i]:.6f} golden {ref:.6f} rel err {err:.2e}")
+        if abs(g["k"] - float(ks[i])) > 1e-6 or err > 1e-3:
+            raise RuntimeError(f"(c) uscat(0) at k={ks[i]} off the JAX f64 golden by {err:.2e}")
+    res_max, res_mean = bc_residual(torch, calc)
+    print(f"[5] (c) BC residual max {res_max:.3e} mean {res_mean:.3e}")
+    if not res_max <= 1e-3:
+        raise RuntimeError(f"(c) BC residual {res_max:.3e} > 1e-3")
+    f = dict(dtype=torch.float32, device=dev)
+    again = _core._assemble(
+        c, N_END, centers_np, torch.ones(KB, nb, **f), torch.as_tensor(ks, **f),
+        torch.ones(KB, **f), torch.ones(KB, nb, dtype=torch.complex64, device=dev),
+        torch.zeros(KB, nb, dtype=torch.complex64, device=dev), stable=True, pair_major=True)
+    same = torch.equal(again, calc.matrix.transpose(2, 3))
+    print(f"[5] (c) the assembled matrix repeats bit for bit: {same}")
+    if not same:
+        raise RuntimeError("(c) the dense matrix differs between two assemblies")
+    # one dense GMRES matvec (cuBLAS through torch.matmul): it reads the
+    # matrix once, so its bound is the matrix's bytes over 3.35 TB/s
+    mv, _ = _core._pairs_operator(again)
+    x = calc.density.reshape(KB, -1)
+    ms = cuda_ms(torch, lambda: mv(x), 10)
+    print(f"[5] (c) one pair-major matvec (torch.matmul, then a sum over b'): {ms:.4f} ms, "
+          f"bound {again.numel() * 8 / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes) ({card})")
+    del again, calc, mv, x
+    torch.cuda.empty_cache()
+    split("(c) complex64 dense GMRES", torch.float32, N_END,
+          scaled + [(_core, "gmres_solve_op", "GMRES")], solver="gmres")
+    return launches
 
 
 def main():
@@ -756,6 +1061,7 @@ def main():
     results = check_kernels(torch, dev, card)
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
+    launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
@@ -772,6 +1078,8 @@ def main():
                          "biem_helmholtz_sphere_tpu/special/_family.py:215"),
         "coax_fold": ("csrc/coax_fold.cu",
                       "biem_helmholtz_sphere_tpu/translation/_scaled.py:86"),
+        "dense_assemble": ("csrc/dense_assemble.cu",
+                           "biem_helmholtz_sphere_tpu/biem/_core.py:826"),
     }
     record = {"kernels": [
         {

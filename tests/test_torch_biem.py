@@ -176,14 +176,14 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("case", [
-    "direct", "auto-small", "2d-tree", "c-tree", "quadrature-rhs", "unstable",
-    "one-sphere", "lattice-64",
+    "triplet", "gumerov", "2d-tree", "c-tree", "quadrature-rhs", "unstable",
+    "complex-k", "batch-geometry", "lattice-64",
 ])
 def test_unported_routes_raise(case):
     c = create_from_branching_types("a" if case == "2d-tree" else
                                     "caa" if case == "c-tree" else "ba")
     d = c.c_ndim
-    n_balls = {"one-sphere": 1, "lattice-64": 64}.get(case, 2)
+    n_balls = {"lattice-64": 64}.get(case, 2)
     centers = torch.zeros(n_balls, d, **F64)
     centers[:, 0] = 3.0 * torch.arange(n_balls)
     k = torch.tensor(1.0, **F64)
@@ -193,13 +193,18 @@ def test_unported_routes_raise(case):
     if case == "quadrature-rhs":
         uin = lambda x: torch.exp(1j * x[0])  # noqa: E731  (no plane-wave tag)
     kw = dict(solver="matfree", stable=True)
-    if case in ("direct", "auto-small"):
-        kw["solver"] = "direct" if case == "direct" else "auto"
+    if case in ("triplet", "gumerov"):  # the plain dense route's translation
+        kw = dict(solver="direct", stable=False, translational_coefficients_method=case)
     if case == "unstable":
         kw["stable"] = False
+    if case == "complex-k":
+        k = torch.tensor(1.0 + 0.1j, dtype=torch.complex128)
+    if case == "batch-geometry":
+        centers = torch.stack([centers, centers + 1.0])
+        k = torch.tensor([1.0, 1.1], **F64)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [89]"):
-        biem(c, centers=centers, radii=torch.ones(n_balls, **F64), k=k, n_end=3,
-             uin=uin, **kw)
+        biem(c, centers=centers, radii=torch.ones(centers.shape[:-1], **F64), k=k,
+             n_end=3, uin=uin, **kw)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

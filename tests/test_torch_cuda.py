@@ -20,6 +20,7 @@ import torch
 
 from biem_helmholtz_sphere_tpu_torch import special
 from biem_helmholtz_sphere_tpu_torch.biem._core import (
+    _assembly_parts,
     _factored_operator,
     _pair_routing,
     _radial_rows_scaled,
@@ -39,6 +40,7 @@ from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
     pack,
     unpack,
 )
+from biem_helmholtz_sphere_tpu_torch.ops.dense import _dense_assemble_plain, dense_assemble
 from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
     _lane_gather_plain,
     _lane_scatter_plain,
@@ -55,6 +57,7 @@ from biem_helmholtz_sphere_tpu_torch.special._family import (
     _spherical_jh_scaled_plain,
     spherical_jh,
 )
+from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coaxial_sr_plain, coaxial_sr
 from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
     _child_state_blocks,
     _coax_fold_packed_plain,
@@ -481,3 +484,110 @@ def test_kernels_launch_on_the_current_stream(cuda):
         got = (lane_gather(xs, blc, pm, route), spherical_jh(_SCALED, 3, 32, zs))
     torch.cuda.current_stream().wait_stream(side)
     assert _same_bits(got, ref)
+
+
+# (centers, radii, n_end) of the KD cases: the 4x4 lattice (uniform radii,
+# 24 distinct offsets) at an even and an odd H, and 3 spheres of different
+# radii (the ball deficits on the row and column factors)
+_DENSE_CASES = {
+    "lattice-uniform": (_lattice(), np.ones(16), 8),
+    "lattice-odd-H": (_lattice(), np.ones(16), 5),
+    "three-radii": (np.array([[0.3, -0.2, 0.1], [4.1, 1.0, -0.6], [-1.2, 3.9, 2.2]]),
+                    np.array([0.9, 1.2, 0.7]), 8),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("pair_major", [True, False])
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("case", list(_DENSE_CASES))
+def test_dense_assemble_kernel_matches_plain(cuda, dtype, pair_major, stable, case):
+    """KD against its plain version on the card, on the assembly's own
+    arguments (plain and stable, both layouts); one launch per call, and
+    two launches are bit for bit equal.  The kernel forms each entry by the
+    plain version's products in its order, so the two are equal entry for
+    entry: the entries span many orders of magnitude (~(rho/t)^(n+n') off
+    the diagonal), and a tolerance relative to the largest one would pass a
+    kernel that spoils the high-degree rows and columns."""
+    centers, radii, n_end = _DENSE_CASES[case]
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=cuda)
+    n_b = len(radii)
+    ks = torch.tensor([1.3, 2.1], **f)
+    parts = _assembly_parts(
+        create_from_branching_types("ba"), n_end, centers,
+        torch.as_tensor(np.broadcast_to(radii, (2, n_b)).copy(), **f), ks,
+        torch.tensor([1.0, 0.7], **f), torch.ones(2, n_b, dtype=dtype, device=cuda),
+        torch.full((2, n_b), 0.3, dtype=dtype, device=cuda), stable=stable)
+    n0 = dense_assemble.launches
+    got = dense_assemble(*parts, pair_major=pair_major)
+    assert dense_assemble.launches == n0 + 1
+    ref = _dense_assemble_plain(*parts, pair_major)
+    assert got.shape == ref.shape and bool(torch.isfinite(ref).all())
+    assert torch.equal(got, ref), _rel(got, ref)
+    assert _same_bits(dense_assemble(*parts, pair_major=pair_major), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("kind", ["SR", "RR"])
+def test_coax_fold_zero_exponent_mode_is_coaxial_sr(cuda, dtype, kind):
+    """K2 with zero exponents (coaxial_sr on the card) against the plain
+    coaxial_sr formula on the same K5 band values, at the bench's 9 radii
+    x 4 k (n_end = 19, the LU tier) and at n_end = 8."""
+    from biem_helmholtz_sphere_tpu_torch.special import spherical_jh_all
+
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    c = create_from_branching_types("ba")
+    r = torch.as_tensor(_pair_routing(_lattice()).uniq_r, dtype=rdt, device=cuda)
+    k = torch.linspace(7.0, 7.06, 4, dtype=rdt, device=cuda)[:, None]
+    for n_end in (19, 8):
+        n0 = coax_fold.launches
+        got = coaxial_sr(c, r, n_end, k, kind=kind)
+        assert coax_fold.launches == n0 + 1
+        j, _, h, _ = spherical_jh_all(3, 2 * n_end - 1, (k * r).reshape(1, -1))
+        ref = _coaxial_sr_plain(c, h if kind == "SR" else j, n_end).reshape(got.shape)
+        assert bool(torch.isfinite(ref).all())
+        # per (degree, degree) block, where magnitudes are alike
+        ell = torch.as_tensor(basis(c, n_end).n_root, device=cuda)
+        for lr in range(n_end):
+            for lc in range(n_end):
+                blk = (ell == lr)[:, None] & (ell == lc)[None, :]
+                g, e = got[..., blk], ref[..., blk]
+                scale = e.abs().amax(dim=-1, keepdim=True).clamp_min(torch.finfo(rdt).tiny)
+                assert float(((g - e).abs() / scale).max()) < _tol(dtype), (n_end, lr, lc)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.requires_cuda
+def test_kernels_launch_on_the_operands_device(two_cards):
+    """With card 0 current, kernels on card 1's tensors run on card 1 (its
+    current stream) and give card 0's bits; operands on two cards raise;
+    the K2 tables of a bare "cuda" are the current card's."""
+    dev0, dev1 = two_cards
+    rng = np.random.default_rng(46)
+    x, blc, pm, route = _gather_case("bench", dev0, torch.complex64, rng)
+    route1 = make_route(*(t.cpu().numpy() for t in (route.src, route.dst, route.dn)),
+                        route.n_balls, dev1)
+    z = torch.as_tensor(_Z, dtype=torch.complex64).reshape(-1, 1)
+    assert torch.cuda.current_device() == 0
+    ref = (lane_gather(x, blc, pm, route), spherical_jh(_SCALED, 3, 32, z.to(dev0)))
+    got = (lane_gather(x.to(dev1), blc.to(dev1), pm.to(dev1), route1),
+           spherical_jh(_SCALED, 3, 32, z.to(dev1)))
+    torch.cuda.synchronize(dev1)
+    assert all(t.device == dev1 for t in (got[0], *got[1][0]))
+    assert _same_bits(tuple(t.to(dev0) for t in (got[0], *got[1][0])),
+                      (ref[0], *ref[1][0]))
+    with pytest.raises(RuntimeError, match="different devices"):
+        lane_gather(x, blc.to(dev1), pm, route)
+    c = create_from_branching_types("ba")
+    with torch.cuda.device(1):
+        tab = _coax_packed(c, 6, torch.float32, "cuda")
+    assert tab.u.device == dev1

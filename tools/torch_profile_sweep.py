@@ -17,7 +17,9 @@ warm starts) once to warm up and once under torch.profiler, then prints:
   points x 1 k, and 1 point x 4 k as uscat(0) runs it), of K5's three
   launch shapes of a k-block, of the KC gather and scatter and of K2 for
   a k-block (4 k x 9 radii), each profiled alone over 20 launches at the
-  bench widths (complex64);
+  bench widths (complex64), and of KD for a k-block as chip_smoke.py
+  phase 2 runs it (complex64 pair-major at n_end=32, complex128
+  [B, H, B', H'] at n_end=19, 5 launches each);
 - the host microseconds per call of the K5 wrapper in its three modes and
   of the KC gather and K2 wrappers at the same shapes, with a
   `torch.empty` and the stream queries beside them (only these with
@@ -100,7 +102,9 @@ def kernel_device_times(torch, dev):
         _H_ONLY, _SCALED, _UNSCALED, spherical_jh)
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
         _child_state_blocks, coax_fold)
-    from chip_smoke import EVAL_POINTS, KB, N_END, coax_args, lattice_centers
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
+    from chip_smoke import (
+        EVAL_POINTS, KB, N_END, N_END_LU, coax_args, dense_parts, lattice_centers)
 
     c = create_from_branching_types("ba")
     h = N_END * N_END
@@ -137,7 +141,20 @@ def kernel_device_times(torch, dev):
     pm = ((-1.0) ** (ell % 2)).to(rdt)
     xv, blc, diag, reg = (randc((KB, nb, h)) for _ in range(4))
     k2 = coax_args(torch, dev, rdt)
-    return {
+    kd = {}
+    # as chip_smoke.py phase 2: complex64 stable pair-major at the bench,
+    # complex128 plain [B, H, B', H'] at the LU tier
+    for label, kdt, n_kd, pair_major in (
+            (f"dense_assemble {KB} k x {nb}x{nb} blocks n_end {N_END} complex64 pair-major",
+             torch.float32, N_END, True),
+            (f"dense_assemble {KB} k x {nb}x{nb} blocks n_end {N_END_LU} complex128 "
+             "[B, H, B', H']", torch.float64, N_END_LU, False)):
+        parts = dense_parts(torch, dev, kdt, n_kd, stable=pair_major)
+        kd[label] = _per_launch_us(
+            torch, lambda: dense_assemble(*parts, pair_major=pair_major), 5)
+        del parts
+        torch.cuda.empty_cache()
+    return kd | {
         "block_diag_cmm D^H": _per_launch_us(
             torch, lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True)),
         "block_diag_cmm X": _per_launch_us(torch, lambda: block_diag_cmm(x_bd, lanes, x_seg)),
