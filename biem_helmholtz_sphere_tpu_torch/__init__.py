@@ -3,9 +3,12 @@
 The PyTorch counterpart of `biem_helmholtz_sphere_tpu` (the JAX package,
 kept as the reference): the same module layout and public names, native
 torch complex dtypes, eager loops, and CUDA kernels for Hopper on the hot
-stages.  It covers `biem` for 3D 'b'-rooted trees with plane-wave
-incidence (the diagonal, direct LU, dense GMRES and factored matrix-free
-routes) and the "ba" field evaluation; other routes raise
+stages.  It covers `biem` for 3D 'b'-rooted trees with real k and one
+shared geometry (every route of the JAX package but the lattice-FFT one:
+diagonal, direct LU, dense GMRES, and the factored and offset-table
+matrix-free GMRES), any incident field (`plane_wave` in closed form,
+`point_source` or any callable by quadrature), leading batch axes, the
+"ba" field evaluation and `max_memory`/`max_n_end`; other routes raise
 NotImplementedError.
 
 TF32 stays off: reduced-precision matmuls took the float32 sound-soft
@@ -21,7 +24,10 @@ from .biem import (
     UinCallable,
     biem,
     biem_u,
+    max_memory,
+    max_n_end,
     plane_wave,
+    point_source,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -37,5 +43,8 @@ __all__ = [
     "BIEMKwargs",
     "UinCallable",
     "plane_wave",
+    "point_source",
+    "max_memory",
+    "max_n_end",
     "__version__",
 ]

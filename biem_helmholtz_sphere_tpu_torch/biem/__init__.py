@@ -1,10 +1,11 @@
-"""BIEM: the factored matrix-free solve and the field evaluation."""
+"""BIEM: assembly, the solver routes, incident waves and the field evaluation."""
 
 from ._core import BIEMResultCalculator, biem
 from ._eval import biem_u
 from ._layer import blc, slc_dlc
+from ._memory import max_memory, max_n_end
 from ._types import BIEMKwargs, BIEMResultCalculatorProtocol, UinCallable
-from ._waves import plane_wave
+from ._waves import plane_wave, point_source
 
 __all__ = [
     "biem",
@@ -14,6 +15,9 @@ __all__ = [
     "BIEMKwargs",
     "UinCallable",
     "plane_wave",
+    "point_source",
+    "max_memory",
+    "max_n_end",
     "slc_dlc",
     "blc",
 ]

@@ -1,4 +1,4 @@
-r"""BIEM assembly and solve: the dense routes and the factored matrix-free one.
+r"""BIEM assembly and solve: the dense and the matrix-free routes.
 
 Combined-field indirect formulation: the unknown density on each sphere
 is expanded in hyperspherical harmonics; on-sphere traces are diagonal per
@@ -23,12 +23,16 @@ chosen by the same policy (`_route`):
   ball-maximum radial exponents and packed into its child-state blocks
   (K5 + K2).  One matvec routes the spheres into the compacted pair lanes
   (KC), applies D^H, X and D (KB) and sums the lanes back (KC); GMRES
-  (ops/gmres.py) solves the system.
+  (ops/gmres.py) solves the system;
+* offset-table matrix-free (unscaled, or with an `sr_map`): the dense
+  route's per-offset (S|R) table [K, NO, H, H] is built once per k-block
+  and one matvec applies it to the offset-sorted lanes (KC) in one
+  batched product.
 
-Both scale-compensated (stable) and plain assembly are ported for the
-dense routes; the matrix-free route is ported scale-compensated and
-factored only.  Every other route raises NotImplementedError naming its
-ROADMAP item.
+The right-hand side is the closed form of a `plane_wave`, or the
+quadrature projection of any other incident field (`_rhs_expansion`).
+Complex k, geometry that varies along the batch, the lattice-FFT route
+and other trees raise NotImplementedError naming their ROADMAP item.
 """
 
 import warnings
@@ -208,18 +212,51 @@ def _rhs_plane_wave(c, n_end, centers, radii, alpha, beta, kw, direction,
     return (phase[..., None] * term) * cy[:, None, :]
 
 
-def _rhs_dispatch(c, n_end, centers, radii, alpha, beta, uin, uin_grad, n_k):
-    """The analytic plane-wave right-hand side, when both callables carry
-    the same `plane_wave` tag; any other incident field raises."""
+def _rhs_expansion(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first):
+    """Boundary-data expansion by quadrature on each sphere: [K, B, H].
+
+    f_h(b) = integral of -(alpha_b u_in + beta_b du_in/dn) conj(Y_h) over
+    sphere b, by the tree's product rule exact to degree 2 n_end - 1 (the
+    JAX package's `_rhs_expansion`).  The callables receive x [d, Q, B,
+    *first], `first` being the caller's batch shape, so closures that
+    broadcast over k's own shape work unchanged; the projection is one
+    product with the cached conj(Y) w [Q, H].  centers [B, d]; radii,
+    alpha, beta [K, B] with K = prod(first).
+    """
+    from ..harmonics._expand import _quad_harmonics
+
+    n_k, n_balls = radii.shape
+    xhat, wy = _quad_harmonics(c, n_end, 2 * (n_end - 1) + 1, radii.dtype, radii.device)
+    d, q = xhat.shape
+    ones = (1,) * len(first)
+
+    def by_ball(t):  # [K, B] -> [B, *first]
+        return t.transpose(0, 1).reshape((n_balls,) + first)
+
+    xhat_e = xhat.reshape((d, q, 1) + ones)
+    x = by_ball(radii) * xhat_e + centers.T.reshape((d, 1, n_balls) + ones)
+    vals = torch.zeros((), dtype=wy.dtype, device=radii.device)
+    if uin is not None:
+        vals = vals - by_ball(alpha) * torch.as_tensor(uin(x)).to(wy.dtype)
+    if uin_grad is not None:
+        grad = torch.as_tensor(uin_grad(x)).to(wy.dtype)
+        vals = vals - by_ball(beta) * (grad * xhat_e).sum(dim=0)
+    vals = vals.expand((q, n_balls) + first).reshape(q, n_balls * n_k)
+    f = torch.matmul(vals.T, wy)  # [B*K, H]
+    return f.reshape(n_balls, n_k, -1).transpose(0, 1)
+
+
+def _rhs_dispatch(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first):
+    """The right-hand side [K, B, H]: the closed form when both callables
+    carry the same `plane_wave` tag, else the quadrature projection
+    (`_rhs_expansion`), as the JAX package dispatches."""
     tag_u = getattr(uin, "_analytic", None)
     tag_g = getattr(uin_grad, "_analytic", None)
     tags = [t for f, t in ((uin, tag_u), (uin_grad, tag_g)) if f is not None]
     if not (tags and all(t is tags[0] for t in tags) and tags[0] is not None):
-        raise NotImplementedError(
-            "only a plane-wave incident field (plane_wave(...)) is ported; the "
-            f"boundary-quadrature right-hand side is {_ROUTES}d"
-        )
+        return _rhs_expansion(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first)
     _, kw, direction = tags[0]
+    n_k = radii.shape[0]
     dev, rdt = radii.device, radii.dtype
     kw = kw.to(device=dev, dtype=rdt).reshape(-1)
     direction = direction.to(device=dev, dtype=rdt).reshape(c.c_ndim, -1)
@@ -305,7 +342,7 @@ def _offsets(centers_np):
 
 @dataclass(frozen=True)
 class PairRouting:
-    """Compacted pair lanes of the factored matvec (see `_pair_routing`)."""
+    """Compacted pair lanes of the matrix-free matvec (see `_pair_routing`)."""
 
     uniq: np.ndarray  # [NO, d] offset vector per slot (unit dummies pad)
     lane: np.ndarray  # [L] padded lane index slot * 2 p_max + p of each lane
@@ -314,46 +351,55 @@ class PairRouting:
     dn: np.ndarray  # [L] bool: mirror lane (parity applied to its output)
     slot_ptr: np.ndarray  # [NO + 1] lanes of each slot (CSR over lanes)
     p_max: int
-    uniq_r: np.ndarray  # [NR] distinct pair distances
-    g_max: int  # offset slots per distance
+    uniq_r: np.ndarray | None  # [NR] distinct pair distances (radius slots)
+    g_max: int | None  # offset slots per distance (radius slots)
 
     @property
     def rad_ptr(self):
-        """[NR + 1] lanes of each radius: its g_max slots are contiguous."""
+        """[NR + 1] lanes of each radius: its g_max slots are contiguous
+        (radius slots only)."""
         return self.slot_ptr[:: self.g_max]
 
 
-def _pair_routing(centers_np):
-    """Host-side pair routing for the factored matvec (radius slots).
+def _pair_routing(centers_np, radius_slots=True):
+    """Host-side pair routing for the matrix-free matvec.
 
-    The b < b' offset vectors are deduplicated and ordered by |t|; each
-    distinct radius owns g_max offset SLOTS (dummy slots route nothing),
-    so the coaxial factor applies per contiguous radius group.  In the
-    padded layout of the JAX package lane i = slot * 2 p_max + p: the
-    first p_max lanes of a slot hold its b < b' pairs, the next p_max
-    their mirrors.  Only the lanes that route a pair are kept, in that
-    order: every slot's lanes, and every radius's, form one contiguous
-    segment (`slot_ptr`, `rad_ptr`).  Integer index tables replace the
-    JAX package's one-hot gather/scatter matrices.
+    The b < b' offset vectors are deduplicated.  radius_slots=False (the
+    offset-table matvec): each distinct offset is one SLOT, in `_offsets`'
+    order, so slot o reads the table's offset o.  radius_slots=True (the
+    factored matvec; the default here, as the port's main path): the
+    offsets are ordered by |t| and each distinct radius owns g_max slots
+    (dummy slots route nothing), so the coaxial factor applies per
+    contiguous radius group.  In the padded layout of the JAX package lane
+    i = slot * 2 p_max + p: the first p_max lanes of a slot hold its
+    b < b' pairs, the next p_max their mirrors.  Only the lanes that route
+    a pair are kept, in that order: every slot's lanes, and every
+    radius's, form one contiguous segment (`slot_ptr`, `rad_ptr`).
+    Integer index tables replace the JAX package's one-hot gather/scatter
+    matrices.
     """
     n_balls = centers_np.shape[0]
     bu, bv = np.triu_indices(n_balls, k=1)
     uniq, pid, uniq_r, r_inv = _offsets(centers_np)
     inv = pid[bu, bv]
-    groups = [np.nonzero(inv == o)[0] for o in range(len(uniq))]
-    n_rad = len(uniq_r)
-    g_max = int(np.max(np.bincount(r_inv)))
-    slot_uniq = np.zeros((n_rad * g_max, uniq.shape[1]))
-    # dummy direction: the radius along the first axis
-    slot_uniq[:, 0] = np.repeat(uniq_r, g_max)
-    slot_groups = [np.zeros((0,), np.int64)] * (n_rad * g_max)
-    fill = np.zeros(n_rad, np.int64)
-    for o in range(len(uniq)):
-        r = r_inv[o]
-        s = r * g_max + fill[r]
-        fill[r] += 1
-        slot_uniq[s] = uniq[o]
-        slot_groups[s] = groups[o]
+    slot_groups = [np.nonzero(inv == o)[0] for o in range(len(uniq))]
+    slot_uniq, g_max = uniq, None
+    if radius_slots:
+        n_rad = len(uniq_r)
+        g_max = int(np.max(np.bincount(r_inv)))
+        slot_uniq = np.zeros((n_rad * g_max, uniq.shape[1]))
+        # dummy direction: the radius along the first axis
+        slot_uniq[:, 0] = np.repeat(uniq_r, g_max)
+        groups, slot_groups = slot_groups, [np.zeros((0,), np.int64)] * (n_rad * g_max)
+        fill = np.zeros(n_rad, np.int64)
+        for o in range(len(uniq)):
+            r = r_inv[o]
+            s = r * g_max + fill[r]
+            fill[r] += 1
+            slot_uniq[s] = uniq[o]
+            slot_groups[s] = groups[o]
+    else:
+        uniq_r = None
     p_max = max(len(g) for g in slot_groups)
     n_slots = len(slot_groups)
     up_src = -np.ones((n_slots, p_max), np.int64)  # b' (gather z)
@@ -370,6 +416,74 @@ def _pair_routing(centers_np):
     slot_ptr = np.searchsorted(lane // (2 * p_max), np.arange(n_slots + 1))
     return PairRouting(slot_uniq, lane, src[lane], dst[lane], dn, slot_ptr, p_max,
                        uniq_r, g_max)
+
+
+def _matfree_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
+                      sr_map=None, stable=False):
+    """The unique-offset matrix-free operator: (mv, diag) on [K, B*H] vectors.
+
+    The JAX package's dispatch: scale-compensated with no `sr_map`, the
+    factored operator (`_factored_operator`: SR is never formed);
+    otherwise the offset-table operator (`_offset_table_operator`), whose
+    per-offset (S|R) table `sr_map` may transform once it is built.
+    """
+    if stable and sr_map is None:
+        return _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta)
+    return _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta,
+                                  method, sr_map, stable)
+
+
+def _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method,
+                           sr_map, stable):
+    """The offset-table matrix-free operator: (mv, diag) on [K, B*H] vectors.
+
+    The table [K, NO, H, H] and the row, column and diagonal factors are
+    the dense route's (`_assembly_parts`: unscaled, or with the ball-max
+    fold and the per-ball deficits on the factors), built once per k-block.
+    One matvec routes colf * x into the compacted offset-slot lanes (KC),
+    spreads them into the padded [K, NO, 2 p_max, H] layout, applies each
+    offset's table to all its lanes in one batched product (cuBLAS, the
+    table read through its transpose in place), takes the compacted lanes
+    back and sums them per sphere with the parity and the diagonal (KC).
+    """
+    n_k, n_balls = radii.shape
+    dev = radii.device
+    table, _, rowf, colf, pm, diag = _assembly_parts(
+        c, n_end, centers_np, radii, k, eta, alpha, beta, method, stable)
+    if sr_map is not None:
+        table = sr_map(table)
+    h_num = table.shape[-1]
+    routing = _pair_routing(centers_np, radius_slots=False)
+    route = make_route(routing.src, routing.dst, routing.dn, n_balls, dev)
+    lane = torch.as_tensor(routing.lane, device=dev)
+    n_off, lps = table.shape[1], 2 * routing.p_max
+    # y[k, o, p] = SR[k, o] w[k, o, p]: w @ SR^T, SR^T a view of the table
+    sr_t = table.reshape(n_k * n_off, h_num, h_num).transpose(1, 2)
+    rowf, colf, diag = (
+        t.expand(n_k, n_balls, h_num).contiguous() for t in (rowf, colf, diag)
+    )
+    # the padding lanes stay zero: index_copy_ writes the routed lanes only
+    padded = table.new_zeros((n_k, n_off * lps, h_num))
+
+    def mv(x_flat):
+        x = x_flat.reshape(n_k, n_balls, h_num)
+        y = _table_product(lane_gather(x, colf, pm, route), padded, lane, sr_t)
+        out = lane_scatter(y, x, diag, rowf, pm, route)
+        return out.reshape(n_k, n_balls * h_num)
+
+    return mv, diag.reshape(n_k, n_balls * h_num)
+
+
+def _table_product(lanes, padded, lane, sr_t):
+    """SR[k, o] applied to every compacted lane [K, L, H] of offset o: the
+    lanes spread into the zero-padded [K, NO * 2 p_max, H] buffer at their
+    padded index `lane`, one batched product over K * NO with the table's
+    transposed view sr_t [K * NO, H', H] (cuBLAS reads it in place), and
+    the compacted lanes taken back."""
+    n_k, n_pad, h_num = padded.shape
+    padded.index_copy_(1, lane, lanes)
+    y = torch.bmm(padded.view(sr_t.shape[0], -1, h_num), sr_t)
+    return y.view(n_k, n_pad, h_num).index_select(1, lane)
 
 
 def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
@@ -562,34 +676,37 @@ def biem(
     """Solve the Helmholtz BIEM for non-overlapping spheres.
 
     Same parameters, shapes, routes and result as biem_helmholtz_sphere_tpu's
-    `biem` ([..., B, d] centers, [..., B] radii, [...] k with at most one
-    batch axis here, [...(,B)] alpha/beta, [...] eta); complex outputs are
-    native torch complex tensors on the device of the input tensors; with
-    no tensor input (numpy or Python numbers) the solve runs on the card,
-    and raises where CUDA is absent.  Ported for 3D 'b'-rooted trees and a
-    plane-wave incident field:
+    `biem` ([..., B, d] centers, [..., B] radii, [...] k, [...(,B)]
+    alpha/beta, [...] eta; leading batch axes broadcast, and one geometry
+    is shared by the batch); complex outputs are native torch complex
+    tensors on the device of the input tensors; with no tensor input
+    (numpy or Python numbers) the solve runs on the card, and raises where
+    CUDA is absent.  Ported for 3D 'b'-rooted trees and real k:
 
     * solver="auto" picks the JAX package's route (`_route`): the diagonal
       solve for one sphere; LU up to 6144 unknowns on the card (12288 on
-      the CPU); the factored matrix-free GMRES for 8 <= B < 64 spheres with
+      the CPU); the matrix-free GMRES for 8 <= B < 64 spheres with
       repeated offsets beyond that; dense GMRES while the matrix fits 6 GB
       (40 GB on the CPU), matrix-free beyond;
     * "direct" (LU), "gmres" (dense GMRES) and "matfree" force a route;
+      the matrix-free route is factored when scale-compensated and runs
+      the per-offset (S|R) table otherwise (`_matfree_operator`);
     * stable (default: True in float32, False in float64) selects the
-      scale-compensated assembly; the matrix-free route is ported for
-      stable=True only;
+      scale-compensated assembly;
+    * uin/uin_grad: the closures of one `plane_wave` call take the closed
+      form; any other callables (`point_source`, user functions of x
+      [d, Q, B, ...batch]) take the quadrature projection;
     * with no incident field the result holds the matrix alone
       (calc.matrix [..., B, H, B', H'], density None); force_matrix builds
       it on every route and solves with it;
     * translational_coefficients_method is validated as
-      translation_matrix does, used by the plain (stable=False) dense
-      assembly and ignored by the scale-compensated routes.
+      translation_matrix does, used by the plain (stable=False) routes and
+      ignored by the scale-compensated ones.
 
     relres/iters are the GMRES diagnostics (None on the direct routes);
-    density0 warm-starts GMRES.  The lattice-FFT route (B >= 64), the
-    unscaled matrix-free operator, the boundary-quadrature right-hand
-    side, complex k and other trees raise NotImplementedError naming
-    their ROADMAP item.
+    density0 warm-starts GMRES.  The lattice-FFT route (B >= 64), complex
+    k, geometry that varies along the batch and other trees raise
+    NotImplementedError naming their ROADMAP item.
 
     The reference README problem (two sound-soft unit spheres at
     (0, +-2, 0), k=1, plane wave along x0), on the default route, a direct
@@ -618,9 +735,9 @@ def biem(
     )
     if stable is None:
         stable = rdt == torch.float32
-    if c.c_ndim < 3 or c.root.kind != "b":
+    if c.c_ndim < 3 or c.c_ndim % 2 == 0 or c.root.kind != "b":
         raise NotImplementedError(
-            f"only 'b'-rooted trees in d >= 3 are ported (got "
+            f"only 'b'-rooted trees in odd d >= 3 are ported (got "
             f"{c.branching_types_expression_str!r}); {_TREES}"
         )
     n_balls = radii.shape[-1]
@@ -644,19 +761,16 @@ def biem(
             f"geometry that varies along the batch axis is {_ROUTES}c"
         )
     centers_np = flat[0]
-    if k.ndim > 1:
-        raise NotImplementedError(f"at most one batch axis is ported ({_ROUTES}c)")
     route = _route(solver, n_balls, n_sys, rdt, radii.device, has_rhs, force_matrix,
                    centers_np)
     if route == "lattice":
         raise NotImplementedError(f"the lattice-FFT operator (B >= 64) is {_ROUTES}e")
-    if route == "matfree" and not stable:
-        raise NotImplementedError(
-            f"the unscaled (stable=False) matrix-free operator is {_ROUTES}b"
-        )
 
-    batch = tuple(k.shape)
-    n_k = max(1, k.numel())
+    # the leading batch axes, flattened to one axis K inside
+    batch = tuple(torch.broadcast_shapes(
+        k.shape, eta.shape, radii.shape[:-1], alpha.shape[:-1], beta.shape[:-1]))
+    n_k = int(np.prod(batch, dtype=np.int64))
+    k = k.expand(batch)
     k_f = k.to(rdt).reshape(n_k)
     eta_f = eta.expand(batch).reshape(n_k)
     radii_f = radii.to(rdt).expand(batch + (n_balls,)).reshape(n_k, n_balls)
@@ -668,7 +782,7 @@ def biem(
     f_exp = None
     if has_rhs:
         f_exp = _rhs_dispatch(
-            c, n_end, centers_t, radii_f, alpha_f, beta_f, uin, uin_grad, n_k
+            c, n_end, centers_t, radii_f, alpha_f, beta_f, uin, uin_grad, batch
         ).reshape(n_k, n_sys)
     x0 = None
     if density0 is not None and route in ("gmres", "matfree"):
@@ -683,7 +797,8 @@ def biem(
             sing, _, blc_v = _radial_rows(*args)
             density = f_exp / (blc_v * sing).reshape(n_k, n_sys)
     elif route == "matfree":
-        mv, diag = _factored_operator(c, n_end, centers_np, *args[2:])
+        mv, diag = _matfree_operator(c, n_end, centers_np, *args[2:], method=method,
+                                     stable=stable)
         density, relres, iters = gmres_solve_op(mv, diag, f_exp, x0=x0)
     else:
         a = _assemble(c, n_end, centers_np, *args[2:], method=method, stable=stable,

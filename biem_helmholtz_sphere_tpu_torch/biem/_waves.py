@@ -1,14 +1,16 @@
-"""Incident plane wave.
+"""Incident-wave factories: plane wave and point source.
 
-`plane_wave` returns (u_in, grad u_in) closures with the JAX package's
-broadcast convention: input x of shape (c_ndim, ...(any), ...batch) where
-the trailing axes align with the wave's own k/direction batch shape.
-Point sources are not ported yet (ROADMAP queue 1 item 8).
+`plane_wave` and `point_source` return (u_in, grad u_in) closures with the
+JAX package's broadcast convention: input x of shape (c_ndim, ...(any),
+...batch) where the trailing axes align with the factory's own
+k/direction (or source) batch shape.  k is real; complex k is ROADMAP
+queue 1 item 8c.
 """
 
 import torch
 
 from ..ops.kernels import default_device
+from ..special._shn1 import shn1
 
 
 def _as_real(x, like=None):
@@ -19,6 +21,23 @@ def _as_real(x, like=None):
     dev = like.device if like is not None else default_device()
     t = torch.as_tensor(x, device=dev)
     return t if t.is_floating_point() else t.to(torch.get_default_dtype())
+
+
+def _check_k(k, name, v):
+    """The factories' checks of k against direction / source [c_ndim, ...]."""
+    if k.is_complex():
+        raise NotImplementedError(
+            "complex k is not ported yet (ROADMAP queue 1 item 8c)"
+        )
+    try:
+        torch.broadcast_shapes(k.shape, v.shape[1:])
+    except RuntimeError as e:
+        raise ValueError(
+            f"Shapes of k and {name}[1:] are not broadcastable: "
+            f"{tuple(k.shape)} vs {tuple(v.shape[1:])}"
+        ) from e
+    if v.ndim != k.ndim + 1:
+        raise ValueError(f"{name}.ndim={v.ndim} is not k.ndim+1={k.ndim + 1}")
 
 
 def plane_wave(*, k, direction):
@@ -39,19 +58,7 @@ def plane_wave(*, k, direction):
     """
     k = _as_real(k)
     direction = _as_real(direction, like=k)
-    if k.is_complex():
-        raise NotImplementedError(
-            "complex k is not ported yet (ROADMAP queue 1 item 8)"
-        )
-    try:
-        torch.broadcast_shapes(k.shape, direction.shape[1:])
-    except RuntimeError as e:
-        raise ValueError(
-            "Shapes of k and direction[1:] are not broadcastable: "
-            f"{tuple(k.shape)} vs {tuple(direction.shape[1:])}"
-        ) from e
-    if direction.ndim != k.ndim + 1:
-        raise ValueError(f"direction.ndim={direction.ndim} is not k.ndim+1={k.ndim + 1}")
+    _check_k(k, "direction", direction)
     direction = direction / torch.linalg.vector_norm(direction, dim=0, keepdim=True)
 
     def _dir(x):
@@ -71,4 +78,40 @@ def plane_wave(*, k, direction):
     tag = ("plane_wave", k, direction)
     uin._analytic = tag
     uin_grad._analytic = tag
+    return uin, uin_grad
+
+
+def point_source(*, k, source, n=0):
+    r"""Point source u(x) = h^{(1)}_n(k |x - source|) in d dimensions.
+
+    k: real [...]; source: real [c_ndim, ...].  Returns (u_in, grad_u_in);
+    both produce complex tensors, on k's device (the card where k is not a
+    tensor).  h_n runs through `special.shn1` (K5 on the card).
+
+    >>> import torch
+    >>> uin, grad = point_source(k=torch.tensor(1.0, dtype=torch.float64),
+    ...                          source=torch.tensor([0.0, 0.0, 3.0], dtype=torch.float64))
+    >>> u = complex(uin(torch.zeros(3, 1, dtype=torch.float64))[0])  # h_0^(1)(3)
+    >>> print(f"{u:.6f}")  # sin(3)/3 - i cos(3)/3
+    0.047040+0.329997j
+    """
+    k = _as_real(k)
+    source = _as_real(source, like=k)
+    _check_k(k, "source", source)
+
+    def _rel(x):
+        x = _as_real(x, like=k)
+        return x - source[(slice(None),) + (None,) * (x.ndim - source.ndim) + (...,)]
+
+    def uin(x, /):
+        xr = _rel(x)
+        r = torch.linalg.vector_norm(xr, dim=0)
+        return shn1(n, xr.shape[0], k * r)
+
+    def uin_grad(x, /):
+        xr = _rel(x)
+        r = torch.linalg.vector_norm(xr, dim=0)
+        coeff = shn1(n, xr.shape[0], k * r, derivative=True) * k / r
+        return coeff[None] * xr
+
     return uin, uin_grad

@@ -1,6 +1,7 @@
 """Hyperspherical harmonics over branching trees."""
 
 from ._eval import harmonics
+from ._expand import expand
 from ._index import (
     HarmonicBasis,
     assume_n_end_from_num,
@@ -14,6 +15,7 @@ __all__ = [
     "HarmonicBasis",
     "basis",
     "harmonics",
+    "expand",
     "harm_n_ndim",
     "harm_n_ndim_le",
     "assume_n_end_from_num",

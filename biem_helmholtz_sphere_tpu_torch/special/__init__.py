@@ -9,12 +9,15 @@ from ._family import (
 )
 from ._jacobi import jacobi_mu0, jacobi_recurrence, orthonormal_jacobi_table
 from ._quad import gauss_jacobi, uniform_circle
+from ._shn1 import shn1, sjn
 
 __all__ = [
     "family_jh",
     "spherical_jh_all",
     "spherical_jh_scaled",
     "spherical_h_scaled",
+    "shn1",
+    "sjn",
     "jacobi_mu0",
     "jacobi_recurrence",
     "orthonormal_jacobi_table",

@@ -46,15 +46,36 @@ non-zero before the result line):
    complex64, a dense matrix of 8.6 GB: relres, uscat(0) against the
    golden, the boundary residual, the assembled matrix repeated bit for
    bit, the peak device memory, the launch counts of the run (KD
-   `dense_assemble` among them) and a stage split of each of (a)-(c).
+   `dense_assemble` among them) and a stage split of each of (a)-(c);
+6. the offset-table matrix-free route and the quadrature right-hand side
+   on the 4x4 lattice at n_end=32, the first KB k of the sweep: (a) the
+   bench in complex128 with the default solver and stable, which must
+   take the offset-table route (the KC gather and scatter, K5 and K2's
+   zero-exponent mode launched, KB not): every relres <= 1e-11, uscat(0)
+   within 1e-7 of the float64 golden, the boundary residual (1e-3), the
+   peak device memory and a stage split (RHS, radial rows, coax, the
+   sandwich, the table product with its pad and unpad, the KC gather and
+   scatter, the rest of GMRES, uscat(0)); (b) one offset-table matvec
+   against the factored operator's on the same random vector, within
+   1e-10 per (k, sphere, degree) block, timed beside its bound, and the
+   table product, its pad and its unpad timed alone; (c) a point source
+   at (0, 0, 3) in complex64 on its default route (the factored GMRES),
+   its right-hand side by quadrature through K5 at 2,145 x 16 x 4 points:
+   relres <= 3e-5, the boundary residual against the point source
+   (1e-3), a stage split, and that K5 launch and the quadrature
+   projection timed alone beside their bounds; (d) the bench plane wave
+   in complex128 with its tags stripped (the quadrature right-hand side):
+   uscat(0) within 1e-8 of (a)'s; then the bounds of the stages that run
+   PyTorch or library calls (the sandwich, LU, K3, K6) from this run's
+   shapes.
 
 Phase 2 also holds KD against its plain version (complex64 at the bench's
 pair-major shapes, complex128 at the LU tier's [B, H, B', H'] shapes, both
 launched twice and required bit-for-bit equal, and equal to the plain
 version entry for entry: the kernel forms the same products in the same
 order) and K2 in its zero-exponent mode (coaxial_sr's unscaled band sum)
-at the LU tier's n_end, its error relative to the largest entry of each
-(k, radius, l, l') degree block.
+at the LU tier's n_end and at the bench's, its error relative to the
+largest entry of each (k, radius, l, l') degree block.
 
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
@@ -83,6 +104,7 @@ KB = 4
 K0 = 8.0
 EVAL_POINTS = 1 << 17
 GOLDEN_README = (-0.741333, -0.669657)
+SOURCE = (0.0, 0.0, 3.0)  # phase 6 (c): off the lattice plane, 4.12 from the nearest center
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 /
 # FP64 operations/s outside the tensor cores
@@ -251,6 +273,24 @@ def launch_latency_us(torch, dev):
     return start.elapsed_time(end) * 1e3 / n
 
 
+def coax_zero_args(torch, dev, rdt, n_end):
+    """K2's arguments in its zero-exponent mode (coaxial_sr's unscaled band
+    sum: the bands h_n(k r), zero exponents) for a k-block of the bench (4 k
+    x 9 radii) at n_end."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.special._family import _UNSCALED, spherical_jh
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _coax_packed
+
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    k4 = torch.linspace(7.0, 7.06, KB, dtype=rdt, device=dev)
+    r = torch.as_tensor(_pair_routing(lattice_centers()).uniq_r, dtype=rdt, device=dev)
+    hz = spherical_jh(_UNSCALED, 3, 2 * n_end - 1, (k4[:, None] * r).to(cdt).reshape(1, -1))[2]
+    e0 = torch.zeros((1, n_end), dtype=rdt, device=dev)
+    return (hz, torch.zeros_like(hz.real), e0, e0,
+            _coax_packed(create_from_branching_types("ba"), n_end, rdt, dev))
+
+
 def coax_args(torch, dev, rdt):
     """K2's arguments (radm, rade, e_r, e_b, tables) for a k-block of the
     bench (4 k x 9 radii), as the factored operator makes them."""
@@ -378,26 +418,27 @@ def check_kernels(torch, dev, card):
             "ms": ms, "plain_ms": pms, "abs": ea, "rel": er, "bound_ms": b[0],
             "bound_by": b[1], "library_ms": None}
 
-        # K2 in its zero-exponent mode: coaxial_sr's unscaled band sum for
-        # the plain dense route, 4 k x 9 radii at the LU tier's n_end
-        nb_lu = 2 * N_END_LU - 1
-        hz = spherical_jh(_UNSCALED, 3, nb_lu, z_coax.reshape(1, -1))[2]
-        e0 = torch.zeros((1, N_END_LU), dtype=rdt, device=dev)
-        zargs = (hz, torch.zeros_like(hz.real), e0, e0, _coax_packed(c, N_END_LU, rdt, dev))
-        got = coax_fold(*zargs)
-        ea, er = degree_block_rel_err(torch, got, _coax_fold_packed_plain(*zargs),
-                                      zargs[-1].l_row, zargs[-1].l_col, N_END_LU)
-        if not same_bits(torch, coax_fold(*zargs), got):
-            raise RuntimeError(f"coax_fold zero-exponent {name}: two launches differ")
-        ms = cuda_ms(torch, lambda: coax_fold(*zargs), 20)
-        pms = cuda_ms(torch, lambda: _coax_fold_packed_plain(*zargs), 5)
-        b = coax_bound(zargs[-1], KB * n_rad, 1, N_END_LU, cs, rs, name)
-        print(f"[2] coax_fold zero-exponent mode (coaxial_sr) n_end {N_END_LU} {KB} k x "
-              f"{n_rad} radii x {got.shape[-1]} packed {name}: max_abs_err {ea:.3e} "
-              f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms "
-              f"({b[1]}) ({card})")
-        if er > tol:
-            raise RuntimeError(f"coax_fold zero-exponent {name}: rel err {er:.3e} > {tol}")
+        # K2 in its zero-exponent mode: coaxial_sr's unscaled band sum, 4 k
+        # x 9 radii, at the LU tier's n_end (the plain dense route) and at
+        # the bench's (the offset-table matrix-free route, phase 6)
+        for n_z in (N_END_LU, N_END):
+            zargs = coax_zero_args(torch, dev, rdt, n_z)
+            got = coax_fold(*zargs)
+            ea, er = degree_block_rel_err(torch, got, _coax_fold_packed_plain(*zargs),
+                                          zargs[-1].l_row, zargs[-1].l_col, n_z)
+            if not same_bits(torch, coax_fold(*zargs), got):
+                raise RuntimeError(f"coax_fold zero-exponent n_end {n_z} {name}: two "
+                                   "launches differ")
+            ms = cuda_ms(torch, lambda: coax_fold(*zargs), 20)
+            pms = cuda_ms(torch, lambda: _coax_fold_packed_plain(*zargs), 5)
+            b = coax_bound(zargs[-1], KB * n_rad, 1, n_z, cs, rs, name)
+            print(f"[2] coax_fold zero-exponent mode (coaxial_sr) n_end {n_z} {KB} k x "
+                  f"{n_rad} radii x {got.shape[-1]} packed {name}: max_abs_err {ea:.3e} "
+                  f"max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                  f"{b[0]:.6f} ms ({b[1]}) ({card})")
+            if er > tol:
+                raise RuntimeError(f"coax_fold zero-exponent n_end {n_z} {name}: rel err "
+                                   f"{er:.3e} > {tol}")
 
         # KD: the dense matrix of a k-block at the shapes phase 5 gives it:
         # complex64 stable and pair-major at the bench (dense GMRES),
@@ -789,7 +830,8 @@ def bench_config(torch, dev, card):
 def bc_residual(torch, calc):
     """(max, mean) of |u_in + u_scat| at 256 points just outside spheres 0,
     5, 10 and 15 of the lattice (sound-soft: zero on the boundary), for
-    each k of the calculator's batch."""
+    each k of the calculator's batch; u_in is the solve's own incident
+    field (calc.uin)."""
     rng = np.random.default_rng(7)
     centers_np = lattice_centers()
     pts = []
@@ -799,7 +841,7 @@ def bc_residual(torch, calc):
         pts.append(centers_np[b][:, None] + 1.0000005 * v)
     xb = torch.as_tensor(np.concatenate(pts, axis=1), dtype=calc.radii.dtype,
                          device=calc.radii.device)
-    res = (torch.exp(1j * calc.k[None, :] * xb[0][:, None]) + calc.uscat(xb)).abs()
+    res = (calc.uin(xb) + calc.uscat(xb)).abs()
     return float(res.max()), float(res.mean())
 
 
@@ -1023,6 +1065,310 @@ def dense_route(torch, dev, card):
           scaled + [(_core, "gmres_solve_op", "GMRES")], solver="gmres")
     return launches
 
+def ball_degree_rel_err(torch, got, ref, n_root):
+    """Max over (k, sphere, degree l) blocks of |got - ref| relative to the
+    block's largest |ref|; got, ref [K, B*H].  A matvec's entries fall like
+    (rho/t)^l: a norm over the whole vector would hide a wrong high-degree
+    block."""
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("output is not finite")
+    n_l = int(n_root.max()) + 1
+    h = len(n_root)
+    d, r = ((x.abs().reshape(-1, h)) for x in (got - ref, ref))
+    g = torch.as_tensor(n_root, dtype=torch.long, device=got.device).expand_as(d)
+    dm = d.new_zeros(d.shape[0], n_l).scatter_reduce(1, g, d, "amax")
+    rm = r.new_zeros(d.shape[0], n_l).scatter_reduce(1, g, r, "amax")
+    return float((dm / rm.clamp_min(torch.finfo(rm.dtype).tiny)).max())
+
+
+def stage_bounds(torch, c, centers_np, card, iters):
+    """Bounds of the stages that run plain PyTorch or library calls, from
+    the shapes this run gives them: the sandwich (two degree-group
+    products per offset), LU (8/3 n^3 real operations per system), K3 (D by
+    quadrature: the per-group contraction and the harmonics at the rotated
+    points) and K6 (a CGS2 Krylov step reads the basis four times: two
+    passes of a projection and an update), for `iters` {label: (steps,
+    dtype name)} Krylov steps per 4-k block."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _offsets, _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
+        _degree_groups, _rot_tables)
+
+    n_off = len(_offsets(centers_np)[0])
+    nb, h = len(centers_np), N_END * N_END
+    g2 = sum((e - s) ** 2 for s, e in _degree_groups(c, N_END))  # D's entries
+    for name, cs in (("complex64", 8), ("complex128", 16)):
+        b = bound(2 * KB * n_off * h * h * cs + n_off * g2 * cs, 16 * KB * n_off * h * g2, name)
+        print(f"[6] bound: sandwich {KB} k x {n_off} offsets n_end {N_END} {name}: "
+              f"{b[0]:.6f} ms ({b[1]})")
+        n = nb * N_END_LU * N_END_LU
+        b = bound(2 * KB * n * n * cs, KB * 8 / 3 * n ** 3, name)
+        print(f"[6] bound: LU {KB} systems of {n} {name}: {b[0]:.6f} ms ({b[1]})")
+    q = len(_rot_tables(c, N_END)[0])
+    for label, n_d in (("dense / offset-table route", n_off),
+                       ("factored route's slots", len(_pair_routing(centers_np).uniq))):
+        b = bound(n_d * g2 * 8 + q * h * 8, n_d * q * (8 * g2 + 16 * h), "complex64")
+        print(f"[6] bound: K3 rotation_blocks {n_d} directions ({label}), {q} nodes, "
+              f"n_end {N_END} complex64: {b[0]:.6f} ms ({b[1]})")
+    n = KB * nb * N_END * N_END
+    for label, (m, name) in iters.items():
+        cs = 8 if name == "complex64" else 16
+        b = bound(2 * m * (m + 1) * n * cs, 16 * m * (m + 1) * n, name)
+        print(f"[6] bound: K6 GMRES {m} CGS2 steps on {KB} x {n // KB} unknowns ({label}, "
+              f"{name}): {b[0]:.6f} ms ({b[1]}) ({card})")
+
+
+def matfree_route(torch, dev, card):
+    """Phase 6: the offset-table matrix-free route and the quadrature
+    right-hand side on the 4x4 lattice at n_end=32, the first k-block of
+    the sweep; returns the launch counts of its run (a)."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave, point_source
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics._expand import _quad_harmonics
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
+    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
+    from biem_helmholtz_sphere_tpu_torch.special import shn1
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _spherical_jh_all_plain, spherical_jh)
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
+
+    counters = {"lane_gather": (lane_gather, "launches"),
+                "lane_scatter": (lane_scatter, "launches"),
+                "spherical_jh": (spherical_jh, "launches"),
+                "coax_fold": (coax_fold, "launches"),
+                "block_diag_cmm": (block_diag_cmm, "launches"),
+                "fused_ba_eval_few": (fused_ba_eval, "few_launches")}
+
+    def reset():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+
+    c = create_from_branching_types("ba")
+    centers_np = lattice_centers()
+    nb = len(centers_np)
+    ks = sweep_ks()[:KB]
+    n_sys = nb * N_END * N_END
+    n_root = basis(c, N_END).n_root
+    with open(os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data",
+                           "bench_golden_f64.json")) as fh:
+        golden = json.load(fh)["points"][:KB]
+
+    def solve(rdt, field="plane"):
+        f = dict(dtype=rdt, device=dev)
+        kt = torch.as_tensor(ks, **f)
+        if field == "point":
+            uin, _ = point_source(k=kt, source=torch.tensor(SOURCE, **f)[:, None].expand(3, KB))
+        else:
+            uin, _ = plane_wave(k=kt, direction=torch.tensor([1.0, 0.0, 0.0], **f)[:, None]
+                                .expand(3, KB))
+            if field == "stripped":
+                uin = (lambda u: lambda x: u(x))(uin)  # no plane-wave tag: the quadrature
+        return biem(c, centers=torch.as_tensor(centers_np, **f).expand(KB, nb, 3),
+                    radii=torch.ones(KB, nb, **f), k=kt, n_end=N_END, uin=uin)
+
+    def uscat0(calc):
+        return calc.uscat(torch.zeros(3, 1, dtype=calc.radii.dtype, device=dev))[0]
+
+    def split(label, rdt, field, stages, nested=()):
+        def run():
+            uscat0(solve(rdt, field))
+        stages = stages + [(_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+        acc, total = split_stages(torch, run, stages)
+        labels = [s[2] for s in stages]
+        if nested:  # GMRES's timer holds its matvecs' stages: keep the rest
+            acc["GMRES (rest)"] = acc.pop("GMRES") - sum(acc.get(n, 0.0) for n in nested)
+            labels[labels.index("GMRES")] = "GMRES (rest)"
+        print(f"[6] {label} stage split, s per k-block of {KB} (synchronising timers): "
+              f"{format_split(acc, total, labels, 1)} ({card})")
+
+    # (a) the float64 bench on its default route: the offset table, unscaled
+    route = _core._route("auto", nb, n_sys, torch.float64, dev, True, False, centers_np)
+    if route != "matfree":
+        raise RuntimeError(f"(a) auto picks {route!r} for the float64 bench lattice")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(torch.float64)
+    u0 = uscat0(calc)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[6] (a) bench lattice n_end={N_END} ({n_sys} unknowns), complex128, default "
+          f"solver and stable -> {route!r}: {dt:.3f} s for {KB} k, launches {launches}, "
+          f"peak device memory {peak:.3f} GiB ({card})")
+    if calc.matrix is not None or calc.relres is None:
+        raise RuntimeError("(a) the default route formed the matrix or did not iterate")
+    for name in ("lane_gather", "lane_scatter", "spherical_jh", "coax_fold"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"(a) the offset-table route never launched {name}")
+    if launches["block_diag_cmm"] != 0:
+        raise RuntimeError("(a) the default float64 route took the factored operator")
+    worst = float(calc.relres.max())
+    print(f"[6] (a) GMRES iters {calc.iters.tolist()}, max relres {worst:.3e}")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 1e-11:
+        raise RuntimeError(f"(a) relres {worst:.3e} > 1e-11 or non-finite density")
+    u0 = u0.cpu().numpy()
+    for i, g in enumerate(golden):
+        ref = complex(*g["uscat0"])
+        err = abs(u0[i] - ref) / abs(ref)
+        print(f"[6] (a) k={ks[i]:.6f} uscat(0) = {u0[i]:.12f} golden {ref:.12f} rel err "
+              f"{err:.3e}")
+        if abs(g["k"] - float(ks[i])) > 1e-6 or not err <= 1e-7:
+            raise RuntimeError(f"(a) uscat(0) at k={ks[i]} off the JAX f64 golden by {err:.2e}")
+    res_max, res_mean = bc_residual(torch, calc)
+    print(f"[6] (a) BC residual max {res_max:.3e} mean {res_mean:.3e}")
+    if not res_max <= 1e-3:
+        raise RuntimeError(f"(a) BC residual {res_max:.3e} > 1e-3")
+    iters_a = int(calc.iters.max())
+    del calc
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uscat0(solve(torch.float64))
+    torch.cuda.synchronize()
+    print(f"[6] (a) again, warm: {time.perf_counter() - t0:.3f} s for {KB} k (the first solve "
+          f"above also paid the route's first complex128 calls) ({card})")
+    torch.cuda.empty_cache()
+    split("(a) complex128 offset-table GMRES", torch.float64, "plane",
+          [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows", "radial rows"),
+           (_rotation, "coaxial_sr", "coax (K5 + K2)"), (_rotation, "_sandwich", "sandwich"),
+           (_core, "gmres_solve_op", "GMRES"),
+           (_core, "_table_product", "table product (pad, bmm, unpad)"),
+           (_core, "lane_gather", "KC gather"), (_core, "lane_scatter", "KC scatter")],
+          nested=("table product (pad, bmm, unpad)", "KC gather", "KC scatter"))
+
+    # (b) one matvec of the offset table against the factored operator's
+    f = dict(dtype=torch.float64, device=dev)
+    args = (c, N_END, centers_np, torch.ones(KB, nb, **f), torch.as_tensor(ks, **f),
+            torch.ones(KB, **f), torch.ones(KB, nb, dtype=torch.complex128, device=dev),
+            torch.zeros(KB, nb, dtype=torch.complex128, device=dev))
+    tables = []
+    mv_t, _ = _core._matfree_operator(*args, sr_map=lambda s: tables.append(s) or s)
+    mv_f, _ = _core._matfree_operator(*args, stable=True)
+    x = randc(torch, np.random.default_rng(61), (KB, n_sys), torch.complex128, dev)
+    err = ball_degree_rel_err(torch, mv_t(x), mv_f(x), n_root)
+    table = tables[0]
+    routing = _core._pair_routing(centers_np, radius_slots=False)
+    n_off, n_lanes, lps = table.shape[1], len(routing.lane), 2 * routing.p_max
+    ms, ms_f = cuda_ms(torch, lambda: mv_t(x), 20), cuda_ms(torch, lambda: mv_f(x), 20)
+    vec = 5 * KB * n_sys * 16  # x, the row, column and diagonal factors in, out
+    b = bound(table.numel() * 16 + vec, 8 * KB * n_lanes * N_END ** 4, "complex128")
+    print(f"[6] (b) one matvec, offset table (stable=False) against factored (stable=True), "
+          f"complex128: max rel err per (k, sphere, degree) block {err:.3e}; offset-table "
+          f"{ms:.4f} ms (bound {b[0]:.6f} ms, {b[1]}: the {table.numel() * 16 / 1e9:.3f} GB "
+          f"table), factored {ms_f:.4f} ms ({card})")
+    if not err <= 1e-10:
+        raise RuntimeError(f"(b) the offset-table matvec is off the factored one by {err:.3e}")
+    # the table product alone, and its pad and unpad copies
+    lane = torch.as_tensor(routing.lane, device=dev)
+    lanes = randc(torch, np.random.default_rng(62), (KB, n_lanes, N_END * N_END),
+                  torch.complex128, dev)
+    padded = torch.zeros((KB, n_off * lps, N_END * N_END), dtype=torch.complex128,
+                         device=dev)
+    sr_t = table.reshape(KB * n_off, N_END * N_END, N_END * N_END).transpose(1, 2)
+    ms_pad = cuda_ms(torch, lambda: padded.index_copy_(1, lane, lanes), 20)
+    ms_bmm = cuda_ms(torch, lambda: torch.bmm(padded.view(KB * n_off, lps, -1), sr_t), 20)
+    y_pad = torch.bmm(padded.view(KB * n_off, lps, -1), sr_t).view(KB, n_off * lps, -1)
+    ms_unpad = cuda_ms(torch, lambda: y_pad.index_select(1, lane), 20)
+    b_bmm = bound(table.numel() * 16 + 2 * padded.numel() * 16,
+                  8 * KB * n_lanes * N_END ** 4, "complex128")
+    b_copy = bound(2 * lanes.numel() * 16, 0, "complex128")
+    print(f"[6] (b) table product (torch.bmm, {KB} x {n_off} offsets, {n_lanes} of "
+          f"{n_off * lps} padded lanes): {ms_bmm:.4f} ms, bound {b_bmm[0]:.6f} ms ({b_bmm[1]}); "
+          f"pad (index_copy_) {ms_pad:.4f} ms, unpad (index_select) {ms_unpad:.4f} ms, "
+          f"bound {b_copy[0]:.6f} ms each ({card})")
+    del tables, table, sr_t, mv_t, mv_f, padded, y_pad
+    torch.cuda.empty_cache()
+
+    # (c) a point source in complex64 on its default route (the factored
+    # GMRES), its right-hand side by quadrature through K5
+    rhs_k5 = []
+    expansion = _core._rhs_expansion
+
+    def counted(*a, **kw):
+        n0 = spherical_jh.launches
+        out = expansion(*a, **kw)
+        rhs_k5.append(spherical_jh.launches - n0)
+        return out
+
+    torch.cuda.synchronize()
+    reset()
+    _core._rhs_expansion = counted
+    try:
+        t0 = time.perf_counter()
+        calc = solve(torch.float32, "point")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        _core._rhs_expansion = expansion
+    counts = read()
+    worst = float(calc.relres.max())
+    res_max, res_mean = bc_residual(torch, calc)
+    q = _quad_harmonics(c, N_END, 2 * N_END - 1, torch.float32, dev)[1].shape[0]
+    print(f"[6] (c) point source at {SOURCE}, complex64, default route: {dt:.3f} s for {KB} "
+          f"k, K5 launches in the RHS {rhs_k5} ({q} x {nb} x {KB} points), launches {counts}, "
+          f"GMRES iters {calc.iters.tolist()}, max relres {worst:.3e}, BC residual max "
+          f"{res_max:.3e} mean {res_mean:.3e} ({card})")
+    if rhs_k5 != [1] or counts["block_diag_cmm"] <= 0:
+        raise RuntimeError("(c) the point source's RHS or the factored route skipped a kernel")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5:
+        raise RuntimeError(f"(c) relres {worst:.3e} > 3e-5 or non-finite density")
+    if not res_max <= 1e-3:
+        raise RuntimeError(f"(c) BC residual {res_max:.3e} > 1e-3")
+    iters_c = int(calc.iters.max())
+    split("(c) complex64 point source, factored GMRES", torch.float32, "point",
+          [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
+           (_core, "coax_fold_packed", "coax (K5 + K2)"), (_core, "gmres_solve_op", "GMRES")])
+    # the RHS's K5 launch and its projection alone, at (c)'s shapes
+    xhat, wy = _quad_harmonics(c, N_END, 2 * N_END - 1, torch.float32, dev)
+    cen = torch.as_tensor(centers_np, dtype=torch.float32, device=dev)
+    xq = xhat[:, :, None] + cen.T[:, None, :]  # [3, Q, B], unit spheres
+    kt = torch.as_tensor(ks, dtype=torch.float32, device=dev)
+    src = torch.tensor(SOURCE, dtype=torch.float32, device=dev)
+    z = (kt * torch.linalg.vector_norm(xq - src[:, None, None], dim=0)[..., None]).to(
+        torch.complex64)
+    ea, er = unscaled_err(torch, shn1(0, 3, z), _spherical_jh_all_plain(3, 1, z)[2][..., 0])
+    ms_k5 = cuda_ms(torch, lambda: shn1(0, 3, z), 20)
+    pms_k5 = cuda_ms(torch, lambda: _spherical_jh_all_plain(3, 1, z), 5)
+    b_k5 = bound(z.numel() * (8 + 4 * 8), z.numel() * (15 * 39 + 40), "complex64")
+    vals = randc(torch, np.random.default_rng(63), (q, nb * KB), torch.complex64, dev)
+    ms_q = cuda_ms(torch, lambda: torch.matmul(vals.T, wy), 20)
+    b_q = bound((vals.numel() + wy.numel() + nb * KB * wy.shape[1]) * 8,
+                8 * vals.numel() * wy.shape[1], "complex64")
+    print(f"[6] (c) point-source K5 (unscaled, 1 order) at {z.numel()} points: max_abs_err "
+          f"{ea:.3e} max_rel_err {er:.3e} kernel {ms_k5:.4f} ms plain {pms_k5:.4f} ms bound "
+          f"{b_k5[0]:.6f} ms ({b_k5[1]}); quadrature projection (torch.matmul [{nb * KB}, {q}] "
+          f"x [{q}, {wy.shape[1]}]) {ms_q:.4f} ms bound {b_q[0]:.6f} ms ({b_q[1]}) ({card})")
+    if er > TOL_REL["complex64"]:
+        raise RuntimeError(f"(c) point-source K5: rel err {er:.3e}")
+    del calc
+    torch.cuda.empty_cache()
+
+    # (d) the bench plane wave with its tags stripped: the quadrature RHS
+    calc = solve(torch.float64, "stripped")
+    u0q = uscat0(calc).cpu().numpy()
+    err = float(np.max(np.abs(u0q - u0) / np.abs(u0)))
+    worst = float(calc.relres.max())
+    print(f"[6] (d) complex128 plane wave by quadrature: uscat(0) against (a)'s closed form "
+          f"max rel diff {err:.3e}, max relres {worst:.3e}")
+    if not err <= 1e-8 or worst > 1e-11:
+        raise RuntimeError(f"(d) quadrature RHS off the closed form by {err:.3e}")
+    del calc
+    torch.cuda.empty_cache()
+    stage_bounds(torch, c, centers_np, card,
+                 {"(a) offset table": (iters_a, "complex128"),
+                  "(c) factored": (iters_c, "complex64")})
+    return launches
+
 
 def main():
     try:
@@ -1062,6 +1408,7 @@ def main():
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
+    matfree_route(torch, dev, card)
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",

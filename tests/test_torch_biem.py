@@ -176,12 +176,12 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("case", [
-    "triplet", "gumerov", "2d-tree", "c-tree", "quadrature-rhs", "unstable",
+    "triplet", "gumerov", "2d-tree", "c-tree", "bp-tree", "4d-tree",
     "complex-k", "batch-geometry", "lattice-64",
 ])
 def test_unported_routes_raise(case):
-    c = create_from_branching_types("a" if case == "2d-tree" else
-                                    "caa" if case == "c-tree" else "ba")
+    tree = {"2d-tree": "a", "c-tree": "caa", "bp-tree": "bpa", "4d-tree": "bba"}
+    c = create_from_branching_types(tree.get(case, "ba"))
     d = c.c_ndim
     n_balls = {"lattice-64": 64}.get(case, 2)
     centers = torch.zeros(n_balls, d, **F64)
@@ -190,13 +190,9 @@ def test_unported_routes_raise(case):
     direction = torch.zeros(d, **F64)
     direction[0] = 1.0
     uin, _ = plane_wave(k=k, direction=direction)
-    if case == "quadrature-rhs":
-        uin = lambda x: torch.exp(1j * x[0])  # noqa: E731  (no plane-wave tag)
     kw = dict(solver="matfree", stable=True)
     if case in ("triplet", "gumerov"):  # the plain dense route's translation
         kw = dict(solver="direct", stable=False, translational_coefficients_method=case)
-    if case == "unstable":
-        kw["stable"] = False
     if case == "complex-k":
         k = torch.tensor(1.0 + 0.1j, dtype=torch.complex128)
     if case == "batch-geometry":

@@ -22,6 +22,7 @@ from biem_helmholtz_sphere_tpu_torch import special
 from biem_helmholtz_sphere_tpu_torch.biem._core import (
     _assembly_parts,
     _factored_operator,
+    _matfree_operator,
     _pair_routing,
     _radial_rows_scaled,
 )
@@ -412,6 +413,42 @@ def test_factored_operator_on_the_card_matches_the_cpu(cuda):
         out[dev.type] = (mv(torch.as_tensor(x, device=dev)).cpu(), diag.cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-10
+
+
+@pytest.mark.requires_cuda
+def test_offset_table_operator_on_the_card_matches_the_cpu(cuda):
+    """The unscaled offset-table operator (K5, K2's zero-exponent mode, the
+    sandwich, then the KC gather, the batched table product and the KC
+    scatter per matvec) on the card agrees with the CPU in complex128, per
+    (k, sphere, degree) block, and never launches KB."""
+    n_end, n_k = 8, 2
+    centers = _lattice()
+    nb = len(centers)
+    rng = np.random.default_rng(29)
+    x = _randc(rng, (n_k, nb * n_end * n_end))
+    n_root = basis(create_from_branching_types("ba"), n_end).n_root
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        f = dict(dtype=torch.float64, device=dev)
+        counts = (spherical_jh.launches, coax_fold.launches, lane_gather.launches,
+                  lane_scatter.launches, block_diag_cmm.launches)
+        mv, diag = _matfree_operator(
+            create_from_branching_types("ba"), n_end, centers, torch.ones(n_k, nb, **f),
+            torch.tensor([1.3, 2.1], **f), torch.ones(n_k, **f),
+            torch.ones(n_k, nb, dtype=torch.complex128, device=dev),
+            torch.full((n_k, nb), 0.5, dtype=torch.complex128, device=dev),
+        )
+        y = mv(torch.as_tensor(x, device=dev))
+        launched = tuple(w.launches - n for w, n in zip(
+            (spherical_jh, coax_fold, lane_gather, lane_scatter, block_diag_cmm), counts))
+        assert launched == ((0,) * 5 if dev.type == "cpu" else (2, 1, 1, 1, 0))
+        out[dev.type] = (y.cpu(), diag.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        d = (a - b).abs().reshape(n_k, nb, -1)
+        r = b.abs().reshape(d.shape)
+        for ell in np.unique(n_root):
+            sel = torch.as_tensor(n_root == ell)
+            assert float((d[..., sel].amax(-1) / r[..., sel].amax(-1)).max()) <= 1e-12
 
 
 def _gather_case(case, cuda, dtype, rng):

@@ -357,6 +357,8 @@ _ROUTE_CASES = [
     ("auto", 16, 27, "f32", "cpu", True, False, "lattice", "lu"),
     ("auto", 16, 32, "f32", "cpu", True, False, "lattice", "matfree"),
     ("auto", 16, 32, "f32", "cuda", True, False, "random", "gmres"),
+    ("auto", 16, 32, "f64", "cuda", True, False, "lattice", "matfree"),
+    ("auto", 16, 32, "f64", "cpu", True, False, "lattice", "matfree"),
     ("auto", 16, 32, "f64", "cuda", True, False, "random", "gmres"),
     ("auto", 16, 40, "f64", "cuda", True, False, "random", "matfree"),
     ("auto", 16, 64, "f32", "cuda", True, False, "random", "matfree"),

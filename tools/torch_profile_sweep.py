@@ -17,9 +17,12 @@ warm starts) once to warm up and once under torch.profiler, then prints:
   points x 1 k, and 1 point x 4 k as uscat(0) runs it), of K5's three
   launch shapes of a k-block, of the KC gather and scatter and of K2 for
   a k-block (4 k x 9 radii), each profiled alone over 20 launches at the
-  bench widths (complex64), and of KD for a k-block as chip_smoke.py
-  phase 2 runs it (complex64 pair-major at n_end=32, complex128
-  [B, H, B', H'] at n_end=19, 5 launches each);
+  bench widths (complex64), of K2's zero-exponent mode (coaxial_sr's band
+  sum, 4 k x 9 radii) at n_end 19 and 32 in both dtypes and of K5 at the
+  point-source right-hand side's 137,280 points (chip_smoke.py phase 6
+  (c)), and of KD for a k-block as chip_smoke.py phase 2 runs it
+  (complex64 pair-major at n_end=32, complex128 [B, H, B', H'] at
+  n_end=19, 5 launches each);
 - the host microseconds per call of the K5 wrapper in its three modes and
   of the KC gather and K2 wrappers at the same shapes, with a
   `torch.empty` and the stream queries beside them (only these with
@@ -103,8 +106,10 @@ def kernel_device_times(torch, dev):
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
         _child_state_blocks, coax_fold)
     from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
+    from biem_helmholtz_sphere_tpu_torch.harmonics._expand import _quad_harmonics
     from chip_smoke import (
-        EVAL_POINTS, KB, N_END, N_END_LU, coax_args, dense_parts, lattice_centers)
+        EVAL_POINTS, KB, N_END, N_END_LU, SOURCE, coax_args, coax_zero_args, dense_parts,
+        lattice_centers)
 
     c = create_from_branching_types("ba")
     h = N_END * N_END
@@ -141,6 +146,18 @@ def kernel_device_times(torch, dev):
     pm = ((-1.0) ** (ell % 2)).to(rdt)
     xv, blc, diag, reg = (randc((KB, nb, h)) for _ in range(4))
     k2 = coax_args(torch, dev, rdt)
+    k2z = {}
+    for zdt in (torch.float32, torch.float64):
+        for n_z in (N_END_LU, N_END):
+            zargs = coax_zero_args(torch, dev, zdt, n_z)
+            k2z[f"coax_fold zero-exponent mode {KB} k x {n_rad} radii n_end {n_z} "
+                f"{'complex64' if zdt == torch.float32 else 'complex128'}"] = _per_launch_us(
+                torch, lambda: coax_fold(*zargs))
+    # the point source's right-hand side: one order at Q x B x KB points
+    xq = _quad_harmonics(c, N_END, 2 * N_END - 1, rdt, dev)[0][:, :, None] + cen.T[:, None, :]
+    z_src = (k4 * torch.linalg.vector_norm(
+        xq - torch.tensor(SOURCE, dtype=rdt, device=dev)[:, None, None], dim=0)[..., None]
+             ).to(cdt)
     kd = {}
     # as chip_smoke.py phase 2: complex64 stable pair-major at the bench,
     # complex128 plain [B, H, B', H'] at the LU tier
@@ -174,7 +191,9 @@ def kernel_device_times(torch, dev):
         f"lane_scatter {KB} k x {len(rt.src)} lanes": _per_launch_us(
             torch, lambda: lane_scatter(lanes, xv, diag, reg, pm, route)),
         f"coax_fold {KB} k x {n_rad} radii": _per_launch_us(torch, lambda: coax_fold(*k2)),
-    }
+        f"spherical_jh unscaled 1 order at {z_src.numel()} points (point source)":
+            _per_launch_us(torch, lambda: spherical_jh(_UNSCALED, 3, 1, z_src)),
+    } | k2z
 
 
 def _host_us(torch, fn, reps=2000):
