@@ -3,12 +3,14 @@
 The PyTorch counterpart of `biem_helmholtz_sphere_tpu` (the JAX package,
 kept as the reference): the same module layout and public names, native
 torch complex dtypes, eager loops, and CUDA kernels for Hopper on the hot
-stages.  It covers `biem` for 3D 'b'-rooted trees with real k and one
-shared geometry (every route of the JAX package but the lattice-FFT one:
-diagonal, direct LU, dense GMRES, and the factored and offset-table
-matrix-free GMRES), any incident field (`plane_wave` in closed form,
-`point_source` or any callable by quadrature), leading batch axes, the
-"ba" field evaluation and `max_memory`/`max_n_end`; other routes raise
+stages.  It covers `biem` for 3D trees rooted at a 'b' or 'bp' node,
+real or complex k, and a geometry shared by the batch or varying along it
+(every route of the JAX package but the lattice-FFT one: diagonal, direct
+LU, dense GMRES, and the factored and offset-table matrix-free GMRES),
+any incident field (`plane_wave` in closed form, `point_source` or any
+callable by quadrature), leading batch axes, the field evaluation (fused
+on "ba", the general harmonic sum otherwise), `max_memory`/`max_n_end`
+and the special functions of any dimension; other routes and trees raise
 NotImplementedError.
 
 TF32 stays off: reduced-precision matmuls took the float32 sound-soft

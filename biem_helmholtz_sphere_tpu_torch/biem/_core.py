@@ -31,8 +31,11 @@ chosen by the same policy (`_route`):
 
 The right-hand side is the closed form of a `plane_wave`, or the
 quadrature projection of any other incident field (`_rhs_expansion`).
-Complex k, geometry that varies along the batch, the lattice-FFT route
-and other trees raise NotImplementedError naming their ROADMAP item.
+k may be complex.  Geometry that varies along the batch is never
+matrix-free (as in the JAX package): the dense routes build each k's own
+offset table and KD gathers it with that k's pair map.  The lattice-FFT
+route and trees other than the 3D 'b'/'bp'-rooted ones raise
+NotImplementedError naming their ROADMAP item.
 """
 
 import warnings
@@ -93,6 +96,10 @@ class BIEMResultCalculator:
         return from_numpy(c, n_end, centers, radii, k, eta, density, **kw)
 
 
+def _complex_of(rdt):
+    return torch.complex128 if rdt == torch.float64 else torch.complex64
+
+
 def _device_of(*xs):
     """The device of the first tensor argument; the card when none is a
     tensor (CPU tensors are how a caller asks for the CPU)."""
@@ -102,31 +109,34 @@ def _device_of(*xs):
     return default_device()
 
 
-def _real(x, device):
+def _tensor(x, device, name=None):
+    """x as a floating or complex tensor on device; with a name, real
+    (a complex value raises ValueError naming it)."""
     t = torch.as_tensor(x, device=device)
-    if t.is_complex():
-        raise NotImplementedError(f"complex k is not ported yet ({_ROUTES}c)")
-    return t if t.is_floating_point() else t.to(torch.float64)
+    if name is not None and t.is_complex():
+        raise ValueError(f"{name} must be real")
+    return t if t.is_floating_point() or t.is_complex() else t.to(torch.float64)
 
 
 def _check_biem_inputs(c, centers, radii, k, eta, alpha, beta):
     """Validate inputs and bring them to tensors on one device.
 
-    Returns (centers [..., B, d], radii [..., B], k [...], eta [...],
-    alpha, beta (complex, broadcastable to [..., B]), real dtype).
+    Returns (centers [..., B, d], radii [..., B], k [...] (real or
+    complex), eta [...], alpha, beta (complex, broadcastable to [..., B]),
+    real dtype).
     """
     dev = _device_of(k, radii, centers, eta, alpha, beta)
-    k = _real(k, dev)
-    radii = _real(radii, dev)
-    centers = _real(centers, dev)
-    rdt = torch.promote_types(torch.promote_types(radii.dtype, k.dtype), torch.float32)
+    k = _tensor(k, dev)
+    radii = _tensor(radii, dev, "radii")
+    centers = _tensor(centers, dev, "centers")
+    rdt = torch.promote_types(torch.promote_types(radii.dtype, k.real.dtype), torch.float32)
     if eta is None:
         eta = torch.ones((1,) * k.ndim, dtype=rdt, device=dev)
     else:
         eta = torch.as_tensor(eta, device=dev)
         if eta.is_complex():
             raise ValueError("The decoupling parameter eta must be real.")
-    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
+    cdt = _complex_of(rdt)
     alpha = torch.as_tensor(alpha, dtype=cdt, device=dev)
     beta = torch.as_tensor(beta, dtype=cdt, device=dev)
     if alpha.ndim == 0:
@@ -141,7 +151,8 @@ def _check_biem_inputs(c, centers, radii, k, eta, alpha, beta):
             UserWarning,
             stacklevel=3,
         )
-    if bool((eta * k < 0).any()):
+    if bool(((k.imag < 0) | (eta * k.real < 0)).any() if k.is_complex()
+            else (eta * k < 0).any()):
         warnings.warn(
             "The solution may be incorrect if not (Im k >= 0 and "
             "eta Re k >= 0).",
@@ -191,7 +202,8 @@ def _rhs_plane_wave(c, n_end, centers, radii, alpha, beta, kw, direction,
       f_h(b) = -A_d i^{n_h} e^{i k d^.c_b} conj(Y_h(d^))
                (alpha_b j_{n_h}(k rho_b) + beta_b k j'_{n_h}(k rho_b))
 
-    kw [K], direction [d, K] (unit), centers [B, d], radii/alpha/beta [K, B].
+    kw [K] (real or complex), direction [d, K] (unit), centers [B, d] or
+    [K, B, d], radii/alpha/beta [K, B].
     """
     from ..coords import from_cartesian
     from ..harmonics._eval import harmonics
@@ -207,8 +219,9 @@ def _rhs_plane_wave(c, n_end, centers, radii, alpha, beta, kw, direction,
         term = term + beta[..., None] * (jp.index_select(-1, n_idx) * kw[:, None, None])
     y_dir = harmonics(c, from_cartesian(c, direction), n_end)  # [K, H]
     cy = y_dir.conj() * ipow(n_idx, y_dir.dtype, dev) * (-_a_const(d))
-    ip = direction.T @ centers.T  # [K, B]
-    phase = torch.exp(1j * kw[:, None] * ip)
+    centers = centers.expand(kw.shape[0], -1, -1) if centers.ndim == 2 else centers
+    ip = torch.einsum("dk,kbd->kb", direction, centers)
+    phase = torch.exp(1j * kw[:, None] * ip)  # e^{i k d^.c_b}, complex k too
     return (phase[..., None] * term) * cy[:, None, :]
 
 
@@ -220,8 +233,8 @@ def _rhs_expansion(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first):
     JAX package's `_rhs_expansion`).  The callables receive x [d, Q, B,
     *first], `first` being the caller's batch shape, so closures that
     broadcast over k's own shape work unchanged; the projection is one
-    product with the cached conj(Y) w [Q, H].  centers [B, d]; radii,
-    alpha, beta [K, B] with K = prod(first).
+    product with the cached conj(Y) w [Q, H].  centers [B, d] or [K, B,
+    d]; radii, alpha, beta [K, B] with K = prod(first).
     """
     from ..harmonics._expand import _quad_harmonics
 
@@ -234,7 +247,11 @@ def _rhs_expansion(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first):
         return t.transpose(0, 1).reshape((n_balls,) + first)
 
     xhat_e = xhat.reshape((d, q, 1) + ones)
-    x = by_ball(radii) * xhat_e + centers.T.reshape((d, 1, n_balls) + ones)
+    if centers.ndim == 2:  # one geometry for the batch
+        c_x = centers.T.reshape((d, 1, n_balls) + ones)
+    else:  # [K, B, d] -> [d, 1, B, *first]
+        c_x = centers.permute(2, 1, 0).reshape((d, 1, n_balls) + first)
+    x = by_ball(radii) * xhat_e + c_x
     vals = torch.zeros((), dtype=wy.dtype, device=radii.device)
     if uin is not None:
         vals = vals - by_ball(alpha) * torch.as_tensor(uin(x)).to(wy.dtype)
@@ -256,12 +273,12 @@ def _rhs_dispatch(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first):
     if not (tags and all(t is tags[0] for t in tags) and tags[0] is not None):
         return _rhs_expansion(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first)
     _, kw, direction = tags[0]
-    n_k = radii.shape[0]
     dev, rdt = radii.device, radii.dtype
-    kw = kw.to(device=dev, dtype=rdt).reshape(-1)
-    direction = direction.to(device=dev, dtype=rdt).reshape(c.c_ndim, -1)
-    kw = kw.expand(n_k) if kw.numel() == 1 else kw
-    direction = direction.expand(c.c_ndim, n_k)
+    kw = kw.to(device=dev, dtype=_complex_of(rdt) if kw.is_complex() else rdt)
+    kw = kw.broadcast_to(first).reshape(-1)
+    direction = direction.to(device=dev, dtype=rdt)
+    direction = direction[(slice(None),) + (None,) * (len(first) + 1 - direction.ndim)]
+    direction = direction.broadcast_to((c.c_ndim,) + first).reshape(c.c_ndim, -1)
     return _rhs_plane_wave(
         c, n_end, centers, radii, alpha, beta, kw, direction,
         has_uin=uin is not None, has_grad=uin_grad is not None,
@@ -547,14 +564,34 @@ def _assemble(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
     )
 
 
+def _offsets_per_k(centers_np):
+    """`_offsets` of each geometry of centers_np [K, B, d], padded to the
+    largest counts: (uniq [K, NO, d], pid [K, B, B], uniq_r [K, NR],
+    r_inv [K, NO]).  A padding offset repeats the geometry's first (it is
+    built and never gathered)."""
+    per = [_offsets(c_k) for c_k in centers_np]
+    n_off = max(len(p[0]) for p in per)
+    n_rad = max(len(p[2]) for p in per)
+
+    def pad(a, n):
+        return np.concatenate([a, np.repeat(a[:1], n - len(a), axis=0)])
+
+    return (np.stack([pad(p[0], n_off) for p in per]), np.stack([p[1] for p in per]),
+            np.stack([pad(p[2], n_rad) for p in per]),
+            np.stack([pad(p[3], n_off) for p in per]))
+
+
 def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
                     stable=False):
-    """KD's arguments (table [K, NO, H, H], pid [B, B], rowf, colf [K, B, H],
-    sgn [H], diag [K, B, H]) for the dense matrix.
+    """KD's arguments (table [K, NO, H, H], pid [B, B] or [K, B, B], rowf,
+    colf [K, B, H], sgn [H], diag [K, B, H]) for the dense matrix.
 
-    centers_np [B, d] (host); radii/alpha/beta [K, B], k/eta [K].  The
-    (S|R) is built once per distinct offset; KD gathers it per pair with
-    the row factor reg, the column factor blc and the mirror parity.
+    centers_np [B, d] (one geometry) or [K, B, d] (geometry along the
+    batch; host); radii/alpha/beta [K, B], k/eta [K] (k real or complex).
+    The (S|R) is built once per distinct offset of each geometry (per k
+    when the geometry varies: `_offsets_per_k`); KD gathers it per pair,
+    with that k's pair map, the row factor reg, the column factor blc and
+    the mirror parity.
     stable=False: the unscaled radial rows and
     translation_matrix(method=method), which overflow float32 from n_end ~
     k t_min + 20 as the JAX package's do.  stable=True: each factor as
@@ -587,7 +624,8 @@ def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=Non
         table = torch.zeros((n_k, 0, h_num, h_num), dtype=cdt, device=dev)
         pid = torch.zeros((1, 1), dtype=torch.int64, device=dev)
     else:
-        uniq, pid_np, uniq_r, r_inv = _offsets(centers_np)
+        per_k = centers_np.ndim == 3
+        uniq, pid_np, uniq_r, r_inv = (_offsets_per_k if per_k else _offsets)(centers_np)
         pid = torch.as_tensor(pid_np, device=dev)
         if stable:
             starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
@@ -595,10 +633,13 @@ def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=Non
                 c, n_end, torch.as_tensor(uniq_r, dtype=rdt, device=dev), k,
                 e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
             )
-            coax = unpack(x)[:, torch.as_tensor(r_inv, device=dev)]
+            r_inv = torch.as_tensor(r_inv, device=dev)
+            coax = unpack(x)
+            coax = (coax[torch.arange(n_k, device=dev)[:, None], r_inv] if per_k
+                    else coax[:, r_inv])
             table = _sandwich(coax, rotation_d(c, n_end, uniq, rdt, dev))
-        else:
-            t_cart = torch.as_tensor(uniq.T.copy(), dtype=rdt, device=dev)  # [d, NO]
+        else:  # [d, NO] or [d, K, NO]
+            t_cart = torch.as_tensor(np.moveaxis(uniq, -1, 0).copy(), dtype=rdt, device=dev)
             table = translation_matrix(c, t_cart, n_end, k[:, None], kind="SR",
                                        method=method)
     return table, pid, rowf, colf, sgn, diag
@@ -610,7 +651,9 @@ def _route(solver, n_balls, n_sys, rdt, device, has_rhs, force_matrix, centers_n
     Returns "diagonal" (one sphere with a right-hand side), "matrix" (no
     right-hand side: the matrix alone), "lu", "gmres" (dense GMRES on the
     pair-major matrix), "matfree" (the unique-offset matrix-free GMRES) or
-    "lattice" (the lattice-FFT matrix-free GMRES).  On an accelerator LU
+    "lattice" (the lattice-FFT matrix-free GMRES); centers_np [B, d], or
+    [K, B, d] for geometry along the batch (then only the dense routes
+    are open).  On an accelerator LU
     takes up to 6144 unknowns and the dense matrix up to 6 GB; on the CPU
     12288 and 40 GB.  "auto" beyond the LU tier prefers matrix-free for
     8 <= B < 64 spheres with at most half as many distinct offsets as
@@ -623,7 +666,9 @@ def _route(solver, n_balls, n_sys, rdt, device, has_rhs, force_matrix, centers_n
     lu_limit = 6144 if accel else 12288
     use_matfree = solver == "matfree" or (
         solver == "auto" and dense_bytes > (6e9 if accel else 40e9))
-    matfree_ok = has_rhs and not force_matrix and n_balls > 1
+    # geometry that varies along the batch (centers_np [K, B, d]) is never
+    # matrix-free, as in the JAX package
+    matfree_ok = has_rhs and not force_matrix and n_balls > 1 and centers_np.ndim == 2
     if matfree_ok and n_balls >= 64 and (use_matfree or solver == "auto"):
         return "lattice"
     if (matfree_ok and not use_matfree and solver == "auto" and 8 <= n_balls < 64
@@ -681,13 +726,15 @@ def biem(
     is shared by the batch); complex outputs are native torch complex
     tensors on the device of the input tensors; with no tensor input
     (numpy or Python numbers) the solve runs on the card, and raises where
-    CUDA is absent.  Ported for 3D 'b'-rooted trees and real k:
+    CUDA is absent.  Ported for 3D 'b'- and 'bp'-rooted trees, real or
+    complex k, and geometry shared by the batch or varying along it:
 
     * solver="auto" picks the JAX package's route (`_route`): the diagonal
       solve for one sphere; LU up to 6144 unknowns on the card (12288 on
       the CPU); the matrix-free GMRES for 8 <= B < 64 spheres with
       repeated offsets beyond that; dense GMRES while the matrix fits 6 GB
-      (40 GB on the CPU), matrix-free beyond;
+      (40 GB on the CPU), matrix-free beyond; geometry that varies along
+      the batch takes LU or dense GMRES only;
     * "direct" (LU), "gmres" (dense GMRES) and "matfree" force a route;
       the matrix-free route is factored when scale-compensated and runs
       the per-offset (S|R) table otherwise (`_matfree_operator`);
@@ -704,9 +751,9 @@ def biem(
       ignored by the scale-compensated ones.
 
     relres/iters are the GMRES diagnostics (None on the direct routes);
-    density0 warm-starts GMRES.  The lattice-FFT route (B >= 64), complex
-    k, geometry that varies along the batch and other trees raise
-    NotImplementedError naming their ROADMAP item.
+    density0 warm-starts GMRES.  The lattice-FFT route (B >= 64) and other
+    trees (2D, d >= 4, 'c' nodes) raise NotImplementedError naming their
+    ROADMAP item.
 
     The reference README problem (two sound-soft unit spheres at
     (0, +-2, 0), k=1, plane wave along x0), on the default route, a direct
@@ -735,10 +782,14 @@ def biem(
     )
     if stable is None:
         stable = rdt == torch.float32
-    if c.c_ndim < 3 or c.c_ndim % 2 == 0 or c.root.kind != "b":
+    if c.c_ndim != 3 or c.root.kind not in ("b", "bp"):
+        why = ""
+        if c.c_ndim > 3 and c.root.kind in ("b", "bp"):
+            why = (": in d >= 4 KB needs row panels for degree blocks beyond shared "
+                   "memory and K3 per-slot harmonics")
         raise NotImplementedError(
-            f"only 'b'-rooted trees in odd d >= 3 are ported (got "
-            f"{c.branching_types_expression_str!r}); {_TREES}"
+            f"only 3D 'b'/'bp'-rooted trees are ported (got "
+            f"{c.branching_types_expression_str!r}); {_TREES}{why}"
         )
     n_balls = radii.shape[-1]
     h_num = basis(c, n_end).num
@@ -754,24 +805,25 @@ def biem(
             "beta is not zero, but uin_grad is None. uin_grad must be "
             "provided to compute the boundary condition."
         )
+    # the leading batch axes, flattened to one axis K inside
+    batch = tuple(torch.broadcast_shapes(
+        k.shape, eta.shape, centers.shape[:-2], radii.shape[:-1], alpha.shape[:-1],
+        beta.shape[:-1]))
+    n_k = int(np.prod(batch, dtype=np.int64))
     centers_np = centers.detach().cpu().numpy().astype(np.float64)
     flat = centers_np.reshape((-1,) + centers_np.shape[-2:])
-    if not (flat == flat[:1]).all():
-        raise NotImplementedError(
-            f"geometry that varies along the batch axis is {_ROUTES}c"
-        )
-    centers_np = flat[0]
+    if (flat == flat[:1]).all():
+        centers_np = flat[0]  # one geometry for the batch: [B, d]
+    else:  # each k its own: [K, B, d]
+        centers_np = np.array(np.broadcast_to(centers_np, batch + centers_np.shape[-2:]))
+        centers_np = centers_np.reshape((n_k,) + centers_np.shape[-2:])
     route = _route(solver, n_balls, n_sys, rdt, radii.device, has_rhs, force_matrix,
                    centers_np)
     if route == "lattice":
         raise NotImplementedError(f"the lattice-FFT operator (B >= 64) is {_ROUTES}e")
 
-    # the leading batch axes, flattened to one axis K inside
-    batch = tuple(torch.broadcast_shapes(
-        k.shape, eta.shape, radii.shape[:-1], alpha.shape[:-1], beta.shape[:-1]))
-    n_k = int(np.prod(batch, dtype=np.int64))
     k = k.expand(batch)
-    k_f = k.to(rdt).reshape(n_k)
+    k_f = k.to(_complex_of(rdt) if k.is_complex() else rdt).reshape(n_k)
     eta_f = eta.expand(batch).reshape(n_k)
     radii_f = radii.to(rdt).expand(batch + (n_balls,)).reshape(n_k, n_balls)
     alpha_f = alpha.expand(batch + (n_balls,)).reshape(n_k, n_balls)

@@ -10,19 +10,61 @@ Far field (x^ a unit direction):
     u_inf(x^) = (ik)^{-(d-1)/2} sum_b e^{-i k x^.c_b}
                 sum_h (-i)^{n_h} phi[b,h] blc_{n_h}(rho_b, eta) Y_h(x^)
 
-Points inside a sphere (kind="outer") or outside every sphere
-(kind="inner") are NaN.  The harmonic sum runs through the fused "ba"
-kernel (`_eval_fused.fused_ba_eval`); the same semantics as
-biem_helmholtz_sphere_tpu.biem._eval.biem_u.
+with Y evaluated at the observation direction x^ itself for every sphere
+(the JAX package's far-field convention).  Points inside a sphere
+(kind="outer") or outside every sphere (kind="inner") are NaN.  k may be
+complex and the centers may vary along the batch.  On the 3D "ba" tree
+the harmonic sum runs through the fused kernel
+(`_eval_fused.fused_ba_eval`); every other tree takes `harmonic_sum`, the
+JAX package's general evaluation in plain torch, chunked over the points.
+The same semantics as biem_helmholtz_sphere_tpu.biem._eval.biem_u.
 """
 
 import numpy as np
 import torch
 
+from ..coords import from_cartesian
+from ..harmonics._eval import harmonics
 from ..harmonics._index import assume_n_end_from_num, basis
 from ..translation._ops import ipow
-from ._eval_fused import fused_ba_eval, is_ba_tree, regroup
+from ._eval_fused import _h_clamped, fused_ba_eval, is_ba_tree, regroup
 from ._layer import blc
+
+# bytes of the [K, P_chunk, B, H] complex temporaries of one chunk of
+# `harmonic_sum` (its harmonics, the radial factor, their product)
+_EVAL_BYTES = 1 << 30
+
+
+def harmonic_sum(c, n_end, x, centers, k, w, far=False, per_ball=False):
+    """sum_h w_h rad_{n_h} Y_h(x - c_b) per ball, for any tree: complex
+    [P, K] (summed over the balls) or [P, K, B] (per_ball).
+
+    x: real [d, Kx, P] (Kx = 1 shares the points over the batch);
+    centers: real [K, B, d]; k: real or complex [K]; w: complex [K, B, H].
+    Near field: Y at the direction of x - c_b and rad_n = h_n(k |x - c_b|)
+    clamped (`_h_clamped`); far field: Y at x itself and rad = 1.  Plain
+    torch, chunked over the points so that each chunk's [K, P_chunk, B, H]
+    temporaries stay within _EVAL_BYTES (the chunking does not change the
+    arithmetic).
+    """
+    d, _, n_p = x.shape
+    n_k, n_balls, h_num = w.shape
+    n_idx = torch.as_tensor(basis(c, n_end).n_root, dtype=torch.long, device=w.device)
+    per_point = 3 * n_k * (1 if far else n_balls) * h_num * w.element_size()
+    chunk = max(1, _EVAL_BYTES // per_point)
+    outs = []
+    for s in range(0, n_p, chunk):
+        xs = x[..., s : s + chunk]
+        if far:  # one Y per point: [Kx, P, H] @ [K, H, B]
+            y = harmonics(c, from_cartesian(c, xs), n_end)
+            u = torch.matmul(y, w.transpose(1, 2))  # [K, P, B]
+        else:
+            rel = xs[..., None] - centers.permute(2, 0, 1)[:, :, None, :]  # [d, K, P, B]
+            sph = from_cartesian(c, rel)
+            rad = _h_clamped(d, n_end, k[:, None, None] * sph["r"]).index_select(-1, n_idx)
+            u = (harmonics(c, sph, n_end) * (rad * w[:, None])).sum(-1)  # [K, P, B]
+        outs.append(u.transpose(0, 1) if per_ball else u.sum(-1).transpose(0, 1))
+    return torch.cat(outs, dim=0)
 
 
 def biem_u(res, x, /, far_field=False, per_ball=False, expand_x=True):
@@ -34,11 +76,7 @@ def biem_u(res, x, /, far_field=False, per_ball=False, expand_x=True):
     if res.density is None:
         raise ValueError("The BIEMResult does not have density.")
     c = res.c
-    if not is_ba_tree(c):
-        raise NotImplementedError(
-            "field evaluation is ported for the 3D 'ba' tree only "
-            "(ROADMAP queue 1 item 9)"
-        )
+    d = c.c_ndim
     density = res.density
     n_balls, h_num = density.shape[-2:]
     n_end = assume_n_end_from_num(c, h_num)
@@ -46,38 +84,45 @@ def biem_u(res, x, /, far_field=False, per_ball=False, expand_x=True):
     n_k = max(1, res.k.numel())
     dev = density.device
     rdt = density.real.dtype
-    k = res.k.reshape(n_k).to(rdt)
+    k = res.k.reshape(n_k)
+    k = k.to(density.dtype if k.is_complex() else rdt)
     dens = density.reshape(n_k, n_balls, h_num)
     radii = res.radii.to(rdt).expand(first + (n_balls,)).reshape(n_k, n_balls)
     eta = res.eta.to(rdt).expand(first).reshape(n_k)
-    centers = res.centers.to(rdt).reshape(-1, n_balls, 3)[0]
+    # each k's centers; a geometry shared by the batch stays a stride-0 view
+    centers = res.centers.to(rdt).broadcast_to(first + (n_balls, d)).reshape(n_k, n_balls, d)
 
     x = torch.as_tensor(x, dtype=rdt, device=dev)
     if expand_x:
         x_shape = tuple(x.shape[1:])
-        pts = x.reshape(3, 1, -1)
+        pts = x.reshape(d, 1, -1)
     else:
         x_shape = tuple(x.shape[1 : x.ndim - len(first)])
-        pts = x.reshape(3, -1, n_k).permute(0, 2, 1)  # [3, K, P]
+        pts = x.reshape(d, -1, n_k).permute(0, 2, 1)  # [d, K, P]
 
     sd = blc(c, n_end, k[:, None], radii, eta[:, None])  # [K, B, H]
     w = dens * sd
     if far_field:
         w = w * ipow(-basis(c, n_end).n_root.astype(np.int64), w.dtype, dev)
-    w2 = regroup(c, n_end, w)
+
+    def field(far, each):
+        if is_ba_tree(c):
+            return fused_ba_eval(pts, centers, k, regroup(c, n_end, w), far=far,
+                                 per_ball=each)
+        return harmonic_sum(c, n_end, pts, centers, k, w, far=far, per_ball=each)
 
     if far_field:
-        u = fused_ba_eval(pts, centers, k, w2, far=True, per_ball=True)
-        pref = (1j * k) ** (-(3 - 1) / 2.0)  # [K]
-        ip = torch.einsum("dkp,bd->pkb", pts, centers)  # x^ . c_b
-        u = u * pref[:, None] * torch.exp(-1j * k[:, None] * ip)
+        u = field(True, True)  # [P, K, B]
+        pref = (1j * k) ** (-(d - 1) / 2.0)  # [K]
+        ip = (pts[:, :, :, None] * centers.permute(2, 0, 1)[:, :, None, :]).sum(0)  # x^ . c_b
+        u = u * pref[:, None] * torch.exp(-1j * k[:, None, None] * ip).transpose(0, 1)
         if not per_ball:
             u = u.sum(-1)
         return u.reshape(x_shape + first + u.shape[2:])
 
-    u = fused_ba_eval(pts, centers, k, w2, per_ball=per_ball)  # [P, K(, B)]
-    rel = pts[..., None] - centers.T[:, None, None, :]  # [3, K?, P, B]
-    r = torch.linalg.vector_norm(rel, dim=0).transpose(0, 1)  # [P, K?, B]
+    u = field(False, per_ball)  # [P, K(, B)]
+    rel = pts[..., None] - centers.permute(2, 0, 1)[:, :, None, :]  # [d, K, P, B]
+    r = torch.linalg.vector_norm(rel, dim=0).transpose(0, 1)  # [P, K, B]
     if res.kind == "outer":
         invalid = (r < radii).any(-1)
     elif res.kind == "inner":

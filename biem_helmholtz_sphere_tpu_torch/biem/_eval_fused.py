@@ -19,8 +19,9 @@ per (point, ball) angles and clamped h_l(k r) itself, and sums the balls:
 on CUDA tensors it launches `csrc/fused_ba_eval.cu`, which keeps every
 recurrence in registers, in one of two modes chosen by the shape of the
 call (many points: points over threads; few points, P * K < _FEW_POINTS,
-e.g. uscat(0): balls over warps and orders over lanes); on CPU tensors it
-runs `_fused_ba_eval_plain`,
+e.g. uscat(0): balls over warps and orders over lanes), for real or
+complex k and each k's own centers; on CPU tensors it runs
+`_fused_ba_eval_plain`,
 the degree-major recurrence of the JAX package's
 biem_helmholtz_sphere_tpu/biem/_eval_fused.py::_fused_ba_dot_blocked with
 the radial table of biem/_eval.py::_h_clamped.
@@ -140,16 +141,18 @@ def _kernel_coefs(n_end, dtype, device):
 
 
 def _angles(x, centers, far):
-    """"ba" angles and radius of x [3, Kx, P] relative to each center:
-    (theta, phi, r), each [P, Kx, B]."""
-    rel = x[..., None] if far else x[..., None] - centers.T[:, None, None, :]
-    rel = rel.permute(0, 2, 1, 3)  # [3, P, Kx, B]
+    """"ba" angles and radius of x [3, Kx, P] relative to each center of
+    centers [K or 1, B, 3]: (theta, phi, r), each [P, K, B] (far field: of
+    x itself, [P, Kx, 1])."""
+    rel = x[..., None] if far else x[..., None] - centers.permute(2, 0, 1)[:, :, None, :]
+    rel = rel.permute(0, 2, 1, 3)  # [3, P, K, B]
     rc = torch.hypot(rel[0], rel[1])
     return torch.atan2(rc, rel[2]), torch.atan2(rel[1], rel[0]), torch.hypot(rc, rel[2])
 
 
 def _fused_ba_eval_plain(x, centers, k, w2, far, per_ball):
     n = w2.shape[-1]
+    centers = centers[None] if centers.ndim == 2 else centers  # [K or 1, B, 3]
     rdt, dev = x.dtype, x.device
     m_axis, m_abs, a_lm, b_lm, b1_lm, seed_lm, p0_m = _fused_tables(n)
 
@@ -187,8 +190,11 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
     """sum over balls b of sum_h w_h rad_{l_h} Y_h(x - c_b) on the "ba" tree.
 
     x: real [3, Kx, P] points (Kx = 1 shares them over the K batch);
-    centers: real [B, 3]; k: real [K]; w2: complex [K, B, M, n] (see
-    `regroup`).  Near field (far=False): angles of x - c_b and
+    centers: real [K, B, 3], each k's own, or [B, 3] for all (a geometry
+    shared by the batch is an expanded view, stride 0 along K: the kernel
+    reads it once per k without a copy); k: real or complex [K]; w2:
+    complex [K, B, M, n]
+    (see `regroup`).  Near field (far=False): angles of x - c_b and
     rad_l = h_l(k |x - c_b|) clamped; far field: angles of x itself and
     rad = 1.  Returns complex [P, K], or [P, K, B] with per_ball=True.
     Launches of the many-point kernel count in `fused_ba_eval.launches`,
@@ -199,7 +205,9 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
         raise ValueError(
             f"fused_ba_eval: x {tuple(x.shape)}, w2 {tuple(w2.shape)} do not match"
         )
-    if centers.shape != (n_b, 3) or k.shape != (n_k,):
+    if centers.shape == (n_b, 3):  # one geometry for the batch: a stride-0 view
+        centers = centers.expand(n_k, n_b, 3)
+    if centers.shape != (n_k, n_b, 3) or k.shape != (n_k,):
         raise ValueError(
             f"fused_ba_eval: centers {tuple(centers.shape)}, k {tuple(k.shape)}"
         )
@@ -209,12 +217,14 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
         raise RuntimeError(f"fused_ba_eval: unsupported device {x.device}")
     rdt = x.dtype
     cdt = {torch.float32: torch.complex64, torch.float64: torch.complex128}.get(rdt)
-    if cdt is None or w2.dtype != cdt or centers.dtype != rdt or k.dtype != rdt:
+    if cdt is None or w2.dtype != cdt or centers.dtype != rdt or k.dtype not in (rdt, cdt):
         raise TypeError(
             f"fused_ba_eval: dtypes x {rdt}, centers {centers.dtype}, "
             f"k {k.dtype}, w2 {w2.dtype}"
         )
-    centers, k, w2 = centers.contiguous(), k.contiguous(), w2.contiguous()
+    if centers.stride()[1:] != (3, 1):  # each k's [B, 3] contiguous; any k stride
+        centers = centers.contiguous()
+    k, w2 = k.contiguous(), w2.contiguous()
     cab, cb1, cbb, p0 = _kernel_coefs(n, rdt, x.device)
     n_p = x.shape[-1]
     out = torch.empty(
@@ -223,9 +233,10 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
     sx = x.stride()
     few = n_p * n_k < _FEW_POINTS
     kernels.launch(
-        "bhs_fused_ba_eval", x, sx[0], sx[1], sx[2], x.shape[1], centers, k, w2,
-        cab, cb1, cbb, p0, out, n_p, n_k, n_b, n, int(far), int(per_ball), int(few),
-        _clamp_limit(rdt), _rescale_for(rdt), int(rdt == torch.float64),
+        "bhs_fused_ba_eval", x, sx[0], sx[1], sx[2], x.shape[1], centers, centers.stride(0),
+        k, int(k.is_complex()), w2, cab, cb1, cbb, p0, out, n_p, n_k, n_b, n, int(far),
+        int(per_ball), int(few), _clamp_limit(rdt), _rescale_for(rdt),
+        int(rdt == torch.float64),
     )
     if few:
         fused_ba_eval.few_launches += 1

@@ -7,7 +7,8 @@ per harmonic degree n:
     dlc_n(rho) = i k^{d-1} rho^{d-1} j_n'(k rho)
     blc_n(rho, eta) = dlc_n(rho) - i eta slc_n(rho)     (combined field)
 
-as in biem_helmholtz_sphere_tpu.biem._layer.  Real k; complex outputs.
+as in biem_helmholtz_sphere_tpu.biem._layer.  Real or complex k; complex
+outputs.
 """
 
 import torch

@@ -3,8 +3,7 @@
 `plane_wave` and `point_source` return (u_in, grad u_in) closures with the
 JAX package's broadcast convention: input x of shape (c_ndim, ...(any),
 ...batch) where the trailing axes align with the factory's own
-k/direction (or source) batch shape.  k is real; complex k is ROADMAP
-queue 1 item 8c.
+k/direction (or source) batch shape.  k is real or complex.
 """
 
 import torch
@@ -13,22 +12,18 @@ from ..ops.kernels import default_device
 from ..special._shn1 import shn1
 
 
-def _as_real(x, like=None):
-    """x as a tensor on like's device; with no like, on the card (CPU
-    tensors are how a caller asks for the CPU)."""
+def _as_tensor(x, like=None):
+    """x as a floating or complex tensor on like's device; with no like,
+    on the card (CPU tensors are how a caller asks for the CPU)."""
     if isinstance(x, torch.Tensor):
         return x
     dev = like.device if like is not None else default_device()
     t = torch.as_tensor(x, device=dev)
-    return t if t.is_floating_point() else t.to(torch.get_default_dtype())
+    return t if t.is_floating_point() or t.is_complex() else t.to(torch.get_default_dtype())
 
 
 def _check_k(k, name, v):
     """The factories' checks of k against direction / source [c_ndim, ...]."""
-    if k.is_complex():
-        raise NotImplementedError(
-            "complex k is not ported yet (ROADMAP queue 1 item 8c)"
-        )
     try:
         torch.broadcast_shapes(k.shape, v.shape[1:])
     except RuntimeError as e:
@@ -43,7 +38,7 @@ def _check_k(k, name, v):
 def plane_wave(*, k, direction):
     r"""Plane wave u(x) = e^{i k d.x} with d = direction/|direction|.
 
-    k: real [...]; direction: real [c_ndim, ...].  Returns (u_in, grad_u_in);
+    k: real or complex [...]; direction: real [c_ndim, ...].  Returns (u_in, grad_u_in);
     both produce complex tensors, on k's device (the card where k is not a
     tensor).
 
@@ -56,8 +51,8 @@ def plane_wave(*, k, direction):
     >>> print(f"{z:.6f}")  # e^{i k pi/4} = i at k=2
     0.000000+1.000000j
     """
-    k = _as_real(k)
-    direction = _as_real(direction, like=k)
+    k = _as_tensor(k)
+    direction = _as_tensor(direction, like=k)
     _check_k(k, "direction", direction)
     direction = direction / torch.linalg.vector_norm(direction, dim=0, keepdim=True)
 
@@ -65,11 +60,11 @@ def plane_wave(*, k, direction):
         return direction[(slice(None),) + (None,) * (x.ndim - direction.ndim) + (...,)]
 
     def uin(x, /):
-        x = _as_real(x, like=k)
+        x = _as_tensor(x, like=k)
         return torch.exp(1j * k * (_dir(x) * x).sum(dim=0))
 
     def uin_grad(x, /):
-        x = _as_real(x, like=k)
+        x = _as_tensor(x, like=k)
         dd = _dir(x)
         return torch.exp(1j * k * (dd * x).sum(dim=0))[None] * dd * (1j * k)
 
@@ -84,7 +79,7 @@ def plane_wave(*, k, direction):
 def point_source(*, k, source, n=0):
     r"""Point source u(x) = h^{(1)}_n(k |x - source|) in d dimensions.
 
-    k: real [...]; source: real [c_ndim, ...].  Returns (u_in, grad_u_in);
+    k: real or complex [...]; source: real [c_ndim, ...].  Returns (u_in, grad_u_in);
     both produce complex tensors, on k's device (the card where k is not a
     tensor).  h_n runs through `special.shn1` (K5 on the card).
 
@@ -95,12 +90,12 @@ def point_source(*, k, source, n=0):
     >>> print(f"{u:.6f}")  # sin(3)/3 - i cos(3)/3
     0.047040+0.329997j
     """
-    k = _as_real(k)
-    source = _as_real(source, like=k)
+    k = _as_tensor(k)
+    source = _as_tensor(source, like=k)
     _check_k(k, "source", source)
 
     def _rel(x):
-        x = _as_real(x, like=k)
+        x = _as_tensor(x, like=k)
         return x - source[(slice(None),) + (None,) * (x.ndim - source.ndim) + (...,)]
 
     def uin(x, /):

@@ -18,11 +18,11 @@ def from_numpy(c, n_end, centers, radii, k, eta, density, *, kind="outer",
                device=None, dtype=None):
     """BIEMResultCalculator from numpy arrays.
 
-    centers [..., B, d], radii [..., B], k [...], eta [...] real;
-    density [..., B, H] complex.  device: None means the card (raises where
-    CUDA is absent); pass device="cpu" for the CPU.  dtype is the complex
-    dtype of the result (default: complex128 for float64 inputs, else
-    complex64).
+    centers [..., B, d] (one geometry, or each k's own), radii [..., B],
+    eta [...] real; k [...] real or complex; density [..., B, H] complex.
+    device: None means the card (raises where CUDA is absent); pass
+    device="cpu" for the CPU.  dtype is the complex dtype of the result
+    (default: complex128 for float64 inputs, else complex64).
     """
     if device is None:
         device = default_device()
@@ -36,6 +36,9 @@ def from_numpy(c, n_end, centers, radii, k, eta, density, *, kind="outer",
 
     if eta is None:
         eta = np.ones(np.shape(k))
+    k = np.asarray(k)
+    k = (torch.tensor(k.astype(np.complex128), dtype=dtype, device=device)
+         if np.iscomplexobj(k) else real(k))
     if density.shape[-1] != basis(c, n_end).num:
         raise ValueError(
             f"density has {density.shape[-1]} harmonics, not the "
@@ -45,7 +48,7 @@ def from_numpy(c, n_end, centers, radii, k, eta, density, *, kind="outer",
         c=c,
         centers=real(centers),
         radii=real(radii),
-        k=real(k),
+        k=k,
         eta=real(eta),
         density=torch.as_tensor(density, dtype=dtype, device=device),
         n_end=n_end,

@@ -6,10 +6,12 @@
 // factors and the mirror parity fused into it, and the diagonal through an
 // iota mask) and its single-sphere diagonal scatter:
 //
-//   A[k, b, b', h, h'] = (r[k, b, h] T[k, pid[b, b'], h, h']) c[k, b', h']
+//   A[k, b, b', h, h'] = (r[k, b, h] T[k, pid[k, b, b'], h, h']) c[k, b', h']
 //       r = rowf * s, c = colf * s on a mirror block (b > b'), s_h = (-1)^{n_h}
 //   A[k, b, b, h, h']  = delta_{hh'} diag[k, b, h]
 //
+// with one pair map for every k (a geometry shared by the batch) or one per
+// k (geometry along the batch, each k's table holding its own offsets),
 // written in one of two layouts by strides: pair-major [K, B, B', H, H']
 // (dense GMRES) or [K, B, H, B', H'] (LU and calc.matrix; an [N, N]
 // row-major matrix per k).  The last axis H' is contiguous in both.
@@ -48,15 +50,17 @@ __device__ __forceinline__ void store(c2_t<T>* p, c2_t<T> v) {
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 dense_assemble_kernel(const c2_t<T>* __restrict__ table, const int* __restrict__ pairs,
-                      const c2_t<T>* __restrict__ rowf, const c2_t<T>* __restrict__ colf,
+                      long long pairs_k, const c2_t<T>* __restrict__ rowf,
+                      const c2_t<T>* __restrict__ colf,
                       const T* __restrict__ sgn, const c2_t<T>* __restrict__ diag,
                       c2_t<T>* __restrict__ out, int B, int NO, int H, long long s_b,
                       long long s_bp, long long s_h) {
   using T2 = c2_t<T>;
   const int k = blockIdx.z;
-  const int b = __ldg(pairs + 3 * blockIdx.x);
-  const int bp = __ldg(pairs + 3 * blockIdx.x + 1);
-  const int pid = __ldg(pairs + 3 * blockIdx.x + 2);
+  const int* pk = pairs + k * pairs_k + 3 * blockIdx.x;  // pairs_k = 0: shared
+  const int b = __ldg(pk);
+  const int bp = __ldg(pk + 1);
+  const int pid = __ldg(pk + 2);
   const int h0 = blockIdx.y * kRows;
   const int h1 = min(H, h0 + kRows);
   T2* base = out + (size_t)k * B * B * H * H + b * s_b + bp * s_bp;
@@ -110,12 +114,13 @@ dense_assemble_kernel(const c2_t<T>* __restrict__ table, const int* __restrict__
 }
 
 template <typename T, int V>
-cudaError_t run(const void* table, const void* pairs, const void* rowf, const void* colf,
-                const void* sgn, const void* diag, void* out, int K, int B, int NO, int H,
-                int n_pairs, long long s_b, long long s_bp, long long s_h, cudaStream_t st) {
+cudaError_t run(const void* table, const void* pairs, long long pairs_k, const void* rowf,
+                const void* colf, const void* sgn, const void* diag, void* out, int K, int B,
+                int NO, int H, int n_pairs, long long s_b, long long s_bp, long long s_h,
+                cudaStream_t st) {
   const dim3 grid(n_pairs, (H + kRows - 1) / kRows, K);
   dense_assemble_kernel<T, V><<<grid, kThreads, 0, st>>>(
-      static_cast<const c2_t<T>*>(table), static_cast<const int*>(pairs),
+      static_cast<const c2_t<T>*>(table), static_cast<const int*>(pairs), pairs_k,
       static_cast<const c2_t<T>*>(rowf), static_cast<const c2_t<T>*>(colf),
       static_cast<const T*>(sgn), static_cast<const c2_t<T>*>(diag),
       static_cast<c2_t<T>*>(out), B, NO, H, s_b, s_bp, s_h);
@@ -125,24 +130,25 @@ cudaError_t run(const void* table, const void* pairs, const void* rowf, const vo
 }  // namespace
 
 // table [K, NO, H, H]; pairs int32 [n_pairs, 3] = (b, b', offset id), the
-// diagonal pairs' id unused; rowf, colf, diag [K, B, H]; sgn real [H];
+// diagonal pairs' id unused, for every k (pairs_k = 0) or [K, n_pairs, 3]
+// (pairs_k = 3 n_pairs); rowf, colf, diag [K, B, H]; sgn real [H];
 // out [K, B, B, H, H] in elements, (b, b', h) at strides (s_b, s_bp, s_h).
 // vec: complex64 operands 16-byte aligned with H even (two values a
 // thread); ignored for complex128.
-extern "C" int bhs_dense_assemble(const void* table, const void* pairs, const void* rowf,
-                                  const void* colf, const void* sgn, const void* diag,
-                                  void* out, int K, int B, int NO, int H, int n_pairs,
-                                  long long s_b, long long s_bp, long long s_h, int vec,
-                                  int dbl, void* stream) {
+extern "C" int bhs_dense_assemble(const void* table, const void* pairs, long long pairs_k,
+                                  const void* rowf, const void* colf, const void* sgn,
+                                  const void* diag, void* out, int K, int B, int NO, int H,
+                                  int n_pairs, long long s_b, long long s_bp, long long s_h,
+                                  int vec, int dbl, void* stream) {
   if (K <= 0 || B <= 0 || H <= 0 || n_pairs <= 0) return 0;
   if (K > 65535 || (H + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbl)
-    return (int)run<double, 1>(table, pairs, rowf, colf, sgn, diag, out, K, B, NO, H, n_pairs,
-                               s_b, s_bp, s_h, st);
+    return (int)run<double, 1>(table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
+                               n_pairs, s_b, s_bp, s_h, st);
   if (vec)
-    return (int)run<float, 2>(table, pairs, rowf, colf, sgn, diag, out, K, B, NO, H, n_pairs,
-                              s_b, s_bp, s_h, st);
-  return (int)run<float, 1>(table, pairs, rowf, colf, sgn, diag, out, K, B, NO, H, n_pairs,
-                            s_b, s_bp, s_h, st);
+    return (int)run<float, 2>(table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
+                              n_pairs, s_b, s_bp, s_h, st);
+  return (int)run<float, 1>(table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
+                            n_pairs, s_b, s_bp, s_h, st);
 }

@@ -11,7 +11,10 @@
 // field), rad_l = h_l(k r) from the upward recurrence in mantissa/exponent
 // form, clamped at exp(80) (float32) / exp(700) (float64) as the plain
 // version does (far field: rad = 1), and the sum over balls b in order
-// (or one output per ball).
+// (or one output per ball).  k is real or complex (a template flag: the
+// complex instance seeds and steps the h_l chain on a complex kr, the real
+// one keeps its real arithmetic), and the centers are each k's own ([K, B,
+// 3] at a k stride; 0 for a geometry shared by the batch).
 //
 // What bounds it on the H100: FP32 instruction throughput, not bytes:
 // ~13 operations per (m, l) pair with l >= |m| (n^2 = 1,024 pairs per point
@@ -89,24 +92,53 @@ __device__ __forceinline__ c2_t<T> h_value(c2_t<T> mant, T e, T s, T lim, T elim
   return cscale<T>(cscale<T>(mant, t_exp(-ln)), t_exp(ee));
 }
 
-// The upward h_l(z) chain, l = 0 .. n-1, handing each clamped value to put(l, h).
-template <typename T, int N, typename Put>
-__device__ __forceinline__ void h_chain(T z, int n, T lim, T elim, T rescale, T log_rescale,
-                                        Put put) {
+// 1 / a for complex a
+template <typename T>
+__device__ __forceinline__ c2_t<T> crecip(c2_t<T> a) {
+  const T d = (T)1 / (a.x * a.x + a.y * a.y);
+  return cmake<T>(a.x * d, -a.y * d);
+}
+
+// The upward h_l(z) chain, l = 0 .. n-1, handing each clamped value to
+// put(l, h); z = k r, real (CK false: z.y unused) or complex.
+template <typename T, int N, bool CK, typename Put>
+__device__ __forceinline__ void h_chain(c2_t<T> zc, int n, T lim, T elim, T rescale,
+                                        T log_rescale, Put put) {
   const int n_ = N > 0 ? N : n;
-  const T zs = z == 0 ? (T)1 : z;  // as the plain version's h seeds
-  const T cz = t_cos(z), sz = t_sin(z);
-  const T inv_z = (T)1 / z;
-  c2_t<T> fm = cmake<T>(sz / zs, -cz / zs);
-  c2_t<T> fn = cmake<T>(-(cz * zs - sz) / (zs * zs), -(sz * zs + cz) / (zs * zs));
+  c2_t<T> fm, fn, inv;
+  if constexpr (CK) {
+    // h_0 = -i e^{iz} / z, h_1 = -e^{iz} (z + i) / z^2, as the plain seeds
+    const bool zero = zc.x == 0 && zc.y == 0;
+    const c2_t<T> zs = zero ? cmake<T>(1, 0) : zc;
+    const T ez = t_exp(-zc.y);
+    const c2_t<T> eiz = cmake<T>(ez * t_cos(zc.x), ez * t_sin(zc.x));
+    const c2_t<T> izs = crecip<T>(zs);
+    inv = crecip<T>(zc);
+    fm = cmul<T>(cmake<T>(eiz.y, -eiz.x), izs);
+    fn = cmul<T>(cmul<T>(cmake<T>(-eiz.x, -eiz.y), cmake<T>(zs.x, zs.y + (T)1)),
+                 cmul<T>(izs, izs));
+  } else {
+    const T z = zc.x;
+    const T zs = z == 0 ? (T)1 : z;  // as the plain version's h seeds
+    const T cz = t_cos(z), sz = t_sin(z);
+    inv = cmake<T>((T)1 / z, 0);
+    fm = cmake<T>(sz / zs, -cz / zs);
+    fn = cmake<T>(-(cz * zs - sz) / (zs * zs), -(sz * zs + cz) / (zs * zs));
+  }
   T e = 0, se = 1;  // se = exp(e)
   put(0, h_value<T>(fm, e, se, lim, elim));
   if (n_ > 1) put(1, h_value<T>(fn, e, se, lim, elim));
   constexpr int kU = N > 0 ? N : 1;
 #pragma unroll(kU)
   for (int l = 1; l + 1 < n_; ++l) {
-    const T c = (T)(2 * l + 1) * inv_z;
-    c2_t<T> fp = cmake<T>(fn.x * c - fm.x, fn.y * c - fm.y);
+    c2_t<T> fp;
+    if constexpr (CK) {
+      const c2_t<T> t = cscale<T>(cmul<T>(fn, inv), (T)(2 * l + 1));
+      fp = cmake<T>(t.x - fm.x, t.y - fm.y);
+    } else {
+      const T c = (T)(2 * l + 1) * inv.x;
+      fp = cmake<T>(fn.x * c - fm.x, fn.y * c - fm.y);
+    }
     if (t_hypot(fp.x, fp.y) > rescale) {
       fp = cscale<T>(fp, (T)1 / rescale);
       fn = cscale<T>(fn, (T)1 / rescale);
@@ -126,10 +158,23 @@ __device__ __forceinline__ void cp_async_elem(c2_t<T>* dst, const c2_t<T>* src) 
                "n"(sizeof(c2_t<T>)));
 }
 
-template <typename T, int N>
+// k of batch entry kb: real, or (re, im) for a complex k
+template <typename T, bool CK>
+__device__ __forceinline__ c2_t<T> k_of(const T* kv, int kb) {
+  if constexpr (CK) return cmake<T>(kv[2 * kb], kv[2 * kb + 1]);
+  return cmake<T>(kv[kb], 0);
+}
+
+template <typename T, bool CK>
+__device__ __forceinline__ c2_t<T> k_times(c2_t<T> kk, T r) {
+  return CK ? cscale<T>(kk, r) : cmake<T>(kk.x * r, 0);
+}
+
+template <typename T, int N, bool CK>
 __global__ void __launch_bounds__(kThreads)
 fused_ba_eval_kernel(const T* __restrict__ x, long long sxd, long long sxk, long long sxp,
-                     int kx, const T* __restrict__ centers, const T* __restrict__ kv,
+                     int kx, const T* __restrict__ centers_all, long long sck,
+                     const T* __restrict__ kv,
                      const c2_t<T>* __restrict__ w2, const T* __restrict__ cab,
                      const T* __restrict__ cb1, const T* __restrict__ cbb,
                      const T* __restrict__ p0v, c2_t<T>* __restrict__ out, int P, int K,
@@ -146,6 +191,7 @@ fused_ba_eval_kernel(const T* __restrict__ x, long long sxd, long long sxk, long
 
   const int tid = threadIdx.x;
   const int k = blockIdx.y;
+  const T* centers = centers_all + k * sck;
   const T2* wk = w2 + (size_t)k * B * MN;
   for (int e = tid; e < MN; e += kThreads) cp_async_elem<T>(Wbuf + e, wk + e);
   asm volatile("cp.async.commit_group;\n" ::);
@@ -160,7 +206,7 @@ fused_ba_eval_kernel(const T* __restrict__ x, long long sxd, long long sxk, long
     py = xp[sxd];
     pz = xp[2 * sxd];
   }
-  const T kk = kv[k];
+  const T2 kk = k_of<T, CK>(kv, k);
   const T log_rescale = t_log(rescale);
   const T elim = t_exp(lim);
   const T inv_sqrt_2pi = (T)0.39894228040143267794;
@@ -194,12 +240,12 @@ fused_ba_eval_kernel(const T* __restrict__ x, long long sxd, long long sxk, long
 #pragma unroll
         for (int l = 0; l < N; ++l) hreg[l] = cmake<T>(1, 0);
       } else {
-        h_chain<T, N>(kk * r, N, lim, elim, rescale, log_rescale,
-                      [&](int l, T2 v) { hreg[l] = v; });
+        h_chain<T, N, CK>(k_times<T, CK>(kk, r), N, lim, elim, rescale, log_rescale,
+                          [&](int l, T2 v) { hreg[l] = v; });
       }
     } else if (!far) {
-      h_chain<T, 0>(kk * r, n_, lim, elim, rescale, log_rescale,
-                    [&](int l, T2 v) { Hs[(size_t)l * kThreads + tid] = v; });
+      h_chain<T, 0, CK>(k_times<T, CK>(kk, r), n_, lim, elim, rescale, log_rescale,
+                        [&](int l, T2 v) { Hs[(size_t)l * kThreads + tid] = v; });
     }
 
     T2 ub = cmake<T>(0, 0);
@@ -264,11 +310,12 @@ fused_ba_eval_kernel(const T* __restrict__ x, long long sxd, long long sxk, long
   if (!per_ball && p < P) out[(size_t)p * K + k] = total;
 }
 
-template <typename T>
+template <typename T, bool CK>
 __global__ void __launch_bounds__(kFewThreads)
 fused_ba_eval_few_kernel(const T* __restrict__ x, long long sxd, long long sxk,
-                         long long sxp, int kx, const T* __restrict__ centers,
-                         const T* __restrict__ kv, const c2_t<T>* __restrict__ w2,
+                         long long sxp, int kx, const T* __restrict__ centers_all,
+                         long long sck, const T* __restrict__ kv,
+                         const c2_t<T>* __restrict__ w2,
                          const T* __restrict__ cab, const T* __restrict__ cb1,
                          const T* __restrict__ cbb, const T* __restrict__ p0v,
                          c2_t<T>* __restrict__ out, int P, int K, int B, int n, int far,
@@ -289,7 +336,8 @@ fused_ba_eval_few_kernel(const T* __restrict__ x, long long sxd, long long sxk,
 
   const T* xp = x + (kx == 1 ? 0LL : (long long)k * sxk) + (long long)p * sxp;
   const T px = xp[0], py = xp[sxd], pz = xp[2 * sxd];
-  const T kk = kv[k];
+  const T* centers = centers_all + k * sck;
+  const T2 kk = k_of<T, CK>(kv, k);
   const T elim = t_exp(lim);
   const T inv_sqrt_2pi = (T)0.39894228040143267794;
   T2* H = Hw + warp * n;
@@ -308,8 +356,8 @@ fused_ba_eval_few_kernel(const T* __restrict__ x, long long sxd, long long sxk,
     const T ct = t_cos(theta), st = t_sin(theta);
     if (!far) {
       // every lane runs the chain (uniform branches); lane l % 32 keeps h_l
-      h_chain<T, 0>(kk * t_hypot(rc, rz), n, lim, elim, rescale, t_log(rescale),
-                    [&](int l, T2 v) { if ((l & 31) == lane) H[l] = v; });
+      h_chain<T, 0, CK>(k_times<T, CK>(kk, t_hypot(rc, rz)), n, lim, elim, rescale,
+                        t_log(rescale), [&](int l, T2 v) { if ((l & 31) == lane) H[l] = v; });
       __syncwarp();
     }
     const T2* wb = w2 + ((size_t)k * B + b) * M * n;
@@ -360,68 +408,85 @@ fused_ba_eval_few_kernel(const T* __restrict__ x, long long sxd, long long sxk,
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, bool CK>
 cudaError_t run_many(const void* x, long long sxd, long long sxk, long long sxp, int kx,
-                     const void* centers, const void* k, const void* w2, const void* cab,
-                     const void* cb1, const void* cbb, const void* p0, void* out, int P,
-                     int K, int B, int n, int far, int per_ball, double lim, double rescale,
-                     cudaStream_t stream) {
+                     const void* centers, long long sck, const void* k, const void* w2,
+                     const void* cab, const void* cb1, const void* cbb, const void* p0,
+                     void* out, int P, int K, int B, int n, int far, int per_ball, double lim,
+                     double rescale, cudaStream_t stream) {
   using T2 = c2_t<T>;
   const size_t M = 2 * (size_t)n - 1;
   size_t smem = sizeof(Coef4<T>) * n * n + 2 * sizeof(T2) * M * n + sizeof(T) * (n + (n & 1));
   if (N == 0) smem += sizeof(T2) * (size_t)n * kThreads;
-  auto kernel = fused_ba_eval_kernel<T, N>;
+  auto kernel = fused_ba_eval_kernel<T, N, CK>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((P + kThreads - 1) / kThreads, K);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), sxd, sxk, sxp, kx, static_cast<const T*>(centers),
+      static_cast<const T*>(x), sxd, sxk, sxp, kx, static_cast<const T*>(centers), sck,
       static_cast<const T*>(k), static_cast<const T2*>(w2), static_cast<const T*>(cab),
       static_cast<const T*>(cb1), static_cast<const T*>(cbb), static_cast<const T*>(p0),
       static_cast<T2*>(out), P, K, B, n, far, per_ball, (T)lim, (T)rescale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CK>
 cudaError_t run(const void* x, long long sxd, long long sxk, long long sxp, int kx,
-                const void* centers, const void* k, const void* w2, const void* cab,
-                const void* cb1, const void* cbb, const void* p0, void* out, int P, int K,
-                int B, int n, int far, int per_ball, int few, double lim, double rescale,
-                cudaStream_t stream) {
+                const void* centers, long long sck, const void* k, const void* w2,
+                const void* cab, const void* cb1, const void* cbb, const void* p0, void* out,
+                int P, int K, int B, int n, int far, int per_ball, int few, double lim,
+                double rescale, cudaStream_t stream) {
   using T2 = c2_t<T>;
   if (P == 0 || K == 0) return cudaSuccess;
   if (few) {
     const size_t smem = sizeof(Coef4<T>) * n * n + sizeof(T2) * (kFewWarps * (size_t)n + kFewWarps) +
                         sizeof(T) * n;
-    cudaError_t err = allow_smem(fused_ba_eval_few_kernel<T>, smem);
+    auto kernel = fused_ba_eval_few_kernel<T, CK>;
+    cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    fused_ba_eval_few_kernel<T><<<P * K, kFewThreads, smem, stream>>>(
-        static_cast<const T*>(x), sxd, sxk, sxp, kx, static_cast<const T*>(centers),
+    kernel<<<P * K, kFewThreads, smem, stream>>>(
+        static_cast<const T*>(x), sxd, sxk, sxp, kx, static_cast<const T*>(centers), sck,
         static_cast<const T*>(k), static_cast<const T2*>(w2), static_cast<const T*>(cab),
         static_cast<const T*>(cb1), static_cast<const T*>(cbb), static_cast<const T*>(p0),
         static_cast<T2*>(out), P, K, B, n, far, per_ball, (T)lim, (T)rescale);
     return cudaGetLastError();
   }
   if (n == kUnrolledN)
-    return run_many<T, kUnrolledN>(x, sxd, sxk, sxp, kx, centers, k, w2, cab, cb1, cbb,
-                                         p0, out, P, K, B, n, far, per_ball, lim, rescale,
-                                         stream);
-  return run_many<T, 0>(x, sxd, sxk, sxp, kx, centers, k, w2, cab, cb1, cbb, p0, out, P, K,
-                           B, n, far, per_ball, lim, rescale, stream);
+    return run_many<T, kUnrolledN, CK>(x, sxd, sxk, sxp, kx, centers, sck, k, w2, cab, cb1,
+                                       cbb, p0, out, P, K, B, n, far, per_ball, lim, rescale,
+                                       stream);
+  return run_many<T, 0, CK>(x, sxd, sxk, sxp, kx, centers, sck, k, w2, cab, cb1, cbb, p0, out,
+                            P, K, B, n, far, per_ball, lim, rescale, stream);
+}
+
+template <typename T>
+cudaError_t run_k(int ck, const void* x, long long sxd, long long sxk, long long sxp, int kx,
+                  const void* centers, long long sck, const void* k, const void* w2,
+                  const void* cab, const void* cb1, const void* cbb, const void* p0, void* out,
+                  int P, int K, int B, int n, int far, int per_ball, int few, double lim,
+                  double rescale, cudaStream_t stream) {
+  if (ck)
+    return run<T, true>(x, sxd, sxk, sxp, kx, centers, sck, k, w2, cab, cb1, cbb, p0, out, P,
+                        K, B, n, far, per_ball, few, lim, rescale, stream);
+  return run<T, false>(x, sxd, sxk, sxp, kx, centers, sck, k, w2, cab, cb1, cbb, p0, out, P, K,
+                       B, n, far, per_ball, few, lim, rescale, stream);
 }
 
 }  // namespace
 
+// x [3, Kx, P] by strides; centers [K, B, 3] with (B, 3) contiguous at k
+// stride sck (0: shared); k [K] real, or complex (ck = 1, interleaved);
+// w2 [K, B, 2n - 1, n]; out [P, K] or [P, K, B].
 extern "C" int bhs_fused_ba_eval(const void* x, long long sxd, long long sxk, long long sxp,
-                                 int kx, const void* centers, const void* k, const void* w2,
-                                 const void* cab, const void* cb1, const void* cbb,
-                                 const void* p0, void* out, int P, int K, int B, int n,
-                                 int far, int per_ball, int few, double lim, double rescale,
-                                 int dbl, void* stream) {
+                                 int kx, const void* centers, long long sck, const void* k,
+                                 int ck, const void* w2, const void* cab, const void* cb1,
+                                 const void* cbb, const void* p0, void* out, int P, int K,
+                                 int B, int n, int far, int per_ball, int few, double lim,
+                                 double rescale, int dbl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbl)
-    return (int)run<double>(x, sxd, sxk, sxp, kx, centers, k, w2, cab, cb1, cbb, p0, out, P,
-                            K, B, n, far, per_ball, few, lim, rescale, st);
-  return (int)run<float>(x, sxd, sxk, sxp, kx, centers, k, w2, cab, cb1, cbb, p0, out, P, K,
-                         B, n, far, per_ball, few, lim, rescale, st);
+    return (int)run_k<double>(ck, x, sxd, sxk, sxp, kx, centers, sck, k, w2, cab, cb1, cbb, p0,
+                              out, P, K, B, n, far, per_ball, few, lim, rescale, st);
+  return (int)run_k<float>(ck, x, sxd, sxk, sxp, kx, centers, sck, k, w2, cab, cb1, cbb, p0,
+                           out, P, K, B, n, far, per_ball, few, lim, rescale, st);
 }

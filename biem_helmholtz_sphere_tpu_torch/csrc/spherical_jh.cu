@@ -1,18 +1,27 @@
-// K5: the radial special-function family of odd dimension d.
+// K5: the radial special-function family of dimension d.
 //
 // Replaces biem_helmholtz_sphere_tpu/special/_family.py spherical_jh_scaled
 // (:215), spherical_h_scaled (:288) and spherical_jh_all (:332) with their
 // helpers _seeds (:47), _miller_down (:92), _upward_scaled (:148) and
-// _scaled_deriv (:187).  Their plain versions in the port's
-// special/_family.py are this kernel's oracle; it follows them step for
-// step.
+// _scaled_deriv (:187), and, for even d, the cylinder seeds of
+// special/_cyl.py::cyl_jh01 (:125).  Their plain versions in the port's
+// special/_family.py and special/_cyl.py are this kernel's oracle; it
+// follows them step for step.
 //
-// For each complex z and order n < n_end, with base 3 and shift
-// m = (d-3)/2 (f^{(d)}_n = z^{-m} f^{(3)}_{n+m}, n_top = n_end + m):
-//   h_n by upward recurrence from the closed-form seeds;
+// For each complex z and order n < n_end, with base 3 (odd d) or 2 (even
+// d) and shift m = (d - base)/2 (f^{(d)}_n = z^{-m} f^{(base)}_{n+m},
+// n_top = n_end + m):
+//   h_n by upward recurrence f_{n+1} = ((2n + base - 2)/z) f_n - f_{n-1}
+//   from the seeds: closed trigonometric forms for base 3, sqrt(pi/2)
+//   (J0, J1, H0, H1) for base 2 (`seeds2`: the ascending series for
+//   |z| <= 14, the Hankel asymptotics above, with the plain version's
+//   coefficients, handed in as a table, in its Horner order, and in
+//   double for either dtype: in float32 the series would lose ~5 digits
+//   to cancellation near the seam);
 //   j_n upward where n <= |z|, elsewhere by Miller's downward recurrence
-//   from n_top + 36, normalised by the Wronskian j_1 h_0 - j_0 h_1 = i/z^2;
-//   f'_n = f_{n-1} - ((n+1)/z) f_n, shifted for m > 0.
+//   from n_top + 36, normalised by the Wronskian j_1 h_0 - j_0 h_1 =
+//   i/z^{base-1};
+//   f'_n = f_{n-1} - ((n + base - 2)/z) f_n, shifted for m > 0.
 // Three modes behind one entry:
 //   0  scaled j, j', h, h': mantissa * exp(exponent), max(|re|, |im|) = 1;
 //   1  scaled h only (the upward pass alone);
@@ -113,7 +122,7 @@ __device__ c2_t<T> cexp_(c2_t<T> a) {
 // (j0, j1, h0, h1) of the base-3 family: the port's _seeds, with the
 // series for j0, j1 at |z| < 1e-4 and z substituted only at z = 0
 template <typename T>
-__device__ void seeds(c2_t<T> z, c2_t<T>* j0, c2_t<T>* j1, c2_t<T>* h0, c2_t<T>* h1) {
+__device__ void seeds3(c2_t<T> z, c2_t<T>* j0, c2_t<T>* j1, c2_t<T>* h0, c2_t<T>* h1) {
   using T2 = c2_t<T>;
   const T2 one = cmake<T>(1, 0);
   if (cabs<T>(z) < T(1e-4)) {
@@ -137,6 +146,95 @@ __device__ void seeds(c2_t<T> z, c2_t<T>* j0, c2_t<T>* j1, c2_t<T>* h0, c2_t<T>*
                 cmul<T>(zh, zh));
 }
 
+// The coefficient table of the cylinder seeds (special/_cyl.py, float64,
+// each block in its Horner order): J0 and J1's series, Y0's, Y1's, then
+// the Hankel expansions' complex terms for (nu, sign) = (0, +), (1, +),
+// (0, -), (1, -).
+constexpr int kSeries = 42;            // _N_SERIES
+constexpr int kAsym = 23;              // _N_ASYM - 1 terms
+constexpr int kCylJ0 = 0, kCylJ1 = kSeries, kCylY0 = 2 * kSeries;
+constexpr int kCylY1 = kCylY0 + kSeries - 1, kCylAsym = kCylY1 + kSeries;
+constexpr int kCylTable = kCylAsym + 4 * 2 * kAsym;
+constexpr double kPi = 3.14159265358979323846;
+
+template <typename T>
+__device__ __forceinline__ c2_t<T> cadd_real(c2_t<T> a, T s) {
+  return cmake<T>(a.x + s, a.y);
+}
+
+template <typename T>
+__device__ __forceinline__ c2_t<T> clog_(c2_t<T> a) {
+  return cmake<T>(t_log(cabs<T>(a)), t_atan2(a.y, a.x));
+}
+
+// the principal square root
+template <typename T>
+__device__ __forceinline__ c2_t<T> csqrt_(c2_t<T> a) {
+  const T r = cabs<T>(a);
+  const T re = sqrt(t_fmax((r + a.x) * T(0.5), T(0)));
+  const T im = sqrt(t_fmax((r - a.x) * T(0.5), T(0)));
+  return cmake<T>(re, a.y < T(0) ? -im : im);
+}
+
+// H^{(1)}_nu (sign +1) or H^{(2)}_nu (sign -1) by the Hankel asymptotics,
+// DLMF 10.17.5-6: _cyl.py's _asym_h with the terms tab (kAsym complex)
+template <typename T>
+__device__ c2_t<T> asym_h(const double* tab, T nu, int sign, c2_t<T> z) {
+  const c2_t<T> inv = crecip<T>(z);
+  c2_t<T> s = cmake<T>(0, 0);
+  for (int i = 0; i < kAsym; ++i)
+    s = cmul<T>(cadd<T>(s, cmake<T>((T)tab[2 * i], (T)tab[2 * i + 1])), inv);
+  s = cadd_real<T>(s, T(1));
+  const c2_t<T> omega = cadd_real<T>(z, -(T(0.5) * nu + T(0.25)) * T(kPi));
+  const c2_t<T> pref = csqrt_<T>(cscale<T>(inv, T(2.0 / kPi)));
+  const c2_t<T> e = cexp_<T>(sign > 0 ? cmake<T>(-omega.y, omega.x) : cmake<T>(omega.y, -omega.x));
+  return cmul<T>(cmul<T>(pref, e), s);
+}
+
+// (j0, j1, h0, h1) of the base-2 family: sqrt(pi/2) (J0, J1, H0, H1) as
+// _cyl.py's cyl_jh01 computes them, the series at |z| <= 14
+template <typename T>
+__device__ void seeds2(c2_t<T> z, const double* tab, c2_t<T>* j0, c2_t<T>* j1, c2_t<T>* h0,
+                       c2_t<T>* h1) {
+  using T2 = c2_t<T>;
+  T2 J0, J1, H0, H1;
+  if (cabs<T>(z) > T(14)) {
+    const double* as = tab + kCylAsym;
+    H0 = asym_h<T>(as, T(0), 1, z);
+    H1 = asym_h<T>(as + 2 * kAsym, T(1), 1, z);
+    J0 = cscale<T>(cadd<T>(H0, asym_h<T>(as + 4 * kAsym, T(0), -1, z)), T(0.5));
+    J1 = cscale<T>(cadd<T>(H1, asym_h<T>(as + 6 * kAsym, T(1), -1, z)), T(0.5));
+  } else {
+    const T2 zh = cscale<T>(z, T(0.5));
+    const T2 q = cmul<T>(zh, zh);
+    J0 = cmake<T>(0, 0);
+    J1 = J0;
+    for (int i = 0; i < kSeries; ++i) {
+      J0 = cadd_real<T>(cmul<T>(J0, q), (T)tab[kCylJ0 + i]);
+      J1 = cadd_real<T>(cmul<T>(J1, q), (T)tab[kCylJ1 + i]);
+    }
+    J1 = cmul<T>(J1, zh);
+    constexpr T kGamma = T(0.5772156649015328606);
+    const T2 lg = cadd_real<T>(clog_<T>(zh), kGamma);
+    T2 s0 = cmake<T>(0, 0);
+    for (int i = 0; i < kSeries - 1; ++i) s0 = cmul<T>(cadd_real<T>(s0, (T)tab[kCylY0 + i]), q);
+    const T2 y0 = cscale<T>(cadd<T>(cmul<T>(lg, J0), s0), T(2.0 / kPi));
+    T2 s1 = cmake<T>(0, 0);
+    for (int i = 0; i < kSeries; ++i) s1 = cadd_real<T>(cmul<T>(s1, q), (T)tab[kCylY1 + i]);
+    const T2 y1 = csub<T>(
+        csub<T>(cscale<T>(cmul<T>(cadd_real<T>(lg, -kGamma), J1), T(2.0 / kPi)),
+                cscale<T>(crecip<T>(z), T(2.0 / kPi))),
+        cscale<T>(cmul<T>(s1, zh), T(1.0 / kPi)));
+    H0 = cmake<T>(J0.x - y0.y, J0.y + y0.x);  // J + i Y
+    H1 = cmake<T>(J1.x - y1.y, J1.y + y1.x);
+  }
+  const T r = T(1.2533141373155002512);  // sqrt(pi/2)
+  *j0 = cscale<T>(J0, r);
+  *j1 = cscale<T>(J1, r);
+  *h0 = cscale<T>(H0, r);
+  *h1 = cscale<T>(H1, r);
+}
+
 // renormalise to max(|re|, |im|) = 1 (the port's _normalize) and store
 template <typename T>
 __device__ __forceinline__ void put_scaled(c2_t<T>* mo, T* eo, size_t o, c2_t<T> v, T e) {
@@ -148,16 +246,17 @@ __device__ __forceinline__ void put_scaled(c2_t<T>* mo, T* eo, size_t o, c2_t<T>
   eo[o] = e + ln;
 }
 
-// scaled derivative at order n >= 1 from orders n-1 (pm, pe) and n (cm, ce):
+// scaled derivative at order n >= 1 from orders n-1 (pm, pe) and n (cm, ce),
+// f'_n = f_{n-1} - ((n + base - 2)/z) f_n:
 // the port's _scaled_deriv, then the z^{-m} phase
 template <typename T>
 __device__ __forceinline__ void deriv_scaled(c2_t<T> pm, T pe, c2_t<T> cm, T ce, int n, int m,
-                                             c2_t<T> inv, c2_t<T> zm, T zm_log, c2_t<T>* out,
-                                             T* out_e) {
+                                             int base, c2_t<T> inv, c2_t<T> zm, T zm_log,
+                                             c2_t<T>* out, T* out_e) {
   T ep = pe > ce ? pe : ce;
   const c2_t<T> t1 = cscale<T>(pm, t_exp(pe - ep));
   const c2_t<T> cs = cscale<T>(cm, t_exp(ce - ep));
-  c2_t<T> fp = csub<T>(t1, cmul<T>(cs, cscale<T>(inv, T(n + 1))));
+  c2_t<T> fp = csub<T>(t1, cmul<T>(cs, cscale<T>(inv, T(n + base - 2))));
   if (m > 0) {
     fp = cmul<T>(zm, csub<T>(fp, cmul<T>(cs, cscale<T>(inv, T(m)))));
     ep = ep + zm_log;
@@ -169,8 +268,8 @@ __device__ __forceinline__ void deriv_scaled(c2_t<T> pm, T pe, c2_t<T> cm, T ce,
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kWarps * 32)
 spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out, int N,
-                    int n_end, int m, int d, double c_d, double rescale_d,
-                    double inv_rescale_d, double log_rescale_d) {
+                    int n_end, int base, int m, int d, const double* __restrict__ cyl,
+                    double c_d, double rescale_d, double inv_rescale_d, double log_rescale_d) {
   using T2 = c2_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -195,17 +294,26 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out,
   const T absz = cabs<T>(z);
   const T2 inv = crecip<T>(z);
   T2 j0, j1, h0, h1;
-  seeds<T>(z, &j0, &j1, &h0, &h1);
+  if (base == 2) {  // in double for either T, as the plain version (_cyl.py)
+    double2 s[4];
+    seeds2<double>(make_double2((double)z.x, (double)z.y), cyl, s, s + 1, s + 2, s + 3);
+    j0 = cmake<T>((T)s[0].x, (T)s[0].y);
+    j1 = cmake<T>((T)s[1].x, (T)s[1].y);
+    h0 = cmake<T>((T)s[2].x, (T)s[2].y);
+    h1 = cmake<T>((T)s[3].x, (T)s[3].y);
+  } else {
+    seeds3<T>(z, &j0, &j1, &h0, &h1);
+  }
 
-  // phase 1: lane kMiller f_{n-1} = ((2n+1)/z) f_n - f_{n+1}, n = n_top+36..1,
-  // storing orders <= n_top (always log-scaled); lanes kH and kJ
-  // f_n = ((2n-1)/z) f_{n-1} - f_{n-2}, n = 2..n_last (j while n <= |z|)
+  // phase 1: lane kMiller f_{n-1} = ((2n+base-2)/z) f_n - f_{n+1}, n =
+  // n_top+36..1, storing orders <= n_top (always log-scaled); lanes kH and
+  // kJ f_n = ((2n+base-4)/z) f_{n-1} - f_{n-2}, n = 2..n_last (j while n <= |z|)
   const int n_start = n_top + kMillerBuffer;
-  int steps = 0, coef = 3, at = n_top + 1, dir = 0;  // at > n_top: stores nothing
+  int steps = 0, coef = base, at = n_top + 1, dir = 0;  // at > n_top: stores nothing
   T2 fm = cmake<T>(0, 0), fn = cmake<T>(1, 0);
   if (lane == kMiller && kMode != kHOnly) {
     steps = n_start;
-    coef = 2 * n_start + 1;
+    coef = 2 * n_start + base - 2;
     at = n_start - 1;
     dir = -1;
   } else if (lane == kH) {
@@ -288,14 +396,14 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out,
   }
 
   // phase 2: Wronskian normalisation
-  // s = (i / z^2) / (a_1 e^{sig_1 - sig_0} h_0 - a_0 h_1)
+  // s = (i / z^{base-1}) / (a_1 e^{sig_1 - sig_0} h_0 - a_0 h_1)
   const T2* Am = tab_m + kMiller * n_tab;
   const T* Ae = tab_e + kMiller * n_tab;
   const T2* Jm = tab_m + kJ * n_tab;
   const T* Je = tab_e + kJ * n_tab;
   const T S0 = Ae[0];
   const T2 w_target = [&] {
-    const T2 r = crecip<T>(cmul<T>(z, z));
+    const T2 r = crecip<T>(base == 2 ? z : cmul<T>(z, z));
     return cmake<T>(-r.y, r.x);
   }();
   const T2 denom = csub<T>(cmul<T>(cscale<T>(Am[1], t_exp(Ae[1] - S0)), h0), cmul<T>(Am[0], h1));
@@ -344,9 +452,9 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out,
       if (n >= 1) {
         T2 dv;
         T de;
-        deriv_scaled<T>(jv_p, je_p, jv, jev, n, m, inv, zm, zm_log, &dv, &de);
+        deriv_scaled<T>(jv_p, je_p, jv, jev, n, m, base, inv, zm, zm_log, &dv, &de);
         put_scaled<T>(jpo, jpe, o, dv, de);
-        deriv_scaled<T>(hv_p, he_p, hv, hev, n, m, inv, zm, zm_log, &dv, &de);
+        deriv_scaled<T>(hv_p, he_p, hv, hev, n, m, base, inv, zm, zm_log, &dv, &de);
         put_scaled<T>(hpo, hpe, o, dv, de);
       } else {  // f'_0 = -f_1
         put_scaled<T>(jpo, jpe, o, cmake<T>(-jv_p.x, -jv_p.y), je_p);
@@ -363,8 +471,8 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out,
       ho[o] = hw;
       T2 jd, hd;
       if (n >= 1) {
-        jd = csub<T>(jv_p, cmul<T>(jv, cscale<T>(inv, T(n + 1))));
-        hd = csub<T>(hv_p, cmul<T>(hv, cscale<T>(inv, T(n + 1))));
+        jd = csub<T>(jv_p, cmul<T>(jv, cscale<T>(inv, T(n + base - 2))));
+        hd = csub<T>(hv_p, cmul<T>(hv, cscale<T>(inv, T(n + base - 2))));
         if (m > 0) {
           jd = cmul<T>(zm, csub<T>(jd, cmul<T>(jv, cscale<T>(inv, T(m)))));
           hd = cmul<T>(zm, csub<T>(hd, cmul<T>(hv, cscale<T>(inv, T(m)))));
@@ -384,8 +492,9 @@ spherical_jh_kernel(const c2_t<T>* __restrict__ z_in, c2_t<T>* __restrict__ out,
 }
 
 template <typename T, int kMode>
-cudaError_t run(const void* z, void* out, int N, int n_end, int m, int d, double c_d,
-                double rescale, double inv_rescale, double log_rescale, cudaStream_t stream) {
+cudaError_t run(const void* z, void* out, int N, int n_end, int base, int m, int d,
+                const double* cyl, double c_d, double rescale, double inv_rescale,
+                double log_rescale, cudaStream_t stream) {
   if (N == 0) return cudaSuccess;
   const size_t smem =
       (size_t)kWarps * kChains * (n_end + m + 1) * (sizeof(c2_t<T>) + sizeof(T));
@@ -393,25 +502,25 @@ cudaError_t run(const void* z, void* out, int N, int n_end, int m, int d, double
   if (err != cudaSuccess) return err;
   using T2 = c2_t<T>;
   spherical_jh_kernel<T, kMode><<<(N + kWarps - 1) / kWarps, kWarps * 32, smem, stream>>>(
-      static_cast<const T2*>(z), static_cast<T2*>(out), N, n_end, m, d, c_d, rescale,
-      inv_rescale, log_rescale);
+      static_cast<const T2*>(z), static_cast<T2*>(out), N, n_end, base, m, d, cyl, c_d,
+      rescale, inv_rescale, log_rescale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int mode, const void* z, void* out, int N, int n_end, int m, int d,
-                     double c_d, double rescale, double inv_rescale, double log_rescale,
-                     cudaStream_t stream) {
+cudaError_t dispatch(int mode, const void* z, void* out, int N, int n_end, int base, int m,
+                     int d, const double* cyl, double c_d, double rescale, double inv_rescale,
+                     double log_rescale, cudaStream_t stream) {
   switch (mode) {
     case kScaled:
-      return run<T, kScaled>(z, out, N, n_end, m, d, c_d, rescale, inv_rescale, log_rescale,
-                             stream);
+      return run<T, kScaled>(z, out, N, n_end, base, m, d, cyl, c_d, rescale, inv_rescale,
+                             log_rescale, stream);
     case kHOnly:
-      return run<T, kHOnly>(z, out, N, n_end, m, d, c_d, rescale, inv_rescale, log_rescale,
-                            stream);
+      return run<T, kHOnly>(z, out, N, n_end, base, m, d, cyl, c_d, rescale, inv_rescale,
+                            log_rescale, stream);
     case kUnscaled:
-      return run<T, kUnscaled>(z, out, N, n_end, m, d, c_d, rescale, inv_rescale, log_rescale,
-                               stream);
+      return run<T, kUnscaled>(z, out, N, n_end, base, m, d, cyl, c_d, rescale, inv_rescale,
+                               log_rescale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -421,16 +530,22 @@ cudaError_t dispatch(int mode, const void* z, void* out, int N, int n_end, int m
 
 // out: one buffer of planes [N, n_end], the complex planes first, then the
 // exponent planes: mode 0 j j' h h' | je j'e he h'e; mode 1 h | he; mode 2
-// j j' h h'.  The rescale constants come from the caller, so both versions
-// use the same rounding of 1/rescale and log(rescale).
-extern "C" int bhs_spherical_jh(const void* z, void* out, int N, int n_end, int m, int mode,
-                                int d, double c_d, double rescale, double inv_rescale,
-                                double log_rescale, int dbl, void* stream) {
-  if (n_end < 1 || m < 0 || N < 0) return (int)cudaErrorInvalidValue;
+// j j' h h'.  base 2 or 3, d = base + 2 m; cyl: the kCylTable float64
+// coefficients of the cylinder seeds (read for base 2 only).  The rescale
+// constants come from the caller, so both versions use the same rounding
+// of 1/rescale and log(rescale).
+extern "C" int bhs_spherical_jh(const void* z, void* out, int N, int n_end, int base, int m,
+                                int mode, int d, const void* cyl, int cyl_len, double c_d,
+                                double rescale, double inv_rescale, double log_rescale,
+                                int dbl, void* stream) {
+  if (n_end < 1 || m < 0 || N < 0 || (base != 2 && base != 3) || d != base + 2 * m)
+    return (int)cudaErrorInvalidValue;
+  if (base == 2 && cyl_len != kCylTable) return (int)cudaErrorInvalidValue;
+  const double* cy = static_cast<const double*>(cyl);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbl)
-    return (int)dispatch<double>(mode, z, out, N, n_end, m, d, c_d, rescale, inv_rescale,
-                                 log_rescale, st);
-  return (int)dispatch<float>(mode, z, out, N, n_end, m, d, c_d, rescale, inv_rescale,
-                              log_rescale, st);
+    return (int)dispatch<double>(mode, z, out, N, n_end, base, m, d, cy, c_d, rescale,
+                                 inv_rescale, log_rescale, st);
+  return (int)dispatch<float>(mode, z, out, N, n_end, base, m, d, cy, c_d, rescale,
+                              inv_rescale, log_rescale, st);
 }

@@ -3,7 +3,7 @@
 The dense routes (direct LU and dense GMRES) solve with the assembled
 matrix
 
-    A[k, b, b', h, h'] = rowf[k, b, h] s T[k, pid[b, b'], h, h'] s' colf[k, b', h']
+    A[k, b, b', h, h'] = rowf[k, b, h] s T[k, pid[k, b, b'], h, h'] s' colf[k, b', h']
 
 off the diagonal blocks, with s = (-1)^{n_h} on the mirror blocks (b > b',
 whose offset is the negative of its pair's: SR(-t)[h, h'] =
@@ -14,7 +14,10 @@ branch, and `_diag_scatter` for one sphere).  `dense_assemble` runs the
 CUDA kernel `csrc/dense_assemble.cu` on CUDA tensors and
 `_dense_assemble_plain` on CPU tensors, in either layout: pair-major
 [K, B, B', H, H'] (dense GMRES) or [K, B, H, B', H'] (the [N, N] matrix of
-LU and `calc.matrix`), written directly, with no transposing copy.
+LU and `calc.matrix`), written directly, with no transposing copy.  The
+pair map pid is [B, B] for a geometry shared by the batch, or [K, B, B]
+for geometry that varies along it (each k's table holds that k's own
+offsets).
 """
 
 import torch
@@ -34,27 +37,28 @@ def _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major):
         rowm = rowf[:, :, None, :] * s
         colm = colf[:, None, :, :] * s
         off = ~torch.eye(n_b, dtype=torch.bool, device=dev)
-        ids = pid.long()[off]  # the off-diagonal pairs, row-major
+        pid = pid.long().expand(n_k, n_b, n_b)
         for k in range(n_k):  # one k at a time bounds the temporaries
+            ids = pid[k][off]  # the off-diagonal pairs, row-major
             out[k, off] = (rowm[k, off][..., None] * table[k, ids]) * colm[k, off][..., None, :]
     out[:, torch.eye(n_b, dtype=torch.bool, device=dev)] = torch.diag_embed(diag)
     return out if pair_major else out.transpose(2, 3).contiguous()
 
 
 def _pair_order(pid):
-    """int32 [B * B, 3] (b, b', offset id) for the kernel's CTAs: the
-    off-diagonal pairs sorted by offset id (stable), then the diagonal
-    pairs (id 0, unused)."""
-    n_b = pid.shape[0]
+    """int32 [..., B * B, 3] (b, b', offset id) for the kernel's CTAs, per
+    pair map pid [..., B, B]: the off-diagonal pairs sorted by offset id
+    (stable), then the diagonal pairs (id 0, unused)."""
+    n_b = pid.shape[-1]
     dev = pid.device
     bb = torch.arange(n_b, device=dev)
     b, bp = torch.meshgrid(bb, bb, indexing="ij")
     diag = b == bp
     ids = torch.where(diag, 0, pid.long())
     key = torch.where(diag, n_b * n_b + b, ids)  # diagonal pairs last
-    order = torch.sort(key.reshape(-1), stable=True).indices
-    rows = torch.stack([b.reshape(-1), bp.reshape(-1), ids.reshape(-1)], dim=1)
-    return rows[order].to(torch.int32).contiguous()
+    order = torch.sort(key.flatten(-2), stable=True).indices
+    rows = torch.stack(torch.broadcast_tensors(b, bp, ids), dim=-1).flatten(-3, -2)
+    return torch.take_along_dim(rows, order[..., None], dim=-2).to(torch.int32).contiguous()
 
 
 def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
@@ -62,14 +66,15 @@ def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
 
     table: complex [K, NO, H, H] (the (S|R) of each distinct offset, folded
     or plain); pid: int [B, B] offset id of each pair (the diagonal
-    ignored); rowf, colf, diag: complex [K, B, H] (row factor, column
+    ignored), or [K, B, B] each k's own; rowf, colf, diag: complex [K, B, H] (row factor, column
     factor, diagonal); sgn: real [H], (-1)^{n_h}.  Returns complex
     [K, B, B', H, H'] if pair_major, else [K, B, H, B', H'].  On CPU
     tensors this runs the plain version; on CUDA tensors it launches
     csrc/dense_assemble.cu or raises.
     """
     n_k, n_b, h = rowf.shape
-    if (table.shape[0] != n_k or table.shape[2:] != (h, h) or pid.shape != (n_b, n_b)
+    if (table.shape[0] != n_k or table.shape[2:] != (h, h)
+            or pid.shape not in ((n_b, n_b), (n_k, n_b, n_b))
             or colf.shape != rowf.shape or diag.shape != rowf.shape or sgn.shape != (h,)):
         raise ValueError(
             f"dense_assemble: table {tuple(table.shape)}, pid {tuple(pid.shape)}, rowf "
@@ -87,7 +92,7 @@ def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
         )
     table, rowf, colf, diag, sgn = (
         t.contiguous() for t in (table, rowf, colf, diag, sgn))
-    pairs = _pair_order(pid.to(rowf.device))
+    pairs = _pair_order(pid.to(rowf.device))  # [B * B, 3] or [K, B * B, 3]
     shape = (n_k, n_b, n_b, h, h) if pair_major else (n_k, n_b, h, n_b, h)
     out = torch.empty(shape, dtype=cdt, device=rowf.device)
     # element strides of (b, b', h) in the output
@@ -96,8 +101,9 @@ def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
     vec = not dbl and h % 2 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (table, out))
     kernels.launch(
-        "bhs_dense_assemble", table, pairs, rowf, colf, sgn, diag, out, n_k, n_b,
-        table.shape[1], h, n_b * n_b, *strides, int(vec), int(dbl),
+        "bhs_dense_assemble", table, pairs, 3 * n_b * n_b if pairs.ndim == 3 else 0, rowf,
+        colf, sgn, diag, out, n_k, n_b, table.shape[1], h, n_b * n_b, *strides, int(vec),
+        int(dbl),
     )
     dense_assemble.launches += 1
     return out

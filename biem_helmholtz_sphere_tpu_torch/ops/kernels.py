@@ -39,10 +39,11 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns a cudaError_t)
 _SIGNATURES = {
-    # x, sx_d, sx_k, sx_p, kx, centers, k, w2, coef_ab, coef_b1, coef_bb,
-    # p0, out, P, K, B, n, far, per_ball, few, lim, rescale, dbl, stream
-    "bhs_fused_ba_eval": [_P, _L, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _P],
+    # x, sx_d, sx_k, sx_p, kx, centers, sc_k, k, ck, w2, coef_ab, coef_b1,
+    # coef_bb, p0, out, P, K, B, n, far, per_ball, few, lim, rescale, dbl,
+    # stream
+    "bhs_fused_ba_eval": [_P, _L, _L, _L, _I, _P, _L, _P, _I, _P, _P, _P, _P,
+                          _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _I, _P],
     # vals, offs, sizes, voffs, perm, items, n_items, x, y, nnz, L, H,
     # buf_elems, adjoint, dbl, stream
     "bhs_block_diag_cmm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
@@ -53,17 +54,18 @@ _SIGNATURES = {
     # dbl, stream
     "bhs_lane_scatter": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P],
-    # z, out, N, n_end, m, mode, d, c_d, rescale, inv_rescale, log_rescale,
-    # dbl, stream
-    "bhs_spherical_jh": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _I, _P],
+    # z, out, N, n_end, base, m, mode, d, cyl, cyl_len, c_d, rescale,
+    # inv_rescale, log_rescale, dbl, stream
+    "bhs_spherical_jh": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _D, _D, _D, _D,
+                         _I, _P],
     # radm, rade, iazf, u_tiles, units, order, e_r, e_b, out, P, n_rad, nb,
     # ng, nnz, n_units, unit_slabs, L, dbl, stream
     "bhs_coax_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P],
-    # table, pairs, rowf, colf, sgn, diag, out, K, B, NO, H, n_pairs, s_b,
-    # s_bp, s_h, vec, dbl, stream
-    "bhs_dense_assemble": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _L, _L, _L, _I, _I, _P],
+    # table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
+    # n_pairs, s_b, s_bp, s_h, vec, dbl, stream
+    "bhs_dense_assemble": [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _L, _L, _L, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

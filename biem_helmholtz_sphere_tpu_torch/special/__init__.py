@@ -1,6 +1,7 @@
 """Special functions: spherical Bessel/Hankel families, orthonormal Jacobi
 recurrences and Gauss-Jacobi rules."""
 
+from ._cyl import cyl_jh01
 from ._family import (
     family_jh,
     spherical_h_scaled,
@@ -12,6 +13,7 @@ from ._quad import gauss_jacobi, uniform_circle
 from ._shn1 import shn1, sjn
 
 __all__ = [
+    "cyl_jh01",
     "family_jh",
     "spherical_jh_all",
     "spherical_jh_scaled",

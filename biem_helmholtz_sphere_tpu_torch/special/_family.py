@@ -5,9 +5,9 @@ Convention (as in biem_helmholtz_sphere_tpu.special._family):
     j_n^{(d)}(z) = sqrt(pi/2) z^{-(d-2)/2} J_{n+(d-2)/2}(z)
     h_n^{(d)}(z) = sqrt(pi/2) z^{-(d-2)/2} H^{(1)}_{n+(d-2)/2}(z)
 
-With d = base + 2m, j_n^{(d)}(z) = z^{-m} j_{n+m}^{(base)}(z).  Only odd d
-(base 3, closed trigonometric seeds) is ported; even d needs the
-cylinder seeds of `_cyl.py` and raises NotImplementedError.
+With d = base + 2m, j_n^{(d)}(z) = z^{-m} j_{n+m}^{(base)}(z): odd d takes
+base 3 (closed trigonometric seeds), even d base 2 (the cylinder seeds
+sqrt(pi/2) (J0, J1, H0, H1) of `_cyl.py`).
 
 Order recurrence: f_{n-1} + f_{n+1} = c_n f_n with c_n = (2n + base - 2)/z.
 h_n by upward recurrence; j_n upward where n <= |z| and by a normalized
@@ -28,8 +28,10 @@ import torch
 from scipy.special import gamma as _sp_gamma
 
 from ..ops import kernels
+from ._cyl import cyl_jh01, cyl_table
 
 _MILLER_BUFFER = 36
+_SQRT_PI_2 = float(np.sqrt(np.pi / 2.0))
 # kernel modes (csrc/spherical_jh.cu)
 _SCALED, _H_ONLY, _UNSCALED = 0, 1, 2
 
@@ -40,14 +42,11 @@ def _rescale_for(dtype):
 
 
 def _base_and_shift(d):
+    """(base, m) with d = base + 2 m: base 2 for even d, 3 for odd d."""
     if d < 2:
         raise ValueError(f"dimension must be >= 2, got {d}")
-    if d % 2 == 0:
-        raise NotImplementedError(
-            f"even dimension d={d} needs the cylinder seeds (special/_cyl.py), "
-            "which are not ported yet (ROADMAP queue 1 item 9)"
-        )
-    return 3, (d - 3) // 2
+    base = 2 if d % 2 == 0 else 3
+    return base, (d - base) // 2
 
 
 def _as_complex(z):
@@ -57,9 +56,9 @@ def _as_complex(z):
 
 
 def _seeds(base, z):
-    """(j0, j1, h0, h1) of the base-3 family at complex z."""
-    if base != 3:
-        raise NotImplementedError("only the base-3 (odd d) family is ported")
+    """(j0, j1, h0, h1) of the base family at complex z."""
+    if base == 2:  # float64 seeds, rounded to z's dtype (special/_cyl.py)
+        return tuple(f * _SQRT_PI_2 for f in cyl_jh01(z))
     sin, cos = torch.sin(z), torch.cos(z)
     eiz = torch.exp(1j * z)
     # |z| < 1e-4: series for j0, j1 (the closed forms cancel); h keeps its
@@ -309,6 +308,12 @@ def _launch_consts(d, rdt):
     return _c_d(d), rescale, 1.0 / rescale, float(np.log(rescale))
 
 
+@lru_cache(maxsize=8)
+def _cyl_coefs(device):
+    """The cylinder seeds' coefficient table on a card (K5's base-2 mode)."""
+    return torch.as_tensor(cyl_table(), device=device)
+
+
 def spherical_jh(mode, d, n_end, z):
     """K5 wrapper: the kernel's outputs for complex z [...] in one mode.
 
@@ -318,7 +323,7 @@ def spherical_jh(mode, d, n_end, z):
     launches csrc/spherical_jh.cu or raises.  The kernel's outputs are
     views of one buffer.
     """
-    _, m = _base_and_shift(d)
+    base, m = _base_and_shift(d)
     z = _as_complex(z)
     if z.device.type == "cpu":
         plain = {_SCALED: _spherical_jh_scaled_plain, _H_ONLY: _spherical_h_scaled_plain,
@@ -337,8 +342,9 @@ def spherical_jh(mode, d, n_end, z):
     plane = n_z * n_end
     # the complex planes, then the exponent planes two to a complex element
     buf = torch.empty(n_c * plane + (n_r * plane + 1) // 2, dtype=z.dtype, device=z.device)
-    kernels.launch("bhs_spherical_jh", zc, buf, n_z, n_end, m, mode, d,
-                   *_launch_consts(d, rdt), int(rdt == torch.float64))
+    cyl = _cyl_coefs(z.device)
+    kernels.launch("bhs_spherical_jh", zc, buf, n_z, n_end, base, m, mode, d, cyl,
+                   cyl.numel(), *_launch_consts(d, rdt), int(rdt == torch.float64))
     spherical_jh.launches += 1
     shape = tuple(z.shape) + (n_end,)
     if mode == _UNSCALED:

@@ -57,10 +57,11 @@ def translation_matrix(c, t, n_end, k, kind="SR", n_end_add=None, method=None):
     """Translation operator matrix, complex [..., H_out, H_in], for offsets t.
 
     t: cartesian offsets [d, ...] (tensor or array) or a spherical mapping
-    (from_cartesian); k: real wavenumber broadcastable to t's batch shape;
-    kind "SR" (the BIEM inter-sphere coupling) or "RR"; n_end_add: input
-    degree cutoff (default n_end); method: None | "triplet" | "plane_wave"
-    | "gumerov" | "rotation", as in the JAX package.  Convention:
+    (from_cartesian); k: real or complex wavenumber broadcastable to t's
+    batch shape; kind "SR" (the BIEM inter-sphere coupling) or "RR";
+    n_end_add: input degree cutoff (default n_end); method: None |
+    "triplet" | "plane_wave" | "gumerov" | "rotation", as in the JAX
+    package.  Convention:
     S_h(y + t) = sum_{h'} M[..., h', h] R_{h'}(y).  It runs on the device
     of t (or of k when t is not a tensor; on the card when neither is).
     """

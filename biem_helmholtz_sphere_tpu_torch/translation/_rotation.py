@@ -254,7 +254,7 @@ def _coaxial_sr_plain(c, rad, n_end):
 
 def coaxial_sr(c, r, n_end, k, kind="SR"):
     """SR (or RR) along the root axis, unscaled: complex [..., H, H] over
-    the broadcast shape of k and r (real tensors).
+    the broadcast shape of k (real or complex) and r (real).
 
     The band values h_n(k r) (SR) or j_n(k r) (RR) come from one K5 launch
     in its unscaled mode; one K2 launch (`coax_fold`) with zero exponents
@@ -269,10 +269,11 @@ def coaxial_sr(c, r, n_end, k, kind="SR"):
     if kind not in ("SR", "RR"):
         raise ValueError(f"kind must be 'SR' or 'RR', got {kind!r}")
     z = k * r
-    tab = _coax_packed(c, n_end, z.dtype, z.device)
+    rdt = z.real.dtype  # k may be complex: the tables and exponents stay real
+    tab = _coax_packed(c, n_end, rdt, z.device)
     j, _, h, _ = spherical_jh_all(c.c_ndim, 2 * n_end - 1, z.reshape(1, -1))
     radm = h if kind == "SR" else j
-    e0 = torch.zeros((1, n_end), dtype=z.dtype, device=z.device)
+    e0 = torch.zeros((1, n_end), dtype=rdt, device=z.device)
     vals = coax_fold(radm, torch.zeros_like(radm.real), e0, e0, tab)[0]
     dense = unpack(replace(tab.layout, vals=vals))  # [P, H, H]
     return dense.reshape(z.shape + dense.shape[-2:])

@@ -79,8 +79,8 @@ def _coax_bands(c, n_end, dtype, device):
 def coaxial_scaled(c, r, n_end, k):
     """(mant, S) coaxial (S|R) factor along the root axis.
 
-    r: real tensor of radii [...]; k: real tensor broadcasting against r
-    (e.g. [K, 1] against [NR]).  Returns complex mant [..., H, H] and
+    r: real tensor of radii [...]; k: real or complex tensor broadcasting
+    against r (e.g. [K, 1] against [NR]).  Returns complex mant [..., H, H] and
     real S [..., H, H].
     """
     _root_axis(c)
@@ -330,7 +330,8 @@ coax_fold.launches = 0
 def coax_fold_packed(c, n_end, r, k, e_r, e_b):
     """The folded coaxial factor X of the factored operator, packed.
 
-    r: real [NR] distinct pair distances; k: real [K]; e_r, e_b [K, L]:
+    r: real [NR] distinct pair distances (or [K, NR], each k's own);
+    k: real or complex [K]; e_r, e_b [K, L]:
     degree-level ball-max exponents of the regular and combined-field
     radial rows.  Returns the BlockDiag of X = mant * exp(e_r[l] + S +
     e_b[l']) on the child-state blocks, vals [K, NR, nnz]: one K5 launch

@@ -68,14 +68,35 @@ non-zero before the result line):
    uscat(0) within 1e-8 of (a)'s; then the bounds of the stages that run
    PyTorch or library calls (the sandwich, LU, K3, K6) from this run's
    shapes.
+7. complex k, the 'bpa' tree and geometry along the batch, each path with
+   the launch counts set to 0 just before it and read just after: (a) the
+   bench at k + 0.1i (an absorbing medium) in complex64 with the default
+   solver (the factored GMRES): relres <= 3e-5, the boundary residual
+   (1e-3), uscat(0) within 1e-3 of the JAX package's float64 golden
+   (data/bench_golden_complexk_f64.json), a repeat bit for bit, a stage
+   split, and KA's many-point mode with that complex k against its plain
+   version; (b) the same in complex128 on its default route (the offset
+   table): relres <= 1e-11, uscat(0) within 1e-7 of the golden; (c) the
+   'bpa' tree at the bench in two k-blocks with warm starts (KA not
+   launched): uscat(0) within 1e-3 of the 'ba' golden, relres and the
+   boundary residual, then the general field evaluation at 131,072 points
+   against KA's 'ba' field (1e-3), with its time and peak memory; (d)
+   four lattice pitches (4, 4.5, 5, 5.5) along the batch in one call at
+   n_end=19, complex64, the default solver (LU): each within 1e-4 of its
+   geometry solved alone, and KD with its pair map per k against its
+   plain version, equal entry for entry, timed beside its bound.
 
-Phase 2 also holds KD against its plain version (complex64 at the bench's
-pair-major shapes, complex128 at the LU tier's [B, H, B', H'] shapes, both
-launched twice and required bit-for-bit equal, and equal to the plain
-version entry for entry: the kernel forms the same products in the same
-order) and K2 in its zero-exponent mode (coaxial_sr's unscaled band sum)
-at the LU tier's n_end and at the bench's, its error relative to the
-largest entry of each (k, radius, l, l') degree block.
+Phase 2 also holds K5's base-2 (even d) mode at the shapes the 4D route
+will give it (d = 4, n_end = 20: the coax bands of 4 k x 9 radii, the
+radial rows of 4 k x 16 spheres), both dtypes, and times its seeds'
+plain version `cyl_jh01`.  It also holds KD against its plain version
+(complex64 at the bench's pair-major shapes, complex128 at the LU tier's
+[B, H, B', H'] shapes, both launched twice and required bit-for-bit
+equal, and equal to the plain version entry for entry: the kernel forms
+the same products in the same order) and K2 in its zero-exponent mode
+(coaxial_sr's unscaled band sum) at the LU tier's n_end and at the
+bench's, its error relative to the largest entry of each (k, radius, l,
+l') degree block.
 
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
@@ -98,6 +119,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_END = 32
 N_END_LU = 19  # the 4x4 lattice's largest n_end on the LU tier (16 n_end^2 <= 6144)
+N_END_4D = 20  # phase 2's base-2 (even d) K5 shapes: the 4D route's n_end
 N_SIDE = 4
 SPACING = 4.0
 KB = 4
@@ -105,6 +127,8 @@ K0 = 8.0
 EVAL_POINTS = 1 << 17
 GOLDEN_README = (-0.741333, -0.669657)
 SOURCE = (0.0, 0.0, 3.0)  # phase 6 (c): off the lattice plane, 4.12 from the nearest center
+IMAG_K = 0.1  # phase 7 (a, b): Im k of an absorbing medium
+PITCHES = (4.0, 4.5, 5.0, 5.5)  # phase 7 (d): the lattices along the batch
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 /
 # FP64 operations/s outside the tensor cores
@@ -328,6 +352,7 @@ def check_kernels(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
         _lane_gather_plain, _lane_scatter_plain, lane_gather, lane_scatter,
         make_route)
+    from biem_helmholtz_sphere_tpu_torch.special._cyl import cyl_jh01
     from biem_helmholtz_sphere_tpu_torch.special._family import (
         _H_ONLY, _SCALED, _UNSCALED, _spherical_h_scaled_plain,
         _spherical_jh_all_plain, _spherical_jh_scaled_plain, spherical_jh)
@@ -397,6 +422,46 @@ def check_kernels(torch, dev, card):
         k5["bound_ms"], k5["bound_by"] = add_bounds(k5.pop("bounds"))
         k5["library_ms"] = None  # no one PyTorch call computes these functions
         results.setdefault("spherical_jh", {})[name] = k5
+
+        # K5's base-2 (even d) mode at the shapes the 4D route will give it
+        # (d = 4, n_end = N_END_4D): the coax bands h_n(k r), 4 k x 9 radii x
+        # 2 N_END_4D - 1 bands, and the radial rows at 4 k x 16 spheres
+        for label, mode, n_end, z, plain in (
+            ("h (coax bands)", _H_ONLY, 2 * N_END_4D - 1, z_coax, _spherical_h_scaled_plain),
+            ("scaled j/j'/h/h' (radial rows)", _SCALED, N_END_4D, z_rows,
+             _spherical_jh_scaled_plain),
+            ("unscaled j/j'/h/h'", _UNSCALED, N_END_4D, z_rows, _spherical_jh_all_plain),
+        ):
+            got = spherical_jh(mode, 4, n_end, z)
+            ref = plain(4, n_end, z)
+            if not same_bits(torch, spherical_jh(mode, 4, n_end, z), got):
+                raise RuntimeError(f"spherical_jh base 2 {label} {name}: two launches differ")
+            if mode == _SCALED:
+                errs = [scaled_err(torch, g, r) for g, r in zip(got, ref)]
+            elif mode == _H_ONLY:
+                errs = [scaled_err(torch, got, ref)]
+            else:
+                errs = [unscaled_err(torch, g, r) for g, r in zip(got, ref)]
+            ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+            ms = cuda_ms(torch, lambda: spherical_jh(mode, 4, n_end, z), 20)
+            pms = cuda_ms(torch, lambda: plain(4, n_end, z), 5)
+            # the seeds: 4 x 42 series (or 4 x 23 asymptotic) complex steps in
+            # float64 per z, then the recurrences as in base 3
+            steps = {_SCALED: 3 * n_end + 37, _H_ONLY: n_end + 1, _UNSCALED: 3 * n_end + 37}[mode]
+            n_out = {_SCALED: 4, _H_ONLY: 1, _UNSCALED: 4}[mode]
+            b = bound(z.numel() * cs + z.numel() * n_end * n_out * (cs + (rs if mode != _UNSCALED else 0)),
+                      z.numel() * (15 * steps + 8 * 4 * 42), name)
+            print(f"[2] spherical_jh base 2 (d = 4) {label} z {tuple(z.shape)} x {n_end} {name}: "
+                  f"max_abs_err {ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} "
+                  f"ms bound {b[0]:.6f} ms ({b[1]}) ({card})")
+            if er > tol:
+                raise RuntimeError(f"spherical_jh base 2 {label} {name}: rel err {er:.3e} > {tol}")
+        # its seeds' plain version (plain torch, float64 inside): the series
+        # and the asymptotics at every z (~2,100 float64 operations each)
+        ms = cuda_ms(torch, lambda: cyl_jh01(z_rows), 20)
+        b = bound(z_rows.numel() * 5 * cs, z_rows.numel() * 2100, "complex128")
+        print(f"[2] cyl_jh01 (plain torch) z {tuple(z_rows.shape)} {name}: {ms:.4f} ms bound "
+              f"{b[0]:.6f} ms ({b[1]}) ({card})")
 
         # K2: the packed folded coax factor of a k-block (4 k x 9 radii)
         args = coax_args(torch, dev, rdt)
@@ -696,28 +761,9 @@ def bench_sweep(torch, dev):
 def bench_config(torch, dev, card):
     """Phase 4: the bench configuration through biem(); returns launches."""
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
-    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
-    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
-    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
-    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
-    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
 
-    # each kernel's launch count: (wrapper, attribute)
-    counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
-                "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
-                "block_diag_cmm": (block_diag_cmm, "launches"),
-                "lane_gather": (lane_gather, "launches"),
-                "lane_scatter": (lane_scatter, "launches"),
-                "spherical_jh": (spherical_jh, "launches"),
-                "coax_fold": (coax_fold, "launches")}
-
-    def reset():
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-
-    def read():
-        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+    reset, read = kernel_counts()
 
     c = create_from_branching_types("ba")
     f = dict(dtype=torch.float32, device=dev)
@@ -738,11 +784,11 @@ def bench_config(torch, dev, card):
     launches = read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[4] launches in the sweep: {launches}")
-    for name, n in launches.items():
-        # the sweep evaluates uscat(0) only: the many-point KA runs in the
-        # field evaluation path below
-        if n <= 0 and name != "fused_ba_eval":
-            raise RuntimeError(f"the main path never launched {name}")
+    # the sweep evaluates uscat(0) only: the many-point KA runs in the field
+    # evaluation path below, KD on the dense route (phase 5)
+    require_launched(launches, [n for n in launches if n not in ("fused_ba_eval",
+                                                                 "dense_assemble")],
+                     "[4] the sweep")
     n_blocks = len(ks) // KB
     # per k-block: K5 for the RHS, the radial rows, the coax bands and
     # uscat(0)'s blc; K2 once
@@ -928,24 +974,10 @@ def dense_route(torch, dev, card):
     its bench run (c)."""
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
     from biem_helmholtz_sphere_tpu_torch.biem import _core
-    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
-    from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
-    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
     from biem_helmholtz_sphere_tpu_torch.translation import _rotation
-    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
 
-    counters = {"dense_assemble": (dense_assemble, "launches"),
-                "spherical_jh": (spherical_jh, "launches"),
-                "coax_fold": (coax_fold, "launches"),
-                "fused_ba_eval_few": (fused_ba_eval, "few_launches")}
-
-    def reset():
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-
-    def read():
-        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+    reset, read = kernel_counts()
 
     c = create_from_branching_types("ba")
     centers_np = lattice_centers()
@@ -1023,9 +1055,8 @@ def dense_route(torch, dev, card):
     print(f"[5] (c) bench lattice n_end={N_END} ({n_sys} unknowns), solver='gmres', dense "
           f"matrix {calc.matrix.numel() * 8 / 1e9:.2f} GB: {dt:.3f} s for {KB} k, launches "
           f"{launches}, peak device memory {peak:.3f} GiB ({card})")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"the dense route never launched {name}")
+    require_launched(launches, ("dense_assemble", "spherical_jh", "coax_fold",
+                                "fused_ba_eval_few"), "[5] (c) the dense route")
     worst = float(calc.relres.max())
     print(f"[5] (c) GMRES iters {calc.iters.tolist()}, max relres {worst:.3e}")
     if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5:
@@ -1123,31 +1154,15 @@ def matfree_route(torch, dev, card):
     the sweep; returns the launch counts of its run (a)."""
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave, point_source
     from biem_helmholtz_sphere_tpu_torch.biem import _core
-    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics._expand import _quad_harmonics
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
-    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
-    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
     from biem_helmholtz_sphere_tpu_torch.special import shn1
     from biem_helmholtz_sphere_tpu_torch.special._family import (
         _spherical_jh_all_plain, spherical_jh)
     from biem_helmholtz_sphere_tpu_torch.translation import _rotation
-    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
 
-    counters = {"lane_gather": (lane_gather, "launches"),
-                "lane_scatter": (lane_scatter, "launches"),
-                "spherical_jh": (spherical_jh, "launches"),
-                "coax_fold": (coax_fold, "launches"),
-                "block_diag_cmm": (block_diag_cmm, "launches"),
-                "fused_ba_eval_few": (fused_ba_eval, "few_launches")}
-
-    def reset():
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-
-    def read():
-        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+    reset, read = kernel_counts()
 
     c = create_from_branching_types("ba")
     centers_np = lattice_centers()
@@ -1370,6 +1385,321 @@ def matfree_route(torch, dev, card):
     return launches
 
 
+def kernel_counts():
+    """(reset, read) of every kernel's launch count."""
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
+    from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
+
+    counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
+                "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
+                "block_diag_cmm": (block_diag_cmm, "launches"),
+                "lane_gather": (lane_gather, "launches"),
+                "lane_scatter": (lane_scatter, "launches"),
+                "spherical_jh": (spherical_jh, "launches"),
+                "coax_fold": (coax_fold, "launches"),
+                "dense_assemble": (dense_assemble, "launches")}
+
+    def reset():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+
+    return reset, read
+
+
+def require_launched(counts, names, label):
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise RuntimeError(f"{label}: the path never launched {missing}: {counts}")
+
+
+def complex_and_trees(torch, dev, card):
+    """Phase 7: complex k, the 'bpa' tree with the general evaluation, and
+    geometry along the batch, each path driven through biem() with the
+    launch counts set to 0 just before it and read just after."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
+        _fused_ba_eval_plain, fused_ba_eval, regroup)
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import _dense_assemble_plain, dense_assemble
+
+    reset, read = kernel_counts()
+    c, c_bp = create_from_branching_types("ba"), create_from_branching_types("bpa")
+    centers_np = lattice_centers()
+    nb = len(centers_np)
+    n_sys = nb * N_END * N_END
+    ks = sweep_ks()[:KB]
+    data = os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data")
+    with open(os.path.join(data, "bench_golden_complexk_f64.json")) as fh:
+        golden_ck = json.load(fh)["points"][:KB]
+    with open(os.path.join(data, "bench_golden_f64.json")) as fh:
+        golden = json.load(fh)["points"][:KB]
+
+    def solve(tree, rdt, kvals, centers=centers_np, n_end=N_END, **kw):
+        f = dict(dtype=rdt, device=dev)
+        cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+        kt = torch.as_tensor(kvals, dtype=cdt if np.iscomplexobj(kvals) else rdt, device=dev)
+        n_k = kt.numel()
+        cen = torch.as_tensor(centers, **f)
+        cen = cen.expand(n_k, nb, 3) if cen.ndim == 2 else cen
+        uin, _ = plane_wave(k=kt, direction=torch.tensor([1.0, 0.0, 0.0], **f)[:, None]
+                            .expand(3, n_k))
+        return biem(tree, centers=cen, radii=torch.ones(n_k, nb, **f), k=kt, n_end=n_end,
+                    uin=uin, **kw)
+
+    def uscat0(calc):
+        return calc.uscat(torch.zeros(3, 1, dtype=calc.radii.dtype, device=dev))[0]
+
+    def against_golden(label, u0, points, tol):
+        for i, g in enumerate(points):
+            ref = complex(*g["uscat0"])
+            err = abs(complex(u0[i]) - ref) / abs(ref)
+            print(f"[7] {label} k={ks[i]:.6f}{IMAG_K if points is golden_ck else 0:+g}j "
+                  f"uscat(0) = {complex(u0[i]):.9f} golden {ref:.9f} rel err {err:.3e}")
+            g_k = g["k"][0] if isinstance(g["k"], list) else g["k"]
+            if abs(g_k - float(ks[i])) > 1e-6 or not err <= tol:
+                raise RuntimeError(f"{label}: uscat(0) at k={ks[i]} off the golden by {err:.2e}")
+
+    # (a) complex k at the bench, complex64, auto: the factored GMRES
+    k_c64 = ks.astype(np.complex64) + np.complex64(1j * IMAG_K)
+    route = _core._route("auto", nb, n_sys, torch.float32, dev, True, False, centers_np)
+    if route != "matfree":
+        raise RuntimeError(f"(a) auto picks {route!r} for the complex64 bench")
+    solve(c, torch.float32, k_c64 - 0.5)  # warm-up: caches and the first complex calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(c, torch.float32, k_c64)
+    u0 = uscat0(calc).cpu().numpy()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    worst = float(calc.relres.max())
+    res_max, res_mean = bc_residual(torch, calc)
+    print(f"[7] (a) bench lattice, k = sweep + {IMAG_K}j, complex64, auto -> factored GMRES: "
+          f"{dt:.3f} s for {KB} k, launches {counts}, GMRES iters {calc.iters.tolist()}, max "
+          f"relres {worst:.3e}, BC residual max {res_max:.3e} mean {res_mean:.3e}, peak device "
+          f"memory {peak:.3f} GiB ({card})")
+    require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
+                              "coax_fold", "fused_ba_eval_few"), "(a)")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5 or not res_max <= 1e-3:
+        raise RuntimeError(f"(a) relres {worst:.3e} or BC residual {res_max:.3e} off its gate")
+    against_golden("(a)", u0, golden_ck, 1e-3)
+    again = solve(c, torch.float32, k_c64)
+    same = torch.equal(torch.view_as_real(again.density), torch.view_as_real(calc.density)) and \
+        np.array_equal(uscat0(again).cpu().numpy(), u0)
+    print(f"[7] (a) repeated solve bit-for-bit equal: {same}")
+    if not same:
+        raise RuntimeError("(a) the repeated complex-k solve differs")
+    del again
+    stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
+              (_core, "coax_fold_packed", "K2 (with its K5)"), (_core, "gmres_solve_op", "solve"),
+              (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+    acc, total = split_stages(torch, lambda: uscat0(solve(c, torch.float32, k_c64)), stages)
+    print(f"[7] (a) stage split, s per k (synchronising timers, {KB} k): "
+          f"{format_split(acc, total, [label for _, _, label in stages], KB)} ({card})")
+    # KA's many-point mode with a complex k, on (a)'s first density
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(3, EVAL_POINTS)) * 20.0, **f32)
+    cen = torch.as_tensor(centers_np, **f32)
+    from biem_helmholtz_sphere_tpu_torch.biem._layer import blc
+    k1 = calc.k.reshape(-1)[:1].contiguous()
+    w2 = regroup(c, N_END, calc.density.reshape(KB, nb, -1)[:1]
+                 * blc(c, N_END, k1[:, None], torch.ones(1, nb, **f32),
+                       torch.ones(1, 1, **f32)))
+    outside = (torch.linalg.vector_norm(x[:, :, None] - cen.T[:, None, :], dim=0) > 1.0).all(-1)
+    xk = x[:, None, :]
+    got = fused_ba_eval(xk, cen, k1, w2)
+    ea, er = rel_err(torch, got[outside], _fused_ba_eval_plain(xk, cen, k1, w2, False, False)[
+        outside])
+    if not same_bits(torch, fused_ba_eval(xk, cen, k1, w2), got):
+        raise RuntimeError("(a) KA with a complex k: two launches differ")
+    ms = cuda_ms(torch, lambda: fused_ba_eval(xk, cen, k1, w2), 10)
+    pms = cuda_ms(torch, lambda: _fused_ba_eval_plain(xk, cen, k1, w2, False, False), 3)
+    n_m = 2 * N_END - 1
+    b = bound(3 * EVAL_POINTS * 4 + 4 * nb * 4 + w2.numel() * 8 + EVAL_POINTS * 8,
+              EVAL_POINTS * nb * (30 + 30 * N_END + 13 * N_END * N_END + 10 * n_m), "complex64")
+    print(f"[7] (a) fused_ba_eval many-point, complex k, {EVAL_POINTS} pts x 1 k complex64: "
+          f"max_abs_err {ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
+          f"bound {b[0]:.6f} ms ({b[1]}) ({card})")
+    if er > TOL_REL["complex64"]:
+        raise RuntimeError(f"(a) KA with a complex k: rel err {er:.3e}")
+    # and its few-point mode as uscat(0) runs it: 1 point x 4 complex k
+    ka = calc.k.reshape(-1).contiguous()
+    w2f = regroup(c, N_END, calc.density.reshape(KB, nb, -1)
+                  * blc(c, N_END, ka[:, None], torch.ones(KB, nb, **f32), torch.ones(KB, 1, **f32)))
+    zero = torch.zeros((3, 1, 1), **f32)
+    got = fused_ba_eval(zero, cen, ka, w2f)
+    ea, er = rel_err(torch, got, _fused_ba_eval_plain(zero, cen, ka, w2f, False, False))
+    if not same_bits(torch, fused_ba_eval(zero, cen, ka, w2f), got) or er > TOL_REL["complex64"]:
+        raise RuntimeError(f"(a) KA few-point with a complex k: rel err {er:.3e} or a repeat differs")
+    ms = cuda_ms(torch, lambda: fused_ba_eval(zero, cen, ka, w2f), 20)
+    pms = cuda_ms(torch, lambda: _fused_ba_eval_plain(zero, cen, ka, w2f, False, False), 5)
+    b = bound(3 * 4 + 4 * nb * 4 + w2f.numel() * 8 + KB * 8,
+              KB * nb * (30 + 30 * N_END + 13 * N_END * N_END + 10 * n_m), "complex64")
+    print(f"[7] (a) fused_ba_eval few-point, complex k, 1 pt x {KB} k complex64: max_abs_err "
+          f"{ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+          f"{b[0]:.6f} ms ({b[1]}) ({card})")
+    del calc
+    torch.cuda.empty_cache()
+
+    # (b) complex128 on its default route: the offset table, stable=False
+    k_c128 = ks.astype(np.float64) + 1j * IMAG_K
+    route = _core._route("auto", nb, n_sys, torch.float64, dev, True, False, centers_np)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(c, torch.float64, k_c128)
+    u0 = uscat0(calc).cpu().numpy()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    worst = float(calc.relres.max())
+    print(f"[7] (b) the same in complex128, auto -> {route!r} (offset table): {dt:.3f} s for "
+          f"{KB} k, launches {counts}, GMRES iters {calc.iters.tolist()}, max relres "
+          f"{worst:.3e} ({card})")
+    require_launched(counts, ("lane_gather", "lane_scatter", "spherical_jh", "coax_fold",
+                              "fused_ba_eval_few"), "(b)")
+    if route != "matfree" or counts["block_diag_cmm"] != 0:
+        raise RuntimeError("(b) the complex128 default route is not the offset table")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 1e-11:
+        raise RuntimeError(f"(b) relres {worst:.3e} > 1e-11")
+    against_golden("(b)", u0, golden_ck, 1e-7)
+    del calc
+    torch.cuda.empty_cache()
+
+    # (c) 'bpa' at the bench, complex64, auto (factored), two k-blocks with
+    # a warm start, then the general evaluation at EVAL_POINTS points
+    ks8 = sweep_ks()[: 2 * KB]
+    solve(c_bp, torch.float32, ks8[:KB] - 0.5)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    dens, runs = None, []
+    for i0 in range(0, 2 * KB, KB):
+        calc = solve(c_bp, torch.float32, ks8[i0 : i0 + KB], density0=dens)
+        dens = calc.density[KB - 1]
+        runs.append((calc, uscat0(calc).cpu().numpy()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    worst = max(float(r[0].relres.max()) for r in runs)
+    res_max, res_mean = bc_residual(torch, runs[0][0])
+    print(f"[7] (c) 'bpa' bench lattice, complex64, auto -> factored GMRES, 2 blocks of {KB} k "
+          f"(warm starts): {dt:.3f} s, launches {counts}, GMRES iters "
+          f"{[r[0].iters.tolist() for r in runs]}, max relres {worst:.3e}, BC residual max "
+          f"{res_max:.3e} mean {res_mean:.3e} ({card})")
+    require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
+                              "coax_fold"), "(c)")
+    if counts["fused_ba_eval"] or counts["fused_ba_eval_few"]:
+        raise RuntimeError("(c) the 'bpa' evaluation launched the 'ba' kernel")
+    if worst > 3e-5 or not res_max <= 1e-3:
+        raise RuntimeError(f"(c) relres {worst:.3e} or BC residual {res_max:.3e} off its gate")
+    against_golden("(c) 'bpa' against the 'ba' golden:", runs[0][1], golden, 1e-3)
+    del runs, calc, dens
+    torch.cuda.empty_cache()
+    calc_bp = solve(c_bp, torch.float32, np.array([K0], np.float32))
+    calc_ba = solve(c, torch.float32, np.array([K0], np.float32))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    u_gen = calc_bp.uscat(x)
+    torch.cuda.synchronize()
+    counts = read()
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    u_ka = calc_ba.uscat(x)
+    keep = outside[:, None]
+    diff = float((u_gen - u_ka).abs()[keep].max() / u_ka.abs()[keep].max())
+    times = {}
+    for label, cc in (("general", calc_bp), ("KA", calc_ba)):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cc.uscat(x)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        times[label] = best
+    h = N_END * N_END
+    b = bound(3 * EVAL_POINTS * 4 + nb * h * 8 + EVAL_POINTS * 8,
+              EVAL_POINTS * nb * (h * 20 + 15 * N_END), "complex64")
+    print(f"[7] (c) general evaluation ('bpa', plain torch, chunked) at {EVAL_POINTS} points, 1 k: "
+          f"{times['general']:.6f} s ({EVAL_POINTS / times['general']:.1f} pts/s), K5 launches "
+          f"{counts['spherical_jh']}, peak device memory above its inputs {peak:.3f} GiB; KA "
+          f"('ba') {times['KA']:.6f} s ({EVAL_POINTS / times['KA']:.1f} pts/s); rel diff of the "
+          f"two fields outside the spheres {diff:.3e}; bound {b[0]:.6f} ms ({b[1]}) ({card})")
+    require_launched(counts, ("spherical_jh",), "(c) general evaluation")
+    if not bool(torch.isfinite(u_gen[keep]).all()) or not diff <= 1e-3:
+        raise RuntimeError(f"(c) the general evaluation is off KA's field by {diff:.3e}")
+    del calc_bp, calc_ba, u_gen, u_ka
+    torch.cuda.empty_cache()
+
+    # (d) geometry along the batch: four pitches of the 4x4 lattice in one
+    # call, n_end = N_END_LU, complex64, k = K0, auto (the LU tier)
+    geo = np.stack([lattice_centers(spacing=s) for s in PITCHES])
+    n_lu = nb * N_END_LU * N_END_LU
+    kk = np.full(len(PITCHES), K0, np.float32)
+    route = _core._route("auto", nb, n_lu, torch.float32, dev, True, False, geo)
+    if route != "lu":
+        raise RuntimeError(f"(d) auto picks {route!r} for geometry along the batch")
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(c, torch.float32, kk, centers=geo, n_end=N_END_LU)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    require_launched(counts, ("dense_assemble", "spherical_jh", "coax_fold"), "(d)")
+    if calc.relres is not None or calc.matrix is None:
+        raise RuntimeError("(d) geometry along the batch did not take the direct LU")
+    errs = []
+    for i in range(len(PITCHES)):
+        one = solve(c, torch.float32, kk[:1], centers=geo[i], n_end=N_END_LU)
+        errs.append(float((calc.density[i] - one.density[0]).abs().max()
+                          / one.density[0].abs().max()))
+    print(f"[7] (d) {len(PITCHES)} lattices of pitch {PITCHES} in one call, n_end={N_END_LU} "
+          f"({n_lu} unknowns each), complex64, auto -> LU: {dt:.3f} s, launches {counts}; each "
+          f"against its geometry alone: rel err {[f'{e:.2e}' for e in errs]} ({card})")
+    if not max(errs) <= 1e-4:
+        raise RuntimeError(f"(d) a member is off its geometry alone by {max(errs):.3e}")
+    del calc
+    torch.cuda.empty_cache()
+    f = dict(dtype=torch.float32, device=dev)
+    n4 = len(PITCHES)
+    parts = _core._assembly_parts(
+        c, N_END_LU, geo, torch.ones(n4, nb, **f), torch.as_tensor(kk, **f), torch.ones(n4, **f),
+        torch.ones(n4, nb, dtype=torch.complex64, device=dev),
+        torch.zeros(n4, nb, dtype=torch.complex64, device=dev), stable=True)
+    got = dense_assemble(*parts)
+    if not torch.equal(dense_assemble(*parts), got):
+        raise RuntimeError("(d) KD per k: two launches differ")
+    same, ea, top = equal_by_k(torch, got, _dense_assemble_plain(*parts, False))
+    del got
+    ms = cuda_ms(torch, lambda: dense_assemble(*parts), 10)
+    pms = cuda_ms(torch, lambda: _dense_assemble_plain(*parts, False), 3)
+    table, h_kd = parts[0], parts[0].shape[-1]
+    b = bound(n4 * nb * nb * h_kd * h_kd * 8 + table.numel() * 8 + 3 * n4 * nb * h_kd * 8
+              + h_kd * 4 + n4 * nb * nb * 12, 12 * n4 * nb * (nb - 1) * h_kd * h_kd, "complex64")
+    print(f"[7] (d) dense_assemble with a pair map per k, {n4} k x {nb}x{nb} blocks of "
+          f"{h_kd}x{h_kd} from {table.shape[1]} offsets each, complex64: equal to the plain "
+          f"version {same}, max_abs_err {ea:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+          f"{b[0]:.6f} ms ({b[1]}) ({card})")
+    if not same:
+        raise RuntimeError(f"(d) KD per k differs from its plain version ({ea:.3e})")
+    del parts, table
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -1409,6 +1739,7 @@ def main():
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
     matfree_route(torch, dev, card)
+    complex_and_trees(torch, dev, card)
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",

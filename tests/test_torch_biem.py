@@ -176,11 +176,10 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("case", [
-    "triplet", "gumerov", "2d-tree", "c-tree", "bp-tree", "4d-tree",
-    "complex-k", "batch-geometry", "lattice-64",
+    "triplet", "gumerov", "2d-tree", "c-tree", "4d-tree", "lattice-64",
 ])
 def test_unported_routes_raise(case):
-    tree = {"2d-tree": "a", "c-tree": "caa", "bp-tree": "bpa", "4d-tree": "bba"}
+    tree = {"2d-tree": "a", "c-tree": "caa", "4d-tree": "bba"}
     c = create_from_branching_types(tree.get(case, "ba"))
     d = c.c_ndim
     n_balls = {"lattice-64": 64}.get(case, 2)
@@ -193,11 +192,6 @@ def test_unported_routes_raise(case):
     kw = dict(solver="matfree", stable=True)
     if case in ("triplet", "gumerov"):  # the plain dense route's translation
         kw = dict(solver="direct", stable=False, translational_coefficients_method=case)
-    if case == "complex-k":
-        k = torch.tensor(1.0 + 0.1j, dtype=torch.complex128)
-    if case == "batch-geometry":
-        centers = torch.stack([centers, centers + 1.0])
-        k = torch.tensor([1.0, 1.1], **F64)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [89]"):
         biem(c, centers=centers, radii=torch.ones(centers.shape[:-1], **F64), k=k,
              n_end=3, uin=uin, **kw)

@@ -1,0 +1,161 @@
+"""Complex wavenumbers through the port against the JAX package, on the
+CPU in float64 from the same numpy inputs.
+
+The README problem (two sound-soft unit spheres at (0, +-2, 0), n_end=6,
+plane wave along x0) at k = 1 + 0.1j, an absorbing medium, on every route
+of `biem()`: the default direct LU, dense GMRES, the factored and the
+offset-table matrix-free GMRES, and force_matrix, each against the JAX
+package's direct solve (its routes agree with each other to 1e-14 here).
+Compared: uscat(0), uscat at random points outside the spheres (and one
+inside, NaN), the far field and per_ball.
+
+Tolerances: the direct routes solve the same matrix, entry by entry the
+same arithmetic in another order (1e-10 of the largest value); the GMRES
+routes stop at the float64 tolerance 1e-11 of the preconditioned residual
+(1e-8); float32 on the factored route against the JAX package's float64
+(1e-4, as the float32 README golden).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from biem_helmholtz_sphere_tpu import biem as j_biem
+from biem_helmholtz_sphere_tpu import plane_wave as j_plane_wave
+from biem_helmholtz_sphere_tpu import point_source as j_point_source
+from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
+from biem_helmholtz_sphere_tpu.ops.cplx import C
+from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
+from biem_helmholtz_sphere_tpu_torch import biem, plane_wave, point_source
+from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+
+K = 1.0 + 0.1j
+N_END = 6
+CENTERS = np.array([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]])
+DIRECTION = np.array([1.0, 0.0, 0.0])
+F64 = dict(dtype=torch.float64)
+ROUTES = {
+    "lu": {},
+    "gmres": dict(solver="gmres"),
+    "factored": dict(solver="matfree", stable=True),
+    "offset-table": dict(solver="matfree", stable=False),
+    "force-matrix": dict(force_matrix=True),
+}
+TOL = {"lu": 1e-10, "force-matrix": 1e-10, "gmres": 1e-8, "factored": 1e-8,
+       "offset-table": 1e-8}
+
+
+def _points():
+    """Near points: 6 outside both spheres and one inside sphere 0."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 40)) * 3.0
+    r = np.linalg.norm(x[:, :, None] - CENTERS.T[:, None, :], axis=0)
+    x = x[:, (r > 1.05).all(-1)][:, :6]
+    return np.concatenate([x, [[0.2], [2.1], [0.1]]], axis=1)
+
+
+X_NEAR = _points()
+X_FAR = np.random.default_rng(6).normal(size=(3, 4))
+X_FAR /= np.linalg.norm(X_FAR, axis=0)
+
+
+def _ck(k):
+    k = np.asarray(k)
+    return C(np.array(k.real), np.array(k.imag))
+
+
+def _outputs(calc, lib):
+    """(uscat(0), near, far, per_ball) as numpy."""
+    if lib == "jax":
+        def ev(x, **kw):
+            return tonp(calc.uscat(x, **kw))
+    else:
+        def ev(x, **kw):
+            return calc.uscat(torch.tensor(x), **kw).numpy()
+    return (ev(np.zeros((3, 1))), ev(X_NEAR), ev(X_FAR, far_field=True),
+            ev(X_NEAR[:, :3], per_ball=True))
+
+
+def _assert_close(got, ref, tol):
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], ref[~nan], rtol=0,
+                               atol=tol * np.abs(ref[~nan]).max())
+
+
+@pytest.fixture(scope="module")
+def jax_lu():
+    uin, _ = j_plane_wave(k=_ck(K), direction=DIRECTION)
+    calc = j_biem(j_tree("ba"), centers=CENTERS, radii=np.ones(2), k=_ck(K), n_end=N_END,
+                  uin=uin)
+    return _outputs(calc, "jax")
+
+
+def _port(dtype=torch.float64, **kw):
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    uin, _ = plane_wave(k=torch.tensor(K, dtype=cdt),
+                        direction=torch.tensor(DIRECTION, dtype=dtype))
+    return biem(create_from_branching_types("ba"), centers=torch.tensor(CENTERS, dtype=dtype),
+                radii=torch.ones(2, dtype=dtype), k=torch.tensor(K, dtype=cdt), n_end=N_END,
+                uin=uin, **kw)
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_complex_k_route_matches_jax(jax_lu, route):
+    calc = _port(**ROUTES[route])
+    assert calc.k.is_complex() and calc.density.dtype == torch.complex128
+    assert (calc.relres is None) == (route in ("lu", "force-matrix"))
+    assert (calc.matrix is None) == (route in ("factored", "offset-table"))
+    for got, ref in zip(_outputs(calc, "torch"), jax_lu):
+        assert got.shape == ref.shape
+        _assert_close(got, ref, TOL[route])
+
+
+def test_complex_k_golden():
+    """uscat(0) at k = 1 + 0.1j on the default route (a direct LU), the
+    JAX package's value on the CPU in float64."""
+    u = complex(_port().uscat(torch.zeros(3, 1, **F64))[0])
+    assert abs(u - (-0.6537330055594149 - 0.6160661760970538j)) <= 1e-12
+
+
+def test_complex_k_float32_factored(jax_lu):
+    calc = _port(torch.float32, solver="matfree")
+    assert calc.relres is not None and calc.density.dtype == torch.complex64
+    u0 = complex(calc.uscat(torch.zeros(3, 1))[0])
+    ref = complex(jax_lu[0][0])
+    assert abs(u0 - ref) <= 1e-4 * abs(ref)
+
+
+@pytest.mark.parametrize("kind", ["plane-wave", "point-source"])
+def test_incident_fields_with_complex_k(kind):
+    ks = np.array([1.0 + 0.1j, 2.0 + 0.5j])
+    x = np.random.default_rng(7).normal(size=(3, 5, 2)) * 2.0
+    if kind == "plane-wave":
+        v = np.array([[1.0, 0.0], [2.0, 1.0], [0.0, -1.0]])
+        uj, gj = j_plane_wave(k=_ck(ks), direction=v)
+        ut, gt = plane_wave(k=torch.tensor(ks), direction=torch.tensor(v))
+    else:
+        v = np.array([[0.3, 0.0], [0.0, 5.0], [4.0, 0.0]])
+        uj, gj = j_point_source(k=_ck(ks), source=v)
+        ut, gt = point_source(k=torch.tensor(ks), source=torch.tensor(v))
+    for fj, ft in ((uj, ut), (gj, gt)):
+        ref, got = tonp(fj(x)), ft(torch.tensor(x)).numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=0)
+
+
+def test_complex_k_in_a_batch():
+    """k [2, 3] complex (two absorptions x three real parts) over one
+    geometry, centers [1, 1, B, 3]: density and uscat against the JAX
+    package (the default route, a direct LU)."""
+    ks = np.array([[1.0, 1.3, 1.7]]) + 1j * np.array([[0.05], [0.2]])
+    direction = np.broadcast_to(DIRECTION[:, None, None], (3, 2, 3)).copy()
+    centers, radii = CENTERS[None, None], np.ones((1, 1, 2))
+    uj, _ = j_plane_wave(k=_ck(ks), direction=direction)
+    cj = j_biem(j_tree("ba"), centers=centers, radii=radii, k=_ck(ks), n_end=N_END, uin=uj)
+    ut, _ = plane_wave(k=torch.tensor(ks), direction=torch.tensor(direction))
+    ct = biem(create_from_branching_types("ba"), centers=torch.tensor(centers),
+              radii=torch.tensor(radii), k=torch.tensor(ks), n_end=N_END, uin=ut)
+    assert ct.density.shape == (2, 3, 2, N_END * N_END)
+    _assert_close(ct.density.numpy(), tonp(cj.density), 1e-10)
+    _assert_close(ct.uscat(torch.tensor(X_NEAR)).numpy(), tonp(cj.uscat(X_NEAR)), 1e-10)

@@ -328,10 +328,154 @@ def test_small_argument_seeds_use_the_series_on_the_card(cuda):
 
 @pytest.mark.requires_cuda
 def test_spherical_jh_even_dimension_raises_before_launch(cuda):
+    """Even d launches K5's base-2 mode now (the test below holds it to
+    the plain version); a dimension below 2 raises before any launch."""
     n0 = spherical_jh.launches
-    with pytest.raises(NotImplementedError, match="even dimension"):
-        special.spherical_jh_scaled(4, 5, torch.ones(3, dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="dimension must be >= 2"):
+        special.spherical_jh_scaled(1, 5, torch.ones(3, dtype=torch.complex64, device=cuda))
     assert spherical_jh.launches == n0
+    special.spherical_jh_scaled(4, 5, torch.ones(3, dtype=torch.complex64, device=cuda))
+    assert spherical_jh.launches == n0 + 1
+
+
+# |z| on both sides of the cylinder seeds' seam at 14, Im z up to 1, small
+# |z| and z = 0.5 (h_n past the float32 overflow wall at the higher orders)
+_Z2 = np.concatenate([np.geomspace(1e-2, 60.0, 21), [13.5, 13.99, 14.01, 14.5],
+                      [13.9 + 1.0j, 14.1 + 0.5j, 5.0 + 1.0j, 30.0 + 0.3j, 0.5]])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("d", [2, 4, 6])
+def test_spherical_jh_base2_kernel_matches_plain(cuda, dtype, d):
+    """K5's base-2 (even d) mode against the plain versions on the card:
+    scaled, h alone and unscaled, n_end 1 to 64, both sides of the seam;
+    two launches are bit for bit equal.  Tolerances as the odd-d test's
+    (both versions take the cylinder seeds in float64)."""
+    z = torch.as_tensor(_Z2, dtype=dtype, device=cuda).reshape(-1, 1)
+    tol = _tol(dtype)
+    names = ("j", "jp", "h", "hp")
+    zu = torch.cat([torch.zeros(1, dtype=dtype, device=cuda), z.reshape(-1)])
+    zu_far = torch.cat([zu[:1], zu[zu.abs() >= 20.0]])
+    for n_end in (1, 2, 16, 31, 32, 33, 64):
+        got = spherical_jh(_SCALED, d, n_end, z)
+        ref = _spherical_jh_scaled_plain(d, n_end, z)
+        for name, g, r in zip(names, got, ref):
+            assert _scaled_rel(g, r, _keep(d, name, z, n_end)) < tol, (n_end, name)
+        assert _same_bits(spherical_jh(_SCALED, d, n_end, z), got)
+        n_h = 2 * n_end - 1
+        keep_h = torch.ones(z.shape + (n_h,), dtype=torch.bool, device=cuda)
+        if dtype == torch.complex64 and n_h > 81:
+            keep_h &= (z.abs() >= 0.03)[..., None]
+        got = spherical_jh(_H_ONLY, d, n_h, z)
+        assert _scaled_rel(got, _spherical_h_scaled_plain(d, n_h, z), keep_h) < tol, n_end
+        zz = zu if n_end <= 16 else zu_far
+        got = spherical_jh(_UNSCALED, d, n_end, zz)
+        for name, g, r in zip(names, got, _spherical_jh_all_plain(d, n_end, zz)):
+            keep = _keep(d, name, zz, n_end)
+            keep[0] = True
+            assert _unscaled_rel(g, r, keep) < tol, (n_end, name)
+        assert _same_bits(spherical_jh(_UNSCALED, d, n_end, zz), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n_pts", [1, 131072])
+def test_fused_ba_eval_complex_k_and_per_k_centers(cuda, dtype, n_pts):
+    """KA with a complex k and each k's own centers (the lattice at four
+    pitches) in both modes, near, far and per ball, against the plain
+    version; two launches are bitwise equal."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    rng = np.random.default_rng(47)
+    c = create_from_branching_types("ba")
+    n_end, n_k = 32, 4
+    ell = basis(c, n_end).n_root
+    geo = np.stack([_lattice(spacing=s) for s in (4.0, 4.5, 5.0, 5.5)])
+    cen = torch.as_tensor(geo, dtype=rdt, device=cuda)
+    ks = torch.as_tensor(np.linspace(7.0, 8.0, n_k) + 0.1j, dtype=dtype, device=cuda)
+    w2 = regroup(c, n_end, torch.as_tensor(
+        _randc(rng, (n_k, 16, n_end * n_end)) * np.exp(-ell), dtype=dtype, device=cuda))
+    raw = rng.normal(size=(3, n_pts))
+    near = torch.as_tensor(raw * (0.0 if n_pts == 1 else 25.0), dtype=rdt,
+                           device=cuda)[:, None, :]
+    far_x = torch.as_tensor(raw / np.linalg.norm(raw, axis=0), dtype=rdt,
+                            device=cuda)[:, None, :]
+    keep = (torch.linalg.vector_norm(near[:, 0, :, None, None] - cen.permute(2, 0, 1)[:, None],
+                                     dim=0) > 1.0).all(-1)  # [P, K]
+    for far, xx in ((False, near), (True, far_x)):
+        for per_ball in (False, True):
+            got = fused_ba_eval(xx, cen, ks, w2, far=far, per_ball=per_ball)
+            ref = _fused_ba_eval_plain(xx, cen, ks, w2, far, per_ball)
+            m = slice(None) if far else keep
+            assert _rel(got[m], ref[m]) < _tol(dtype), (far, per_ball)
+            assert _same_bits(fused_ba_eval(xx, cen, ks, w2, far=far, per_ball=per_ball), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("pair_major", [True, False])
+def test_dense_assemble_per_k_pid(cuda, dtype, pair_major):
+    """KD with each k's own pair map (two geometries along the batch, the
+    dense route's own arguments, complex k) equals its plain version entry
+    for entry; two launches are bit for bit equal."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=cuda)
+    geo = np.stack([_lattice(), _lattice(spacing=4.5)[::-1]])
+    ks = torch.tensor([1.3 + 0.1j, 2.1 + 0.05j], dtype=dtype, device=cuda)
+    for stable in (True, False):
+        parts = _assembly_parts(
+            create_from_branching_types("ba"), 8, geo, torch.ones(2, 16, **f), ks,
+            torch.ones(2, **f), torch.ones(2, 16, dtype=dtype, device=cuda),
+            torch.zeros(2, 16, dtype=dtype, device=cuda), stable=stable)
+        assert parts[1].shape == (2, 16, 16)
+        got = dense_assemble(*parts, pair_major=pair_major)
+        ref = _dense_assemble_plain(*parts, pair_major)
+        assert bool(torch.isfinite(ref).all()) and torch.equal(got, ref), _rel(got, ref)
+        assert _same_bits(dense_assemble(*parts, pair_major=pair_major), got)
+
+
+def _readme_solve(dev, dtype, k, centers, **kw):
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+
+    f = dict(dtype=dtype, device=dev)
+    kt = torch.as_tensor(k, device=dev)
+    kt = kt.to(torch.complex128 if dtype == torch.float64 else torch.complex64) \
+        if kt.is_complex() else kt.to(dtype)
+    centers = torch.as_tensor(centers, **f)
+    n_k = kt.numel()
+    direction = torch.tensor([1.0, 0.0, 0.0], **f)
+    if kt.ndim:
+        direction = direction[:, None].expand(3, n_k)
+    uin, _ = plane_wave(k=kt, direction=direction)
+    calc = biem(create_from_branching_types("ba"), centers=centers,
+                radii=torch.ones(centers.shape[:-1], **f), k=kt, n_end=8, uin=uin, **kw)
+    return calc.density.cpu(), calc.uscat(torch.zeros(3, 1, **f)).cpu()
+
+
+@pytest.mark.requires_cuda
+def test_complex_k_factored_solve_on_the_card_matches_the_cpu(cuda):
+    """A complex-k solve on the factored route (K5, K2, KB, KC, KA's
+    few-point mode) against the same call on the CPU."""
+    k = np.array([1.0 + 0.1j, 1.5 + 0.2j])
+    centers = np.broadcast_to(_lattice(2, 4.0), (2, 4, 3)).copy()
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        got = _readme_solve(cuda, dtype, k, centers, solver="matfree", stable=True)
+        ref = _readme_solve(torch.device("cpu"), dtype, k, centers, solver="matfree",
+                            stable=True)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < tol
+
+
+@pytest.mark.requires_cuda
+def test_batch_geometry_lu_solve_on_the_card_matches_the_cpu(cuda):
+    """Geometry along the batch (two pitches) on the LU route (KD per k)
+    against the same call on the CPU."""
+    centers = np.stack([_lattice(2, 4.0), _lattice(2, 5.0)])
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        got = _readme_solve(cuda, dtype, np.array([1.2, 1.4]), centers)
+        ref = _readme_solve(torch.device("cpu"), dtype, np.array([1.2, 1.4]), centers)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < tol
 
 
 def _coax_inputs(cuda, rdt, n_end, ks, r):

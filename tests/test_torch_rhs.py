@@ -168,8 +168,13 @@ def test_shn1_sjn_match_jax(n, d):
 
 
 def test_point_source_raises_on_complex_k_and_bad_shapes():
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        point_source(k=torch.tensor(1.0 + 0.1j), source=torch.zeros(3, **F64))
+    """Complex k is ported, so it no longer raises: h_0(k r) = -i e^{ikr}/(kr)
+    at r = 3; bad shapes raise."""
+    k = 1.0 + 0.1j
+    uin, _ = point_source(k=torch.tensor(k, dtype=torch.complex128),
+                          source=torch.tensor([0.0, 0.0, 3.0], **F64))
+    u = complex(uin(torch.zeros(3, 1, **F64))[0])
+    assert abs(u - (-1j) * np.exp(3j * k) / (3 * k)) <= 1e-14
     with pytest.raises(ValueError, match="source.ndim"):
         point_source(k=torch.tensor([1.0, 2.0], **F64), source=torch.zeros(3, **F64))
     with pytest.raises(ValueError, match="not broadcastable"):

@@ -144,8 +144,13 @@ def test_small_argument_seeds_use_the_series():
 
 
 def test_even_dimension_raises():
-    with pytest.raises(NotImplementedError, match="even dimension"):
-        special.spherical_jh_scaled(4, 5, _t(Z))
+    """Even d is ported (the base-2 family; tests/test_torch_even_d.py holds
+    it to the JAX package), so it no longer raises; a dimension below 2
+    still does."""
+    with pytest.raises(ValueError, match="dimension must be >= 2"):
+        special.spherical_jh_scaled(1, 5, _t(Z))
+    for mant, e in special.spherical_jh_scaled(4, 5, _t(Z)):
+        assert bool(torch.isfinite(mant).all()) and bool(torch.isfinite(e).all())
 
 
 def test_port_imports_without_jax():

@@ -5,12 +5,15 @@ Solves the bench configuration (bench.py: "ba" tree, 16 unit spheres on a
 package on the CPU in float64, on the factored matrix-free route
 (solver="matfree", stable=True, GMRES tol 1e-11), for the first k-block
 of the bench sweep: the first KB points of linspace(7, 9, 100) cast to
-float32.  Each k is solved on its own to bound peak memory.
+float32, plus --imag times i (an absorbing medium; default 0).  Each k is
+solved on its own to bound peak memory.
 
-Writes biem_helmholtz_sphere_tpu_torch/data/bench_golden_f64.json, which
-chip_smoke.py reads: the card has no JAX.
+Writes biem_helmholtz_sphere_tpu_torch/data/bench_golden_f64.json (real
+k), or bench_golden_complexk_f64.json with --imag (chip_smoke.py phase 7
+uses 0.1), which chip_smoke.py reads: the card has no JAX.
 
     python tools/torch_golden_from_jax.py [--n-k 4]
+    python tools/torch_golden_from_jax.py --imag 0.1
 """
 
 import argparse
@@ -23,9 +26,7 @@ import time
 import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-OUT = os.path.join(
-    ROOT, "biem_helmholtz_sphere_tpu_torch", "data", "bench_golden_f64.json"
-)
+DATA = os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data")
 N_END = 32
 N_SIDE = 4
 SPACING = 4.0
@@ -44,8 +45,11 @@ def lattice_centers(n_side, spacing, d=3):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-k", type=int, default=4)
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--imag", type=float, default=0.0, help="Im k of every point")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    out_path = args.out or os.path.join(
+        DATA, "bench_golden_complexk_f64.json" if args.imag else "bench_golden_f64.json")
 
     import jax
 
@@ -54,6 +58,7 @@ def main():
     sys.path.insert(0, ROOT)
     from biem_helmholtz_sphere_tpu import biem, plane_wave
     from biem_helmholtz_sphere_tpu.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu.ops.cplx import C
 
     c = create_from_branching_types("ba")
     centers = lattice_centers(N_SIDE, SPACING)
@@ -62,6 +67,8 @@ def main():
     rows = []
     for kf in ks:
         k = np.asarray(float(kf))
+        if args.imag:
+            k = C(k, np.asarray(args.imag))
         uin, _ = plane_wave(k=k, direction=np.asarray([1.0, 0.0, 0.0]))
         t0 = time.perf_counter()
         calc = biem(
@@ -71,13 +78,13 @@ def main():
         u0 = complex(calc.uscat(np.zeros((3, 1))).to_numpy().ravel()[0])
         dt = time.perf_counter() - t0
         rows.append({
-            "k": float(kf),
+            "k": [float(kf), args.imag] if args.imag else float(kf),
             "uscat0": [u0.real, u0.imag],
             "relres": float(np.asarray(calc.relres)),
             "iters": int(np.asarray(calc.iters)),
         })
         peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        print(f"k={kf:.9g} uscat(0)={u0:.12g} relres={rows[-1]['relres']:.2e} "
+        print(f"k={kf:.9g}{args.imag:+g}j uscat(0)={u0:.12g} relres={rows[-1]['relres']:.2e} "
               f"iters={rows[-1]['iters']} {dt:.1f}s peak_rss={peak:.2f}GiB",
               flush=True)
     out = {
@@ -87,14 +94,15 @@ def main():
             "spacing": SPACING, "radius": 1.0, "direction": [1.0, 0.0, 0.0],
             "solver": "matfree", "stable": True, "gmres_tol": 1e-11,
             "k_sweep": "linspace(7, 9, 100) as float32, first points",
+            "imag_k": args.imag,
         },
         "points": rows,
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
-    print("wrote", args.out)
+    print("wrote", out_path)
 
 
 if __name__ == "__main__":

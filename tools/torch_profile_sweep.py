@@ -11,7 +11,9 @@ warm starts) once to warm up and once under torch.profiler, then prints:
 - the card's name and power limit;
 - the wall time of the profiled sweep and the device's busy time (the
   union of the intervals in which any kernel ran), hence its idle share;
-- the device time of each kernel name, largest first, with its count;
+- the device time of each kernel name, largest first, with its count, and
+  that of the port's own kernels (csrc/), found by their CUDA names among
+  the profiler's device events;
 - the device time per launch of KB's three products (D^H, X, D) on the
   bench routing's compacted lanes, of KA in both of its modes (131,072
   points x 1 k, and 1 point x 4 k as uscat(0) runs it), of K5's three
@@ -22,7 +24,12 @@ warm starts) once to warm up and once under torch.profiler, then prints:
   point-source right-hand side's 137,280 points (chip_smoke.py phase 6
   (c)), and of KD for a k-block as chip_smoke.py phase 2 runs it
   (complex64 pair-major at n_end=32, complex128 [B, H, B', H'] at
-  n_end=19, 5 launches each);
+  n_end=19, 5 launches each), and the modes chip_smoke.py phase 7 adds:
+  KA with a complex k in both modes, KD with a pair map per k (four
+  lattice pitches at n_end=19) and K5's base-2 (even d) mode at the 4D
+  route's shapes (d = 4, n_end = 20); and, over all their kernels, the
+  plain-torch stages it adds: the general field evaluation ('bpa', 131,072
+  points, 1 k) and the cylinder seeds `cyl_jh01` (4 x 16 arguments);
 - the host microseconds per call of the K5 wrapper in its three modes and
   of the KC gather and K2 wrappers at the same shapes, with a
   `torch.empty` and the stream queries beside them (only these with
@@ -52,13 +59,45 @@ def _device_time(evt):
     return 0.0
 
 
+# the __global__ functions of csrc/*.cu, as their CUDA names contain them
+PORT_KERNELS = ("fused_ba_eval_kernel", "fused_ba_eval_few_kernel", "block_diag_cmm_kernel",
+                "lane_gather_kernel", "lane_scatter_kernel", "spherical_jh_kernel",
+                "coax_fold_kernel", "dense_assemble_kernel")
+
+
+def _device_events(prof):
+    return [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def _port_kernel_name(name):
+    """The port kernel's instance (name and template arguments) a device
+    event's CUDA name holds, or None."""
+    for k in PORT_KERNELS:
+        i = name.find(k + "<")
+        if i < 0:
+            i = name.find(k + "(")
+        if i >= 0:
+            j = name.find("(", i)
+            return name[i : j if j > 0 else len(name)]
+    return None
+
+
+def _port_kernel_rows(prof):
+    """{instance: (total us, launches)} of the port's kernels among the
+    device events (not `key_averages()`, whose keys may be the host ops
+    that launched them)."""
+    rows = {}
+    for e in _device_events(prof):
+        key = _port_kernel_name(e.name)
+        if key is not None:
+            t, n = rows.get(key, (0.0, 0))
+            rows[key] = (t + e.time_range.end - e.time_range.start, n + 1)
+    return rows
+
+
 def _busy_us(prof):
     """Union of the device kernels' intervals, in microseconds."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if str(getattr(e, "device_type", "")).endswith("CUDA")
-    )
+    spans = sorted((e.time_range.start, e.time_range.end) for e in _device_events(prof))
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -82,8 +121,49 @@ def _per_launch_us(torch, fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, _device_time(e)) for e in prof.key_averages()]
-    return sum(t for key, t in rows if "(anonymous namespace)::" in key) / reps
+    return sum(t for t, _ in _port_kernel_rows(prof).values()) / reps
+
+
+def _all_device_us(torch, fn, reps=3):
+    """Device microseconds per call of fn(), over every kernel it runs (a
+    stage in plain torch launches many)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in _device_events(prof)) / reps
+
+
+def plain_stage_device_times(torch, dev):
+    """The plain-torch stages phase 7 adds, each alone: the general field
+    evaluation ('bpa', 131,072 points, 1 k, at the bench) and the cylinder
+    seeds of K5's base-2 mode (cyl_jh01 at 4 k x 16 arguments)."""
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.special._cyl import cyl_jh01
+    from chip_smoke import EVAL_POINTS, K0, KB, N_END, lattice_centers
+
+    f = dict(dtype=torch.float32, device=dev)
+    centers = torch.as_tensor(lattice_centers(), **f)
+    k = torch.tensor(K0, **f)
+    uin, _ = plane_wave(k=k, direction=torch.tensor([1.0, 0.0, 0.0], **f))
+    calc = biem(create_from_branching_types("bpa"), centers=centers,
+                radii=torch.ones(len(centers), **f), k=k, n_end=N_END, uin=uin)
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(3, EVAL_POINTS)) * 20.0, **f)
+    z = (torch.linspace(7.0, 7.06, KB, **f)[:, None] * torch.ones(len(centers), **f)).to(
+        torch.complex64)
+    return {
+        f"general evaluation ('bpa', plain torch) {EVAL_POINTS} pts x 1 k, all its kernels":
+            _all_device_us(torch, lambda: calc.uscat(x)),
+        f"cyl_jh01 (plain torch) {KB} x {len(centers)} complex64, all its kernels":
+            _all_device_us(torch, lambda: cyl_jh01(z), 10),
+    }
 
 
 def kernel_device_times(torch, dev):
@@ -107,9 +187,10 @@ def kernel_device_times(torch, dev):
         _child_state_blocks, coax_fold)
     from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
     from biem_helmholtz_sphere_tpu_torch.harmonics._expand import _quad_harmonics
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _assembly_parts
     from chip_smoke import (
-        EVAL_POINTS, KB, N_END, N_END_LU, SOURCE, coax_args, coax_zero_args, dense_parts,
-        lattice_centers)
+        EVAL_POINTS, KB, N_END, N_END_4D, N_END_LU, PITCHES, SOURCE, coax_args, coax_zero_args,
+        dense_parts, lattice_centers)
 
     c = create_from_branching_types("ba")
     h = N_END * N_END
@@ -171,7 +252,33 @@ def kernel_device_times(torch, dev):
             torch, lambda: dense_assemble(*parts, pair_major=pair_major), 5)
         del parts
         torch.cuda.empty_cache()
-    return kd | {
+    # chip_smoke.py phase 7's kernel modes
+    ck1 = (k1 + 0.1j).to(cdt)
+    ck4 = (k4 + 0.1j).to(cdt)
+    geo = torch.as_tensor(np.stack([lattice_centers(spacing=p) for p in PITCHES]), dtype=rdt,
+                          device=dev)
+    kd_parts = _assembly_parts(
+        c, N_END_LU, geo.cpu().double().numpy(), torch.ones(KB, nb, dtype=rdt, device=dev),
+        torch.full((KB,), 8.0, dtype=rdt, device=dev), torch.ones(KB, dtype=rdt, device=dev),
+        torch.ones(KB, nb, dtype=cdt, device=dev), torch.zeros(KB, nb, dtype=cdt, device=dev),
+        stable=True)
+    phase7 = {
+        f"fused_ba_eval {EVAL_POINTS} pts x 1 k, complex k": _per_launch_us(
+            torch, lambda: fused_ba_eval(pts, cen, ck1, w1), 5),
+        f"fused_ba_eval 1 pt x {KB} k, complex k, a geometry per k": _per_launch_us(
+            torch, lambda: fused_ba_eval(zero, geo, ck4, w4)),
+        f"dense_assemble a pair map per k, {KB} pitches x {nb}x{nb} blocks n_end {N_END_LU} "
+        "complex64": _per_launch_us(torch, lambda: dense_assemble(*kd_parts), 5),
+        f"spherical_jh base 2 (d = 4) h only {KB} k x {n_rad} distances x {2 * N_END_4D - 1}":
+            _per_launch_us(torch, lambda: spherical_jh(_H_ONLY, 4, 2 * N_END_4D - 1, z_coax)),
+        f"spherical_jh base 2 (d = 4) scaled {KB} k x {nb} radii x {N_END_4D}":
+            _per_launch_us(torch, lambda: spherical_jh(_SCALED, 4, N_END_4D, z_rows)),
+        f"spherical_jh base 2 (d = 4) unscaled {KB} k x {nb} radii x {N_END_4D}":
+            _per_launch_us(torch, lambda: spherical_jh(_UNSCALED, 4, N_END_4D, z_rows)),
+    }
+    del kd_parts
+    torch.cuda.empty_cache()
+    return kd | phase7 | {
         "block_diag_cmm D^H": _per_launch_us(
             torch, lambda: block_diag_cmm(d_bd, lanes, d_seg, adjoint=True)),
         "block_diag_cmm X": _per_launch_us(torch, lambda: block_diag_cmm(x_bd, lanes, x_seg)),
@@ -296,12 +403,15 @@ def main():
     print("device time by name (ms total, count, us per call):")
     for key, t_us, n in rows[:25]:
         print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
-    print("the port's own kernels (csrc/):")
-    for key, t_us, n in rows:
-        if "(anonymous namespace)::" in key:
-            print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
+    print("the port's own kernels (csrc/), by their CUDA names among the device events:")
+    port = sorted(_port_kernel_rows(prof).items(), key=lambda r: -r[1][0])
+    if not port:
+        raise RuntimeError("no device event of the sweep names a kernel of csrc/")
+    for key, (t_us, n) in port:
+        print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
     print("each alone, device us per launch (bench widths, complex64):")
-    for label, us in kernel_device_times(torch, dev).items():
+    for label, us in (kernel_device_times(torch, dev) | plain_stage_device_times(torch, dev)
+                      ).items():
         print(f"  {us:9.2f} us  {label}")
     _print_host_times(torch, dev)
     return 0
