@@ -33,9 +33,10 @@ The right-hand side is the closed form of a `plane_wave`, or the
 quadrature projection of any other incident field (`_rhs_expansion`).
 k may be complex.  Geometry that varies along the batch is never
 matrix-free (as in the JAX package): the dense routes build each k's own
-offset table and KD gathers it with that k's pair map.  The lattice-FFT
-route and trees other than the 3D 'b'/'bp'-rooted ones raise
-NotImplementedError naming their ROADMAP item.
+offset table and KD gathers it with that k's pair map.  Every dimension
+d >= 3 takes the same routes for a tree rooted at a 'b' or 'bp' node.  The
+lattice-FFT route, 2D and trees with a 'c' node raise NotImplementedError
+naming their ROADMAP item.
 """
 
 import warnings
@@ -726,8 +727,9 @@ def biem(
     is shared by the batch); complex outputs are native torch complex
     tensors on the device of the input tensors; with no tensor input
     (numpy or Python numbers) the solve runs on the card, and raises where
-    CUDA is absent.  Ported for 3D 'b'- and 'bp'-rooted trees, real or
-    complex k, and geometry shared by the batch or varying along it:
+    CUDA is absent.  Ported for 'b'- and 'bp'-rooted trees in any d >= 3
+    (ba, bpa, bba, bpbpa, bbba, ...), real or complex k, and geometry
+    shared by the batch or varying along it:
 
     * solver="auto" picks the JAX package's route (`_route`): the diagonal
       solve for one sphere; LU up to 6144 unknowns on the card (12288 on
@@ -752,8 +754,8 @@ def biem(
 
     relres/iters are the GMRES diagnostics (None on the direct routes);
     density0 warm-starts GMRES.  The lattice-FFT route (B >= 64) and other
-    trees (2D, d >= 4, 'c' nodes) raise NotImplementedError naming their
-    ROADMAP item.
+    trees (2D, 'c' nodes) raise NotImplementedError naming their ROADMAP
+    item.
 
     The reference README problem (two sound-soft unit spheres at
     (0, +-2, 0), k=1, plane wave along x0), on the default route, a direct
@@ -782,14 +784,10 @@ def biem(
     )
     if stable is None:
         stable = rdt == torch.float32
-    if c.c_ndim != 3 or c.root.kind not in ("b", "bp"):
-        why = ""
-        if c.c_ndim > 3 and c.root.kind in ("b", "bp"):
-            why = (": in d >= 4 KB needs row panels for degree blocks beyond shared "
-                   "memory and K3 per-slot harmonics")
+    if c.c_ndim < 3 or c.root.kind not in ("b", "bp"):
         raise NotImplementedError(
-            f"only 3D 'b'/'bp'-rooted trees are ported (got "
-            f"{c.branching_types_expression_str!r}); {_TREES}{why}"
+            f"only 'b'/'bp'-rooted trees in d >= 3 are ported (got "
+            f"{c.branching_types_expression_str!r}); {_TREES}"
         )
     n_balls = radii.shape[-1]
     h_num = basis(c, n_end).num

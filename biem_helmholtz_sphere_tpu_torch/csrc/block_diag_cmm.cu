@@ -45,6 +45,15 @@
 // - Each output entry has one writer and sums j in order in one thread:
 //   no atomics, so repeated sweeps are bit-for-bit equal.  FP32 (FP64)
 //   FMA on the CUDA cores; no tensor cores, no TF32.
+// - Row panels (d >= 4): a degree block of D too large to stage whole
+//   with two lanes (400 x 400 at 4D n_end=20, 1.28 MB in complex64) gets
+//   items that each cover rows [r0, r1) of op(A) x a chunk of at most 64
+//   lanes, with at most one register tile per thread.  Such an item is
+//   staged column panel by column panel (min(g, buf / (rp + Qp)) columns
+//   each) through the same double buffer, and each thread carries its
+//   tile's sums across the panels: the K-loop of a GEMM.  The sum over j
+//   still runs in ascending order in one thread, whatever the panel
+//   sizes, so the result is the one a whole-block stage would give.
 // What holds it back (H100, bench shapes): the element-wise staging (X's
 // slices gathered through perm) and the per-item overheads, not the inner
 // loop: halving every block's j loop cuts a product by ~1/6 only
@@ -57,18 +66,44 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowTile = 4;   // = ops/block_diag.py _ROW_TILE
 constexpr int kLaneTile = 2;  // = ops/block_diag.py _LANE_TILE
-constexpr int kItem = 9;      // = ops/block_diag.py ITEM_FIELDS
+constexpr int kItem = 11;     // = ops/block_diag.py ITEM_FIELDS
 
+// rows [r0, min(r1, g)) of each block b0 .. b1 of matrix `mat`, item lanes
+// [q0, q1) of the nk * nl lanes of the segment at lane0
 struct Item {
-  int mat, k0, nk, lane0, nl, b0, b1, q0, q1;
+  int mat, k0, nk, lane0, nl, b0, b1, q0, q1, r0, r1;
 };
 
 __device__ __forceinline__ Item load_item(const int* __restrict__ items, int i) {
   const int* p = items + (size_t)i * kItem;
-  return Item{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8]};
+  return Item{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10]};
 }
 
 __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// The shape of block b's stage in column panel p (= ops/block_diag.py
+// item_stages): rows of op(A) and their padding, the columns of a full
+// panel, and this panel's first column and column count.
+struct Panel {
+  int g, rows, rp, cw, c0, cols;
+};
+
+__device__ __forceinline__ Panel panel_of(const Item& it, int g, int p, int buf) {
+  const int rows = min(it.r1, g) - it.r0, rp = round_up(rows, kRowTile);
+  const int qp = round_up(it.q1 - it.q0, kLaneTile);
+  // a run of several blocks fits whole: one panel, no division
+  const int cw = it.b1 - it.b0 == 1 ? min(g, buf / (rp + qp)) : g, c0 = p * cw;
+  return Panel{g, rows, rp, cw, c0, min(cw, g - c0)};
+}
+
+// column panels of an item: one unless it is a single block that does not
+// fit the buffer whole
+__device__ __forceinline__ int n_panels(const Item& it, const int* __restrict__ sizes,
+                                        int buf) {
+  if (it.b1 - it.b0 != 1) return 1;
+  const Panel pn = panel_of(it, sizes[it.b0], 0, buf);
+  return (pn.g + pn.cw - 1) / pn.cw;
+}
 
 // one complex element, global -> shared, asynchronously
 template <typename T2>
@@ -84,15 +119,17 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Stage item `it` into buf: per block, As[j*gp + i] = A-entry feeding
-// op(A)[i][j] (conjugated at use for the adjoint), rows g..gp zero; then
-// Xs[q*g + j] = x of item lane q at packed column j, lanes Q..Qp zero.
+// Stage column panel p of item `it` into s: per block, As[j*rp + i] = the
+// A-entry feeding op(A)[r0 + i][c0 + j] (conjugated at use for the
+// adjoint), rows `rows` .. rp zero; then Xs[q*cols + j] = x of item lane q
+// at packed column c0 + j, lanes Q..Qp zero.  For a whole block (rows [0,
+// g), one panel) that is As[j*gp + i] and Xs[q*g + j].
 template <typename T>
-__device__ void stage(const Item& it, const c2_t<T>* __restrict__ vals,
+__device__ void stage(const Item& it, int p, const c2_t<T>* __restrict__ vals,
                       const int* __restrict__ offs, const int* __restrict__ sizes,
                       const int* __restrict__ voffs, const int* __restrict__ perm,
                       const c2_t<T>* __restrict__ x, c2_t<T>* s, int nnz, int L, int H,
-                      int adjoint) {
+                      int buf, int adjoint) {
   using T2 = c2_t<T>;
   const int tid = threadIdx.x;
   const int Q = it.q1 - it.q0;
@@ -101,35 +138,45 @@ __device__ void stage(const Item& it, const c2_t<T>* __restrict__ vals,
   const T2 zero = cmake<T>(0, 0);
   const float inv_nl = 1.0f / (float)it.nl;
   for (int b = it.b0; b < it.b1; ++b) {
-    const int g = sizes[b], gp = round_up(g, kRowTile), off = offs[b];
+    const Panel pn = panel_of(it, sizes[b], p, buf);
+    const int g = pn.g, off = offs[b];
     const T2* Ab = A + voffs[b];
     T2* As = s;
-    T2* Xs = s + g * gp;
-    // element (row, col) <-> e = row << sh | col, with 1 << sh >= gp: no
-    // integer division per element
-    const int sh = 32 - __clz(gp - 1), mask = (1 << sh) - 1;
-    for (int e = tid; e < (g << sh); e += kThreads) {
+    T2* Xs = s + pn.cols * pn.rp;
+    // A's sub-rectangle [ar0, ar0 + ar) x [ac0, ac0 + ac), read along its
+    // rows: op(A)'s rows x columns, or its columns x rows for the adjoint.
+    // Its extent padded to op(A)'s rp rows (arp x acp) takes the zero rows
+    // rows .. rp too.  Element (r, c) <-> e = r << sh | c with 1 << sh >=
+    // acp: no integer division per element.
+    const int ar = adjoint ? pn.cols : pn.rows, ac = adjoint ? pn.rows : pn.cols;
+    const int arp = adjoint ? ar : pn.rp, acp = adjoint ? pn.rp : ac;
+    const int ar0 = adjoint ? pn.c0 : it.r0, ac0 = adjoint ? it.r0 : pn.c0;
+    int sh = 32 - __clz(acp - 1), mask = (1 << sh) - 1;
+    for (int e = tid; e < (arp << sh); e += kThreads) {
       const int r = e >> sh, c = e & mask;
-      if (c < g) {  // A[r][c]
-        cp_async_elem(As + (adjoint ? r * gp + c : c * gp + r), Ab + r * g + c);
-      } else if (c < gp) {  // rows g .. gp of column r
-        As[r * gp + c] = zero;
-      }
+      if (c >= acp) continue;
+      T2* dst = As + (adjoint ? r * pn.rp + c : c * pn.rp + r);
+      if (r < ar && c < ac)
+        cp_async_elem(dst, Ab + (ar0 + r) * g + ac0 + c);
+      else
+        *dst = zero;
     }
+    sh = 32 - __clz(pn.cols - 1);
+    mask = (1 << sh) - 1;
     for (int e = tid; e < (Qp << sh); e += kThreads) {
       const int q = e >> sh, j = e & mask;
-      if (j >= g) continue;
+      if (j >= pn.cols) continue;
       if (q < Q) {
         const int qq = it.q0 + q;
         const int kk = __float2int_rz(((float)qq + 0.5f) * inv_nl);  // qq / nl, exact here
         const int l = it.lane0 + qq - kk * it.nl;
-        const int col = perm ? perm[off + j] : off + j;
-        cp_async_elem(Xs + q * g + j, x + ((size_t)(it.k0 + kk) * L + l) * H + col);
+        const int col = perm ? perm[off + pn.c0 + j] : off + pn.c0 + j;
+        cp_async_elem(Xs + q * pn.cols + j, x + ((size_t)(it.k0 + kk) * L + l) * H + col);
       } else {
-        Xs[q * g + j] = zero;
+        Xs[q * pn.cols + j] = zero;
       }
     }
-    s += g * gp + Qp * g;
+    s += pn.cols * pn.rp + Qp * pn.cols;
   }
 }
 
@@ -151,34 +198,43 @@ __device__ __forceinline__ void load_rows<float>(const float2* p, float2 (&a)[kR
   a[3] = make_float2(v.z, v.w);
 }
 
+// Column panel p of np of item `it`, staged in s.  Each thread forms 4-row
+// x 2-lane tiles of outputs in acc: zeroed at the first panel, summed over
+// the panel's columns in order, written at the last.  An item of several
+// panels has at most one tile per thread, so acc carries it across them.
 template <typename T, bool ADJ>
-__device__ void compute(const Item& it, const int* __restrict__ offs,
-                        const int* __restrict__ sizes, const int* __restrict__ perm,
-                        const c2_t<T>* s, c2_t<T>* __restrict__ y, int L, int H) {
+__device__ __forceinline__ void compute(const Item& it, int p, int np,
+                                        const int* __restrict__ offs,
+                                        const int* __restrict__ sizes,
+                                        const int* __restrict__ perm, const c2_t<T>* s,
+                                        c2_t<T>* __restrict__ y, int L, int H, int buf,
+                                        c2_t<T> (&acc)[kRowTile][kLaneTile]) {
   using T2 = c2_t<T>;
   const int Q = it.q1 - it.q0;
   const int Qp = round_up(Q, kLaneTile);
   const int nqt = Qp / kLaneTile;
   int e = threadIdx.x;  // tile index, carried across the item's blocks
   for (int b = it.b0; b < it.b1; ++b) {
-    const int g = sizes[b], gp = round_up(g, kRowTile), off = offs[b];
-    const int nrt = gp / kRowTile, nt = nrt * nqt;
+    const Panel pn = panel_of(it, sizes[b], p, buf);
+    const int off = offs[b], cols = pn.cols;
+    const int nrt = pn.rp / kRowTile, nt = nrt * nqt;
     const T2* As = s;
-    const T2* Xs = s + g * gp;
+    const T2* Xs = s + cols * pn.rp;
     for (; e < nt; e += kThreads) {
       const int i0 = (e % nrt) * kRowTile, qa = (e / nrt) * kLaneTile;
-      T2 acc[kRowTile][kLaneTile];
+      if (p == 0) {
 #pragma unroll
-      for (int r = 0; r < kRowTile; ++r)
+        for (int r = 0; r < kRowTile; ++r)
 #pragma unroll
-        for (int c = 0; c < kLaneTile; ++c) acc[r][c] = cmake<T>(0, 0);
-      const T2* xa = Xs + qa * g;
-      for (int j = 0; j < g; ++j) {
+          for (int c = 0; c < kLaneTile; ++c) acc[r][c] = cmake<T>(0, 0);
+      }
+      const T2* xa = Xs + qa * cols;
+      for (int j = 0; j < cols; ++j) {
         T2 a[kRowTile];
-        load_rows<T>(As + j * gp + i0, a);
+        load_rows<T>(As + j * pn.rp + i0, a);
         T2 xv[kLaneTile];
 #pragma unroll
-        for (int c = 0; c < kLaneTile; ++c) xv[c] = xa[c * g + j];
+        for (int c = 0; c < kLaneTile; ++c) xv[c] = xa[c * cols + j];
 #pragma unroll
         for (int r = 0; r < kRowTile; ++r) {
           if (ADJ) a[r].y = -a[r].y;
@@ -186,6 +242,7 @@ __device__ void compute(const Item& it, const int* __restrict__ offs,
           for (int c = 0; c < kLaneTile; ++c) acc[r][c] = cfma<T>(a[r], xv[c], acc[r][c]);
         }
       }
+      if (p != np - 1) continue;
 #pragma unroll
       for (int c = 0; c < kLaneTile; ++c) {
         const int q = qa + c;
@@ -195,12 +252,15 @@ __device__ void compute(const Item& it, const int* __restrict__ offs,
 #pragma unroll
         for (int r = 0; r < kRowTile; ++r) {
           const int i = i0 + r;
-          if (i < g) yl[perm ? perm[off + i] : off + i] = acc[r][c];
+          if (i < pn.rows) {
+            const int row = off + it.r0 + i;
+            yl[perm ? perm[row] : row] = acc[r][c];
+          }
         }
       }
     }
     e -= nt;
-    s += g * gp + Qp * g;
+    s += cols * pn.rp + Qp * cols;
   }
 }
 
@@ -216,26 +276,38 @@ block_diag_cmm_kernel(const c2_t<T>* __restrict__ vals, const int* __restrict__ 
   T2* bufs = reinterpret_cast<T2*>(smem_raw);
   // Rounds of gridDim.x items, walked in alternating directions (items
   // are sorted largest first, so a CTA that takes a large item in one
-  // round takes a small one in the next).
+  // round takes a small one in the next); each item is one stage per
+  // column panel.
   const int G = gridDim.x, c = blockIdx.x, R = (n_items + G - 1) / G;
   auto item_at = [&](int r) { return (r & 1) ? (r + 1) * G - 1 - c : r * G + c; };
-  int r = 0;  // item_at(0) < n_items: the grid is at most n_items
-  stage<T>(load_item(items, item_at(0)), vals, offs, sizes, voffs, perm, x, bufs, nnz, L, H,
-           ADJ);
+  T2 acc[kRowTile][kLaneTile];
+  // items are read again where used (not carried across the loop): fewer
+  // live registers beside acc
+  int r = 0, p = 0;  // item_at(0) < n_items: the grid is at most n_items
+  int np = n_panels(load_item(items, item_at(0)), sizes, buf_elems);
+  stage<T>(load_item(items, item_at(0)), 0, vals, offs, sizes, voffs, perm, x, bufs, nnz, L, H,
+           buf_elems, ADJ);
   cp_async_commit();
   for (int cur = 0; r < R; cur ^= 1) {
-    int rn = r + 1;
-    while (rn < R && item_at(rn) >= n_items) ++rn;
-    if (rn < R)  // stage the next item while this one computes
-      stage<T>(load_item(items, item_at(rn)), vals, offs, sizes, voffs, perm, x,
-               bufs + (cur ^ 1) * buf_elems, nnz, L, H, ADJ);
+    int rn = r, pn = p + 1, npn = np;
+    if (pn == np) {
+      pn = 0;
+      rn = r + 1;
+      while (rn < R && item_at(rn) >= n_items) ++rn;
+      if (rn < R) npn = n_panels(load_item(items, item_at(rn)), sizes, buf_elems);
+    }
+    if (rn < R)  // stage the next panel while this one computes
+      stage<T>(load_item(items, item_at(rn)), pn, vals, offs, sizes, voffs, perm, x,
+               bufs + (cur ^ 1) * buf_elems, nnz, L, H, buf_elems, ADJ);
     cp_async_commit();
-    cp_async_wait_prev();  // the current item's copies have landed
+    cp_async_wait_prev();  // the current panel's copies have landed
     __syncthreads();
-    compute<T, ADJ>(load_item(items, item_at(r)), offs, sizes, perm, bufs + cur * buf_elems,
-                    y, L, H);
-    __syncthreads();  // its buffer is free for the item after next
+    compute<T, ADJ>(load_item(items, item_at(r)), p, np, offs, sizes, perm,
+                    bufs + cur * buf_elems, y, L, H, buf_elems, acc);
+    __syncthreads();  // its buffer is free for the panel after next
     r = rn;
+    p = pn;
+    np = npn;
   }
 }
 

@@ -25,10 +25,12 @@ from . import kernels
 
 # work item columns: vals matrix, first k, k count, first lane of the
 # segment, segment length, blocks [b0, b1), item lanes [q0, q1) of the
-# nk * nl lanes (k-major)
-ITEM_FIELDS = 9
+# nk * nl lanes (k-major), rows [r0, r1) of each block (clipped to its size)
+ITEM_FIELDS = 11
 _ROW_TILE = 4  # rows of a thread's register tile (csrc/block_diag_cmm.cu)
 _LANE_TILE = 2  # lanes of a thread's register tile
+_THREADS = 256  # threads of a CTA: a row-panel item has at most one tile each
+_PANEL_LANES = 64  # most lanes of a row-panel item
 _ITEMS_PER_LAUNCH = 264  # work target: two items per SM of a 132-SM H100
 _BUF_BYTES = 56 * 1024  # one staging buffer: two per CTA, two CTAs per SM
 _SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
@@ -108,6 +110,18 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
+def _panel_items(g, q_all):
+    """(rows per panel, lanes per chunk) of a block of size g too large to
+    stage whole with q_all lanes: lane chunks of at most _PANEL_LANES, and
+    row panels as tall as one 4-row x 2-lane tile per thread allows, both
+    evened out over the block."""
+    n_lc = -(-q_all // _PANEL_LANES)
+    lanes = _round_up(-(-q_all // n_lc), _LANE_TILE)
+    rows = _ROW_TILE * (_THREADS // (lanes // _LANE_TILE))
+    n_rp = -(-g // rows)
+    return _round_up(-(-g // n_rp), _ROW_TILE), lanes
+
+
 def work_list(block_sizes, seg_ptr, n_k, per_k, budget):
     """The kernel's work items, largest first: int32 [n, ITEM_FIELDS].
 
@@ -118,9 +132,14 @@ def work_list(block_sizes, seg_ptr, n_k, per_k, budget):
     even chunks (its values are then read once per chunk).  `budget` bounds an item's
     staging footprint in complex elements: each block takes g x gp for
     op(A) (gp: g rounded up to the row tile) and lanes x g for the lanes'
-    slices (lanes rounded up to the lane tile).  Matrices with no lanes get
-    no item.  Every (matrix, block, k, lane) is covered exactly once.
+    slices (lanes rounded up to the lane tile).  A block that does not fit
+    the budget with two lanes is cut into row panels [r0, r1) x lane
+    chunks (`_panel_items`), each staged column panel by column panel
+    (`item_stages`).  Matrices with no lanes get no item.  Every
+    (matrix, block, row, k, lane) is covered exactly once.
     """
+    # the smallest panel (4 rows x 2 lanes x 1 column) always fits
+    assert budget >= _ROW_TILE + _LANE_TILE, budget
     g = np.asarray(block_sizes, dtype=np.int64)
     gp = _round_up(g, _ROW_TILE)
     seg = np.asarray(seg_ptr, dtype=np.int64)
@@ -137,9 +156,8 @@ def work_list(block_sizes, seg_ptr, n_k, per_k, budget):
     g2 = g * g
     target = max(1, sum(u[2] * u[4] for u in units) * int(g2.sum()) // _ITEMS_PER_LAUNCH)
     fit = (budget - g * gp) // g // _LANE_TILE * _LANE_TILE  # most lanes per block
-    if (fit < _LANE_TILE).any():
-        raise ValueError(f"a diagonal block of size {int(g.max())} does not fit the "
-                         f"kernel's shared memory")
+    whole = fit >= _LANE_TILE
+    fit = np.maximum(fit, _LANE_TILE)
     items, work = [], []
     for mat, k0, nk, lane0, nl in units:
         q_all = nk * nl
@@ -149,51 +167,82 @@ def work_list(block_sizes, seg_ptr, n_k, per_k, budget):
         chunk = np.minimum(_round_up(-(-q_all // chunks), _LANE_TILE), fit)
         run = None  # open item over whole lanes: [b0, b1, work, footprint]
         for b in range(len(g)):
+            gb = int(g[b])
+            if not whole[b]:  # row panels x lane chunks
+                rows, lanes = _panel_items(gb, q_all)
+                for q0 in range(0, q_all, lanes):
+                    q1 = min(q_all, q0 + lanes)
+                    for r0 in range(0, gb, rows):
+                        r1 = min(gb, r0 + rows)
+                        items.append((mat, k0, nk, lane0, nl, b, b + 1, q0, q1, r0, r1))
+                        work.append(gb * (r1 - r0) * (q1 - q0))
+                continue
             if chunk[b] < q_all:
                 for q0 in range(0, q_all, int(chunk[b])):
                     q1 = min(q_all, q0 + int(chunk[b]))
-                    items.append((mat, k0, nk, lane0, nl, b, b + 1, q0, q1))
+                    items.append((mat, k0, nk, lane0, nl, b, b + 1, q0, q1, 0, gb))
                     work.append(int(g2[b]) * (q1 - q0))
                 continue
             w_b = int(g2[b]) * q_all
             f_b = int(g[b] * gp[b] + _round_up(q_all, _LANE_TILE) * g[b])
             if run is not None and (run[1] != b or run[2] + w_b > target
                                     or run[3] + f_b > budget):
-                items.append((mat, k0, nk, lane0, nl, run[0], run[1], 0, q_all))
+                items.append((mat, k0, nk, lane0, nl, run[0], run[1], 0, q_all, 0,
+                              int(g[run[0]:run[1]].max())))
                 work.append(run[2])
                 run = None
             if run is None:
                 run = [b, b, 0, 0]
             run[1], run[2], run[3] = b + 1, run[2] + w_b, run[3] + f_b
         if run is not None:
-            items.append((mat, k0, nk, lane0, nl, run[0], run[1], 0, q_all))
+            items.append((mat, k0, nk, lane0, nl, run[0], run[1], 0, q_all, 0,
+                          int(g[run[0]:run[1]].max())))
             work.append(run[2])
     order = np.argsort(-np.asarray(work, dtype=np.int64), kind="stable")
     return np.asarray(items, dtype=np.int32).reshape(-1, ITEM_FIELDS)[order]
 
 
-def item_footprint(items, block_sizes):
-    """Staging footprint of each work item in complex elements."""
+def item_stages(items, block_sizes, buf):
+    """(staging footprint in complex elements, column panels) of each work
+    item with staging buffers of buf elements, as the kernel stages it:
+    block b's rows [r0, min(r1, g)) padded to the row tile (rp), its lanes
+    padded to the lane tile (Qp), and columns in panels of min(g, buf //
+    (rp + Qp)); an item over several blocks, or a block that fits, is one
+    panel.  The sum over a row runs over the columns in order across the
+    panels."""
     g = np.asarray(block_sizes, dtype=np.int64)
-    gp = _round_up(g, _ROW_TILE)
-    per = g * gp
-    return np.array([
-        int(per[b0:b1].sum() + _round_up(q1 - q0, _LANE_TILE) * g[b0:b1].sum())
-        for b0, b1, q0, q1 in items[:, [5, 6, 7, 8]]
-    ], dtype=np.int64)
+    foot = np.zeros(len(items), dtype=np.int64)
+    panels = np.ones(len(items), dtype=np.int64)
+    for i, (b0, b1, q0, q1, r0, r1) in enumerate(items[:, 5:11].astype(np.int64)):
+        qp = _round_up(q1 - q0, _LANE_TILE)
+        for gb in g[b0:b1]:
+            rp = _round_up(min(r1, gb) - r0, _ROW_TILE)
+            cols = min(gb, buf // (rp + qp))
+            foot[i] += cols * (rp + qp)
+            panels[i] = max(panels[i], -(-gb // cols))
+    return foot, panels
 
 
 @lru_cache(maxsize=32)
 def _plan(block_sizes, seg_ptr, n_k, per_k, elem_bytes, device):
-    """(items on the device, item count, elements per staging buffer)."""
+    """(items on the device, item count, elements per staging buffer, and
+    whether any item takes row or column panels)."""
     budget = _BUF_BYTES // elem_bytes
     need = max(g * _round_up(g, _ROW_TILE) + _LANE_TILE * g for g in block_sizes)
-    if need > budget:  # one block and two lanes must fit a buffer
+    if budget < need <= _SMEM_MAX // 2 // elem_bytes:
+        # one block and two lanes fit a larger buffer (one CTA per SM)
         budget = _SMEM_MAX // 2 // elem_bytes
     items = work_list(block_sizes, seg_ptr, n_k, per_k, budget)
-    # a multiple of 4 elements keeps the second buffer 16-byte aligned
-    buf = _round_up(int(item_footprint(items, block_sizes).max()), 4) if len(items) else 0
-    return torch.as_tensor(items, device=device), len(items), buf
+    if not len(items):
+        return torch.as_tensor(items, device=device), 0, 0, False
+    foot, panels = item_stages(items, block_sizes, budget)
+    # a multiple of 4 elements keeps the second buffer 16-byte aligned;
+    # the kernel's column panels at this buffer equal those at the budget
+    buf = _round_up(int(foot.max()), 4)
+    g = np.asarray(block_sizes)
+    paneled = bool((panels > 1).any() or (items[:, 9] > 0).any()
+                   or (items[:, 10] < g[items[:, 5]]).any())
+    return torch.as_tensor(items, device=device), len(items), buf, paneled
 
 
 def _block_diag_cmm_plain(dense, x, seg, adjoint):
@@ -232,8 +281,8 @@ def block_diag_cmm(a, x, seg, adjoint=False):
         raise RuntimeError(f"block_diag_cmm: unsupported device {x.device}")
     if x.dtype not in (torch.complex64, torch.complex128) or a.vals.dtype != x.dtype:
         raise TypeError(f"block_diag_cmm: dtypes {a.vals.dtype}, {x.dtype}")
-    items, n_items, buf = _plan(a.block_sizes, tuple(seg.ptr), n_k, per_k,
-                                x.element_size(), x.device)
+    items, n_items, buf, paneled = _plan(a.block_sizes, tuple(seg.ptr), n_k, per_k,
+                                         x.element_size(), x.device)
     x = x.contiguous()
     y = torch.empty_like(x)
     kernels.launch(
@@ -243,7 +292,9 @@ def block_diag_cmm(a, x, seg, adjoint=False):
         int(x.dtype == torch.complex128),
     )
     block_diag_cmm.launches += 1
+    block_diag_cmm.panel_launches += int(paneled)
     return y
 
 
 block_diag_cmm.launches = 0
+block_diag_cmm.panel_launches = 0  # of them, launches whose work list has panels

@@ -31,9 +31,9 @@ import torch
 
 from ..coords import from_cartesian, to_cartesian
 from ..harmonics._eval import _node_table, harmonics
-from ..harmonics._index import basis
+from ..harmonics._index import basis, harm_n_ndim
 from ..harmonics._quad import _node_rule, sphere_quadrature
-from ..ops.block_diag import pack, unpack
+from ..ops.block_diag import pack_layout, unpack
 from ..special._family import spherical_jh_all
 from ._ops import _a_const, _surface_area, ipow
 
@@ -152,31 +152,52 @@ def _rotation_to_axis(t_hat, axis, d):
     return torch.where(((~safe) & (ct >= 0))[..., None, None], eye, r)
 
 
+# bytes of one chunk's [chunk, Q, H] complex harmonics at the rotated nodes
+# and their temporaries in `rotation_blocks` (as `_eval._EVAL_BYTES` bounds
+# the field evaluation's)
+_ROT_BYTES = 1 << 30
+# [chunk, Q, H]-sized complex tensors alive at once while the harmonics are
+# evaluated (one node's gathered factors, the running product, the result)
+_ROT_TEMPS = 4
+
+
 def rotation_blocks(c, t_hat, n_end):
     """D(R) as degree-group diagonal blocks: (groups, [complex [..., g, g]]).
 
-    Within a group that spans several degree blocks the quadrature's ~eps
-    off-block residue is masked to exact zeros: sandwiched against coax
-    blocks of magnitude |h_{n+n'}(kr)| it would leak huge-scale roundoff
-    into low-degree entries (0.23 relative error in float32 at n_end=10).
+    The harmonics at the rotated nodes are evaluated for a chunk of
+    directions at a time, sized so that the chunk's [chunk, Q, H] values
+    and their temporaries stay within _ROT_BYTES, and each degree group is
+    contracted per chunk (the chunking does not change a direction's
+    arithmetic).  Within a group that spans several degree blocks the
+    quadrature's ~eps off-block residue is masked to exact zeros:
+    sandwiched against coax blocks of magnitude |h_{n+n'}(kr)| it would
+    leak huge-scale roundoff into low-degree entries (0.23 relative error
+    in float32 at n_end=10).
     """
     d = c.c_ndim
     axis = _root_axis(c)
     w, yc, s_cart, n_root = _rot_tables(c, n_end)
     kw = dict(dtype=t_hat.dtype, device=t_hat.device)
     cdt = torch.complex128 if t_hat.dtype == torch.float64 else torch.complex64
-    w = torch.as_tensor(w, **kw)
-    yc = torch.as_tensor(yc, dtype=cdt, device=t_hat.device)
+    ycw = torch.as_tensor(yc, dtype=cdt, device=t_hat.device) * torch.as_tensor(w, **kw)[:, None]
     s_cart = torch.as_tensor(s_cart, **kw)
-    r = _rotation_to_axis(t_hat, axis, d)  # [..., d, d]
-    s_rot = torch.einsum("...ij,iq->...jq", r, s_cart)  # R^T s
-    sph_rot = from_cartesian(c, torch.movedim(s_rot, -2, 0))
-    y_rot = harmonics(c, sph_rot, n_end)  # [..., Q, H]
-    ycw = yc * w[:, None]
+    batch = t_hat.shape[:-1]
+    dirs = t_hat.reshape(-1, d)
+    q_num, h_num = yc.shape
+    per_dir = _ROT_TEMPS * q_num * h_num * ycw.element_size()
+    chunk = max(1, _ROT_BYTES // per_dir)
     groups = _degree_groups(c, n_end)
+    parts = [[] for _ in groups]
+    for i0 in range(0, dirs.shape[0], chunk):
+        r = _rotation_to_axis(dirs[i0 : i0 + chunk], axis, d)  # [n, d, d]
+        s_rot = torch.einsum("nij,iq->njq", r, s_cart)  # R^T s
+        y_rot = harmonics(c, from_cartesian(c, torch.movedim(s_rot, -2, 0)), n_end)  # [n, Q, H]
+        for part, (s, e) in zip(parts, groups):
+            part.append(torch.einsum("qa,nqb->nab", ycw[:, s:e], y_rot[..., s:e]))
+        del y_rot
     blocks = []
-    for s, e in groups:
-        dmat_g = torch.einsum("qa,...qb->...ab", ycw[:, s:e], y_rot[..., s:e])
+    for part, (s, e) in zip(parts, groups):
+        dmat_g = torch.cat(part).reshape(batch + (e - s, e - s))
         nr_g = n_root[s:e]
         if nr_g[0] != nr_g[-1]:  # group spans several degree blocks
             same = torch.as_tensor(nr_g[:, None] == nr_g[None, :], device=t_hat.device)
@@ -202,16 +223,23 @@ class RotationD:
     first use, `packed` (the degree blocks as a BlockDiag, KB's)."""
 
     def __init__(self, c, t_hat, n_end):
-        self.n_end = n_end
+        self.sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
         self.groups, self.blocks = rotation_blocks(c, t_hat, n_end)
 
     @cached_property
     def packed(self):
-        h_num = self.groups[-1][1]
-        dense = self.blocks[0].new_zeros(self.blocks[0].shape[:-2] + (h_num, h_num))
+        """The degree blocks (harm_n_ndim(n, d) rows each) taken straight
+        from the groups into the packed layout: equal, value for value, to
+        `pack` of the dense D, without forming it."""
+        offs = np.concatenate([[0], np.cumsum(self.sizes)])
+        vals = []
         for (s, e), blk in zip(self.groups, self.blocks):
-            dense[..., s:e, s:e] = blk
-        return pack(dense, 2 * np.arange(self.n_end) + 1)
+            for n in np.nonzero((offs[:-1] >= s) & (offs[:-1] < e))[0]:
+                o = offs[n] - s
+                g = self.sizes[n]
+                vals.append(blk[..., o : o + g, o : o + g].reshape(blk.shape[:-2] + (g * g,)))
+        lay = pack_layout(self.sizes, None, int(offs[-1]), self.blocks[0].device)
+        return replace(lay, vals=torch.cat(vals, dim=-1))
 
 
 @lru_cache(maxsize=4)

@@ -85,9 +85,36 @@ non-zero before the result line):
    n_end=19, complex64, the default solver (LU): each within 1e-4 of its
    geometry solved alone, and KD with its pair map per k against its
    plain version, equal entry for entry, timed beside its bound.
+8. trees rooted at a 'b' or 'bp' node in d >= 4, each path with the
+   launch counts set to 0 just before it and read just after: (a) the 4D
+   path at full width, 'bba' with 16 unit spheres at the corners of
+   {-2, 2}^4 (pitch 4), n_end=20 (H=2,870, 45,920 unknowns), complex64, a
+   plane wave along x0, the first 4 k of linspace(3.5, 4.5, 100), the
+   default solver (which must take the factored GMRES: KB in its row-panel
+   mode, KC, K5, K2): its first block split by stage (RHS, radial rows,
+   coax, the D build = K3 and its host tables, GMRES, uscat(0)), relres
+   <= 3e-5, the boundary residual (1e-3), the peak device memory, K3
+   alone with its bound and peak, a warm block repeated bit for bit and
+   split with KB's launches and time between CUDA events, uscat(0)
+   within 1e-3 of the same call in complex128 (factored), and the
+   general evaluation at 16,384 points; (b) the same lattice at n_end=12:
+   complex128 on its default route (the offset table) within 1e-7 of the
+   JAX package's float64 golden (data/bench4d_golden_f64.json), complex64
+   (factored) within 1e-3; (c) 'bpbpa' at (b)'s configuration within
+   1e-3 of the same golden; (d) the jascome pair (unit spheres at (0, +-2,
+   0, 0), k = 1) at n_end=19 (4,940 unknowns), complex64 with the default
+   solver (LU) and complex128 with stable=False, each against the
+   factored route (1e-3 / 1e-8), and KD at H = 2,470 equal to its plain
+   version; (e) 'bbba', the 5D pair at n_end=8, complex64 on the forced
+   factored route (KB's row panels at blocks of 204) within 1e-3 of
+   complex128 LU.
 
-Phase 2 also holds K5's base-2 (even d) mode at the shapes the 4D route
-will give it (d = 4, n_end = 20: the coax bands of 4 k x 9 radii, the
+Phase 2 also holds KB's row-panel mode (d >= 4: degree blocks too large
+to stage whole) against its plain version, D^H and D in both dtypes, each
+launched twice and required bit-for-bit equal: at (a)'s shapes (timed,
+with its bound and a dense matmul over the padded lanes), the hypercube
+at n_end=16 and the 5D pair at n_end=8.  It holds K5's base-2 (even d)
+mode at the shapes the 4D route gives it (d = 4, n_end = 20: the coax bands of 4 k x 9 radii, the
 radial rows of 4 k x 16 spheres), both dtypes, and times its seeds'
 plain version `cyl_jh01`.  It also holds KD against its plain version
 (complex64 at the bench's pair-major shapes, complex128 at the LU tier's
@@ -129,6 +156,10 @@ GOLDEN_README = (-0.741333, -0.669657)
 SOURCE = (0.0, 0.0, 3.0)  # phase 6 (c): off the lattice plane, 4.12 from the nearest center
 IMAG_K = 0.1  # phase 7 (a, b): Im k of an absorbing medium
 PITCHES = (4.0, 4.5, 5.0, 5.5)  # phase 7 (d): the lattices along the batch
+N_END_4D_ANCHOR = 12  # phase 8 (b, c): the 4D anchor's n_end (the JAX golden's)
+N_END_4D_LU = 19  # phase 8 (d): the 4D pair's largest n_end on the LU tier (2 x 2470)
+N_END_5D = 8  # phase 8 (e)
+EVAL_POINTS_4D = 1 << 14  # phase 8 (a): the general evaluation's points
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 /
 # FP64 operations/s outside the tensor cores
@@ -693,6 +724,102 @@ def check_kernels(torch, dev, card):
     return results
 
 
+def hypercube_centers(half=2.0, d=4):
+    """The 2^d corners of {-half, half}^d (pitch 2 half), first axis slowest."""
+    grid = np.stack(np.meshgrid(*([[-half, half]] * d), indexing="ij"), axis=-1)
+    return grid.reshape(-1, d)
+
+
+def pair_centers(d):
+    """The jascome pair: unit spheres at (0, +-2, 0, ...)."""
+    centers = np.zeros((2, d))
+    centers[0, 1], centers[1, 1] = 2.0, -2.0
+    return centers
+
+
+def sweep_ks_4d():
+    """Phase 8's wavenumbers: linspace(3.5, 4.5, 100) as float32."""
+    return np.linspace(3.5, 4.5, 100).astype(np.float32)
+
+
+def check_kb_panels(torch, dev, card):
+    """Phase 2, KB's row-panel mode: D^H and D with the degree blocks of a
+    d >= 4 tree ((n+1)^2 rows in 4D), on the factored route's compacted
+    lanes, against the plain version, each launched twice and required bit
+    for bit equal: the 4D path's shapes (the hypercube at n_end=N_END_4D, 40
+    of 64 slots holding lanes, 240 lanes x 4 k; timed beside its bound and
+    a dense matmul over the padded lanes), the hypercube at n_end=16 and the
+    5D pair at N_END_5D.  Returns the timed results by dtype name."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+        LaneSegments, _block_diag_cmm_plain, block_diag_cmm, pack_layout, unpack)
+
+    results = {}
+    for label, d, n_end, centers_np, timed in (
+            (f"4D n_end {N_END_4D}", 4, N_END_4D, hypercube_centers(), True),
+            ("4D n_end 16", 4, 16, hypercube_centers(), False),
+            (f"5D n_end {N_END_5D}", 5, N_END_5D, pair_centers(5), False)):
+        routing = _pair_routing(centers_np)
+        sizes = [harm_n_ndim(n, d) for n in range(n_end)]
+        h = sum(sizes)
+        n_slots, lps = len(routing.uniq), 2 * routing.p_max
+        n_used = len(routing.src)
+        n_real = int((np.diff(routing.slot_ptr) > 0).sum())
+        seg = LaneSegments(tuple(int(v) for v in routing.slot_ptr))
+        for cdt in (torch.complex64, torch.complex128):
+            name = str(cdt).split(".")[-1]
+            cs = 8 if cdt == torch.complex64 else 16
+            rng = np.random.default_rng(4321)
+            a = pack_layout(sizes, None, h, dev)
+            a = replace(a, vals=randc(torch, rng, (n_slots, a.rows.numel()), cdt, dev))
+            lanes = randc(torch, rng, (KB, n_used, h), cdt, dev)
+            dense = unpack(a)
+            nnz = a.vals.shape[-1]
+            row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "abs": 0.0, "rel": 0.0,
+                   "bounds": []}
+            for op, adj in (("D^H", True), ("D", False)):
+                n0 = block_diag_cmm.panel_launches
+                got = block_diag_cmm(a, lanes, seg, adjoint=adj)
+                if block_diag_cmm.panel_launches != n0 + 1:
+                    raise RuntimeError(f"block_diag_cmm {label}: the panel mode did not run")
+                ea, er = rel_err(torch, got, _block_diag_cmm_plain(dense, lanes, seg, adj))
+                if not same_bits(torch, block_diag_cmm(a, lanes, seg, adjoint=adj), got):
+                    raise RuntimeError(f"block_diag_cmm panels {label} {op} {name}: two "
+                                       "launches differ")
+                del got
+                line = (f"[2] block_diag_cmm row panels {label} {op} {KB} k x {n_used} lanes, "
+                        f"blocks up to {max(sizes)} {name}: max_abs_err {ea:.3e} max_rel_err "
+                        f"{er:.3e}")
+                if timed:
+                    ms = cuda_ms(torch, lambda: block_diag_cmm(a, lanes, seg, adjoint=adj), 20)
+                    pms = cuda_ms(torch, lambda: _block_diag_cmm_plain(dense, lanes, seg, adj), 3)
+                    padded = torch.zeros((KB, n_slots * lps, h), dtype=cdt, device=dev)
+                    padded[:, torch.as_tensor(routing.lane, device=dev)] = lanes
+                    pad_d = padded.reshape(KB, n_slots, lps, h)
+                    op_d = dense.conj() if adj else dense.transpose(-1, -2)
+                    lms = cuda_ms(torch, lambda: torch.matmul(pad_d, op_d), 3)
+                    del padded, pad_d, op_d
+                    b = bound(n_real * nnz * cs + 2 * KB * n_used * h * cs,
+                              8 * KB * n_used * nnz, name)
+                    line += (f" kernel {ms:.4f} ms plain {pms:.4f} ms library (dense matmul, "
+                             f"padded lanes) {lms:.4f} ms bound {b[0]:.6f} ms ({b[1]})")
+                    row = {"ms": row["ms"] + ms, "plain_ms": row["plain_ms"] + pms,
+                           "library_ms": row["library_ms"] + lms,
+                           "abs": max(row["abs"], ea), "rel": max(row["rel"], er),
+                           "bounds": row["bounds"] + [b]}
+                print(f"{line} ({card})")
+                if er > TOL_REL[name]:
+                    raise RuntimeError(f"block_diag_cmm panels {label} {op} {name}: rel err "
+                                       f"{er:.3e}")
+            if timed:
+                row["bound_ms"], row["bound_by"] = add_bounds(row.pop("bounds"))
+                results[name] = row
+            del a, lanes, dense
+            torch.cuda.empty_cache()
+    return results
+
+
 def readme_golden(torch, dev):
     """Phase 3: the README problem through the port on the card, on the
     factored route and with the default solver (a direct LU)."""
@@ -785,10 +912,12 @@ def bench_config(torch, dev, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[4] launches in the sweep: {launches}")
     # the sweep evaluates uscat(0) only: the many-point KA runs in the field
-    # evaluation path below, KD on the dense route (phase 5)
-    require_launched(launches, [n for n in launches if n not in ("fused_ba_eval",
-                                                                 "dense_assemble")],
-                     "[4] the sweep")
+    # evaluation path below, KD on the dense route (phase 5); KB's row panels
+    # only in d >= 4 (phase 8)
+    require_launched(launches, [n for n in launches if n not in (
+        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels")], "[4] the sweep")
+    if launches["block_diag_cmm_panels"]:
+        raise RuntimeError("[4] the 3D bench took KB's row panels")
     n_blocks = len(ks) // KB
     # per k-block: K5 for the RHS, the radial rows, the coax bands and
     # uscat(0)'s blc; K2 once
@@ -1397,6 +1526,7 @@ def kernel_counts():
     counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
                 "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
                 "block_diag_cmm": (block_diag_cmm, "launches"),
+                "block_diag_cmm_panels": (block_diag_cmm, "panel_launches"),
                 "lane_gather": (lane_gather, "launches"),
                 "lane_scatter": (lane_scatter, "launches"),
                 "spherical_jh": (spherical_jh, "launches"),
@@ -1700,6 +1830,326 @@ def complex_and_trees(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+def bc_residual_of(torch, calc, centers_np, balls):
+    """(max, mean) of |u_in + u_scat| at 64 points just outside each of the
+    given spheres (sound-soft: zero on the boundary), in any dimension, for
+    each k of the calculator's batch."""
+    rng = np.random.default_rng(7)
+    d = centers_np.shape[1]
+    pts = []
+    for b in balls:
+        v = rng.normal(size=(d, 64))
+        v /= np.linalg.norm(v, axis=0)
+        pts.append(centers_np[b][:, None] + 1.0000005 * v)
+    xb = torch.as_tensor(np.concatenate(pts, axis=1), dtype=calc.radii.dtype,
+                         device=calc.radii.device)
+    res = (calc.uin(xb) + calc.uscat(xb)).abs()
+    return float(res.max()), float(res.mean())
+
+
+def four_d(torch, dev, card):
+    """Phase 8: trees rooted at a 'b' or 'bp' node in d >= 4 through biem(),
+    each path with the launch counts set to 0 just before it and read just
+    after.  Returns the launches of (a), the 4D path at full width."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import _dense_assemble_plain, dense_assemble
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation
+
+    reset, read = kernel_counts()
+    c4, c4p, c5 = (create_from_branching_types(t) for t in ("bba", "bpbpa", "bbba"))
+    cube = hypercube_centers()
+    nb = len(cube)
+    ks = sweep_ks_4d()[:KB]
+    with open(os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data",
+                           "bench4d_golden_f64.json")) as fh:
+        golden = json.load(fh)["points"][:KB]
+
+    def solve(tree, rdt, kvals, centers, n_end, **kw):
+        f = dict(dtype=rdt, device=dev)
+        d = tree.c_ndim
+        kt = torch.as_tensor(np.asarray(kvals), **f).reshape(-1)
+        n_k = kt.numel()
+        cen = torch.as_tensor(centers, **f).expand(n_k, len(centers), d)
+        direction = torch.zeros(d, n_k, **f)
+        direction[0] = 1.0
+        uin, _ = plane_wave(k=kt, direction=direction)
+        return biem(tree, centers=cen, radii=torch.ones(n_k, len(centers), **f), k=kt,
+                    n_end=n_end, uin=uin, **kw)
+
+    def uscat0(calc):
+        d = calc.c.c_ndim
+        return calc.uscat(torch.zeros(d, 1, dtype=calc.radii.dtype, device=dev))[0]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # (a) the 4D path at full width: 'bba', the hypercube, n_end=N_END_4D,
+    # complex64, auto (the factored GMRES), first block split by stage
+    h4 = basis(c4, N_END_4D).num
+    n_sys = nb * h4
+    route = _core._route("auto", nb, n_sys, torch.float32, dev, True, False, cube)
+    if route != "matfree":
+        raise RuntimeError(f"(a) auto picks {route!r} for the 4D hypercube")
+    stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
+              (_core, "coax_fold_packed", "coax (K5 + K2)"),
+              (_core, "rotation_d", "D build (K3 and its host tables)"),
+              (_core, "gmres_solve_op", "GMRES"),
+              (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+    first = {}
+
+    def first_block():
+        first["calc"] = solve(c4, torch.float32, ks, cube, N_END_4D)
+        first["u0"] = uscat0(first["calc"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    acc, total = split_stages(torch, first_block, stages)
+    calc, u0 = first["calc"], first["u0"]
+    counts = read()
+    panels = counts.pop("block_diag_cmm_panels")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    labels = [label for _, _, label in stages]
+    print(f"[8] (a) 'bba' 4D hypercube ({nb} unit spheres, pitch 4), n_end={N_END_4D} (H={h4}, "
+          f"{n_sys} unknowns), complex64, auto -> factored GMRES, first block of {KB} k: "
+          f"{total:.3f} s; split, s per block (synchronising timers): "
+          f"{format_split(acc, total, labels, 1)}; launches {counts}, of them KB with row "
+          f"panels {panels}; GMRES iters {calc.iters.tolist()}, max relres "
+          f"{float(calc.relres.max()):.3e}; peak device memory {peak:.3f} GiB ({card})")
+    require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
+                              "coax_fold"), "(a)")
+    if panels <= 0 or panels > counts["block_diag_cmm"]:
+        raise RuntimeError(f"(a) KB's row-panel mode launched {panels} times")
+    launches = dict(counts, block_diag_cmm_panels=panels)
+    del first
+    worst = float(calc.relres.max())
+    res_max, res_mean = bc_residual_of(torch, calc, cube, (0, 5, 10, 15))
+    print(f"[8] (a) BC residual at 256 points on 4 spheres: max {res_max:.3e} mean "
+          f"{res_mean:.3e}")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5 or not res_max <= 1e-3:
+        raise RuntimeError(f"(a) relres {worst:.3e} or BC residual {res_max:.3e} off its gate")
+    # K3 alone, the first block's D of the 64 slots again (its host tables cached)
+    routing = _core._pair_routing(cube)
+    t_vec = torch.as_tensor(routing.uniq, dtype=torch.float32, device=dev)
+    t_hat = t_vec / torch.linalg.vector_norm(t_vec, dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _rotation.rotation_blocks(c4, t_hat, N_END_4D)
+    torch.cuda.synchronize()
+    t_k3 = time.perf_counter() - t0
+    k3_peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    g2 = sum((e - s) ** 2 for s, e in _rotation._degree_groups(c4, N_END_4D))
+    q = len(_rotation._rot_tables(c4, N_END_4D)[0])
+    n_d = len(routing.uniq)
+    b = bound(n_d * g2 * 8 + q * h4 * 8, n_d * q * (8 * g2 + 16 * h4), "complex64")
+    # D's unitarity in complex64: each degree group's D D^H against I
+    rot = _core.rotation_d(c4, N_END_4D, routing.uniq, torch.float32, dev)
+    unit = max(float((dg @ dg.mH - torch.eye(dg.shape[-1], device=dev)).abs().max())
+               for dg in rot.blocks)
+    print(f"[8] (a) K3 rotation_blocks alone (plain torch, chunked): {n_d} directions x {q} "
+          f"nodes x {h4} harmonics, complex64: {t_k3:.4f} s, peak device memory above its "
+          f"inputs {k3_peak:.3f} GiB, bound {b[0]:.6f} ms ({b[1]}); D's unitarity error "
+          f"max |D D^H - I| {unit:.3e} ({card})")
+    del rot
+    # a warm block, its repeat bit for bit, KB's device time in it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = solve(c4, torch.float32, ks, cube, N_END_4D)
+    u_warm = uscat0(warm)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    same = torch.equal(torch.view_as_real(warm.density), torch.view_as_real(calc.density)) and \
+        torch.equal(torch.view_as_real(u_warm), torch.view_as_real(u0))
+    print(f"[8] (a) warm block of {KB} k: {t_warm:.3f} s (first {total:.3f} s); repeated solve "
+          f"bit-for-bit equal: {same} ({card})")
+    if not same:
+        raise RuntimeError("(a) the repeated 4D solve differs")
+    del warm
+    events = []
+    real_kb = _core.block_diag_cmm
+
+    def kb_timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_kb(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    _core.block_diag_cmm = kb_timed
+    try:
+        acc_w, total_w = split_stages(torch, lambda: uscat0(solve(
+            c4, torch.float32, ks, cube, N_END_4D)), stages)
+    finally:
+        _core.block_diag_cmm = real_kb
+    kb_ms = sum(st.elapsed_time(en) for st, en in events)
+    print(f"[8] (a) warm block split, s per block: {format_split(acc_w, total_w, labels, 1)}; "
+          f"KB {len(events)} launches, {kb_ms:.3f} ms between CUDA events ({card})")
+    # the field: uscat(0) against complex128 on the factored route
+    calc128 = solve(c4, torch.float64, ks, cube, N_END_4D, solver="matfree", stable=True)
+    u128 = uscat0(calc128)
+    err = rel(u0.to(torch.complex128), u128)
+    print(f"[8] (a) uscat(0) complex64 {[f'{complex(v):.7f}' for v in u0.cpu()]} against "
+          f"complex128 (factored, GMRES iters {calc128.iters.tolist()}): rel err {err:.3e}")
+    if not err <= 1e-3:
+        raise RuntimeError(f"(a) uscat(0) off complex128 by {err:.3e}")
+    del calc128
+    torch.cuda.empty_cache()
+    # the general evaluation at EVAL_POINTS_4D points for one k
+    raw = np.random.default_rng(0).normal(size=(4, EVAL_POINTS_4D)) * 6.0
+    x = torch.as_tensor(raw, dtype=torch.float32, device=dev)
+    one = solve(c4, torch.float32, ks[:1], cube, N_END_4D)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = one.uscat(x)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    ev_peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    outside = (torch.linalg.vector_norm(
+        x[:, :, None] - torch.as_tensor(cube.T, dtype=torch.float32, device=dev)[:, None, :],
+        dim=0) > 1.0).all(-1)
+    b = bound(4 * EVAL_POINTS_4D * 4 + nb * h4 * 8 + EVAL_POINTS_4D * 8,
+              EVAL_POINTS_4D * nb * (h4 * 20 + 15 * N_END_4D), "complex64")
+    print(f"[8] (a) general evaluation at {EVAL_POINTS_4D} points, 1 k, 4D n_end={N_END_4D}: "
+          f"{best:.6f} s ({EVAL_POINTS_4D / best:.1f} pts/s), peak device memory above its "
+          f"inputs {ev_peak:.3f} GiB, bound {b[0]:.6f} ms ({b[1]}) ({card})")
+    if not bool(torch.isfinite(u[outside]).all()):
+        raise RuntimeError("(a) the 4D field is not finite outside the spheres")
+    del calc, one, u, x
+    torch.cuda.empty_cache()
+
+    def against_golden(label, u0, tol):
+        for i, g in enumerate(golden):
+            ref = complex(*g["uscat0"])
+            err = abs(complex(u0[i]) - ref) / abs(ref)
+            print(f"[8] {label} k={ks[i]:.6f} uscat(0) = {complex(u0[i]):.9f} golden {ref:.9f} "
+                  f"rel err {err:.3e}")
+            if abs(g["k"] - float(ks[i])) > 1e-6 or not err <= tol:
+                raise RuntimeError(f"{label}: uscat(0) at k={ks[i]} off the golden by {err:.2e}")
+
+    # (b) the 4D anchor at N_END_4D_ANCHOR against the JAX golden
+    n_a = nb * basis(c4, N_END_4D_ANCHOR).num
+    route = _core._route("auto", nb, n_a, torch.float64, dev, True, False, cube)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(c4, torch.float64, ks, cube, N_END_4D_ANCHOR)
+    u0 = uscat0(calc).cpu().numpy()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    print(f"[8] (b) 4D anchor n_end={N_END_4D_ANCHOR} ({n_a} unknowns), complex128, auto -> "
+          f"{route!r}: {dt:.3f} s for {KB} k, launches {counts}, GMRES iters "
+          f"{calc.iters.tolist()}, max relres {float(calc.relres.max()):.3e} ({card})")
+    require_launched(counts, ("lane_gather", "lane_scatter", "spherical_jh", "coax_fold"), "(b)")
+    if route != "matfree" or counts["block_diag_cmm"] != 0:
+        raise RuntimeError("(b) the complex128 default route is not the offset table")
+    if float(calc.relres.max()) > 1e-11:
+        raise RuntimeError("(b) relres above 1e-11")
+    against_golden("(b) complex128 offset table", u0, 1e-7)
+    del calc
+    torch.cuda.empty_cache()
+    reset()
+    calc = solve(c4, torch.float32, ks, cube, N_END_4D_ANCHOR)
+    counts = read()
+    require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter"), "(b) complex64")
+    print(f"[8] (b) complex64, auto -> factored, GMRES iters {calc.iters.tolist()}, launches "
+          f"{counts}")
+    against_golden("(b) complex64 factored", uscat0(calc).cpu().numpy(), 1e-3)
+    del calc
+
+    # (c) 'bpbpa' at (b)'s configuration: the field does not depend on the chart
+    reset()
+    calc = solve(c4p, torch.float32, ks, cube, N_END_4D_ANCHOR)
+    counts = read()
+    require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter"), "(c)")
+    print(f"[8] (c) 'bpbpa' hypercube n_end={N_END_4D_ANCHOR}, complex64, auto -> factored, "
+          f"GMRES iters {calc.iters.tolist()}, launches {counts}")
+    against_golden("(c) 'bpbpa' against the 'bba' golden:", uscat0(calc).cpu().numpy(), 1e-3)
+    del calc
+    torch.cuda.empty_cache()
+
+    # (d) the 4D dense route: the jascome pair at N_END_4D_LU, k = 1
+    pair = pair_centers(4)
+    one_k = np.array([1.0], np.float32)
+    for rdt, kw, tol in ((torch.float32, {}, 1e-3), (torch.float64, dict(stable=False), 1e-8)):
+        name = "complex64" if rdt == torch.float32 else "complex128"
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        calc = solve(c4, rdt, one_k, pair, N_END_4D_LU, **kw)
+        u0 = uscat0(calc)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read()
+        require_launched(counts, ("dense_assemble", "spherical_jh", "coax_fold"), "(d)")
+        if calc.relres is not None or calc.matrix is None:
+            raise RuntimeError(f"(d) {name}: the default solver did not take LU")
+        ref = uscat0(solve(c4, rdt, one_k, pair, N_END_4D_LU, solver="matfree", stable=True))
+        err = rel(u0, ref)
+        print(f"[8] (d) 4D pair n_end={N_END_4D_LU} (2 x {basis(c4, N_END_4D_LU).num} unknowns), "
+              f"{name}{' stable=False' if kw else ''}, auto -> LU: {dt:.3f} s, launches "
+              f"{counts}, uscat(0) {complex(u0[0]):.9f}, against the factored route rel err "
+              f"{err:.3e} ({card})")
+        if not err <= tol:
+            raise RuntimeError(f"(d) {name}: LU off the factored route by {err:.3e}")
+        del calc
+        f = dict(dtype=rdt, device=dev)
+        cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+        parts = _core._assembly_parts(
+            c4, N_END_4D_LU, pair, torch.ones(1, 2, **f), torch.as_tensor(one_k, **f),
+            torch.ones(1, **f), torch.ones(1, 2, dtype=cdt, device=dev),
+            torch.zeros(1, 2, dtype=cdt, device=dev), stable=rdt == torch.float32)
+        got = dense_assemble(*parts)
+        if not torch.equal(dense_assemble(*parts), got):
+            raise RuntimeError(f"(d) KD {name}: two launches differ")
+        same, ea, _ = equal_by_k(torch, got, _dense_assemble_plain(*parts, False))
+        ms = cuda_ms(torch, lambda: dense_assemble(*parts), 10)
+        pms = cuda_ms(torch, lambda: _dense_assemble_plain(*parts, False), 3)
+        h_kd, cs = parts[0].shape[-1], (8 if rdt == torch.float32 else 16)
+        b = bound(4 * h_kd * h_kd * cs + parts[0].numel() * cs + 6 * h_kd * cs + h_kd * cs // 2
+                  + 4 * 12, 12 * 2 * h_kd * h_kd, name)
+        print(f"[8] (d) dense_assemble 1 k x 2x2 blocks of {h_kd}x{h_kd} {name}: equal to the "
+              f"plain version {same}, max_abs_err {ea:.3e} kernel {ms:.4f} ms plain {pms:.4f} "
+              f"ms bound {b[0]:.6f} ms ({b[1]}) ({card})")
+        if not same:
+            raise RuntimeError(f"(d) KD {name} differs from its plain version ({ea:.3e})")
+        del parts, got
+        torch.cuda.empty_cache()
+
+    # (e) 5D: 'bbba', the jascome pair at N_END_5D, complex64 on the forced
+    # factored route (KB's row panels at blocks of 204) against complex128 LU
+    pair5 = pair_centers(5)
+    reset()
+    calc = solve(c5, torch.float32, one_k, pair5, N_END_5D, solver="matfree", stable=True)
+    u0 = uscat0(calc)
+    counts = read()
+    panels = counts["block_diag_cmm_panels"]
+    ref = uscat0(solve(c5, torch.float64, one_k, pair5, N_END_5D))
+    err = rel(u0.to(torch.complex128), ref)
+    print(f"[8] (e) 'bbba' 5D pair n_end={N_END_5D} (H={basis(c5, N_END_5D).num}), complex64 "
+          f"factored: GMRES iters {calc.iters.tolist()}, launches {counts}, KB with row "
+          f"panels {panels}; uscat(0) {complex(u0[0]):.9f} against complex128 LU "
+          f"{complex(ref[0]):.9f}: rel err {err:.3e} ({card})")
+    require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
+                              "coax_fold"), "(e)")
+    if panels <= 0 or not err <= 1e-3:
+        raise RuntimeError(f"(e) KB panels {panels} or rel err {err:.3e} off its gate")
+    del calc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1735,11 +2185,13 @@ def main():
           f"trivial kernel, back to back ({card})")
 
     results = check_kernels(torch, dev, card)
+    results["block_diag_cmm_panels"] = check_kb_panels(torch, dev, card)
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
     matfree_route(torch, dev, card)
     complex_and_trees(torch, dev, card)
+    launches["block_diag_cmm_panels"] = four_d(torch, dev, card)["block_diag_cmm_panels"]
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
@@ -1748,6 +2200,9 @@ def main():
                               "biem_helmholtz_sphere_tpu/biem/_eval_fused.py:114"),
         "block_diag_cmm": ("csrc/block_diag_cmm.cu",
                            "biem_helmholtz_sphere_tpu/biem/_core.py:640"),
+        # the same kernel's row-panel mode on the 4D path (phase 8 (a))
+        "block_diag_cmm_panels": ("csrc/block_diag_cmm.cu",
+                                  "biem_helmholtz_sphere_tpu/biem/_core.py:640"),
         "lane_gather": ("csrc/lane_route.cu",
                         "biem_helmholtz_sphere_tpu/biem/_core.py:632"),
         "lane_scatter": ("csrc/lane_route.cu",

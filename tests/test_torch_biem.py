@@ -176,10 +176,10 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("case", [
-    "triplet", "gumerov", "2d-tree", "c-tree", "4d-tree", "lattice-64",
+    "triplet", "gumerov", "2d-tree", "c-tree", "lattice-64",
 ])
 def test_unported_routes_raise(case):
-    tree = {"2d-tree": "a", "c-tree": "caa", "4d-tree": "bba"}
+    tree = {"2d-tree": "a", "c-tree": "caa"}
     c = create_from_branching_types(tree.get(case, "ba"))
     d = c.c_ndim
     n_balls = {"lattice-64": 64}.get(case, 2)

@@ -772,3 +772,93 @@ def test_kernels_launch_on_the_operands_device(two_cards):
     with torch.cuda.device(1):
         tab = _coax_packed(c, 6, torch.float32, "cuda")
     assert tab.u.device == dev1
+
+
+def _hypercube(half=2.0, d=4):
+    return np.stack(np.meshgrid(*([[-half, half]] * d), indexing="ij"), axis=-1).reshape(-1, d)
+
+
+def _pair(d):
+    centers = np.zeros((2, d))
+    centers[0, 1], centers[1, 1] = 2.0, -2.0
+    return centers
+
+
+_PANEL_CASES = {
+    # name: (d, n_end, centers): D's degree blocks up to 400, 256, 204
+    "4d-hypercube-20": (4, 20, _hypercube()),
+    "4d-hypercube-16": (4, 16, _hypercube()),
+    "5d-pair-8": (5, 8, _pair(5)),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("adjoint", [True, False])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", list(_PANEL_CASES))
+def test_block_diag_cmm_row_panels_match_plain(cuda, case, dtype, adjoint):
+    """KB's row-panel mode (degree blocks of D too large to stage whole) on
+    the factored route's compacted lanes, 4 k, against the plain version,
+    and a second launch equal bit for bit."""
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import pack_layout
+
+    d, n_end, centers = _PANEL_CASES[case]
+    rng = np.random.default_rng(31)
+    rt = _pair_routing(centers)
+    sizes = [harm_n_ndim(n, d) for n in range(n_end)]
+    h = sum(sizes)
+    a = pack_layout(sizes, None, h, cuda)
+    a = replace(a, vals=torch.as_tensor(_randc(rng, (len(rt.uniq), a.rows.numel())),
+                                        dtype=dtype, device=cuda))
+    x = torch.as_tensor(_randc(rng, (4, len(rt.src), h)), dtype=dtype, device=cuda)
+    seg = LaneSegments(tuple(int(v) for v in rt.slot_ptr))
+    n0 = block_diag_cmm.panel_launches
+    got = block_diag_cmm(a, x, seg, adjoint=adjoint)
+    assert block_diag_cmm.panel_launches == n0 + 1
+    assert _same_bits(block_diag_cmm(a, x, seg, adjoint=adjoint), got)
+    ref = _block_diag_cmm_plain(unpack(a), x, seg, adjoint)
+    assert _rel(got, ref) < _tol(dtype)
+
+
+def _solve_nd(device, btype, rdt, centers, n_end, k, **kw):
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+
+    c = create_from_branching_types(btype)
+    f = dict(dtype=rdt, device=device)
+    kt = torch.as_tensor(k, **f)
+    direction = torch.zeros(c.c_ndim, **f)
+    direction[0] = 1.0
+    uin, _ = plane_wave(k=kt, direction=direction)
+    calc = biem(c, centers=torch.as_tensor(centers, **f),
+                radii=torch.ones(len(centers), **f), k=kt, n_end=n_end, uin=uin, **kw)
+    x = torch.zeros(c.c_ndim, 1, **f)
+    x[0] = 3.0
+    return calc.density.cpu(), calc.uscat(x).cpu()
+
+
+@pytest.mark.requires_cuda
+def test_4d_factored_solve_on_the_card_matches_the_cpu(cuda):
+    """'bba' on the 4D hypercube at n_end=11 (degree blocks up to 121: KB's
+    row panels in both dtypes) on the factored route against the same call
+    on the CPU."""
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        n0 = block_diag_cmm.panel_launches
+        got = _solve_nd(cuda, "bba", dtype, _hypercube(), 11, 1.5, solver="matfree",
+                        stable=True)
+        assert block_diag_cmm.panel_launches > n0
+        ref = _solve_nd(torch.device("cpu"), "bba", dtype, _hypercube(), 11, 1.5,
+                        solver="matfree", stable=True)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < tol
+
+
+@pytest.mark.requires_cuda
+def test_5d_lu_solve_on_the_card_matches_the_cpu(cuda):
+    """'bbba', the 5D pair at n_end=6, on the LU route (KD) against the
+    same call on the CPU."""
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        got = _solve_nd(cuda, "bbba", dtype, _pair(5), 6, 1.0)
+        ref = _solve_nd(torch.device("cpu"), "bbba", dtype, _pair(5), 6, 1.0)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < tol

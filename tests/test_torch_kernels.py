@@ -14,6 +14,7 @@ blocks, one-hot matmul vs gather/index_add, scan vs loop): 1e-12 of the
 largest entry.
 """
 
+import hashlib
 from dataclasses import replace
 
 import numpy as np
@@ -45,6 +46,7 @@ from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
 )
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
 from biem_helmholtz_sphere_tpu_torch.ops import kernels
 from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
     ITEM_FIELDS,
@@ -52,7 +54,7 @@ from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
     _block_diag_cmm_plain,
     _plan,
     block_diag_cmm,
-    item_footprint,
+    item_stages,
     pack,
     unpack,
 )
@@ -66,6 +68,9 @@ from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
 from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
 from biem_helmholtz_sphere_tpu_torch.translation import coaxial_scaled, rotation_matrix
 from biem_helmholtz_sphere_tpu_torch.translation._scaled import _child_state_blocks, coax_fold
+
+
+_HYPERCUBE = np.stack(np.meshgrid(*([[-2.0, 2.0]] * 4), indexing="ij"), axis=-1).reshape(-1, 4)
 
 
 def _lattice(n_side=4, spacing=4.0):
@@ -329,44 +334,109 @@ _GEOMETRIES = {
     "2-sphere": np.array([[0.0, 2.0, 0.0], [0.0, -2.0, 0.0]]),
     "3-sphere": np.array([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [0.0, 4.0, 1.0]]),
 }
+# KB's work lists: (tree, n_end, centers); the 3D geometries at n_end=32,
+# the 4D hypercube {-2, 2}^4 (degree blocks up to 256 and 400: row panels)
+# and the 5D pair at n_end=8 (blocks up to 204)
+_WORK_LISTS = {
+    **{name: ("ba", 32, centers) for name, centers in _GEOMETRIES.items()},
+    "4d-hypercube-16": ("bba", 16, _HYPERCUBE),
+    "4d-hypercube-20": ("bba", 20, _HYPERCUBE),
+    "5d-pair-8": ("bbba", 8, np.array([[0.0, 2.0, 0.0, 0.0, 0.0], [0.0, -2.0, 0.0, 0.0, 0.0]])),
+}
+
+
+def _work_list_cases(geometry):
+    """(D's and X's (block sizes, lane segments, per_k)) of a geometry."""
+    tree, n_end, centers = _WORK_LISTS[geometry]
+    c = create_from_branching_types(tree)
+    rt = _pair_routing(centers)
+    cs_sizes, _ = _child_state_blocks(c, n_end)
+    d_sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
+    return [(tuple(int(v) for v in sizes), tuple(int(v) for v in seg), per_k)
+            for sizes, seg, per_k in ((d_sizes, rt.slot_ptr, False),
+                                      (cs_sizes, rt.rad_ptr, True))]
 
 
 @pytest.mark.parametrize("elem_bytes", [8, 16])
-@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+@pytest.mark.parametrize("geometry", sorted(_WORK_LISTS))
 def test_work_list_covers_every_block_and_lane_once(geometry, elem_bytes):
     """KB's host-built work list, for D (shared by the k's, slot segments)
-    and X (one matrix per (k, radius), radius segments) at n_end=32: every
-    (matrix, block, k, lane) that a product needs is in exactly one item,
-    nothing else is, every item fits its staging buffer, and the list runs
-    largest first."""
-    n_end, n_k = 32, 4
-    rt = _pair_routing(_GEOMETRIES[geometry])
-    n_lanes = len(rt.src)
-    cs_sizes, _ = _child_state_blocks(create_from_branching_types("ba"), n_end)
-    for sizes, seg, per_k in ((2 * np.arange(n_end) + 1, rt.slot_ptr, False),
-                              (cs_sizes, rt.rad_ptr, True)):
-        sizes = tuple(int(v) for v in sizes)
-        seg = tuple(int(v) for v in seg)
+    and X (one matrix per (k, radius), radius segments): every (matrix,
+    block, row, k, lane) that a product needs is in exactly one item,
+    nothing else is, every item fits its staging buffer (row panels
+    column panel by column panel), an item of several column panels has
+    at most one 4 x 2 tile per thread, and the list runs largest first.
+    Rows are counted by the 4-row tiles that row panels start on."""
+    n_k = 4
+    for sizes, seg, per_k in _work_list_cases(geometry):
         n_mat = len(seg) - 1
-        items_t, n_items, buf = _plan(sizes, seg, n_k, per_k, elem_bytes, torch.device("cpu"))
+        g = np.asarray(sizes)
+        items_t, n_items, buf, paneled = _plan(sizes, seg, n_k, per_k, elem_bytes,
+                                               torch.device("cpu"))
         items = items_t.numpy()
         assert items.shape == (n_items, ITEM_FIELDS) and 2 * buf * elem_bytes <= 232448
-        assert (item_footprint(items, sizes) <= buf).all()
-        cover = np.zeros(((n_k if per_k else 1) * n_mat, len(sizes), n_k, n_lanes), int)
-        for mat, k0, nk, lane0, nl, b0, b1, q0, q1 in items:
+        assert buf % 4 == 0
+        foot, panels = item_stages(items, sizes, buf)
+        assert (foot <= buf).all()
+        mat_, _, _, _, _, b0_, b1_, q0_, q1_, r0_, r1_ = items.T.astype(np.int64)
+        rows = np.minimum(r1_, g[b0_]) - r0_
+        tiles = -(-rows // 4) * -(-(q1_ - q0_) // 2)
+        assert ((panels == 1) | ((b1_ - b0_ == 1) & (tiles <= 256))).all()
+        assert paneled == bool((panels > 1).any() or (rows < g[b0_]).any())
+        # D's degree blocks need row panels in 4D and 5D; X's child-state
+        # blocks (at most n_end) never do
+        assert paneled == (not per_k and geometry[:2] in ("4d", "5d"))
+        n_rt = -(-int(g.max()) // 4)
+        for mat in range((n_k if per_k else 1) * n_mat):
             m = mat % n_mat
-            assert (lane0, nl) == (seg[m], seg[m + 1] - seg[m]) and 0 <= q0 < q1 <= nk * nl
-            assert (k0, nk) == ((mat // n_mat, 1) if per_k else (0, n_k))
-            for q in range(q0, q1):
-                cover[mat, b0:b1, k0 + q // nl, lane0 + q % nl] += 1
-        want = np.zeros_like(cover)
-        for m in range(n_mat):
-            for k in range(n_k):
-                want[k * n_mat + m if per_k else m, :, k, seg[m] : seg[m + 1]] = 1
-        np.testing.assert_array_equal(cover, want)
-        g2 = np.asarray(sizes) ** 2
-        work = [g2[b0:b1].sum() * (q1 - q0) for b0, b1, q0, q1 in items[:, 5:]]
+            nl_m = seg[m + 1] - seg[m]
+            cover = np.zeros((len(g), n_rt, n_k, max(nl_m, 1)), int)
+            for _, k0, nk, lane0, nl, b0, b1, q0, q1, r0, r1 in items[mat_ == mat]:
+                assert (lane0, nl) == (seg[m], nl_m) and 0 <= q0 < q1 <= nk * nl
+                assert (k0, nk) == ((mat // n_mat, 1) if per_k else (0, n_k))
+                assert r0 % 4 == 0
+                for b in range(b0, b1):
+                    assert 0 <= r0 < min(r1, g[b])
+                    rt0, rt1 = r0 // 4, -(-min(r1, g[b]) // 4)
+                    for q in range(q0, q1):
+                        cover[b, rt0:rt1, k0 + q // nl, q % nl] += 1
+            want = np.zeros_like(cover)
+            if nl_m:
+                for b in range(len(g)):
+                    ks = slice(mat // n_mat, mat // n_mat + 1) if per_k else slice(None)
+                    want[b, : -(-g[b] // 4), ks, :] = 1
+            np.testing.assert_array_equal(cover, want)
+        work = [int((g[b0:b1] * (np.minimum(r1, g[b0:b1]) - r0)).sum()) * (q1 - q0)
+                for b0, b1, q0, q1, r0, r1 in items[:, 5:].astype(np.int64)]
         assert work == sorted(work, reverse=True)
+
+
+# KB's work lists at the 3D bench (4 k, the 240 compacted lanes; D over
+# its 36 slots, X over its 9 radii) as the parent of the row-panel change
+# built them: (items, elements per buffer, sha256 of the int32 items).
+_BENCH_WORK_LISTS = {
+    ("D", 8): (442, 7168, "2bf51a9cb3f7dfe9daa417c8018250959ff00ba0ad154efe5f424e2c02195995"),
+    ("D", 16): (442, 7184, "dba368733476b15887ef98f3025da536e89633e2802bb9bcdc5622c0c3b6f4c3"),
+    ("X", 8): (368, 7160, "b6667f101d0763daab85950e9fc9e000eac9f0d18666a9c0755fd51f3fb0c2d4"),
+    ("X", 16): (652, 3584, "66ad614764bed81d43aa8c37aa61824549dd7256873bd30793cb40850ba0d0b3"),
+}
+
+
+@pytest.mark.parametrize("matrix,elem_bytes", sorted(_BENCH_WORK_LISTS))
+def test_work_list_at_the_3d_bench_is_unchanged(matrix, elem_bytes):
+    """Row panels leave the 3D bench's work lists as they were: the same
+    items (the first nine fields, pinned by digest), each over the whole
+    rows of its blocks, the same buffer, no panels."""
+    (d_case, x_case) = _work_list_cases("bench")
+    sizes, seg, per_k = d_case if matrix == "D" else x_case
+    items_t, n_items, buf, paneled = _plan(sizes, seg, 4, per_k, elem_bytes,
+                                           torch.device("cpu"))
+    items = items_t.numpy()
+    digest = hashlib.sha256(np.ascontiguousarray(items[:, :9], dtype=np.int32).tobytes())
+    assert (n_items, buf, digest.hexdigest()) == _BENCH_WORK_LISTS[matrix, elem_bytes]
+    assert not paneled and (items[:, 9] == 0).all()
+    g = np.asarray(sizes)
+    assert [int(r1) for r1 in items[:, 10]] == [int(g[b0:b1].max()) for b0, b1 in items[:, 5:7]]
 
 
 def test_compacted_route_matches_the_padded_route():

@@ -21,6 +21,7 @@ from biem_helmholtz_sphere_tpu.translation._scaled import (
 from biem_helmholtz_sphere_tpu_torch.biem._core import _radial_rows_scaled
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
 from biem_helmholtz_sphere_tpu_torch.ops.block_diag import pack
 from biem_helmholtz_sphere_tpu_torch.translation import (
     coaxial_scaled,
@@ -28,7 +29,13 @@ from biem_helmholtz_sphere_tpu_torch.translation import (
 )
 from biem_helmholtz_sphere_tpu_torch.special import spherical_h_scaled
 from biem_helmholtz_sphere_tpu_torch.translation._ops import ipow
-from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coax_tables
+from biem_helmholtz_sphere_tpu_torch.translation import _rotation
+from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
+    RotationD,
+    _coax_tables,
+    _rot_tables,
+    rotation_blocks,
+)
 from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
     _GROUP,
     _TILE,
@@ -280,3 +287,42 @@ def test_coax_fold_tiled_order_matches_plain(n_end, n_rad):
     assert bool(torch.isfinite(ref).all())
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                atol=1e-12 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("btype,n_end", [("ba", 7), ("bba", 5), ("bpbpa", 4), ("bbba", 4)])
+def test_rotation_d_packed_equals_pack_of_the_dense_d(btype, n_end):
+    """RotationD.packed, taken straight from the degree groups with the
+    tree's own degree-block sizes (harm_n_ndim(n, d): 2n+1 in 3D, (n+1)^2
+    in 4D), equals `pack` of the dense D value for value, in d = 3, 4, 5."""
+    rng = np.random.default_rng(11)
+    c = create_from_branching_types(btype)
+    d = c.c_ndim
+    t_hat = torch.as_tensor(_directions(rng, d, 4))
+    rot = RotationD(c, t_hat, n_end)
+    sizes = [harm_n_ndim(n, d) for n in range(n_end)]
+    got = rot.packed
+    ref = pack(rotation_matrix(c, t_hat, n_end), sizes)
+    assert got.block_sizes == ref.block_sizes == tuple(sizes)
+    assert torch.equal(got.vals, ref.vals)
+    for name in ("offs", "sizes", "voffs", "rows", "cols"):
+        assert torch.equal(getattr(got, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("btype,n_end", [("ba", 6), ("bba", 5)])
+def test_rotation_blocks_chunked_equals_all_at_once(btype, n_end, monkeypatch):
+    """K3 over chunks of directions (the budget made small, so that two
+    directions make a chunk) equals K3 over all of them at once (1e-14 of
+    |D| ~ 1 in float64), on a batch of [3, 3] directions."""
+    rng = np.random.default_rng(12)
+    c = create_from_branching_types(btype)
+    t_hat = torch.as_tensor(_directions(rng, c.c_ndim, 6).reshape(3, 3, -1))
+    q_num, h_num = _rot_tables(c, n_end)[1].shape
+    monkeypatch.setattr(_rotation, "_ROT_BYTES", 1 << 60)
+    groups, ref = rotation_blocks(c, t_hat, n_end)
+    per_dir = _rotation._ROT_TEMPS * q_num * h_num * 16
+    monkeypatch.setattr(_rotation, "_ROT_BYTES", 2 * per_dir + 1)
+    groups_c, got = rotation_blocks(c, t_hat, n_end)
+    assert groups_c == groups
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.shape[:2] == (3, 3)
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-14)

@@ -1,4 +1,4 @@
-"""Golden uscat(0) values of the bench configuration, from the JAX package.
+"""Golden uscat(0) values of the bench configurations, from the JAX package.
 
 Solves the bench configuration (bench.py: "ba" tree, 16 unit spheres on a
 4x4 lattice with spacing 4, n_end=32, plane wave along x0) with the JAX
@@ -12,8 +12,15 @@ Writes biem_helmholtz_sphere_tpu_torch/data/bench_golden_f64.json (real
 k), or bench_golden_complexk_f64.json with --imag (chip_smoke.py phase 7
 uses 0.1), which chip_smoke.py reads: the card has no JAX.
 
+With --4d it solves chip_smoke.py phase 8's 4D anchor instead: the "bba"
+tree, 16 unit spheres at the corners of the hypercube {-2, 2}^4 (pitch
+4), n_end=12, plane wave along x0, the first KB points of
+linspace(3.5, 4.5, 100) cast to float32, on the JAX package's default
+route (a direct LU on the CPU), and writes bench4d_golden_f64.json.
+
     python tools/torch_golden_from_jax.py [--n-k 4]
     python tools/torch_golden_from_jax.py --imag 0.1
+    python tools/torch_golden_from_jax.py --4d
 """
 
 import argparse
@@ -31,6 +38,14 @@ N_END = 32
 N_SIDE = 4
 SPACING = 4.0
 SWEEP = (7.0, 9.0, 100)
+N_END_4D = 12
+SWEEP_4D = (3.5, 4.5, 100)
+
+
+def hypercube_centers(half=2.0, d=4):
+    """The 2^d corners of {-half, half}^d, first axis slowest."""
+    grid = np.stack(np.meshgrid(*([[-half, half]] * d), indexing="ij"), axis=-1)
+    return grid.reshape(-1, d)
 
 
 def lattice_centers(n_side, spacing, d=3):
@@ -46,10 +61,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-k", type=int, default=4)
     ap.add_argument("--imag", type=float, default=0.0, help="Im k of every point")
+    ap.add_argument("--4d", dest="four_d", action="store_true",
+                    help="the 4D hypercube anchor (chip_smoke.py phase 8)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    out_path = args.out or os.path.join(
-        DATA, "bench_golden_complexk_f64.json" if args.imag else "bench_golden_f64.json")
+    if args.four_d and args.imag:
+        ap.error("--4d takes a real k")
+    name = ("bench4d_golden_f64.json" if args.four_d else
+            "bench_golden_complexk_f64.json" if args.imag else "bench_golden_f64.json")
+    out_path = args.out or os.path.join(DATA, name)
 
     import jax
 
@@ -60,42 +80,57 @@ def main():
     from biem_helmholtz_sphere_tpu.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu.ops.cplx import C
 
-    c = create_from_branching_types("ba")
-    centers = lattice_centers(N_SIDE, SPACING)
+    if args.four_d:
+        c = create_from_branching_types("bba")
+        centers, n_end, sweep = hypercube_centers(), N_END_4D, SWEEP_4D
+        solve_kw = {}
+    else:
+        c = create_from_branching_types("ba")
+        centers, n_end, sweep = lattice_centers(N_SIDE, SPACING), N_END, SWEEP
+        solve_kw = dict(solver="matfree", stable=True)
+    d = c.c_ndim
+    direction = np.zeros(d)
+    direction[0] = 1.0
     radii = np.ones(len(centers))
-    ks = np.linspace(*SWEEP).astype(np.float32)[: args.n_k]
+    ks = np.linspace(*sweep).astype(np.float32)[: args.n_k]
     rows = []
     for kf in ks:
         k = np.asarray(float(kf))
         if args.imag:
             k = C(k, np.asarray(args.imag))
-        uin, _ = plane_wave(k=k, direction=np.asarray([1.0, 0.0, 0.0]))
+        uin, _ = plane_wave(k=k, direction=direction)
         t0 = time.perf_counter()
-        calc = biem(
-            c, centers=centers, radii=radii, k=k, n_end=N_END, uin=uin,
-            solver="matfree", stable=True,
-        )
-        u0 = complex(calc.uscat(np.zeros((3, 1))).to_numpy().ravel()[0])
+        calc = biem(c, centers=centers, radii=radii, k=k, n_end=n_end, uin=uin, **solve_kw)
+        u0 = complex(np.asarray(calc.uscat(np.zeros((d, 1))).to_numpy()).ravel()[0])
         dt = time.perf_counter() - t0
         rows.append({
             "k": [float(kf), args.imag] if args.imag else float(kf),
             "uscat0": [u0.real, u0.imag],
-            "relres": float(np.asarray(calc.relres)),
-            "iters": int(np.asarray(calc.iters)),
+            "relres": None if calc.relres is None else float(np.asarray(calc.relres)),
+            "iters": None if calc.iters is None else int(np.asarray(calc.iters)),
         })
         peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        print(f"k={kf:.9g}{args.imag:+g}j uscat(0)={u0:.12g} relres={rows[-1]['relres']:.2e} "
+        print(f"k={kf:.9g}{args.imag:+g}j uscat(0)={u0:.12g} relres={rows[-1]['relres']} "
               f"iters={rows[-1]['iters']} {dt:.1f}s peak_rss={peak:.2f}GiB",
               flush=True)
-    out = {
-        "source": "tools/torch_golden_from_jax.py (JAX package, CPU, float64)",
-        "config": {
+    if args.four_d:
+        config = {
+            "tree": "bba", "n_end": N_END_4D, "centers": "corners of {-2, 2}^4",
+            "spacing": 4.0, "radius": 1.0, "direction": direction.tolist(),
+            "solver": "auto (a direct LU on the CPU)", "stable": False,
+            "k_sweep": "linspace(3.5, 4.5, 100) as float32, first points",
+        }
+    else:
+        config = {
             "tree": "ba", "n_end": N_END, "lattice": [N_SIDE, N_SIDE],
-            "spacing": SPACING, "radius": 1.0, "direction": [1.0, 0.0, 0.0],
+            "spacing": SPACING, "radius": 1.0, "direction": direction.tolist(),
             "solver": "matfree", "stable": True, "gmres_tol": 1e-11,
             "k_sweep": "linspace(7, 9, 100) as float32, first points",
             "imag_k": args.imag,
-        },
+        }
+    out = {
+        "source": "tools/torch_golden_from_jax.py (JAX package, CPU, float64)",
+        "config": config,
         "points": rows,
     }
     os.makedirs(os.path.dirname(out_path), exist_ok=True)

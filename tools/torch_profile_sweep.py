@@ -1,7 +1,7 @@
 """Profile the port's bench sweep on the card: device time per kernel and
 the device's idle share.
 
-    python tools/torch_profile_sweep.py [--host-only]
+    python tools/torch_profile_sweep.py [--host-only | --4d]
 
 Run from the repository root on a machine with a CUDA card (no JAX
 needed).  It drives chip_smoke.py's bench sweep (`chip_smoke.bench_sweep`: 16 unit
@@ -34,6 +34,13 @@ warm starts) once to warm up and once under torch.profiler, then prints:
   of the KC gather and K2 wrappers at the same shapes, with a
   `torch.empty` and the stream queries beside them (only these with
   --host-only).
+
+With --4d it profiles chip_smoke.py phase 8 (a)'s 4D path instead ('bba',
+16 unit spheres at the corners of {-2, 2}^4, n_end=20, complex64, the
+first 8 k of linspace(3.5, 4.5, 100) in two blocks of 4 with warm starts,
+the factored GMRES with KB's row panels): the same wall, busy and idle
+share and device time by kernel, then the device us per launch of KB's
+row-panel D^H and D at those shapes alone.
 
 Copied with chip_smoke.py into an unpacked parent (its `tools/` and its
 root), it times the parent's kernels and wrappers: run both copies in one
@@ -365,6 +372,65 @@ def _print_host_times(torch, dev):
         print(f"  {us:9.2f} us  {label}")
 
 
+def four_d_sweep(torch, dev):
+    """(sweep, ks): chip_smoke.py phase 8 (a)'s 4D path over two blocks of
+    KB k with warm starts."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from chip_smoke import KB, N_END_4D, hypercube_centers, sweep_ks_4d
+
+    c = create_from_branching_types("bba")
+    f = dict(dtype=torch.float32, device=dev)
+    cube = torch.as_tensor(hypercube_centers(), **f)
+    nb = cube.shape[0]
+    direction = torch.zeros(4, KB, **f)
+    direction[0] = 1.0
+    ks = sweep_ks_4d()[: 2 * KB]
+
+    def sweep():
+        dens = None
+        for i0 in range(0, len(ks), KB):
+            kt = torch.as_tensor(ks[i0 : i0 + KB], **f)
+            uin, _ = plane_wave(k=kt, direction=direction)
+            calc = biem(c, centers=cube.expand(KB, nb, 4), radii=torch.ones(KB, nb, **f), k=kt,
+                        n_end=N_END_4D, uin=uin, density0=dens)
+            calc.uscat(torch.zeros(4, 1, **f))
+            dens = calc.density[KB - 1]
+
+    return sweep, ks
+
+
+def four_d_kb_times(torch, dev):
+    """Device us per launch of KB's row-panel D^H and D at the 4D path's
+    shapes (random D with its degree blocks, the 240 compacted lanes)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
+    from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
+        LaneSegments, block_diag_cmm, pack_layout)
+    from chip_smoke import KB, N_END_4D, hypercube_centers
+
+    rt = _pair_routing(hypercube_centers())
+    sizes = [harm_n_ndim(n, 4) for n in range(N_END_4D)]
+    h = sum(sizes)
+    rng = np.random.default_rng(5)
+
+    def randc(shape):
+        z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(z, dtype=torch.complex64, device=dev)
+
+    a = pack_layout(sizes, None, h, dev)
+    a = replace(a, vals=randc((len(rt.uniq), a.rows.numel())))
+    x = randc((KB, len(rt.src), h))
+    seg = LaneSegments(tuple(int(v) for v in rt.slot_ptr))
+    return {f"KB row panels {op} 4D n_end={N_END_4D}, {KB} k x {len(rt.src)} lanes":
+            _per_launch_us(torch, lambda adj=adj: block_diag_cmm(a, x, seg, adjoint=adj))
+            for op, adj in (("D^H", True), ("D", False))}
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -383,7 +449,11 @@ def main():
         print(f"card: {card}")
         _print_host_times(torch, dev)
         return 0
-    _, sweep, ks = bench_sweep(torch, dev)
+    four = "--4d" in sys.argv[1:]
+    if four:
+        sweep, ks = four_d_sweep(torch, dev)
+    else:
+        _, sweep, ks = bench_sweep(torch, dev)
 
     sweep()
     torch.cuda.synchronize()
@@ -409,6 +479,11 @@ def main():
         raise RuntimeError("no device event of the sweep names a kernel of csrc/")
     for key, (t_us, n) in port:
         print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
+    if four:
+        print("each alone, device us per launch (complex64):")
+        for label, us in four_d_kb_times(torch, dev).items():
+            print(f"  {us:9.2f} us  {label}")
+        return 0
     print("each alone, device us per launch (bench widths, complex64):")
     for label, us in (kernel_device_times(torch, dev) | plain_stage_device_times(torch, dev)
                       ).items():
