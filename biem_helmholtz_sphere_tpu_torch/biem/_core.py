@@ -29,14 +29,19 @@ chosen by the same policy (`_route`):
   and one matvec applies it to the offset-sorted lanes (KC) in one
   batched product.
 
+* lattice FFT (`_lattice.py`, 64 or more spheres on a square lattice or a
+  line): the coupling is a block convolution over the cells, applied by
+  FFTs of the per-offset table's kernel and one product per frequency.
+
 The right-hand side is the closed form of a `plane_wave`, or the
 quadrature projection of any other incident field (`_rhs_expansion`).
 k may be complex.  Geometry that varies along the batch is never
 matrix-free (as in the JAX package): the dense routes build each k's own
-offset table and KD gathers it with that k's pair map.  Every dimension
-d >= 3 takes the same routes for a tree rooted at a 'b' or 'bp' node.  The
-lattice-FFT route, 2D and trees with a 'c' node raise NotImplementedError
-naming their ROADMAP item.
+offset table and KD gathers it with that k's pair map.  2D trees ('a')
+take every route, their (S|R) table Graf's closed form (KG, ops/graf.py;
+never the factored operator); every dimension d >= 3 takes the same
+routes for a tree rooted at a 'b' or 'bp' node.  Trees with a 'c' node
+raise NotImplementedError naming their ROADMAP item.
 """
 
 import warnings
@@ -55,9 +60,8 @@ from ..ops.lane_route import lane_gather, lane_scatter, make_route
 from ..special._family import spherical_jh_all, spherical_jh_scaled
 from ..translation._ops import _a_const, check_method, ipow, translation_matrix
 from ..translation._rotation import _sandwich, rotation_d, unique_radii
-from ..translation._scaled import coax_fold_packed
+from ..translation._scaled import coax_fold_packed, graf_2d_folded
 
-_ROUTES = "ROADMAP queue 1 item 8"
 _TREES = "ROADMAP queue 1 item 9"
 
 
@@ -341,6 +345,31 @@ def _radial_rows_scaled(c, n_end, radii, k, eta, alpha, beta):
     return (sing_m, e_sing), (reg_m, e_reg), (blc_m, e_blc)
 
 
+def _radial_factors(c, n_end, radii, k, eta, alpha, beta, stable):
+    """(rowf, colf, diag [K, B, H], fold): the row factor reg, the column
+    factor blc and the diagonal sing * blc of the system, and the exponents
+    that the (S|R) table must carry.
+
+    stable=False: the unscaled radial rows and fold None.  stable=True: each
+    row as mantissa x exponent; the ball-maximum exponents fold = (e_r_max,
+    e_b_max) [K, H] go into the (S|R) table and the per-ball deficits
+    exp(e - max_b e) <= 1 ride the row and column factors (the JAX
+    package's unique-offset fold; for uniform radii the deficits are 1).
+    """
+    if not stable:
+        sing, rowf, colf = _radial_rows(c, n_end, radii, k, eta, alpha, beta)
+        return rowf, colf, sing * colf, None
+    (sing_m, e_s), (reg_m, e_r), (blc_m, e_b) = _radial_rows_scaled(
+        c, n_end, radii, k, eta, alpha, beta
+    )
+    # the diagonal entry is physically bounded; its factors are not
+    diag = (sing_m * blc_m) * torch.exp(e_s + e_b)
+    e_r_max, e_b_max = e_r.amax(dim=-2), e_b.amax(dim=-2)  # [K, H]
+    rowf = reg_m * torch.exp(e_r - e_r_max[:, None, :])
+    colf = blc_m * torch.exp(e_b - e_b_max[:, None, :])
+    return rowf, colf, diag, (e_r_max, e_b_max)
+
+
 def _offsets(centers_np):
     """(uniq [NO, d], pid [B, B], uniq_r [NR], r_inv [NO]) on the host: the
     distinct b < b' offset vectors c_b - c_b' (rounded to 12 decimals, so a
@@ -440,12 +469,14 @@ def _matfree_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=N
                       sr_map=None, stable=False):
     """The unique-offset matrix-free operator: (mv, diag) on [K, B*H] vectors.
 
-    The JAX package's dispatch: scale-compensated with no `sr_map`, the
-    factored operator (`_factored_operator`: SR is never formed);
-    otherwise the offset-table operator (`_offset_table_operator`), whose
-    per-offset (S|R) table `sr_map` may transform once it is built.
+    The JAX package's dispatch: scale-compensated with no `sr_map` on a
+    'b'/'bp'-rooted tree in d >= 3, the factored operator
+    (`_factored_operator`: SR is never formed); otherwise (2D, or
+    unscaled, or an `sr_map`) the offset-table operator
+    (`_offset_table_operator`), whose per-offset (S|R) table `sr_map` may
+    transform once it is built.
     """
-    if stable and sr_map is None:
+    if stable and sr_map is None and c.c_ndim >= 3 and c.root.kind in ("b", "bp"):
         return _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta)
     return _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta,
                                   method, sr_map, stable)
@@ -510,15 +541,8 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     n_balls = centers_np.shape[0]
     n_k = k.shape[0]
     dev, rdt = radii.device, radii.dtype
-    (sing_m, e_s), (reg_m, e_r), (blc_m, e_b) = _radial_rows_scaled(
-        c, n_end, radii, k, eta, alpha, beta
-    )
-    # the diagonal entry is physically bounded; its factors are not
-    diag = (sing_m * blc_m) * torch.exp(e_s + e_b)
-    e_r_max = e_r.amax(dim=-2)  # [K, H]
-    e_b_max = e_b.amax(dim=-2)
-    reg_row = reg_m * torch.exp(e_r - e_r_max[:, None, :])
-    blc_col = blc_m * torch.exp(e_b - e_b_max[:, None, :])
+    reg_row, blc_col, diag, (e_r_max, e_b_max) = _radial_factors(
+        c, n_end, radii, k, eta, alpha, beta, stable=True)
 
     routing = _pair_routing(centers_np)
     route = make_route(routing.src, routing.dst, routing.dn, n_balls, dev)
@@ -582,6 +606,41 @@ def _offsets_per_k(centers_np):
             np.stack([pad(p[3], n_off) for p in per]))
 
 
+def _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method=None):
+    """The (S|R) of each distinct offset: complex [K, NO, H, H].
+
+    uniq [NO, d] (one geometry) or [K, NO, d] (each k its own), their
+    distinct lengths uniq_r [NR] or [K, NR] and each offset's index r_inv
+    into them (host, as `_offsets` gives them); k real or complex [K].
+    fold None: translation_matrix(method=method), unscaled (Graf's closed
+    form through KG in 2D, the rotation + coaxial K2 route in d >= 3).
+    fold = (e_r, e_b) [K, H], the ball-maximum exponents: the table with
+    them folded in, scale-compensated.  In 2D that is KG (K5's d = 2 h
+    mantissas and exponents, the i-power, the phase and the fold in one
+    launch); in d >= 3 K2 folds at the coaxial factor (the fold is
+    constant on degree blocks, which the rotation preserves) and the
+    rotation sandwich D X D^H follows by degree groups.  The dense, the
+    offset-table and the lattice routes all build their table here.
+    """
+    dev = k.device
+    rdt = k.real.dtype
+    t_cart = torch.as_tensor(np.moveaxis(uniq, -1, 0).copy(), dtype=rdt, device=dev)
+    if fold is None:  # [d, NO] or [d, K, NO]
+        return translation_matrix(c, t_cart, n_end, k[:, None], kind="SR", method=method)
+    e_r, e_b = fold
+    if c.c_ndim == 2:
+        return graf_2d_folded(c, t_cart, n_end, k, e_r, e_b)
+    n_root = basis(c, n_end).n_root
+    starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
+    x = coax_fold_packed(c, n_end, torch.as_tensor(uniq_r, dtype=rdt, device=dev), k,
+                         e_r[:, starts].contiguous(), e_b[:, starts].contiguous())
+    r_inv = torch.as_tensor(r_inv, device=dev)
+    coax = unpack(x)
+    coax = (coax[torch.arange(k.shape[0], device=dev)[:, None], r_inv] if uniq.ndim == 3
+            else coax[:, r_inv])
+    return _sandwich(coax, rotation_d(c, n_end, uniq, rdt, dev))
+
+
 def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
                     stable=False):
     """KD's arguments (table [K, NO, H, H], pid [B, B] or [K, B, B], rowf,
@@ -609,40 +668,15 @@ def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=Non
     n_root = basis(c, n_end).n_root
     h_num = len(n_root)
     sgn = torch.as_tensor(1.0 - 2.0 * (n_root % 2), dtype=rdt, device=dev)
-    if stable:
-        (sing_m, e_s), (reg_m, e_r), (blc_m, e_b) = _radial_rows_scaled(
-            c, n_end, radii, k, eta, alpha, beta
-        )
-        diag = (sing_m * blc_m) * torch.exp(e_s + e_b)
-        e_r_max, e_b_max = e_r.amax(dim=-2), e_b.amax(dim=-2)  # [K, H]
-        rowf = reg_m * torch.exp(e_r - e_r_max[:, None, :])
-        colf = blc_m * torch.exp(e_b - e_b_max[:, None, :])
-    else:
-        sing, rowf, colf = _radial_rows(c, n_end, radii, k, eta, alpha, beta)
-        diag = sing * colf
-    cdt = rowf.dtype
+    rowf, colf, diag, fold = _radial_factors(c, n_end, radii, k, eta, alpha, beta, stable)
     if n_balls == 1:
-        table = torch.zeros((n_k, 0, h_num, h_num), dtype=cdt, device=dev)
+        table = torch.zeros((n_k, 0, h_num, h_num), dtype=rowf.dtype, device=dev)
         pid = torch.zeros((1, 1), dtype=torch.int64, device=dev)
     else:
         per_k = centers_np.ndim == 3
         uniq, pid_np, uniq_r, r_inv = (_offsets_per_k if per_k else _offsets)(centers_np)
         pid = torch.as_tensor(pid_np, device=dev)
-        if stable:
-            starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
-            x = coax_fold_packed(
-                c, n_end, torch.as_tensor(uniq_r, dtype=rdt, device=dev), k,
-                e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
-            )
-            r_inv = torch.as_tensor(r_inv, device=dev)
-            coax = unpack(x)
-            coax = (coax[torch.arange(n_k, device=dev)[:, None], r_inv] if per_k
-                    else coax[:, r_inv])
-            table = _sandwich(coax, rotation_d(c, n_end, uniq, rdt, dev))
-        else:  # [d, NO] or [d, K, NO]
-            t_cart = torch.as_tensor(np.moveaxis(uniq, -1, 0).copy(), dtype=rdt, device=dev)
-            table = translation_matrix(c, t_cart, n_end, k[:, None], kind="SR",
-                                       method=method)
+        table = _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method)
     return table, pid, rowf, colf, sgn, diag
 
 
@@ -658,8 +692,12 @@ def _route(solver, n_balls, n_sys, rdt, device, has_rhs, force_matrix, centers_n
     takes up to 6144 unknowns and the dense matrix up to 6 GB; on the CPU
     12288 and 40 GB.  "auto" beyond the LU tier prefers matrix-free for
     8 <= B < 64 spheres with at most half as many distinct offsets as
-    pairs, and the lattice form from B = 64.
+    pairs, and the lattice form from B = 64 where the centers form a
+    lattice (`_lattice.lattice_routing`); other geometries of 64 or more
+    spheres go on to the same routes as fewer.
     """
+    from ._lattice import lattice_routing
+
     if has_rhs and n_balls == 1 and not force_matrix:
         return "diagonal"
     accel = device.type != "cpu"
@@ -670,7 +708,8 @@ def _route(solver, n_balls, n_sys, rdt, device, has_rhs, force_matrix, centers_n
     # geometry that varies along the batch (centers_np [K, B, d]) is never
     # matrix-free, as in the JAX package
     matfree_ok = has_rhs and not force_matrix and n_balls > 1 and centers_np.ndim == 2
-    if matfree_ok and n_balls >= 64 and (use_matfree or solver == "auto"):
+    if (matfree_ok and n_balls >= 64 and (use_matfree or solver == "auto")
+            and lattice_routing(centers_np) is not None):
         return "lattice"
     if (matfree_ok and not use_matfree and solver == "auto" and 8 <= n_balls < 64
             and n_sys > lu_limit):
@@ -727,19 +766,22 @@ def biem(
     is shared by the batch); complex outputs are native torch complex
     tensors on the device of the input tensors; with no tensor input
     (numpy or Python numbers) the solve runs on the card, and raises where
-    CUDA is absent.  Ported for 'b'- and 'bp'-rooted trees in any d >= 3
-    (ba, bpa, bba, bpbpa, bbba, ...), real or complex k, and geometry
-    shared by the batch or varying along it:
+    CUDA is absent.  Ported for 2D trees ('a') and 'b'- and 'bp'-rooted
+    trees in any d >= 3 (ba, bpa, bba, bpbpa, bbba, ...), real or complex
+    k, and geometry shared by the batch or varying along it:
 
     * solver="auto" picks the JAX package's route (`_route`): the diagonal
       solve for one sphere; LU up to 6144 unknowns on the card (12288 on
-      the CPU); the matrix-free GMRES for 8 <= B < 64 spheres with
-      repeated offsets beyond that; dense GMRES while the matrix fits 6 GB
-      (40 GB on the CPU), matrix-free beyond; geometry that varies along
-      the batch takes LU or dense GMRES only;
+      the CPU); the lattice-FFT GMRES for 64 or more spheres on a lattice;
+      the matrix-free GMRES for 8 <= B < 64 spheres with repeated offsets
+      beyond that; dense GMRES while the matrix fits 6 GB (40 GB on the
+      CPU), matrix-free beyond; geometry that varies along the batch
+      takes LU or dense GMRES only;
     * "direct" (LU), "gmres" (dense GMRES) and "matfree" force a route;
-      the matrix-free route is factored when scale-compensated and runs
-      the per-offset (S|R) table otherwise (`_matfree_operator`);
+      "matfree" takes the lattice form from 64 spheres on a lattice, else
+      the factored operator when scale-compensated on a 'b'/'bp' tree in
+      d >= 3 and the per-offset (S|R) table otherwise
+      (`_matfree_operator`);
     * stable (default: True in float32, False in float64) selects the
       scale-compensated assembly;
     * uin/uin_grad: the closures of one `plane_wave` call take the closed
@@ -753,8 +795,8 @@ def biem(
       ignored by the scale-compensated ones.
 
     relres/iters are the GMRES diagnostics (None on the direct routes);
-    density0 warm-starts GMRES.  The lattice-FFT route (B >= 64) and other
-    trees (2D, 'c' nodes) raise NotImplementedError naming their ROADMAP
+    density0 warm-starts GMRES.  Trees with 'c' nodes, and the "triplet" and
+    "gumerov" translations, raise NotImplementedError naming their ROADMAP
     item.
 
     The reference README problem (two sound-soft unit spheres at
@@ -784,10 +826,10 @@ def biem(
     )
     if stable is None:
         stable = rdt == torch.float32
-    if c.c_ndim < 3 or c.root.kind not in ("b", "bp"):
+    if c.c_ndim > 2 and c.root.kind not in ("b", "bp"):
         raise NotImplementedError(
-            f"only 'b'/'bp'-rooted trees in d >= 3 are ported (got "
-            f"{c.branching_types_expression_str!r}); {_TREES}"
+            f"only 2D trees and 'b'/'bp'-rooted trees in d >= 3 are ported (got "
+            f"{c.branching_types_expression_str!r}); 'c' nodes are {_TREES}"
         )
     n_balls = radii.shape[-1]
     h_num = basis(c, n_end).num
@@ -817,8 +859,6 @@ def biem(
         centers_np = centers_np.reshape((n_k,) + centers_np.shape[-2:])
     route = _route(solver, n_balls, n_sys, rdt, radii.device, has_rhs, force_matrix,
                    centers_np)
-    if route == "lattice":
-        raise NotImplementedError(f"the lattice-FFT operator (B >= 64) is {_ROUTES}e")
 
     k = k.expand(batch)
     k_f = k.to(_complex_of(rdt) if k.is_complex() else rdt).reshape(n_k)
@@ -835,7 +875,7 @@ def biem(
             c, n_end, centers_t, radii_f, alpha_f, beta_f, uin, uin_grad, batch
         ).reshape(n_k, n_sys)
     x0 = None
-    if density0 is not None and route in ("gmres", "matfree"):
+    if density0 is not None and route in ("gmres", "matfree", "lattice"):
         x0 = torch.as_tensor(density0, device=radii.device).to(f_exp.dtype)
         x0 = x0.expand(batch + (n_balls, h_num)).reshape(n_k, n_sys)
     density = matrix = relres = iters = None
@@ -846,9 +886,15 @@ def biem(
         else:
             sing, _, blc_v = _radial_rows(*args)
             density = f_exp / (blc_v * sing).reshape(n_k, n_sys)
-    elif route == "matfree":
-        mv, diag = _matfree_operator(c, n_end, centers_np, *args[2:], method=method,
-                                     stable=stable)
+    elif route in ("matfree", "lattice"):
+        if route == "lattice":
+            from ._lattice import lattice_operator
+
+            mv, diag = lattice_operator(c, n_end, centers_np, *args[2:], method=method,
+                                        stable=stable)
+        else:
+            mv, diag = _matfree_operator(c, n_end, centers_np, *args[2:], method=method,
+                                         stable=stable)
         density, relres, iters = gmres_solve_op(mv, diag, f_exp, x0=x0)
     else:
         a = _assemble(c, n_end, centers_np, *args[2:], method=method, stable=stable,

@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
-           "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu")
+           "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -66,6 +66,10 @@ _SIGNATURES = {
     # n_pairs, s_b, s_bp, s_h, vec, dbl, stream
     "bhs_dense_assemble": [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _L, _L, _L, _I, _I, _P],
+    # tab, etab, theta, theta_k, m_out, m_in, e_r, e_b, out, K, NO, NMU, Ho,
+    # Hi, rows, smem, scale, fold, dbl, stream
+    "bhs_graf_fold": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _D, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

@@ -8,16 +8,22 @@ With R_h(x) = j_{n_h}(k|x|) Y_h(x^) and S_h(x) = h_{n_h}(k|x|) Y_h(x^):
 and from the plane-wave expansion e^{i k x.s^} = A_d sum_h i^{n_h}
 j_{n_h}(k|x|) Y_h(x^) conj(Y_h(s^)), A_d = 2^{(d+1)/2} pi^{(d-1)/2}.
 
-`translation_matrix` dispatches as the JAX package's does: method None or
-"rotation" on 'b'/'bp'-rooted trees in d >= 3 is the rotation + coaxial
-decomposition (_rotation.sr_rotation).  The band scan ("triplet", and the
-default on other trees), Gumerov's recurrences ("gumerov"), Graf's closed
-form (2D) and the plane-wave (R|R) kernel are ROADMAP queue 1 item 9.
+`translation_matrix` dispatches as the JAX package's does: in 2D Graf's
+closed form (`_graf_2d`, the KG kernel of ops/graf.py in its zero-exponent
+mode); method None or "rotation" on 'b'/'bp'-rooted trees in d >= 3 the
+rotation + coaxial decomposition (_rotation.sr_rotation).  The band scan
+("triplet", and the default on other trees), Gumerov's recurrences
+("gumerov") and the plane-wave (R|R) kernel are ROADMAP queue 1 item 9.
 """
+
+from functools import lru_cache
 
 import numpy as np
 import torch
 from scipy.special import gamma
+
+from ..harmonics._index import basis
+from ..ops.graf import graf_fold
 
 
 def _a_const(d):
@@ -34,6 +40,53 @@ def ipow(n, dtype, device):
     re = (m == 0).to(torch.int8) - (m == 2).to(torch.int8)
     im = (m == 1).to(torch.int8) - (m == 3).to(torch.int8)
     return torch.complex(re.double(), im.double()).to(dtype)
+
+
+@lru_cache(maxsize=32)
+def _a_node_m(c, n_end):
+    """2D: the signed order m of each flat harmonic (numpy int64 [H])."""
+    b = basis(c, n_end)
+    nid = c.root.nid
+    ms = np.array([p[0] for p in b.node_jobs[nid]], dtype=np.int64)
+    return ms[b.node_job_index[nid]]
+
+
+@lru_cache(maxsize=32)
+def _a_node_m_on(c, n_end, device):
+    """`_a_node_m` as an int32 tensor on device (KG's order vector)."""
+    return torch.as_tensor(_a_node_m(c, n_end), dtype=torch.int32, device=device)
+
+
+def _polar_offsets(c, t_sph, t_cart):
+    """(|t|, theta) of 2D offsets given by their spherical mapping or by
+    cartesian t_cart [2, ...]."""
+    if t_sph is None:
+        from ..coords import from_cartesian
+
+        t_sph = from_cartesian(c, t_cart)
+    return t_sph["r"], t_sph[c.root.nid]
+
+
+def _graf_2d(c, t_sph, n_out, n_in, k, kind, t_cart=None):
+    """Closed-form 2D translation by Graf's addition theorem: complex
+    [..., H_out, H_in].
+
+    M[m', m] = i^{|m'|-|m|+|m-m'|} C_{|m-m'|}(k|t|) e^{i(m-m') theta_t},
+    C = H^{(1)} for (S|R), J for (R|R), from K5's unscaled d = 2 family
+    (sqrt(pi/2) times C) and KG in its zero-exponent mode.
+    """
+    from ..special._family import spherical_jh_all
+
+    r_t, theta = _polar_offsets(c, t_sph, t_cart)
+    z = k * r_t
+    batch = torch.broadcast_shapes(z.shape, theta.shape)
+    dev = theta.device
+    m_out, m_in = _a_node_m_on(c, n_out, dev), _a_node_m_on(c, n_in, dev)
+    # |m - m'| < (n_in - 1) + (n_out - 1) + 1 orders
+    jf, _, hf, _ = spherical_jh_all(2, n_in + n_out - 1, z.expand(batch).reshape(1, -1))
+    table = graf_fold(hf if kind == "SR" else jf, theta.expand(batch).reshape(1, -1),
+                      m_out, m_in)
+    return table.reshape(batch + table.shape[-2:])
 
 
 _METHODS = (None, "triplet", "plane_wave", "gumerov", "rotation")
@@ -70,7 +123,7 @@ def translation_matrix(c, t, n_end, k, kind="SR", n_end_add=None, method=None):
 
     n_in = n_end if n_end_add is None else n_end_add
     check_method(kind, method)
-    if method in ("gumerov", "triplet"):
+    if method == "gumerov" or (method == "triplet" and c.c_ndim != 2):
         raise NotImplementedError(f'method="{method}" is {_LATER}')
     if isinstance(t, dict):
         t_sph, t_cart = t, None
@@ -80,8 +133,8 @@ def translation_matrix(c, t, n_end, k, kind="SR", n_end_add=None, method=None):
             k.device if isinstance(k, torch.Tensor) else default_device())
         t_cart, t_sph = torch.as_tensor(t, device=dev), None
     k = torch.as_tensor(k, device=dev)
-    if c.c_ndim == 2:
-        raise NotImplementedError(f"Graf's 2D translation is {_LATER}")
+    if c.c_ndim == 2:  # every method but "gumerov" is Graf's closed form in 2D
+        return _graf_2d(c, t_sph, n_end, n_in, k, kind, t_cart=t_cart)
     use_rotation = method == "rotation" or (
         method is None and c.root.kind in ("b", "bp") and n_in == n_end
     )

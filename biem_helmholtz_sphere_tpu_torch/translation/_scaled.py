@@ -19,6 +19,13 @@ at n_end=32), and for the kernel also as tiles of _TILE entries of one
 top group (l + l') // _GROUP, each with only the bands below its top
 group's end (`_coax_tiles`).  `coaxial_scaled` keeps the dense (mant, S)
 for the translation surface.
+
+2D (Graf's closed form): the entries ARE gathered radial values, so
+`graf_2d_scaled` gathers (mantissa, exponent) of h_{|m - m'|}(k|t|) from
+K5's d = 2 family; S then depends on |m - m'| and is not constant on
+degree blocks.  `graf_2d_folded` is the table the BIEM routes use, with
+the ball-max exponents folded in: one K5 launch and one KG launch
+(ops/graf.py) on CUDA tensors.
 """
 
 from dataclasses import dataclass, replace
@@ -29,8 +36,9 @@ import torch
 
 from ..ops import kernels
 from ..ops.block_diag import BlockDiag, pack_layout
+from ..ops.graf import graf_fold, graf_gather
 from ..special._family import spherical_h_scaled
-from ._ops import _a_const, ipow
+from ._ops import _a_const, _a_node_m, _a_node_m_on, _polar_offsets, ipow
 from ._rotation import _coax_tables, _offsets_of, _root_axis, _sandwich
 
 # Bands per scale group: the within-group exponent spread (G-1) *
@@ -343,20 +351,52 @@ def coax_fold_packed(c, n_end, r, k, e_r, e_b):
     return replace(tab.layout, vals=coax_fold(radm, rade, e_r, e_b, tab))
 
 
-def sr_scaled(c, t_sph, n_end, k, kind="SR", t_cart=None, method=None):
-    """(mant, S) full (S|R) operator for 'b'/'bp'-rooted trees in d >= 3:
-    SR = mant * exp(S), overflow-free in any dtype.
+def graf_2d_scaled(c, t_sph, n_out, k, kind="SR", t_cart=None):
+    """(mant, S) of the 2D Graf closed form (see _ops._graf_2d): SR =
+    mant * exp(S), [..., H, H] each, S[h', h] the exponent of
+    h_{|m - m'|}(k|t|).  t by its spherical mapping or by cartesian t_cart
+    [2, ...]; k real or complex, broadcasting against t's batch shape."""
+    if kind != "SR":
+        raise ValueError("scaled translation is (S|R)-only (RR is bounded)")
+    r_t, theta = _polar_offsets(c, t_sph, t_cart)
+    m = torch.as_tensor(_a_node_m(c, n_out), device=theta.device)
+    hm, he = spherical_h_scaled(2, 2 * n_out - 1, k * r_t)  # |m - m'| < 2 n_end - 1
+    return graf_gather(hm, theta, m, m, he)
 
-    mant = D X_mant D^H per offset (the rotation sandwich, by degree
-    groups) and S the coaxial log-scale, which is constant on degree
-    blocks and so passes D unchanged.  Like the JAX package this ignores
-    `method` (the scaled path has its own exact algorithm).  2D trees and
-    other roots are ROADMAP queue 1 item 9.
+
+def graf_2d_folded(c, t_cart, n_end, k, e_r, e_b):
+    """The 2D (S|R) table with the row and column exponents folded in:
+    mant * exp(e_r[k, h'] + S + e_b[k, h]), complex [K, NO, H, H].
+
+    t_cart: real [2, NO] offsets (one geometry) or [2, K, NO] (each k its
+    own); k: real or complex [K]; e_r, e_b: real [K, H].  One K5 launch
+    (h of the d = 2 family at k|t|) and one KG launch on CUDA tensors.
     """
-    if c.c_ndim == 2 or c.root.kind not in ("b", "bp"):
+    r_t, theta = _polar_offsets(c, None, t_cart)
+    if r_t.ndim == 1:
+        r_t, theta = r_t[None], theta[None]
+    hm, he = spherical_h_scaled(2, 2 * n_end - 1, k[:, None] * r_t)
+    m = _a_node_m_on(c, n_end, theta.device)
+    return graf_fold(hm, theta, m, m, he, e_r, e_b)
+
+
+def sr_scaled(c, t_sph, n_end, k, kind="SR", t_cart=None, method=None):
+    """(mant, S) full (S|R) operator: SR = mant * exp(S), overflow-free in
+    any dtype.
+
+    2D: Graf's closed form (`graf_2d_scaled`).  'b'/'bp'-rooted trees in
+    d >= 3: mant = D X_mant D^H per offset (the rotation sandwich, by
+    degree groups) and S the coaxial log-scale, which is constant on
+    degree blocks and so passes D unchanged.  Like the JAX package this
+    ignores `method` (the scaled path has its own exact algorithm).  Other
+    roots are ROADMAP queue 1 item 9.
+    """
+    if c.c_ndim == 2:
+        return graf_2d_scaled(c, t_sph, n_end, k, kind=kind, t_cart=t_cart)
+    if c.root.kind not in ("b", "bp"):
         raise NotImplementedError(
-            "the scaled (S|R) of 2D trees and of trees not rooted at a 'b'/'bp' "
-            "node is ROADMAP queue 1 item 9"
+            "the scaled (S|R) of trees not rooted at a 'b'/'bp' node is ROADMAP "
+            "queue 1 item 9"
         )
     if kind != "SR":
         raise ValueError("scaled translation is (S|R)-only (RR is bounded)")

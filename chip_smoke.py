@@ -108,6 +108,34 @@ non-zero before the result line):
    version; (e) 'bbba', the 5D pair at n_end=8, complex64 on the forced
    factored route (KB's row panels at blocks of 204) within 1e-3 of
    complex128 LU.
+9. 2D trees and the lattice-FFT route at the size of the JAX package's
+   n_balls accuracy family (square lattices of unit spheres at pitch 4,
+   k = 1, a plane wave along x0), each path with the launch counts set to
+   0 just before it and read just after: (a) 'ba', 32 x 32 spheres at
+   n_end=19 (369,664 unknowns), stable, solver="auto" (the lattice
+   route: K5, K2 and K3 for the half table, no KB or KG; KA for uscat(0)),
+   complex64 and complex128: relres (3e-5 / 1e-11), the boundary residual
+   on the 4 central spheres (1e-3), the first solve split by stage (RHS,
+   radial rows, the half table, the grid and FFT, GMRES, uscat(0)), peak
+   memory, one matvec and its per-frequency product and FFTs alone beside
+   their bounds, a second complex64 solve bit for bit, complex64 within
+   1e-3 of complex128 and complex128 within 1e-4 of the JAX package's
+   float32 TPU row of accuracy/accuracy.csv; (b) 'a', 64 x 64 spheres,
+   complex64, stable, by the family's own method (tools/
+   nballs_family4.py): a cold GMRES with a 4,608-vector basis at n_end=2,
+   then the n_end ladder up to 32, each rung warm-started from the last
+   density (KG and K5 each rung): relres and the boundary residual at
+   n_end 16 and 32, a rung repeated bit for bit, one matvec and its parts;
+   (c) anchors: complex128 on the default route (the lattice) within 1e-8
+   of the 8 x 8 'a' value at n_end=19 (and 1e-10 of the JAX package's
+   float64, data/nballs2d_golden_f64.json), the reference's 16 x 16 'a'
+   value at n_end=53 and the 8 x 8 'ba' row at n_end=22; complex64 within
+   1e-3 (the direct LU in 2D, the lattice in 3D); (d) the 2D pair goldens
+   on the default route (LU: KG, KD); (e) KG against its plain version at
+   (b)'s 8,064 half offsets, n_end 16 and 32, both modes and dtypes, each
+   launched twice (timed beside its bound at n_end=32), K5's d = 2 mode
+   there, and one lattice matvec against the dense pair-major matvec on a
+   16 x 16 'a' lattice.
 
 Phase 2 also holds KB's row-panel mode (d >= 4: degree blocks too large
 to stage whole) against its plain version, D^H and D in both dtypes, each
@@ -160,6 +188,18 @@ N_END_4D_ANCHOR = 12  # phase 8 (b, c): the 4D anchor's n_end (the JAX golden's)
 N_END_4D_LU = 19  # phase 8 (d): the 4D pair's largest n_end on the LU tier (2 x 2470)
 N_END_5D = 8  # phase 8 (e)
 EVAL_POINTS_4D = 1 << 14  # phase 8 (a): the general evaluation's points
+# phase 9, the n_balls family (k = 1, unit spheres, pitch 4)
+N_SIDE_3D, N_END_3D = 32, 19  # (a): 1,024 spheres, H = 361
+ARTIFACT_3D = -0.8141030073165894 + 0.015023995190858841j  # accuracy.csv, ba 1024 n_end 19
+N_SIDE_2D = 64  # (b): 4,096 spheres
+LADDER_2D = (2, 4, 6, 9, 13, 16, 19, 22, 26, 32)  # (b): the n_end ladder
+GATES_2D = (16, 32)  # (b): the rungs held to the gates
+COLD_RESTART, WARM_RESTART = 4608, 768  # (b): GMRES bases of tools/nballs_family4.py
+ANCHORS = (  # (c): (tree, lattice side, n_end, value)
+    ("a", 8, 19, -1.0537360062 + 0.0214642340j),  # tests/test_biem.py:866
+    ("a", 16, 53, -0.9986093441 - 0.0011085159j),  # reference accuracy_n_balls_a.csv:82
+    ("ba", 8, 22, -0.647372023208673 + 0.018550258564751655j),  # accuracy/accuracy.csv
+)
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 /
 # FP64 operations/s outside the tensor cores
@@ -913,9 +953,12 @@ def bench_config(torch, dev, card):
     print(f"[4] launches in the sweep: {launches}")
     # the sweep evaluates uscat(0) only: the many-point KA runs in the field
     # evaluation path below, KD on the dense route (phase 5); KB's row panels
-    # only in d >= 4 (phase 8)
+    # only in d >= 4 (phase 8), KG in 2D (phase 9)
     require_launched(launches, [n for n in launches if n not in (
-        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels")], "[4] the sweep")
+        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold")],
+        "[4] the sweep")
+    if launches["graf_fold"]:
+        raise RuntimeError("[4] the 3D bench launched KG")
     if launches["block_diag_cmm_panels"]:
         raise RuntimeError("[4] the 3D bench took KB's row panels")
     n_blocks = len(ks) // KB
@@ -1519,6 +1562,7 @@ def kernel_counts():
     from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
     from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
     from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
+    from biem_helmholtz_sphere_tpu_torch.ops.graf import graf_fold
     from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
     from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
@@ -1531,7 +1575,8 @@ def kernel_counts():
                 "lane_scatter": (lane_scatter, "launches"),
                 "spherical_jh": (spherical_jh, "launches"),
                 "coax_fold": (coax_fold, "launches"),
-                "dense_assemble": (dense_assemble, "launches")}
+                "dense_assemble": (dense_assemble, "launches"),
+                "graf_fold": (graf_fold, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -2150,6 +2195,407 @@ def four_d(torch, dev, card):
     return launches
 
 
+def square_lattice(n_side, d, spacing=SPACING):
+    """The n_balls family's lattice: n_side^2 centers in the (x0, x1) plane
+    (the JAX package's cli/_accuracy.py::lattice_centers)."""
+    g = (np.arange(n_side) - (n_side - 1) / 2) * spacing
+    xx, yy = np.meshgrid(g, g)
+    centers = np.zeros((n_side * n_side, d))
+    centers[:, 0], centers[:, 1] = xx.ravel(), yy.ravel()
+    return centers
+
+
+def central_balls(centers_np, n=4):
+    """The n spheres nearest the origin: float32 boundary points at 1.0000005
+    radii keep their distance there (far out, 1e-7 of |x| is more)."""
+    return tuple(int(b) for b in np.argsort(np.linalg.norm(centers_np, axis=1), kind="stable")[:n])
+
+
+def lattice_matvec_parts(torch, mv, x, n_k, fx, fy, h, name):
+    """One lattice matvec timed, and its per-frequency product and FFTs
+    alone at the same shapes: {part: (ms, bound)}; the matvec's bound is the
+    kernel grid read once (its 8 flops a complex MAC far below)."""
+    cs = 8 if name == "complex64" else 16
+    grid_bytes = n_k * fx * fy * h * h * cs
+    khat = torch.zeros((n_k * fx * fy, h, h), dtype=x.dtype, device=x.device)
+    z = torch.zeros((n_k, fx, fy, h), dtype=x.dtype, device=x.device)
+    zc = z.reshape(n_k * fx * fy, h, 1)
+    vec = 2 * n_k * fx * fy * h * cs
+    fft_flops = 5 * n_k * fx * fy * h * np.log2(fx * fy) * 2  # c2c, 5 N log2 N a transform
+    out = {
+        "matvec": (cuda_ms(torch, lambda: mv(x), 10),
+                   bound(grid_bytes + 4 * vec, 8 * n_k * fx * fy * h * h, name)),
+        "product": (cuda_ms(torch, lambda: torch.matmul(khat, zc), 10),
+                    bound(grid_bytes + vec, 8 * n_k * fx * fy * h * h, name)),
+        "fftn": (cuda_ms(torch, lambda: torch.fft.fftn(z, dim=(1, 2)), 10),
+                 bound(vec, fft_flops, name)),
+        "ifftn": (cuda_ms(torch, lambda: torch.fft.ifftn(z, dim=(1, 2)), 10),
+                  bound(vec, fft_flops, name)),
+    }
+    del khat, z
+    return out
+
+
+def format_parts(parts):
+    return ", ".join(f"{k} {ms:.4f} ms (bound {b[0]:.6f} ms, {b[1]})"
+                     for k, (ms, b) in parts.items())
+
+
+def n_balls_family(torch, dev, card):
+    """Phase 9: 2D trees and the lattice-FFT route at the size of the
+    JAX package's n_balls accuracy family (square lattices of unit
+    spheres at pitch 4, k = 1, a plane wave along x0), each path with the
+    launch counts set to 0 just before it and read just after.  Returns
+    (KG's timed results by dtype name, KG's launches on (b))."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core, _lattice
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres import gmres_solve_op
+    from biem_helmholtz_sphere_tpu_torch.ops.graf import _graf_fold_plain, graf_fold
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _H_ONLY, _SCALED, _spherical_h_scaled_plain, _spherical_jh_all_plain,
+        _spherical_jh_scaled_plain, spherical_jh)
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _a_node_m
+
+    reset, read = kernel_counts()
+    trees = {t: create_from_branching_types(t) for t in ("a", "ba")}
+    with open(os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data",
+                           "nballs2d_golden_f64.json")) as fh:
+        golden2d = {p["name"]: complex(*p["uscat0"]) for p in json.load(fh)["points"]}
+    rdt_of = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+    def incident(d, rdt):
+        direction = torch.zeros(d, dtype=rdt, device=dev)
+        direction[0] = 1.0
+        return plane_wave(k=torch.tensor(1.0, dtype=rdt, device=dev), direction=direction)[0]
+
+    def solve(tree, n_side, n_end, cdt, **kw):
+        rdt = rdt_of[cdt]
+        c = trees[tree]
+        f = dict(dtype=rdt, device=dev)
+        centers = square_lattice(n_side, c.c_ndim)
+        return biem(c, centers=torch.as_tensor(centers, **f),
+                    radii=torch.ones(len(centers), **f), k=torch.tensor(1.0, **f),
+                    n_end=n_end, uin=incident(c.c_ndim, rdt), **kw), centers
+
+    def u0(calc):
+        x = torch.zeros(calc.c.c_ndim, 1, dtype=calc.radii.dtype, device=dev)
+        return complex(calc.uscat(x).reshape(-1)[0])
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # (a) the 3D lattice: 1,024 'ba' spheres at n_end = 19 (369,664 unknowns)
+    stages = [(_core, "_rhs_dispatch", "RHS"), (_lattice, "_radial_factors", "radial rows"),
+              (_lattice, "_offset_table", "half table (K5 + K2 + K3 + sandwich)"),
+              (_lattice, "_kernel_fft", "kernel build"), (_core, "gmres_solve_op", "GMRES"),
+              (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+    u_a = {}
+    for cdt in (torch.complex64, torch.complex128):
+        name = str(cdt).split(".")[-1]
+        captured = {}
+        gmres = _core.gmres_solve_op
+
+        def capture(mv, diag, b, **kw):
+            captured.update(mv=mv, b=b)
+            return gmres(mv, diag, b, **kw)
+
+        out = {}
+
+        def run():
+            out["calc"], out["centers"] = solve("ba", N_SIDE_3D, N_END_3D, cdt, stable=True)
+            u_a[name] = u0(out["calc"])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        _core.gmres_solve_op = capture
+        try:  # the first (cold) solve, split by stage
+            acc, total = split_stages(torch, run, stages)
+        finally:
+            _core.gmres_solve_op = gmres
+        counts = read()
+        peak = peak_gib()
+        calc, centers = out["calc"], out["centers"]
+        require_launched(counts, ["coax_fold", "spherical_jh", "fused_ba_eval_few"],
+                         f"[9] (a) {name}")
+        if counts["block_diag_cmm"] or counts["graf_fold"]:
+            raise RuntimeError(f"[9] (a): the lattice route launched KB or KG: {counts}")
+        dens, relres = calc.density, float(calc.relres.max())
+        if not bool(torch.isfinite(dens).all()):
+            raise RuntimeError("[9] (a): density not finite")
+        if relres > (3e-5 if cdt == torch.complex64 else 1e-11):
+            raise RuntimeError(f"[9] (a) {name}: relres {relres:.3e}")
+        bc = bc_residual_of(torch, calc, centers, central_balls(centers))
+        if not bc[0] <= 1e-3:
+            raise RuntimeError(f"[9] (a) {name}: boundary residual {bc[0]:.3e}")
+        split = dict(acc)
+        split["grid and FFT"] = split.pop("kernel build", 0.0) - split.get(stages[2][2], 0.0)
+        h = calc.density.shape[-1]
+        parts = lattice_matvec_parts(torch, captured["mv"], captured["b"], 1, 2 * N_SIDE_3D,
+                                     2 * N_SIDE_3D, h, name)
+        print(f"[9] (a) 'ba' {N_SIDE_3D}x{N_SIDE_3D} lattice, n_end={N_END_3D} ({h} harmonics, "
+              f"{N_SIDE_3D ** 2 * h} unknowns), {name}, stable, solver=auto -> lattice: "
+              f"{int(calc.iters.max())} GMRES steps, relres {relres:.3e}, uscat(0) "
+              f"{u_a[name]:.10f}, BC residual max {bc[0]:.3e} mean {bc[1]:.3e}, peak "
+              f"{peak:.3f} GiB; launches {counts} ({card})")
+        print(f"[9] (a) {name} the first solve split by stage, s (synchronising timers): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f", other {total - sum(split.values()):.4f}, total {total:.4f} ({card})")
+        print(f"[9] (a) {name} one lattice matvec and its parts alone: {format_parts(parts)} "
+              f"({card})")
+        if cdt == torch.complex64:  # a second solve: its tables cached
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = solve("ba", N_SIDE_3D, N_END_3D, cdt, stable=True)[0]
+            u0(again)
+            torch.cuda.synchronize()
+            print(f"[9] (a) {name} a second solve with uscat(0) {time.perf_counter() - t0:.4f} s "
+                  f"(the geometry's tables cached), bit for bit the first ({card})")
+            if not same_bits(torch, again.density, dens):
+                raise RuntimeError("[9] (a): a repeated solve differs")
+            del again
+        del calc, captured, out
+        torch.cuda.empty_cache()
+    d_c = abs(u_a["complex64"] - u_a["complex128"])
+    d_art = abs(u_a["complex128"] - ARTIFACT_3D)
+    print(f"[9] (a) complex64 - complex128 {d_c:.3e}; complex128 - the JAX package's float32 "
+          f"TPU row (accuracy.csv) {d_art:.3e}; a repeated complex64 solve bit for bit")
+    if d_c > 1e-3 or d_art > 1e-4:
+        raise RuntimeError(f"[9] (a): uscat(0) off ({d_c:.3e}, {d_art:.3e})")
+
+    # (b) the 2D lattice: 4,096 'a' spheres, complex64, the family's own
+    # method (tools/nballs_family4.py): a cold long-basis GMRES at n_end=2,
+    # then the n_end ladder, each rung warm-started from the last density
+    c = trees["a"]
+    centers = square_lattice(N_SIDE_2D, 2)
+    nb = len(centers)
+    f32 = dict(dtype=torch.float32, device=dev)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    uin = incident(2, torch.float32)
+    ones, k1 = torch.ones(1, nb, **f32), torch.ones(1, **f32)
+    alpha, beta = torch.ones(1, nb, **c64), torch.zeros(1, nb, **c64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    x_prev, gate_x0, last_run = None, {}, None
+    t_all = time.perf_counter()
+    for i, n_end in enumerate(LADDER_2D):
+        h = 2 * n_end - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mv, diag = _lattice.lattice_operator(c, n_end, centers, ones, k1, k1, alpha, beta,
+                                             stable=True)
+        rhs = _core._rhs_dispatch(c, n_end, torch.as_tensor(centers, **f32), ones, alpha, beta,
+                                  uin, None, (1,)).reshape(1, -1)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        x0 = None
+        if x_prev is not None:
+            x0 = torch.zeros(1, nb, h, **c64)
+            x0[..., : x_prev.shape[-1]] = x_prev
+            x0 = x0.reshape(1, -1)
+        restart, cycles = (COLD_RESTART, 1) if i == 0 else (WARM_RESTART, 2)
+        t0 = time.perf_counter()
+        x, relres, iters = gmres_solve_op(mv, diag, rhs, x0=x0, restart=restart, maxiter=cycles)
+        torch.cuda.synchronize()
+        t_gmres = time.perf_counter() - t0
+        relres, steps = float(relres), int(iters)
+        calc = _core.BIEMResultCalculator(
+            c=c, centers=torch.as_tensor(centers, **f32), radii=torch.ones(nb, **f32),
+            k=torch.tensor(1.0, **f32), eta=torch.tensor(1.0, **f32), density=x.reshape(nb, h),
+            uin=uin, n_end=n_end)
+        line = (f"[9] (b) 'a' {N_SIDE_2D}x{N_SIDE_2D} lattice n_end={n_end} ({nb * h} unknowns)"
+                f" complex64 stable: build (K5 + KG + grid + FFT) {t_build:.4f} s, GMRES "
+                f"({'cold, basis' if i == 0 else 'warm, basis'} {restart}) {steps} steps "
+                f"{t_gmres:.4f} s, relres {relres:.3e}, uscat(0) {u0(calc):.7f}")
+        if n_end in GATES_2D:
+            if not bool(torch.isfinite(x).all()) or relres > 3e-5:
+                raise RuntimeError(f"[9] (b) n_end={n_end}: relres {relres:.3e}")
+            bc = bc_residual_of(torch, calc, centers, central_balls(centers))
+            if not bc[0] <= 1e-3:
+                raise RuntimeError(f"[9] (b) n_end={n_end}: boundary residual {bc[0]:.3e}")
+            gate_x0[n_end] = (mv, x)
+            line += f", BC residual max {bc[0]:.3e} mean {bc[1]:.3e}"
+        print(f"{line} ({card})")
+        if steps > 0:
+            last_run = (n_end, mv, diag, rhs, x0, x, restart, cycles)
+        x_prev = x.reshape(1, nb, h)
+        del mv, diag, rhs, x0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t_all
+    counts = read()
+    require_launched(counts, ["graf_fold", "spherical_jh"], "[9] (b)")
+    if counts["block_diag_cmm"] or counts["coax_fold"]:
+        raise RuntimeError(f"[9] (b): the 2D lattice route launched KB or K2: {counts}")
+    kg_launches = counts["graf_fold"]
+    n_rep, mv, diag, rhs, x0, x, restart, cycles = last_run
+    again, _, _ = gmres_solve_op(mv, diag, rhs, x0=x0, restart=restart, maxiter=cycles)
+    if not same_bits(torch, again, x):
+        raise RuntimeError("[9] (b): a repeated solve differs")
+    del last_run, mv, diag, rhs, x0, x, again
+    mv, x = gate_x0[GATES_2D[-1]]
+    h = 2 * GATES_2D[-1] - 1
+    parts = lattice_matvec_parts(torch, mv, x, 1, 2 * N_SIDE_2D, 2 * N_SIDE_2D, h, "complex64")
+    print(f"[9] (b) the ladder {LADDER_2D} in {t_all:.3f} s, peak {peak_gib():.3f} GiB, "
+          f"launches {counts}; the n_end={n_rep} rung (the last that iterated) repeated bit "
+          f"for bit; at n_end={GATES_2D[-1]} one matvec and its parts alone: "
+          f"{format_parts(parts)} ({card})")
+    del gate_x0, mv, x
+    torch.cuda.empty_cache()
+
+    # (c) anchors: complex128 on the default route (the lattice); complex64
+    # on the direct LU in 2D (at biem()'s float32 GMRES tolerance 3e-5 the 2D
+    # lattices keep ~70x the residual in uscat(0): printed beside it) and on
+    # the lattice in 3D
+    for tree, n_side, n_end, ref in ANCHORS:
+        reset()
+        t0 = time.perf_counter()
+        calc = solve(tree, n_side, n_end, torch.complex128)[0]
+        got = u0(calc)
+        t128 = time.perf_counter() - t0
+        counts = read()
+        if calc.matrix is not None or counts["block_diag_cmm"]:
+            raise RuntimeError(f"[9] (c) {tree} {n_side}: not the lattice route: {counts}")
+        require_launched(counts, ["graf_fold" if tree == "a" else "coax_fold"], "[9] (c)")
+        t0 = time.perf_counter()
+        route32 = "LU" if tree == "a" else "lattice"
+        calc32 = solve(tree, n_side, n_end, torch.complex64,
+                       **({"solver": "direct"} if tree == "a" else {}))[0]
+        got32 = u0(calc32)
+        t64 = time.perf_counter() - t0
+        line = (f"[9] (c) '{tree}' {n_side}x{n_side} n_end={n_end}: complex128 lattice "
+                f"{got:.10f} ({int(calc.iters.max())} steps, {t128:.3f} s) off {abs(got - ref):.3e};"
+                f" complex64 {route32} {got32:.7f} ({t64:.3f} s) off {abs(got32 - ref):.3e}")
+        del calc, calc32
+        torch.cuda.empty_cache()
+        if tree == "a" and n_side == 8:
+            calc = solve(tree, n_side, n_end, torch.complex64)[0]
+            g = u0(calc)
+            line += (f"; complex64 lattice at the float32 tolerance {g:.7f} "
+                     f"(relres {float(calc.relres.max()):.2e}) off {abs(g - ref):.3e}")
+            del calc
+        if tree == "a" and n_side == 8:  # the JAX package's own float64 solve
+            g = golden2d["lattice 8x8"]
+            line += f"; complex128 off the JAX package's float64 by {abs(got - g):.3e}"
+            if abs(got - g) > 1e-10:
+                raise RuntimeError("[9] (c): off the JAX golden")
+        print(f"{line} ({card})")
+        if abs(got - ref) > 1e-8 or abs(got32 - ref) > 1e-3:
+            raise RuntimeError(f"[9] (c) {tree} {n_side}x{n_side}: off the anchor")
+
+    # (d) the 2D pair goldens on the default route (LU: KG and KD), against
+    # the values tests/test_biem.py holds the JAX package to and the JAX
+    # package's own float64 solves (data/nballs2d_golden_f64.json)
+    pair = np.array([[0.0, 2.0], [0.0, -2.0]])
+    for cdt, n_end, k, ref, tol, jax_tol in (
+            (torch.complex128, 9, 1.0, -1.355933 - 0.657813j, 2e-6, 1e-10),
+            (torch.complex64, 9, 1.0, -1.355933 - 0.657813j, 1e-5, 1e-5),
+            (torch.complex128, 32, 16.0, 1.0035487245418335 + 0.09104501905173143j, 1e-10,
+             1e-10)):
+        rdt = rdt_of[cdt]
+        f = dict(dtype=rdt, device=dev)
+        reset()
+        calc = biem(c, centers=torch.as_tensor(pair, **f), radii=torch.ones(2, **f),
+                    k=torch.tensor(k, **f), n_end=n_end, uin=incident(2, rdt))
+        got = u0(calc)
+        counts = read()
+        require_launched(counts, ["graf_fold", "dense_assemble"], "[9] (d)")
+        g = golden2d["pair" if k == 1.0 else "pair k=16"]
+        print(f"[9] (d) 'a' pair k={k} n_end={n_end} {str(cdt).split('.')[-1]} (LU): "
+              f"{got:.10f} off the golden by {abs(got - ref):.3e} (tolerance {tol:.0e}), off "
+              f"the JAX package's float64 by {abs(got - g):.3e} (tolerance {jax_tol:.0e})")
+        if calc.relres is not None or abs(got - ref) > tol or abs(got - g) > jax_tol:
+            raise RuntimeError(f"[9] (d) pair n_end={n_end}: off the golden")
+
+    # (e) KG against its plain version at (b)'s half offsets, both modes and
+    # dtypes, each launched twice; K5's d = 2 mode there; one lattice matvec
+    # against the dense pair-major matvec (16 x 16 'a' lattice)
+    _, _, t_half = _lattice._half_offsets(_lattice.lattice_routing(centers), 2)
+    results = {}
+    for cdt in (torch.complex64, torch.complex128):
+        name = str(cdt).split(".")[-1]
+        rdt, cs = rdt_of[cdt], (8 if cdt == torch.complex64 else 16)
+        t = torch.as_tensor(t_half, dtype=rdt, device=dev)
+        r, theta = torch.linalg.vector_norm(t, dim=1), torch.atan2(t[:, 1], t[:, 0])[None]
+        z = r.to(cdt)[None]
+        gen = np.random.default_rng(9)
+        for n_end in GATES_2D:
+            h = n_mu = 2 * n_end - 1  # (b)'s table: orders 0 .. 2 max|m|
+            m = torch.as_tensor(_a_node_m(c, n_end), device=dev)
+            hm, he = spherical_jh(_H_ONLY, 2, n_mu, z)
+            er = scaled_err(torch, (hm, he), _spherical_h_scaled_plain(2, n_mu, z))[1]
+            z_rows = torch.ones(1, nb, dtype=cdt, device=dev)  # k rho of the radial rows
+            rows = spherical_jh(_SCALED, 2, n_end, z_rows)
+            sr = max(scaled_err(torch, g, p)[1] for g, p in
+                     zip(rows, _spherical_jh_scaled_plain(2, n_end, z_rows)))
+            if er > TOL_REL[name] or sr > TOL_REL[name] or not same_bits(
+                    torch, spherical_jh(_H_ONLY, 2, n_mu, z), (hm, he)) or not same_bits(
+                    torch, spherical_jh(_SCALED, 2, n_end, z_rows), rows):
+                raise RuntimeError(f"[9] (e) K5 d=2 {name} n_end={n_end}: {er:.3e} {sr:.3e}")
+            e_r = torch.as_tensor(-20.0 * gen.random((1, h)), dtype=rdt, device=dev)
+            e_b = torch.as_tensor(-20.0 * gen.random((1, h)), dtype=rdt, device=dev)
+            _, _, h_plain, _ = _spherical_jh_all_plain(2, n_mu, z)
+            for mode, args in (("fold", (hm, theta, m, m, he, e_r, e_b)),
+                               ("zero-exponent", (h_plain, theta, m, m, None, None, None))):
+                got = graf_fold(*args)
+                tab, th, mo, mi, e_tab, er_, eb_ = args
+                ref = _graf_fold_plain(tab, e_tab, th, mo, mi, er_, eb_)
+                fin = torch.isfinite(ref)
+                if not torch.equal(torch.isfinite(got), fin):
+                    raise RuntimeError(f"[9] (e) KG {mode} {name}: finite entries differ")
+                d = (got - ref).abs()[fin]
+                ka = float(d.max())
+                kr = float((d / ref.abs()[fin].clamp_min(torch.finfo(rdt).tiny)).max())
+                if kr > (1e-5 if cdt == torch.complex64 else 1e-13) or not same_bits(
+                        torch, graf_fold(*args), got):
+                    raise RuntimeError(f"[9] (e) KG {mode} {name} n_end={n_end}: rel {kr:.3e}")
+                line = (f"[9] (e) KG {mode} n_end={n_end} {name}, {len(t_half)} offsets x "
+                        f"{h}x{h}: max_abs_err {ka:.3e} max_rel_err {kr:.3e} (entry by entry), "
+                        f"twice bit for bit")
+                if mode == "fold" and n_end == GATES_2D[-1]:
+                    ms = cuda_ms(torch, lambda: graf_fold(*args), 20)
+                    pms = cuda_ms(torch, lambda: _graf_fold_plain(hm, he, theta, m, m, e_r, e_b), 3)
+                    n_o = len(t_half)
+                    # the table written once, its inputs read once; an entry's
+                    # exponent sum, exp and scaling ~5 operations
+                    b = bound(n_o * h * h * cs + n_o * n_mu * (cs + cs // 2) + n_o * cs // 2
+                              + 2 * h * (4 + cs // 2), 5 * n_o * h * h, name)
+                    line += (f"; kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms "
+                             f"({b[1]}); library: none")
+                    results[name] = {"abs": ka, "rel": kr, "ms": ms, "plain_ms": pms,
+                                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                print(f"{line} ({card})")
+                del got, ref
+            line = (f"[9] (e) K5 d=2 {name}: h alone at {len(t_half)} x {n_mu} orders "
+                    f"max_rel_err {er:.3e}, scaled at {nb} x {n_end} orders {sr:.3e}, twice "
+                    f"bit for bit")
+            if n_end == GATES_2D[-1]:  # KG's input at (b)'s n_end=32 table, timed
+                ms = cuda_ms(torch, lambda: spherical_jh(_H_ONLY, 2, n_mu, z), 20)
+                pms = cuda_ms(torch, lambda: _spherical_h_scaled_plain(2, n_mu, z), 3)
+                b = bound(len(t_half) * (cs + n_mu * (cs + cs // 2)),
+                          len(t_half) * n_mu * 12, name)
+                line += (f"; h alone kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} "
+                         f"ms ({b[1]}); library: none")
+            print(f"{line} ({card})")
+    for cdt, tol in ((torch.complex128, 1e-10), (torch.complex64, 1e-4)):
+        rdt = rdt_of[cdt]
+        cen = square_lattice(16, 2)
+        f = dict(dtype=rdt, device=dev)
+        args = (torch.ones(1, 256, **f), torch.ones(1, **f), torch.ones(1, **f),
+                torch.ones(1, 256, dtype=cdt, device=dev), torch.zeros(1, 256, dtype=cdt, device=dev))
+        mv, diag = _lattice.lattice_operator(c, 16, cen, *args, stable=True)
+        mv_d, _ = _core._pairs_operator(_core._assemble(c, 16, cen, *args, stable=True,
+                                                        pair_major=True))
+        xr = randc(torch, np.random.default_rng(5), diag.shape, cdt, dev)
+        ea, er = rel_err(torch, mv(xr), mv_d(xr))
+        print(f"[9] (e) one lattice matvec against the dense pair-major matvec, 'a' 16x16 "
+              f"n_end=16 {str(cdt).split('.')[-1]}: max_abs_err {ea:.3e} max_rel_err {er:.3e}")
+        if er > tol:
+            raise RuntimeError(f"[9] (e) lattice matvec {cdt}: {er:.3e}")
+    return results, kg_launches
+
+
 def main():
     try:
         import torch
@@ -2192,6 +2638,7 @@ def main():
     matfree_route(torch, dev, card)
     complex_and_trees(torch, dev, card)
     launches["block_diag_cmm_panels"] = four_d(torch, dev, card)["block_diag_cmm_panels"]
+    results["graf_fold"], launches["graf_fold"] = n_balls_family(torch, dev, card)
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
@@ -2213,6 +2660,8 @@ def main():
                       "biem_helmholtz_sphere_tpu/translation/_scaled.py:86"),
         "dense_assemble": ("csrc/dense_assemble.cu",
                            "biem_helmholtz_sphere_tpu/biem/_core.py:826"),
+        "graf_fold": ("csrc/graf_fold.cu",
+                      "biem_helmholtz_sphere_tpu/translation/_scaled.py:58"),
     }
     record = {"kernels": [
         {

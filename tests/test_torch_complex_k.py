@@ -23,6 +23,7 @@ import torch
 from biem_helmholtz_sphere_tpu import biem as j_biem
 from biem_helmholtz_sphere_tpu import plane_wave as j_plane_wave
 from biem_helmholtz_sphere_tpu import point_source as j_point_source
+from biem_helmholtz_sphere_tpu.cli._accuracy import lattice_centers
 from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
 from biem_helmholtz_sphere_tpu.ops.cplx import C
 from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
@@ -159,3 +160,37 @@ def test_complex_k_in_a_batch():
     assert ct.density.shape == (2, 3, 2, N_END * N_END)
     _assert_close(ct.density.numpy(), tonp(cj.density), 1e-10)
     _assert_close(ct.uscat(torch.tensor(X_NEAR)).numpy(), tonp(cj.uscat(X_NEAR)), 1e-10)
+
+
+def test_2d_complex_k_lattice_matches_jax():
+    """Complex k in 2D: the 8 x 8 'a' lattice of unequal circles (radii
+    0.4-0.7, Robin data alpha 1 beta 0.5, k 0.7 + 0.2i and 1.1 + 0.2i, a
+    plane wave along (1, -2)/sqrt(5)), the lattice route in both packages
+    (KG's table, the block convolution): density, near, far and per-ball
+    fields within 1e-9 of the largest value (both iterate to the float64
+    tolerance 1e-11)."""
+    centers = lattice_centers(8, 2)
+    radii = 0.4 + 0.3 * np.random.default_rng(8).random(64)
+    ks = np.array([0.7, 1.1]) + 0.2j
+    direction = np.broadcast_to(np.array([1.0, -2.0])[:, None] / np.sqrt(5.0), (2, 2)).copy()
+    kw = dict(centers=np.broadcast_to(centers, (2, 64, 2)).copy(),
+              radii=np.broadcast_to(radii, (2, 64)).copy(), n_end=6, alpha=1.0, beta=0.5,
+              eta=np.ones(2))
+    x_near = np.array([[0.0, 0.0, -3.0, 2.1], [0.0, 4.0, 1.0, 2.1]])  # the last inside
+    x_far = np.array([[1.0, 0.6, 0.0], [0.0, 0.8, -1.0]])
+    j_uin, j_grad = j_plane_wave(k=C.of(ks), direction=direction)
+    ref = j_biem(j_tree("a"), k=C.of(ks), uin=j_uin, uin_grad=j_grad, **kw)
+    uin, grad = plane_wave(k=torch.tensor(ks), direction=torch.tensor(direction))
+    got = biem(create_from_branching_types("a"), k=torch.tensor(ks), uin=uin, uin_grad=grad,
+               **{key: (torch.tensor(v) if isinstance(v, np.ndarray) else v)
+                  for key, v in kw.items()})
+    assert got.matrix is None and ref.matrix is None  # the lattice route
+    pairs = [(got.density.numpy(), ref.density.to_numpy())]
+    for x, far, each in ((x_near, False, False), (x_far, True, False),
+                         (x_near[:, :3], False, True)):
+        pairs.append((got.uscat(torch.tensor(x), far_field=far, per_ball=each).numpy(),
+                      ref.uscat(x, far_field=far, per_ball=each).to_numpy()))
+    for g, r in pairs:
+        nan = np.isnan(r)
+        np.testing.assert_array_equal(np.isnan(g), nan)
+        assert np.abs(g[~nan] - r[~nan]).max() <= 1e-9 * np.abs(r[~nan]).max()

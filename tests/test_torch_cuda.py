@@ -862,3 +862,126 @@ def test_5d_lu_solve_on_the_card_matches_the_cpu(cuda):
         ref = _solve_nd(torch.device("cpu"), "bbba", dtype, _pair(5), 6, 1.0)
         for g, r in zip(got, ref):
             assert _rel(g, r) < tol
+
+
+def _square_lattice(n_side, d, spacing=4.0):
+    """The `n_balls` family's lattice: n_side^2 centers in the (x0, x1) plane."""
+    g = (np.arange(n_side) - (n_side - 1) / 2) * spacing
+    xx, yy = np.meshgrid(g, g)
+    centers = np.zeros((n_side * n_side, d))
+    centers[:, 0], centers[:, 1] = xx.ravel(), yy.ravel()
+    return centers
+
+
+def _graf_inputs(device, dtype, n_side, n_end, n_add, n_k, per_k_theta, fold):
+    """KG's arguments at the half offsets of an n_side^2 2D lattice: K5's
+    d = 2 h (scaled in fold mode, with ball-max-sized row and column
+    exponents) at k|t|, the offsets' angles, the signed orders."""
+    from biem_helmholtz_sphere_tpu_torch.biem._lattice import _half_offsets, lattice_routing
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _a_node_m
+
+    rdt = kernels.REAL_OF[dtype]
+    c = create_from_branching_types("a")
+    _, _, t = _half_offsets(lattice_routing(_square_lattice(n_side, 2)), 2)
+    t = torch.as_tensor(t, dtype=rdt, device=device)
+    r, theta = torch.linalg.vector_norm(t, dim=1), torch.atan2(t[:, 1], t[:, 0])
+    k = torch.linspace(0.9, 1.3, n_k, dtype=rdt, device=device)
+    if per_k_theta:  # each k its own angles (geometry along the batch)
+        theta = theta[None] + 0.01 * torch.arange(n_k, dtype=rdt, device=device)[:, None]
+    else:
+        theta = theta[None]
+    m_out = torch.as_tensor(_a_node_m(c, n_end), device=device)
+    m_in = torch.as_tensor(_a_node_m(c, n_add), device=device)
+    n_mu = n_end + n_add - 1
+    z = k[:, None] * r
+    if not fold:
+        return special.spherical_jh_all(2, n_mu, z)[2], theta, m_out, m_in, None, None, None
+    hm, he = special.spherical_h_scaled(2, n_mu, z)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    e_r = -20.0 * torch.rand(n_k, len(m_out), generator=gen, dtype=rdt).to(device)
+    e_b = -20.0 * torch.rand(n_k, len(m_in), generator=gen, dtype=rdt).to(device)
+    return hm, theta, m_out, m_in, he, e_r, e_b
+
+
+# name: (lattice side, n_end, n_end_add, K, per-k angles); n_end = 64 puts
+# |mu theta| at up to ~400 rad
+_GRAF_CASES = {
+    "16x16-n16": (16, 16, 16, 1, False),
+    "8x8-n64": (8, 64, 64, 2, False),
+    "8x8-per-k-theta": (8, 12, 12, 3, True),
+    "8x8-n_end_add": (8, 9, 13, 2, False),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fold", [True, False], ids=["fold", "zero-exponent"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", list(_GRAF_CASES))
+def test_graf_fold_kernel_matches_plain(cuda, case, dtype, fold):
+    """KG against its plain version on the same card inputs, entry by entry
+    relative to each entry's modulus (the two take the same sincos and exp
+    of the same real arguments, up to their last-place rounding); two
+    launches are bit for bit equal."""
+    from biem_helmholtz_sphere_tpu_torch.ops.graf import _graf_fold_plain, graf_fold
+
+    n_side, n_end, n_add, n_k, per_k = _GRAF_CASES[case]
+    tab, theta, m_out, m_in, e_tab, e_r, e_b = _graf_inputs(
+        cuda, dtype, n_side, n_end, n_add, n_k, per_k, fold)
+    n0 = graf_fold.launches
+    got = graf_fold(tab, theta, m_out, m_in, e_tab, e_r, e_b)
+    assert graf_fold.launches == n0 + 1
+    torch.cuda.synchronize()
+    ref = _graf_fold_plain(tab, e_tab, theta, m_out, m_in, e_r, e_b)
+    assert got.shape == ref.shape == (n_k, tab.shape[1], len(m_out), len(m_in))
+    # unscaled complex64 h_n overflows from n ~ k|t| + 20 (zero-exponent mode
+    # at n_end = 64): the kernel keeps the same entries finite
+    keep = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), keep)
+    tiny = torch.finfo(kernels.REAL_OF[dtype]).tiny
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(tiny))[keep].max())
+    assert rel < (1e-5 if dtype == torch.complex64 else 1e-13), rel
+    assert _same_bits(graf_fold(tab, theta, m_out, m_in, e_tab, e_r, e_b), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_spherical_h_d2_at_the_lattice_offsets(cuda, dtype):
+    """K5's base-2 mode at d = 2 (base 2, no shift: its m = 0 edge case), h
+    alone and unscaled, at the 64 x 64 lattice's 8,128 half offsets and
+    63 orders (KG's inputs at n_end = 32), against the plain versions."""
+    rdt = kernels.REAL_OF[dtype]
+    from biem_helmholtz_sphere_tpu_torch.biem._lattice import _half_offsets, lattice_routing
+
+    _, _, t = _half_offsets(lattice_routing(_square_lattice(64, 2)), 2)
+    z = torch.as_tensor(np.linalg.norm(t, axis=1), dtype=rdt, device=cuda).to(dtype)
+    got = spherical_jh(_H_ONLY, 2, 63, z)
+    assert _scaled_rel(got, _spherical_h_scaled_plain(2, 63, z)) < _tol(dtype)
+    assert _same_bits(spherical_jh(_H_ONLY, 2, 63, z), got)
+    got = spherical_jh(_UNSCALED, 2, 21, z)[2]
+    ref = _spherical_jh_all_plain(2, 21, z)[2]
+    assert float(((got - ref).abs() / ref.abs()).max()) < _tol(dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("btype", ["a", "ba"])
+def test_lattice_solve_on_the_card_matches_the_cpu(cuda, btype):
+    """The lattice-FFT route (8 x 8 lattice, solver="auto") on the card
+    against the same call on the CPU: 'a' at n_end = 12 through KG, 'ba'
+    at n_end = 5 through K2, both dtypes, stable and plain."""
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.ops.graf import graf_fold
+
+    d = 2 if btype == "a" else 3
+    n_end = 12 if btype == "a" else 5
+    centers = _square_lattice(8, d)
+    assert _core._route("auto", 64, 64 * 9, torch.float64, cuda, True, False,
+                        centers) == "lattice"
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        for stable in (True, False):
+            n0 = graf_fold.launches
+            got = _solve_nd(cuda, btype, dtype, centers, n_end, 1.0, stable=stable)
+            assert (graf_fold.launches > n0) == (btype == "a")
+            ref = _solve_nd(torch.device("cpu"), btype, dtype, centers, n_end, 1.0,
+                            stable=stable)
+            for g, r in zip(got, ref):
+                assert _rel(g, r) < tol

@@ -375,6 +375,11 @@ _ROUTE_CASES = [
     ("matfree", 2, 6, "f64", "cpu", True, True, "line", "gmres"),
     ("matfree", 2, 6, "f64", "cpu", False, False, "line", "matrix"),
     ("matfree", 64, 4, "f64", "cpu", True, False, "lattice", "lattice"),
+    # 64 spheres or more off a lattice take the routes of fewer
+    ("auto", 64, 4, "f64", "cpu", True, False, "random", "lu"),
+    ("matfree", 64, 4, "f64", "cpu", True, False, "random", "matfree"),
+    ("auto", 64, 32, "f32", "cuda", True, False, "random", "matfree"),
+    ("auto", 64, 12, "f32", "cuda", True, False, "random", "gmres"),
 ]
 
 

@@ -18,9 +18,18 @@ tree, 16 unit spheres at the corners of the hypercube {-2, 2}^4 (pitch
 linspace(3.5, 4.5, 100) cast to float32, on the JAX package's default
 route (a direct LU on the CPU), and writes bench4d_golden_f64.json.
 
+With --2d it solves chip_smoke.py phase 9's 2D anchors instead, each on
+the JAX package's default route in float64 on the CPU (unit spheres, k =
+1, a plane wave along x0): the 8 x 8 'a' lattice at pitch 4 (the
+n_balls family, 64 spheres: its lattice-FFT route), n_end=19; the 'a'
+pair at (0, +-2), n_end=9; the pair at k = 16, n_end=32 with the incident
+wave at k = 1 (the accuracy sweep's convention); and writes
+nballs2d_golden_f64.json.
+
     python tools/torch_golden_from_jax.py [--n-k 4]
     python tools/torch_golden_from_jax.py --imag 0.1
     python tools/torch_golden_from_jax.py --4d
+    python tools/torch_golden_from_jax.py --2d
 """
 
 import argparse
@@ -57,17 +66,58 @@ def lattice_centers(n_side, spacing, d=3):
     return centers
 
 
+# phase 9's 2D anchors: (name, centers, k, k of the incident wave, n_end)
+ANCHORS_2D = (
+    ("lattice 8x8", lattice_centers(8, SPACING, d=2), 1.0, 1.0, 19),
+    ("pair", np.array([[0.0, 2.0], [0.0, -2.0]]), 1.0, 1.0, 9),
+    ("pair k=16", np.array([[0.0, 2.0], [0.0, -2.0]]), 16.0, 1.0, 32),
+)
+
+
+def two_d():
+    """Solve ANCHORS_2D with the JAX package and write their uscat(0)."""
+    from biem_helmholtz_sphere_tpu import biem, plane_wave
+    from biem_helmholtz_sphere_tpu.coords import create_from_branching_types
+
+    c = create_from_branching_types("a")
+    rows = []
+    for name, centers, k, uin_k, n_end in ANCHORS_2D:
+        uin, _ = plane_wave(k=np.asarray(uin_k), direction=np.array([1.0, 0.0]))
+        t0 = time.perf_counter()
+        calc = biem(c, centers=centers, radii=np.ones(len(centers)), k=np.asarray(k),
+                    n_end=n_end, uin=uin)
+        u0 = complex(np.asarray(calc.uscat(np.zeros((2, 1))).to_numpy()).ravel()[0])
+        rows.append({
+            "name": name, "n_balls": len(centers), "k": k, "uin_k": uin_k, "n_end": n_end,
+            "uscat0": [u0.real, u0.imag],
+            "relres": None if calc.relres is None else float(np.asarray(calc.relres)),
+            "iters": None if calc.iters is None else int(np.asarray(calc.iters)),
+        })
+        print(f"{name} n_end={n_end} uscat(0)={u0:.12g} relres={rows[-1]['relres']} "
+              f"iters={rows[-1]['iters']} {time.perf_counter() - t0:.1f}s", flush=True)
+    return {
+        "source": "tools/torch_golden_from_jax.py --2d (JAX package, CPU, float64)",
+        "config": {"tree": "a", "radius": 1.0, "spacing": SPACING, "direction": [1.0, 0.0],
+                   "solver": "auto (the JAX package's default route)",
+                   "pair": [[0.0, 2.0], [0.0, -2.0]]},
+        "points": rows,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-k", type=int, default=4)
     ap.add_argument("--imag", type=float, default=0.0, help="Im k of every point")
     ap.add_argument("--4d", dest="four_d", action="store_true",
                     help="the 4D hypercube anchor (chip_smoke.py phase 8)")
+    ap.add_argument("--2d", dest="two_d", action="store_true",
+                    help="the 2D anchors (chip_smoke.py phase 9)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    if args.four_d and args.imag:
-        ap.error("--4d takes a real k")
-    name = ("bench4d_golden_f64.json" if args.four_d else
+    if (args.four_d or args.two_d) and args.imag:
+        ap.error("--4d and --2d take a real k")
+    name = ("nballs2d_golden_f64.json" if args.two_d else
+            "bench4d_golden_f64.json" if args.four_d else
             "bench_golden_complexk_f64.json" if args.imag else "bench_golden_f64.json")
     out_path = args.out or os.path.join(DATA, name)
 
@@ -76,6 +126,9 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, ROOT)
+    if args.two_d:
+        write(out_path, two_d())
+        return
     from biem_helmholtz_sphere_tpu import biem, plane_wave
     from biem_helmholtz_sphere_tpu.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu.ops.cplx import C
@@ -128,11 +181,14 @@ def main():
             "k_sweep": "linspace(7, 9, 100) as float32, first points",
             "imag_k": args.imag,
         }
-    out = {
+    write(out_path, {
         "source": "tools/torch_golden_from_jax.py (JAX package, CPU, float64)",
         "config": config,
         "points": rows,
-    }
+    })
+
+
+def write(out_path, out):
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)

@@ -1,7 +1,7 @@
 """Profile the port's bench sweep on the card: device time per kernel and
 the device's idle share.
 
-    python tools/torch_profile_sweep.py [--host-only | --4d]
+    python tools/torch_profile_sweep.py [--host-only | --4d | --lattice]
 
 Run from the repository root on a machine with a CUDA card (no JAX
 needed).  It drives chip_smoke.py's bench sweep (`chip_smoke.bench_sweep`: 16 unit
@@ -42,6 +42,16 @@ the factored GMRES with KB's row panels): the same wall, busy and idle
 share and device time by kernel, then the device us per launch of KB's
 row-panel D^H and D at those shapes alone.
 
+With --lattice it profiles chip_smoke.py phase 9 (a)'s lattice-FFT route
+('ba', 32 x 32 unit spheres at pitch 4, n_end=19, complex64, k = 1,
+solver="auto"): a first solve builds the geometry's tables, the second
+solve with uscat(0) runs under the profiler (the same wall, busy and idle
+share and device time by kernel); then the device us per launch, each
+alone, of KG at phase 9 (b)'s n_end=32 table (8,064 offsets x 63 x 63,
+the fold mode), and of the lattice matvec's forward FFT, per-frequency
+product (`torch.matmul`) and inverse FFT at (a)'s and (b)'s n_end=32
+shapes.
+
 Copied with chip_smoke.py into an unpacked parent (its `tools/` and its
 root), it times the parent's kernels and wrappers: run both copies in one
 call, in turns, to compare them.
@@ -69,7 +79,7 @@ def _device_time(evt):
 # the __global__ functions of csrc/*.cu, as their CUDA names contain them
 PORT_KERNELS = ("fused_ba_eval_kernel", "fused_ba_eval_few_kernel", "block_diag_cmm_kernel",
                 "lane_gather_kernel", "lane_scatter_kernel", "spherical_jh_kernel",
-                "coax_fold_kernel", "dense_assemble_kernel")
+                "coax_fold_kernel", "dense_assemble_kernel", "graf_fold_kernel")
 
 
 def _device_events(prof):
@@ -431,6 +441,61 @@ def four_d_kb_times(torch, dev):
             for op, adj in (("D^H", True), ("D", False))}
 
 
+def lattice_sweep(torch, dev):
+    """chip_smoke.py phase 9 (a): the 32 x 32 'ba' lattice at n_end=19,
+    complex64, solver="auto" (the lattice route), with uscat(0)."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from chip_smoke import N_END_3D, N_SIDE_3D, square_lattice
+
+    c = create_from_branching_types("ba")
+    f = dict(dtype=torch.float32, device=dev)
+    centers = torch.as_tensor(square_lattice(N_SIDE_3D, 3), **f)
+    k = torch.tensor(1.0, **f)
+    uin, _ = plane_wave(k=k, direction=torch.tensor([1.0, 0.0, 0.0], **f))
+
+    def sweep():
+        calc = biem(c, centers=centers, radii=torch.ones(len(centers), **f), k=k,
+                    n_end=N_END_3D, uin=uin, stable=True)
+        calc.uscat(torch.zeros(3, 1, **f))
+
+    return sweep, [1.0]
+
+
+def lattice_times(torch, dev):
+    """Device us per launch of KG at phase 9 (b)'s n_end=32 table and of the
+    lattice matvec's FFTs and per-frequency product, complex64."""
+    from biem_helmholtz_sphere_tpu_torch.biem._lattice import _half_offsets, lattice_routing
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.graf import graf_fold
+    from biem_helmholtz_sphere_tpu_torch.special import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _a_node_m
+    from chip_smoke import GATES_2D, N_END_3D, N_SIDE_2D, N_SIDE_3D, square_lattice
+
+    n_end = GATES_2D[-1]
+    h = 2 * n_end - 1
+    _, _, t = _half_offsets(lattice_routing(square_lattice(N_SIDE_2D, 2)), 2)
+    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    r, theta = torch.linalg.vector_norm(t, dim=1), torch.atan2(t[:, 1], t[:, 0])[None]
+    hm, he = spherical_h_scaled(2, h, r[None])
+    m = torch.as_tensor(_a_node_m(create_from_branching_types("a"), n_end), device=dev)
+    e = -20.0 * torch.rand(1, h, device=dev)
+    out = {f"KG fold, {len(t)} offsets x {h} x {h}":
+           _per_launch_us(torch, lambda: graf_fold(hm, theta, m, m, he, e, e))}
+    for label, n_side, hh in ((f"(a) 3D n_end={N_END_3D}", N_SIDE_3D, N_END_3D ** 2),
+                              (f"(b) 2D n_end={n_end}", N_SIDE_2D, h)):
+        f2 = 4 * n_side * n_side
+        z = torch.zeros((1, 2 * n_side, 2 * n_side, hh), dtype=torch.complex64, device=dev)
+        khat = torch.zeros((f2, hh, hh), dtype=torch.complex64, device=dev)
+        zc = z.reshape(f2, hh, 1)
+        out[f"fftn {label}"] = _all_device_us(torch, lambda: torch.fft.fftn(z, dim=(1, 2)), 20)
+        out[f"per-frequency product {label}"] = _all_device_us(
+            torch, lambda: torch.matmul(khat, zc), 20)
+        out[f"ifftn {label}"] = _all_device_us(torch, lambda: torch.fft.ifftn(z, dim=(1, 2)), 20)
+        del z, khat, zc
+    return out
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -450,8 +515,11 @@ def main():
         _print_host_times(torch, dev)
         return 0
     four = "--4d" in sys.argv[1:]
+    lattice = "--lattice" in sys.argv[1:]
     if four:
         sweep, ks = four_d_sweep(torch, dev)
+    elif lattice:
+        sweep, ks = lattice_sweep(torch, dev)
     else:
         _, sweep, ks = bench_sweep(torch, dev)
 
@@ -479,9 +547,10 @@ def main():
         raise RuntimeError("no device event of the sweep names a kernel of csrc/")
     for key, (t_us, n) in port:
         print(f"  {t_us * 1e-3:10.4f} ms  {n:6d}  {t_us / max(n, 1):9.2f} us  {key[:90]}")
-    if four:
+    if four or lattice:
         print("each alone, device us per launch (complex64):")
-        for label, us in four_d_kb_times(torch, dev).items():
+        times = four_d_kb_times(torch, dev) if four else lattice_times(torch, dev)
+        for label, us in times.items():
             print(f"  {us:9.2f} us  {label}")
         return 0
     print("each alone, device us per launch (bench widths, complex64):")
