@@ -3,16 +3,15 @@
 The PyTorch counterpart of `biem_helmholtz_sphere_tpu` (the JAX package,
 kept as the reference): the same module layout and public names, native
 torch complex dtypes, eager loops, and CUDA kernels for Hopper on the hot
-stages.  It covers `biem` for 2D trees and trees rooted at a 'b' or 'bp'
-node in any d >= 3, real or complex k, and a geometry shared by the batch
+stages.  It covers `biem` for every tree (2D, and any tree of 'b', 'bp'
+and 'c' nodes in d >= 3), real or complex k, and a geometry shared by the batch
 or varying along it (every route of the JAX package: diagonal, direct
 LU, dense GMRES, the factored and offset-table matrix-free GMRES and the
 lattice-FFT GMRES), any incident field (`plane_wave` in closed form,
 `point_source` or any callable by quadrature), leading batch axes, the
 field evaluation (fused on "ba", the general harmonic sum otherwise),
 `max_memory`/`max_n_end` and the special functions of any dimension;
-trees with 'c' nodes and the "triplet" and "gumerov" translations raise
-NotImplementedError.
+the "gumerov" translation raises NotImplementedError.
 
 TF32 stays off: reduced-precision matmuls took the float32 sound-soft
 boundary residual of the reference from 6e-4 to 2.7e-2.

@@ -40,8 +40,9 @@ matrix-free (as in the JAX package): the dense routes build each k's own
 offset table and KD gathers it with that k's pair map.  2D trees ('a')
 take every route, their (S|R) table Graf's closed form (KG, ops/graf.py;
 never the factored operator); every dimension d >= 3 takes the same
-routes for a tree rooted at a 'b' or 'bp' node.  Trees with a 'c' node
-raise NotImplementedError naming their ROADMAP item.
+routes for a tree rooted at a 'b' or 'bp' node.  A tree rooted at a 'c'
+node takes every route but the factored operator, its (S|R) table the
+band scan (KS, ops/band_sr.py).
 """
 
 import warnings
@@ -60,9 +61,7 @@ from ..ops.lane_route import lane_gather, lane_scatter, make_route
 from ..special._family import spherical_jh_all, spherical_jh_scaled
 from ..translation._ops import _a_const, check_method, ipow, translation_matrix
 from ..translation._rotation import _sandwich, rotation_d, unique_radii
-from ..translation._scaled import coax_fold_packed, graf_2d_folded
-
-_TREES = "ROADMAP queue 1 item 9"
+from ..translation._scaled import coax_fold_packed, graf_2d_folded, sr_banded_folded
 
 
 @dataclass(frozen=True)
@@ -613,13 +612,15 @@ def _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method=None):
     distinct lengths uniq_r [NR] or [K, NR] and each offset's index r_inv
     into them (host, as `_offsets` gives them); k real or complex [K].
     fold None: translation_matrix(method=method), unscaled (Graf's closed
-    form through KG in 2D, the rotation + coaxial K2 route in d >= 3).
+    form through KG in 2D, the rotation + coaxial K2 route on 'b'/'bp'
+    roots in d >= 3, the band scan through KS on other roots).
     fold = (e_r, e_b) [K, H], the ball-maximum exponents: the table with
     them folded in, scale-compensated.  In 2D that is KG (K5's d = 2 h
     mantissas and exponents, the i-power, the phase and the fold in one
-    launch); in d >= 3 K2 folds at the coaxial factor (the fold is
-    constant on degree blocks, which the rotation preserves) and the
-    rotation sandwich D X D^H follows by degree groups.  The dense, the
+    launch); on 'b'/'bp' roots in d >= 3 K2 folds at the coaxial factor
+    (the fold is constant on degree blocks, which the rotation preserves)
+    and the rotation sandwich D X D^H follows by degree groups; on other
+    roots KS folds at the store of the band scan.  The dense, the
     offset-table and the lattice routes all build their table here.
     """
     dev = k.device
@@ -630,6 +631,8 @@ def _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method=None):
     e_r, e_b = fold
     if c.c_ndim == 2:
         return graf_2d_folded(c, t_cart, n_end, k, e_r, e_b)
+    if c.root.kind not in ("b", "bp"):
+        return sr_banded_folded(c, t_cart, n_end, k, e_r, e_b)
     n_root = basis(c, n_end).n_root
     starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
     x = coax_fold_packed(c, n_end, torch.as_tensor(uniq_r, dtype=rdt, device=dev), k,
@@ -766,9 +769,10 @@ def biem(
     is shared by the batch); complex outputs are native torch complex
     tensors on the device of the input tensors; with no tensor input
     (numpy or Python numbers) the solve runs on the card, and raises where
-    CUDA is absent.  Ported for 2D trees ('a') and 'b'- and 'bp'-rooted
-    trees in any d >= 3 (ba, bpa, bba, bpbpa, bbba, ...), real or complex
-    k, and geometry shared by the batch or varying along it:
+    CUDA is absent.  Ported for every tree: 2D ('a') and any tree of 'b',
+    'bp' and 'c' nodes in d >= 3 (ba, bpa, bba, bpbpa, bbba, caa, bcaa,
+    cbaba, ...), real or complex k, and geometry shared by the batch or
+    varying along it:
 
     * solver="auto" picks the JAX package's route (`_route`): the diagonal
       solve for one sphere; LU up to 6144 unknowns on the card (12288 on
@@ -779,9 +783,9 @@ def biem(
       takes LU or dense GMRES only;
     * "direct" (LU), "gmres" (dense GMRES) and "matfree" force a route;
       "matfree" takes the lattice form from 64 spheres on a lattice, else
-      the factored operator when scale-compensated on a 'b'/'bp' tree in
-      d >= 3 and the per-offset (S|R) table otherwise
-      (`_matfree_operator`);
+      the factored operator when scale-compensated on a 'b'/'bp'-rooted
+      tree in d >= 3 and the per-offset (S|R) table otherwise (2D, 'c'
+      roots, unscaled; `_matfree_operator`);
     * stable (default: True in float32, False in float64) selects the
       scale-compensated assembly;
     * uin/uin_grad: the closures of one `plane_wave` call take the closed
@@ -795,9 +799,8 @@ def biem(
       ignored by the scale-compensated ones.
 
     relres/iters are the GMRES diagnostics (None on the direct routes);
-    density0 warm-starts GMRES.  Trees with 'c' nodes, and the "triplet" and
-    "gumerov" translations, raise NotImplementedError naming their ROADMAP
-    item.
+    density0 warm-starts GMRES.  The "gumerov" translation raises
+    NotImplementedError naming its ROADMAP item.
 
     The reference README problem (two sound-soft unit spheres at
     (0, +-2, 0), k=1, plane wave along x0), on the default route, a direct
@@ -826,11 +829,6 @@ def biem(
     )
     if stable is None:
         stable = rdt == torch.float32
-    if c.c_ndim > 2 and c.root.kind not in ("b", "bp"):
-        raise NotImplementedError(
-            f"only 2D trees and 'b'/'bp'-rooted trees in d >= 3 are ported (got "
-            f"{c.branching_types_expression_str!r}); 'c' nodes are {_TREES}"
-        )
     n_balls = radii.shape[-1]
     h_num = basis(c, n_end).num
     n_sys = n_balls * h_num

@@ -7,8 +7,11 @@ biem_helmholtz_sphere_tpu.harmonics._eval:
 
   'a'  : e^{i m phi} / sqrt(2 pi)
   'b'  : (sin th)^{nc} p~_{l-nc}^{(lam,lam)}(cos th),  lam = nc + (s-1)/2
+  'c'  : 2^{(n1+n2)/2 + (s1+s2)/4 + 1/2} (cos th)^{n1} (sin th)^{n2}
+         p~_j^{(n2+(s2-1)/2, n1+(s1-1)/2)}(cos 2 th),  j = (l-n1-n2)/2
 
-'c' nodes are not ported yet (ROADMAP queue 1 item 9).
+with p~ the orthonormal Jacobi family (special/_jacobi.py) and s, s1, s2
+the children's sphere dimensions.
 """
 
 import numpy as np
@@ -47,9 +50,23 @@ def _node_table(node, jobs, spherical):
         fidx = [fam_of[p[0]] for p in jobs]
         didx = [p[1] - p[0] for p in jobs]
         return sinpow[..., fidx] * table[..., fidx, didx]
-    raise NotImplementedError(
-        "'c' tree nodes are not ported yet (ROADMAP queue 1 item 9)"
-    )
+    # 'c': the Jacobi table in cos 2 theta of each (n1, n2) family
+    s1, s2 = node.children[0].sdim, node.children[1].sdim
+    fams = sorted({(p[0], p[1]) for p in jobs})
+    fam_of = {f: i for i, f in enumerate(fams)}
+    maxj = max((p[2] - p[0] - p[1]) // 2 for p in jobs)
+    alphas = [n2 + (s2 - 1) / 2.0 for _, n2 in fams]
+    betas = [n1 + (s1 - 1) / 2.0 for n1, _ in fams]
+    table = orthonormal_jacobi_table(torch.cos(2.0 * ang), maxj, alphas, betas)
+    n1s, n2s = [f[0] for f in fams], [f[1] for f in fams]
+    norm = torch.as_tensor(
+        2.0 ** ((np.array(n1s) + np.array(n2s)) / 2.0 + (s1 + s2) / 4.0 + 0.5),
+        dtype=ang.dtype, device=ang.device)
+    fampow = (norm * _int_powers(torch.cos(ang), max(n1s))[..., n1s]
+              * _int_powers(torch.sin(ang), max(n2s))[..., n2s])
+    fidx = [fam_of[(p[0], p[1])] for p in jobs]
+    jidx = [(p[2] - p[0] - p[1]) // 2 for p in jobs]
+    return fampow[..., fidx] * table[..., fidx, jidx]
 
 
 def harmonics(c, spherical, n_end):

@@ -25,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
-           "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu")
+           "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
+           "band_sr.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -70,6 +71,10 @@ _SIGNATURES = {
     # Hi, rows, smem, scale, fold, dbl, stream
     "bhs_graf_fold": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _D, _I, _I, _P],
+    # coef, he, t_hat, t_k, w, s_cart, yo, yi, n_o, n_i, row_tiles, e_r, e_b,
+    # out, K, NO, d, Q, Ho, Hi, NB, n_row_tiles, w_max, nu, fold, dbl, stream
+    "bhs_band_sr": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _D, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

@@ -1,6 +1,7 @@
 """Addition-theorem translation: (S|R) / (R|R) by rotation + coaxial for
-'b'-rooted trees, unscaled and scale-compensated, and the factored
-route's rotation and packed coaxial factors."""
+'b'-rooted trees and by the band scan for any tree in d >= 3, unscaled
+and scale-compensated, and the factored route's rotation and packed
+coaxial factors."""
 
 from ._ops import translation_matrix
 from ._rotation import coaxial_sr, rotation_blocks, rotation_matrix, sr_rotation

@@ -35,14 +35,14 @@ from ..harmonics._index import basis, harm_n_ndim
 from ..harmonics._quad import _node_rule, sphere_quadrature
 from ..ops.block_diag import pack_layout, unpack
 from ..special._family import spherical_jh_all
-from ._ops import _a_const, _surface_area, ipow
+from ._ops import _a_const, _surface_area, _unit_offsets, ipow
 
 
 def _root_axis(c):
     if c.root.kind not in ("b", "bp"):
-        raise NotImplementedError(
+        raise ValueError(
             "rotation translation requires a 'b'/'bp'-rooted tree "
-            f"(got {c.root.kind!r}); other trees are ROADMAP queue 1 item 9"
+            f"(got {c.root.kind!r})"
         )
     return c.root.axis
 
@@ -316,18 +316,6 @@ def unique_radii(r_np):
     return uniq, inv.reshape(np.shape(r_np))
 
 
-def _offset_parts(c, t_sph, t_cart):
-    """(|t|, t^ [..., d]) from cartesian offsets [d, ...] when given (norm
-    and divide), else from the spherical mapping."""
-    if t_cart is not None:
-        t_vec = torch.movedim(t_cart, 0, -1)
-        r_t = torch.linalg.vector_norm(t_vec, dim=-1)
-        return r_t, t_vec / torch.where(r_t > 0, r_t, torch.ones_like(r_t))[..., None]
-    r_t = t_sph["r"]
-    unit = to_cartesian(c, {**t_sph, "r": torch.ones_like(r_t)})
-    return r_t, torch.movedim(unit, 0, -1)
-
-
 def _offsets_of(c, n_end, t_sph, t_cart, k):
     """(r, pick, rot) of offsets given as tensors, from one host copy of
     them: the radii at which to build the coaxial factor (the distinct |t|
@@ -335,7 +323,7 @@ def _offsets_of(c, n_end, t_sph, t_cart, k):
     broadcasts against them, else every |t|), `pick`, which takes a factor
     [..., r, H, H] built there to one per offset, and the cached D of the
     directions."""
-    r_t, t_hat = _offset_parts(c, t_sph, t_cart)
+    r_t, t_hat = _unit_offsets(c, t_sph, t_cart)
     host = torch.cat([r_t[..., None], t_hat], dim=-1).detach().cpu().double().numpy()
     rot = rotation_d(c, n_end, host[..., 1:], t_hat.dtype, t_hat.device)
     if r_t.ndim == 1 and (k.ndim == 0 or k.shape[-1] == 1):

@@ -26,6 +26,11 @@ K5's d = 2 family; S then depends on |m - m'| and is not constant on
 degree blocks.  `graf_2d_folded` is the table the BIEM routes use, with
 the ball-max exponents folded in: one K5 launch and one KG launch
 (ops/graf.py) on CUDA tensors.
+
+Trees not rooted at a 'b'/'bp' node (the 'c' roots): the band scan with
+per-band exponents, S[h', h] = he[n' + n] (`sr_banded_scaled`), and with
+the ball-max exponents folded in (`sr_banded_folded`): one K5 launch and
+one KS launch (ops/band_sr.py) on CUDA tensors.
 """
 
 from dataclasses import dataclass, replace
@@ -35,10 +40,12 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..ops.band_sr import band_coefs, band_sr
 from ..ops.block_diag import BlockDiag, pack_layout
 from ..ops.graf import graf_fold, graf_gather
 from ..special._family import spherical_h_scaled
-from ._ops import _a_const, _a_node_m, _a_node_m_on, _polar_offsets, ipow
+from ._ops import (_a_const, _a_node_m, _a_node_m_on, _band_consts, _band_inputs,
+                   _polar_offsets, _quad_tables, _unit_offsets, ipow)
 from ._rotation import _coax_tables, _offsets_of, _root_axis, _sandwich
 
 # Bands per scale group: the within-group exponent spread (G-1) *
@@ -380,6 +387,47 @@ def graf_2d_folded(c, t_cart, n_end, k, e_r, e_b):
     return graf_fold(hm, theta, m, m, he, e_r, e_b)
 
 
+def sr_banded_scaled(c, t_sph, n_end, k, kind="SR", t_cart=None):
+    """(mant, S) of the band scan with per-band exponents, for any tree in
+    d >= 3 (the 'c'-rooted ones, where rotation + coaxial does not apply).
+
+    S[h', h] = he[n' + n], the exponent of the entry's top Gaunt band; band
+    n'' carries its mantissa times exp(min(he[n''] - S, 80)) <= O(1)
+    wherever the Gaunt mask keeps it.  t by its spherical mapping or by
+    cartesian t_cart [d, ...]; k real or complex, broadcasting against t's
+    batch.  One K5 launch (h's mantissas and exponents) and one KS launch
+    (ops/band_sr.py) on CUDA tensors.
+    """
+    if kind != "SR":
+        raise ValueError("scaled translation is (S|R)-only (RR is bounded)")
+    d = c.c_ndim
+    z, t_hat, tab, batch = _band_inputs(c, t_sph, t_cart, n_end, n_end, k)
+    hm, he = spherical_h_scaled(d, tab.n_bands, z)
+    mant = band_sr(band_coefs(hm, d, *_band_consts(d), he=he), t_hat, tab)
+    s_mat = he[..., tab.n_o.long()[:, None] + tab.n_i.long()[None, :]]
+    return (mant.reshape(batch + mant.shape[-2:]),
+            s_mat.reshape(batch + s_mat.shape[-2:]))
+
+
+def sr_banded_folded(c, t_cart, n_end, k, e_r, e_b):
+    """The band-scan (S|R) table with the row and column exponents folded
+    in: mant * exp(e_r[k, h'] + S + e_b[k, h]), complex [K, NO, H, H].
+
+    t_cart: real [d, NO] offsets (one geometry) or [d, K, NO] (each k its
+    own); k: real or complex [K]; e_r, e_b: real [K, H].  One K5 launch
+    (h's mantissas and exponents at k|t|) and one KS launch in fold mode on
+    CUDA tensors.
+    """
+    d = c.c_ndim
+    r_t, t_hat = _unit_offsets(c, None, t_cart)
+    if r_t.ndim == 1:
+        r_t, t_hat = r_t[None], t_hat[None]
+    tab = _quad_tables(c, n_end, n_end, r_t.dtype, r_t.device)
+    hm, he = spherical_h_scaled(d, tab.n_bands, k[:, None] * r_t)
+    coef = band_coefs(hm, d, *_band_consts(d), he=he)
+    return band_sr(coef, t_hat, tab, he, e_r, e_b)
+
+
 def sr_scaled(c, t_sph, n_end, k, kind="SR", t_cart=None, method=None):
     """(mant, S) full (S|R) operator: SR = mant * exp(S), overflow-free in
     any dtype.
@@ -387,19 +435,16 @@ def sr_scaled(c, t_sph, n_end, k, kind="SR", t_cart=None, method=None):
     2D: Graf's closed form (`graf_2d_scaled`).  'b'/'bp'-rooted trees in
     d >= 3: mant = D X_mant D^H per offset (the rotation sandwich, by
     degree groups) and S the coaxial log-scale, which is constant on
-    degree blocks and so passes D unchanged.  Like the JAX package this
-    ignores `method` (the scaled path has its own exact algorithm).  Other
-    roots are ROADMAP queue 1 item 9.
+    degree blocks and so passes D unchanged.  Other roots: the band scan
+    with per-band exponents (`sr_banded_scaled`).  Like the JAX package
+    this ignores `method` (the scaled path has its own exact algorithm).
     """
     if c.c_ndim == 2:
         return graf_2d_scaled(c, t_sph, n_end, k, kind=kind, t_cart=t_cart)
-    if c.root.kind not in ("b", "bp"):
-        raise NotImplementedError(
-            "the scaled (S|R) of trees not rooted at a 'b'/'bp' node is ROADMAP "
-            "queue 1 item 9"
-        )
     if kind != "SR":
         raise ValueError("scaled translation is (S|R)-only (RR is bounded)")
+    if c.root.kind not in ("b", "bp"):
+        return sr_banded_scaled(c, t_sph, n_end, k, t_cart=t_cart)
     r, pick, rot = _offsets_of(c, n_end, t_sph, t_cart, k)
     mant, s_mat = coaxial_scaled(c, r, n_end, k)
     return _sandwich(pick(mant), rot), pick(s_mat)

@@ -136,6 +136,30 @@ non-zero before the result line):
    launched twice (timed beside its bound at n_end=32), K5's d = 2 mode
    there, and one lattice matvec against the dense pair-major matvec on a
    16 x 16 'a' lattice.
+10. trees with a 'c' node, each path with the launch counts set to 0
+   just before it and read just after: (a) 'caa' on the 16 corners of
+   {-2, 2}^4 at n_end=14 (H=1,015, 16,240 unknowns), complex64, phase 8's
+   first 4 k, the default solver (which must take the offset-table
+   matrix-free GMRES: KS in fold mode, KC, K5; no KB, K2, KD or KG):
+   a stage split, relres <= 3e-5, the boundary residual (1e-3), the peak
+   memory, KS alone at these shapes beside its bound, against its plain
+   version per degree block (1e-4) and bit for bit on repeat, a cuBLAS
+   product of the same [H, Q] x [Q, H] shape as a yardstick, then the
+   block in complex128 unscaled (KS's unscaled mode, relres <= 1e-11),
+   uscat(0) within 1e-4 of it, and KS alone there; (b) the 'caa' pair by
+   LU in complex128 within 2e-6 of the reference golden and 1e-9 of the
+   JAX package's density, the hypercube at n_end=6 within 1e-9 of the JAX
+   golden (data/caa4d_golden_f64.json), the float32 overflow pair (k=0.15,
+   centers +-2.05, n_end=14) complex64 within 1e-4 of complex128; (c)
+   'bcaa' (5D) at n_end=8: the factored route in complex64 (K3, K2, KB;
+   no KS) within 1e-4 of the dense route in complex128 with "triplet"
+   (KS), and at n_end=4 the rotation (S|R) and (R|R) within 1e-10 of the
+   band scan per degree block; (d) the 8 x 8 'caa' lattice at n_end=6 in
+   complex128 on the lattice route (its half table from KS) within 1e-8
+   of the offset-table route; (e) KS against its plain version in all
+   three modes and both dtypes at n_end=10 (4 offsets x 2 k), per degree
+   block (complex64 1e-4, complex128 1e-11), bit for bit on repeat,
+   timed beside its bound.
 
 Phase 2 also holds KB's row-panel mode (d >= 4: degree blocks too large
 to stage whole) against its plain version, D^H and D in both dtypes, each
@@ -195,16 +219,26 @@ N_SIDE_2D = 64  # (b): 4,096 spheres
 LADDER_2D = (2, 4, 6, 9, 13, 16, 19, 22, 26, 32)  # (b): the n_end ladder
 GATES_2D = (16, 32)  # (b): the rungs held to the gates
 COLD_RESTART, WARM_RESTART = 4608, 768  # (b): GMRES bases of tools/nballs_family4.py
+# phase 10, trees with a 'c' node
+N_END_C = 14  # (a): 'caa' on the hypercube, H = 1,015 (the JAX package's largest 'caa' case)
+N_END_C_ANCHOR = 6  # (b): the pair and hypercube goldens (data/caa4d_golden_f64.json)
+OVERFLOW_PAIR = (0.15, 2.05, 14)  # (b): k, +-x1 of the centers, n_end (test_biem.py:732)
+N_END_BCAA = 8  # (c): the 5D 'bcaa' pair, H = 540
+N_SIDE_C, N_END_C_LATTICE = 8, 6  # (d): the 'caa' lattice
+N_END_KS, N_OFF_KS = 10, 4  # (e): KS against its plain version in every mode
 ANCHORS = (  # (c): (tree, lattice side, n_end, value)
     ("a", 8, 19, -1.0537360062 + 0.0214642340j),  # tests/test_biem.py:866
     ("a", 16, 53, -0.9986093441 - 0.0011085159j),  # reference accuracy_n_balls_a.csv:82
     ("ba", 8, 22, -0.647372023208673 + 0.018550258564751655j),  # accuracy/accuracy.csv
 )
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 /
-# FP64 operations/s outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s; FP32 / FP64
+# operations/s outside the tensor cores; and those of a contraction, which
+# in FP64 runs on the tensor cores (DMMA, exact IEEE FP64) at 67 TFLOP/s
+# (float32 has no exact tensor-core path: TF32 stays off)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
+PEAK_MMA_FLOPS = {"complex64": 67e12, "complex128": 67e12}
 
 
 def sweep_ks():
@@ -262,9 +296,12 @@ def same_bits(torch, a, b):
     return torch.equal(bits(a), bits(b))
 
 
-def bound(nbytes, flops, name):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[name]
+def bound(nbytes, flops, name, mma_flops=0.0):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    with mma_flops the operations of contractions (at the tensor cores'
+    rate for the type) and flops the others."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = flops / PEAK_FLOPS[name] + mma_flops / PEAK_MMA_FLOPS[name]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -658,8 +695,8 @@ def check_kernels(torch, dev, card):
                 raise RuntimeError(f"block_diag_cmm {label} {name}: two launches differ")
             ms, pms, lms = cuda_ms(torch, kfn, 20), cuda_ms(torch, pfn, 5), cuda_ms(torch, lfn, 5)
             nnz = bd.vals.shape[-1]
-            b = bound(n_mat * nnz * cs + 2 * KB * n_used * h * cs,
-                      8 * KB * n_used * nnz, name)
+            b = bound(n_mat * nnz * cs + 2 * KB * n_used * h * cs, 0, name,
+                      mma_flops=8 * KB * n_used * nnz)
             print(f"[2] block_diag_cmm {label:3s} {KB} k x {n_used} lanes {name}: max_abs_err "
                   f"{ea:.3e} max_rel_err {er:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms "
                   f"library (dense matmul, padded lanes) {lms:.4f} ms bound {b[0]:.6f} ms "
@@ -840,8 +877,8 @@ def check_kb_panels(torch, dev, card):
                     op_d = dense.conj() if adj else dense.transpose(-1, -2)
                     lms = cuda_ms(torch, lambda: torch.matmul(pad_d, op_d), 3)
                     del padded, pad_d, op_d
-                    b = bound(n_real * nnz * cs + 2 * KB * n_used * h * cs,
-                              8 * KB * n_used * nnz, name)
+                    b = bound(n_real * nnz * cs + 2 * KB * n_used * h * cs, 0, name,
+                              mma_flops=8 * KB * n_used * nnz)
                     line += (f" kernel {ms:.4f} ms plain {pms:.4f} ms library (dense matmul, "
                              f"padded lanes) {lms:.4f} ms bound {b[0]:.6f} ms ({b[1]})")
                     row = {"ms": row["ms"] + ms, "plain_ms": row["plain_ms"] + pms,
@@ -953,10 +990,12 @@ def bench_config(torch, dev, card):
     print(f"[4] launches in the sweep: {launches}")
     # the sweep evaluates uscat(0) only: the many-point KA runs in the field
     # evaluation path below, KD on the dense route (phase 5); KB's row panels
-    # only in d >= 4 (phase 8), KG in 2D (phase 9)
+    # only in d >= 4 (phase 8), KG in 2D (phase 9), KS on 'c' trees (phase 10)
     require_launched(launches, [n for n in launches if n not in (
-        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold")],
+        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold", "band_sr")],
         "[4] the sweep")
+    if launches["band_sr"]:
+        raise RuntimeError("[4] the 3D bench launched KS")
     if launches["graf_fold"]:
         raise RuntimeError("[4] the 3D bench launched KG")
     if launches["block_diag_cmm_panels"]:
@@ -1300,11 +1339,12 @@ def stage_bounds(torch, c, centers_np, card, iters):
     nb, h = len(centers_np), N_END * N_END
     g2 = sum((e - s) ** 2 for s, e in _degree_groups(c, N_END))  # D's entries
     for name, cs in (("complex64", 8), ("complex128", 16)):
-        b = bound(2 * KB * n_off * h * h * cs + n_off * g2 * cs, 16 * KB * n_off * h * g2, name)
+        b = bound(2 * KB * n_off * h * h * cs + n_off * g2 * cs, 0, name,
+                  mma_flops=16 * KB * n_off * h * g2)
         print(f"[6] bound: sandwich {KB} k x {n_off} offsets n_end {N_END} {name}: "
               f"{b[0]:.6f} ms ({b[1]})")
         n = nb * N_END_LU * N_END_LU
-        b = bound(2 * KB * n * n * cs, KB * 8 / 3 * n ** 3, name)
+        b = bound(2 * KB * n * n * cs, 0, name, mma_flops=KB * 8 / 3 * n ** 3)
         print(f"[6] bound: LU {KB} systems of {n} {name}: {b[0]:.6f} ms ({b[1]})")
     q = len(_rot_tables(c, N_END)[0])
     for label, n_d in (("dense / offset-table route", n_off),
@@ -1448,7 +1488,7 @@ def matfree_route(torch, dev, card):
     n_off, n_lanes, lps = table.shape[1], len(routing.lane), 2 * routing.p_max
     ms, ms_f = cuda_ms(torch, lambda: mv_t(x), 20), cuda_ms(torch, lambda: mv_f(x), 20)
     vec = 5 * KB * n_sys * 16  # x, the row, column and diagonal factors in, out
-    b = bound(table.numel() * 16 + vec, 8 * KB * n_lanes * N_END ** 4, "complex128")
+    b = bound(table.numel() * 16 + vec, 0, "complex128", mma_flops=8 * KB * n_lanes * N_END ** 4)
     print(f"[6] (b) one matvec, offset table (stable=False) against factored (stable=True), "
           f"complex128: max rel err per (k, sphere, degree) block {err:.3e}; offset-table "
           f"{ms:.4f} ms (bound {b[0]:.6f} ms, {b[1]}: the {table.numel() * 16 / 1e9:.3f} GB "
@@ -1466,8 +1506,8 @@ def matfree_route(torch, dev, card):
     ms_bmm = cuda_ms(torch, lambda: torch.bmm(padded.view(KB * n_off, lps, -1), sr_t), 20)
     y_pad = torch.bmm(padded.view(KB * n_off, lps, -1), sr_t).view(KB, n_off * lps, -1)
     ms_unpad = cuda_ms(torch, lambda: y_pad.index_select(1, lane), 20)
-    b_bmm = bound(table.numel() * 16 + 2 * padded.numel() * 16,
-                  8 * KB * n_lanes * N_END ** 4, "complex128")
+    b_bmm = bound(table.numel() * 16 + 2 * padded.numel() * 16, 0, "complex128",
+                  mma_flops=8 * KB * n_lanes * N_END ** 4)
     b_copy = bound(2 * lanes.numel() * 16, 0, "complex128")
     print(f"[6] (b) table product (torch.bmm, {KB} x {n_off} offsets, {n_lanes} of "
           f"{n_off * lps} padded lanes): {ms_bmm:.4f} ms, bound {b_bmm[0]:.6f} ms ({b_bmm[1]}); "
@@ -1560,6 +1600,7 @@ def matfree_route(torch, dev, card):
 def kernel_counts():
     """(reset, read) of every kernel's launch count."""
     from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_sr
     from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
     from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
     from biem_helmholtz_sphere_tpu_torch.ops.graf import graf_fold
@@ -1576,7 +1617,8 @@ def kernel_counts():
                 "spherical_jh": (spherical_jh, "launches"),
                 "coax_fold": (coax_fold, "launches"),
                 "dense_assemble": (dense_assemble, "launches"),
-                "graf_fold": (graf_fold, "launches")}
+                "graf_fold": (graf_fold, "launches"),
+                "band_sr": (band_sr, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -2224,9 +2266,9 @@ def lattice_matvec_parts(torch, mv, x, n_k, fx, fy, h, name):
     fft_flops = 5 * n_k * fx * fy * h * np.log2(fx * fy) * 2  # c2c, 5 N log2 N a transform
     out = {
         "matvec": (cuda_ms(torch, lambda: mv(x), 10),
-                   bound(grid_bytes + 4 * vec, 8 * n_k * fx * fy * h * h, name)),
+                   bound(grid_bytes + 4 * vec, 0, name, mma_flops=8 * n_k * fx * fy * h * h)),
         "product": (cuda_ms(torch, lambda: torch.matmul(khat, zc), 10),
-                    bound(grid_bytes + vec, 8 * n_k * fx * fy * h * h, name)),
+                    bound(grid_bytes + vec, 0, name, mma_flops=8 * n_k * fx * fy * h * h)),
         "fftn": (cuda_ms(torch, lambda: torch.fft.fftn(z, dim=(1, 2)), 10),
                  bound(vec, fft_flops, name)),
         "ifftn": (cuda_ms(torch, lambda: torch.fft.ifftn(z, dim=(1, 2)), 10),
@@ -2234,6 +2276,29 @@ def lattice_matvec_parts(torch, mv, x, n_k, fx, fy, h, name):
     }
     del khat, z
     return out
+
+
+def lattice_build_bound(torch, centers_np, h, name):
+    """The lattice kernel build's bound for a 'ba' lattice at N_END_3D, as
+    text: K3 at the half offsets' directions and the sandwich (their
+    operations, as `stage_bounds` counts them), the FFT over the cells
+    (5 N log2 N real operations per entry), and the grid [Fx, Fy, H, H]
+    written once."""
+    from biem_helmholtz_sphere_tpu_torch.biem._lattice import _half_offsets, lattice_routing
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import _degree_groups, _rot_tables
+
+    c = create_from_branching_types("ba")
+    routing = lattice_routing(centers_np)
+    n_half = len(_half_offsets(routing, 3)[2])
+    cells = 4 * routing[2][0] * routing[2][1]
+    g2 = sum((e - s) ** 2 for s, e in _degree_groups(c, N_END_3D))
+    q = len(_rot_tables(c, N_END_3D)[0])
+    cs = 8 if name == "complex64" else 16
+    ms, by = bound(cells * h * h * cs, n_half * q * 16 * h + 5 * cells * np.log2(cells) * h * h,
+                   name, mma_flops=n_half * q * 8 * g2 + 16 * n_half * h * g2)
+    return (f"{ms:.3f} ms ({by}: {n_half} half offsets, K3 at {q} nodes, the sandwich, the FFT "
+            f"over {cells} cells, the {cells * h * h * cs / 1e9:.2f} GB grid written once)")
 
 
 def format_parts(parts):
@@ -2344,6 +2409,8 @@ def n_balls_family(torch, dev, card):
               + f", other {total - sum(split.values()):.4f}, total {total:.4f} ({card})")
         print(f"[9] (a) {name} one lattice matvec and its parts alone: {format_parts(parts)} "
               f"({card})")
+        print(f"[9] (a) {name} bound of the kernel build: "
+              f"{lattice_build_bound(torch, centers, h, name)} ({card})")
         if cdt == torch.complex64:  # a second solve: its tables cached
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2596,6 +2663,371 @@ def n_balls_family(torch, dev, card):
     return results, kg_launches
 
 
+def block_rel_err(torch, got, ref, n_o, n_i):
+    """(max abs error, max error relative to the largest |ref| of each
+    (leading index, row degree, column degree) block) of tables [..., Ho,
+    Hi] with degree-sorted rows n_o and columns n_i (host arrays): across
+    blocks the (S|R) entries span many orders of magnitude."""
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("kernel output is not finite")
+    worst_abs, worst = 0.0, 0.0
+    for a in np.unique(n_o):
+        ra = np.flatnonzero(n_o == a)
+        for b in np.unique(n_i):
+            cb = np.flatnonzero(n_i == b)
+            g = got[..., ra[0]:ra[-1] + 1, cb[0]:cb[-1] + 1]
+            r = ref[..., ra[0]:ra[-1] + 1, cb[0]:cb[-1] + 1]
+            d = (g - r).abs().amax(dim=(-2, -1))
+            m = r.abs().amax(dim=(-2, -1)).clamp_min(torch.finfo(d.dtype).tiny)
+            worst_abs = max(worst_abs, float(d.max()))
+            worst = max(worst, float((d / m).max()))
+    return worst_abs, worst
+
+
+def band_sr_bound(tab, n_k, n_off, name):
+    """KS's bound: one complex multiply-add (8 real operations) per entry
+    and quadrature node, a contraction (at the tensor cores' FP64 rate in
+    complex128), or the table's write with the harmonics read once (one
+    table when rows and columns share it), the larger."""
+    cs = 8 if name == "complex64" else 16
+    q, h_out, h_in = tab.w.shape[0], tab.yo.shape[1], tab.yi.shape[1]
+    n_b = tab.n_bands
+    n_y = h_in if tab.yo is tab.yi else h_out + h_in
+    nbytes = (n_k * n_off * h_out * h_in * cs + q * n_y * cs
+              + n_k * n_off * n_b * (n_b * cs + cs // 2) + 2 * n_k * (h_out + h_in) * cs // 2)
+    return bound(nbytes, 0, name, mma_flops=8.0 * n_k * n_off * h_out * h_in * q)
+
+
+def c_trees(torch, dev, card):
+    """Phase 10: trees with a 'c' node through biem(), each path with the
+    launch counts set to 0 just before it and read just after, and KS
+    against its plain version.  Returns (KS's results by dtype, KS's
+    launches in (a))."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core, _lattice
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_coefs, band_sr
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation import _ops, _scaled, translation_matrix
+
+    reset, read = kernel_counts()
+    caa, bcaa = create_from_branching_types("caa"), create_from_branching_types("bcaa")
+    cube = hypercube_centers()
+    nb = len(cube)
+    ks = sweep_ks_4d()[:KB]
+    with open(os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data",
+                           "caa4d_golden_f64.json")) as fh:
+        golden = {}
+        for row in json.load(fh)["points"]:
+            golden.setdefault(row["name"], []).append(row)
+
+    def solve(tree, rdt, kvals, centers, n_end, **kw):
+        f = dict(dtype=rdt, device=dev)
+        d = tree.c_ndim
+        kt = torch.as_tensor(np.asarray(kvals), **f).reshape(-1)
+        n_k = kt.numel()
+        cen = torch.as_tensor(centers, **f).expand(n_k, len(centers), d)
+        direction = torch.zeros(d, n_k, **f)
+        direction[0] = 1.0
+        uin, _ = plane_wave(k=kt, direction=direction)
+        return biem(tree, centers=cen, radii=torch.ones(n_k, len(centers), **f), k=kt,
+                    n_end=n_end, uin=uin, **kw)
+
+    def uscat0(calc):
+        d = calc.c.c_ndim
+        return calc.uscat(torch.zeros(d, 1, dtype=calc.radii.dtype, device=dev))[0]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    calls = []
+    real_band_sr = _scaled.band_sr
+
+    def recorded(*args, **kw):  # KS's arguments on the main path, for (e)
+        calls.append((args, kw))
+        return real_band_sr(*args, **kw)
+
+    # (a) 'caa' on the hypercube at full width: complex64, auto -> the
+    # offset-table matrix-free GMRES, its table by KS in fold mode
+    h = basis(caa, N_END_C).num
+    n_sys = nb * h
+    route = _core._route("auto", nb, n_sys, torch.float32, dev, True, False, cube)
+    if route != "matfree":
+        raise RuntimeError(f"(a) auto picks {route!r} for the 'caa' hypercube")
+    stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_factors", "radial rows"),
+              (_core, "sr_banded_folded", "table (K5 + KS)"),
+              (_core, "gmres_solve_op", "GMRES"),
+              (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+    first = {}
+
+    def first_block():
+        first["calc"] = solve(caa, torch.float32, ks, cube, N_END_C)
+        first["u0"] = uscat0(first["calc"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    _scaled.band_sr = recorded
+    try:
+        acc, total = split_stages(torch, first_block, stages)
+    finally:
+        _scaled.band_sr = real_band_sr
+    counts = read()
+    calc, u0 = first.pop("calc"), first.pop("u0")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    labels = [label for _, _, label in stages]
+    print(f"[10] (a) 'caa' 4D hypercube ({nb} unit spheres, pitch 4), n_end={N_END_C} "
+          f"(H={h}, {n_sys} unknowns), complex64, auto -> offset-table matrix-free GMRES, "
+          f"one block of {KB} k: {total:.3f} s; split, s per block (synchronising timers): "
+          f"{format_split(acc, total, labels, 1)}; launches {counts}; GMRES iters "
+          f"{calc.iters.tolist()}, max relres {float(calc.relres.max()):.3e}; peak device "
+          f"memory {peak:.3f} GiB ({card})")
+    require_launched(counts, ("band_sr", "lane_gather", "lane_scatter", "spherical_jh"), "(a)")
+    for name in ("block_diag_cmm", "coax_fold", "dense_assemble", "graf_fold"):
+        if counts[name]:
+            raise RuntimeError(f"(a) a 'c' root launched {name}: {counts}")
+    launches = counts["band_sr"]
+    worst = float(calc.relres.max())
+    res_max, res_mean = bc_residual_of(torch, calc, cube, (0, 5, 10, 15))
+    print(f"[10] (a) BC residual at 256 points on 4 spheres: max {res_max:.3e} mean "
+          f"{res_mean:.3e}")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5 or not res_max <= 1e-3:
+        raise RuntimeError(f"(a) relres {worst:.3e} or BC residual {res_max:.3e} off its gate")
+    del calc
+    torch.cuda.empty_cache()
+    # KS alone at the main path's shapes, against its plain version there
+    (args, kw), = calls
+    calls.clear()
+    results = {}
+    ms = cuda_ms(torch, lambda: band_sr(*args, **kw), 2)
+    got = band_sr(*args, **kw)
+    if not same_bits(torch, band_sr(*args, **kw), got):
+        raise RuntimeError("(a) KS: two launches differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = _band_sr_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    tab = args[2]
+    n_k, n_off = args[0].shape[:2]
+    err_abs, err = block_rel_err(torch, got, ref, tab.n_o_host, tab.n_i_host)
+    del got, ref
+    torch.cuda.empty_cache()
+    b = band_sr_bound(tab, n_k, n_off, "complex64")
+    y_t = tab.yo.T.conj().resolve_conj().contiguous()
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(y_t, tab.yi), 2)
+    del y_t
+    print(f"[10] (a) KS band_sr alone, fold mode, [{n_k}, {n_off}, {h}, {h}] x {tab.w.shape[0]} "
+          f"nodes, complex64: {ms:.3f} ms (plain version {plain_ms:.3f} ms, one host-timed "
+          f"call), bound {b[0]:.3f} ms ({b[1]}); against the plain version per degree block "
+          f"{err:.3e} (max abs {err_abs:.3e}), two launches bit for bit equal; yardstick: one "
+          f"torch.matmul [{h}, {tab.w.shape[0]}] x [{tab.w.shape[0]}, {h}] {mm_ms:.3f} ms, "
+          f"x {n_k * n_off} = {mm_ms * n_k * n_off:.3f} ms ({card})")
+    if not err <= TOL_REL["complex64"]:
+        raise RuntimeError(f"(a) KS off its plain version by {err:.3e} at the main path's shapes")
+    results["complex64"] = {"abs": err_abs, "rel": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                            "matmul_ms": mm_ms * n_k * n_off}
+    del args, kw
+    # the same block in complex128, unscaled (KS's unscaled mode, route auto)
+    reset()
+    _scaled.band_sr = _ops.band_sr = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calc128 = solve(caa, torch.float64, ks, cube, N_END_C, stable=False)
+        u128 = uscat0(calc128)
+        torch.cuda.synchronize()
+        t128 = time.perf_counter() - t0
+    finally:
+        _scaled.band_sr, _ops.band_sr = real_band_sr, real_band_sr
+    counts = read()
+    require_launched(counts, ("band_sr", "lane_gather", "lane_scatter"), "(a) complex128")
+    err = rel(u0.to(torch.complex128), u128)
+    print(f"[10] (a) complex128 unscaled (auto -> the offset table, KS unscaled): {t128:.3f} s, "
+          f"GMRES iters {calc128.iters.tolist()}, max relres {float(calc128.relres.max()):.3e}; "
+          f"uscat(0) complex64 {[f'{complex(v):.7f}' for v in u0.cpu()]} against complex128: "
+          f"rel err {err:.3e} ({card})")
+    if not err <= 1e-4 or float(calc128.relres.max()) > 1e-11:
+        raise RuntimeError(f"(a) uscat(0) off complex128 by {err:.3e}")
+    del calc128
+    torch.cuda.empty_cache()
+    # KS alone in complex128 against its plain version (its ZGEMMs), in
+    # turns: plain, KS, plain
+    (args, kw), = calls
+    calls.clear()
+    tab = args[2]
+    n_k, n_off = args[0].shape[:2]
+
+    def plain_timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _band_sr_plain(*args, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ref, plain_ms = plain_timed()
+    ms = cuda_ms(torch, lambda: band_sr(*args, **kw), 2)
+    err_abs, err = block_rel_err(torch, band_sr(*args, **kw), ref, tab.n_o_host, tab.n_i_host)
+    del ref
+    torch.cuda.empty_cache()
+    plain_ms2 = plain_timed()[1]
+    b = band_sr_bound(tab, n_k, n_off, "complex128")
+    y_t = tab.yo.T.conj().resolve_conj().contiguous()
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(y_t, tab.yi), 2)
+    del y_t
+    print(f"[10] (a) KS band_sr alone, unscaled mode, [{n_k}, {n_off}, {h}, {h}], complex128: "
+          f"{ms:.3f} ms (plain version {plain_ms:.3f} / {plain_ms2:.3f} ms, host-timed calls "
+          f"before and after), bound {b[0]:.3f} ms ({b[1]}); against the plain version per "
+          f"degree block {err:.3e} (max abs {err_abs:.3e}); yardstick: one torch.matmul "
+          f"[{h}, {tab.w.shape[0]}] x [{tab.w.shape[0]}, {h}] {mm_ms:.3f} ms, x {n_k * n_off} = "
+          f"{mm_ms * n_k * n_off:.3f} ms ({card})")
+    if not err <= 1e-11:
+        raise RuntimeError(f"(a) KS complex128 off its plain version by {err:.3e}")
+    results["complex128"] = {"abs": err_abs, "rel": err, "ms": ms,
+                             "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b[0],
+                             "bound_by": b[1], "library_ms": None,
+                             "matmul_ms": mm_ms * n_k * n_off}
+    del args, kw
+    torch.cuda.empty_cache()
+
+    # (b) the anchors
+    pair = golden["pair caa"][0]
+    reset()
+    calc = solve(caa, torch.float64, 1.0, pair_centers(4), N_END_C_ANCHOR)
+    u = complex(uscat0(calc)[0])
+    dens = torch.as_tensor(np.array(pair["density"][0]) + 1j * np.array(pair["density"][1]),
+                           device=dev).reshape(pair["density_shape"])
+    err_d = rel(calc.density[0], dens)
+    print(f"[10] (b) 'caa' pair, n_end={N_END_C_ANCHOR}, complex128, LU: uscat(0) = {u:.9f} "
+          f"(reference -0.454651-0.423387j: {abs(u - (-0.454651 - 0.423387j)):.3e}); density "
+          f"against the JAX package's {err_d:.3e}; launches {read()}")
+    require_launched(read(), ("band_sr", "dense_assemble"), "(b)")
+    if abs(u - (-0.454651 - 0.423387j)) > 2e-6 or not err_d <= 1e-9:
+        raise RuntimeError("(b) the 'caa' pair is off its golden")
+    calc = solve(caa, torch.float64, [r["k"] for r in golden["hypercube caa"]], cube,
+                 N_END_C_ANCHOR)
+    for v, r in zip(uscat0(calc).cpu(), golden["hypercube caa"]):
+        ref = complex(*r["uscat0"])
+        e = abs(complex(v) - ref) / abs(ref)
+        print(f"[10] (b) hypercube n_end={N_END_C_ANCHOR} k={r['k']:.6f} complex128: uscat(0) = "
+              f"{complex(v):.12f}, JAX golden {ref:.12f}, rel err {e:.3e}")
+        if not e <= 1e-9:
+            raise RuntimeError("(b) the 'caa' hypercube is off its golden")
+    k_o, x_o, n_o = OVERFLOW_PAIR
+    over = pair_centers(4) * (x_o / 2.0)
+    u64 = complex(uscat0(solve(caa, torch.float64, k_o, over, n_o))[0])
+    u32 = complex(uscat0(solve(caa, torch.float32, k_o, over, n_o))[0])
+    e = abs(u32 - u64) / abs(u64)
+    print(f"[10] (b) the float32 overflow pair (k={k_o}, centers +-{x_o}, n_end={n_o}): "
+          f"complex64 {u32:.7f} (stable) against complex128 {u64:.9f}: rel err {e:.3e}")
+    if not np.isfinite(u32.real + u32.imag) or not e <= 1e-4:
+        raise RuntimeError("(b) the float32 overflow pair is off complex128")
+    del calc
+    torch.cuda.empty_cache()
+
+    # (c) 'bcaa' (5D): the factored route against the dense band scan
+    hb = basis(bcaa, N_END_BCAA).num
+    reset()
+    fact = solve(bcaa, torch.float32, 1.0, pair_centers(5), N_END_BCAA, solver="matfree",
+                 stable=True)
+    c_fact = read()
+    reset()
+    dense = solve(bcaa, torch.float64, 1.0, pair_centers(5), N_END_BCAA, stable=False,
+                  translational_coefficients_method="triplet")
+    c_dense = read()
+    require_launched(c_fact, ("block_diag_cmm", "coax_fold", "lane_gather"), "(c) factored")
+    require_launched(c_dense, ("band_sr", "dense_assemble"), "(c) triplet")
+    if c_fact["band_sr"]:
+        raise RuntimeError("(c) the factored route launched KS")
+    e_u = rel(uscat0(fact).to(torch.complex128), uscat0(dense))
+    e_d = rel(fact.density.to(torch.complex128), dense.density)
+    print(f"[10] (c) 'bcaa' pair, n_end={N_END_BCAA} (H={hb}): factored complex64 (K3, K2, KB) "
+          f"against the dense route complex128 with \"triplet\" (KS): uscat(0) {e_u:.3e}, "
+          f"density {e_d:.3e}; launches {c_fact} / {c_dense}")
+    if not e_u <= 1e-4 or not e_d <= 1e-4:
+        raise RuntimeError("(c) 'bcaa' factored off the dense route")
+    t = torch.as_tensor(np.random.default_rng(3).normal(size=(5, 3)) * 1.8,
+                        dtype=torch.float64, device=dev)
+    k2 = torch.tensor([[1.1], [0.7]], dtype=torch.float64, device=dev)
+    n_root = basis(bcaa, 4).n_root
+    for kind in ("SR", "RR"):
+        rot = translation_matrix(bcaa, t, 4, k2, kind=kind, method="rotation")
+        band = (translation_matrix(bcaa, t, 4, k2, method="triplet") if kind == "SR" else
+                _ops._sr_banded(bcaa, None, t, 4, 4, k2, "RR"))
+        e = block_rel_err(torch, band, rot, n_root, n_root)[1]
+        print(f"[10] (c) 'bcaa' n_end=4 {kind}: rotation against the band scan (KS) per "
+              f"degree block {e:.3e}")
+        if not e <= 1e-10:
+            raise RuntimeError(f"(c) 'bcaa' rotation {kind} off the band scan")
+    del fact, dense
+    torch.cuda.empty_cache()
+
+    # (d) the lattice route on 'caa': its half table from KS
+    lat = square_lattice(N_SIDE_C, 4)
+    if _core._route("auto", len(lat), len(lat) * basis(caa, N_END_C_LATTICE).num,
+                    torch.float64, dev, True, False, lat) != "lattice":
+        raise RuntimeError("(d) auto does not take the lattice route")
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_lat = solve(caa, torch.float64, 1.0, lat, N_END_C_LATTICE)
+    u_lat = uscat0(on_lat)
+    torch.cuda.synchronize()
+    t_lat = time.perf_counter() - t0
+    c_lat = read()
+    require_launched(c_lat, ("band_sr",), "(d)")
+    found = _lattice.lattice_routing
+    _lattice.lattice_routing = lambda centers: None  # the offset table instead
+    try:
+        off = solve(caa, torch.float64, 1.0, lat, N_END_C_LATTICE, solver="matfree")
+    finally:
+        _lattice.lattice_routing = found
+    e = rel(u_lat, uscat0(off))
+    print(f"[10] (d) 'caa' {N_SIDE_C} x {N_SIDE_C} lattice, n_end={N_END_C_LATTICE}, complex128, "
+          f"auto -> lattice: {t_lat:.3f} s, GMRES iters {on_lat.iters.tolist()}, relres "
+          f"{float(on_lat.relres.max()):.3e}; uscat(0) {complex(u_lat[0]):.12f} against the "
+          f"offset-table route (iters {off.iters.tolist()}): rel err {e:.3e}; launches {c_lat}")
+    if not e <= 1e-8:
+        raise RuntimeError("(d) the 'caa' lattice route is off the offset table")
+    del on_lat, off
+    torch.cuda.empty_cache()
+
+    # (e) KS against its plain version in every mode and dtype
+    t_e = np.random.default_rng(11).normal(size=(1, N_OFF_KS, 4))
+    r_e = np.linalg.norm(cube[0] - cube[1:1 + N_OFF_KS], axis=1)
+    for cdt in (torch.complex64, torch.complex128):
+        name = str(cdt).split(".")[-1]
+        rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+        f = dict(dtype=rdt, device=dev)
+        tab = _ops._quad_tables(caa, N_END_KS, N_END_KS, rdt, dev)
+        t_hat = torch.as_tensor(t_e / np.linalg.norm(t_e, axis=-1, keepdims=True), **f)
+        kk = torch.as_tensor(ks[:2], **f)
+        hm, he = spherical_h_scaled(4, tab.n_bands, kk[:, None] * torch.as_tensor(r_e, **f))
+        h_e = tab.yo.shape[1]
+        gen = np.random.default_rng(12)
+        e_r = torch.as_tensor(-5.0 * gen.random((2, h_e)), **f)
+        e_b = torch.as_tensor(-5.0 * gen.random((2, h_e)), **f)
+        for mode, coef, extra in (
+                ("unscaled", band_coefs(hm * torch.exp(he), 4, *_ops._band_consts(4)), ()),
+                ("scaled", band_coefs(hm, 4, *_ops._band_consts(4), he=he), ()),
+                ("fold", band_coefs(hm, 4, *_ops._band_consts(4), he=he), (he, e_r, e_b))):
+            got = band_sr(coef, t_hat, tab, *extra)
+            same = same_bits(torch, band_sr(coef, t_hat, tab, *extra), got)
+            ref = _band_sr_plain(coef, t_hat, tab, *extra)
+            err_abs, err = block_rel_err(torch, got, ref, tab.n_o_host, tab.n_i_host)
+            ms = cuda_ms(torch, lambda: band_sr(coef, t_hat, tab, *extra), 3)
+            plain_ms = cuda_ms(torch, lambda: _band_sr_plain(coef, t_hat, tab, *extra), 1)
+            b = band_sr_bound(tab, 2, N_OFF_KS, name)
+            print(f"[10] (e) KS {mode} {name} [2, {N_OFF_KS}, {h_e}, {h_e}] x {tab.w.shape[0]} "
+                  f"nodes: {ms:.3f} ms (plain {plain_ms:.3f} ms), bound {b[0]:.4f} ms ({b[1]}); "
+                  f"per degree block {err:.3e} (max abs {err_abs:.3e}); bits repeated {same}")
+            if not same or not err <= {"complex64": 1e-4, "complex128": 1e-11}[name]:
+                raise RuntimeError(f"(e) KS {mode} {name}: {err:.3e}, bits repeated {same}")
+    return results, launches
+
+
 def main():
     try:
         import torch
@@ -2639,6 +3071,7 @@ def main():
     complex_and_trees(torch, dev, card)
     launches["block_diag_cmm_panels"] = four_d(torch, dev, card)["block_diag_cmm_panels"]
     results["graf_fold"], launches["graf_fold"] = n_balls_family(torch, dev, card)
+    results["band_sr"], launches["band_sr"] = c_trees(torch, dev, card)
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
@@ -2662,6 +3095,8 @@ def main():
                            "biem_helmholtz_sphere_tpu/biem/_core.py:826"),
         "graf_fold": ("csrc/graf_fold.cu",
                       "biem_helmholtz_sphere_tpu/translation/_scaled.py:58"),
+        "band_sr": ("csrc/band_sr.cu",
+                    "biem_helmholtz_sphere_tpu/translation/_ops.py:160"),
     }
     record = {"kernels": [
         {

@@ -180,12 +180,14 @@ def test_tf32_is_off():
 ])
 def test_unported_routes_raise(case):
     """What the port does not take raises NotImplementedError naming its
-    ROADMAP item: the band-scan and Gumerov translations and 'c'-node
-    trees.  The "2d-tree" (a 2D pair on the offset-table route, KG) and
-    "lattice-64" (64 spheres on a line, the lattice-FFT route) cases raised
-    until the port took 2D trees and the lattice route; they now solve and
-    must match the JAX package's solve of the same call (float64 GMRES
-    tolerance 1e-11: densities within 1e-9)."""
+    ROADMAP item: the Gumerov translation.  The other cases raised until
+    the port took them and now solve, and must match the JAX package's
+    solve of the same call (float64 GMRES tolerance 1e-11: densities
+    within 1e-9): "2d-tree" (a 2D pair on the offset-table route, KG) and
+    "lattice-64" (64 spheres on a line, the lattice-FFT route), then
+    "c-tree" (a 'caa' pair on the scaled offset-table route, KS in fold
+    mode) and "triplet" (the plain dense route's band-scan translation on
+    'ba', KS unscaled)."""
     tree = {"2d-tree": "a", "c-tree": "caa"}
     c = create_from_branching_types(tree.get(case, "ba"))
     d = c.c_ndim
@@ -201,17 +203,17 @@ def test_unported_routes_raise(case):
         kw = dict(solver="direct", stable=False, translational_coefficients_method=case)
     call = dict(centers=centers, radii=torch.ones(centers.shape[:-1], **F64), k=k, n_end=3,
                 **kw)
-    if case in ("2d-tree", "lattice-64"):
-        got = biem(c, uin=uin, **call).density.numpy()
-        j_uin, _ = j_plane_wave(k=np.asarray(1.0), direction=direction.numpy())
-        ref = j_biem(j_tree(tree.get(case, "ba")), uin=j_uin,
-                     **{key: (v.numpy() if isinstance(v, torch.Tensor) else v)
-                        for key, v in call.items()}).density.to_numpy()
-        assert got.shape == ref.shape == (n_balls, 5 if d == 2 else 9)
-        assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
+    if case == "gumerov":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
+            biem(c, uin=uin, **call)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item [89]"):
-        biem(c, uin=uin, **call)
+    got = biem(c, uin=uin, **call).density.numpy()
+    j_uin, _ = j_plane_wave(k=np.asarray(1.0), direction=direction.numpy())
+    ref = j_biem(j_tree(tree.get(case, "ba")), uin=j_uin,
+                 **{key: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                    for key, v in call.items()}).density.to_numpy()
+    assert got.shape == ref.shape == (n_balls, {2: 5, 3: 9, 4: 14}[d])
+    assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

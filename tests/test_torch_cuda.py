@@ -985,3 +985,104 @@ def test_lattice_solve_on_the_card_matches_the_cpu(cuda, btype):
                             stable=stable)
             for g, r in zip(got, ref):
                 assert _rel(g, r) < tol
+
+
+def _block_rel(got, ref, n_o, n_i):
+    """Largest error relative to the largest |ref| of each (leading index,
+    row degree, column degree) block: across blocks the (S|R) entries span
+    many orders of magnitude."""
+    assert bool(torch.isfinite(got).all())
+    err = 0.0
+    for a in np.unique(n_o):
+        for b in np.unique(n_i):
+            g, r = got[..., n_o == a, :][..., n_i == b], ref[..., n_o == a, :][..., n_i == b]
+            d = (g - r).abs().amax(dim=(-2, -1))
+            m = r.abs().amax(dim=(-2, -1)).clamp_min(torch.finfo(d.dtype).tiny)
+            err = max(err, float((d / m).max()))
+    return err
+
+
+# name: (tree, n_out, n_in, offsets, K, per-k directions)
+_BAND_CASES = {
+    "caa-n8": ("caa", 8, 8, 3, 2, False),
+    "caa-per-k-directions": ("caa", 6, 6, 2, 3, True),
+    "caa-n_end_add": ("caa", 5, 7, 2, 1, False),
+    "ba-triplet-n9": ("ba", 9, 9, 2, 2, False),
+    "bcaa-n4": ("bcaa", 4, 4, 2, 1, False),
+    "cbaba-n3": ("cbaba", 3, 3, 2, 2, False),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["unscaled", "scaled", "fold"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", list(_BAND_CASES))
+def test_band_sr_kernel_matches_plain(cuda, case, dtype, mode):
+    """KS against its plain version on the same card inputs in its three
+    modes (h unscaled, h's mantissas with the band exponents, and those
+    with the row and column exponents folded in), per degree block
+    (complex64 1e-4, complex128 1e-11: both sum the nodes in two levels, in
+    another order); two launches are bit for bit equal."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_coefs, band_sr
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts, _quad_tables
+
+    tree, n_out, n_in, n_off, n_k, per_k = _BAND_CASES[case]
+    rdt = kernels.REAL_OF[dtype]
+    c = create_from_branching_types(tree)
+    d = c.c_ndim
+    tab = _quad_tables(c, n_out, n_in, rdt, cuda)
+    rng = np.random.default_rng(41)
+    t = rng.normal(size=(n_k if per_k else 1, n_off, d))
+    r = 3.0 + rng.random(size=(n_k, n_off))
+    f = dict(dtype=rdt, device=cuda)
+    t_hat = torch.as_tensor(t / np.linalg.norm(t, axis=-1, keepdims=True), **f)
+    k = torch.linspace(0.8, 1.6, n_k, **f)
+    hm, he = spherical_h_scaled(d, tab.n_bands, k[:, None] * torch.as_tensor(r, **f))
+    if mode == "unscaled":
+        coef, args = band_coefs(hm * torch.exp(he), d, *_band_consts(d)), ()
+    else:
+        coef = band_coefs(hm, d, *_band_consts(d), he=he)
+        args = () if mode == "scaled" else (
+            he, -torch.as_tensor(rng.random((n_k, tab.yo.shape[1])) * 5, **f),
+            -torch.as_tensor(rng.random((n_k, tab.yi.shape[1])) * 5, **f))
+    n0 = band_sr.launches
+    got = band_sr(coef, t_hat, tab, *args)
+    assert band_sr.launches == n0 + 1
+    torch.cuda.synchronize()
+    ref = _band_sr_plain(coef, t_hat, tab, *args)
+    assert got.shape == ref.shape == (n_k, n_off, tab.yo.shape[1], tab.yi.shape[1])
+    err = _block_rel(got, ref, tab.n_o_host, tab.n_i_host)
+    assert err < (1e-4 if dtype == torch.complex64 else 1e-11), err
+    assert _same_bits(band_sr(coef, t_hat, tab, *args), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["caa-pair", "caa-lattice", "bcaa-pair"])
+def test_c_tree_solves_on_the_card_match_the_cpu(cuda, case):
+    """Trees with a 'c' node on the card against the same call on the CPU:
+    the 'caa' pair on LU, dense GMRES and the offset table (KS in fold and
+    unscaled mode), the 8 x 8 'caa' lattice on the lattice route, and the
+    'bcaa' pair on the factored route (KB with the 'c' node's blocks) and
+    the dense route with "triplet" (KS); both dtypes."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_sr
+
+    tree, centers, n_end, calls = {
+        "caa-pair": ("caa", np.array([[0.0, 2.0, 0.0, 0.0], [0.0, -2.0, 0.0, 0.0]]), 6, (
+            dict(), dict(solver="gmres"), dict(solver="matfree", stable=True),
+            dict(solver="matfree", stable=False))),
+        "caa-lattice": ("caa", _square_lattice(8, 4), 3, (dict(), dict(stable=False))),
+        "bcaa-pair": ("bcaa", np.array([[0.0, 2.0, 0.0, 0.0, 0.0],
+                                        [0.0, -2.0, 0.0, 0.0, 0.0]]), 5, (
+            dict(solver="matfree", stable=True),
+            dict(solver="direct", stable=False, translational_coefficients_method="triplet"))),
+    }[case]
+    for kw in calls:
+        for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+            n0 = band_sr.launches
+            got = _solve_nd(cuda, tree, dtype, centers, n_end, 1.0, **kw)
+            assert (band_sr.launches > n0) == (kw.get("solver") != "matfree"
+                                               or tree != "bcaa")
+            ref = _solve_nd(torch.device("cpu"), tree, dtype, centers, n_end, 1.0, **kw)
+            for g, r in zip(got, ref):
+                assert _rel(g, r) < tol, (kw, dtype)

@@ -106,7 +106,7 @@ def test_translation_matrix_from_a_spherical_mapping():
 
 
 def test_translation_matrix_validates_as_jax(monkeypatch):
-    """The JAX package's argument checks; unported methods name their
+    """The JAX package's argument checks; the unported method names its
     item; given no tensor it runs on the card (and raises without one)."""
     c = create_from_branching_types("ba")
     t, k = torch.ones(3, 1, **F64), torch.tensor(1.0, **F64)
@@ -116,11 +116,14 @@ def test_translation_matrix_validates_as_jax(monkeypatch):
         translation_matrix(c, t, 3, k, method="plane_wave")
     with pytest.raises(ValueError, match="kind"):
         translation_matrix(c, t, 3, k, kind="SS")
-    for method in ("triplet", "gumerov"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            translation_matrix(c, t, 3, k, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        translation_matrix(c, t, 3, k, n_end_add=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
+        translation_matrix(c, t, 3, k, method="gumerov")
+    # the band scan (ported since): "triplet" and n_end_add != n_end
+    assert translation_matrix(c, t, 3, k, method="triplet").shape == (1, 9, 9)
+    assert translation_matrix(c, t, 3, k, n_end_add=4).shape == (1, 9, 16)
+    with pytest.raises(ValueError, match="'b'/'bp'-rooted"):
+        translation_matrix(create_from_branching_types("caa"), torch.ones(4, 1, **F64), 3, k,
+                           method="rotation")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         translation_matrix(c, np.ones((3, 1)), 3, 1.0)

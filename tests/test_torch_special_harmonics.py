@@ -67,10 +67,14 @@ def test_harmonics_matches_jax(btype, n_end):
 
 
 def test_c_nodes_not_ported():
-    tc = coords.create_from_branching_types("caa")
-    sph = coords.from_cartesian(tc, torch.ones(4, 2, **F64))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        harmonics.harmonics(tc, sph, 3)
+    """'c' nodes raised until the port took them; they now match the JAX
+    package (tests/test_torch_ctrees.py holds more trees and degrees)."""
+    tc, jc = coords.create_from_branching_types("caa"), jcoords.create_from_branching_types("caa")
+    x = np.ones((4, 2))
+    x[1, 1] = -0.5
+    got = harmonics.harmonics(tc, coords.from_cartesian(tc, _t(x)), 3).numpy()
+    ref = tonp(jharm.harmonics(jc, jcoords.from_cartesian(jc, x), 3))
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
 
 
 def test_quadrature_rules_match_jax():

@@ -30,6 +30,18 @@ nballs2d_golden_f64.json.
     python tools/torch_golden_from_jax.py --imag 0.1
     python tools/torch_golden_from_jax.py --4d
     python tools/torch_golden_from_jax.py --2d
+    python tools/torch_golden_from_jax.py --caa
+
+With --caa it solves the anchors of the trees with a 'c' node
+(chip_smoke.py phase 10 and tests/test_torch_ctrees.py), each on the JAX
+package's default route in float64 on the CPU (unit spheres, a plane
+wave along x0): the 'caa' pair at (0, +-2, 0, 0), k = 1, n_end=6; the
+'bcaa' pair (the same along x1 in 5D) at n_end=4; the 'cbaba' pair (6D)
+at n_end=3; the 'caa' hypercube {-2, 2}^4 (16 spheres) at n_end=6 for the
+first KB points of linspace(3.5, 4.5, 100) cast to float32; and the 8 x 8
+'caa' lattice at pitch 4 in the x0-x1 plane, k = 1, n_end=3 (its
+lattice-FFT route).  It writes their uscat(0), and the densities of the
+pairs and the lattice, to caa4d_golden_f64.json.
 """
 
 import argparse
@@ -104,6 +116,62 @@ def two_d():
     }
 
 
+# the anchors of --caa: (name, tree, centers, k, n_end, keep the density)
+def pair_centers(d):
+    centers = np.zeros((2, d))
+    centers[0, 1], centers[1, 1] = 2.0, -2.0
+    return centers
+
+
+CTREES = (
+    ("pair caa", "caa", pair_centers(4), 1.0, 6, True),
+    ("pair bcaa", "bcaa", pair_centers(5), 1.0, 4, True),
+    ("pair cbaba", "cbaba", pair_centers(6), 1.0, 3, True),
+    *(("hypercube caa", "caa", hypercube_centers(), float(kf), 6, False)
+      for kf in np.linspace(*SWEEP_4D).astype(np.float32)[:4]),
+    ("lattice 8x8 caa", "caa", lattice_centers(8, SPACING, d=4), 1.0, 3, True),
+)
+
+
+def c_trees():
+    """Solve CTREES with the JAX package: uscat(0), and the densities."""
+    from biem_helmholtz_sphere_tpu import biem, plane_wave
+    from biem_helmholtz_sphere_tpu.coords import create_from_branching_types
+
+    rows = []
+    for name, tree, centers, k, n_end, keep in CTREES:
+        c = create_from_branching_types(tree)
+        d = c.c_ndim
+        direction = np.zeros(d)
+        direction[0] = 1.0
+        uin, _ = plane_wave(k=np.asarray(k), direction=direction)
+        t0 = time.perf_counter()
+        calc = biem(c, centers=centers, radii=np.ones(len(centers)), k=np.asarray(k),
+                    n_end=n_end, uin=uin)
+        u0 = complex(np.asarray(calc.uscat(np.zeros((d, 1))).to_numpy()).ravel()[0])
+        row = {
+            "name": name, "tree": tree, "n_balls": len(centers), "k": k, "n_end": n_end,
+            "uscat0": [u0.real, u0.imag],
+            "relres": None if calc.relres is None else float(np.asarray(calc.relres)),
+            "iters": None if calc.iters is None else int(np.asarray(calc.iters)),
+        }
+        if keep:
+            dens = np.asarray(calc.density.to_numpy())
+            row["density_shape"] = list(dens.shape)
+            row["density"] = [dens.real.ravel().tolist(), dens.imag.ravel().tolist()]
+        rows.append(row)
+        print(f"{name} k={k:.9g} n_end={n_end} uscat(0)={u0:.12g} relres={row['relres']} "
+              f"iters={row['iters']} {time.perf_counter() - t0:.1f}s", flush=True)
+    return {
+        "source": "tools/torch_golden_from_jax.py --caa (JAX package, CPU, float64)",
+        "config": {"radius": 1.0, "direction": "x0", "spacing": SPACING,
+                   "solver": "auto (the JAX package's default route)",
+                   "pair": "(0, +-2, 0, ...)", "hypercube": "corners of {-2, 2}^4",
+                   "lattice": "8 x 8 in the x0-x1 plane"},
+        "points": rows,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-k", type=int, default=4)
@@ -112,11 +180,14 @@ def main():
                     help="the 4D hypercube anchor (chip_smoke.py phase 8)")
     ap.add_argument("--2d", dest="two_d", action="store_true",
                     help="the 2D anchors (chip_smoke.py phase 9)")
+    ap.add_argument("--caa", action="store_true",
+                    help="the anchors of trees with a 'c' node (chip_smoke.py phase 10)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    if (args.four_d or args.two_d) and args.imag:
-        ap.error("--4d and --2d take a real k")
-    name = ("nballs2d_golden_f64.json" if args.two_d else
+    if (args.four_d or args.two_d or args.caa) and args.imag:
+        ap.error("--4d, --2d and --caa take a real k")
+    name = ("caa4d_golden_f64.json" if args.caa else
+            "nballs2d_golden_f64.json" if args.two_d else
             "bench4d_golden_f64.json" if args.four_d else
             "bench_golden_complexk_f64.json" if args.imag else "bench_golden_f64.json")
     out_path = args.out or os.path.join(DATA, name)
@@ -126,8 +197,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, ROOT)
-    if args.two_d:
-        write(out_path, two_d())
+    if args.two_d or args.caa:
+        write(out_path, two_d() if args.two_d else c_trees())
         return
     from biem_helmholtz_sphere_tpu import biem, plane_wave
     from biem_helmholtz_sphere_tpu.coords import create_from_branching_types
