@@ -1,5 +1,5 @@
 // KS: the banded (S|R) (or (R|R)) table of any tree in d >= 3, with the
-// exponent fold.
+// exponent fold; KF, its F pass.
 //
 // Replaces biem_helmholtz_sphere_tpu/ops/pallas_sr.py::sr_banded_pallas
 // (deleted in commit 545c0ad), whose work lives on in the JAX package's
@@ -15,45 +15,83 @@
 // in the scaled modes times exp(min(he_n - he_N, 80)) (ops/band_sr.py).  The
 // masked scan's sum over the bands n <= N of whole [H, H] contractions is the
 // contraction of the prefix F_N: an entry still meets only the bands at or
-// below its own Gaunt support, and each costs one complex product per node,
-// not one per band.  In fold mode the store multiplies by
-// exp(e_r[k, h'] + he[k, o, N] + e_b[k, h]), the exponents summed before the
-// exp (only the sum is finite in float32).
+// below its own Gaunt support, and each costs one complex product per node.
+// In fold mode the store multiplies by exp(e_r[k, h'] + he[k, o, N] +
+// e_b[k, h]), the exponents summed before the exp (only the sum is finite in
+// float32).
 //
-// What bounds it on the H100: operations, 8 K NO Ho Hi Q real ones (one
-// complex multiply-add per entry and node) at the card's peak for the type,
-// 67 TFLOP/s in both: float32 on the CUDA cores (no TF32: the harmonic
-// products cancel), float64 on the tensor cores (DMMA), which this kernel
-// does not use yet (it runs on the CUDA cores); the table's write is a
-// small fraction of that.
+// What bounds it on the H100: operations, 8 K NO Ho Hi Q real ones (four
+// real products per complex one, entry and node) at 67 TFLOP/s: complex128
+// on the FP64 tensor cores (DMMA, mma.sync m16n8k16 .f64), complex64 on the
+// FP32 CUDA cores (no TF32: the harmonic products cancel).  F is 2 K NO Q
+// NB complex operations, a few percent.  What holds it back: in
+// complex128 the inner loop itself (the shared loads of A' and of the raw
+// columns and F that each lane forms its B' entries from, between the
+// MMAs), in complex64 also the work around the products.  Every CTA
+// streams all Q nodes of its rows, columns and F through shared memory,
+// and with one CTA an SM (the accumulators take 128 registers a lane) the
+// staging and the Y_in F writes do not overlap the products fully: a copy
+// that stages and prepares nothing took 83 % of KS's time in complex128
+// and 69 % in complex64 (tools/torch_kernel_ab.py; PERF.md, PR 12).
 //
-// Design: a CTA per (k, o) and tile of kRows rows of ONE root degree n' (the
-// host cuts each row degree block into tiles, `row_tiles`) by kCols columns;
-// the harmonics are sorted by degree, so the tile's N = n' + n spans the
-// columns' narrow degree range.  The nodes go by in chunks of kQc: per chunk
-// the CTA stages conj(Y) of its rows (conjugated as it reads them: rows and
-// columns share one table when n_out == n_in) and Y of its columns, evaluates
-// C_0..C_{N_hi} at each node by the three-term recurrence, forms F_N for the
-// tile's range, and multiplies each column's Y by F at its N (the row degree
-// being the tile's own); then each thread accumulates its 4 x 4 entries (rows
-// ty + 8 i, columns tx + 32 j) with one complex multiply-add per entry and
-// node, in the real type.  The sum over the nodes is taken in two levels,
-// kGroup chunks (256 nodes) apart and then their partial sums: a sequential
-// float32 sum over tens of thousands of nodes loses ~1e-4 of the small degree
-// blocks, a two-level one ~1e-6, as the masked scan.  One thread writes each
-// entry, in a fixed order: results repeat bit for bit.
+// Design, two launches per group of offsets (the wrapper cuts K NO into
+// groups whose F fits its scratch budget):
+// - KF (band_f_kernel): F_N(q) for every N < NB, node and offset of the
+//   group, once: a thread per node runs the Gegenbauer recurrence into
+//   shared memory and forms the prefix sums, writing F [G, NB, Qp] (zero
+//   past Q), each band's nodes contiguous.
+// - KS (band_sr_kernel): a CTA per (4 offsets, 64 columns, slot), a slot
+//   being two consecutive M-tiles of at most 16 rows of one root degree
+//   (the host's `row_plan`), so F_N is a column factor.  The 4 offsets
+//   share the staged rows and columns: per chunk of 16 nodes a four-stage
+//   cp.async ring brings in the raw Y_out rows, the raw Y_in columns and,
+//   for each offset, F at the tile's N range only (16-byte copies, zero
+//   filled past Q and the tables' padded width; the rows of complex64 in
+//   8-byte copies, since a degree block may start on an odd row).  What
+//   the products read besides is prepared for the next chunk into one of
+//   two buffers while the products of this one read the other (one
+//   barrier a chunk):
+//   * complex128: F in three forms (u, v) (prep_f: a few hundred values a
+//     chunk), and each warp takes one offset's 32 rows by 32 columns as a
+//     real product on DMMA: A' = [Re Y_out, Im Y_out] node by node (the raw
+//     rows, no copy), B' = [[Re B, Im B], [Im B, -Re B]] for B = Y_in F,
+//     each lane forming its entry Re(Y_in) u + Im(Y_in) v in registers, so
+//     that A' B' gives conj(Y_out)^T (Y_in F) with four real products per
+//     complex one (no Karatsuba); 128 accumulator registers a lane, one sum
+//     over the nodes in the MMA's order (float64 loses ~1e-13 there).
+//   * complex64: Y_in F per offset (build_bs), and each thread takes 4
+//     rows by 8 columns of one offset (two 128-bit shared loads of the rows
+//     and four of the columns per node for 32 complex FMAs), summed in two
+//     levels: 256 nodes apart, then their partials (a single float32
+//     sequence over tens of thousands of nodes loses ~5e-5 of the small
+//     degree blocks).
+//   No atomics: one thread writes each entry, so results repeat bit for
+//   bit.  The 16-row tiles cost 12 % of padded MACs at 'caa' n_end = 14
+//   (1,136 rows for 1,015), an empty M-tile of a slot none (its products
+//   are skipped).
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_f64.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 32;      // rows of a CTA's tile (one root degree)
-constexpr int kCols = 128;     // columns of a CTA's tile
-constexpr int kQc = 32;        // quadrature nodes per chunk
-constexpr int kGroup = 8;      // chunks summed apart before they join the total
-constexpr int kMaxDim = 32;    // the largest d
+constexpr int kTile = 16;         // rows of an M-tile (one degree)
+constexpr int kRows = 2 * kTile;  // a CTA's rows: one slot of two M-tiles of one degree
+constexpr int kCols = 64;         // columns of a CTA
+constexpr int kOffs = 4;          // offsets of a CTA, sharing its staged rows and columns
+constexpr int kArow = kRows + 4;  // staged rows per node (+4: banks)
+constexpr int kBrow = kCols + 4;  // staged columns per node (+4: banks)
+constexpr int kStages = 4;        // the cp.async ring
+constexpr int kSumNodes = 256;    // complex64: nodes summed apart
+constexpr int kMaxDim = 32;       // the largest d
+constexpr int kFThreads = 128;    // KF: a thread per node
+
+constexpr int KQ = 16;            // nodes per staged chunk
+constexpr int kK = 16;            // the f64 MMA's depth (m16n8k16)
 
 // v * i^p, p in 0..3: exact
 template <typename T>
@@ -66,217 +104,499 @@ __device__ __forceinline__ c2_t<T> rotate(c2_t<T> v, int p) {
   }
 }
 
-template <typename T, bool kFold>
-__global__ void __launch_bounds__(kThreads)
-band_sr_kernel(const c2_t<T>* __restrict__ coef, const T* __restrict__ he,
-               const T* __restrict__ t_hat, long long t_k, const T* __restrict__ w,
-               const T* __restrict__ s_cart, const c2_t<T>* __restrict__ yo,
-               const c2_t<T>* __restrict__ yi, const int* __restrict__ n_o,
-               const int* __restrict__ n_i, const int* __restrict__ row_tiles,
-               const T* __restrict__ e_r, const T* __restrict__ e_b,
-               c2_t<T>* __restrict__ out, int NO, int d, int Q, int Ho, int Hi, int NB,
-               int col_tiles, int w_max, T nu) {
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared, asynchronously; zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// acc + conj(a) b
+__device__ __forceinline__ float2 cfma_conj(float2 a, float2 b, float2 acc) {
+  acc.x = fmaf(a.x, b.x, fmaf(a.y, b.y, acc.x));
+  acc.y = fmaf(a.x, b.y, fmaf(-a.y, b.x, acc.y));
+  return acc;
+}
+
+// ---------------------------------------------------------------- KF
+
+template <typename T>
+__global__ void __launch_bounds__(kFThreads)
+band_f_kernel(const c2_t<T>* __restrict__ coef, const T* __restrict__ t_hat, long long t_k,
+              const T* __restrict__ w, const T* __restrict__ s_cart, c2_t<T>* __restrict__ F,
+              int ko0, int NO, int d, int Q, int Qp, int NB, T nu) {
   using T2 = c2_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T2* ya = reinterpret_cast<T2*>(smem_raw);  // [kQc][kRows] conj(Y_out)
-  T2* yb = ya + kQc * kRows;                 // [kQc][kCols] Y_in, then Y_in F_N
-  T2* fz = yb + kQc * kCols;                 // [kQc][w_max] F_{N_lo + j}
-  T* cz = reinterpret_cast<T*>(fz + kQc * w_max);  // [kQc][NB] C_n
+  T* cz = reinterpret_cast<T*>(smem_raw);  // [NB][kFThreads] C_n, a column a thread
   __shared__ T th[kMaxDim];
-  __shared__ int coff[kCols];  // each column's N - N_lo
 
-  const int ko = blockIdx.x;
+  const int z = blockIdx.y;
+  const int ko = ko0 + z;
   const int k = ko / NO;
   const int o = ko - k * NO;
-  const int rt = blockIdx.y / col_tiles;
-  const int r0 = __ldg(row_tiles + 2 * rt);
-  const int r1 = __ldg(row_tiles + 2 * rt + 1);
-  const int c0 = (blockIdx.y - rt * col_tiles) * kCols;
-  const int c1 = min(Hi, c0 + kCols);
-  const int nr = __ldg(n_o + r0);  // the tile's one row degree
-  const int n_lo = nr + __ldg(n_i + c0);
-  const int n_hi = nr + __ldg(n_i + c1 - 1);
-  const int W = n_hi - n_lo + 1;
   const int tid = threadIdx.x;
-  const int ty = tid >> 5;
-  const int tx = tid & 31;
-
+  const int q = blockIdx.x * kFThreads + tid;
   if (tid < d) th[tid] = __ldg(t_hat + k * t_k + (long long)o * d + tid);
-  for (int c = tid; c < kCols; c += kThreads)
-    coff[c] = __ldg(n_i + min(c0 + c, Hi - 1)) + nr - n_lo;
-
-  T2 acc[4][4], part[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = part[i][j] = cmake<T>(0, 0);
-  const T2* ck = coef + (size_t)ko * NB * NB;
   __syncthreads();
-
-  for (int q0 = 0; q0 < Q; q0 += kQc) {
-    // the chunk's harmonics, zero past the tile and past Q
-    for (int e = tid; e < kQc * kRows; e += kThreads) {
-      const int qq = e / kRows;
-      const int r = r0 + e - qq * kRows;
-      const int q = q0 + qq;
-      T2 v = cmake<T>(0, 0);
-      if (q < Q && r < r1) {
-        v = __ldg(yo + (size_t)q * Ho + r);
-        v.y = -v.y;
-      }
-      ya[e] = v;
-    }
-    for (int e = tid; e < kQc * kCols; e += kThreads) {
-      const int qq = e / kCols;
-      const int c = c0 + e - qq * kCols;
-      const int q = q0 + qq;
-      yb[e] = (q < Q && c < c1) ? __ldg(yi + (size_t)q * Hi + c) : cmake<T>(0, 0);
-    }
-    // C_0 .. C_{N_hi} at each node: (n + 1) C_{n+1} = 2 (n + nu) x C_n
-    // - (n + 2 nu - 1) C_{n-1}
-    if (tid < kQc) {
-      const int q = q0 + tid;
-      T x = 0;
-      if (q < Q)
-        for (int a = 0; a < d; ++a) x = t_fma(th[a], __ldg(s_cart + (size_t)a * Q + q), x);
-      T cm = 0, cc = 1;
-      T* cq = cz + tid * NB;
-      for (int n = 0; n <= n_hi; ++n) {
-        cq[n] = cc;
-        const T cn = (2 * ((T)n + nu) * x * cc - ((T)n + 2 * nu - 1) * cm) / (T)(n + 1);
-        cm = cc;
-        cc = cn;
-      }
-    }
-    __syncthreads();
-    // F_N at the chunk's nodes for the tile's N_lo <= N <= N_hi
-    for (int e = tid; e < kQc * W; e += kThreads) {
-      const int qq = e / W;
-      const int j = e - qq * W;
-      const int q = q0 + qq;
-      const int N = n_lo + j;
-      T2 s = cmake<T>(0, 0);
-      if (q < Q) {
-        const T2* cN = ck + (size_t)N * NB;
-        const T* cq = cz + qq * NB;
-        for (int n = 0; n <= N; ++n) {
-          const T2 cf = __ldg(cN + n);
-          s.x = t_fma(cf.x, cq[n], s.x);
-          s.y = t_fma(cf.y, cq[n], s.y);
-        }
-        s = cscale<T>(s, __ldg(w + q));
-      }
-      fz[qq * w_max + j] = s;
-    }
-    __syncthreads();
-    // each column's Y times F at its N
-    for (int e = tid; e < kQc * kCols; e += kThreads) {
-      const int qq = e / kCols;
-      yb[e] = cmul<T>(yb[e], fz[qq * w_max + coff[e - qq * kCols]]);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int qq = 0; qq < kQc; ++qq) {
-      T2 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ya[qq * kRows + ty + 8 * i];
-        b[i] = yb[qq * kCols + tx + 32 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = cfma<T>(a[i], b[j], part[i][j]);
-    }
-    if ((q0 / kQc) % kGroup == kGroup - 1 || q0 + kQc >= Q) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = cadd<T>(acc[i][j], part[i][j]);
-          part[i][j] = cmake<T>(0, 0);
-        }
-    }
-    __syncthreads();
+  if (q >= Qp) return;
+  // C_0 .. C_{NB-1} at the node: (n + 1) C_{n+1} = 2 (n + nu) x C_n
+  // - (n + 2 nu - 1) C_{n-1}
+  T x = 0;
+  if (q < Q)
+    for (int a = 0; a < d; ++a) x = t_fma(th[a], __ldg(s_cart + (size_t)a * Q + q), x);
+  T cm = 0, cc = 1;
+  for (int n = 0; n < NB; ++n) {
+    cz[n * kFThreads + tid] = cc;
+    const T cn = (2 * ((T)n + nu) * x * cc - ((T)n + 2 * nu - 1) * cm) / (T)(n + 1);
+    cm = cc;
+    cc = cn;
   }
+  const T2* ck = coef + (size_t)ko * NB * NB;
+  const T wq = q < Q ? __ldg(w + q) : (T)0;
+  T2* fz = F + (size_t)z * NB * Qp + q;
+  for (int N = 0; N < NB; ++N) {
+    T2 s = cmake<T>(0, 0);
+    const T2* cN = ck + (size_t)N * NB;
+    for (int n = 0; n <= N; ++n) {
+      const T2 cf = __ldg(cN + n);
+      const T c = cz[n * kFThreads + tid];
+      s.x = t_fma(cf.x, c, s.x);
+      s.y = t_fma(cf.y, c, s.y);
+    }
+    fz[(size_t)N * Qp] = cscale<T>(s, wq);
+  }
+}
 
+// ---------------------------------------------------------------- KS
+
+// The CTA's staging of the chunk of nodes q0 .. q0 + KQ - 1 into one stage
+// of the ring: rows r0 .. r0 + 31 of Y_out [KQ][kArow], columns c0 .. c0 +
+// 63 of Y_in [KQ][kBrow], and F [kOffs][w_max][KQ] of its n_off offsets at
+// N = n_lo .. n_lo + W - 1.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(c2_t<T>* as, const c2_t<T>* __restrict__ yo,
+                                            const c2_t<T>* __restrict__ yi,
+                                            const c2_t<T>* __restrict__ fz, int r0, int q0,
+                                            int c0, int n_lo, int W, int w_max, int n_off,
+                                            int Q, int Qp, int Hop, int Hip, int NB, int tid) {
+  using T2 = c2_t<T>;
+  T2* bs = as + KQ * kArow;
+  T2* fs = bs + KQ * kBrow;
+  for (int e = tid; e < KQ * kRows; e += kThreads) {
+    const int qq = e / kRows;
+    const int r = r0 + e - qq * kRows;
+    const int q = q0 + qq;
+    const bool ok = q < Q && r < Hop;
+    const T2* src = yo + (ok ? (size_t)q * Hop + r : 0);
+    if constexpr (sizeof(T2) == 16)
+      cp16(as + qq * kArow + r - r0, src, ok);
+    else
+      cp8(as + qq * kArow + r - r0, src, ok);
+  }
+  constexpr int kPer = 16 / sizeof(T2);  // complex values per 16-byte copy
+  for (int e = tid; e < KQ * kCols / kPer; e += kThreads) {
+    const int qq = e / (kCols / kPer);
+    const int c = (e - qq * (kCols / kPer)) * kPer;
+    const int q = q0 + qq;
+    const bool ok = q < Q && c0 + c < Hip;
+    cp16(bs + qq * kBrow + c, yi + (ok ? (size_t)q * Hip + c0 + c : 0), ok);
+  }
+  // F: the KQ values of one (offset, N) are contiguous, kFc copies
+  constexpr int kFc = KQ * (int)sizeof(T2) / 16;
+  for (int e = tid; e < n_off * W * kFc; e += kThreads) {
+    const int pw = e / kFc;
+    const int u = e - pw * kFc;
+    const int p = pw / W;
+    const int wv = pw - p * W;
+    const char* src = reinterpret_cast<const char*>(fz + ((size_t)p * NB + n_lo + wv) * Qp + q0);
+    char* dst = reinterpret_cast<char*>(fs + (p * w_max + wv) * KQ);
+    cp16(dst + 16 * u, src + 16 * u, true);
+  }
+}
+
+// complex64: Y_in F_N of a landed chunk at each column's N = slot degree +
+// column degree, for each of the CTA's offsets: bs [kOffs][KQ][kBrow]
+__device__ __forceinline__ void build_bs(float2* bs, const float2* stage, int n_off, int w_max,
+                                         const int* ncol, int tid) {
+  const float2* braw = stage + KQ * kArow;
+  const float2* fs = braw + KQ * kBrow;
+  for (int e = tid; e < n_off * KQ * kCols; e += kThreads) {
+    const int p = e / (KQ * kCols);
+    const int rem = e - p * (KQ * kCols);
+    const int qq = rem / kCols;
+    const int cc = rem - qq * kCols;
+    bs[(p * KQ + qq) * kBrow + cc] =
+        cmul<float>(braw[qq * kBrow + cc], fs[(p * w_max + ncol[cc]) * KQ + qq]);
+  }
+}
+
+// complex128: F of a landed chunk in the three forms (u, v) the lanes need,
+// so that a lane's B' fragment entry is Re(Y_in) u + Im(Y_in) v:
+// Re(Y_in F) from (Re F, -Im F), Im(Y_in F) from (Im F, Re F), and
+// -Re(Y_in F) from (-Re F, Im F); fq [kOffs][w_max][KQ][3]
+__device__ __forceinline__ void prep_f(double2* fq, const double2* stage, int n_off, int w_max,
+                                       int tid) {
+  const double2* fs = stage + KQ * (kArow + kBrow);
+  for (int e = tid; e < n_off * w_max * KQ; e += kThreads) {
+    const double2 f = fs[e];
+    fq[3 * e] = make_double2(f.x, -f.y);
+    fq[3 * e + 1] = make_double2(f.y, f.x);
+    fq[3 * e + 2] = make_double2(-f.x, f.y);
+  }
+}
+
+// complex128: the chunk's product on DMMA, a warp per offset x 32 columns
+// (kM M-tiles x four n8 tiles of complex columns as eight of real ones).
+// Each lane forms its B' entries from the raw columns and its offset's F:
+// wq[nt] is the offset of its column's N in fq, form its (u, v).
+template <int kM>
+__device__ __forceinline__ void chunk_dmma(double (&acc)[2][8][4], const double2* as,
+                                           const double2* braw, const double2* fq,
+                                           const int (&wq)[8], int form, int wn, int lane) {
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const double* ad = reinterpret_cast<const double*>(as);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 8 * i;
-    if (r >= r1) continue;
+  for (int kb = 0; kb < 2 * KQ; kb += kK) {
+    double a[kM][kK / 2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 32 * j;
-      if (c >= c1) continue;
-      const int nc = coff[tx + 32 * j] + n_lo - nr;
-      T2 v = rotate<T>(acc[i][j], (nr - nc) & 3);
-      if constexpr (kFold)
-        v = cscale<T>(v, t_exp(__ldg(e_r + (size_t)k * Ho + r) +
-                               __ldg(he + (size_t)ko * NB + nr + nc) +
-                               __ldg(e_b + (size_t)k * Hi + c)));
-      out[((size_t)ko * Ho + r) * Hi + c] = v;
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < kK / 2; ++i) {
+        const int kp = kb + t4 + 4 * (i >> 1);  // k' = 2 node + part
+        const int row = kTile * m + g + 8 * (i & 1);
+        a[m][i] = ad[((kp >> 1) * kArow + row) * 2 + (kp & 1)];
+      }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      double b[kK / 4];
+      const int col = 32 * wn + 4 * nt + (g >> 1);
+#pragma unroll
+      for (int i = 0; i < kK / 4; ++i) {
+        const int qq = (kb + t4 + 4 * i) >> 1;
+        const double2 y = braw[qq * kBrow + col];
+        const double2 uv = fq[wq[nt] + 3 * qq + form];
+        b[i] = fma(y.x, uv.x, y.y * uv.y);
+      }
+#pragma unroll
+      for (int m = 0; m < kM; ++m) mma_f64(acc[m][nt], a[m], b);
     }
   }
 }
 
+// complex64: the chunk's product on the CUDA cores, 4 rows x 8 columns a
+// thread (rows 4 ty + i, columns 16 j + 2 tx + e)
+__device__ __forceinline__ void chunk_simt(float2 (&part)[4][8], const float2* as,
+                                           const float2* bsl, int ty, int tx) {
+#pragma unroll 4
+  for (int qq = 0; qq < KQ; ++qq) {
+    const float4 a01 = *reinterpret_cast<const float4*>(as + qq * kArow + 4 * ty);
+    const float4 a23 = *reinterpret_cast<const float4*>(as + qq * kArow + 4 * ty + 2);
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(bsl + qq * kBrow + 16 * j + 2 * tx);
+    const float2 a[4] = {make_float2(a01.x, a01.y), make_float2(a01.z, a01.w),
+                         make_float2(a23.x, a23.y), make_float2(a23.z, a23.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        part[i][2 * j] = cfma_conj(a[i], make_float2(b[j].x, b[j].y), part[i][2 * j]);
+        part[i][2 * j + 1] = cfma_conj(a[i], make_float2(b[j].z, b[j].w), part[i][2 * j + 1]);
+      }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_entry(c2_t<T>* __restrict__ out, c2_t<T> v, int ko,
+                                            int k, int r, int c, int nr, int nc, int Ho,
+                                            int Hi, int NB, const T* __restrict__ he,
+                                            const T* __restrict__ e_r,
+                                            const T* __restrict__ e_b, bool fold) {
+  v = rotate<T>(v, (nr - nc) & 3);
+  if (fold)
+    v = cscale<T>(v, t_exp(__ldg(e_r + (size_t)k * Ho + r) +
+                           __ldg(he + (size_t)ko * NB + nr + nc) +
+                           __ldg(e_b + (size_t)k * Hi + c)));
+  out[((size_t)ko * Ho + r) * Hi + c] = v;
+}
+
 template <typename T, bool kFold>
-cudaError_t run(const void* coef, const void* he, const void* t_hat, long long t_k,
-                const void* w, const void* s_cart, const void* yo, const void* yi,
-                const void* n_o, const void* n_i, const void* row_tiles, const void* e_r,
-                const void* e_b, void* out, int K, int NO, int d, int Q, int Ho, int Hi,
-                int NB, int n_row_tiles, int w_max, double nu, cudaStream_t st) {
-  auto kernel = band_sr_kernel<T, kFold>;
-  const size_t smem = (size_t)kQc * (kRows + kCols + w_max) * sizeof(c2_t<T>) +
-                      (size_t)kQc * NB * sizeof(T);
+__global__ void __launch_bounds__(kThreads, 1)
+band_sr_kernel(const c2_t<T>* __restrict__ F, const c2_t<T>* __restrict__ yo,
+               const c2_t<T>* __restrict__ yi, const int* __restrict__ n_o,
+               const int* __restrict__ n_i, const int* __restrict__ row_plan,
+               const T* __restrict__ he, const T* __restrict__ e_r,
+               const T* __restrict__ e_b, c2_t<T>* __restrict__ out, int ko0, int G, int NO,
+               int Q, int Qp, int Ho, int Hi, int Hop, int Hip, int NB, int w_max) {
+  using T2 = c2_t<T>;
+  constexpr bool kDmma = std::is_same<T, double>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stage_elems = KQ * (kArow + kBrow + kOffs * w_max);
+  T2* ring = reinterpret_cast<T2*>(smem_raw);  // kStages x [rows | columns | F]
+  // two chunks' worth of what the products read besides the rows: complex128
+  // F's lane forms [kOffs][w_max][KQ][3], complex64 Y_in F [kOffs][KQ][kBrow]
+  T2* prep = ring + kStages * stage_elems;
+  const int prep_elems = kDmma ? kOffs * w_max * KQ * 3 : kOffs * KQ * kBrow;
+  __shared__ int ncol[kCols];  // each column's N - n_lo
+
+  const int z0 = blockIdx.x * kOffs;  // the CTA's first offset in the group
+  const int n_off = min(kOffs, G - z0);
+  const int c0 = blockIdx.y * kCols;
+  const int* plan = row_plan + (size_t)blockIdx.z * 4;
+  const int r0 = __ldg(plan);
+  const int rhi0 = __ldg(plan + 1);
+  const int rlo1 = __ldg(plan + 2);
+  const int rhi1 = __ldg(plan + 3);
+  const bool on1 = rhi1 > rlo1;
+  const int deg = __ldg(n_o + r0);  // the slot's one row degree
+  const int n_lo = deg + __ldg(n_i + c0);
+  const int W = deg + __ldg(n_i + min(c0 + kCols, Hi) - 1) - n_lo + 1;
+  const int tid = threadIdx.x;
+  for (int c = tid; c < kCols; c += kThreads)
+    ncol[c] = __ldg(n_i + min(c0 + c, Hi - 1)) + deg - n_lo;
+  const T2* fz = F + (size_t)z0 * NB * Qp;
+  const int nch = (Q + KQ - 1) / KQ;
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // complex128: warp (p, wn) = (offset, 32-column half); complex64: thread
+  // (p, ty, tx), its M-tile ty / 4 the warp's
+  const int p = kDmma ? (warp >> 1) : (tid >> 6);
+  const int wn = warp & 1;
+  const int ty = (tid >> 3) & 7;
+  const int tx = tid & 7;
+  const bool my_on = p < n_off && (kDmma || ty < 4 || on1);
+  // complex128: the lane's form of F (see prep_f) and its columns' N in fq
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int form = ((t4 ^ g) & 1) ? 1 : ((t4 & g & 1) ? 2 : 0);
+
+  double dacc[2][8][4];
+  float2 part[4][8], facc[4][8];
+  int wq[8];
+  if constexpr (kDmma) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dacc[m][nt][i] = 0.0;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = facc[i][j] = make_float2(0.f, 0.f);
+  }
+
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nch)
+      stage_chunk<T>(ring + s * stage_elems, yo, yi, fz, r0, s * KQ, c0, n_lo, W, w_max, n_off,
+                     Q, Qp, Hop, Hip, NB, tid);
+    cp_commit();
+  }
+  cp_wait<kStages - 2>();
+  __syncthreads();  // chunk 0 has landed; ncol is written
+  if constexpr (kDmma) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      wq[nt] = (p * w_max + ncol[32 * wn + 4 * nt + (g >> 1)]) * KQ * 3;
+    prep_f(prep, ring, n_off, w_max, tid);
+  } else {
+    build_bs(prep, ring, n_off, w_max, ncol, tid);
+  }
+  // One barrier a chunk: chunk c's products read one prep buffer while
+  // chunk c + 1's is written into the other, after them in program order.
+#pragma unroll 1
+  for (int c = 0; c < nch; ++c) {
+    cp_wait<kStages - 3>();
+    __syncthreads();  // chunk c + 1 has landed, chunk c's prep is written,
+                      // chunk c - 1's readers are done
+    if (c + kStages - 1 < nch)
+      stage_chunk<T>(ring + ((c + kStages - 1) % kStages) * stage_elems, yo, yi, fz, r0,
+                     (c + kStages - 1) * KQ, c0, n_lo, W, w_max, n_off, Q, Qp, Hop, Hip, NB,
+                     tid);
+    cp_commit();
+    const T2* cur = ring + (c % kStages) * stage_elems;
+    const T2* pc = prep + (c & 1) * prep_elems;
+    if constexpr (kDmma) {
+      if (my_on && on1)
+        chunk_dmma<2>(dacc, cur, cur + KQ * kArow, pc, wq, form, wn, lane);
+      else if (my_on)
+        chunk_dmma<1>(dacc, cur, cur + KQ * kArow, pc, wq, form, wn, lane);
+      if (c + 1 < nch)
+        prep_f(prep + ((c + 1) & 1) * prep_elems, ring + ((c + 1) % kStages) * stage_elems,
+               n_off, w_max, tid);
+    } else {
+      if (my_on) chunk_simt(part, cur, pc + p * KQ * kBrow, ty, tx);
+      if ((c + 1) % (kSumNodes / KQ) == 0 || c == nch - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            facc[i][j].x += part[i][j].x;
+            facc[i][j].y += part[i][j].y;
+            part[i][j] = make_float2(0.f, 0.f);
+          }
+      }
+      if (c + 1 < nch)
+        build_bs(prep + ((c + 1) & 1) * prep_elems, ring + ((c + 1) % kStages) * stage_elems,
+                 n_off, w_max, ncol, tid);
+    }
+  }
+  cp_wait<0>();
+
+  if (!my_on) return;
+  const int ko = ko0 + z0 + p;
+  const int k = ko / NO;
+  if constexpr (kDmma) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int rhi = m ? rhi1 : rhi0;
+      if (m && !on1) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int cc = 32 * wn + 4 * nt + t4;
+        if (c0 + cc >= Hi) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + kTile * m + g + 8 * h;
+          if (r >= rhi) continue;
+          store_entry<T>(out, cmake<T>(dacc[m][nt][2 * h], dacc[m][nt][2 * h + 1]), ko, k, r,
+                         c0 + cc, deg, ncol[cc] + n_lo - deg, Ho, Hi, NB, he, e_r, e_b, kFold);
+        }
+      }
+    }
+  } else {
+    const int rhi = ty < 4 ? rhi0 : rhi1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 4 * ty + i;
+      if (r >= rhi) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = 16 * (j >> 1) + 2 * tx + (j & 1);
+        if (c0 + cc >= Hi) continue;
+        store_entry<T>(out, cmake<T>(facc[i][j].x, facc[i][j].y), ko, k, r, c0 + cc, deg,
+                       ncol[cc] + n_lo - deg, Ho, Hi, NB, he, e_r, e_b, kFold);
+      }
+    }
+  }
+}
+
+template <typename T>
+size_t ks_smem(int w_max) {
+  const size_t prep = std::is_same<T, double>::value ? (size_t)kOffs * w_max * KQ * 3
+                                                     : (size_t)kOffs * KQ * kBrow;
+  return ((size_t)kStages * KQ * (kArow + kBrow + kOffs * w_max) + 2 * prep) * sizeof(c2_t<T>);
+}
+
+template <typename T>
+cudaError_t run_f(const void* coef, const void* t_hat, long long t_k, const void* w,
+                  const void* s_cart, void* F, int ko0, int G, int NO, int d, int Q, int Qp,
+                  int NB, double nu, cudaStream_t st) {
+  auto kernel = band_f_kernel<T>;
+  const size_t smem = (size_t)kFThreads * NB * sizeof(T);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int col_tiles = (Hi + kCols - 1) / kCols;
-  const dim3 grid((unsigned)(K * NO), (unsigned)(n_row_tiles * col_tiles));
+  const dim3 grid((unsigned)((Qp + kFThreads - 1) / kFThreads), (unsigned)G);
+  kernel<<<grid, kFThreads, smem, st>>>(
+      static_cast<const c2_t<T>*>(coef), static_cast<const T*>(t_hat), t_k,
+      static_cast<const T*>(w), static_cast<const T*>(s_cart), static_cast<c2_t<T>*>(F), ko0,
+      NO, d, Q, Qp, NB, (T)nu);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kFold>
+cudaError_t run_sr(const void* F, const void* yo, const void* yi, const void* n_o,
+                   const void* n_i, const void* row_plan, const void* he, const void* e_r,
+                   const void* e_b, void* out, int ko0, int G, int NO, int Q, int Qp, int Ho,
+                   int Hi, int Hop, int Hip, int NB, int n_slots, int w_max, cudaStream_t st) {
+  auto kernel = band_sr_kernel<T, kFold>;
+  const size_t smem = ks_smem<T>(w_max);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((G + kOffs - 1) / kOffs), (unsigned)((Hi + kCols - 1) / kCols),
+                  (unsigned)n_slots);
   kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const c2_t<T>*>(coef), static_cast<const T*>(he),
-      static_cast<const T*>(t_hat), t_k, static_cast<const T*>(w),
-      static_cast<const T*>(s_cart), static_cast<const c2_t<T>*>(yo),
+      static_cast<const c2_t<T>*>(F), static_cast<const c2_t<T>*>(yo),
       static_cast<const c2_t<T>*>(yi), static_cast<const int*>(n_o),
-      static_cast<const int*>(n_i), static_cast<const int*>(row_tiles),
-      static_cast<const T*>(e_r), static_cast<const T*>(e_b), static_cast<c2_t<T>*>(out), NO,
-      d, Q, Ho, Hi, NB, col_tiles, w_max, (T)nu);
+      static_cast<const int*>(n_i), static_cast<const int*>(row_plan),
+      static_cast<const T*>(he), static_cast<const T*>(e_r), static_cast<const T*>(e_b),
+      static_cast<c2_t<T>*>(out), ko0, G, NO, Q, Qp, Ho, Hi, Hop, Hip, NB, w_max);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// coef [K, NO, NB, NB] complex; he [K, NO, NB] real or null; t_hat real
-// [K, NO, d] (t_k = NO d) or [NO, d] for every k (t_k = 0); w [Q], s_cart
-// [d, Q] real; yo [Q, Ho] (Y_out, not conjugated), yi [Q, Hi] complex (the
-// same array when n_out == n_in); n_o [Ho], n_i [Hi] int32,
-// ascending, n_o[-1] + n_i[-1] < NB; row_tiles int32 [n_row_tiles, 2], the
-// (first, end) rows of each tile, at most kRows rows of one degree; e_r
-// [K, Ho], e_b [K, Hi] real or null; out [K, NO, Ho, Hi].  w_max: the widest
-// N range of a tile (the column degrees of kCols columns).
-extern "C" int bhs_band_sr(const void* coef, const void* he, const void* t_hat,
-                           long long t_k, const void* w, const void* s_cart, const void* yo,
-                           const void* yi, const void* n_o, const void* n_i,
-                           const void* row_tiles, const void* e_r, const void* e_b, void* out,
-                           int K, int NO, int d, int Q, int Ho, int Hi, int NB,
-                           int n_row_tiles, int w_max, double nu, int fold, int dbl,
-                           void* stream) {
-  if (K <= 0 || NO <= 0 || Ho <= 0 || Hi <= 0 || Q <= 0) return 0;
-  const long long tiles = (long long)n_row_tiles * ((Hi + kCols - 1) / kCols);
-  if (d < 1 || d > kMaxDim || w_max <= 0 || w_max > NB || n_row_tiles <= 0 ||
-      tiles > 65535 || (long long)K * NO > 2147483647LL)
+// KF. coef [K, NO, NB, NB] complex; t_hat real [K, NO, d] (t_k = NO d) or
+// [NO, d] for every k (t_k = 0); w [Q], s_cart [d, Q] real; F [G, NB, Qp]
+// complex, written for the offsets ko0 .. ko0 + G - 1 of the flattened
+// (k, o); Qp >= Q a multiple of 16 (F is zero past Q).
+extern "C" int bhs_band_f(const void* coef, const void* t_hat, long long t_k, const void* w,
+                          const void* s_cart, void* F, int ko0, int G, int NO, int d, int Q,
+                          int Qp, int NB, double nu, int dbl, void* stream) {
+  if (G <= 0 || Q <= 0) return 0;
+  if (d < 1 || d > kMaxDim || NB <= 0 || NO <= 0 || Qp < Q || Qp % 16 != 0 || G > 65535 ||
+      (long long)kFThreads * NB * (dbl ? 8 : 4) > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(dbl ? run_f<double>(coef, t_hat, t_k, w, s_cart, F, ko0, G, NO, d, Q, Qp, NB,
+                                   nu, st)
+                   : run_f<float>(coef, t_hat, t_k, w, s_cart, F, ko0, G, NO, d, Q, Qp, NB,
+                                  nu, st));
+}
+
+// KS. F [G, NB, Qp] from KF; yo [Q, Hop] (Y_out, not conjugated), yi
+// [Q, Hip] complex, zero past Ho and Hi (the same array when n_out ==
+// n_in), Hop and Hip multiples of 8; n_o [Ho], n_i [Hi] int32 ascending,
+// n_o[-1] + n_i[-1] < NB; row_plan int32 [n_slots, 2, 2]: the (first, end)
+// rows of each slot's two M-tiles (at most 16 rows each, both of one
+// degree, the second starting where the first ends, possibly empty);
+// w_max: the widest range of column degrees over 64 columns, plus one; he
+// [K, NO, NB], e_r [K, Ho], e_b [K, Hi] real or null (fold); out [K, NO,
+// Ho, Hi], written for the offsets ko0 .. ko0 + G - 1.
+extern "C" int bhs_band_sr(const void* F, const void* yo, const void* yi, const void* n_o,
+                           const void* n_i, const void* row_plan, const void* he,
+                           const void* e_r, const void* e_b, void* out, int ko0, int G, int NO,
+                           int Q, int Qp, int Ho, int Hi, int Hop, int Hip, int NB,
+                           int n_slots, int w_max, int fold, int dbl, void* stream) {
+  if (G <= 0 || Q <= 0 || Ho <= 0 || Hi <= 0) return 0;
+  if (NO <= 0 || NB <= 0 || n_slots <= 0 || n_slots > 65535 || G > 65535 * kOffs ||
+      Qp < Q || Qp % 16 != 0 || Hop < Ho || Hip < Hi || Hop % 8 != 0 || Hip % 8 != 0 ||
+      w_max <= 0 || w_max > NB ||
+      (dbl ? ks_smem<double>(w_max) : ks_smem<float>(w_max)) > 232448)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbl)
-    return (int)(fold ? run<double, true>(coef, he, t_hat, t_k, w, s_cart, yo, yi, n_o, n_i,
-                                          row_tiles, e_r, e_b, out, K, NO, d, Q, Ho, Hi, NB,
-                                          n_row_tiles, w_max, nu, st)
-                      : run<double, false>(coef, he, t_hat, t_k, w, s_cart, yo, yi, n_o, n_i,
-                                           row_tiles, e_r, e_b, out, K, NO, d, Q, Ho, Hi, NB,
-                                           n_row_tiles, w_max, nu, st));
-  return (int)(fold ? run<float, true>(coef, he, t_hat, t_k, w, s_cart, yo, yi, n_o, n_i,
-                                       row_tiles, e_r, e_b, out, K, NO, d, Q, Ho, Hi, NB,
-                                       n_row_tiles, w_max, nu, st)
-                    : run<float, false>(coef, he, t_hat, t_k, w, s_cart, yo, yi, n_o, n_i,
-                                        row_tiles, e_r, e_b, out, K, NO, d, Q, Ho, Hi, NB,
-                                        n_row_tiles, w_max, nu, st));
+    return (int)(fold ? run_sr<double, true>(F, yo, yi, n_o, n_i, row_plan, he, e_r, e_b, out,
+                                             ko0, G, NO, Q, Qp, Ho, Hi, Hop, Hip, NB, n_slots,
+                                             w_max, st)
+                      : run_sr<double, false>(F, yo, yi, n_o, n_i, row_plan, he, e_r, e_b,
+                                              out, ko0, G, NO, Q, Qp, Ho, Hi, Hop, Hip, NB,
+                                              n_slots, w_max, st));
+  return (int)(fold ? run_sr<float, true>(F, yo, yi, n_o, n_i, row_plan, he, e_r, e_b, out,
+                                          ko0, G, NO, Q, Qp, Ho, Hi, Hop, Hip, NB, n_slots,
+                                          w_max, st)
+                    : run_sr<float, false>(F, yo, yi, n_o, n_i, row_plan, he, e_r, e_b, out,
+                                           ko0, G, NO, Q, Qp, Ho, Hi, Hop, Hip, NB, n_slots,
+                                           w_max, st));
 }

@@ -22,8 +22,9 @@ modes: the mantissa of SR = mant exp(he_N)).  Each entry still meets only the
 bands at or below its own Gaunt support, as in the masked scan, and costs
 one complex product per node instead of one per band.
 
-`band_sr` runs the CUDA kernel `csrc/band_sr.cu` on CUDA tensors and
-`_band_sr_plain` (one `torch.matmul` per pair of degree blocks) on CPU
+`band_sr` runs the CUDA kernels of `csrc/band_sr.cu` on CUDA tensors,
+per group of offsets KF (`band_f`: F_N at every node, once) and then KS,
+and `_band_sr_plain` (one `torch.matmul` per pair of degree blocks) on CPU
 tensors; with the exponents and the row and column exponents e_r, e_b it
 writes the folded table mant exp(e_r[k, h'] + he[k, o, N] + e_b[k, h]).
 It builds the (S|R) table of every tree not rooted at a 'b'/'bp' node, and
@@ -31,18 +32,20 @@ the "triplet" and n_end_add != n_end translations of the others.
 """
 
 from dataclasses import dataclass
-from functools import cached_property
+from itertools import groupby
 
 import numpy as np
 import torch
 
 from . import kernels
 
-_ROWS = 32  # the rows of a CTA's tile, all of one degree (csrc/band_sr.cu kRows)
-_COLS = 128  # the columns of a CTA's tile (kCols)
-_QC = 32  # quadrature nodes per chunk (kQc)
-_QSUM = 256  # nodes summed apart before their partial sums join (kQc kGroup)
-_SMEM = 232448  # the H100's shared memory per block
+_TILE = 16  # rows of an M-tile, all of one degree (csrc/band_sr.cu kTile)
+_SLOT = 2  # M-tiles of a CTA's slot (kRows = 32 rows), of one degree
+_COLS = 64  # columns of a CTA (kCols)
+_PAD = 8  # the cached tables' column count is a multiple of this
+_QPAD = 16  # F's node count is a multiple of this (the chunks: 8 or 16 nodes)
+_QSUM = 256  # nodes summed apart before their partial sums join (kSumNodes)
+_F_BYTES = 1 << 29  # the F scratch of one group of offsets, at most
 _PLAIN_BYTES = 1 << 30  # the plain version's temporaries per block product
 _CLAMP = 80.0  # the JAX package's clamp of the band exponent differences
 
@@ -54,25 +57,65 @@ def _degree_runs(n):
                  zip(np.r_[0, edges], np.r_[edges, len(n)]))
 
 
+def row_tiles(n_o):
+    """The kernel's M-tiles: (first, end) rows, each degree block of the
+    rows cut into pieces of at most _TILE rows, in order."""
+    return [(r, min(r + _TILE, b)) for _, a, b in _degree_runs(n_o) for r in range(a, b, _TILE)]
+
+
+def row_plan(n_o):
+    """The kernel's slots [n, _SLOT, 2]: the M-tiles of each degree taken
+    _SLOT at a time (the last slot of a degree may hold one; its empty tile
+    is (end, end) of the slot's first)."""
+    slots = []
+    for _, tiles in groupby(row_tiles(n_o), key=lambda t: n_o[t[0]]):
+        tiles = list(tiles)
+        for i in range(0, len(tiles), _SLOT):
+            slot = tiles[i:i + _SLOT]
+            slots.append(slot + [(slot[-1][1], slot[-1][1])] * (_SLOT - len(slot)))
+    return np.asarray(slots, dtype=np.int32).reshape(-1, _SLOT, 2)
+
+
+def col_span(n_i):
+    """The widest range of column degrees over the kernel's _COLS-column
+    tiles, plus one: the N values a CTA stages F for (its slot's one degree
+    plus its columns')."""
+    starts = np.arange(0, len(n_i), _COLS)
+    return int((n_i[np.minimum(starts + _COLS, len(n_i)) - 1] - n_i[starts]).max()) + 1
+
+
+def _padded(y):
+    """y [Q, H] in a zeroed [Q, H rounded up to _PAD] (the kernel's 16-byte
+    copies need rows on 16-byte boundaries)."""
+    h = y.shape[1]
+    out = y.new_zeros((y.shape[0], -(-h // _PAD) * _PAD))
+    out[:, :h] = y
+    return out
+
+
 @dataclass(frozen=True)
 class BandTables:
     """The quadrature tables of one (tree, n_out, n_in, dtype, device).
 
-    w [Q] and s_cart [d, Q] real (the weights and the unit nodes); yo
-    [Q, Ho] = Y_out(s_q) and yi [Q, Hi] = Y_in(s_q) complex, one tensor
-    when n_out == n_in (the rows' conj is taken where they are read); n_o
-    [Ho], n_i [Hi] int32 root degrees (ascending), with their host copies;
-    row_tiles int32 [n, 2], the kernel's row tiles (first, end): each
-    degree block of the rows cut into pieces of at most _ROWS.
+    w [Q] and s_cart [d, Q] real (the weights and the unit nodes); yo_pad
+    [Q, Hop] and yi_pad [Q, Hip] complex, Y_out(s_q) and Y_in(s_q) with
+    their column count padded to a multiple of _PAD by zeros, one tensor
+    when n_out == n_in (the rows' conj is taken where they are read); yo
+    [Q, Ho] and yi [Q, Hi] their views of the unpadded width (the plain
+    version's, one view for both when n_out == n_in); n_o [Ho], n_i [Hi]
+    int32 root degrees (ascending), with their host copies; plan int32
+    [n, _SLOT, 2], the kernel's slots (`row_plan`).
     """
 
     w: torch.Tensor
     s_cart: torch.Tensor
     yo: torch.Tensor
     yi: torch.Tensor
+    yo_pad: torch.Tensor
+    yi_pad: torch.Tensor
     n_o: torch.Tensor
     n_i: torch.Tensor
-    row_tiles: torch.Tensor
+    plan: torch.Tensor
     n_o_host: np.ndarray
     n_i_host: np.ndarray
 
@@ -80,29 +123,45 @@ class BandTables:
     def build(cls, w, s_cart, yo, yi, n_o, n_i):
         """From the tables on their device and the host degree vectors."""
         i32 = dict(dtype=torch.int32, device=w.device)
-        tiles = [(r, min(r + _ROWS, b)) for _, a, b in _degree_runs(n_o)
-                 for r in range(a, b, _ROWS)]
-        return cls(w, s_cart, yo, yi, torch.as_tensor(n_o, **i32),
-                   torch.as_tensor(n_i, **i32), torch.as_tensor(tiles, **i32), n_o, n_i)
+        yo_pad = _padded(yo)
+        yi_pad = yo_pad if yi is yo else _padded(yi)
+        yo = yo_pad[:, :yo.shape[1]]
+        yi = yo if yi_pad is yo_pad else yi_pad[:, :yi.shape[1]]
+        return cls(w, s_cart, yo, yi, yo_pad, yi_pad, torch.as_tensor(n_o, **i32),
+                   torch.as_tensor(n_i, **i32), torch.as_tensor(row_plan(n_o), **i32), n_o, n_i)
 
     @property
     def n_bands(self):
         """The bands n'' = 0 .. max n' + max n."""
         return int(self.n_o_host[-1] + self.n_i_host[-1]) + 1
 
-    @cached_property
+    @property
     def w_max(self):
-        """The widest range of N = n' + n over the kernel's tiles: the
-        degree span of _COLS columns (a tile's rows share one degree)."""
-        n = self.n_i_host
-        starts = np.arange(0, len(n), _COLS)
-        return int((n[np.minimum(starts + _COLS, len(n)) - 1] - n[starts]).max()) + 1
+        """The N values a CTA stages F for, at most (`col_span`)."""
+        return col_span(self.n_i_host)
 
-    @cached_property
+    @property
+    def q_pad(self):
+        """F's node count: Q rounded up to _QPAD."""
+        return -(-self.w.shape[0] // _QPAD) * _QPAD
+
+    @property
     def blocks(self):
         """((degree, start, end) of each degree block of the rows, and of
         the columns): the plain version's products."""
         return _degree_runs(self.n_o_host), _degree_runs(self.n_i_host)
+
+
+def offset_groups(n_ko, q_pad, n_b, itemsize):
+    """The (first, end) of each group of the K NO flattened offsets whose F
+    scratch [G, n_b, q_pad] of `itemsize`-byte complex values fits _F_BYTES
+    (at least one offset a group), in order and of sizes that differ by at
+    most one."""
+    per = q_pad * n_b * itemsize
+    size = max(1, _F_BYTES // per)
+    n_g = -(-n_ko // size)
+    edges = [n_ko * i // n_g for i in range(n_g + 1)]
+    return list(zip(edges[:-1], edges[1:]))
 
 
 def band_coefs(rad, d, omega, a_d, he=None):
@@ -180,6 +239,50 @@ def _band_sr_plain(coef, t_hat, tab, he=None, e_r=None, e_b=None):
                            + e_b[:, None, None, :])
 
 
+def _band_f_plain(coef, t_hat, tab, ko0, ko1):
+    """Plain version of KF (and its CPU path): F [ko1 - ko0, NB, q_pad] of
+    the flattened offsets ko0 .. ko1 - 1, formed as `_band_sr_plain` forms
+    its f (zero past Q)."""
+    n_k, n_off, n_b, _ = coef.shape
+    d = t_hat.shape[-1]
+    coef = coef.reshape(n_k * n_off, n_b, n_b)[ko0:ko1]
+    t_hat = t_hat.expand(n_k, n_off, d).reshape(n_k * n_off, d)[ko0:ko1]
+    x = torch.matmul(t_hat, tab.s_cart)  # [G, Q]
+    cz = _gegenbauer(x, n_b - 1, 0.5 * (d - 2.0))  # [G, Q, NB]
+    f = torch.matmul(cz.to(coef.dtype), coef.transpose(-1, -2)) * tab.w[:, None]
+    return torch.nn.functional.pad(f.transpose(-1, -2), (0, tab.q_pad - tab.w.shape[0]))
+
+
+def band_f(coef, t_hat, tab, ko0, ko1, out=None):
+    """KF wrapper: F [ko1 - ko0, NB, q_pad], F_N at every node for the
+    flattened offsets ko0 .. ko1 - 1 (zero past Q); arguments as `band_sr`,
+    coef and t_hat contiguous.  On CPU tensors the plain version; on CUDA
+    tensors it launches csrc/band_sr.cu's KF, into `out` (a scratch of at
+    least ko1 - ko0 leading rows) when given, or raises."""
+    if coef.device.type == "cpu":
+        return _band_f_plain(coef, t_hat, tab, ko0, ko1)
+    n_k, n_off, n_b, _ = coef.shape
+    d = t_hat.shape[-1]
+    g = ko1 - ko0
+    if out is None:
+        out = torch.empty((g, n_b, tab.q_pad), dtype=coef.dtype, device=coef.device)
+    if (not coef.is_contiguous() or not t_hat.is_contiguous() or not 0 <= ko0 < ko1 <= n_k * n_off
+            or out.shape[0] < g or out.shape[1:] != (n_b, tab.q_pad) or not out.is_contiguous()
+            or out.dtype != coef.dtype):
+        raise ValueError(f"band_f: offsets [{ko0}, {ko1}) of {n_k * n_off}, scratch "
+                         f"{tuple(out.shape)} {out.dtype}, coef {coef.dtype}")
+    kernels.launch(
+        "bhs_band_f", coef, t_hat, n_off * d if t_hat.shape[0] > 1 else 0, tab.w, tab.s_cart,
+        out, ko0, g, n_off, d, tab.w.shape[0], tab.q_pad, n_b, 0.5 * (d - 2.0),
+        int(coef.dtype == torch.complex128),
+    )
+    band_f.launches += 1
+    return out[:g]
+
+
+band_f.launches = 0
+
+
 def band_sr(coef, t_hat, tab, he=None, e_r=None, e_b=None):
     """KS wrapper: the banded table [K, NO, Ho, Hi] (with the i-power).
 
@@ -189,7 +292,8 @@ def band_sr(coef, t_hat, tab, he=None, e_r=None, e_b=None):
     exponents, e_r [K, Ho] and e_b [K, Hi] the row and column exponents,
     folded in as exp(e_r + he[N] + e_b); else all three None.  On CPU
     tensors this runs the plain version; on CUDA tensors it launches
-    csrc/band_sr.cu or raises.
+    csrc/band_sr.cu, KF then KS for each group of offsets
+    (`offset_groups`), or raises.
     """
     n_k, n_off, n_b, n_b2 = coef.shape
     h_out, h_in = tab.yo.shape[1], tab.yi.shape[1]
@@ -219,22 +323,23 @@ def band_sr(coef, t_hat, tab, he=None, e_r=None, e_b=None):
             f"band_sr: dtypes coef {cdt}, t_hat {t_hat.dtype}, tables {tab.yo.dtype}"
             + (f", he {he.dtype}, e_r {e_r.dtype}, e_b {e_b.dtype}" if fold else "")
         )
-    csize = coef.element_size()
-    smem = _QC * (_ROWS + _COLS + tab.w_max) * csize + _QC * n_b * csize // 2
-    if smem > _SMEM:
-        raise ValueError(f"band_sr: {n_b} bands need {smem} bytes of shared memory")
     coef, t_hat = coef.contiguous(), t_hat.contiguous()
     if fold:
         he, e_r, e_b = he.contiguous(), e_r.contiguous(), e_b.contiguous()
     out = torch.empty((n_k, n_off, h_out, h_in), dtype=cdt, device=coef.device)
-    kernels.launch(
-        "bhs_band_sr", coef, he if fold else 0, t_hat, n_off * d if t_hat.shape[0] > 1 else 0,
-        tab.w, tab.s_cart, tab.yo, tab.yi, tab.n_o, tab.n_i, tab.row_tiles,
-        e_r if fold else 0, e_b if fold else 0, out, n_k, n_off, d, tab.w.shape[0], h_out,
-        h_in, n_b, tab.row_tiles.shape[0], tab.w_max, 0.5 * (d - 2.0), int(fold),
-        int(cdt == torch.complex128),
-    )
-    band_sr.launches += 1
+    groups = offset_groups(n_k * n_off, tab.q_pad, n_b, coef.element_size())
+    scratch = torch.empty((max(b - a for a, b in groups), n_b, tab.q_pad), dtype=cdt,
+                          device=coef.device)
+    for ko0, ko1 in groups:
+        f = band_f(coef, t_hat, tab, ko0, ko1, scratch)
+        kernels.launch(
+            "bhs_band_sr", f, tab.yo_pad, tab.yi_pad, tab.n_o, tab.n_i, tab.plan,
+            he if fold else 0, e_r if fold else 0, e_b if fold else 0, out, ko0, ko1 - ko0,
+            n_off, tab.w.shape[0], tab.q_pad, h_out, h_in, tab.yo_pad.shape[1],
+            tab.yi_pad.shape[1], n_b, tab.plan.shape[0], tab.w_max, int(fold),
+            int(cdt == torch.complex128),
+        )
+        band_sr.launches += 1
     return out
 
 

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
            "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
            "band_sr.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma_f64.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,10 +71,12 @@ _SIGNATURES = {
     # Hi, rows, smem, scale, fold, dbl, stream
     "bhs_graf_fold": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _D, _I, _I, _P],
-    # coef, he, t_hat, t_k, w, s_cart, yo, yi, n_o, n_i, row_tiles, e_r, e_b,
-    # out, K, NO, d, Q, Ho, Hi, NB, n_row_tiles, w_max, nu, fold, dbl, stream
-    "bhs_band_sr": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _D, _I, _I, _P],
+    # coef, t_hat, t_k, w, s_cart, F, ko0, G, NO, d, Q, Qp, NB, nu, dbl, stream
+    "bhs_band_f": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _I, _P],
+    # F, yo, yi, n_o, n_i, row_plan, he, e_r, e_b, out, ko0, G, NO, Q, Qp, Ho,
+    # Hi, Hop, Hip, NB, n_slots, w_max, fold, dbl, stream
+    "bhs_band_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take
@@ -117,22 +119,32 @@ def library_path():
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + ("-Xptxas", "-v")).encode())
     return BUILD_DIR / f"libbhs_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds):
-    """Start every command at once, wait for all; raise if any failed."""
+    """Start every command at once, wait for all; raise if any failed,
+    else return each command's standard error."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)) for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         stdout, stderr = proc.communicate()
+        errs.append(stderr)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                           f"{stdout}\n{stderr}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
+
+
+def ptxas_path(source, lib=None):
+    """Where `build` keeps ptxas's report (-Xptxas -v: registers, shared
+    memory, spills of each kernel) for `source` of the library `lib`."""
+    lib = library_path() if lib is None else lib
+    return lib.with_name(f"{lib.stem}.{Path(source).stem}.ptxas.txt")
 
 
 def build():
@@ -144,8 +156,10 @@ def build():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{Path(s).stem}.{os.getpid()}.o") for s in SOURCES]
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-              for s, o in zip(SOURCES, objs)])
+    errs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(CSRC / s)]
+                     for s, o in zip(SOURCES, objs)])
+    for s, err in zip(SOURCES, errs):
+        ptxas_path(s, out).write_text(err)
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     for o in objs:
         o.unlink()

@@ -142,11 +142,17 @@ non-zero before the result line):
    first 4 k, the default solver (which must take the offset-table
    matrix-free GMRES: KS in fold mode, KC, K5; no KB, K2, KD or KG):
    a stage split, relres <= 3e-5, the boundary residual (1e-3), the peak
-   memory, KS alone at these shapes beside its bound, against its plain
-   version per degree block (1e-4) and bit for bit on repeat, a cuBLAS
-   product of the same [H, Q] x [Q, H] shape as a yardstick, then the
-   block in complex128 unscaled (KS's unscaled mode, relres <= 1e-11),
-   uscat(0) within 1e-4 of it, and KS alone there; (b) the 'caa' pair by
+   memory; KS's and KF's registers, shared memory and spills (ptxas -v)
+   and each KS instance's DMMA / HMMA count in the built library's SASS
+   (complex128 must run DMMA, complex64 no tensor-core instruction); KS
+   alone at these shapes timed in turns with its plain version (plain,
+   KS, KS, plain) beside its bound and its achieved TFLOP/s, per degree
+   block (1e-4) and bit for bit on repeat, a cuBLAS product of the same
+   [H, Q] x [Q, H] shape x K NO as a yardstick, KF (F_N for one group of
+   offsets) against its plain version per band (1e-5) with its time; then
+   the block in complex128 unscaled (KS's unscaled mode, relres <= 1e-11),
+   uscat(0) within 1e-4 of it, and KS (1e-11) and KF (1e-13) alone there
+   in the same way; (b) the 'caa' pair by
    LU in complex128 within 2e-6 of the reference golden and 1e-9 of the
    JAX package's density, the hypercube at n_end=6 within 1e-9 of the JAX
    golden (data/caa4d_golden_f64.json), the float32 overflow pair (k=0.15,
@@ -992,10 +998,10 @@ def bench_config(torch, dev, card):
     # evaluation path below, KD on the dense route (phase 5); KB's row panels
     # only in d >= 4 (phase 8), KG in 2D (phase 9), KS on 'c' trees (phase 10)
     require_launched(launches, [n for n in launches if n not in (
-        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold", "band_sr")],
-        "[4] the sweep")
-    if launches["band_sr"]:
-        raise RuntimeError("[4] the 3D bench launched KS")
+        "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold", "band_sr",
+        "band_f")], "[4] the sweep")
+    if launches["band_sr"] or launches["band_f"]:
+        raise RuntimeError("[4] the 3D bench launched KS or KF")
     if launches["graf_fold"]:
         raise RuntimeError("[4] the 3D bench launched KG")
     if launches["block_diag_cmm_panels"]:
@@ -1600,7 +1606,7 @@ def matfree_route(torch, dev, card):
 def kernel_counts():
     """(reset, read) of every kernel's launch count."""
     from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval
-    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_sr
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_f, band_sr
     from biem_helmholtz_sphere_tpu_torch.ops.block_diag import block_diag_cmm
     from biem_helmholtz_sphere_tpu_torch.ops.dense import dense_assemble
     from biem_helmholtz_sphere_tpu_torch.ops.graf import graf_fold
@@ -1618,7 +1624,8 @@ def kernel_counts():
                 "coax_fold": (coax_fold, "launches"),
                 "dense_assemble": (dense_assemble, "launches"),
                 "graf_fold": (graf_fold, "launches"),
-                "band_sr": (band_sr, "launches")}
+                "band_sr": (band_sr, "launches"),
+                "band_f": (band_f, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -2698,11 +2705,147 @@ def band_sr_bound(tab, n_k, n_off, name):
     return bound(nbytes, 0, name, mma_flops=8.0 * n_k * n_off * h_out * h_in * q)
 
 
+def band_f_bound(tab, n_g, d, name):
+    """KF's bound for n_g offsets: F [n_g, Q, NB] written, coef, the nodes
+    and weights read; the recurrence (~6 operations a band) and the prefix
+    sums (NB (NB + 1) / 2 complex-by-real products) at the CUDA cores'
+    rate, the larger."""
+    cs = 8 if name == "complex64" else 16
+    q, n_b = tab.w.shape[0], tab.n_bands
+    nbytes = n_g * q * n_b * cs + n_g * n_b * n_b * cs + (d + 1) * q * cs // 2
+    return bound(nbytes, n_g * q * (6.0 * n_b + 4.0 * n_b * (n_b + 1) / 2), name)
+
+
+def ks_build_report(torch):
+    """KS's and KF's registers, shared memory and spills from ptxas (-v, kept
+    by the build), and each KS instance's FP64 MMAs (DMMA) and any tensor-core
+    float products (HMMA: TF32 among them) counted in cuobjdump's SASS of the
+    built library; raises if a complex128 instance has no DMMA or a
+    complex64 one any tensor-core instruction."""
+    import shutil
+
+    from biem_helmholtz_sphere_tpu_torch.ops import kernels
+
+    lines = [ln.strip() for ln in kernels.ptxas_path("band_sr.cu").read_text().splitlines()
+             if "band_" in ln or "Used" in ln or "spill" in ln]
+    print("[10] ptxas -v, csrc/band_sr.cu:\n    " + "\n    ".join(lines))
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"cuobjdump not found ({tool}): KS's DMMA / HMMA not counted")
+    sass = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    for func in sass.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if "band_sr_kernel" not in name:
+            continue
+        dbl = name.split("band_sr_kernel", 1)[1].startswith("Id")  # <double, ...>
+        dmma, hmma = func.count("DMMA"), func.count("HMMA")
+        print(f"[10] SASS {'complex128' if dbl else 'complex64'} KS instance {name[:60]}...: "
+              f"{dmma} DMMA, {hmma} HMMA")
+        if (dbl and dmma == 0) or (not dbl and (hmma or dmma)):
+            raise RuntimeError(f"KS instance {name}: {dmma} DMMA, {hmma} HMMA")
+
+
+def ks_in_turns(torch, args, kw, name, card, label):
+    """KS against its plain version at the main path's arguments, timed in
+    turns: plain (host-timed, synchronised), KS, KS (CUDA events, the two
+    outputs bit for bit equal), plain; per degree block against the plain
+    version; beside the bound, the achieved TFLOP/s (8 K NO Ho Hi Q) and
+    one cuBLAS [H, Q] x [Q, H] product x K NO as the yardstick."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_sr
+
+    tab = args[2]
+    n_k, n_off = args[0].shape[:2]
+    h, q = tab.yo.shape[1], tab.w.shape[0]
+
+    def plain_timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _band_sr_plain(*args, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def ks_timed():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = band_sr(*args, **kw)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    ref, plain1 = plain_timed()
+    got, ms1 = ks_timed()
+    again, ms2 = ks_timed()
+    same = same_bits(torch, again, got)
+    del again
+    err_abs, err = block_rel_err(torch, got, ref, tab.n_o_host, tab.n_i_host)
+    del got, ref
+    torch.cuda.empty_cache()
+    plain2 = plain_timed()[1]
+    b = band_sr_bound(tab, n_k, n_off, name)
+    flops = 8.0 * n_k * n_off * h * tab.yi.shape[1] * q
+    y_t = tab.yo.T.conj().resolve_conj().contiguous()
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(y_t, tab.yi), 2)
+    del y_t
+    ms = min(ms1, ms2)
+    print(f"[10] {label} KS band_sr alone, [{n_k}, {n_off}, {h}, {tab.yi.shape[1]}] x {q} nodes, "
+          f"{name}, in turns: plain {plain1:.3f} ms, KS {ms1:.3f} / {ms2:.3f} ms, plain "
+          f"{plain2:.3f} ms (KS {min(plain1, plain2) / ms:.3f}x faster than its plain version); "
+          f"{flops / ms / 1e9:.2f} TFLOP/s, bound {b[0]:.3f} ms ({b[1]}): {b[0] / ms:.3f} of it; "
+          f"per degree block {err:.3e} (max abs {err_abs:.3e}); bits repeated {same}; "
+          f"yardstick one torch.matmul [{h}, {q}] x [{q}, {h}] {mm_ms:.3f} ms, x {n_k * n_off} = "
+          f"{mm_ms * n_k * n_off:.3f} ms ({card})")
+    tol = TOL_REL["complex64"] if name == "complex64" else 1e-11
+    if not same or not err <= tol:
+        raise RuntimeError(f"{label} KS {name}: {err:.3e} against its plain version, bits "
+                           f"repeated {same}")
+    return {"abs": err_abs, "rel": err, "ms": ms, "plain_ms": min(plain1, plain2),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "matmul_ms": mm_ms * n_k * n_off}
+
+
+def kf_alone(torch, args, name, launches, card, label):
+    """KF for the first group of offsets of the main path's call, timed
+    (CUDA events) beside its plain version (host-timed) and its bound, held
+    to it per band (complex64 1e-5, complex128 1e-13 of each band's largest
+    |F|), bits repeated."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_f_plain, band_f, offset_groups
+
+    coef, t_hat, tab = args[0].contiguous(), args[1].contiguous(), args[2]
+    n_k, n_off, n_b = coef.shape[:3]
+    groups = offset_groups(n_k * n_off, tab.q_pad, n_b, coef.element_size())
+    ko0, ko1 = groups[0]
+    ms = cuda_ms(torch, lambda: band_f(coef, t_hat, tab, ko0, ko1), 3)
+    got = band_f(coef, t_hat, tab, ko0, ko1)
+    same = same_bits(torch, band_f(coef, t_hat, tab, ko0, ko1), got)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = _band_f_plain(coef, t_hat, tab, ko0, ko1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    scale = ref.abs().amax(dim=2, keepdim=True).clamp_min(torch.finfo(ref.real.dtype).tiny)
+    diff = (got - ref).abs()
+    err, err_abs = float((diff / scale).max()), float(diff.max())
+    del got, ref, diff
+    torch.cuda.empty_cache()
+    b = band_f_bound(tab, ko1 - ko0, t_hat.shape[-1], name)
+    print(f"[10] {label} KF band_f, one group of {ko1 - ko0} offsets x {tab.w.shape[0]} nodes x "
+          f"{n_b} bands, {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, host-timed), bound "
+          f"{b[0]:.3f} ms ({b[1]}); {len(groups)} groups: KF ~{ms * len(groups):.3f} ms a "
+          f"table; launches on the path {launches}; per band {err:.3e} (max abs {err_abs:.3e}); "
+          f"bits repeated {same} ({card})")
+    if not same or not err <= (1e-5 if name == "complex64" else 1e-13):
+        raise RuntimeError(f"{label} KF {name}: {err:.3e}, bits repeated {same}")
+    return {"abs": err_abs, "rel": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
+
+
 def c_trees(torch, dev, card):
     """Phase 10: trees with a 'c' node through biem(), each path with the
-    launch counts set to 0 just before it and read just after, and KS
-    against its plain version.  Returns (KS's results by dtype, KS's
-    launches in (a))."""
+    launch counts set to 0 just before it and read just after, and KS and
+    KF against their plain versions.  Returns (KS's and KF's results by
+    dtype, their launches in (a))."""
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
     from biem_helmholtz_sphere_tpu_torch.biem import _core, _lattice
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
@@ -2783,11 +2926,12 @@ def c_trees(torch, dev, card):
           f"{format_split(acc, total, labels, 1)}; launches {counts}; GMRES iters "
           f"{calc.iters.tolist()}, max relres {float(calc.relres.max()):.3e}; peak device "
           f"memory {peak:.3f} GiB ({card})")
-    require_launched(counts, ("band_sr", "lane_gather", "lane_scatter", "spherical_jh"), "(a)")
+    require_launched(counts, ("band_sr", "band_f", "lane_gather", "lane_scatter", "spherical_jh"),
+                     "(a)")
     for name in ("block_diag_cmm", "coax_fold", "dense_assemble", "graf_fold"):
         if counts[name]:
             raise RuntimeError(f"(a) a 'c' root launched {name}: {counts}")
-    launches = counts["band_sr"]
+    launches = {"band_sr": counts["band_sr"], "band_f": counts["band_f"]}
     worst = float(calc.relres.max())
     res_max, res_mean = bc_residual_of(torch, calc, cube, (0, 5, 10, 15))
     print(f"[10] (a) BC residual at 256 points on 4 spheres: max {res_max:.3e} mean "
@@ -2796,39 +2940,14 @@ def c_trees(torch, dev, card):
         raise RuntimeError(f"(a) relres {worst:.3e} or BC residual {res_max:.3e} off its gate")
     del calc
     torch.cuda.empty_cache()
-    # KS alone at the main path's shapes, against its plain version there
+    ks_build_report(torch)
+    # KS and KF alone at the main path's shapes, against their plain versions
     (args, kw), = calls
     calls.clear()
-    results = {}
-    ms = cuda_ms(torch, lambda: band_sr(*args, **kw), 2)
-    got = band_sr(*args, **kw)
-    if not same_bits(torch, band_sr(*args, **kw), got):
-        raise RuntimeError("(a) KS: two launches differ")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = _band_sr_plain(*args, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    tab = args[2]
-    n_k, n_off = args[0].shape[:2]
-    err_abs, err = block_rel_err(torch, got, ref, tab.n_o_host, tab.n_i_host)
-    del got, ref
-    torch.cuda.empty_cache()
-    b = band_sr_bound(tab, n_k, n_off, "complex64")
-    y_t = tab.yo.T.conj().resolve_conj().contiguous()
-    mm_ms = cuda_ms(torch, lambda: torch.matmul(y_t, tab.yi), 2)
-    del y_t
-    print(f"[10] (a) KS band_sr alone, fold mode, [{n_k}, {n_off}, {h}, {h}] x {tab.w.shape[0]} "
-          f"nodes, complex64: {ms:.3f} ms (plain version {plain_ms:.3f} ms, one host-timed "
-          f"call), bound {b[0]:.3f} ms ({b[1]}); against the plain version per degree block "
-          f"{err:.3e} (max abs {err_abs:.3e}), two launches bit for bit equal; yardstick: one "
-          f"torch.matmul [{h}, {tab.w.shape[0]}] x [{tab.w.shape[0]}, {h}] {mm_ms:.3f} ms, "
-          f"x {n_k * n_off} = {mm_ms * n_k * n_off:.3f} ms ({card})")
-    if not err <= TOL_REL["complex64"]:
-        raise RuntimeError(f"(a) KS off its plain version by {err:.3e} at the main path's shapes")
-    results["complex64"] = {"abs": err_abs, "rel": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-                            "matmul_ms": mm_ms * n_k * n_off}
+    results = {"band_sr": {}, "band_f": {}}
+    results["band_sr"]["complex64"] = ks_in_turns(torch, args, kw, "complex64", card, "(a)")
+    results["band_f"]["complex64"] = kf_alone(torch, args, "complex64", counts["band_f"], card,
+                                              "(a)")
     del args, kw
     # the same block in complex128, unscaled (KS's unscaled mode, route auto)
     reset()
@@ -2843,52 +2962,23 @@ def c_trees(torch, dev, card):
     finally:
         _scaled.band_sr, _ops.band_sr = real_band_sr, real_band_sr
     counts = read()
-    require_launched(counts, ("band_sr", "lane_gather", "lane_scatter"), "(a) complex128")
+    require_launched(counts, ("band_sr", "band_f", "lane_gather", "lane_scatter"),
+                     "(a) complex128")
     err = rel(u0.to(torch.complex128), u128)
     print(f"[10] (a) complex128 unscaled (auto -> the offset table, KS unscaled): {t128:.3f} s, "
           f"GMRES iters {calc128.iters.tolist()}, max relres {float(calc128.relres.max()):.3e}; "
           f"uscat(0) complex64 {[f'{complex(v):.7f}' for v in u0.cpu()]} against complex128: "
-          f"rel err {err:.3e} ({card})")
+          f"rel err {err:.3e}; launches {counts} ({card})")
     if not err <= 1e-4 or float(calc128.relres.max()) > 1e-11:
         raise RuntimeError(f"(a) uscat(0) off complex128 by {err:.3e}")
     del calc128
     torch.cuda.empty_cache()
-    # KS alone in complex128 against its plain version (its ZGEMMs), in
-    # turns: plain, KS, plain
+    # KS alone in complex128 against its plain version (its ZGEMMs), in turns
     (args, kw), = calls
     calls.clear()
-    tab = args[2]
-    n_k, n_off = args[0].shape[:2]
-
-    def plain_timed():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = _band_sr_plain(*args, **kw)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    ref, plain_ms = plain_timed()
-    ms = cuda_ms(torch, lambda: band_sr(*args, **kw), 2)
-    err_abs, err = block_rel_err(torch, band_sr(*args, **kw), ref, tab.n_o_host, tab.n_i_host)
-    del ref
-    torch.cuda.empty_cache()
-    plain_ms2 = plain_timed()[1]
-    b = band_sr_bound(tab, n_k, n_off, "complex128")
-    y_t = tab.yo.T.conj().resolve_conj().contiguous()
-    mm_ms = cuda_ms(torch, lambda: torch.matmul(y_t, tab.yi), 2)
-    del y_t
-    print(f"[10] (a) KS band_sr alone, unscaled mode, [{n_k}, {n_off}, {h}, {h}], complex128: "
-          f"{ms:.3f} ms (plain version {plain_ms:.3f} / {plain_ms2:.3f} ms, host-timed calls "
-          f"before and after), bound {b[0]:.3f} ms ({b[1]}); against the plain version per "
-          f"degree block {err:.3e} (max abs {err_abs:.3e}); yardstick: one torch.matmul "
-          f"[{h}, {tab.w.shape[0]}] x [{tab.w.shape[0]}, {h}] {mm_ms:.3f} ms, x {n_k * n_off} = "
-          f"{mm_ms * n_k * n_off:.3f} ms ({card})")
-    if not err <= 1e-11:
-        raise RuntimeError(f"(a) KS complex128 off its plain version by {err:.3e}")
-    results["complex128"] = {"abs": err_abs, "rel": err, "ms": ms,
-                             "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b[0],
-                             "bound_by": b[1], "library_ms": None,
-                             "matmul_ms": mm_ms * n_k * n_off}
+    results["band_sr"]["complex128"] = ks_in_turns(torch, args, kw, "complex128", card, "(a)")
+    results["band_f"]["complex128"] = kf_alone(torch, args, "complex128", counts["band_f"], card,
+                                               "(a)")
     del args, kw
     torch.cuda.empty_cache()
 
@@ -3071,7 +3161,9 @@ def main():
     complex_and_trees(torch, dev, card)
     launches["block_diag_cmm_panels"] = four_d(torch, dev, card)["block_diag_cmm_panels"]
     results["graf_fold"], launches["graf_fold"] = n_balls_family(torch, dev, card)
-    results["band_sr"], launches["band_sr"] = c_trees(torch, dev, card)
+    c_results, c_launches = c_trees(torch, dev, card)
+    results.update(c_results)
+    launches.update(c_launches)
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
@@ -3097,6 +3189,9 @@ def main():
                       "biem_helmholtz_sphere_tpu/translation/_scaled.py:58"),
         "band_sr": ("csrc/band_sr.cu",
                     "biem_helmholtz_sphere_tpu/translation/_ops.py:160"),
+        # KS's F pass: the band kernel's prefix F_N of the same band scan
+        "band_f": ("csrc/band_sr.cu",
+                   "biem_helmholtz_sphere_tpu/translation/_ops.py:160"),
     }
     record = {"kernels": [
         {

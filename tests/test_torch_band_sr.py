@@ -21,11 +21,18 @@ from biem_helmholtz_sphere_tpu.coords import from_cartesian as j_from_cartesian
 from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
 from biem_helmholtz_sphere_tpu.translation._ops import _sr_banded as j_sr_banded
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
 from biem_helmholtz_sphere_tpu_torch.ops.band_sr import (
+    _F_BYTES,
+    _band_f_plain,
     _band_sr_plain,
     _gegenbauer,
     band_coefs,
     band_sr,
+    col_span,
+    offset_groups,
+    row_plan,
+    row_tiles,
 )
 from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
 from biem_helmholtz_sphere_tpu_torch.translation import sr_scaled, translation_matrix
@@ -194,24 +201,197 @@ def test_band_coefs_mask_and_clamp():
 
 
 def test_band_tables_tiles_and_blocks():
-    """The kernel's row tiles (at most 32 rows, each of one degree) cover
-    the rows once; its widest N range over 128 columns; the degree blocks
-    of the plain version's products cover the harmonics."""
+    """The kernel's 16-row M-tiles (each of one degree) cover the rows
+    once: 71 at 'caa' n_end=14, 1,136 padded rows for 1,015; its plan holds
+    each M-tile once, in 40 slots of two consecutive tiles of one degree;
+    its widest N range over 64 columns is 6 bands; the degree blocks of
+    the plain version's products cover the harmonics."""
     c = create_from_branching_types("caa")
     tab = _quad_tables(c, 14, 14, torch.float64, "cpu")
     n_o = tab.n_o_host
     assert len(n_o) == 1015 and tab.n_bands == 27 and tab.w.shape[0] == 43740
-    tiles = tab.row_tiles.numpy()
+    tiles = np.asarray(row_tiles(n_o))
     assert tiles[0, 0] == 0 and tiles[-1, 1] == 1015 and (tiles[1:, 0] == tiles[:-1, 1]).all()
-    assert ((tiles[:, 1] - tiles[:, 0]) <= 32).all()
+    assert ((tiles[:, 1] - tiles[:, 0]) <= 16).all() and (tiles[:, 1] > tiles[:, 0]).all()
     assert all(n_o[a] == n_o[b - 1] for a, b in tiles)
-    assert len(tiles) == sum(-(-(n + 1) ** 2 // 32) for n in range(14)) == 40
-    spans = [n_o[min(s + 128, len(n_o)) - 1] - n_o[s] for s in range(0, len(n_o), 128)]
-    assert tab.w_max == max(spans) + 1 == 7
+    assert len(tiles) == sum(-(-(n + 1) ** 2 // 16) for n in range(14)) == 71
+    assert 16 * len(tiles) == 1136
+    plan = tab.plan.numpy()
+    assert plan.shape == (40, 2, 2) and plan.dtype == np.int32
+    on = plan[..., 1] > plan[..., 0]
+    assert on[:, 0].all() and (plan[:, 1, 0] == plan[:, 0, 1]).all()
+    assert sorted(map(tuple, plan[on].tolist())) == sorted(map(tuple, tiles.tolist()))
+    assert all(n_o[a] == n_o[slot[0, 0]] for slot in plan for a, b in slot if b > a)
+    spans = [n_o[min(s + 64, len(n_o)) - 1] - n_o[s] for s in range(0, len(n_o), 64)]
+    assert tab.w_max == col_span(n_o) == max(spans) + 1 == 6
     rows, cols = tab.blocks
     assert rows == cols and len(rows) == 14
     assert [b - a for _, a, b in rows] == [(n + 1) ** 2 for n in range(14)]
     assert abs(float(tab.w.sum()) - 2 * np.pi ** 2) < 1e-12  # |S^3|
+
+
+@pytest.mark.parametrize("n_end", [1, 2, 3, 5, 10])
+def test_row_plan_covers_small_and_ragged_blocks(n_end):
+    """Every row of small trees (blocks of 1, 4, 9 rows below the 16-row
+    M-tile; slots whose second tile is empty) lies in exactly one live
+    M-tile of the plan; a slot's tiles are consecutive and of one degree;
+    an empty tile is (end, end) inside the table."""
+    c = create_from_branching_types("caa")
+    n_o = basis(c, n_end).n_root.astype(np.int32)
+    plan = row_plan(n_o)
+    seen = np.zeros(len(n_o), dtype=int)
+    for slot in plan:
+        assert slot[0, 1] > slot[0, 0] and slot[1, 0] == slot[0, 1]
+        live = [(a, b) for a, b in slot if b > a]
+        assert len({int(n_o[a]) for a, _ in live}) == 1
+        assert all(0 <= a == b <= len(n_o) for a, b in slot if b <= a)
+        for a, b in live:
+            assert b - a <= 16
+            seen[a:b] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n_out,n_in,dtype", [(5, 5, torch.complex64), (3, 5, torch.complex128),
+                                              (8, 8, torch.complex128)])
+def test_band_tables_pad_columns_to_eight(n_out, n_in, dtype):
+    """The cached tables' column count is padded to a multiple of 8 by
+    zeros (the kernel's 16-byte copies); yo and yi are views of the
+    unpadded width over the same storage, one table when n_out == n_in."""
+    c = create_from_branching_types("caa")
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    tab = _quad_tables(c, n_out, n_in, rdt, "cpu")
+    for y, y_pad in ((tab.yo, tab.yo_pad), (tab.yi, tab.yi_pad)):
+        h = y.shape[1]
+        assert y_pad.dtype == dtype and y_pad.is_contiguous()
+        assert y_pad.shape == (tab.w.shape[0], -(-h // 8) * 8)
+        assert y.data_ptr() == y_pad.data_ptr() and y.stride() == y_pad.stride()
+        assert not bool(y_pad[:, h:].any())
+    assert (tab.yo_pad is tab.yi_pad) == (tab.yo is tab.yi) == (n_out == n_in)
+    assert tab.q_pad % 16 == 0 and 0 <= tab.q_pad - tab.w.shape[0] < 16
+
+
+def test_offset_groups_bound_the_f_scratch(monkeypatch):
+    """The groups of offsets cover 0 .. K NO once in order, differ in size
+    by at most one, and each group's F [G, NB, q_pad] fits the budget; at
+    phase 10 (a)'s 160 offsets x 43,744 nodes x 27 bands: 3 groups in
+    complex64, 6 in complex128 (512 MiB each at most); one offset a group
+    when one does not fit."""
+    from biem_helmholtz_sphere_tpu_torch.ops import band_sr as ks
+
+    for n_ko, q_pad, n_b, size, budget in ((160, 43744, 27, 8, _F_BYTES),
+                                           (160, 43744, 27, 16, _F_BYTES),
+                                           (7, 400, 9, 8, 3 * 400 * 9 * 8), (5, 64, 4, 16, 1),
+                                           (1, 16, 2, 8, _F_BYTES)):
+        monkeypatch.setattr(ks, "_F_BYTES", budget)
+        groups = offset_groups(n_ko, q_pad, n_b, size)
+        assert groups[0][0] == 0 and groups[-1][1] == n_ko
+        assert all(a1 == b0 for (_, a1), (b0, _) in zip(groups, groups[1:]))
+        sizes = [b - a for a, b in groups]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        assert max(sizes) == 1 or max(sizes) * q_pad * n_b * size <= budget
+        want = {8: 3, 16: 6}[size] if budget == _F_BYTES and n_ko == 160 else None
+        assert want is None or len(groups) == want
+    monkeypatch.setattr(ks, "_F_BYTES", 3 * 400 * 9 * 8)
+    assert offset_groups(7, 400, 9, 8) == [(0, 2), (2, 4), (4, 7)]
+    monkeypatch.setattr(ks, "_F_BYTES", 1)
+    assert len(offset_groups(5, 64, 4, 16)) == 5
+
+
+def test_band_f_plain_is_the_prefix_kernel():
+    """KF's plain version: F_N(q) = w_q sum_{n <= N} coef[N, n] C_n(t^.s_q)
+    for the flattened offsets ko0 .. ko1 - 1 (t^ at k stride 0 here), laid
+    out [G, NB, q_pad], zero past Q, against the sum written out (float64,
+    1e-13 of each band's largest |F|)."""
+    c = create_from_branching_types("caa")
+    tab = _quad_tables(c, 4, 5, torch.float64, "cpu")
+    d, n_b = 4, tab.n_bands
+    rng = np.random.default_rng(21)
+    t = rng.normal(size=(1, 3, d))
+    t_hat = torch.as_tensor(t / np.linalg.norm(t, axis=-1, keepdims=True), **F64)
+    coef = torch.as_tensor(rng.normal(size=(2, 3, n_b, n_b)) + 1j * rng.normal(size=(2, 3, n_b, n_b)))
+    coef = torch.tril(coef)
+    got = _band_f_plain(coef, t_hat, tab, 2, 5)
+    n_q = tab.w.shape[0]
+    assert got.shape == (3, n_b, tab.q_pad) and not bool(got[..., n_q:].any())
+    for i, ko in enumerate(range(2, 5)):
+        k, o = divmod(ko, 3)
+        x = (t_hat[0, o] @ tab.s_cart).numpy()
+        cz = _gegenbauer(torch.as_tensor(x), n_b - 1, 1.0).numpy()
+        want = np.stack([(cz[:, :big + 1] * coef[k, o, big, :big + 1].numpy()).sum(-1)
+                         for big in range(n_b)], -1) * tab.w.numpy()[:, None]
+        scale = np.abs(want).max(axis=0)
+        assert (np.abs(got[i, :, :n_q].numpy().T - want) / scale).max() < 1e-13
+
+
+def _emulate_kernel(coef, t_hat, tab):
+    """KS's plan written out in torch: per offset, slot and 64 columns,
+    Y_in F at the slot degree + each column's degree (F staged from N =
+    n_lo for at most w_max bands), and each live M-tile's product as the
+    kernel forms it on the FP64 tensor cores, A' [16, 2Q] = (Re, Im) of the
+    raw rows node by node times B' [2Q, 2C] whose entry (2q + p, 2c + s) is
+    component p ^ s of (Y_in F)[q, c], negated when p = s = 1; then the
+    i-power at the store."""
+    n_k, n_off, n_b, _ = coef.shape
+    n_q = tab.w.shape[0]
+    f = _band_f_plain(coef, t_hat, tab, 0, n_k * n_off)[..., :n_q]  # [KNO, NB, Q]
+    h_out, h_in = tab.yo.shape[1], tab.yi.shape[1]
+    hip = tab.yi_pad.shape[1]
+    yo = torch.nn.functional.pad(tab.yo_pad, (0, 32))  # rows read past Hop are zero
+    n_o, n_i = tab.n_o_host, tab.n_i_host
+    out = torch.full((n_k * n_off, h_out, h_in), complex("nan"), dtype=coef.dtype)
+    p = torch.arange(2 * n_q) % 2
+    for ko in range(n_k * n_off):
+        for slot in tab.plan.numpy():
+            deg = int(n_o[slot[0, 0]])
+            for c0 in range(0, h_in, 64):
+                cols = np.arange(c0, min(c0 + 64, hip))
+                ncol = n_i[np.minimum(cols, h_in - 1)]
+                n_lo = deg + int(ncol[0])
+                assert deg + ncol.max() - n_lo < tab.w_max
+                f_tile = f[ko, n_lo:n_lo + tab.w_max]  # the staged bands
+                bs = tab.yi_pad[:, cols] * f_tile[torch.as_tensor(deg + ncol - n_lo)].T
+                parts = torch.stack([bs.real, bs.imag], -1)  # [Q, C, s]
+                b_real = torch.empty(2 * n_q, 2 * len(cols), dtype=parts.dtype)
+                for s in (0, 1):
+                    comp = parts[..., s].repeat_interleave(2, 0)  # row 2q + p: comp s
+                    other = parts[..., 1 - s].repeat_interleave(2, 0)
+                    # component p ^ s, negated when p = s = 1
+                    pick = torch.where((p ^ s)[:, None] == 1, other if s == 0 else comp,
+                                       comp if s == 0 else other)
+                    sign = torch.where((p & s)[:, None] == 1, -1.0, 1.0)
+                    b_real[:, s::2] = pick * sign
+                for r0, r1 in slot:
+                    if r1 <= r0:
+                        continue
+                    a = yo[:, r0:r0 + 16]  # [Q, 16]
+                    a_real = torch.stack([a.real, a.imag], 1).reshape(n_q * 2, 16).T
+                    c_real = a_real @ b_real  # [16, 2C]
+                    val = torch.complex(c_real[:, 0::2], c_real[:, 1::2])[:r1 - r0]
+                    keep = cols < h_in
+                    out[ko, r0:r1, cols[keep]] = val[:, torch.as_tensor(keep)]
+    units = torch.tensor([1, 1j, -1, -1j], dtype=coef.dtype)
+    rot = units[(tab.n_o.long()[:, None] - tab.n_i.long()[None, :]) % 4]
+    return (out * rot).reshape(n_k, n_off, h_out, h_in)
+
+
+@pytest.mark.parametrize("n_out,n_in", [(5, 5), (3, 6)])
+def test_kernel_plan_and_real_embedding_match_the_plain_version(n_out, n_in):
+    """The kernel's slots, 64-column tiles, staged N range of F and the real
+    embedding of the complex product (four real products per complex one,
+    the conj of the rows in B''s signs), emulated in torch, give the plain
+    version's table (float64, 1e-12 per degree block): every entry is
+    written once, from the right F_N."""
+    c = create_from_branching_types("caa")
+    tab = _quad_tables(c, n_out, n_in, torch.float64, "cpu")
+    rng = np.random.default_rng(8)
+    t = rng.normal(size=(2, 2, 4))
+    t_hat = torch.as_tensor(t / np.linalg.norm(t, axis=-1, keepdims=True), **F64)
+    r = torch.as_tensor(3.0 + rng.random((2, 2)), **F64)
+    hm, he = spherical_h_scaled(4, tab.n_bands, torch.tensor([[0.9], [1.3]], **F64) * r)
+    coef = band_coefs(hm * torch.exp(he), 4, *_band_consts(4))
+    got = _emulate_kernel(coef, t_hat, tab)
+    ref = _band_sr_plain(coef, t_hat, tab)
+    assert block_rel(got, ref, tab.n_o_host, tab.n_i_host) < 1e-12
 
 
 @pytest.mark.parametrize("n_out,n_in", [(5, 5), (3, 5)])

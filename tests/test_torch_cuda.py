@@ -1002,7 +1002,8 @@ def _block_rel(got, ref, n_o, n_i):
     return err
 
 
-# name: (tree, n_out, n_in, offsets, K, per-k directions)
+# name: (tree, n_out, n_in, offsets, K, per-k directions); KS serves 4
+# offsets a CTA, so K NO = 6, 2 or 1 leaves a CTA part empty
 _BAND_CASES = {
     "caa-n8": ("caa", 8, 8, 3, 2, False),
     "caa-per-k-directions": ("caa", 6, 6, 2, 3, True),
@@ -1010,20 +1011,27 @@ _BAND_CASES = {
     "ba-triplet-n9": ("ba", 9, 9, 2, 2, False),
     "bcaa-n4": ("bcaa", 4, 4, 2, 1, False),
     "cbaba-n3": ("cbaba", 3, 3, 2, 2, False),
+    # blocks of 1 and 4 rows (below the 16-row M-tile), H = 5, K NO = 1
+    "caa-n2-one-offset": ("caa", 2, 2, 1, 1, False),
+    # phase 10 (e)'s shape: H = 385 (not a multiple of 8 nor of 128 columns),
+    # Q = 15,884 (not a multiple of the 8- or 16-node chunk)
+    "caa-n10": ("caa", 10, 10, 4, 2, False),
+    # n_out != n_in at per-k directions: two tables, a row group with one slot
+    "caa-n_end_add-per-k": ("caa", 3, 9, 3, 2, True),
 }
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("mode", ["unscaled", "scaled", "fold"])
-@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("case", list(_BAND_CASES))
-def test_band_sr_kernel_matches_plain(cuda, case, dtype, mode):
-    """KS against its plain version on the same card inputs in its three
-    modes (h unscaled, h's mantissas with the band exponents, and those
-    with the row and column exponents folded in), per degree block
-    (complex64 1e-4, complex128 1e-11: both sum the nodes in two levels, in
-    another order); two launches are bit for bit equal."""
-    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_coefs, band_sr
+def _band_inputs(case, dtype, mode, dev):
+    """(coef, t_hat, tables, extra arguments) of a _BAND_CASES case in a
+    mode: "unscaled" (h), "scaled" (h's mantissas with the band
+    exponents), "fold" (those and the row and column exponents),
+    "fold-extreme" (band exponents he_n = -100 + 40 n / (NB - 1) and row
+    and column exponents in [45, 50]: each beyond float32's exp on its
+    own, their sums in [-10, 40]), or "clamp" (he_n = 40 - 82 n / (NB - 1):
+    band differences up to 82, past the clamp at 80; KF only, since the
+    magnified low bands leave the table's blocks they do not reach as
+    rounding noise, float32 1e8 off its float64 self per block)."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_coefs
     from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
     from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts, _quad_tables
 
@@ -1031,30 +1039,103 @@ def test_band_sr_kernel_matches_plain(cuda, case, dtype, mode):
     rdt = kernels.REAL_OF[dtype]
     c = create_from_branching_types(tree)
     d = c.c_ndim
-    tab = _quad_tables(c, n_out, n_in, rdt, cuda)
+    tab = _quad_tables(c, n_out, n_in, rdt, dev)
     rng = np.random.default_rng(41)
     t = rng.normal(size=(n_k if per_k else 1, n_off, d))
     r = 3.0 + rng.random(size=(n_k, n_off))
-    f = dict(dtype=rdt, device=cuda)
+    f = dict(dtype=rdt, device=dev)
     t_hat = torch.as_tensor(t / np.linalg.norm(t, axis=-1, keepdims=True), **f)
     k = torch.linspace(0.8, 1.6, n_k, **f)
     hm, he = spherical_h_scaled(d, tab.n_bands, k[:, None] * torch.as_tensor(r, **f))
     if mode == "unscaled":
-        coef, args = band_coefs(hm * torch.exp(he), d, *_band_consts(d)), ()
-    else:
-        coef = band_coefs(hm, d, *_band_consts(d), he=he)
-        args = () if mode == "scaled" else (
-            he, -torch.as_tensor(rng.random((n_k, tab.yo.shape[1])) * 5, **f),
-            -torch.as_tensor(rng.random((n_k, tab.yi.shape[1])) * 5, **f))
-    n0 = band_sr.launches
+        return band_coefs(hm * torch.exp(he), d, *_band_consts(d)), t_hat, tab, ()
+    n_b = tab.n_bands
+    ramp = torch.arange(n_b, **f) / max(n_b - 1, 1)
+    if mode in ("fold-extreme", "clamp"):
+        he = ((-100.0 + 40.0 * ramp) if mode == "fold-extreme" else (40.0 - 82.0 * ramp))
+        he = he.expand(n_k, n_off, n_b).contiguous()
+    coef = band_coefs(hm, d, *_band_consts(d), he=he)
+    if mode == "scaled":
+        return coef, t_hat, tab, ()
+    e_r, e_b = (torch.as_tensor(rng.random((n_k, h)) * 5, **f)
+                for h in (tab.yo.shape[1], tab.yi.shape[1]))
+    if mode == "fold-extreme":
+        return coef, t_hat, tab, (he, e_r + 45.0, e_b + 45.0)
+    return coef, t_hat, tab, (he, -e_r, -e_b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["unscaled", "scaled", "fold", "fold-extreme"])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", list(_BAND_CASES))
+def test_band_sr_kernel_matches_plain(cuda, case, dtype, mode):
+    """KS against its plain version on the same card inputs in its modes
+    (h unscaled, h's mantissas with the band exponents, those with the row
+    and column exponents folded in, and the fold at exponents that only
+    sum to a finite float32 exp), per degree block (complex64 1e-4, complex128 1e-11: both sum
+    the nodes in another order); KF once and KS once (one group of
+    offsets); two launches are bit for bit equal."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_f, band_sr
+
+    coef, t_hat, tab, args = _band_inputs(case, dtype, mode, cuda)
+    n_k, n_off = coef.shape[:2]
+    n0, f0 = band_sr.launches, band_f.launches
     got = band_sr(coef, t_hat, tab, *args)
-    assert band_sr.launches == n0 + 1
+    assert band_sr.launches == n0 + 1 and band_f.launches == f0 + 1
     torch.cuda.synchronize()
     ref = _band_sr_plain(coef, t_hat, tab, *args)
     assert got.shape == ref.shape == (n_k, n_off, tab.yo.shape[1], tab.yi.shape[1])
     err = _block_rel(got, ref, tab.n_o_host, tab.n_i_host)
     assert err < (1e-4 if dtype == torch.complex64 else 1e-11), err
     assert _same_bits(band_sr(coef, t_hat, tab, *args), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_band_f_kernel_matches_plain(cuda, dtype):
+    """KF (F_N at every node for a group of offsets) against its plain
+    version, the f that `_band_sr_plain` forms, per band N relative to the
+    band's largest |F| (complex64 1e-5, complex128 1e-13), zero past Q,
+    bits repeated; for offsets 3 .. 5 of 6 at per-k directions, with band
+    exponents past the clamp at 80."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_f_plain, band_f
+
+    coef, t_hat, tab, _ = _band_inputs("caa-n_end_add-per-k", dtype, "clamp", cuda)
+    coef, t_hat = coef.contiguous(), t_hat.contiguous()
+    n0 = band_f.launches
+    got = band_f(coef, t_hat, tab, 3, 6)
+    assert band_f.launches == n0 + 1
+    ref = _band_f_plain(coef, t_hat, tab, 3, 6)
+    n_q = tab.w.shape[0]
+    assert got.shape == ref.shape == (3, tab.n_bands, tab.q_pad)
+    assert not bool(got[..., n_q:].any())
+    scale = ref.abs().amax(dim=2, keepdim=True).clamp_min(torch.finfo(ref.real.dtype).tiny)
+    err = float(((got - ref).abs() / scale).max())
+    assert err < (1e-5 if dtype == torch.complex64 else 1e-13), err
+    assert _same_bits(band_f(coef, t_hat, tab, 3, 6), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_band_sr_kernel_in_offset_groups(cuda, dtype, monkeypatch):
+    """K NO = 6 offsets under an F budget of four: groups of 3 and 3 (K NO
+    not a multiple of the budget), a KF and a KS launch each; the table
+    equals the one-group table bit for bit, and its plain version per
+    degree block."""
+    from biem_helmholtz_sphere_tpu_torch.ops import band_sr as ks
+
+    coef, t_hat, tab, args = _band_inputs("caa-n_end_add-per-k", dtype, "fold", cuda)
+    whole = ks.band_sr(coef, t_hat, tab, *args)
+    per = tab.q_pad * tab.n_bands * coef.element_size()
+    monkeypatch.setattr(ks, "_F_BYTES", 4 * per)
+    assert ks.offset_groups(6, tab.q_pad, tab.n_bands, coef.element_size()) == [(0, 3), (3, 6)]
+    n0, f0 = ks.band_sr.launches, ks.band_f.launches
+    got = ks.band_sr(coef, t_hat, tab, *args)
+    assert ks.band_sr.launches == n0 + 2 and ks.band_f.launches == f0 + 2
+    assert _same_bits(got, whole)
+    err = _block_rel(got, ks._band_sr_plain(coef, t_hat, tab, *args), tab.n_o_host,
+                     tab.n_i_host)
+    assert err < (1e-4 if dtype == torch.complex64 else 1e-11), err
 
 
 @pytest.mark.requires_cuda

@@ -1,4 +1,4 @@
-"""A/B device times of KB, KA, K5, KC and K2 source variants on one card.
+"""A/B device times of KB, KA, K5, KC, K2 and KS source variants on one card.
 
     python tools/torch_kernel_ab.py [-k SUBSTRING] DIR [DIR ...]
 
@@ -10,18 +10,25 @@ ops/block_diag.py (e.g. `_LANE_TILE = 4` when a variant changes KB's
 register tile).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
 DIR.  For each variant the script builds the kernel library from DIR,
 checks every case against its plain version (relative error printed),
-then profiles each case in turns (v1 .. vn, vn .. v1, three times; the
-device time of the port's kernels per launch, torch.profiler) and prints
-the median device microseconds per launch of each case and variant, in
-complex64 and complex128.  Cases, at the bench widths (16 spheres on the
-4x4 lattice, n_end = 32, 4 k): KB's three products on the compacted
-lanes, KA at 131,072 points x 1 k and at 1 point x 4 k, K5's three launch
-shapes of a k-block (scaled and unscaled at 4 k x 16 radii x 32 orders,
-h only at 4 k x 9 distances x 63 bands; compared on the values
-mant exp(e)), the KC gather and K2 for a k-block (4 k x 9 radii).  With
--k, only the cases whose name contains SUBSTRING run.
+then times each case in turns (v1 .. vn, vn .. v1, three times) and
+prints the median, fastest and slowest device microseconds per launch of
+each case and variant, in complex64 and complex128: the device time of
+the port's kernels per launch (torch.profiler), or, for KS, one call
+between CUDA events after a warm-up call (torch.profiler lost the device
+events of some of its seconds-long launches on the H100: whole turns read
+0).  Cases, at the bench widths (16 spheres on the 4x4 lattice, n_end =
+32, 4 k): KB's three products on the compacted lanes, KA at 131,072
+points x 1 k and at 1 point x 4 k, K5's three launch shapes of a k-block
+(scaled and unscaled at 4 k x 16 radii x 32 orders, h only at 4 k x 9
+distances x 63 bands; compared on the values mant exp(e)), the KC gather
+and K2 for a k-block (4 k x 9 radii); and KS (its KF and KS launches) at
+chip_smoke.py phase 10 (a)'s shapes: 'caa' at n_end = 14 (H = 1,015,
+Q = 43,740 nodes), 4 k x 40 offsets of the hypercube {-2, 2}^4,
+complex64 in fold mode and complex128 unscaled.  With -k, only the cases
+whose name contains SUBSTRING run (`-k KS` builds KS's inputs alone).
 """
 
+import functools
 import os
 import statistics
 import sys
@@ -124,6 +131,53 @@ def cases(torch, dev, cdt):
     }
 
 
+def ks_case(torch, dev, cdt):
+    """KS's case: (kernel call, plain call, None, None: timed between CUDA
+    events), its arguments built at first use."""
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_coefs, band_sr
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts, _quad_tables
+    from chip_smoke import KB, N_END_C, hypercube_centers, sweep_ks_4d
+
+    @functools.cache
+    def args():
+        rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+        f = dict(dtype=rdt, device=dev)
+        tab = _quad_tables(create_from_branching_types("caa"), N_END_C, N_END_C, rdt, dev)
+        cube = hypercube_centers()
+        t = np.unique(np.round((cube[:, None] - cube[None]).reshape(-1, 4), 9), axis=0)
+        t = t[np.linalg.norm(t, axis=1) > 0][:40]
+        r = np.linalg.norm(t, axis=1)
+        t_hat = torch.as_tensor((t / r[:, None])[None], **f)
+        k = torch.as_tensor(sweep_ks_4d()[:KB], **f)
+        hm, he = spherical_h_scaled(4, tab.n_bands, k[:, None] * torch.as_tensor(r, **f))
+        if cdt == torch.complex128:
+            return (band_coefs(hm * torch.exp(he), 4, *_band_consts(4)), t_hat, tab), {}
+        rng = np.random.default_rng(3)
+        h = tab.yo.shape[1]
+        kw = dict(he=he, e_r=-torch.as_tensor(rng.random((KB, h)) * 5, **f),
+                  e_b=-torch.as_tensor(rng.random((KB, h)) * 5, **f))
+        return (band_coefs(hm, 4, *_band_consts(4), he=he), t_hat, tab), kw
+
+    return (lambda: band_sr(*args()[0], **args()[1]),
+            lambda: _band_sr_plain(*args()[0], **args()[1]), None, None)
+
+
+def _event_us(torch, fn):
+    """Microseconds of one call of fn() between CUDA events, after a
+    warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3
+
+
 def main():
     import torch
 
@@ -157,7 +211,9 @@ def main():
 
     dev = torch.device("cuda", 0)
     for cdt in (torch.complex64, torch.complex128):
-        cs = {name: case for name, case in cases(torch, dev, cdt).items() if only in name}
+        cs = {} if only == "KS" else cases(torch, dev, cdt)
+        cs = {name: case for name, case in {**cs, "KS": ks_case(torch, dev, cdt)}.items()
+              if only in name}
         times = {v: {name: [] for name in cs} for v in variants}
         for v in variants:
             use(v)
@@ -166,15 +222,18 @@ def main():
                 if mask is not None:
                     got, ref = got[mask], ref[mask]
                 err = float((got - ref).abs().max() / ref.abs().max())
+                del got, ref
                 print(f"{v} {cdt} {name}: max rel err {err:.3e}")
         for _ in range(3):
             for v in variants + variants[::-1]:
                 use(v)
                 for name, (kfn, _, _, reps) in cs.items():
-                    times[v][name].append(_per_launch_us(torch, kfn, reps))
+                    times[v][name].append(_event_us(torch, kfn) if reps is None
+                                          else _per_launch_us(torch, kfn, reps))
         for v in variants:
-            med = {name: round(statistics.median(t), 2) for name, t in times[v].items()}
-            print(f"{v} {cdt} device us per launch: {med}")
+            med = {name: (round(statistics.median(t), 2), round(min(t), 2), round(max(t), 2))
+                   for name, t in times[v].items()}
+            print(f"{v} {cdt} device us per launch (median, fastest, slowest): {med}")
     return 0
 
 

@@ -79,7 +79,8 @@ def _device_time(evt):
 # the __global__ functions of csrc/*.cu, as their CUDA names contain them
 PORT_KERNELS = ("fused_ba_eval_kernel", "fused_ba_eval_few_kernel", "block_diag_cmm_kernel",
                 "lane_gather_kernel", "lane_scatter_kernel", "spherical_jh_kernel",
-                "coax_fold_kernel", "dense_assemble_kernel", "graf_fold_kernel")
+                "coax_fold_kernel", "dense_assemble_kernel", "graf_fold_kernel", "band_f_kernel",
+                "band_sr_kernel")
 
 
 def _device_events(prof):
