@@ -10,8 +10,10 @@ LU, dense GMRES, the factored and offset-table matrix-free GMRES and the
 lattice-FFT GMRES), any incident field (`plane_wave` in closed form,
 `point_source` or any callable by quadrature), leading batch axes, the
 field evaluation (fused on "ba", the general harmonic sum otherwise),
-`max_memory`/`max_n_end` and the special functions of any dimension;
-the "gumerov" translation raises NotImplementedError.
+`max_memory`/`max_n_end`, every translation method ("gumerov" by the
+Gumerov-Duraiswami recurrences on "ba"/"bpa"), the special functions of
+any dimension and the public surfaces of `coords`, `harmonics`,
+`special`, `translation`, `biem` and `utils`.
 
 TF32 stays off: reduced-precision matmuls took the float32 sound-soft
 boundary residual of the reference from 6e-4 to 2.7e-2.

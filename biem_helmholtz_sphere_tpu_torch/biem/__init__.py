@@ -2,7 +2,7 @@
 
 from ._core import BIEMResultCalculator, biem
 from ._eval import biem_u
-from ._layer import blc, slc_dlc
+from ._layer import blc, potential_coef, slc_dlc
 from ._memory import max_memory, max_n_end
 from ._types import BIEMKwargs, BIEMResultCalculatorProtocol, UinCallable
 from ._waves import plane_wave, point_source
@@ -18,6 +18,7 @@ __all__ = [
     "point_source",
     "max_memory",
     "max_n_end",
+    "potential_coef",
     "slc_dlc",
     "blc",
 ]

@@ -796,11 +796,13 @@ def biem(
       it on every route and solves with it;
     * translational_coefficients_method is validated as
       translation_matrix does, used by the plain (stable=False) routes and
-      ignored by the scale-compensated ones.
+      ignored by the scale-compensated ones: "gumerov" builds the (S|R)
+      table of the dense, offset-table and lattice routes by rotation +
+      the Gumerov-Duraiswami ladders on "ba"/"bpa" and raises ValueError
+      on other trees, as the JAX package's does.
 
     relres/iters are the GMRES diagnostics (None on the direct routes);
-    density0 warm-starts GMRES.  The "gumerov" translation raises
-    NotImplementedError naming its ROADMAP item.
+    density0 warm-starts GMRES.
 
     The reference README problem (two sound-soft unit spheres at
     (0, +-2, 0), k=1, plane wave along x0), on the default route, a direct

@@ -14,11 +14,14 @@ Branching-type strings are parsed with 'b'+optional 'p' taking one
 subtree, 'c' taking two, 'a' terminal: "a" (2D), "ba"/"bpa" (3D),
 "bba"/"bpbpa"/"caa" (4D).  The tree is a frozen, hashable Python
 structure, so it keys the host-side table caches.  Host Python only:
-the same grammar and node/axis numbering as
-biem_helmholtz_sphere_tpu.coords._tree.
+the same grammar, node/axis numbering and `create_*` constructors as
+biem_helmholtz_sphere_tpu.coords._tree (`create_random` draws the same
+tree from the same seed).
 """
 
 from dataclasses import dataclass, field
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -109,6 +112,35 @@ class SphericalCoordinates:
         walk(self.root)
         return tuple(out)
 
+    def draw(self, ax=None):
+        """Draw the coordinate tree on a matplotlib axes (a new figure's
+        when ax is None); returns the axes.  Each node is a dot labelled
+        kind + node id."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        pos = {}
+        labels = {}
+
+        def walk(node, depth, x0, x1):
+            x = 0.5 * (x0 + x1)
+            pos[node.nid] = (x, -depth)
+            labels[node.nid] = f"{node.kind}{node.nid}"
+            n = len(node.children)
+            for i, ch in enumerate(node.children):
+                cx0 = x0 + (x1 - x0) * i / n
+                cx1 = x0 + (x1 - x0) * (i + 1) / n
+                ax.plot([x, 0.5 * (cx0 + cx1)], [-depth, -(depth + 1)], "k-", lw=1)
+                walk(ch, depth + 1, cx0, cx1)
+
+        walk(self.root, 0, 0.0, 1.0)
+        for nid, (x, y) in pos.items():
+            ax.plot([x], [y], "o", ms=14, color="#4c72b0")
+            ax.annotate(labels[nid], (x, y), ha="center", va="center", color="w", fontsize=8)
+        ax.set_axis_off()
+        return ax
+
 
 def create_from_branching_types(s):
     """Build coordinates from a branching-type string such as "ba" or "caa".
@@ -128,3 +160,51 @@ def create_from_branching_types(s):
         raise ValueError(f"trailing characters in branching type string {s!r}")
     root, _, _ = _build(spec, 0, 0)
     return SphericalCoordinates(root=root, branching_types_expression_str=s)
+
+
+def create_standard(c_ndim):
+    """Standard hyperspherical coordinates: "b"*(d-2) + "a"."""
+    if c_ndim < 2:
+        raise ValueError("c_ndim must be >= 2")
+    return create_from_branching_types("b" * (c_ndim - 2) + "a")
+
+
+def create_standard_prime(c_ndim):
+    """Primed standard coordinates: "bp"*(d-2) + "a"."""
+    if c_ndim < 2:
+        raise ValueError("c_ndim must be >= 2")
+    return create_from_branching_types("bp" * (c_ndim - 2) + "a")
+
+
+def create_hopf(c_ndim):
+    """Hopf coordinates: "c" splits in halves down to circles; c_ndim must
+    be a power of two."""
+    if c_ndim < 2 or (c_ndim & (c_ndim - 1)) != 0:
+        raise ValueError("Hopf coordinates require c_ndim a power of 2")
+
+    def rec(d):
+        if d == 2:
+            return "a"
+        return "c" + rec(d // 2) + rec(d // 2)
+
+    return create_from_branching_types(rec(c_ndim))
+
+
+def create_random(c_ndim, rng=None):
+    """A random valid branching tree of the given dimension; rng is a seed
+    or a numpy Generator (`np.random.default_rng`), drawn from in the same
+    order as the JAX package's, so one seed gives one tree in both."""
+    rng = np.random.default_rng(rng)
+
+    def rec(d):
+        if d == 2:
+            return "a"
+        if d == 3:
+            return rng.choice(["b", "bp"]) + rec(2)
+        kind = rng.choice(["b", "bp", "c"])
+        if kind in ("b", "bp"):
+            return kind + rec(d - 1)
+        d1 = int(rng.integers(2, d - 1))
+        return "c" + rec(d1) + rec(d - d1)
+
+    return create_from_branching_types(rec(c_ndim))

@@ -69,12 +69,27 @@ def _node_table(node, jobs, spherical):
     return fampow[..., fidx] * table[..., fidx, jidx]
 
 
-def harmonics(c, spherical, n_end):
+class Phase(int):
+    """Phase-convention marker, as the JAX package's: the harmonics use the
+    fixed e^{i m phi} convention, which is Phase(0); other values raise."""
+
+    def __new__(cls, v=0):
+        if int(v) != 0:
+            raise NotImplementedError(
+                "only the Phase(0) (e^{i m phi}) convention is implemented"
+            )
+        return super().__new__(cls, v)
+
+
+def harmonics(c, spherical, n_end, phase=None):
     """Evaluate all Y_h, h = 0..num-1, at the given angles: complex [..., num].
 
     `spherical` maps node id -> real angle tensor (broadcastable shapes);
-    the radius entry "r", if present, is ignored.
+    the radius entry "r", if present, is ignored.  `phase` takes Phase(0)
+    (or 0), the one convention implemented.
     """
+    if phase is not None:
+        Phase(phase)
     b = basis(c, n_end)
     out = None
     for node in c.nodes:

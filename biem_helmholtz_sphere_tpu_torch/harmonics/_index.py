@@ -141,6 +141,11 @@ def basis(c, n_end):
     )
 
 
+def index_array_harmonics(c, n_end):
+    """Root degree per flat harmonic (numpy int32 [num])."""
+    return basis(c, n_end).n_root
+
+
 def assume_n_end_from_num(c, num):
     """Infer n_end from a flat harmonic count (reference:
     ush.assume_n_end_and_include_negative_m_from_harmonics; _biem.py:864)."""

@@ -20,6 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -99,6 +100,20 @@ def default_device():
             "asks for the CPU (pass CPU tensors, or device='cpu')"
         )
     return torch.device("cuda")
+
+
+def as_tensors(*xs):
+    """xs as tensors on one device: the first tensor's, or the card
+    (`default_device`) when none is a tensor.  A Python or numpy number
+    keeps numpy's float64 / complex128 (torch.as_tensor would make a
+    Python float float32); None stays None."""
+    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    dev = default_device() if dev is None else dev
+    return tuple(
+        None if x is None else x.to(dev) if isinstance(x, torch.Tensor)
+        else torch.as_tensor(np.asarray(x), device=dev)
+        for x in xs
+    )
 
 
 def _nvcc():

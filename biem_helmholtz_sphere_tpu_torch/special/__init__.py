@@ -8,7 +8,12 @@ from ._family import (
     spherical_jh_all,
     spherical_jh_scaled,
 )
-from ._jacobi import jacobi_mu0, jacobi_recurrence, orthonormal_jacobi_table
+from ._jacobi import (
+    jacobi_mu0,
+    jacobi_recurrence,
+    orthonormal_jacobi_all,
+    orthonormal_jacobi_table,
+)
 from ._quad import gauss_jacobi, uniform_circle
 from ._shn1 import shn1, sjn
 
@@ -23,6 +28,7 @@ __all__ = [
     "jacobi_mu0",
     "jacobi_recurrence",
     "orthonormal_jacobi_table",
+    "orthonormal_jacobi_all",
     "gauss_jacobi",
     "uniform_circle",
 ]

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 from scipy.special import gammaln
 
+from ..ops.kernels import as_tensors
+
 
 def jacobi_mu0(alpha, beta):
     """mu_0 = integral of (1-x)^alpha (1+x)^beta over [-1, 1]."""
@@ -71,3 +73,13 @@ def orthonormal_jacobi_table(x, n_max, alphas, betas):
         pm, pn = pn, pp
         out.append(pp)
     return torch.stack(out, dim=-1)
+
+
+def orthonormal_jacobi_all(x, n_max, alpha, beta):
+    """One family of `orthonormal_jacobi_table`: [..., n_max+1] (x of an
+    integer dtype is taken in float64); on x's device when it is a
+    tensor, else on the card."""
+    (x,) = as_tensors(x)
+    if not x.is_floating_point():
+        x = x.double()
+    return orthonormal_jacobi_table(x, n_max, [alpha], [beta])[..., 0, :]

@@ -14,8 +14,8 @@ mode); method None or "rotation" on 'b'/'bp'-rooted trees in d >= 3 the
 rotation + coaxial decomposition (_rotation.sr_rotation); otherwise in
 d >= 3 the (R|R) by its bounded plane-wave kernel (one contraction) and
 the (S|R) by the band scan (`_sr_banded`, the KS kernel of
-ops/band_sr.py).  Gumerov's recurrences ("gumerov") are ROADMAP
-queue 1 item 9b.
+ops/band_sr.py); "gumerov" on the 3D "ba"/"bpa" tree the rotation +
+the Gumerov-Duraiswami recurrence ladders (_gumerov.sr_gumerov).
 """
 
 from functools import lru_cache
@@ -184,7 +184,6 @@ def _rr_plane_wave(c, t_sph, t_cart, n_out, n_in, k):
 
 
 _METHODS = (None, "triplet", "plane_wave", "gumerov", "rotation")
-_LATER = "ROADMAP queue 1 item 9b"
 
 
 def check_method(kind, method):
@@ -213,12 +212,11 @@ def translation_matrix(c, t, n_end, k, kind="SR", n_end_add=None, method=None):
     of t (or of k when t is not a tensor; on the card when neither is).
     """
     from ..ops.kernels import default_device
+    from ._gumerov import _require_gumerov_tree, sr_gumerov
     from ._rotation import sr_rotation
 
     n_in = n_end if n_end_add is None else n_end_add
     check_method(kind, method)
-    if method == "gumerov":
-        raise NotImplementedError(f'method="gumerov" is {_LATER}')
     if isinstance(t, dict):
         t_sph, t_cart = t, None
         dev = next(iter(t.values())).device
@@ -227,7 +225,12 @@ def translation_matrix(c, t, n_end, k, kind="SR", n_end_add=None, method=None):
             k.device if isinstance(k, torch.Tensor) else default_device())
         t_cart, t_sph = torch.as_tensor(t, device=dev), None
     k = torch.as_tensor(k, device=dev)
-    if c.c_ndim == 2:  # every method but "gumerov" is Graf's closed form in 2D
+    if method == "gumerov":
+        _require_gumerov_tree(c)
+        if n_in != n_end:
+            raise ValueError('method="gumerov" requires n_end_add == n_end')
+        return sr_gumerov(c, t_sph, n_end, k, kind=kind, t_cart=t_cart)
+    if c.c_ndim == 2:  # every other method is Graf's closed form in 2D
         return _graf_2d(c, t_sph, n_end, n_in, k, kind, t_cart=t_cart)
     use_rotation = method == "rotation" or (
         method is None and c.root.kind in ("b", "bp") and n_in == n_end

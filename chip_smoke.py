@@ -167,6 +167,34 @@ non-zero before the result line):
    block (complex64 1e-4, complex128 1e-11), bit for bit on repeat,
    timed beside its bound.
 
+11. the Gumerov-Duraiswami translation (translational_coefficients_method
+   "gumerov", the plain routes) and the public surfaces, each path with
+   the launch counts set to 0 just before it and read just after: (a)
+   phase 6 (a)'s bench in complex128 with "gumerov" and the default
+   solver, which must take the offset-table route (the KC gather and
+   scatter and K5 launched; K2 and KB not): relres <= 1e-11, uscat(0)
+   within 1e-7 of the golden and 1e-9 of 6 (a)'s, the boundary residual
+   (1e-3), the peak memory, its (S|R) table against 6 (a)'s per (k,
+   offset, degree block) within 1e-10, and a stage split (the K5 column,
+   the ladders, the sandwich, the table product, the KC gather and
+   scatter); (b) phase 5 (b)'s LU at n_end=19 in complex128 with
+   stable=False and "gumerov" (KD launched, K2 not) within 1e-9 of 5 (b);
+   (c) phase 9 (a)'s 32 x 32 'ba' lattice at n_end=19 in complex128 with
+   "gumerov" on the lattice route within 1e-8 of 9 (a)'s complex128; (d)
+   `gd_coaxial` at (a)'s 4 k x 9 radii on the card against the same call
+   on the CPU per (k, radius, degree block), complex128 1e-12 and
+   complex64 2e-4, timed beside its bound, and its (R|R) at the same
+   shapes (`GD_TOL`, the conditioning printed; complex64 also against
+   float64 within 2x of the CPU float32's own error); (e) K5 unscaled at
+   the ladders' 98 orders against its plain version at (a)'s kr and at
+   (c)'s (where float32 overflows: the same entries must be non-finite;
+   every output relative above 1, h and h' entry by entry, j and j' entry
+   by entry in complex128 only; in complex64 every output against the
+   float64 plain version within 2x of the plain float32 version's own
+   error), and
+   `regular_singular_component` and `potential_coef` on the card against
+   the CPU.
+
 Phase 2 also holds KB's row-panel mode (d >= 4: degree blocks too large
 to stage whole) against its plain version, D^H and D in both dtypes, each
 launched twice and required bit-for-bit equal: at (a)'s shapes (timed,
@@ -238,6 +266,28 @@ ANCHORS = (  # (c): (tree, lattice side, n_end, value)
     ("ba", 8, 22, -0.647372023208673 + 0.018550258564751655j),  # accuracy/accuracy.csv
 )
 TOL_REL = {"complex64": 1e-4, "complex128": 1e-10}
+# phase 11 (d): the ladders on the card against the CPU, per degree block.
+# (S|R) in complex64: the CPU comparison of the port's float32 ladders with
+# the JAX package's at these shapes shows 4.9e-5 (with their float64 5.5e-5).
+# (R|R): its blocks below GD_RR_FLOOR of the table are held against that
+# floor (the ladder forms them by cancellation).  At n_end = 32 the (R|R)
+# ladder is ill-conditioned: radii one ulp longer move the CPU float64
+# table by 5.0e-12 per block, and the card differs from the CPU by about
+# that (5.5e-12 on the H100, this phase); in complex64 the card differed
+# from the CPU by 1.8e-3, the CPU's own float32 table from float64 by
+# 2.0e-3.  So complex64 (R|R) is also held against float64: within
+# GD_RR_F64_FACTOR of the CPU float32 table's own error there
+GD_TOL = {("SR", "complex128"): 1e-12, ("SR", "complex64"): 2e-4,
+          ("RR", "complex128"): 2e-11, ("RR", "complex64"): 5e-3}
+GD_RR_FLOOR = 1e-3
+GD_RR_F64_FACTOR = 2.0
+# phase 11 (e): complex64 K5 against float64 within this multiple of the
+# plain float32 version's own error against float64, each output
+K5_F64_FACTOR = 2.0
+# results of earlier phases that phase 11 holds its own against: uscat(0)
+# of 6 (a) [KB], of 5 (b) (complex128, stable=False) [KB], of 9 (a)
+# (complex128)
+SHARED = {}
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s; FP32 / FP64
 # operations/s outside the tensor cores; and those of a contraction, which
 # in FP64 runs on the tensor cores (DMMA, exact IEEE FP64) at 67 TFLOP/s
@@ -1252,6 +1302,9 @@ def dense_route(torch, dev, card):
             raise RuntimeError(f"{label}: BC residual {res_max:.3e} > 1e-3")
         if min(counts["dense_assemble"], counts["spherical_jh"], counts["coax_fold"]) <= 0:
             raise RuntimeError(f"{label}: the dense route skipped a kernel: {counts}")
+        if rdt == torch.float64:  # for phase 11 (b)
+            SHARED["5b"] = calc.uscat(torch.zeros(3, 1, dtype=rdt, device=dev)).reshape(-1) \
+                .cpu().numpy()
         del calc, ref
         split(label, rdt, N_END_LU,
               (scaled if rdt == torch.float32 else plain) + [(torch.linalg, "solve", "LU")])
@@ -1450,6 +1503,7 @@ def matfree_route(torch, dev, card):
     if not bool(torch.isfinite(calc.density).all()) or worst > 1e-11:
         raise RuntimeError(f"(a) relres {worst:.3e} > 1e-11 or non-finite density")
     u0 = u0.cpu().numpy()
+    SHARED["6a"] = u0  # for phase 11 (a)
     for i, g in enumerate(golden):
         ref = complex(*g["uscat0"])
         err = abs(u0[i] - ref) / abs(ref)
@@ -2431,6 +2485,7 @@ def n_balls_family(torch, dev, card):
             del again
         del calc, captured, out
         torch.cuda.empty_cache()
+    SHARED["9a"] = u_a["complex128"]  # for phase 11 (c)
     d_c = abs(u_a["complex64"] - u_a["complex128"])
     d_art = abs(u_a["complex128"] - ARTIFACT_3D)
     print(f"[9] (a) complex64 - complex128 {d_c:.3e}; complex128 - the JAX package's float32 "
@@ -2670,14 +2725,16 @@ def n_balls_family(torch, dev, card):
     return results, kg_launches
 
 
-def block_rel_err(torch, got, ref, n_o, n_i):
+def block_rel_err(torch, got, ref, n_o, n_i, floor=0.0):
     """(max abs error, max error relative to the largest |ref| of each
     (leading index, row degree, column degree) block) of tables [..., Ho,
     Hi] with degree-sorted rows n_o and columns n_i (host arrays): across
-    blocks the (S|R) entries span many orders of magnitude."""
+    blocks the (S|R) entries span many orders of magnitude.  A block below
+    `floor` times its table's largest |ref| is held against that instead."""
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError("kernel output is not finite")
     worst_abs, worst = 0.0, 0.0
+    big = floor * ref.abs().amax(dim=(-2, -1))
     for a in np.unique(n_o):
         ra = np.flatnonzero(n_o == a)
         for b in np.unique(n_i):
@@ -2685,7 +2742,8 @@ def block_rel_err(torch, got, ref, n_o, n_i):
             g = got[..., ra[0]:ra[-1] + 1, cb[0]:cb[-1] + 1]
             r = ref[..., ra[0]:ra[-1] + 1, cb[0]:cb[-1] + 1]
             d = (g - r).abs().amax(dim=(-2, -1))
-            m = r.abs().amax(dim=(-2, -1)).clamp_min(torch.finfo(d.dtype).tiny)
+            m = torch.maximum(r.abs().amax(dim=(-2, -1)), big).clamp_min(
+                torch.finfo(d.dtype).tiny)
             worst_abs = max(worst_abs, float(d.max()))
             worst = max(worst, float((d / m).max()))
     return worst_abs, worst
@@ -3118,6 +3176,322 @@ def c_trees(torch, dev, card):
     return results, launches
 
 
+def gd_bound(n_pair, n_end, name):
+    """The ladders' bound for n_pair (k, radius) pairs: the radial column's
+    3 n_end + 2 orders, the sectorial ladder (n_end - 1 steps of 3
+    multiplies and an add per n' and real part) and the n-advance ladder
+    (n_end - 1 steps of 4 multiplies and 2 adds per (m, n') and real part)
+    at the CUDA cores' rate, or the [H, H] factors written (the column read
+    once), the larger."""
+    cs = 8 if name == "complex64" else 16
+    npl, h = 3 * n_end + 2, n_end * n_end
+    flops = n_pair * (n_end - 1) * 2 * npl * (4 + 6 * n_end)
+    return bound(n_pair * (npl * cs + h * h * cs), flops, name)
+
+
+def gumerov_and_surfaces(torch, dev, card):
+    """Phase 11: the Gumerov-Duraiswami translation on each plain route of
+    the bench lattice and the 32 x 32 lattice, the ladders alone on the
+    card against the CPU, K5 at their 98 orders, and the radial surfaces
+    (`regular_singular_component`, `potential_coef`) against the CPU, each
+    path with the launch counts set to 0 just before it and read just
+    after."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core, potential_coef
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics import regular_singular_component
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.special._family import (
+        _UNSCALED, _spherical_jh_all_plain, spherical_jh)
+    from biem_helmholtz_sphere_tpu_torch.translation import _gumerov, gd_coaxial
+
+    reset, read = kernel_counts()
+    c = create_from_branching_types("ba")
+    centers_np = lattice_centers()
+    nb = len(centers_np)
+    ks = sweep_ks()[:KB]
+    n_sys = nb * N_END * N_END
+    n_root = basis(c, N_END).n_root
+    gum = dict(translational_coefficients_method="gumerov")
+    with open(os.path.join(ROOT, "biem_helmholtz_sphere_tpu_torch", "data",
+                           "bench_golden_f64.json")) as fh:
+        golden = json.load(fh)["points"][:KB]
+
+    def solve(rdt, n_end, **kw):
+        f = dict(dtype=rdt, device=dev)
+        kt = torch.as_tensor(ks, **f)
+        uin, _ = plane_wave(k=kt, direction=torch.tensor([1.0, 0.0, 0.0], **f)[:, None]
+                            .expand(3, KB))
+        return biem(c, centers=torch.as_tensor(centers_np, **f).expand(KB, nb, 3),
+                    radii=torch.ones(KB, nb, **f), k=kt, n_end=n_end, uin=uin, **kw)
+
+    def uscat0(calc):
+        x = torch.zeros(calc.c.c_ndim, 1, dtype=calc.radii.dtype, device=dev)
+        return calc.uscat(x).reshape(-1).cpu().numpy()
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+
+    # (a) the float64 bench with "gumerov": the offset-table route, its
+    # (S|R) table by the ladders at the 9 distinct radii and the sandwich
+    route = _core._route("auto", nb, n_sys, torch.float64, dev, True, False, centers_np)
+    if route != "matfree":
+        raise RuntimeError(f"(a) auto picks {route!r} for the float64 bench lattice")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(torch.float64, N_END, **gum)
+    u0 = uscat0(calc)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[11] (a) bench lattice n_end={N_END} ({n_sys} unknowns), complex128, \"gumerov\", "
+          f"default solver -> {route!r}: {dt:.3f} s for {KB} k, launches {launches}, peak "
+          f"device memory {peak:.3f} GiB ({card})")
+    if calc.matrix is not None or calc.relres is None:
+        raise RuntimeError("(a) the default route formed the matrix or did not iterate")
+    require_launched(launches, ("lane_gather", "lane_scatter", "spherical_jh"), "[11] (a)")
+    if launches["coax_fold"] or launches["block_diag_cmm"]:
+        raise RuntimeError(f"(a) the Gumerov route launched K2 or KB: {launches}")
+    worst = float(calc.relres.max())
+    print(f"[11] (a) GMRES iters {calc.iters.tolist()}, max relres {worst:.3e}")
+    if not bool(torch.isfinite(calc.density).all()) or worst > 1e-11:
+        raise RuntimeError(f"(a) relres {worst:.3e} > 1e-11 or non-finite density")
+    ref = [complex(*g["uscat0"]) for g in golden]
+    e_gold, e_6a = rel(u0, ref), rel(u0, SHARED["6a"])
+    print(f"[11] (a) uscat(0) {[f'{u:.12f}' for u in u0]}: rel err against the JAX f64 golden "
+          f"{e_gold:.3e}, against phase 6 (a)'s default translation {e_6a:.3e}")
+    if any(abs(g["k"] - float(k)) > 1e-6 for g, k in zip(golden, ks)):
+        raise RuntimeError("(a) the golden's k are not the sweep's")
+    if not e_gold <= 1e-7 or not e_6a <= 1e-9:
+        raise RuntimeError(f"(a) uscat(0) off the golden ({e_gold:.3e}) or 6 (a) ({e_6a:.3e})")
+    res_max, res_mean = bc_residual(torch, calc)
+    print(f"[11] (a) BC residual max {res_max:.3e} mean {res_mean:.3e}")
+    if not res_max <= 1e-3:
+        raise RuntimeError(f"(a) BC residual {res_max:.3e} > 1e-3")
+    del calc
+    torch.cuda.empty_cache()
+    uniq, _, uniq_r, r_inv = _core._offsets(centers_np)
+    kt = torch.as_tensor(ks, dtype=torch.float64, device=dev)
+    tab_g = _core._offset_table(c, N_END, uniq, uniq_r, r_inv, kt, None, "gumerov")
+    tab_d = _core._offset_table(c, N_END, uniq, uniq_r, r_inv, kt, None, None)
+    _, err = block_rel_err(torch, tab_g, tab_d, n_root, n_root)
+    print(f"[11] (a) the (S|R) table [{KB}, {len(uniq)}, {len(n_root)}, {len(n_root)}] "
+          f"against phase 6 (a)'s (the band sum, K2): max rel err per (k, offset, degree "
+          f"block) {err:.3e}")
+    if not err <= 1e-10:
+        raise RuntimeError(f"(a) the Gumerov table is off the default one by {err:.3e}")
+    del tab_g, tab_d
+    torch.cuda.empty_cache()
+    stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows", "radial rows"),
+              (_gumerov, "gd_coaxial", "ladders (K5 + the two ladders)"),
+              (_gumerov, "spherical_jh_all", "K5 column"),
+              (_gumerov, "_sandwich", "sandwich"), (_core, "gmres_solve_op", "GMRES"),
+              (_core, "_table_product", "table product (pad, bmm, unpad)"),
+              (_core, "lane_gather", "KC gather"), (_core, "lane_scatter", "KC scatter"),
+              (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
+    acc, total = split_stages(torch, lambda: uscat0(solve(torch.float64, N_END, **gum)), stages)
+    nested = ("table product (pad, bmm, unpad)", "KC gather", "KC scatter")
+    acc["GMRES (rest)"] = acc.pop("GMRES") - sum(acc.get(n, 0.0) for n in nested)
+    acc["ladders (rest)"] = acc.pop(stages[2][2]) - acc.get("K5 column", 0.0)
+    labels = ["RHS", "radial rows", "K5 column", "ladders (rest)", "sandwich",
+              "GMRES (rest)", *nested, "uscat(0)"]
+    print(f"[11] (a) complex128 Gumerov offset-table GMRES stage split, s per k-block of {KB} "
+          f"(synchronising timers): {format_split(acc, total, labels, 1)} ({card})")
+
+    # (b) the LU tier, complex128, stable=False: "gumerov" against the default
+    n_lu = nb * N_END_LU * N_END_LU
+    route = _core._route("auto", nb, n_lu, torch.float64, dev, True, False, centers_np)
+    if route != "lu":
+        raise RuntimeError(f"(b) auto picks {route!r} for the n_end={N_END_LU} lattice")
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    calc = solve(torch.float64, N_END_LU, stable=False, **gum)
+    u_b = uscat0(calc)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    e_b = rel(u_b, SHARED["5b"])
+    print(f"[11] (b) lattice n_end={N_END_LU} ({n_lu} unknowns), complex128 stable=False "
+          f"\"gumerov\", auto -> LU: {dt:.3f} s, launches {counts}; uscat(0) against phase 5 "
+          f"(b)'s default translation rel err {e_b:.3e} ({card})")
+    if calc.relres is not None or calc.matrix is None:
+        raise RuntimeError("(b) the default solver did not take the direct LU")
+    require_launched(counts, ("dense_assemble", "spherical_jh"), "[11] (b)")
+    if counts["coax_fold"] or not bool(torch.isfinite(calc.density).all()) or not e_b <= 1e-9:
+        raise RuntimeError(f"(b) K2 launched or uscat(0) off by {e_b:.3e}: {counts}")
+    del calc
+    torch.cuda.empty_cache()
+
+    # (c) the 32 x 32 'ba' lattice at n_end=19, complex128, "gumerov": the
+    # lattice route, its half table by the ladders
+    cen3 = square_lattice(N_SIDE_3D, 3)
+    n3 = len(cen3) * N_END_3D * N_END_3D
+    route = _core._route("auto", len(cen3), n3, torch.float64, dev, True, False, cen3)
+    if route != "lattice":
+        raise RuntimeError(f"(c) auto picks {route!r} for the {N_SIDE_3D}^2 lattice")
+    f64 = dict(dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    calc = biem(c, centers=torch.as_tensor(cen3, **f64), radii=torch.ones(len(cen3), **f64),
+                k=torch.tensor(1.0, **f64), n_end=N_END_3D,
+                uin=plane_wave(k=torch.tensor(1.0, **f64),
+                               direction=torch.tensor([1.0, 0.0, 0.0], **f64))[0], **gum)
+    u_c = complex(uscat0(calc)[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    relres = float(calc.relres.max())
+    e_c = abs(u_c - SHARED["9a"]) / abs(SHARED["9a"])
+    print(f"[11] (c) 'ba' {N_SIDE_3D}x{N_SIDE_3D} lattice n_end={N_END_3D} ({n3} unknowns), "
+          f"complex128 \"gumerov\" -> lattice: {dt:.3f} s (cold), {int(calc.iters.max())} GMRES "
+          f"steps, relres {relres:.3e}, uscat(0) {u_c:.12f}, against phase 9 (a)'s complex128 "
+          f"rel err {e_c:.3e}, peak {peak:.3f} GiB; launches {counts} ({card})")
+    require_launched(counts, ("spherical_jh", "fused_ba_eval_few"), "[11] (c)")
+    if counts["coax_fold"] or counts["block_diag_cmm"] or counts["graf_fold"]:
+        raise RuntimeError(f"(c) the Gumerov lattice launched K2, KB or KG: {counts}")
+    if not bool(torch.isfinite(calc.density).all()) or relres > 1e-11 or not e_c <= 1e-8:
+        raise RuntimeError(f"(c) relres {relres:.3e} or uscat(0) off by {e_c:.3e}")
+    del calc
+    torch.cuda.empty_cache()
+
+    # (d) the ladders alone at (a)'s 4 k x 9 radii, on the card against the CPU
+    for cdt in (torch.complex128, torch.complex64):
+        name = str(cdt).split(".")[-1]
+        rdt = torch.float64 if cdt == torch.complex128 else torch.float32
+        r_d = torch.as_tensor(uniq_r, dtype=rdt, device=dev)
+        k_d = torch.as_tensor(ks, dtype=rdt, device=dev)[:, None]
+        reset()
+        got = gd_coaxial(c, r_d, N_END, k_d)
+        n_k5 = read()["spherical_jh"]
+        ref = gd_coaxial(c, r_d.cpu(), N_END, k_d.cpu()).to(dev)
+        _, err = block_rel_err(torch, got, ref, n_root, n_root)
+        ms = cuda_ms(torch, lambda: gd_coaxial(c, r_d, N_END, k_d), 10)
+        z = (k_d * r_d).to(cdt)
+        ms_k5 = cuda_ms(torch, lambda: spherical_jh(_UNSCALED, 3, 3 * N_END + 2, z), 10)
+        b = gd_bound(z.numel(), N_END, name)
+        npl, cs = 3 * N_END + 2, 8 if name == "complex64" else 16
+        b_k5 = bound(z.numel() * cs + z.numel() * npl * 4 * cs,
+                     z.numel() * (15 * (3 * npl + 36) + 40 * npl), name)
+        tol = GD_TOL["SR", name]
+        print(f"[11] (d) gd_coaxial {name} at {KB} k x {len(uniq_r)} radii, n_end={N_END} "
+              f"({3 * N_END + 2} orders): card against CPU max rel err per (k, radius, degree "
+              f"block) {err:.3e} (gate {tol:g}); {ms:.4f} ms ({n_k5} K5 launch; the K5 column "
+              f"alone {ms_k5:.4f} ms, bound {b_k5[0]:.6f} ms ({b_k5[1]})), bound {b[0]:.6f} ms "
+              f"({b[1]}) ({card})")
+        if n_k5 != 1 or not err <= tol:
+            raise RuntimeError(f"(d) gd_coaxial {name}: {err:.3e}, K5 launches {n_k5}")
+        got = gd_coaxial(c, r_d, N_END, k_d, kind="RR")
+        ref = gd_coaxial(c, r_d.cpu(), N_END, k_d.cpu(), kind="RR")
+        ref64 = gd_coaxial(c, r_d.cpu().double(), N_END, k_d.cpu().double(), kind="RR")
+        fl = dict(floor=GD_RR_FLOOR)
+        err = block_rel_err(torch, got, ref.to(dev), n_root, n_root, **fl)[1]
+        if name == "complex128":  # the ladder's conditioning: radii one ulp longer
+            nudge = gd_coaxial(c, r_d.cpu() * (1 + 2.0**-52), N_END, k_d.cpu(), kind="RR")
+            cond = block_rel_err(torch, nudge, ref, n_root, n_root, **fl)[1]
+            extra, ok = f"radii one ulp longer move the CPU table by {cond:.3e}", True
+        else:
+            e64 = block_rel_err(torch, got.to(ref64.dtype).cpu(), ref64, n_root, n_root, **fl)[1]
+            own = block_rel_err(torch, ref.to(ref64.dtype), ref64, n_root, n_root, **fl)[1]
+            extra = (f"against float64 {e64:.3e}, the CPU float32 table's own {own:.3e} (gate "
+                     f"{GD_RR_F64_FACTOR:g}x)")
+            ok = e64 <= GD_RR_F64_FACTOR * own
+        tol = GD_TOL["RR", name]
+        print(f"[11] (d) gd_coaxial (R|R) {name}, the same shapes: card against CPU max rel err "
+              f"per (k, radius, degree block), blocks below {GD_RR_FLOOR:g} of the table "
+              f"against that, {err:.3e} (gate {tol:g}); {extra} ({card})")
+        if not (err <= tol and ok):
+            raise RuntimeError(f"(d) gd_coaxial RR {name}: {err:.3e}; {extra}")
+        del got, ref, ref64
+        torch.cuda.empty_cache()
+
+    # (e) K5 at the ladders' 98 orders, then the radial surfaces, on the
+    # card against the CPU: (a)'s kr (28-153) and (c)'s (4-17, past
+    # float32's range at the top orders: the same non-finite entries)
+    npl = 3 * N_END + 2
+    for cdt in (torch.complex128, torch.complex64):
+        name = str(cdt).split(".")[-1]
+        rdt = torch.float64 if cdt == torch.complex128 else torch.float32
+        for label, kv in (("(a)", ks), ("(c)", np.ones(1))):
+            z = (torch.as_tensor(kv, dtype=rdt, device=dev)[:, None]
+                 * torch.as_tensor(uniq_r, dtype=rdt, device=dev)).to(cdt)
+            got = spherical_jh(_UNSCALED, 3, npl, z)
+            ref = _spherical_jh_all_plain(3, npl, z)
+            # every output relative above 1 (finite where the plain one is);
+            # entry by entry relative where |plain| is normal: h and h' (what
+            # the (S|R) ladders read) in both dtypes, j and j' in complex128
+            # only: at these orders the float32 j_n(kr) are far below 1 (j_97(28)
+            # ~ 1e-44) and the plain version's own float32 j, j' are up to
+            # 2e-3 and 1.0 off its float64 ones, so two float32 runs of them
+            # agree to no set relative tolerance.  In complex64 every output is
+            # instead held against the float64 plain version, where that is a
+            # normal float32: within K5_F64_FACTOR of the plain float32
+            # version's own error there
+            tiny = torch.finfo(rdt).tiny
+            e_abs = max(unscaled_err(torch, g, r)[0] for g, r in zip(got, ref))
+            rels = [float(((g - r).abs()[m] / r.abs()[m]).max())
+                    for g, r, m in ((g, r, torch.isfinite(r) & (r.abs() >= tiny))
+                                    for g, r in zip(got, ref))]
+            ref64 = _spherical_jh_all_plain(3, npl, z.to(torch.complex128))
+
+            def err64(x, r, r64):
+                e = (x.to(r64.dtype) - r64).abs() / r64.abs()
+                return float(e[torch.isfinite(r) & (r64.abs() >= tiny)].max())
+
+            own = [err64(r, r, r64) for r, r64 in zip(ref, ref64)]
+            k5_64 = [err64(g, r, r64) for g, r, r64 in zip(got, ref, ref64)]
+            gated = rels[2:] if name == "complex64" else rels
+            n_inf = int((~torch.isfinite(got[2])).sum())
+            print(f"[11] (e) K5 unscaled {name} at {label}'s {z.numel()} kr x {npl} orders: "
+                  f"max_abs_err {e_abs:.3e} (relative above 1); max_rel_err (normal values) "
+                  f"j {rels[0]:.3e} j' {rels[1]:.3e} h {rels[2]:.3e} h' {rels[3]:.3e}; against "
+                  f"float64 (where a normal float32) K5 j {k5_64[0]:.3e} j' {k5_64[1]:.3e} h "
+                  f"{k5_64[2]:.3e} h' {k5_64[3]:.3e}, the plain version's own j {own[0]:.3e} j' "
+                  f"{own[1]:.3e} h {own[2]:.3e} h' {own[3]:.3e}; {n_inf} h entries not finite, "
+                  f"where the plain version's are not")
+            if not max(e_abs, *gated) <= TOL_REL[name]:
+                raise RuntimeError(f"(e) K5 at {npl} orders {name}: err {e_abs:.3e} / {rels}")
+            if name == "complex64" and not all(
+                    e <= K5_F64_FACTOR * o for e, o in zip(k5_64, own)):
+                raise RuntimeError(f"(e) K5 at {npl} orders {name} against float64: {k5_64}, "
+                                   f"the plain version's own {own}")
+        f = dict(dtype=rdt, device=dev)
+        r_e = torch.as_tensor(uniq_r, **f)[None, :] / 4.0
+        k_e = torch.as_tensor(ks, **f)[:, None]
+        worst = 0.0
+        for tree in ("ba", "bba"):
+            ct = create_from_branching_types(tree)
+            for typ in ("regular", "singular"):
+                for der in (False, True):
+                    got = regular_singular_component(ct, r_e, 16, k_e, type=typ, derivative=der)
+                    ref = regular_singular_component(ct, r_e.cpu(), 16, k_e.cpu(), type=typ,
+                                                     derivative=der)
+                    worst = max(worst, unscaled_err(torch, got, ref.to(dev))[0])
+        n_deg = torch.arange(16, device=dev)[:, None]
+        one = torch.ones((), **f)
+        for d in (2, 3, 4):
+            for kk in (k_e[:, 0], k_e[:, 0] + 0.1j):
+                for der in ("S", "D"):
+                    for ff in ("solution", "harmonics"):
+                        got = potential_coef(n_deg, d, kk, one, 1.5 * one, der, for_func=ff)
+                        ref = potential_coef(n_deg.cpu(), d, kk.cpu(), one.cpu(), 1.5 * one.cpu(),
+                                             der, for_func=ff)
+                        worst = max(worst, unscaled_err(torch, got, ref.to(dev))[0])
+        print(f"[11] (e) regular_singular_component ('ba', 'bba' x 4 cases) and potential_coef "
+              f"(d = 2, 3, 4, real and complex k, S/D x solution/harmonics) {name}, card against "
+              f"CPU: max err {worst:.3e} (relative above 1)")
+        if not worst <= TOL_REL[name]:
+            raise RuntimeError(f"(e) the radial surfaces {name}: err {worst:.3e}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -3164,6 +3538,7 @@ def main():
     c_results, c_launches = c_trees(torch, dev, card)
     results.update(c_results)
     launches.update(c_launches)
+    gumerov_and_surfaces(torch, dev, card)
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",

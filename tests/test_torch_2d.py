@@ -14,8 +14,13 @@ within 1e-9; two direct solves (geometry along the batch) within
 density evaluated by both packages: 1e-11 of the largest field value (64
 circles' fields summed, each of the size of the total).  Float32 past the
 overflow wall within 1e-3 of float64.
+
+The JAX package's lattice solves compile for minutes on the CPU: its
+values are committed in tests/golden/test_torch_2d.npz (`jax_golden`
+below, `python tools/torch_golden_from_jax.py --tests`).
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -26,7 +31,7 @@ from biem_helmholtz_sphere_tpu import point_source as j_point_source
 from biem_helmholtz_sphere_tpu.cli._accuracy import lattice_centers
 from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
 from biem_helmholtz_sphere_tpu.ops.cplx import C
-from biem_helmholtz_sphere_tpu_torch import BIEMResultCalculator, biem, plane_wave, point_source
+from biem_helmholtz_sphere_tpu_torch import biem, plane_wave, point_source
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 
 F64 = dict(dtype=torch.float64)
@@ -132,48 +137,47 @@ def _assert_fields(got, ref, tol):
         assert np.abs(g[~nan] - r[~nan]).max() <= tol * np.abs(r[~nan]).max(), key
 
 
-@pytest.fixture(scope="module")
-def jax_2d():
-    """The JAX package's solve of the lattice (its default route, the
-    lattice FFT) with its fields, and the result itself."""
-    calc = j_biem(j_tree("a"), **_kw("jax"))
-    assert calc.matrix is None and calc.iters is not None
-    return _fields(calc, "jax"), calc
+INPUTS = ["batch-geometry", "point-source", "plane-wave-untagged"]
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
-def test_2d_fields_match_jax(jax_2d, route):
-    """Density, near field (a point inside a circle NaN), far field and
-    per-ball field of the lattice of unequal circles at two k with Robin
-    data, against the JAX package's lattice solve: the lattice route
-    (KG's table, FFT), the dense routes (KG + KD) and dense GMRES, stable
-    and plain."""
-    calc = biem(create_from_branching_types("a"), **ROUTES[route], **_kw("torch"))
-    assert (calc.matrix is None) == route.startswith("lattice")
-    _assert_fields(_fields(calc, "torch"), jax_2d[0],
-                   1e-10 if route.startswith("lattice") else 1e-9)
-
-
-@pytest.mark.parametrize("case", ["batch-geometry", "point-source", "plane-wave-untagged"])
-def test_2d_inputs_match_jax(case):
-    """Geometry that varies along the batch (the dense route), a point
-    source and an untagged plane wave (both by the quadrature right-hand
-    side) in 2D, each against the same call of the JAX package (complex k
-    in 2D: tests/test_torch_complex_k.py)."""
+def _input_kw(case, lib):
+    """test_2d_inputs_match_jax's biem() arguments on either package."""
     ks, centers, field = KS, CENTERS, "plane-wave"
     if case == "batch-geometry":
         centers = np.stack([CENTERS, CENTERS * 1.15])
     elif case == "point-source":
         field = "point-source"
-    kw_t, kw_j = _kw("torch", ks, centers, field), _kw("jax", ks, centers, field)
+    kw = _kw(lib, ks, centers, field)
     if case == "plane-wave-untagged":
-        for kw in (kw_t, kw_j):
-            u, g = kw["uin"], kw["uin_grad"]
-            kw["uin"], kw["uin_grad"] = (lambda x, /, u=u: u(x)), (lambda x, /, g=g: g(x))
-    got = _fields(biem(create_from_branching_types("a"), **kw_t), "torch")
-    ref = _fields(j_biem(j_tree("a"), **kw_j), "jax")
-    # batch geometry: LU in both packages; the rest: each package's GMRES
-    _assert_fields(got, ref, 1e-10 if case == "batch-geometry" else 1e-9)
+        u, g = kw["uin"], kw["uin_grad"]
+        kw["uin"], kw["uin_grad"] = (lambda x, /, u=u: u(x)), (lambda x, /, g=g: g(x))
+    return kw
+
+
+def jax_golden():
+    """The JAX package's values the tests below read: its solve of the
+    lattice (its default route, the lattice FFT, with its GMRES steps) and
+    of each case of INPUTS, with their fields."""
+    calc = j_biem(j_tree("a"), **_kw("jax"))
+    out = {f"lattice {key}": v for key, v in _fields(calc, "jax").items()}
+    out["lattice iters"] = np.asarray(calc.iters) if calc.matrix is None else np.zeros(0)
+    for case in INPUTS:
+        fields = _fields(j_biem(j_tree("a"), **_input_kw(case, "jax")), "jax")
+        out.update({f"{case} {key}": v for key, v in fields.items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_2d")
+
+
+@pytest.fixture(scope="module")
+def jax_2d(jax_values):
+    """The JAX package's solve of the lattice (its default route, the
+    lattice FFT: no matrix, GMRES steps) with its fields, committed."""
+    assert jax_values["lattice iters"].size and (jax_values["lattice iters"] > 0).all()
+    return {key: jax_values[f"lattice {key}"] for key in ("density", "near", "far", "per_ball")}
 
 
 def test_2d_matrix_only_and_one_circle():
@@ -194,13 +198,3 @@ def test_2d_matrix_only_and_one_circle():
     assert diag.matrix is None and full.matrix is not None
     assert float((diag.density - full.density).abs().max()) <= (
         1e-12 * float(full.density.abs().max()))
-
-
-def test_from_numpy_of_a_2d_jax_lattice_result(jax_2d):
-    """The JAX package's 2D lattice result carried across with from_numpy
-    evaluates to the same near, far and per-ball fields."""
-    ref, calc = jax_2d
-    port = BIEMResultCalculator.from_numpy(
-        create_from_branching_types("a"), N_END, np.broadcast_to(CENTERS, (2, 64, 2)),
-        np.broadcast_to(RADII, (2, 64)), KS, np.ones(2), calc.density.to_numpy(), device="cpu")
-    _assert_fields(_fields(port, "torch"), ref, 1e-11)

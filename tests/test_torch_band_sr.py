@@ -11,6 +11,7 @@ float64 masked scan 1e-5 per degree block (the masked scan in float32
 itself keeps ~2e-6 there).
 """
 
+import _jax_golden
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,71 +90,27 @@ def _offsets(rng, d, n_off, length=3.5):
     return t * length / np.linalg.norm(t, axis=0)
 
 
-@pytest.mark.parametrize("tree,n_out,n_in", [
-    ("caa", 5, 5), ("caa", 4, 6), ("bcaa", 4, 4), ("cbaba", 3, 3), ("ba", 7, 7), ("bba", 4, 4),
-])
-@pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "scaled"])
-def test_prefix_form_matches_the_masked_scan(tree, n_out, n_in, scaled):
-    """The plain version's prefix contraction equals the masked band scan
-    (float64, 1e-12 per degree block), unscaled and with per-band
-    exponents."""
-    c = create_from_branching_types(tree)
-    d = c.c_ndim
-    tab = _quad_tables(c, n_out, n_in, torch.float64, "cpu")
-    t = torch.as_tensor(_offsets(np.random.default_rng(5), d, 3), **F64)
-    r = t.norm(dim=0)
-    t_hat = (t / r).T[None]
-    k = torch.tensor([0.9, 1.4], **F64)
-    hm, he = spherical_h_scaled(d, tab.n_bands, k[:, None] * r)
-    omega, a_d = _band_consts(d)
-    if scaled:
-        got = _band_sr_plain(band_coefs(hm, d, omega, a_d, he=he), t_hat, tab)
-        ref = masked_scan(c, tab, t_hat, hm, he)
-    else:
-        h = hm * torch.exp(he)
-        got = _band_sr_plain(band_coefs(h, d, omega, a_d), t_hat, tab)
-        ref = masked_scan(c, tab, t_hat, h)
-    assert got.shape == ref.shape == (2, 3, tab.yo.shape[1], tab.yi.shape[1])
-    assert block_rel(got, ref, tab.n_o_host, tab.n_i_host) < 1e-12
+def _masked_scan_case():
+    """(offsets [4, 3], k [2, 1]) of test_band_sr_matches_the_jax_masked_scan."""
+    return _offsets(np.random.default_rng(17), 4, 3), np.array([[1.1], [1.7]])
 
 
-@pytest.mark.parametrize("tree,n_end", [("caa", 8), ("bcaa", 5)])
-def test_prefix_form_in_float32_keeps_the_masked_scans_digits(tree, n_end):
-    """In float32 the prefix form loses no digits against the masked scan:
-    both are held to the float64 masked scan per degree block (the masked
-    scan in float32 keeps ~2e-6 of each block; a sequential sum over all
-    the nodes would lose ~1e-4 of the small blocks, hence the two-level
-    sum)."""
-    c = create_from_branching_types(tree)
-    d = c.c_ndim
-    t = _offsets(np.random.default_rng(9), d, 2, 4.0)
-    out = {}
-    for rdt in (torch.float64, torch.float32):
-        tab = _quad_tables(c, n_end, n_end, rdt, "cpu")
-        tt = torch.as_tensor(t, dtype=rdt)
-        r = tt.norm(dim=0)
-        t_hat = (tt / r).T[None]
-        hm, he = spherical_h_scaled(d, tab.n_bands, torch.tensor([1.2], dtype=rdt)[:, None] * r)
-        coef = band_coefs(hm, d, *_band_consts(d), he=he)
-        out[rdt] = (_band_sr_plain(coef, t_hat, tab), masked_scan(c, tab, t_hat, hm, he))
-    ref = out[torch.float64][1].numpy()
-    n_o = tab.n_o_host
-    prefix32, masked32 = (x.to(torch.complex128).numpy() for x in out[torch.float32])
-    assert block_rel(out[torch.float64][0], ref, n_o, n_o) < 1e-12
-    assert block_rel(masked32, ref, n_o, n_o) < 1e-5
-    assert block_rel(prefix32, ref, n_o, n_o) < 1e-5
+def jax_golden():
+    """The JAX package's `_sr_banded` ((R|R)) that
+    test_band_sr_matches_the_jax_masked_scan reads: its band scan compiles
+    for minutes on the CPU."""
+    t, k = _masked_scan_case()
+    return {"caa RR": tonp(j_sr_banded(j_tree("caa"), j_from_cartesian(
+        j_tree("caa"), jnp.asarray(t)), 4, 4, jnp.asarray(k), "RR"))}
 
 
 def test_band_sr_matches_the_jax_masked_scan():
     """`_sr_banded` ((R|R) here: its j bands; the (S|R) is held in
     tests/test_torch_ctrees.py) against the JAX package's `_sr_banded` on
-    'caa' at n_end=4 for three offsets and two k (1e-12 per degree
-    block)."""
-    rng = np.random.default_rng(17)
-    t = _offsets(rng, 4, 3)
-    k = np.array([[1.1], [1.7]])
-    ref = tonp(j_sr_banded(j_tree("caa"), j_from_cartesian(j_tree("caa"), jnp.asarray(t)),
-                           4, 4, jnp.asarray(k), "RR"))
+    'caa' at n_end=4 for three offsets and two k (1e-12 per degree block;
+    the JAX values committed: `jax_golden`)."""
+    t, k = _masked_scan_case()
+    ref = _jax_golden.load("test_torch_band_sr")["caa RR"]
     c = create_from_branching_types("caa")
     got = _sr_banded(c, None, torch.as_tensor(t), 4, 4, torch.as_tensor(k), "RR").numpy()
     assert got.shape == ref.shape == (2, 3, 30, 30)

@@ -5,9 +5,12 @@ The JAX side runs biem(..., solver="matfree", stable=True), the route the
 port implements.  Tolerances: both solves stop at the float64 GMRES
 tolerance 1e-11 (relative preconditioned residual), so densities agree to
 ~1e-9 relative; evaluation of one density is the same arithmetic in
-another order (1e-12 of the largest value).
+another order (1e-12 of the largest value).  The JAX solves are
+committed in tests/golden/test_torch_biem.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`).
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -37,8 +40,7 @@ def _direction(n_k):
     return np.broadcast_to(np.array([1.0, 0.0, 0.0])[:, None], (3, n_k)).copy()
 
 
-@pytest.fixture(scope="module")
-def jax_lattice():
+def _jax_lattice():
     """The JAX package's solve of the 4x4 lattice at two k (factored route)."""
     centers = np.broadcast_to(_lattice(), (len(KS), 16, 3))
     uin, _ = j_plane_wave(k=KS, direction=_direction(len(KS)))
@@ -53,6 +55,13 @@ def jax_lattice():
         "per_ball": calc.uscat(X_NEAR[:, :2], per_ball=True).to_numpy(),
         "relres": np.asarray(calc.relres),
     }
+
+
+@pytest.fixture(scope="module")
+def jax_lattice():
+    """`_jax_lattice`, committed (`jax_golden`)."""
+    values = _jax_golden.load("test_torch_biem")
+    return {key[len("lattice "):]: v for key, v in values.items() if key.startswith("lattice ")}
 
 
 def _port_lattice():
@@ -175,43 +184,56 @@ def test_tf32_is_off():
     assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("case", [
-    "triplet", "gumerov", "2d-tree", "c-tree", "lattice-64",
-])
-def test_unported_routes_raise(case):
-    """What the port does not take raises NotImplementedError naming its
-    ROADMAP item: the Gumerov translation.  The other cases raised until
-    the port took them and now solve, and must match the JAX package's
-    solve of the same call (float64 GMRES tolerance 1e-11: densities
-    within 1e-9): "2d-tree" (a 2D pair on the offset-table route, KG) and
-    "lattice-64" (64 spheres on a line, the lattice-FFT route), then
-    "c-tree" (a 'caa' pair on the scaled offset-table route, KS in fold
-    mode) and "triplet" (the plain dense route's band-scan translation on
-    'ba', KS unscaled)."""
-    tree = {"2d-tree": "a", "c-tree": "caa"}
-    c = create_from_branching_types(tree.get(case, "ba"))
-    d = c.c_ndim
+UNPORTED = ["triplet", "gumerov", "2d-tree", "c-tree", "lattice-64"]
+
+
+def _unported_call(case):
+    """(tree, direction, biem() keywords as numpy) of a case of
+    test_unported_routes_raise."""
+    tree = {"2d-tree": "a", "c-tree": "caa"}.get(case, "ba")
+    d = {"a": 2, "ba": 3, "caa": 4}[tree]
     n_balls = {"lattice-64": 64}.get(case, 2)
-    centers = torch.zeros(n_balls, d, **F64)
-    centers[:, 0] = 3.0 * torch.arange(n_balls)
-    k = torch.tensor(1.0, **F64)
-    direction = torch.zeros(d, **F64)
-    direction[0] = 1.0
-    uin, _ = plane_wave(k=k, direction=direction)
+    centers = np.zeros((n_balls, d))
+    centers[:, 0] = 3.0 * np.arange(n_balls)
+    direction = np.eye(d)[0]
     kw = dict(solver="matfree", stable=True)
     if case in ("triplet", "gumerov"):  # the plain dense route's translation
         kw = dict(solver="direct", stable=False, translational_coefficients_method=case)
-    call = dict(centers=centers, radii=torch.ones(centers.shape[:-1], **F64), k=k, n_end=3,
-                **kw)
-    if case == "gumerov":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
-            biem(c, uin=uin, **call)
-        return
-    got = biem(c, uin=uin, **call).density.numpy()
-    j_uin, _ = j_plane_wave(k=np.asarray(1.0), direction=direction.numpy())
-    ref = j_biem(j_tree(tree.get(case, "ba")), uin=j_uin,
-                 **{key: (v.numpy() if isinstance(v, torch.Tensor) else v)
-                    for key, v in call.items()}).density.to_numpy()
+    return tree, direction, dict(centers=centers, radii=np.ones(n_balls), k=np.asarray(1.0),
+                                 n_end=3, **kw)
+
+
+def jax_golden():
+    """The JAX package's densities that test_unported_routes_raise reads
+    (the 'caa', 2D and 64-sphere solves compile for half a minute to a
+    minute each on the CPU) and its lattice solve (`_jax_lattice`)."""
+    out = {}
+    for case in UNPORTED:
+        tree, direction, call = _unported_call(case)
+        j_uin, _ = j_plane_wave(k=np.asarray(1.0), direction=direction)
+        out[case] = j_biem(j_tree(tree), uin=j_uin, **call).density.to_numpy()
+    out.update({f"lattice {key}": v for key, v in _jax_lattice().items()})
+    return out
+
+
+@pytest.mark.parametrize("case", UNPORTED)
+def test_unported_routes_raise(case):
+    """Each case raised NotImplementedError until the port took it; each
+    now solves and must match the JAX package's solve of the same call
+    (float64 GMRES tolerance 1e-11: densities within 1e-9; the JAX
+    densities committed: `jax_golden`): "2d-tree" (a 2D pair on the
+    offset-table route, KG) and "lattice-64" (64 spheres on a line, the
+    lattice-FFT route), then "c-tree" (a 'caa' pair on the scaled
+    offset-table route, KS in fold mode), "triplet" (the plain dense
+    route's band-scan translation on 'ba', KS unscaled) and "gumerov" (the
+    plain dense route's rotation + Gumerov-Duraiswami ladders on 'ba')."""
+    tree, direction, call = _unported_call(case)
+    uin, _ = plane_wave(k=torch.tensor(1.0, **F64), direction=torch.tensor(direction))
+    got = biem(create_from_branching_types(tree), uin=uin,
+               **{key: torch.tensor(v) if isinstance(v, np.ndarray) else v
+                  for key, v in call.items()}).density.numpy()
+    ref = _jax_golden.load("test_torch_biem")[case]
+    n_balls, d = call["centers"].shape
     assert got.shape == ref.shape == (n_balls, {2: 5, 3: 9, 4: 14}[d])
     assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
 

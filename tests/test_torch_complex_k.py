@@ -13,9 +13,13 @@ Tolerances: the direct routes solve the same matrix, entry by entry the
 same arithmetic in another order (1e-10 of the largest value); the GMRES
 routes stop at the float64 tolerance 1e-11 of the preconditioned residual
 (1e-8); float32 on the factored route against the JAX package's float64
-(1e-4, as the float32 README golden).
+(1e-4, as the float32 README golden).  The JAX package's solves are
+committed in tests/golden/test_torch_complex_k.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`); its incident fields are called
+live.
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -84,12 +88,18 @@ def _assert_close(got, ref, tol):
                                atol=tol * np.abs(ref[~nan]).max())
 
 
-@pytest.fixture(scope="module")
-def jax_lu():
+def _jax_lu():
     uin, _ = j_plane_wave(k=_ck(K), direction=DIRECTION)
     calc = j_biem(j_tree("ba"), centers=CENTERS, radii=np.ones(2), k=_ck(K), n_end=N_END,
                   uin=uin)
     return _outputs(calc, "jax")
+
+
+@pytest.fixture(scope="module")
+def jax_lu():
+    """`_jax_lu`'s outputs, committed (`jax_golden`)."""
+    values = _jax_golden.load("test_torch_complex_k")
+    return tuple(values[f"lu {i}"] for i in range(sum(k.startswith("lu ") for k in values)))
 
 
 def _port(dtype=torch.float64, **kw):
@@ -145,30 +155,30 @@ def test_incident_fields_with_complex_k(kind):
         np.testing.assert_allclose(got, ref, rtol=1e-12, atol=0)
 
 
+def _batch_args():
+    """(k, direction, centers, radii) of test_complex_k_in_a_batch."""
+    ks = np.array([[1.0, 1.3, 1.7]]) + 1j * np.array([[0.05], [0.2]])
+    direction = np.broadcast_to(DIRECTION[:, None, None], (3, 2, 3)).copy()
+    return ks, direction, CENTERS[None, None], np.ones((1, 1, 2))
+
+
 def test_complex_k_in_a_batch():
     """k [2, 3] complex (two absorptions x three real parts) over one
     geometry, centers [1, 1, B, 3]: density and uscat against the JAX
-    package (the default route, a direct LU)."""
-    ks = np.array([[1.0, 1.3, 1.7]]) + 1j * np.array([[0.05], [0.2]])
-    direction = np.broadcast_to(DIRECTION[:, None, None], (3, 2, 3)).copy()
-    centers, radii = CENTERS[None, None], np.ones((1, 1, 2))
-    uj, _ = j_plane_wave(k=_ck(ks), direction=direction)
-    cj = j_biem(j_tree("ba"), centers=centers, radii=radii, k=_ck(ks), n_end=N_END, uin=uj)
+    package (the default route, a direct LU; committed: `jax_golden`)."""
+    ks, direction, centers, radii = _batch_args()
     ut, _ = plane_wave(k=torch.tensor(ks), direction=torch.tensor(direction))
     ct = biem(create_from_branching_types("ba"), centers=torch.tensor(centers),
               radii=torch.tensor(radii), k=torch.tensor(ks), n_end=N_END, uin=ut)
+    ref = _jax_golden.load("test_torch_complex_k")
     assert ct.density.shape == (2, 3, 2, N_END * N_END)
-    _assert_close(ct.density.numpy(), tonp(cj.density), 1e-10)
-    _assert_close(ct.uscat(torch.tensor(X_NEAR)).numpy(), tonp(cj.uscat(X_NEAR)), 1e-10)
+    _assert_close(ct.density.numpy(), ref["batch density"], 1e-10)
+    _assert_close(ct.uscat(torch.tensor(X_NEAR)).numpy(), ref["batch near"], 1e-10)
 
 
-def test_2d_complex_k_lattice_matches_jax():
-    """Complex k in 2D: the 8 x 8 'a' lattice of unequal circles (radii
-    0.4-0.7, Robin data alpha 1 beta 0.5, k 0.7 + 0.2i and 1.1 + 0.2i, a
-    plane wave along (1, -2)/sqrt(5)), the lattice route in both packages
-    (KG's table, the block convolution): density, near, far and per-ball
-    fields within 1e-9 of the largest value (both iterate to the float64
-    tolerance 1e-11)."""
+def _lattice_2d():
+    """test_2d_complex_k_lattice_matches_jax's biem() arguments (numpy), its
+    k, direction and evaluation calls (name: (x, far_field, per_ball))."""
     centers = lattice_centers(8, 2)
     radii = 0.4 + 0.3 * np.random.default_rng(8).random(64)
     ks = np.array([0.7, 1.1]) + 0.2j
@@ -178,18 +188,51 @@ def test_2d_complex_k_lattice_matches_jax():
               eta=np.ones(2))
     x_near = np.array([[0.0, 0.0, -3.0, 2.1], [0.0, 4.0, 1.0, 2.1]])  # the last inside
     x_far = np.array([[1.0, 0.6, 0.0], [0.0, 0.8, -1.0]])
+    evals = {"near": (x_near, False, False), "far": (x_far, True, False),
+             "per_ball": (x_near[:, :3], False, True)}
+    return kw, ks, direction, evals
+
+
+def jax_golden():
+    """The JAX package's values the tests read: the 2D lattice solve of
+    test_2d_complex_k_lattice_matches_jax (its lattice route compiles for
+    minutes on the CPU: the density, its fields, whether it formed a
+    matrix), the README pair's LU (`_jax_lu`) and the k batch of
+    test_complex_k_in_a_batch."""
+    kw, ks, direction, evals = _lattice_2d()
     j_uin, j_grad = j_plane_wave(k=C.of(ks), direction=direction)
     ref = j_biem(j_tree("a"), k=C.of(ks), uin=j_uin, uin_grad=j_grad, **kw)
+    out = {"lattice density": ref.density.to_numpy(),
+           "lattice matrix formed": np.asarray(ref.matrix is not None)}
+    for name, (x, far, each) in evals.items():
+        out[f"lattice {name}"] = ref.uscat(x, far_field=far, per_ball=each).to_numpy()
+    out.update({f"lu {i}": v for i, v in enumerate(_jax_lu())})
+    ks, direction, centers, radii = _batch_args()
+    uj, _ = j_plane_wave(k=_ck(ks), direction=direction)
+    cj = j_biem(j_tree("ba"), centers=centers, radii=radii, k=_ck(ks), n_end=N_END, uin=uj)
+    out["batch density"], out["batch near"] = tonp(cj.density), tonp(cj.uscat(X_NEAR))
+    return out
+
+
+def test_2d_complex_k_lattice_matches_jax():
+    """Complex k in 2D: the 8 x 8 'a' lattice of unequal circles (radii
+    0.4-0.7, Robin data alpha 1 beta 0.5, k 0.7 + 0.2i and 1.1 + 0.2i, a
+    plane wave along (1, -2)/sqrt(5)), the lattice route in both packages
+    (KG's table, the block convolution): density, near, far and per-ball
+    fields within 1e-9 of the largest value (both iterate to the float64
+    tolerance 1e-11; the JAX package's committed: `jax_golden`)."""
+    kw, ks, direction, evals = _lattice_2d()
+    ref = _jax_golden.load("test_torch_complex_k")
     uin, grad = plane_wave(k=torch.tensor(ks), direction=torch.tensor(direction))
     got = biem(create_from_branching_types("a"), k=torch.tensor(ks), uin=uin, uin_grad=grad,
                **{key: (torch.tensor(v) if isinstance(v, np.ndarray) else v)
                   for key, v in kw.items()})
-    assert got.matrix is None and ref.matrix is None  # the lattice route
-    pairs = [(got.density.numpy(), ref.density.to_numpy())]
-    for x, far, each in ((x_near, False, False), (x_far, True, False),
-                         (x_near[:, :3], False, True)):
+    # the lattice route in both packages
+    assert got.matrix is None and not bool(ref["lattice matrix formed"])
+    pairs = [(got.density.numpy(), ref["lattice density"])]
+    for name, (x, far, each) in evals.items():
         pairs.append((got.uscat(torch.tensor(x), far_field=far, per_ball=each).numpy(),
-                      ref.uscat(x, far_field=far, per_ball=each).to_numpy()))
+                      ref[f"lattice {name}"]))
     for g, r in pairs:
         nan = np.isnan(r)
         np.testing.assert_array_equal(np.isnan(g), nan)

@@ -17,14 +17,17 @@ the JAX package on the CPU in float64, on the same numpy inputs.
   `uscat` near, far and per ball through the general evaluation, and
   `max_memory` / `max_n_end` in 4 and 6 dimensions.
 
-The JAX band scan compiles for tens of seconds per shape on the CPU: the
-live JAX calls here are the two translation shapes; every solve is held
-to the committed golden.
+The JAX band scan compiles for minutes per shape on the CPU, and the JAX
+general evaluation for two: the translations and the fields are held to
+the JAX package's values committed in tests/golden/test_torch_ctrees.npz
+(`jax_golden` below, `python tools/torch_golden_from_jax.py --tests`),
+every solve to the committed golden.
 """
 
 import json
 from pathlib import Path
 
+import _jax_golden
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,6 +64,60 @@ ROUTES = {
     "offset-table-scaled": dict(solver="matfree", stable=True),
     "offset-table": dict(solver="matfree", stable=False),
 }
+
+
+TRANSLATIONS = [
+    ("SR", None, None), ("SR", None, "triplet"), ("SR", 5, None), ("RR", None, None),
+    ("RR", 5, "plane_wave"),
+]
+
+
+def _caa_offsets():
+    t = np.random.default_rng(8).normal(size=(4, 3))
+    return t * 3.7 / np.linalg.norm(t, axis=0), np.array([[1.3], [0.8]])
+
+
+def _field_points():
+    """(near, far) evaluation points of the 'caa' pair's field."""
+    rng = np.random.default_rng(6)
+    near = rng.normal(size=(4, 3)) * 2.0
+    near[0] += 4.0
+    far = rng.normal(size=(4, 2))
+    far /= np.linalg.norm(far, axis=0)
+    return near, far
+
+
+def _field_calls():
+    near, far = _field_points()
+    return {"near": (near, {}), "far": (far, dict(far_field=True)),
+            "per_ball": (near[:, :2], dict(per_ball=True))}
+
+
+def jax_golden():
+    """The JAX package's values the tests below read: `translation_matrix`
+    on 'caa' for each case of TRANSLATIONS, and the fields of its own
+    density of the 'caa' pair (data/caa4d_golden_f64.json)."""
+    t, k = _caa_offsets()
+    out = {}
+    for kind, n_add, method in TRANSLATIONS:
+        out[f"translation {kind}-{n_add}-{method}"] = tonp(j_translation_matrix(
+            j_tree("caa"), jnp.asarray(t), 4, jnp.asarray(k), kind=kind, n_end_add=n_add,
+            method=method))
+    rows = json.loads((DATA / "caa4d_golden_f64.json").read_text())["points"]
+    row = next(r for r in rows if r["name"] == "pair caa")
+    density = (np.array(row["density"][0]) + 1j * np.array(row["density"][1])).reshape(
+        row["density_shape"])
+    jcalc = JResult(centers=jnp.asarray(_pair(4)), radii=jnp.ones(2), k=jnp.asarray(1.0),
+                    eta=jnp.asarray(1.0), density=C.of(density), matrix=None,
+                    c=j_tree("caa"), n_end=6)
+    for name, (x, kw) in _field_calls().items():
+        out[f"field {name}"] = tonp(jcalc.uscat(jnp.asarray(x), **kw))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_ctrees")
 
 
 @pytest.fixture(scope="module")
@@ -143,42 +200,20 @@ def test_c_node_harmonics_match_jax(tree, n_end):
     assert np.abs(gram - np.eye(len(gram))).max() < 1e-12
 
 
-@pytest.fixture(scope="module")
-def caa_offsets():
-    t = np.random.default_rng(8).normal(size=(4, 3))
-    return t * 3.7 / np.linalg.norm(t, axis=0), np.array([[1.3], [0.8]])
-
-
-@pytest.mark.parametrize("kind,n_add,method", [
-    ("SR", None, None), ("SR", None, "triplet"), ("SR", 5, None), ("RR", None, None),
-    ("RR", 5, "plane_wave"),
-])
-def test_caa_translation_matches_jax(caa_offsets, kind, n_add, method):
+@pytest.mark.parametrize("kind,n_add,method", TRANSLATIONS)
+def test_caa_translation_matches_jax(jax_values, kind, n_add, method):
     """translation_matrix on 'caa' at n_end=4, three offsets x two k: the
     band scan (the default and "triplet" on a 'c' root; n_end_add != n_end)
-    and the plane-wave (R|R), 1e-12 of each degree block's largest entry."""
-    t, k = caa_offsets
-    ref = tonp(j_translation_matrix(j_tree("caa"), jnp.asarray(t), 4, jnp.asarray(k),
-                                    kind=kind, n_end_add=n_add, method=method))
+    and the plane-wave (R|R), 1e-12 of each degree block's largest entry
+    of the JAX package's (committed: `jax_golden`)."""
+    t, k = _caa_offsets()
+    ref = jax_values[f"translation {kind}-{n_add}-{method}"]
     c = create_from_branching_types("caa")
     got = translation_matrix(c, torch.tensor(t), 4, torch.tensor(k), kind=kind,
                              n_end_add=n_add, method=method).numpy()
     h_in = basis(c, n_add or 4).num
     assert got.shape == ref.shape == (2, 3, 30, h_in)
     assert _block_rel(got, ref, basis(c, 4).n_root, basis(c, n_add or 4).n_root) < 1e-12
-
-
-@pytest.mark.parametrize("route", list(ROUTES))
-def test_caa_pair_on_every_route(golden, route):
-    """The reference's 'caa' golden (2e-6) and the JAX package's density
-    (1e-9) on LU, dense GMRES and both offset-table routes; 'caa' never
-    takes the factored operator."""
-    calc = _solve("caa", _pair(4), 6, **ROUTES[route])
-    ref = golden["pair caa"][0]
-    assert (calc.relres is None) == (route == "lu")
-    assert abs(_uscat0(calc) - GOLDEN_CAA) <= 2e-6
-    assert _rel(calc.density.numpy(), ref["density"]) <= 1e-9
-    assert abs(_uscat0(calc) - ref["uscat0"]) <= 1e-9 * abs(ref["uscat0"])
 
 
 def test_caa_pair_takes_the_offset_table_when_matrix_free():
@@ -193,47 +228,6 @@ def test_caa_pair_takes_the_offset_table_when_matrix_free():
     finally:
         _core._factored_operator = orig
     assert not called
-
-
-def test_caa_float32_stays_finite_and_tracks_float64():
-    """complex64 on the default route (stable) against complex128 (1e-4)."""
-    u64 = _uscat0(_solve("caa", _pair(4), 6))
-    calc = _solve("caa", _pair(4), 6, rdt=torch.float32)
-    assert calc.density.dtype == torch.complex64
-    assert abs(_uscat0(calc) - u64) <= 1e-4 * abs(u64)
-
-
-def test_caa_lattice_route_matches_the_dense_route_and_jax(golden):
-    """The 8 x 8 'caa' lattice at pitch 4 in the x0-x1 plane, n_end=3: the
-    lattice route (solver="auto"; its half table from KS) against dense
-    GMRES and the JAX package's lattice solve (densities 1e-9)."""
-    centers = _lattice(8, 4)
-    assert _core._route("auto", 64, 64 * 14, torch.float64, torch.device("cpu"), True,
-                        False, centers) == "lattice"
-    ref = golden["lattice 8x8 caa"][0]
-    lat = _solve("caa", centers, 3)
-    dense = _solve("caa", centers, 3, solver="gmres")
-    assert float(lat.relres) <= 1e-11 and float(dense.relres) <= 1e-11
-    for calc in (lat, dense):
-        assert _rel(calc.density.numpy(), ref["density"]) <= 1e-9
-        assert abs(_uscat0(calc) - ref["uscat0"]) <= 1e-9 * abs(ref["uscat0"])
-    unscaled = _solve("caa", centers, 3, stable=False)
-    assert _rel(unscaled.density.numpy(), ref["density"]) <= 1e-9
-
-
-@pytest.mark.parametrize("route", ["factored", "triplet", "lu"])
-def test_bcaa_pair_matches_jax(golden, route):
-    """'bcaa' (a 'c' node below a 'b' root): the factored route (K3, K2 and
-    KB with the 'c' node's degree blocks), the dense route with the band
-    scan ("triplet") and the default LU (rotation), against the JAX
-    package's density (1e-9)."""
-    kw = {"factored": dict(solver="matfree", stable=True),
-          "triplet": dict(solver="direct", stable=False,
-                          translational_coefficients_method="triplet"),
-          "lu": {}}[route]
-    calc = _solve("bcaa", _pair(5), 4, **kw)
-    ref = golden["pair bcaa"][0]
-    assert _rel(calc.density.numpy(), ref["density"]) <= 1e-9
 
 
 def test_bcaa_rotation_equals_the_band_scan():
@@ -255,48 +249,14 @@ def test_bcaa_rotation_equals_the_band_scan():
     assert _block_rel(band, rot, n_root, n_root) < 1e-10
 
 
-def test_cbaba_pair_by_lu_matches_jax(golden):
-    """'cbaba' (6D, a 'c' root over 'b' subtrees) by the default LU."""
-    calc = _solve("cbaba", _pair(6), 3)
-    ref = golden["pair cbaba"][0]
-    assert calc.density.shape == (2, 27)
-    assert _rel(calc.density.numpy(), ref["density"]) <= 1e-9
-    assert abs(_uscat0(calc) - ref["uscat0"]) <= 1e-9 * abs(ref["uscat0"])
-
-
-def test_caa_hypercube_matches_jax(golden):
-    """The 16 spheres at the corners of {-2, 2}^4 (40 distinct offsets) at
-    n_end=6 and two of chip_smoke.py phase 10's wavenumbers in one call,
-    against the JAX package's uscat(0) (1e-9)."""
-    rows = golden["hypercube caa"][:2]
-    ks = np.array([r["k"] for r in rows])
-    hyper = np.stack(np.meshgrid(*([[-2.0, 2.0]] * 4), indexing="ij"), axis=-1).reshape(-1, 4)
-    c = create_from_branching_types("caa")
-    k = torch.tensor(ks, **F64)
-    uin, _ = plane_wave(k=k, direction=torch.tensor(np.repeat(_x0(4)[:, None], 2, 1)))
-    calc = biem(c, centers=torch.tensor(hyper).expand(2, 16, 4), radii=torch.ones(2, 16, **F64),
-                k=k, n_end=6, uin=uin)
-    u0 = calc.uscat(torch.zeros(4, 1, **F64)).numpy().reshape(-1)
-    for got, row in zip(u0, rows):
-        assert abs(got - row["uscat0"]) <= 1e-9 * abs(row["uscat0"])
-
-
-def test_caa_fields_match_jax(golden):
+def test_caa_fields_match_jax(jax_values):
     """uscat near, far and per ball on 'caa' (the general evaluation)
-    against the JAX package's evaluation of its own density (1e-9)."""
-    ref = golden["pair caa"][0]
+    against the JAX package's evaluation of its own density (1e-9;
+    committed: `jax_golden`)."""
     calc = _solve("caa", _pair(4), 6)
-    jcalc = JResult(centers=jnp.asarray(_pair(4)), radii=jnp.ones(2), k=jnp.asarray(1.0),
-                    eta=jnp.asarray(1.0), density=C.of(ref["density"]), matrix=None,
-                    c=j_tree("caa"), n_end=6)
-    rng = np.random.default_rng(6)
-    near = rng.normal(size=(4, 3)) * 2.0
-    near[0] += 4.0
-    far = rng.normal(size=(4, 2))
-    far /= np.linalg.norm(far, axis=0)
-    for x, kw in ((near, {}), (far, dict(far_field=True)), (near[:, :2], dict(per_ball=True))):
+    for name, (x, kw) in _field_calls().items():
         got = calc.uscat(torch.tensor(x), **kw).numpy()
-        want = tonp(jcalc.uscat(jnp.asarray(x), **kw))
+        want = jax_values[f"field {name}"]
         assert got.shape == want.shape
         assert _rel(got, want) <= 1e-9, kw
 

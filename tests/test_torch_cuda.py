@@ -987,17 +987,19 @@ def test_lattice_solve_on_the_card_matches_the_cpu(cuda, btype):
                 assert _rel(g, r) < tol
 
 
-def _block_rel(got, ref, n_o, n_i):
+def _block_rel(got, ref, n_o, n_i, floor=0.0):
     """Largest error relative to the largest |ref| of each (leading index,
     row degree, column degree) block: across blocks the (S|R) entries span
-    many orders of magnitude."""
+    many orders of magnitude.  A block below `floor` times its matrix's
+    largest |ref| is held against that instead."""
     assert bool(torch.isfinite(got).all())
     err = 0.0
+    big = floor * ref.abs().amax(dim=(-2, -1))
     for a in np.unique(n_o):
         for b in np.unique(n_i):
             g, r = got[..., n_o == a, :][..., n_i == b], ref[..., n_o == a, :][..., n_i == b]
             d = (g - r).abs().amax(dim=(-2, -1))
-            m = r.abs().amax(dim=(-2, -1)).clamp_min(torch.finfo(d.dtype).tiny)
+            m = torch.maximum(r.abs().amax(dim=(-2, -1)), big).clamp_min(torch.finfo(d.dtype).tiny)
             err = max(err, float((d / m).max()))
     return err
 
@@ -1167,3 +1169,156 @@ def test_c_tree_solves_on_the_card_match_the_cpu(cuda, case):
             ref = _solve_nd(torch.device("cpu"), tree, dtype, centers, n_end, 1.0, **kw)
             for g, r in zip(got, ref):
                 assert _rel(g, r) < tol, (kw, dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("kind", ["SR", "RR"])
+def test_gd_coaxial_on_the_card_matches_the_cpu(cuda, kind, dtype):
+    """The Gumerov ladders on the card (one K5 launch for the radial column
+    at 3 n_end + 2 orders) against the same call on the CPU at the bench's
+    9 radii x 4 k, n_end = 32, per (k, radius, degree block): complex128
+    1e-12 and complex64 2e-4 for SR (the CPU comparison of the two
+    packages' float32 ladders shows 4.9e-5 at these shapes).  RR's blocks
+    below 1e-3 of the matrix are held against that (the RR ladder forms
+    them by cancellation, tests/test_torch_gumerov.py).  At n_end = 32 the
+    RR ladder is ill-conditioned: radii one ulp longer move the CPU float64
+    matrix by 5.0e-12 per block and the card differs from the CPU by
+    5.5e-12 (H100, chip_smoke.py phase 11 (d)), so RR takes 2e-11 in
+    complex128; in complex64 the card and the CPU differ by as much as
+    either differs from float64 (1.8e-3 and 2.0e-3 there), so RR takes
+    5e-3 and the card's error against the float64 CPU matrix must be
+    within 2x the CPU float32 matrix's own."""
+    from biem_helmholtz_sphere_tpu_torch.translation import gd_coaxial
+
+    c = create_from_branching_types("ba")
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    r = torch.as_tensor(_pair_routing(_lattice()).uniq_r, dtype=rdt)
+    k = torch.linspace(7.0, 7.06, 4, dtype=rdt)[:, None]
+    n0 = spherical_jh.launches
+    got = gd_coaxial(c, r.to(cuda), 32, k.to(cuda), kind=kind).cpu()
+    assert spherical_jh.launches == n0 + 1
+    ref = gd_coaxial(c, r, 32, k, kind=kind)
+    n_root = basis(c, 32).n_root
+    floor = 1e-3 if kind == "RR" else 0.0
+    tol = {("SR", torch.complex64): 2e-4, ("RR", torch.complex64): 5e-3,
+           ("SR", torch.complex128): 1e-12, ("RR", torch.complex128): 2e-11}[kind, dtype]
+    assert _block_rel(got, ref, n_root, n_root, floor=floor) <= tol
+    if kind == "RR" and dtype == torch.complex64:
+        ref64 = gd_coaxial(c, r.double(), 32, k.double(), kind=kind)
+        own = _block_rel(ref.to(ref64.dtype), ref64, n_root, n_root, floor=floor)
+        assert _block_rel(got.to(ref64.dtype), ref64, n_root, n_root, floor=floor) <= 2.0 * own
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_spherical_jh_at_the_ladders_98_orders(cuda, dtype):
+    """K5 unscaled at 98 orders (the ladders' column at n_end = 32) against
+    its plain version at kr 4-153: entry by entry where the plain values
+    are finite, and non-finite exactly where they are not (float32 h
+    overflows at the top orders for kr < ~28).  In complex64 each output
+    is also held against the float64 plain version where that is a normal
+    float32: within 2x the plain float32 version's own error there (the
+    float32 j_n at these orders are far below 1, so the gate relative
+    above 1 alone would pass any j)."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    r = torch.as_tensor(_pair_routing(_lattice()).uniq_r, dtype=rdt)
+    z = (torch.tensor([[1.0], [7.0], [9.0]], dtype=rdt) * r).to(dtype)
+    got = spherical_jh(_UNSCALED, 3, 98, z.to(cuda))
+    ref = _spherical_jh_all_plain(3, 98, z)
+    ref64 = _spherical_jh_all_plain(3, 98, z.to(torch.complex128))
+    tiny = torch.finfo(rdt).tiny
+    for g, p, p64 in zip(got, ref, ref64):
+        g = g.cpu()
+        fin = torch.isfinite(p)
+        assert torch.equal(torch.isfinite(g), fin)
+        assert float(((g - p).abs() / p.abs().clamp_min(1.0))[fin].max()) < _tol(dtype)
+        if dtype == torch.complex64:
+            m = fin & (p64.abs() >= tiny)
+            own = float(((p.to(p64.dtype) - p64).abs() / p64.abs())[m].max())
+            k5 = float(((g.to(p64.dtype) - p64).abs() / p64.abs())[m].max())
+            assert k5 <= 2.0 * own, (k5, own)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["lu", "gmres", "offset-table", "lattice"])
+def test_gumerov_solves_on_the_card_match_the_cpu(cuda, case):
+    """biem(..., translational_coefficients_method="gumerov", stable=False)
+    on the card against the same call on the CPU, both dtypes: the 4x4
+    lattice on LU (n_end = 8), dense GMRES and the offset table (n_end =
+    12), the 8 x 8 lattice on the lattice route (n_end = 5)."""
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold as k2
+
+    centers, n_end, kw = {
+        "lu": (_lattice(), 8, dict(solver="direct")),
+        "gmres": (_lattice(), 12, dict(solver="gmres")),
+        "offset-table": (_lattice(), 12, dict(solver="matfree")),
+        "lattice": (_square_lattice(8, 3), 5, dict()),
+    }[case]
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        n0 = k2.launches
+        got = _solve_nd(cuda, "ba", dtype, centers, n_end, 1.5, stable=False,
+                        translational_coefficients_method="gumerov", **kw)
+        assert k2.launches == n0
+        ref = _solve_nd(torch.device("cpu"), "ba", dtype, centers, n_end, 1.5, stable=False,
+                        translational_coefficients_method="gumerov", **kw)
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < tol, (dtype, case)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_radial_surfaces_on_the_card_match_the_cpu(cuda, dtype):
+    """regular_singular_component (d = 3 and 4, all four cases) and
+    potential_coef (d = 2, 3, 4, S / D x solution / harmonics, real and
+    complex k) on the card against the CPU, entry by entry."""
+    from biem_helmholtz_sphere_tpu_torch.biem import potential_coef
+    from biem_helmholtz_sphere_tpu_torch.harmonics import regular_singular_component
+
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    r = torch.linspace(0.5, 3.0, 6, dtype=dtype)
+    k = torch.tensor([[0.7], [2.5]], dtype=dtype)
+    pairs = []
+    for tree in ("ba", "bba"):
+        c = create_from_branching_types(tree)
+        for typ in ("regular", "singular"):
+            for der in (False, True):
+                pairs.append((regular_singular_component(c, r.to(cuda), 10, k.to(cuda), typ, der),
+                              regular_singular_component(c, r, 10, k, typ, der)))
+    n = torch.arange(10)[:, None]
+    for d in (2, 3, 4):
+        for kk in (k[:, 0], k[:, 0] + 0.2j):
+            for der in ("S", "D"):
+                for ff in ("solution", "harmonics"):
+                    pairs.append((potential_coef(n.to(cuda), d, kk.to(cuda), r[2].to(cuda),
+                                                 r[4].to(cuda), der, for_func=ff),
+                                  potential_coef(n, d, kk, r[2], r[4], der, for_func=ff)))
+    for got, ref in pairs:
+        assert got.device.type == "cuda" and got.dtype == cdt
+        assert float(((got.cpu() - ref).abs() / ref.abs().clamp_min(1.0)).max()) < _tol(cdt)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["btensorsolve", "shift_nth_row_n_steps",
+                                  "orthonormal_jacobi_all"])
+def test_surfaces_given_numpy_run_on_the_card(cuda, name):
+    """Given numpy (as their JAX counterparts take it) and no tensor, the
+    9c surfaces run on the card, and agree with the same call on CPU
+    tensors."""
+    from biem_helmholtz_sphere_tpu_torch import utils
+
+    rng = np.random.default_rng(13)
+    fn, args = {
+        "btensorsolve": (utils.btensorsolve, (rng.standard_normal((3, 2, 4, 2, 4))
+                                              + 4 * np.eye(8).reshape(2, 4, 2, 4),
+                                              rng.standard_normal((3, 2, 4)), 1)),
+        "shift_nth_row_n_steps": (utils.shift_nth_row_n_steps,
+                                  (rng.standard_normal((2, 5, 7)), -2, -1)),
+        "orthonormal_jacobi_all": (special.orthonormal_jacobi_all,
+                                   (rng.uniform(-1, 1, (4, 3)), 12, 0.5, 1.5)),
+    }[name]
+    got = fn(*args)
+    assert got.device.type == "cuda"
+    ref = fn(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in args))
+    assert ref.device.type == "cpu" and got.dtype == ref.dtype
+    assert float((got.cpu() - ref).abs().max()) <= 1e-12 * max(float(ref.abs().max()), 1.0)

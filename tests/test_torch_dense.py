@@ -10,9 +10,13 @@ their (degree row, degree column) block, where magnitudes are alike
 (|SR| ~ |h_{l+l'}(kt)|); the radial rows are the same recurrences (1e-12);
 assembled matrices agree to 1e-10 of the largest entry of each sphere-pair
 block; solves meet the float64 GMRES tolerance 1e-11, so densities agree
-to ~1e-9.
+to ~1e-9.  The JAX package's values are committed in
+tests/golden/test_torch_dense.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`): each is a JAX compile of 10 s
+to 1.5 minutes on a cold CPU.
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -71,6 +75,54 @@ def _assert_degree_blocks(got, ref, ell, rtol):
             assert (np.abs(g - r) <= rtol * scale).all(), (lr, lc)
 
 
+def jax_golden():
+    """The JAX package's values the tests below read: translations, the
+    coaxial and rotation factors, the radial rows, the assembled matrices
+    and the direct, force_matrix and one-sphere solves (each a JAX compile
+    of 10 s to 1.5 minutes on a cold CPU)."""
+    out = {}
+    for btype, n_end in TRANSLATIONS:
+        cj = j_tree(btype)
+        t = _offsets(np.random.default_rng(11), cj.c_ndim)
+        for kind in ("SR", "RR"):
+            for method in (None, "rotation"):
+                out[f"translation {btype} {kind} {method}"] = tonp(j_translation_matrix(
+                    cj, t, n_end, KS[:, None], kind=kind, method=method))
+    out["translation gumerov"] = tonp(j_translation_matrix(j_tree("ba"), np.ones((3, 1)), 3,
+                                                           1.0, method="gumerov"))
+    for kind in ("SR", "RR"):
+        out[f"coaxial {kind}"] = tonp(j_coaxial_sr(j_tree("ba"), COAX_R, 7, KS[:, None],
+                                                   kind=kind))
+    for btype, n_end in ROTATIONS:
+        cj = j_tree(btype)
+        t = _offsets(np.random.default_rng(13), cj.c_ndim)
+        out[f"sr_rotation {btype}"] = tonp(j_sr_rotation(cj, j_from_cartesian(cj, t), n_end,
+                                                         KS[:, None], t_cart=t))
+        m_j, s_j = j_sr_scaled(cj, j_from_cartesian(cj, t), n_end, KS[:, None])
+        out[f"sr_scaled mant {btype}"], out[f"sr_scaled S {btype}"] = tonp(m_j), np.asarray(s_j)
+    radii, eta, alpha, beta = _radial_rows_args()
+    for i, r in enumerate(j_radial_rows(j_tree("ba"), 8, radii, KS, eta, C.of(alpha),
+                                        C.of(beta))):
+        out[f"radial rows {i}"] = tonp(r)
+    for geometry in _GEOMETRIES:
+        for stable in (True, False):
+            out[f"matrix {geometry} {stable}"] = _jax_matrix(
+                geometry, _assembly_n_end(geometry), stable)
+    out["robin lattice density"] = _robin_lattice_jax()
+    ref = _force_matrix_jax()
+    out["force_matrix matrix"], out["force_matrix density"] = tonp(ref.matrix), tonp(ref.density)
+    for stable in (True, False):
+        ref = _one_sphere_jax(stable)
+        out[f"one sphere density {stable}"] = tonp(ref.density)
+        out[f"one sphere uscat {stable}"] = tonp(ref.uscat(ONE_X))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_dense")
+
+
 def _assert_pair_blocks(got, ref, rtol=1e-10):
     """[..., B, H, B', H'] matrices: within rtol of each (b, b') block's
     largest entry."""
@@ -79,17 +131,20 @@ def _assert_pair_blocks(got, ref, rtol=1e-10):
     assert (np.abs(got - ref) <= rtol * scale).all()
 
 
-@pytest.mark.parametrize("btype,n_end", [("ba", 6), ("bpa", 5), ("bbba", 3)])
+TRANSLATIONS = [("ba", 6), ("bpa", 5), ("bbba", 3)]
+
+
+@pytest.mark.parametrize("btype,n_end", TRANSLATIONS)
 @pytest.mark.parametrize("kind", ["SR", "RR"])
 @pytest.mark.parametrize("method", [None, "rotation"])
-def test_translation_matrix_matches_jax(btype, n_end, kind, method):
+def test_translation_matrix_matches_jax(jax_values, btype, n_end, kind, method):
     rng = np.random.default_rng(11)
-    c, cj = create_from_branching_types(btype), j_tree(btype)
+    c = create_from_branching_types(btype)
     t = _offsets(rng, c.c_ndim)
     k = KS[:, None]
     got = translation_matrix(c, torch.tensor(t), n_end, torch.tensor(k), kind=kind,
                              method=method).numpy()
-    ref = tonp(j_translation_matrix(cj, t, n_end, k, kind=kind, method=method))
+    ref = jax_values[f"translation {btype} {kind} {method}"]
     assert got.shape == ref.shape == (2, 8, basis(c, n_end).num, basis(c, n_end).num)
     _assert_degree_blocks(got, ref, basis(c, n_end).n_root, 1e-10)
 
@@ -105,9 +160,10 @@ def test_translation_matrix_from_a_spherical_mapping():
     assert bool(((by_sph - by_cart).abs() <= 1e-12 * scale).all())
 
 
-def test_translation_matrix_validates_as_jax(monkeypatch):
-    """The JAX package's argument checks; the unported method names its
-    item; given no tensor it runs on the card (and raises without one)."""
+def test_translation_matrix_validates_as_jax(jax_values, monkeypatch):
+    """The JAX package's argument checks; "gumerov" on 'ba' matches the
+    JAX package's (entries within 1e-12 of their degree block's largest);
+    given no tensor it runs on the card (and raises without one)."""
     c = create_from_branching_types("ba")
     t, k = torch.ones(3, 1, **F64), torch.tensor(1.0, **F64)
     with pytest.raises(ValueError, match="unknown translation method"):
@@ -116,8 +172,10 @@ def test_translation_matrix_validates_as_jax(monkeypatch):
         translation_matrix(c, t, 3, k, method="plane_wave")
     with pytest.raises(ValueError, match="kind"):
         translation_matrix(c, t, 3, k, kind="SS")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
-        translation_matrix(c, t, 3, k, method="gumerov")
+    got = translation_matrix(c, t, 3, k, method="gumerov").numpy()
+    ref = jax_values["translation gumerov"]
+    assert got.shape == ref.shape == (1, 9, 9)
+    _assert_degree_blocks(got, ref, basis(c, 3).n_root, 1e-12)
     # the band scan (ported since): "triplet" and n_end_add != n_end
     assert translation_matrix(c, t, 3, k, method="triplet").shape == (1, 9, 9)
     assert translation_matrix(c, t, 3, k, n_end_add=4).shape == (1, 9, 16)
@@ -129,17 +187,20 @@ def test_translation_matrix_validates_as_jax(monkeypatch):
         translation_matrix(c, np.ones((3, 1)), 3, 1.0)
 
 
+COAX_R = np.array([4.0, 4.0 * np.sqrt(2.0), 8.0])
+
+
 @pytest.mark.parametrize("kind", ["SR", "RR"])
-def test_coaxial_sr_matches_jax(kind):
+def test_coaxial_sr_matches_jax(jax_values, kind):
     """coaxial_sr runs K2's plain version with zero exponents (its CPU
     path); the JAX package's dense band sum and the port's plain
     coaxial_sr formula give the same values."""
-    c, cj = create_from_branching_types("ba"), j_tree("ba")
+    c = create_from_branching_types("ba")
     n_end = 7
-    r = np.array([4.0, 4.0 * np.sqrt(2.0), 8.0])
+    r = COAX_R
     k = KS[:, None]
     got = coaxial_sr(c, torch.tensor(r), n_end, torch.tensor(k), kind=kind).numpy()
-    ref = tonp(j_coaxial_sr(cj, r, n_end, k, kind=kind))
+    ref = jax_values[f"coaxial {kind}"]
     ell = basis(c, n_end).n_root
     _assert_degree_blocks(got, ref, ell, 1e-10)
     j, _, h, _ = spherical_jh_all(3, 2 * n_end - 1, torch.tensor(k * r))
@@ -147,37 +208,43 @@ def test_coaxial_sr_matches_jax(kind):
     _assert_degree_blocks(plain, ref, ell, 1e-10)
 
 
-@pytest.mark.parametrize("btype,n_end", [("ba", 6), ("bpa", 5)])
-def test_sr_rotation_and_sr_scaled_match_jax(btype, n_end):
+ROTATIONS = [("ba", 6), ("bpa", 5)]
+
+
+@pytest.mark.parametrize("btype,n_end", ROTATIONS)
+def test_sr_rotation_and_sr_scaled_match_jax(jax_values, btype, n_end):
     rng = np.random.default_rng(13)
-    c, cj = create_from_branching_types(btype), j_tree(btype)
+    c = create_from_branching_types(btype)
     t = _offsets(rng, c.c_ndim)
     k = KS[:, None]
     ell = basis(c, n_end).n_root
     got = sr_rotation(c, None, n_end, torch.tensor(k), t_cart=torch.tensor(t)).numpy()
-    ref = tonp(j_sr_rotation(cj, j_from_cartesian(cj, t), n_end, k, t_cart=t))
+    ref = jax_values[f"sr_rotation {btype}"]
     _assert_degree_blocks(got, ref, ell, 1e-10)
     m, s = sr_scaled(c, from_cartesian(c, torch.tensor(t)), n_end, torch.tensor(k))
-    m_j, s_j = j_sr_scaled(cj, j_from_cartesian(cj, t), n_end, k)
-    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=1e-12, atol=1e-12)
-    _assert_degree_blocks(m.numpy(), tonp(m_j), ell, 1e-10)
+    m_j, s_j = jax_values[f"sr_scaled mant {btype}"], jax_values[f"sr_scaled S {btype}"]
+    np.testing.assert_allclose(s.numpy(), s_j, rtol=1e-12, atol=1e-12)
+    _assert_degree_blocks(m.numpy(), m_j, ell, 1e-10)
     # mant * exp(S) is the unscaled operator
     _assert_degree_blocks((m * torch.exp(s)).numpy(), ref, ell, 1e-10)
 
 
-def test_radial_rows_match_jax():
+def _radial_rows_args():
+    """(radii, eta, alpha, beta) of test_radial_rows_match_jax (n_end = 8)."""
     rng = np.random.default_rng(14)
-    c, cj = create_from_branching_types("ba"), j_tree("ba")
-    n_end = 8
     radii = rng.uniform(0.5, 1.5, size=(2, 3))
     alpha = rng.normal(size=(2, 3)) + 1j * rng.normal(size=(2, 3))
     beta = rng.normal(size=(2, 3)) + 1j * rng.normal(size=(2, 3))
-    eta = np.array([1.0, 0.7])
-    got = _core._radial_rows(c, n_end, torch.tensor(radii), torch.tensor(KS),
+    return radii, np.array([1.0, 0.7]), alpha, beta
+
+
+def test_radial_rows_match_jax(jax_values):
+    c = create_from_branching_types("ba")
+    radii, eta, alpha, beta = _radial_rows_args()
+    got = _core._radial_rows(c, 8, torch.tensor(radii), torch.tensor(KS),
                              torch.tensor(eta), torch.tensor(alpha), torch.tensor(beta))
-    ref = j_radial_rows(cj, n_end, radii, KS, eta, C.of(alpha), C.of(beta))
-    for g, r in zip(got, ref):
-        r = tonp(r)
+    for i, g in enumerate(got):
+        r = jax_values[f"radial rows {i}"]
         np.testing.assert_allclose(g.numpy(), r, rtol=1e-12, atol=1e-12 * np.abs(r).max())
 
 
@@ -192,9 +259,13 @@ _GEOMETRIES = {
 }
 
 
+def _assembly_n_end(geometry):
+    return 4 if geometry == "lattice" else 6
+
+
 def _jax_matrix(geometry, n_end, stable):
     """The JAX package's matrix (beta as a float64 array: it takes a
-    Python float as float32)."""
+    Python float as float32); committed by `jax_golden`."""
     centers, radii = _GEOMETRIES[geometry]
     n_b = len(radii)
     calc = j_biem(j_tree("ba"), centers=np.broadcast_to(centers, (2, n_b, 3)),
@@ -205,11 +276,11 @@ def _jax_matrix(geometry, n_end, stable):
 
 @pytest.mark.parametrize("geometry", list(_GEOMETRIES))
 @pytest.mark.parametrize("stable", [True, False])
-def test_assemble_matches_jax_in_both_layouts(geometry, stable):
-    n_end = 4 if geometry == "lattice" else 6
+def test_assemble_matches_jax_in_both_layouts(jax_values, geometry, stable):
+    n_end = _assembly_n_end(geometry)
     centers, radii = _GEOMETRIES[geometry]
     n_b = len(radii)
-    ref = _jax_matrix(geometry, n_end, stable)  # [K, B, H, B', H']
+    ref = jax_values[f"matrix {geometry} {stable}"]  # [K, B, H, B', H']
     if n_b == 1:  # the JAX package shapes its one-sphere matrix [K, 1, 1, H, H]
         ref = ref.reshape(2, 1, n_end * n_end, 1, n_end * n_end)
     args = (create_from_branching_types("ba"), n_end, centers,
@@ -289,7 +360,15 @@ def _robin_lattice(solver, **kw):
                 alpha=1.0, beta=0.5, eta=1.0, solver=solver, **kw)
 
 
-def test_direct_matches_matfree_and_dense_gmres():
+def _robin_lattice_jax():
+    """The JAX package's direct solve of `_robin_lattice` (density)."""
+    uin, uin_grad = j_plane_wave(k=np.asarray(1.3), direction=np.array([1.0, 0.0, 0.0]))
+    return tonp(j_biem(j_tree("ba"), centers=_lattice(2), radii=np.ones(4), k=np.asarray(1.3),
+                       n_end=8, uin=uin, uin_grad=uin_grad, alpha=1.0, beta=0.5, eta=1.0,
+                       solver="direct").density)
+
+
+def test_direct_matches_matfree_and_dense_gmres(jax_values):
     d_lu = _robin_lattice("direct")
     d_mf = _robin_lattice("matfree", stable=True)
     d_gm = _robin_lattice("gmres")
@@ -298,39 +377,48 @@ def test_direct_matches_matfree_and_dense_gmres():
     ref = d_lu.density.numpy()
     for calc in (d_mf, d_gm):
         assert np.abs(calc.density.numpy() - ref).max() <= 1e-9 * np.abs(ref).max()
-    # and the JAX package's direct solve
-    uin, uin_grad = j_plane_wave(k=np.asarray(1.3), direction=np.array([1.0, 0.0, 0.0]))
-    j_ref = tonp(j_biem(j_tree("ba"), centers=_lattice(2), radii=np.ones(4), k=np.asarray(1.3),
-                        n_end=8, uin=uin, uin_grad=uin_grad, alpha=1.0, beta=0.5, eta=1.0,
-                        solver="direct").density)
+    # and the JAX package's direct solve (committed: `jax_golden`)
+    j_ref = jax_values["robin lattice density"]
     assert np.abs(ref - j_ref).max() <= 1e-10 * np.abs(j_ref).max()
 
 
-def test_force_matrix_matches_jax():
-    """force_matrix on the default and the matfree solver: LU and dense
-    GMRES on the assembled matrix, which matches the JAX package's."""
+def _force_matrix_jax():
     centers, radii = _GEOMETRIES["random"]
     uin_j, _ = j_plane_wave(k=np.asarray(1.3), direction=np.array([0.0, 0.6, 0.8]))
-    ref = j_biem(j_tree("ba"), centers=centers, radii=radii, k=np.asarray(1.3), n_end=6,
-                 uin=uin_j, force_matrix=True)
+    return j_biem(j_tree("ba"), centers=centers, radii=radii, k=np.asarray(1.3), n_end=6,
+                  uin=uin_j, force_matrix=True)
+
+
+def test_force_matrix_matches_jax(jax_values):
+    """force_matrix on the default and the matfree solver: LU and dense
+    GMRES on the assembled matrix, which matches the JAX package's
+    (committed: `jax_golden`)."""
+    centers, radii = _GEOMETRIES["random"]
     uin, _ = plane_wave(k=torch.tensor(1.3, **F64), direction=torch.tensor([0.0, 0.6, 0.8], **F64))
     for solver in ("auto", "matfree"):
         calc = biem(create_from_branching_types("ba"), centers=torch.tensor(centers),
                     radii=torch.tensor(radii), k=torch.tensor(1.3, **F64), n_end=6, uin=uin,
                     force_matrix=True, solver=solver)
-        _assert_pair_blocks(calc.matrix.numpy(), tonp(ref.matrix))
-        d_ref = tonp(ref.density)
+        _assert_pair_blocks(calc.matrix.numpy(), jax_values["force_matrix matrix"])
+        d_ref = jax_values["force_matrix density"]
         assert np.abs(calc.density.numpy() - d_ref).max() <= 1e-9 * np.abs(d_ref).max()
         assert (calc.relres is None) == (solver == "auto")
 
 
-@pytest.mark.parametrize("stable", [True, False])
-def test_one_sphere_diagonal_solve_matches_jax(stable):
+ONE_X = np.array([[2.0, 0.0], [1.0, -1.5], [0.5, 0.0]])
+
+
+def _one_sphere_jax(stable):
     centers, radii = _GEOMETRIES["one"]
     uin_j, _ = j_plane_wave(k=KS, direction=np.broadcast_to([[1.0], [0.0], [0.0]], (3, 2)))
-    ref = j_biem(j_tree("ba"), centers=np.broadcast_to(centers, (2, 1, 3)),
-                 radii=np.broadcast_to(radii, (2, 1)), k=KS, n_end=6, uin=uin_j,
-                 stable=stable)
+    return j_biem(j_tree("ba"), centers=np.broadcast_to(centers, (2, 1, 3)),
+                  radii=np.broadcast_to(radii, (2, 1)), k=KS, n_end=6, uin=uin_j,
+                  stable=stable)
+
+
+@pytest.mark.parametrize("stable", [True, False])
+def test_one_sphere_diagonal_solve_matches_jax(jax_values, stable):
+    centers, radii = _GEOMETRIES["one"]
     uin, _ = plane_wave(k=torch.tensor(KS),
                         direction=torch.tensor([[1.0], [0.0], [0.0]]).expand(3, 2))
     calc = biem(create_from_branching_types("ba"),
@@ -338,10 +426,10 @@ def test_one_sphere_diagonal_solve_matches_jax(stable):
                 radii=torch.tensor(np.broadcast_to(radii, (2, 1)).copy()),
                 k=torch.tensor(KS), n_end=6, uin=uin, stable=stable)
     assert calc.matrix is None and calc.relres is None
-    np.testing.assert_allclose(calc.density.numpy(), tonp(ref.density), rtol=1e-12, atol=0)
-    x = np.array([[2.0, 0.0], [1.0, -1.5], [0.5, 0.0]])
-    np.testing.assert_allclose(calc.uscat(torch.tensor(x)).numpy(), tonp(ref.uscat(x)),
-                               rtol=1e-11)
+    np.testing.assert_allclose(calc.density.numpy(), jax_values[f"one sphere density {stable}"],
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose(calc.uscat(torch.tensor(ONE_X)).numpy(),
+                               jax_values[f"one sphere uscat {stable}"], rtol=1e-11)
 
 
 # (solver, B, n_end, real dtype, device, right-hand side, force_matrix,

@@ -18,12 +18,16 @@ inputs.
   (1e-4: float32 rounding, GMRES stopping at 3e-5).
 * `max_memory`/`max_n_end` at d = 4 and 5, and `from_numpy` of a 4D JAX
   result, which must evaluate to the JAX package's own field (1e-12).
+* The JAX package's solves (one to three minutes of compile each on a
+  CPU) are committed in tests/golden/test_torch_dims.npz (`jax_golden`,
+  `python tools/torch_golden_from_jax.py --tests`).
 * The port alone (a JAX call of these takes 30-60 s on a CPU): the matrix
   without an incident field equals the LU route's, and a point source's
   solve (the quadrature right-hand side in 4D) meets the sound-soft
   boundary condition to 1e-4 of |u_in|.
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -34,14 +38,7 @@ from biem_helmholtz_sphere_tpu import max_n_end as j_max_n_end
 from biem_helmholtz_sphere_tpu import plane_wave as j_plane_wave
 from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
 from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
-from biem_helmholtz_sphere_tpu_torch import (
-    BIEMResultCalculator,
-    biem,
-    max_memory,
-    max_n_end,
-    plane_wave,
-    point_source,
-)
+from biem_helmholtz_sphere_tpu_torch import biem, max_memory, max_n_end, plane_wave, point_source
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 
 GOLDEN_4D = -0.454651 - 0.423387j  # tests/test_biem.py (jascome_output_4d.csv)
@@ -127,69 +124,52 @@ def test_4d_golden_on_every_route(btype, route):
     assert abs(u - GOLDEN_4D) <= 2e-6
 
 
-@pytest.fixture(scope="module", params=["bba", "bpbpa"])
-def jax_4d(request):
-    calc = _jax_solve(request.param, 6, _pair(4), 1.0)
-    return request.param, _fields(calc, "jax", 4), tonp(calc.density)
-
-
-@pytest.mark.parametrize("route", ["lu", "gmres", "factored", "offset-table"])
-def test_4d_fields_match_jax(jax_4d, route):
-    """Against the JAX package's default route (a direct LU); the port's
-    GMRES routes stop at their float64 tolerance, which bounds the
-    agreement at ~1e-9."""
-    btype, fields, dens = jax_4d
-    calc = _solve(btype, 6, _pair(4), 1.0, **ROUTES[route])
-    _assert_close(calc.density.numpy(), dens, 1e-8)
-    for got, ref in zip(_fields(calc, "torch", 4), fields):
-        assert got.shape == ref.shape
-        _assert_close(got, ref, 1e-8)
-
-
-@pytest.fixture(scope="module")
-def jax_5d():
-    calc = _jax_solve("bbba", 5, _pair(5), 1.0)
-    return _fields(calc, "jax", 5), tonp(calc.density)
-
-
-@pytest.mark.parametrize("route", ["lu", "factored"])
-def test_5d_matches_jax(jax_5d, route):
-    fields, dens = jax_5d
-    calc = _solve("bbba", 5, _pair(5), 1.0, **ROUTES[route])
-    _assert_close(calc.density.numpy(), dens, 1e-8)
-    for got, ref in zip(_fields(calc, "torch", 5), fields):
-        _assert_close(got, ref, 1e-8)
-
-
-@pytest.fixture(scope="module")
-def jax_hypercube():
-    """(near field, density) of the JAX package (each field evaluation is
-    a compile of its own there: the two-sphere tests hold the far field
-    and per_ball)."""
+def jax_golden():
+    """The JAX package's solves the fixtures below read (each compiles for
+    one to three minutes on the CPU): the jascome pair on 'bba' and
+    'bpbpa', the 5D pair and the first k of the hypercube, by its default
+    route (a direct LU), with their fields."""
+    out = {}
+    for name, (btype, n_end, centers) in {
+            "bba": ("bba", 6, _pair(4)), "bpbpa": ("bpbpa", 6, _pair(4)),
+            "bbba": ("bbba", 5, _pair(5))}.items():
+        calc = _jax_solve(btype, n_end, centers, 1.0)
+        out[f"{name} density"] = tonp(calc.density)
+        for key, v in zip(("near", "far", "per_ball"), _fields(calc, "jax", len(centers[0]))):
+            out[f"{name} {key}"] = v
     calc = _jax_solve("bba", 6, HYPERCUBE, HYPERCUBE_KS[0])
-    return tonp(calc.uscat(_points(4)[0])), tonp(calc.density)
+    out["hypercube near"] = tonp(calc.uscat(_points(4)[0]))
+    out["hypercube density"] = tonp(calc.density)
+    return out
 
 
-@pytest.mark.parametrize("route", ["lu", "factored"])
-def test_4d_hypercube_matches_jax(jax_hypercube, route):
-    """16 spheres, 40 distinct offsets along every axis and diagonal (the
-    rotation to t^ = +-e_axis included), two k in one call."""
-    near_ref, dens = jax_hypercube
-    calc = _solve("bba", 6, HYPERCUBE, HYPERCUBE_KS, **ROUTES[route])
-    assert calc.density.shape == (2, 16, 91)
-    _assert_close(calc.density[0].numpy(), dens, 1e-8)
-    _assert_close(calc.uscat(torch.tensor(_points(4)[0])).numpy()[:, 0], near_ref, 1e-8)
-    alone = _solve("bba", 6, HYPERCUBE, HYPERCUBE_KS[1])
-    _assert_close(calc.density[1].numpy(), alone.density.numpy(), 1e-8)
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_dims")
 
 
-def test_4d_hypercube_float32_factored_matches_jax(jax_hypercube):
-    near_ref, dens = jax_hypercube
-    calc = _solve("bba", 6, HYPERCUBE, HYPERCUBE_KS[0], torch.float32, solver="matfree")
-    assert calc.density.dtype == torch.complex64 and float(calc.relres) <= 3e-5
-    _assert_close(calc.density.numpy().astype(np.complex128), dens, 1e-4)
-    near = torch.tensor(_points(4)[0], dtype=torch.float32)
-    _assert_close(calc.uscat(near).numpy(), near_ref, 1e-4)
+def _jax_pair(jax_values, name):
+    """(fields, density) of a pair's JAX solve, committed (`jax_golden`)."""
+    return (tuple(jax_values[f"{name} {key}"] for key in ("near", "far", "per_ball")),
+            jax_values[f"{name} density"])
+
+
+@pytest.fixture(scope="module", params=["bba", "bpbpa"])
+def jax_4d(request, jax_values):
+    return (request.param, *_jax_pair(jax_values, request.param))
+
+
+@pytest.fixture(scope="module")
+def jax_5d(jax_values):
+    return _jax_pair(jax_values, "bbba")
+
+
+@pytest.fixture(scope="module")
+def jax_hypercube(jax_values):
+    """(near field, density) of the JAX package at the first k, committed
+    (each field evaluation is a compile of its own there: the two-sphere
+    tests hold the far field and per_ball)."""
+    return jax_values["hypercube near"], jax_values["hypercube density"]
 
 
 @pytest.mark.parametrize("d,n_end,n_balls", [(4, 3, 1), (4, 6, 2), (4, 20, 16), (5, 4, 2),
@@ -200,18 +180,6 @@ def test_memory_model_matches_jax_beyond_3d(d, n_end, n_balls):
     for limit in (10**6, 10**9, 10**12):
         assert max_n_end(c_ndim=d, memory_limit=limit, n_balls=n_balls) == j_max_n_end(
             c_ndim=d, memory_limit=limit, n_balls=n_balls)
-
-
-def test_from_numpy_of_a_4d_jax_result(jax_4d):
-    """A JAX result carried across as numpy arrays evaluates, through the
-    port's general evaluation, to the JAX package's own field."""
-    btype, fields, dens = jax_4d
-    back = BIEMResultCalculator.from_numpy(
-        create_from_branching_types(btype), 6, _pair(4), np.ones(2), 1.0, None, dens,
-        device="cpu")
-    assert back.density.dtype == torch.complex128
-    for got, ref in zip(_fields(back, "torch", 4), fields):
-        _assert_close(got, ref, 1e-12)
 
 
 def test_4d_matrix_only_is_the_solved_matrix():

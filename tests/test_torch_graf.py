@@ -10,29 +10,27 @@ both packages' h_n (n < 23) at z = (1.9 + 0.2i) 6 are within 3.0e-11 and
 3.4e-11 of scipy's, and 1.5e-11 apart (at real z = 6.4, 3.1e-12 and
 3.6e-12).
 Float32 (the port) against float64 (JAX): 1e-5, on offsets that are exact
-in float32.
+in float32.  The JAX package's unscaled matrices are committed in
+tests/golden/test_torch_graf.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`).
 """
 
+import _jax_golden
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
-from biem_helmholtz_sphere_tpu.coords import from_cartesian as j_from_cartesian
 from biem_helmholtz_sphere_tpu.ops.cplx import C
 from biem_helmholtz_sphere_tpu.ops.cplx import to_numpy as tonp
 from biem_helmholtz_sphere_tpu.translation import translation_matrix as j_translation_matrix
-from biem_helmholtz_sphere_tpu.translation._scaled import graf_2d_scaled as j_graf_2d_scaled
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.ops.graf import _graf_fold_plain, graf_fold
 from biem_helmholtz_sphere_tpu_torch.special import spherical_h_scaled, spherical_jh_all
-from biem_helmholtz_sphere_tpu_torch.translation import sr_scaled, translation_matrix
+from biem_helmholtz_sphere_tpu_torch.translation import translation_matrix
 from biem_helmholtz_sphere_tpu_torch.translation._ops import _a_node_m
-from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
-    graf_2d_folded,
-    graf_2d_scaled,
-)
+
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 TOL_SCALED = {torch.float64: 2e-11, torch.float32: 1e-5}
@@ -71,74 +69,38 @@ def _t_k(k, rdt):
     return torch.tensor(k, dtype=cdt if isinstance(k, complex) else rdt)
 
 
+GRAF_CASES = [("SR", 6, 6), ("SR", 5, 8), ("RR", 6, 4)]
+
+
+def jax_golden():
+    """The JAX package's 2D translation matrices that test_graf_2d_matches_jax
+    reads (its (R|R) compiles for a minute per k type on the CPU)."""
+    t = _offsets(np.random.default_rng(2))
+    return {f"{kind}-{n_end}-{n_add}-{kname}": tonp(j_translation_matrix(
+                j_tree("a"), jnp.asarray(t), n_end, _j_k(KS[kname]), kind=kind, n_end_add=n_add))
+            for kind, n_end, n_add in GRAF_CASES for kname in KS}
+
+
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_graf")
+
+
 @pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("kname", ["real", "complex"])
-@pytest.mark.parametrize("kind,n_end,n_add", [("SR", 6, 6), ("SR", 5, 8), ("RR", 6, 4)])
-def test_graf_2d_matches_jax(kind, n_end, n_add, kname, rdt):
+@pytest.mark.parametrize("kind,n_end,n_add", GRAF_CASES)
+def test_graf_2d_matches_jax(jax_values, kind, n_end, n_add, kname, rdt):
     """translation_matrix in 2D (Graf's closed form through KG's
-    zero-exponent mode) against the JAX package, with n_end_add."""
+    zero-exponent mode) against the JAX package, with n_end_add (the JAX
+    values committed: `jax_golden`)."""
     t = _offsets(np.random.default_rng(2))
     k = KS[kname]
     c = create_from_branching_types("a")
     got = translation_matrix(c, torch.tensor(t, dtype=rdt), n_end, _t_k(k, rdt), kind=kind,
                              n_end_add=n_add).numpy()
-    ref = tonp(j_translation_matrix(j_tree("a"), jnp.asarray(t), n_end, _j_k(k), kind=kind,
-                                    n_end_add=n_add))
+    ref = jax_values[f"{kind}-{n_end}-{n_add}-{kname}"]
     assert got.shape == ref.shape == (t.shape[1], 2 * n_end - 1, 2 * n_add - 1)
     assert _block_rel_err(got, ref, _a_node_m(c, n_end), _a_node_m(c, n_add)) <= TOL[rdt]
-
-
-@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("kname", ["real", "complex"])
-def test_graf_2d_scaled_matches_jax(kname, rdt):
-    """graf_2d_scaled (and sr_scaled's 2D dispatch) as mant * exp(S)
-    against the JAX package's, past the float32 overflow of h_n: n_end = 24
-    at k|t| ~ 4-10 (|h_46(4)| ~ 1e46)."""
-    t = _offsets(np.random.default_rng(3))
-    k, n_end = KS[kname], 24
-    c = create_from_branching_types("a")
-    t_t = torch.tensor(t, dtype=rdt)
-    mant, s_mat = graf_2d_scaled(c, None, n_end, _t_k(k, rdt), t_cart=t_t)
-    mant2, s_mat2 = sr_scaled(c, None, n_end, _t_k(k, rdt), t_cart=t_t)
-    assert torch.equal(mant, mant2) and torch.equal(s_mat, s_mat2)
-    jm, je = j_graf_2d_scaled(j_tree("a"), j_from_cartesian(j_tree("a"), jnp.asarray(t)),
-                              n_end, _j_k(k))
-    jm, je = tonp(jm), np.asarray(je)
-    assert bool(torch.isfinite(mant).all())
-    # compare mant * exp(S - S_ref): both sides finite in float64
-    got = mant.to(torch.complex128).numpy() * np.exp(s_mat.double().numpy() - je)
-    m = _a_node_m(c, n_end)
-    assert _block_rel_err(got, jm, m, m) <= TOL_SCALED[rdt]
-    if rdt == torch.float64:
-        assert np.abs(s_mat.numpy() - je).max() <= TOL_SCALED[rdt] * np.abs(je).max()
-
-
-@pytest.mark.parametrize("rdt", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("kname", ["real", "complex"])
-def test_graf_fold_plain_matches_jax_fold(kname, rdt):
-    """KG's plain version with a nonzero fold (each k its own row and column
-    exponents, the offsets' angles shared) against the JAX package's
-    graf_2d_scaled followed by the fold of its offset-table route."""
-    rng = np.random.default_rng(4)
-    t = _offsets(rng)
-    n_end, n_k = 12, 2
-    ks = np.array([1.1, 1.9]) + (0.2j if kname == "complex" else 0.0)
-    h = 2 * n_end - 1
-    # exponents of the size the ball-max fold carries (|e| up to ~60)
-    e_r = -np.abs(rng.normal(size=(n_k, h))) * 20.0
-    e_b = rng.normal(size=(n_k, h)) * 10.0
-    c = create_from_branching_types("a")
-    cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
-    k_t = torch.tensor(ks, dtype=cdt if kname == "complex" else rdt)
-    got = graf_2d_folded(c, torch.tensor(t, dtype=rdt), n_end, k_t,
-                         torch.tensor(e_r, dtype=rdt), torch.tensor(e_b, dtype=rdt)).numpy()
-    j_k = C.of(jnp.asarray(ks))[:, None] if kname == "complex" else jnp.asarray(ks)[:, None]
-    jm, je = j_graf_2d_scaled(j_tree("a"), j_from_cartesian(j_tree("a"), jnp.asarray(t)),
-                              n_end, j_k)
-    ref = tonp(jm) * np.exp(e_r[:, None, :, None] + np.asarray(je) + e_b[:, None, None, :])
-    assert got.shape == ref.shape == (n_k, t.shape[1], h, h)
-    m = _a_node_m(c, n_end)
-    assert _block_rel_err(got, ref, m, m) <= TOL_SCALED[rdt]
 
 
 def test_graf_fold_zero_exponent_mode_is_graf_2d():

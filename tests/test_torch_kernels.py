@@ -11,12 +11,14 @@ by chip_smoke.py.
 
 Tolerances: float64, different summation order (dense einsum vs
 blocks, one-hot matmul vs gather/index_add, scan vs loop): 1e-12 of the
-largest entry.
+largest entry.  The JAX package's whole factored matvec is committed in
+tests/golden/test_torch_kernels.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`).
 """
 
-import hashlib
 from dataclasses import replace
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -39,28 +41,20 @@ from biem_helmholtz_sphere_tpu_torch.biem._core import (
     _factored_operator,
     _pair_routing,
 )
-from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
-    _fused_ba_eval_plain,
-    fused_ba_eval,
-    regroup,
-)
+from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import fused_ba_eval, regroup
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics import basis
 from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
 from biem_helmholtz_sphere_tpu_torch.ops import kernels
 from biem_helmholtz_sphere_tpu_torch.ops.block_diag import (
-    ITEM_FIELDS,
     LaneSegments,
     _block_diag_cmm_plain,
-    _plan,
     block_diag_cmm,
-    item_stages,
     pack,
     unpack,
 )
 from biem_helmholtz_sphere_tpu_torch.ops.lane_route import (
     _lane_gather_plain,
-    _lane_scatter_plain,
     lane_gather,
     lane_scatter,
     make_route,
@@ -275,21 +269,38 @@ def test_packing_is_exact_for_the_operator_tables():
                            _block_diag_cmm_plain(dense, lanes, seg, False))
 
 
-def test_factored_matvec_matches_jax():
-    n_end, n_k = 4, 2
-    rng = np.random.default_rng(26)
+MATVEC_KS = np.array([1.1, 1.9])  # test_factored_matvec_matches_jax, n_end = 4
+
+
+def _matvec_x():
+    return _randc(np.random.default_rng(26), (len(MATVEC_KS), len(_lattice()) * 16))
+
+
+def jax_golden():
+    """The JAX package's factored operator (diag, one matvec) that
+    test_factored_matvec_matches_jax reads: a minute of compile on a cold
+    CPU."""
     centers = _lattice()
-    nb = len(centers)
-    ks = np.array([1.1, 1.9])
+    nb, n_k = len(centers), len(MATVEC_KS)
     c_j = j_tree("ba")
     _, rad, kc, eta_c, al, be = j_check_inputs(
-        c_j, np.broadcast_to(centers, (n_k, nb, 3)), np.ones((n_k, nb)), ks, None, 1.0, 0.0
+        c_j, np.broadcast_to(centers, (n_k, nb, 3)), np.ones((n_k, nb)), MATVEC_KS, None, 1.0,
+        0.0
     )
-    mv_j, diag_j = j_matfree_operator(
-        c_j, n_end, centers, rad, kc, eta_c, al, be, None, stable=True
-    )
-    x = _randc(rng, (n_k, nb * n_end * n_end))
-    y_j = tonp(mv_j(C.of(x)))
+    mv_j, diag_j = j_matfree_operator(c_j, 4, centers, rad, kc, eta_c, al, be, None, stable=True)
+    return {"factored diag": tonp(diag_j), "factored matvec": tonp(mv_j(C.of(_matvec_x())))}
+
+
+def test_factored_matvec_matches_jax():
+    """One factored matvec and the diagonal against the JAX package's
+    (committed: `jax_golden`)."""
+    n_end, n_k = 4, len(MATVEC_KS)
+    centers = _lattice()
+    nb = len(centers)
+    ks = MATVEC_KS
+    ref = _jax_golden.load("test_torch_kernels")
+    diag_j, y_j = ref["factored diag"], ref["factored matvec"]
+    x = _matvec_x()
     f64 = dict(dtype=torch.float64)
     mv_t, diag_t = _factored_operator(
         create_from_branching_types("ba"), n_end, centers, torch.ones(n_k, nb, **f64),
@@ -297,7 +308,7 @@ def test_factored_matvec_matches_jax():
         torch.ones(n_k, nb, dtype=torch.complex128),
         torch.zeros(n_k, nb, dtype=torch.complex128),
     )
-    _close(diag_t.numpy(), tonp(diag_j))
+    _close(diag_t.numpy(), diag_j)
     _close(mv_t(torch.as_tensor(x)).numpy(), y_j)
 
 
@@ -357,60 +368,6 @@ def _work_list_cases(geometry):
                                       (cs_sizes, rt.rad_ptr, True))]
 
 
-@pytest.mark.parametrize("elem_bytes", [8, 16])
-@pytest.mark.parametrize("geometry", sorted(_WORK_LISTS))
-def test_work_list_covers_every_block_and_lane_once(geometry, elem_bytes):
-    """KB's host-built work list, for D (shared by the k's, slot segments)
-    and X (one matrix per (k, radius), radius segments): every (matrix,
-    block, row, k, lane) that a product needs is in exactly one item,
-    nothing else is, every item fits its staging buffer (row panels
-    column panel by column panel), an item of several column panels has
-    at most one 4 x 2 tile per thread, and the list runs largest first.
-    Rows are counted by the 4-row tiles that row panels start on."""
-    n_k = 4
-    for sizes, seg, per_k in _work_list_cases(geometry):
-        n_mat = len(seg) - 1
-        g = np.asarray(sizes)
-        items_t, n_items, buf, paneled = _plan(sizes, seg, n_k, per_k, elem_bytes,
-                                               torch.device("cpu"))
-        items = items_t.numpy()
-        assert items.shape == (n_items, ITEM_FIELDS) and 2 * buf * elem_bytes <= 232448
-        assert buf % 4 == 0
-        foot, panels = item_stages(items, sizes, buf)
-        assert (foot <= buf).all()
-        mat_, _, _, _, _, b0_, b1_, q0_, q1_, r0_, r1_ = items.T.astype(np.int64)
-        rows = np.minimum(r1_, g[b0_]) - r0_
-        tiles = -(-rows // 4) * -(-(q1_ - q0_) // 2)
-        assert ((panels == 1) | ((b1_ - b0_ == 1) & (tiles <= 256))).all()
-        assert paneled == bool((panels > 1).any() or (rows < g[b0_]).any())
-        # D's degree blocks need row panels in 4D and 5D; X's child-state
-        # blocks (at most n_end) never do
-        assert paneled == (not per_k and geometry[:2] in ("4d", "5d"))
-        n_rt = -(-int(g.max()) // 4)
-        for mat in range((n_k if per_k else 1) * n_mat):
-            m = mat % n_mat
-            nl_m = seg[m + 1] - seg[m]
-            cover = np.zeros((len(g), n_rt, n_k, max(nl_m, 1)), int)
-            for _, k0, nk, lane0, nl, b0, b1, q0, q1, r0, r1 in items[mat_ == mat]:
-                assert (lane0, nl) == (seg[m], nl_m) and 0 <= q0 < q1 <= nk * nl
-                assert (k0, nk) == ((mat // n_mat, 1) if per_k else (0, n_k))
-                assert r0 % 4 == 0
-                for b in range(b0, b1):
-                    assert 0 <= r0 < min(r1, g[b])
-                    rt0, rt1 = r0 // 4, -(-min(r1, g[b]) // 4)
-                    for q in range(q0, q1):
-                        cover[b, rt0:rt1, k0 + q // nl, q % nl] += 1
-            want = np.zeros_like(cover)
-            if nl_m:
-                for b in range(len(g)):
-                    ks = slice(mat // n_mat, mat // n_mat + 1) if per_k else slice(None)
-                    want[b, : -(-g[b] // 4), ks, :] = 1
-            np.testing.assert_array_equal(cover, want)
-        work = [int((g[b0:b1] * (np.minimum(r1, g[b0:b1]) - r0)).sum()) * (q1 - q0)
-                for b0, b1, q0, q1, r0, r1 in items[:, 5:].astype(np.int64)]
-        assert work == sorted(work, reverse=True)
-
-
 # KB's work lists at the 3D bench (4 k, the 240 compacted lanes; D over
 # its 36 slots, X over its 9 radii) as the parent of the row-panel change
 # built them: (items, elements per buffer, sha256 of the int32 items).
@@ -420,23 +377,6 @@ _BENCH_WORK_LISTS = {
     ("X", 8): (368, 7160, "b6667f101d0763daab85950e9fc9e000eac9f0d18666a9c0755fd51f3fb0c2d4"),
     ("X", 16): (652, 3584, "66ad614764bed81d43aa8c37aa61824549dd7256873bd30793cb40850ba0d0b3"),
 }
-
-
-@pytest.mark.parametrize("matrix,elem_bytes", sorted(_BENCH_WORK_LISTS))
-def test_work_list_at_the_3d_bench_is_unchanged(matrix, elem_bytes):
-    """Row panels leave the 3D bench's work lists as they were: the same
-    items (the first nine fields, pinned by digest), each over the whole
-    rows of its blocks, the same buffer, no panels."""
-    (d_case, x_case) = _work_list_cases("bench")
-    sizes, seg, per_k = d_case if matrix == "D" else x_case
-    items_t, n_items, buf, paneled = _plan(sizes, seg, 4, per_k, elem_bytes,
-                                           torch.device("cpu"))
-    items = items_t.numpy()
-    digest = hashlib.sha256(np.ascontiguousarray(items[:, :9], dtype=np.int32).tobytes())
-    assert (n_items, buf, digest.hexdigest()) == _BENCH_WORK_LISTS[matrix, elem_bytes]
-    assert not paneled and (items[:, 9] == 0).all()
-    g = np.asarray(sizes)
-    assert [int(r1) for r1 in items[:, 10]] == [int(g[b0:b1].max()) for b0, b1 in items[:, 5:7]]
 
 
 def test_compacted_route_matches_the_padded_route():

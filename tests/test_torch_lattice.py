@@ -7,9 +7,12 @@ dense pair-major matvec to 1e-12 of its largest entry; solves stop at the
 float64 GMRES tolerance 1e-11 (relative preconditioned residual), so
 densities agree with a direct solve, and with the JAX package's, to 1e-9
 of the largest entry; the n_balls anchor is the JAX package's test value
-to its 1e-8.
+to its 1e-8.  The JAX solves of the 3 x 3 case are committed in
+tests/golden/test_torch_lattice.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`).
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -110,19 +113,38 @@ def _t_solve(btype, centers, ks, n_end, **kw):
                 n_end=n_end, uin=uin, uin_grad=uin_grad, **kw)
 
 
+KB_3X3 = (0.9, 1.3)
+
+
+def jax_golden():
+    """The JAX package's solves that test_3x3_lattice_case_of_the_jax_package
+    reads: the 3 x 3 'a' case by its direct and matrix-free routes, and
+    each k of KB_3X3 by its direct route."""
+    centers = lattice_centers(3, 2)
+    kw = dict(alpha=1.0, beta=0.5, eta=np.ones(1))
+    out = {f"3x3 {solver}": _j_solve("a", centers, np.array([1.1]), 6, solver=solver,
+                                     **kw).density.to_numpy()
+           for solver in ("direct", "matfree")}
+    for ki in KB_3X3:
+        out[f"3x3 direct k={ki}"] = _j_solve("a", centers, np.array([ki]), 5, solver="direct",
+                                             beta=0.0).density.to_numpy()
+    return out
+
+
 def test_3x3_lattice_case_of_the_jax_package():
     """The JAX package's 3 x 3 'a' case (tests/test_biem.py), k = 1.1,
     Robin (alpha 1, beta 0.5), n_end = 6: the lattice operator under GMRES
     against the port's direct solve and the JAX package's direct and
     matrix-free ones; then two k in one call through the lattice operator
-    against each k's JAX direct solve."""
+    against each k's JAX direct solve (the JAX solves committed:
+    `jax_golden`; its matrix-free compile takes minutes on the CPU)."""
     c = create_from_branching_types("a")
     centers = lattice_centers(3, 2)
     ks = np.array([1.1])
     kw = dict(alpha=1.0, beta=0.5, eta=np.ones(1))
+    jax_values = _jax_golden.load("test_torch_lattice")
     direct = _t_solve("a", centers, ks, 6, solver="direct", **kw).density.reshape(1, -1)
-    d_ref = _j_solve("a", centers, ks, 6, solver="direct", **kw).density.to_numpy()
-    m_ref = _j_solve("a", centers, ks, 6, solver="matfree", **kw).density.to_numpy()
+    d_ref, m_ref = jax_values["3x3 direct"], jax_values["3x3 matfree"]
     calc = _t_solve("a", centers, ks, 6, solver="matfree", **kw)
     f_exp = _core._rhs_dispatch(c, 6, torch.tensor(centers), torch.ones(1, 9, **F64),
                                 torch.ones(1, 9, dtype=torch.complex128),
@@ -138,16 +160,15 @@ def test_3x3_lattice_case_of_the_jax_package():
     for ref in (d_ref, m_ref):
         assert np.abs(x.numpy().reshape(ref.shape) - ref).max() <= 1e-9 * scale
     # two k in one call, each against its own JAX direct solve
-    kb = np.array([0.9, 1.3])
+    kb = np.array(KB_3X3)
     args = _args(c, 5, centers, kb, beta=0.0)
     mv, diag = _lattice.lattice_operator(c, 5, centers, *args[2:])
     uin, _ = plane_wave(k=torch.tensor(kb), direction=torch.tensor([[1.0, 1.0], [0.0, 0.0]]))
     f_exp = _core._rhs_dispatch(c, 5, torch.tensor(centers), args[2], args[5], args[6], uin,
                                 None, (2,))
     x, _, _ = gmres_solve_op(mv, diag, f_exp.reshape(2, -1))
-    for i, ki in enumerate(kb):
-        ref = _j_solve("a", centers, np.array([ki]), 5, solver="direct", beta=0.0)
-        ref = ref.density.to_numpy().reshape(-1)
+    for i, ki in enumerate(KB_3X3):
+        ref = jax_values[f"3x3 direct k={ki}"].reshape(-1)
         assert np.abs(x[i].numpy() - ref).max() <= 1e-9 * np.abs(ref).max()
 
 
@@ -163,78 +184,3 @@ def test_8x8_ba_lattice_route_matches_direct(stable):
     direct = _t_solve("ba", centers, ks, 4, stable=stable, solver="direct")
     scale = float(direct.density.abs().max())
     assert float((calc.density - direct.density).abs().max()) <= 1e-9 * scale
-
-
-def test_8x8_a_lattice_anchor():
-    """The JAX package's 64-sphere 2D anchor (tests/test_biem.py): the 8 x 8
-    'a' lattice, k = 1, n_end = 19, float64, solver="auto" (the lattice
-    route, Graf's table through KG's zero-exponent mode)."""
-    c = create_from_branching_types("a")
-    uin, _ = plane_wave(k=torch.tensor(1.0, **F64), direction=torch.tensor([1.0, 0.0]))
-    calc = biem(c, centers=torch.tensor(lattice_centers(8, 2)), radii=torch.ones(64, **F64),
-                k=torch.tensor(1.0, **F64), n_end=19, uin=uin)
-    assert calc.matrix is None and int(calc.iters) > 0
-    u0 = complex(calc.uscat(torch.zeros(2, 1, **F64))[0])
-    assert abs(u0 - (-1.0537360062 + 0.0214642340j)) < 1e-8, u0
-
-
-def test_lattice_route_warm_start_and_several_k():
-    """Two k in one lattice call: the second equals that k alone, and a
-    warm start from the converged density converges at once."""
-    centers = lattice_centers(8, 2)
-    ks = np.array([0.8, 1.2])
-    calc = _t_solve("a", centers, ks, 7)
-    one = _t_solve("a", centers, ks[1:], 7)
-    assert float((calc.density[1] - one.density[0]).abs().max()) <= (
-        1e-9 * float(one.density.abs().max()))
-    warm = _t_solve("a", centers, ks, 7, density0=calc.density)
-    assert int(warm.iters.max()) <= 2
-    assert float((warm.density - calc.density).abs().max()) <= (
-        1e-9 * float(calc.density.abs().max()))
-
-
-@pytest.mark.parametrize("solver,route", [("auto", "lu"), ("matfree", "matfree")])
-def test_64_spheres_off_a_lattice_take_the_jax_route(solver, route):
-    """The route repair: 64 spheres at random, well-separated centres (no
-    lattice), 'ba', n_end = 3.  The port used to send every B >= 64 call to
-    the lattice route and raise; now it takes the JAX package's route (LU
-    at auto, the matrix-free operator when forced) and matches its solve."""
-    rng = np.random.default_rng(11)
-    pts = []
-    while len(pts) < 64:
-        p = rng.uniform(-20.0, 20.0, size=3)
-        if all(np.linalg.norm(p - q) > 3.0 for q in pts):
-            pts.append(p)
-    centers = np.array(pts)
-    assert _lattice.lattice_routing(centers) is None
-    c = create_from_branching_types("ba")
-    with pytest.raises(ValueError, match="do not form a lattice"):
-        _lattice.lattice_operator(c, 3, centers, *_args(c, 3, centers, np.array([0.9]))[2:])
-    assert _core._route(solver, 64, 64 * 9, torch.float64, torch.device("cpu"), True, False,
-                        centers) == route
-    ks = np.array([0.9])
-    got = _t_solve("ba", centers, ks, 3, solver=solver).density.numpy()
-    ref = _j_solve("ba", centers, ks, 3, solver=solver).density.to_numpy()
-    assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
-
-
-def test_stable_float32_lattice_past_the_overflow_wall():
-    """The guard every new route passes: a 64-sphere line (the lattice
-    route, L x 1 grid) at k = 1, pitch 4, n_end = 24, where the unscaled
-    float32 (S|R) overflows (|h_46(4)| ~ 1e46): the stable float32 solve
-    stays finite and within 1e-3 of float64."""
-    centers = np.stack([4.0 * np.arange(64), np.zeros(64)], axis=1)
-    f32 = dict(dtype=torch.float32)
-    out = {}
-    for rdt in (torch.float32, torch.float64):
-        f = dict(dtype=rdt)
-        uin, _ = plane_wave(k=torch.tensor(1.0, **f), direction=torch.tensor([0.0, 1.0], **f))
-        calc = biem(create_from_branching_types("a"), centers=torch.tensor(centers, **f),
-                    radii=torch.ones(64, **f), k=torch.tensor(1.0, **f), n_end=24, uin=uin)
-        assert calc.iters is not None and calc.matrix is None  # the lattice route
-        out[rdt] = calc
-    assert bool(torch.isfinite(out[torch.float32].density).all())
-    x = torch.tensor([[2.0], [2.5]], **f32)
-    u32 = complex(out[torch.float32].uscat(x)[0])
-    u64 = complex(out[torch.float64].uscat(x.double())[0])
-    assert abs(u32 - u64) <= 1e-3 * abs(u64), (u32, u64)

@@ -11,8 +11,12 @@ fall like (rho/t)^l with the degree l, so each (k, sphere, degree) block
 is held to 1e-10 of its own largest entry.  Solves stop at the float64
 GMRES tolerance 1e-11, so densities agree to ~1e-10 of the largest entry
 (1e-9 against the JAX package, whose solve stops at its own tolerance).
+The JAX package's operators and solve are committed in
+tests/golden/test_torch_matfree.npz (`jax_golden`, `python
+tools/torch_golden_from_jax.py --tests`).
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -89,31 +93,65 @@ _MV_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(_MV_CASES))
-def test_offset_table_matvec_matches_jax(case):
+def _mv_case(case):
+    """(stable, sr_map, centers, radii, alpha, beta, eta, x) of a case of
+    test_offset_table_matvec_matches_jax (n_end = 6)."""
     stable, with_map, radii_kind = _MV_CASES[case]
-    n_end, n_k = 6, len(KS)
+    n_k = len(KS)
     centers = _lattice(3, 3.0)
     nb = len(centers)
     rng = np.random.default_rng(41)
     radii = np.ones((n_k, nb)) if radii_kind == "lattice" else np.broadcast_to(
         rng.uniform(0.6, 1.2, size=nb), (n_k, nb)).copy()
-    alpha = np.full((n_k, nb), 1.0)
-    beta = np.full((n_k, nb), 0.5)
-    eta = np.array([1.0, 0.7])
-    sr_map = (lambda s: s) if with_map else None
-    _, rad, kc, eta_c, al, be = j_check_inputs(
-        j_tree("ba"), np.broadcast_to(centers, (n_k, nb, 3)), radii, KS, eta, alpha, beta)
-    mv_j, diag_j = j_matfree_operator(j_tree("ba"), n_end, centers, rad, kc, eta_c, al, be,
-                                      None, sr_map=sr_map, stable=stable)
-    x = _randc(rng, (n_k, nb * n_end * n_end))
-    y_j = tonp(mv_j(C.of(x)))
+    x = _randc(rng, (n_k, nb * 36))
+    return (stable, (lambda s: s) if with_map else None, centers, radii,
+            np.full((n_k, nb), 1.0), np.full((n_k, nb), 0.5), np.array([1.0, 0.7]), x)
+
+
+def _bench_lattice_call():
+    """(centers, direction) of test_bench_lattice_unscaled_matfree_matches_jax."""
+    return (np.broadcast_to(_lattice(), (len(KS), 16, 3)),
+            np.broadcast_to(np.array([1.0, 0.0, 0.0])[:, None], (3, len(KS))).copy())
+
+
+def jax_golden():
+    """The JAX package's values the tests read (each half a minute to a
+    minute of compile on a cold CPU): the operator of each case of
+    _MV_CASES (diag, one matvec) and the bench lattice's offset-table
+    GMRES density."""
+    out = {}
+    for case in _MV_CASES:
+        stable, sr_map, centers, radii, alpha, beta, eta, x = _mv_case(case)
+        nb, n_k = len(centers), len(KS)
+        _, rad, kc, eta_c, al, be = j_check_inputs(
+            j_tree("ba"), np.broadcast_to(centers, (n_k, nb, 3)), radii, KS, eta, alpha, beta)
+        mv_j, diag_j = j_matfree_operator(j_tree("ba"), 6, centers, rad, kc, eta_c, al, be,
+                                          None, sr_map=sr_map, stable=stable)
+        out[f"{case} diag"], out[f"{case} matvec"] = tonp(diag_j), tonp(mv_j(C.of(x)))
+    centers, direction = _bench_lattice_call()
+    uin_j, _ = j_plane_wave(k=KS, direction=direction)
+    ref = j_biem(j_tree("ba"), centers=centers, radii=np.ones((len(KS), 16)), k=KS,
+                 n_end=4, uin=uin_j, solver="matfree", stable=False)
+    out["bench lattice density"] = tonp(ref.density)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_matfree")
+
+
+@pytest.mark.parametrize("case", list(_MV_CASES))
+def test_offset_table_matvec_matches_jax(jax_values, case):
+    stable, sr_map, centers, radii, alpha, beta, eta, x = _mv_case(case)
+    n_end = 6
+    diag_j, y_j = jax_values[f"{case} diag"], jax_values[f"{case} matvec"]
     mv, diag = _core._matfree_operator(
         create_from_branching_types("ba"), n_end, centers, torch.tensor(radii),
         torch.tensor(KS), torch.tensor(eta), torch.tensor(alpha, dtype=torch.complex128),
         torch.tensor(beta, dtype=torch.complex128), sr_map=sr_map, stable=stable)
     n_root = basis(create_from_branching_types("ba"), n_end).n_root
-    assert degree_block_rel_err(diag.numpy(), tonp(diag_j), n_root) <= 1e-10
+    assert degree_block_rel_err(diag.numpy(), diag_j, n_root) <= 1e-10
     assert degree_block_rel_err(mv(torch.tensor(x)).numpy(), y_j, n_root) <= 1e-10
 
 
@@ -169,21 +207,18 @@ def test_matfree_gmres_matches_direct(geometry):
     assert float((dm - dd).abs().max() / dd.abs().max()) < 1e-10
 
 
-def test_bench_lattice_unscaled_matfree_matches_jax():
+def test_bench_lattice_unscaled_matfree_matches_jax(jax_values):
     """The 4x4 lattice, solver="matfree", stable=False, at two k: the
-    density of the JAX package's offset-table GMRES."""
+    density of the JAX package's offset-table GMRES (committed:
+    `jax_golden`)."""
     n_end = 4
-    centers = np.broadcast_to(_lattice(), (len(KS), 16, 3))
-    direction = np.broadcast_to(np.array([1.0, 0.0, 0.0])[:, None], (3, len(KS))).copy()
-    uin_j, _ = j_plane_wave(k=KS, direction=direction)
-    ref = j_biem(j_tree("ba"), centers=centers, radii=np.ones((len(KS), 16)), k=KS,
-                 n_end=n_end, uin=uin_j, solver="matfree", stable=False)
+    centers, direction = _bench_lattice_call()
     uin, _ = plane_wave(k=torch.tensor(KS), direction=torch.tensor(direction))
     calc = biem(create_from_branching_types("ba"), centers=torch.tensor(centers.copy()),
                 radii=torch.ones(len(KS), 16, **F64), k=torch.tensor(KS), n_end=n_end,
                 uin=uin, solver="matfree", stable=False)
     assert calc.matrix is None and float(calc.relres.max()) <= 1e-11
-    d, d_ref = calc.density.numpy(), tonp(ref.density)
+    d, d_ref = calc.density.numpy(), jax_values["bench lattice density"]
     assert np.abs(d - d_ref).max() <= 1e-9 * np.abs(d_ref).max()
 
 

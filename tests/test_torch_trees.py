@@ -15,8 +15,12 @@ CPU in float64 from the same numpy inputs.
   matrix-free route); uscat and calc.matrix against the JAX package
   (1e-10), and a batch with the geometry along one axis and k along the
   other against each member solved alone.
+
+The JAX package's solves are committed in tests/golden/test_torch_trees.npz
+(`jax_golden`, `python tools/torch_golden_from_jax.py --tests`).
 """
 
+import _jax_golden
 import numpy as np
 import pytest
 import torch
@@ -80,12 +84,39 @@ def test_bpa_readme_golden_on_every_route(route):
     assert abs(u - GOLDEN) <= 2e-6
 
 
-@pytest.fixture(scope="module")
-def jax_bpa():
+def jax_golden():
+    """The JAX package's solves the fixtures below read (each half a minute
+    to a minute of compile on a cold CPU): 'bpa' by dense GMRES, and the
+    geometry batch with force_matrix."""
     uin, _ = j_plane_wave(k=np.asarray(1.0), direction=DIRECTION)
     calc = j_biem(j_tree("bpa"), centers=CENTERS, radii=np.ones(2), k=np.asarray(1.0),
                   n_end=N_END, uin=uin, solver="gmres")
-    return _fields(calc, "jax"), tonp(calc.density)
+    out = {f"bpa field {i}": v for i, v in enumerate(_fields(calc, "jax"))}
+    out["bpa density"] = tonp(calc.density)
+    uin, _ = j_plane_wave(k=BATCH_KS, direction=np.broadcast_to(DIRECTION[:, None], (3, 2)))
+    calc = j_biem(j_tree("ba"), centers=BATCH_CENTERS, radii=np.ones((2, 2)), k=BATCH_KS,
+                  n_end=N_END, uin=uin, force_matrix=True)
+    out["batch uscat0"] = tonp(calc.uscat(np.zeros((3, 1))))[0]
+    out.update({f"batch field {i}": v for i, v in enumerate(_fields(calc, "jax"))})
+    out["batch matrix"] = tonp(calc.matrix)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_values():
+    return _jax_golden.load("test_torch_trees")
+
+
+def _fields_of(jax_values, name):
+    return tuple(jax_values[f"{name} field {i}"]
+                 for i in range(sum(k.startswith(f"{name} field ") for k in jax_values)))
+
+
+@pytest.fixture(scope="module")
+def jax_bpa(jax_values):
+    """The JAX package's 'bpa' dense GMRES solve: (fields, density),
+    committed (`jax_golden`)."""
+    return _fields_of(jax_values, "bpa"), jax_values["bpa density"]
 
 
 @pytest.mark.parametrize("route,tol", [("lu", 1e-8), ("factored", 1e-8)])
@@ -135,11 +166,11 @@ BATCH_KS = np.array([1.0, 1.1])
 
 
 @pytest.fixture(scope="module")
-def jax_batch():
-    uin, _ = j_plane_wave(k=BATCH_KS, direction=np.broadcast_to(DIRECTION[:, None], (3, 2)))
-    calc = j_biem(j_tree("ba"), centers=BATCH_CENTERS, radii=np.ones((2, 2)), k=BATCH_KS,
-                  n_end=N_END, uin=uin, force_matrix=True)
-    return tonp(calc.uscat(np.zeros((3, 1))))[0], _fields(calc, "jax"), tonp(calc.matrix)
+def jax_batch(jax_values):
+    """The JAX package's geometry batch with force_matrix: (uscat(0),
+    fields, matrix), committed (`jax_golden`)."""
+    return (jax_values["batch uscat0"], _fields_of(jax_values, "batch"),
+            jax_values["batch matrix"])
 
 
 def _port_batch(**kw):

@@ -32,6 +32,12 @@ nballs2d_golden_f64.json.
     python tools/torch_golden_from_jax.py --2d
     python tools/torch_golden_from_jax.py --caa
 
+With --tests [MODULE ...] it reruns the JAX calls of the port's CPU tests
+that read committed JAX values (each module's `jax_golden()`; default:
+every module of TEST_MODULES) and rewrites tests/golden/<module>.npz.
+
+    python tools/torch_golden_from_jax.py --tests [test_torch_ctrees ...]
+
 With --caa it solves the anchors of the trees with a 'c' node
 (chip_smoke.py phase 10 and tests/test_torch_ctrees.py), each on the JAX
 package's default route in float64 on the CPU (unit spheres, a plane
@@ -172,6 +178,31 @@ def c_trees():
     }
 
 
+# the test modules whose JAX values are committed (tests/_jax_golden.py)
+TEST_MODULES = (
+    "test_torch_2d", "test_torch_band_sr", "test_torch_biem", "test_torch_complex_k",
+    "test_torch_dense",
+    "test_torch_ctrees", "test_torch_dims", "test_torch_graf", "test_torch_gumerov",
+    "test_torch_kernels", "test_torch_lattice", "test_torch_matfree", "test_torch_surfaces",
+    "test_torch_trees",
+)
+
+
+def tests_golden(names):
+    """Run each module's jax_golden() and write tests/golden/<module>.npz."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _jax_golden
+
+    for name in names or TEST_MODULES:
+        t0 = time.perf_counter()
+        arrays = importlib.import_module(name).jax_golden()
+        _jax_golden.save(name, arrays)
+        print(f"{name}: {len(arrays)} arrays, {sum(a.size for a in arrays.values())} values, "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-k", type=int, default=4)
@@ -182,6 +213,8 @@ def main():
                     help="the 2D anchors (chip_smoke.py phase 9)")
     ap.add_argument("--caa", action="store_true",
                     help="the anchors of trees with a 'c' node (chip_smoke.py phase 10)")
+    ap.add_argument("--tests", nargs="*", default=None, metavar="MODULE",
+                    help="the committed JAX values of the CPU tests (tests/golden)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if (args.four_d or args.two_d or args.caa) and args.imag:
@@ -197,6 +230,9 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, ROOT)
+    if args.tests is not None:
+        tests_golden(args.tests)
+        return
     if args.two_d or args.caa:
         write(out_path, two_d() if args.two_d else c_trees())
         return
