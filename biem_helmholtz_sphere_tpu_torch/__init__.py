@@ -12,8 +12,11 @@ lattice-FFT GMRES), any incident field (`plane_wave` in closed form,
 field evaluation (fused on "ba", the general harmonic sum otherwise),
 `max_memory`/`max_n_end`, every translation method ("gumerov" by the
 Gumerov-Duraiswami recurrences on "ba"/"bpa"), the special functions of
-any dimension and the public surfaces of `coords`, `harmonics`,
-`special`, `translation`, `biem` and `utils`.
+any dimension, the public surfaces of `coords`, `harmonics`,
+`special`, `translation`, `biem` and `utils`, several cards or CPU ranks
+on one problem (`parallel`, on torch.distributed), and the frontends: the
+CLI (`python -m biem_helmholtz_sphere_tpu_torch`), `plot`, `gui` and the
+MFS oracle `validation`.
 
 TF32 stays off: reduced-precision matmuls took the float32 sound-soft
 boundary residual of the reference from 6e-4 to 2.7e-2.

@@ -482,7 +482,7 @@ def _matfree_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=N
 
 
 def _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method,
-                           sr_map, stable):
+                           sr_map, stable, offsets=None, with_diag=True):
     """The offset-table matrix-free operator: (mv, diag) on [K, B*H] vectors.
 
     The table [K, NO, H, H] and the row, column and diagonal factors are
@@ -493,32 +493,60 @@ def _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, met
     offset's table to all its lanes in one batched product (cuBLAS, the
     table read through its transpose in place), takes the compacted lanes
     back and sums them per sphere with the parity and the diagonal (KC).
+
+    offsets (a slice of the offset ids, `_offsets`' order) builds the table
+    of those offsets alone and routes only their lanes: mv is then that
+    share of the coupling (the offset-sharded solve, parallel.sharded_solve,
+    sums the shares across ranks), with the diagonal term only where
+    with_diag.  diag is always the whole system's diagonal; mv.stored_bytes
+    is the table's size.
     """
     n_k, n_balls = radii.shape
     dev = radii.device
-    table, _, rowf, colf, pm, diag = _assembly_parts(
-        c, n_end, centers_np, radii, k, eta, alpha, beta, method, stable)
+    routing = _pair_routing(centers_np, radius_slots=False)
+    if offsets is None:
+        table, _, rowf, colf, pm, diag = _assembly_parts(
+            c, n_end, centers_np, radii, k, eta, alpha, beta, method, stable)
+        o0, lanes = 0, slice(None)
+    else:
+        rowf, colf, diag, fold = _radial_factors(c, n_end, radii, k, eta, alpha, beta,
+                                                 stable)
+        n_root = basis(c, n_end).n_root
+        pm = torch.as_tensor(1.0 - 2.0 * (n_root % 2), dtype=radii.dtype, device=dev)
+        uniq = routing.uniq[offsets]
+        uniq_r, r_inv = unique_radii(np.linalg.norm(uniq, axis=1))
+        table = _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method)
+        o0 = offsets.start or 0
+        lanes = slice(routing.slot_ptr[o0], routing.slot_ptr[o0 + len(uniq)])
     if sr_map is not None:
         table = sr_map(table)
-    h_num = table.shape[-1]
-    routing = _pair_routing(centers_np, radius_slots=False)
-    route = make_route(routing.src, routing.dst, routing.dn, n_balls, dev)
-    lane = torch.as_tensor(routing.lane, device=dev)
+    h_num = rowf.shape[-1]
     n_off, lps = table.shape[1], 2 * routing.p_max
-    # y[k, o, p] = SR[k, o] w[k, o, p]: w @ SR^T, SR^T a view of the table
-    sr_t = table.reshape(n_k * n_off, h_num, h_num).transpose(1, 2)
     rowf, colf, diag = (
         t.expand(n_k, n_balls, h_num).contiguous() for t in (rowf, colf, diag)
     )
-    # the padding lanes stay zero: index_copy_ writes the routed lanes only
-    padded = table.new_zeros((n_k, n_off * lps, h_num))
+    diag_mv = diag if with_diag else torch.zeros_like(diag)
+    if n_off == 0:  # a share with no offsets: the diagonal term alone
 
-    def mv(x_flat):
-        x = x_flat.reshape(n_k, n_balls, h_num)
-        y = _table_product(lane_gather(x, colf, pm, route), padded, lane, sr_t)
-        out = lane_scatter(y, x, diag, rowf, pm, route)
-        return out.reshape(n_k, n_balls * h_num)
+        def mv(x_flat):
+            return (diag_mv * x_flat.reshape(n_k, n_balls, h_num)).reshape(n_k, -1)
 
+    else:
+        route = make_route(routing.src[lanes], routing.dst[lanes], routing.dn[lanes],
+                           n_balls, dev)
+        lane = torch.as_tensor(routing.lane[lanes] - o0 * lps, device=dev)
+        # y[k, o, p] = SR[k, o] w[k, o, p]: w @ SR^T, SR^T a view of the table
+        sr_t = table.reshape(n_k * n_off, h_num, h_num).transpose(1, 2)
+        # the padding lanes stay zero: index_copy_ writes the routed lanes only
+        padded = table.new_zeros((n_k, n_off * lps, h_num))
+
+        def mv(x_flat):
+            x = x_flat.reshape(n_k, n_balls, h_num)
+            y = _table_product(lane_gather(x, colf, pm, route), padded, lane, sr_t)
+            out = lane_scatter(y, x, diag_mv, rowf, pm, route)
+            return out.reshape(n_k, n_balls * h_num)
+
+    mv.stored_bytes = table.numel() * table.element_size()
     return mv, diag.reshape(n_k, n_balls * h_num)
 
 
@@ -577,14 +605,16 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
 
 
 def _assemble(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
-              stable=False, pair_major=False):
+              stable=False, pair_major=False, rows=None):
     """The dense system matrix: complex [K, B, H, B', H'], or pair-major
     [K, B, B', H, H'] (biem_helmholtz_sphere_tpu: `_assemble`, block-gather
     branch and the single-sphere diagonal): the KD kernel (ops/dense.py)
-    on `_assembly_parts`."""
+    on `_assembly_parts`.  rows = (r0, r1): only the rows r0 <= b H + h <
+    r1 of the [B H, B' H'] matrix, [K, r1 - r0, B', H'] (the row-sharded
+    solve, parallel.sharded_solve)."""
     return dense_assemble(
         *_assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method, stable),
-        pair_major=pair_major,
+        pair_major=pair_major, rows=rows,
     )
 
 

@@ -12,9 +12,10 @@ Lx x Ly cell grid to 2Lx x 2Ly, FFT the H-vector field over the cell
 axes, multiply by the kernel's FFT per frequency ([H, H] @ [H]), inverse
 FFT.  Nothing of size B^2 is formed, so the lattices of 1024-4096 spheres
 of the `n_balls` accuracy family solve on one card.  The same semantics as
-biem_helmholtz_sphere_tpu.biem._lattice, without its multi-card sharding
-hooks (ROADMAP queue 1 item 10) and without its TPU workarounds (the
-stacked real-pair product, the barrier on the offsets).
+biem_helmholtz_sphere_tpu.biem._lattice, without its TPU workarounds (the
+stacked real-pair product, the barrier on the offsets).  Its multi-card
+form (the JAX package's `part` hooks, which leave the partitioning to
+XLA) is `part`: explicit collectives of parallel.sharded_solve's ranks.
 
 The kernel is built from the lexicographically positive half of the
 offsets (`_core._offset_table`, the table of the dense and offset-table
@@ -25,6 +26,17 @@ which `torch.fft.fftn` (cuFFT) transforms over the two cell axes a chunk
 of rows at a time, back into the same buffer.  The
 per-frequency product is one batched `torch.matmul` in native complex
 (the JAX package leaves it to an XLA einsum outside any kernel).
+
+Sharded over ranks (`part`, from parallel.sharded_solve(lattice=True)),
+the kernel is built and stored by slabs.  Rank r takes a contiguous range
+of the cell rows di of the positive half, builds the half table of those
+offsets alone and writes it and its parity mirror into its rows of the
+grid (di and -di mod Fx: a slab of ~Fx / world rows), FFTs them along Fy,
+and one all_to_all re-slabs the grid by Fy columns, where it FFTs along
+Fx: rank r keeps khat[:, :, Fy_r], ceil(Fy / world) columns.  Per matvec
+every rank FFTs the small [K, Fx, Fy, H] vector field (replicated), takes
+the product on its own columns (one batched `torch.matmul`), all-gathers
+the columns and inverse-FFTs, replicated.
 """
 
 import numpy as np
@@ -141,8 +153,81 @@ def _kernel_fft(c, n_end, routing, k, fold, method):
     return grid
 
 
+def _slab_rows(lx, world, rank):
+    """(di, rows): rank's contiguous share di of the half offsets' cell
+    rows 0 <= di < lx, and the grid rows (Fx = 2 lx) it holds while the
+    kernel is built, those and their mirrors -di mod Fx (the padding row
+    lx is nobody's: it stays zero)."""
+    di = np.array_split(np.arange(lx), world)[rank]
+    return di, np.unique(np.concatenate([di, (-di) % (2 * lx)])).astype(np.int64)
+
+
+def _columns(fy, world, rank):
+    """The Fy columns [c0, c1) that rank keeps of the kernel's FFT:
+    ceil(Fy / world) each, the last ranks fewer (or none)."""
+    per = -(-fy // world)
+    return min(fy, rank * per), min(fy, (rank + 1) * per)
+
+
+def _kernel_fft_part(c, n_end, routing, k, fold, method, part):
+    """This rank's columns of the kernel's FFT: complex [Fy_r, Fx, K, H, H],
+    Fy_r = the columns of `_columns`, built by slabs (module docstring)."""
+    _, _, (lx, ly), _, _ = routing
+    fx, fy = 2 * lx, 2 * ly
+    world, rank = part.world, part.rank
+    dis, djs, t = _half_offsets(routing, c.c_ndim)
+    di_mine, rows = _slab_rows(lx, world, rank)
+    mine = np.isin(dis, di_mine)  # this rank's half offsets
+    dis, djs, t = dis[mine], djs[mine], t[mine]
+    n_k, h_num = k.shape[0], basis(c, n_end).num
+    cdt = torch.complex128 if k.real.dtype == torch.float64 else torch.complex64
+    dev = k.device
+    # the slab [Fy, rows, K, H, H]: Fy outermost, so each destination's
+    # columns are one contiguous piece of it for the all_to_all
+    slab = torch.zeros((fy, len(rows), n_k, h_num, h_num), dtype=cdt, device=dev)
+    if len(dis):
+        uniq_r, r_inv = unique_radii(np.linalg.norm(t, axis=1))
+        half = _offset_table(c, n_end, t, uniq_r, r_inv, k, fold, method)  # [K, NOh_r, H, H]
+        pm = torch.as_tensor((-1.0) ** (basis(c, n_end).n_root % 2), dtype=k.real.dtype,
+                             device=dev)
+        parity = pm[:, None] * pm[None, :]
+        pos = np.searchsorted(rows, np.arange(fx))  # grid row -> slab row (its rows)
+        cell_h = torch.as_tensor((djs % fy) * len(rows) + pos[dis % fx], device=dev)
+        cell_m = torch.as_tensor(((-djs) % fy) * len(rows) + pos[(-dis) % fx], device=dev)
+        flat = slab.view(fy * len(rows), n_k, h_num, h_num)
+        flat.index_copy_(0, cell_h, half.transpose(0, 1))
+        for s in range(0, len(dis), _MIRROR_CHUNK):
+            e = min(len(dis), s + _MIRROR_CHUNK)
+            flat.index_copy_(0, cell_m[s:e], (half[:, s:e] * parity).transpose(0, 1))
+        del half
+    chunk = max(1, _FFT_BYTES // max(1, slab[:, :, :, :1].numel() * slab.element_size()))
+    for r in range(0, h_num, chunk):  # along Fy, a chunk of rows h at a time
+        slab[:, :, :, r : r + chunk] = torch.fft.fft(slab[:, :, :, r : r + chunk], dim=0)
+    # re-slab by Fy columns: every rank's rows of my columns, in one all_to_all
+    block = n_k * h_num * h_num
+    c0, c1 = _columns(fy, world, rank)
+    col_n = [np.subtract(*_columns(fy, world, s)[::-1]) for s in range(world)]
+    row_sets = [_slab_rows(lx, world, s)[1] for s in range(world)]
+    recv = slab.new_empty(((c1 - c0) * sum(len(rs) for rs in row_sets) * block,))
+    part.all_to_all(recv, slab.view(-1), [int((c1 - c0) * len(rs) * block) for rs in row_sets],
+                    [int(n * len(rows) * block) for n in col_n])
+    del slab
+    khat = recv.new_zeros((c1 - c0, fx, n_k, h_num, h_num))
+    at = 0
+    for rs in row_sets:
+        n = (c1 - c0) * len(rs) * block
+        khat.index_copy_(1, torch.as_tensor(rs, device=dev),
+                         recv[at : at + n].view(c1 - c0, len(rs), n_k, h_num, h_num))
+        at += n
+    del recv
+    chunk = max(1, _FFT_BYTES // max(1, khat[..., :1, :].numel() * khat.element_size()))
+    for r in range(0, h_num, chunk):  # along Fx
+        khat[..., r : r + chunk, :] = torch.fft.fft(khat[..., r : r + chunk, :], dim=1)
+    return khat
+
+
 def lattice_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
-                     stable=False):
+                     stable=False, part=None):
     """(mv, diag) on [K, B*H] vectors for a lattice geometry.
 
     The same contract as `_core._matfree_operator`: mv applies the full
@@ -150,6 +235,11 @@ def lattice_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=No
     scale-compensated with the ball-maximum exponents folded in, the
     per-ball deficits on the row and column factors (`_radial_factors`).
     centers_np [B, d] on the host; radii/alpha/beta [K, B], k/eta [K].
+
+    part (parallel.sharded_solve(lattice=True); rank, world, all_gather,
+    all_to_all) shards the kernel's build and store over the ranks (the
+    module docstring); the result is replicated on every rank and
+    mv.stored_bytes is this rank's kernel.
 
     A block-circulant (Strang) preconditioner is not built: the JAX
     package measured it counterproductive (64 spheres: 150 against 136
@@ -164,6 +254,9 @@ def lattice_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=No
     n_k, n_balls = radii.shape
     h_num = basis(c, n_end).num
     rowf, colf, diag, fold = _radial_factors(c, n_end, radii, k, eta, alpha, beta, stable)
+    if part is not None:
+        return _sharded_operator(c, n_end, routing, radii, k, rowf, colf, diag, fold, method,
+                                 part)
     khat = _kernel_fft(c, n_end, routing, k, fold, method)
     khat = khat.view(n_k * fx * fy, h_num, h_num)
     dev = radii.device
@@ -182,4 +275,37 @@ def lattice_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=No
         out = diag * x + rowf * cpl
         return out.reshape(n_k, n_balls * h_num)
 
+    return mv, diag.reshape(n_k, n_balls * h_num)
+
+
+def _sharded_operator(c, n_end, routing, radii, k, rowf, colf, diag, fold, method, part):
+    """`lattice_operator` over part's ranks: this rank's columns of the
+    kernel, the product on them, the columns all-gathered."""
+    _, _, (lx, ly), cell2ball, ball2cell = routing
+    fx, fy = 2 * lx, 2 * ly
+    n_k, n_balls = radii.shape
+    h_num = basis(c, n_end).num
+    dev = radii.device
+    khat = _kernel_fft_part(c, n_end, routing, k, fold, method, part)  # [Fy_r, Fx, K, H, H]
+    c0, c1 = _columns(fy, part.world, part.rank)
+    per = -(-fy // part.world)
+    c2b = torch.as_tensor(cell2ball, device=dev)
+    b2c = torch.as_tensor(ball2cell, device=dev)
+    rowf, colf, diag = (t.expand(n_k, n_balls, h_num).contiguous() for t in (rowf, colf, diag))
+    padded = colf.new_zeros((n_k, fx, fy, h_num))
+    mine = colf.new_zeros((per, fx, n_k, h_num))  # my columns' product, padded to per
+
+    def mv(x_flat):
+        x = x_flat.reshape(n_k, n_balls, h_num)
+        padded[:, :lx, :ly] = (colf * x).index_select(1, c2b).view(n_k, lx, ly, h_num)
+        zhat = torch.fft.fftn(padded, dim=(1, 2))  # [K, Fx, Fy, H], on every rank
+        z = zhat[:, :, c0:c1].permute(2, 1, 0, 3)[..., None]  # [Fy_r, Fx, K, H, 1]
+        mine[: c1 - c0] = torch.matmul(khat, z)[..., 0]
+        yhat = part.all_gather(mine)[:fy]  # [Fy, Fx, K, H]
+        y = torch.fft.ifftn(yhat.permute(2, 1, 0, 3), dim=(1, 2))[:, :lx, :ly]
+        cpl = y.reshape(n_k, lx * ly, h_num).index_select(1, b2c)
+        out = diag * x + rowf * cpl
+        return out.reshape(n_k, n_balls * h_num)
+
+    mv.stored_bytes = khat.numel() * khat.element_size()
     return mv, diag.reshape(n_k, n_balls * h_num)

@@ -14,7 +14,12 @@
 // k (geometry along the batch, each k's table holding its own offsets),
 // written in one of two layouts by strides: pair-major [K, B, B', H, H']
 // (dense GMRES) or [K, B, H, B', H'] (LU and calc.matrix; an [N, N]
-// row-major matrix per k).  The last axis H' is contiguous in both.
+// row-major matrix per k).  The last axis H' is contiguous in both.  In the
+// second layout it can write a window of rows alone, r0 <= b H + h < r1
+// (the row-sharded solve of parallel.sharded_solve; a window may cut a
+// ball's rows): only the pairs of the balls that meet the window get CTAs,
+// each CTA's tile is counted from the ball's first tile inside the window
+// and clipped to it, and row r lands at r - r0.
 //
 // What bounds it on the H100: device memory bandwidth on the write.  At
 // the bench (K = 4, B = 16, H = 1024, complex64) it writes 8.6 GB and
@@ -54,16 +59,25 @@ dense_assemble_kernel(const c2_t<T>* __restrict__ table, const int* __restrict__
                       const c2_t<T>* __restrict__ colf,
                       const T* __restrict__ sgn, const c2_t<T>* __restrict__ diag,
                       c2_t<T>* __restrict__ out, int B, int NO, int H, long long s_b,
-                      long long s_bp, long long s_h) {
+                      long long s_bp, long long s_h, long long s_k, long long r0,
+                      long long r1) {
   using T2 = c2_t<T>;
   const int k = blockIdx.z;
   const int* pk = pairs + k * pairs_k + 3 * blockIdx.x;  // pairs_k = 0: shared
   const int b = __ldg(pk);
   const int bp = __ldg(pk + 1);
   const int pid = __ldg(pk + 2);
-  const int h0 = blockIdx.y * kRows;
-  const int h1 = min(H, h0 + kRows);
-  T2* base = out + (size_t)k * B * B * H * H + b * s_b + bp * s_bp;
+  // this ball's rows inside the window [r0, r1) (all of them for the whole
+  // matrix: r0 = 0, r1 = B H), and this CTA's tile of them
+  const long long ball0 = (long long)b * H;
+  const int lo = (int)max(r0 - ball0, 0LL);
+  const int hi = (int)min(r1 - ball0, (long long)H);
+  const int tile = lo / kRows + blockIdx.y;
+  const int h0 = max(lo, tile * kRows);
+  const int h1 = min(hi, (tile + 1) * kRows);
+  if (h0 >= h1) return;
+  // row h of the block at (b, b'): k s_k + b s_b + b' s_bp + h s_h - r0 s_h
+  T2* base = out + ((long long)k * s_k + b * s_b + bp * s_bp - r0 * s_h);
   constexpr int kPass = kThreads * V;  // columns per pass
 
   if (b == bp) {  // diagonal block: delta_{hh'} diag[k, b, h]
@@ -116,14 +130,14 @@ dense_assemble_kernel(const c2_t<T>* __restrict__ table, const int* __restrict__
 template <typename T, int V>
 cudaError_t run(const void* table, const void* pairs, long long pairs_k, const void* rowf,
                 const void* colf, const void* sgn, const void* diag, void* out, int K, int B,
-                int NO, int H, int n_pairs, long long s_b, long long s_bp, long long s_h,
-                cudaStream_t st) {
-  const dim3 grid(n_pairs, (H + kRows - 1) / kRows, K);
+                int NO, int H, int n_pairs, int n_tiles, long long s_b, long long s_bp,
+                long long s_h, long long s_k, long long r0, long long r1, cudaStream_t st) {
+  const dim3 grid(n_pairs, n_tiles, K);
   dense_assemble_kernel<T, V><<<grid, kThreads, 0, st>>>(
       static_cast<const c2_t<T>*>(table), static_cast<const int*>(pairs), pairs_k,
       static_cast<const c2_t<T>*>(rowf), static_cast<const c2_t<T>*>(colf),
       static_cast<const T*>(sgn), static_cast<const c2_t<T>*>(diag),
-      static_cast<c2_t<T>*>(out), B, NO, H, s_b, s_bp, s_h);
+      static_cast<c2_t<T>*>(out), B, NO, H, s_b, s_bp, s_h, s_k, r0, r1);
   return cudaGetLastError();
 }
 
@@ -132,23 +146,29 @@ cudaError_t run(const void* table, const void* pairs, long long pairs_k, const v
 // table [K, NO, H, H]; pairs int32 [n_pairs, 3] = (b, b', offset id), the
 // diagonal pairs' id unused, for every k (pairs_k = 0) or [K, n_pairs, 3]
 // (pairs_k = 3 n_pairs); rowf, colf, diag [K, B, H]; sgn real [H];
-// out [K, B, B, H, H] in elements, (b, b', h) at strides (s_b, s_bp, s_h).
+// out: k at stride s_k, (b, b', h) at strides (s_b, s_bp, s_h) in elements,
+// the flat rows b H + h of the window [r0, r1) (the whole matrix: 0, B H;
+// a window needs s_b = H s_h, the [K, B, H, B', H'] layout), row r at
+// r - r0; the pairs those of the balls that meet the window, n_tiles the
+// most tiles of kRows rows that one of them has inside it.
 // vec: complex64 operands 16-byte aligned with H even (two values a
 // thread); ignored for complex128.
 extern "C" int bhs_dense_assemble(const void* table, const void* pairs, long long pairs_k,
                                   const void* rowf, const void* colf, const void* sgn,
                                   const void* diag, void* out, int K, int B, int NO, int H,
-                                  int n_pairs, long long s_b, long long s_bp, long long s_h,
+                                  int n_pairs, int n_tiles, long long s_b, long long s_bp,
+                                  long long s_h, long long s_k, long long r0, long long r1,
                                   int vec, int dbl, void* stream) {
-  if (K <= 0 || B <= 0 || H <= 0 || n_pairs <= 0) return 0;
-  if (K > 65535 || (H + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || B <= 0 || H <= 0 || n_pairs <= 0 || n_tiles <= 0) return 0;
+  if (K > 65535 || n_tiles > 65535 || r0 < 0 || r1 > (long long)B * H || r0 >= r1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbl)
     return (int)run<double, 1>(table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
-                               n_pairs, s_b, s_bp, s_h, st);
+                               n_pairs, n_tiles, s_b, s_bp, s_h, s_k, r0, r1, st);
   if (vec)
     return (int)run<float, 2>(table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
-                              n_pairs, s_b, s_bp, s_h, st);
+                              n_pairs, n_tiles, s_b, s_bp, s_h, s_k, r0, r1, st);
   return (int)run<float, 1>(table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
-                            n_pairs, s_b, s_bp, s_h, st);
+                            n_pairs, n_tiles, s_b, s_bp, s_h, s_k, r0, r1, st);
 }

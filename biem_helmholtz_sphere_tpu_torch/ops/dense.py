@@ -14,7 +14,9 @@ branch, and `_diag_scatter` for one sphere).  `dense_assemble` runs the
 CUDA kernel `csrc/dense_assemble.cu` on CUDA tensors and
 `_dense_assemble_plain` on CPU tensors, in either layout: pair-major
 [K, B, B', H, H'] (dense GMRES) or [K, B, H, B', H'] (the [N, N] matrix of
-LU and `calc.matrix`), written directly, with no transposing copy.  The
+LU and `calc.matrix`), written directly, with no transposing copy; in the
+latter layout it can write a window of rows alone (a row-sharded solve,
+parallel.sharded_solve).  The
 pair map pid is [B, B] for a geometry shared by the batch, or [K, B, B]
 for geometry that varies along it (each k's table holds that k's own
 offsets).
@@ -25,24 +27,36 @@ import torch
 from . import kernels
 
 
-def _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major):
+def _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major, rows=None):
     """Plain version of the KD kernel (and its CPU path); arguments as
-    `dense_assemble`."""
+    `dense_assemble`.  One ball's block row [B', H, H] at a time: the same
+    products, in the same shapes, whether the whole matrix or a row window
+    is asked for, so a window's entries equal the whole matrix's."""
     n_k, n_b, h = rowf.shape
     dev = rowf.device
-    out = torch.zeros((n_k, n_b, n_b, h, h), dtype=rowf.dtype, device=dev)
-    if n_b > 1:
-        lower = torch.ones(n_b, n_b, dtype=torch.bool, device=dev).tril(-1)
-        s = torch.where(lower[..., None], sgn, torch.ones_like(sgn))  # [B, B', H]
-        rowm = rowf[:, :, None, :] * s
-        colm = colf[:, None, :, :] * s
-        off = ~torch.eye(n_b, dtype=torch.bool, device=dev)
-        pid = pid.long().expand(n_k, n_b, n_b)
-        for k in range(n_k):  # one k at a time bounds the temporaries
-            ids = pid[k][off]  # the off-diagonal pairs, row-major
-            out[k, off] = (rowm[k, off][..., None] * table[k, ids]) * colm[k, off][..., None, :]
-    out[:, torch.eye(n_b, dtype=torch.bool, device=dev)] = torch.diag_embed(diag)
-    return out if pair_major else out.transpose(2, 3).contiguous()
+    r0, r1 = (0, n_b * h) if rows is None else rows
+    lower = torch.ones(n_b, n_b, dtype=torch.bool, device=dev).tril(-1)
+    s = torch.where(lower[..., None], sgn, torch.ones_like(sgn))  # [B, B', H]
+    rowm = rowf[:, :, None, :] * s  # [K, B, B', H]
+    colm = colf[:, None, :, :] * s
+    pid = pid.long().expand(n_k, n_b, n_b)
+    shape = (n_k, n_b, n_b, h, h) if pair_major else (n_k, r1 - r0, n_b, h)
+    out = torch.empty(shape, dtype=rowf.dtype, device=dev)
+    for k in range(n_k):
+        for b in range(r0 // h, -(-r1 // h)):  # the balls whose rows meet the window
+            if table.shape[1]:
+                blk = (rowm[k, b][..., None] * table[k, pid[k, b]]) * colm[k, b][:, None, :]
+            else:  # one sphere: no offsets
+                blk = rowf.new_zeros((n_b, h, h))
+            blk[b] = torch.diag_embed(diag[k, b])
+            if pair_major:
+                out[k, b] = blk
+            else:
+                lo, hi = max(r0, b * h), min(r1, (b + 1) * h)
+                out[k, lo - r0 : hi - r0] = blk.transpose(0, 1)[lo - b * h : hi - b * h]
+    if pair_major or rows is not None:
+        return out
+    return out.view(n_k, n_b, h, n_b, h)
 
 
 def _pair_order(pid):
@@ -61,15 +75,39 @@ def _pair_order(pid):
     return torch.take_along_dim(rows, order[..., None], dim=-2).to(torch.int32).contiguous()
 
 
-def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
+def _window_pairs(pairs, h, r0, r1):
+    """The pairs of `_pair_order` whose ball b has rows in the window
+    [r0, r1) of the flat row index b * H + h, in their order."""
+    b = pairs[..., 0]
+    keep = (b >= r0 // h) & (b <= (r1 - 1) // h)
+    return pairs[keep].reshape(pairs.shape[:-2] + (-1, 3)).contiguous()
+
+
+def _window_tiles(h, r0, r1, rows_per_tile):
+    """Tiles of rows_per_tile rows h per ball that KD's grid needs: the most
+    that any ball meeting the window [r0, r1) has inside it."""
+    most = 0
+    for b in range(r0 // h, (r1 - 1) // h + 1):
+        lo, hi = max(r0 - b * h, 0), min(r1 - b * h, h)
+        most = max(most, -(-hi // rows_per_tile) - lo // rows_per_tile)
+    return most
+
+
+_KD_ROWS = 16  # csrc/dense_assemble.cu: kRows, the rows h of a CTA's tile
+
+
+def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False, rows=None):
     """The dense BIEM matrix from its unique-offset table.
 
     table: complex [K, NO, H, H] (the (S|R) of each distinct offset, folded
     or plain); pid: int [B, B] offset id of each pair (the diagonal
     ignored), or [K, B, B] each k's own; rowf, colf, diag: complex [K, B, H] (row factor, column
     factor, diagonal); sgn: real [H], (-1)^{n_h}.  Returns complex
-    [K, B, B', H, H'] if pair_major, else [K, B, H, B', H'].  On CPU
-    tensors this runs the plain version; on CUDA tensors it launches
+    [K, B, B', H, H'] if pair_major, else [K, B, H, B', H'].  rows = (r0,
+    r1) (not with pair_major) asks for the rows r0 <= b * H + h < r1 of
+    the [B H, B' H'] matrix alone: [K, r1 - r0, B', H'], equal entry for
+    entry to those rows of the whole (a window may cut a ball's rows).  On
+    CPU tensors this runs the plain version; on CUDA tensors it launches
     csrc/dense_assemble.cu or raises.
     """
     n_k, n_b, h = rowf.shape
@@ -81,8 +119,16 @@ def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
             f"{tuple(rowf.shape)}, colf {tuple(colf.shape)}, diag {tuple(diag.shape)}, "
             f"sgn {tuple(sgn.shape)} do not match"
         )
+    if rows is not None:
+        r0, r1 = (int(r) for r in rows)
+        if pair_major or not 0 <= r0 < r1 <= n_b * h:
+            raise ValueError(
+                f"dense_assemble: rows {rows} is not a window of the {n_b * h} rows of "
+                f"the [B H, B' H'] layout (pair_major={pair_major})"
+            )
+        rows = (r0, r1)
     if rowf.device.type == "cpu":
-        return _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major)
+        return _dense_assemble_plain(table, pid, rowf, colf, sgn, diag, pair_major, rows)
     cdt = rowf.dtype
     if (cdt not in kernels.REAL_OF or any(t.dtype != cdt for t in (table, colf, diag))
             or sgn.dtype != kernels.REAL_OF[cdt]):
@@ -92,8 +138,15 @@ def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
         )
     table, rowf, colf, diag, sgn = (
         t.contiguous() for t in (table, rowf, colf, diag, sgn))
+    r0, r1 = (0, n_b * h) if rows is None else rows
     pairs = _pair_order(pid.to(rowf.device))  # [B * B, 3] or [K, B * B, 3]
-    shape = (n_k, n_b, n_b, h, h) if pair_major else (n_k, n_b, h, n_b, h)
+    if rows is not None:
+        pairs = _window_pairs(pairs, h, r0, r1)
+    n_pairs = pairs.shape[-2]
+    if pair_major:
+        shape = (n_k, n_b, n_b, h, h)
+    else:
+        shape = (n_k, n_b, h, n_b, h) if rows is None else (n_k, r1 - r0, n_b, h)
     out = torch.empty(shape, dtype=cdt, device=rowf.device)
     # element strides of (b, b', h) in the output
     strides = (n_b * h * h, h * h, h) if pair_major else (h * n_b * h, h, n_b * h)
@@ -101,8 +154,9 @@ def dense_assemble(table, pid, rowf, colf, sgn, diag, pair_major=False):
     vec = not dbl and h % 2 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (table, out))
     kernels.launch(
-        "bhs_dense_assemble", table, pairs, 3 * n_b * n_b if pairs.ndim == 3 else 0, rowf,
-        colf, sgn, diag, out, n_k, n_b, table.shape[1], h, n_b * n_b, *strides, int(vec),
+        "bhs_dense_assemble", table, pairs, 3 * n_pairs if pairs.ndim == 3 else 0, rowf,
+        colf, sgn, diag, out, n_k, n_b, table.shape[1], h, n_pairs,
+        _window_tiles(h, r0, r1, _KD_ROWS), *strides, out[0].numel(), r0, r1, int(vec),
         int(dbl),
     )
     dense_assemble.launches += 1

@@ -12,6 +12,8 @@ False for NaN, so a NaN solve would otherwise look converged after one
 step.
 """
 
+import os
+
 import torch
 
 
@@ -37,7 +39,10 @@ def gmres_solve_op(mv, diag, b, tol=None, restart=None, maxiter=20, x0=None):
 
     mv: callable [K, N] -> [K, N] (complex); diag: A's diagonal [K, N];
     b: [K, N]; x0: optional warm start [K, N].  tol is relative to
-    ||M^-1 b|| (default 3e-5 in float32, 1e-11 in float64); restart
+    ||M^-1 b|| (default 3e-5 in float32, 1e-11 in float64; with tol None,
+    the environment's BHS_GMRES_TOL_F32 / BHS_GMRES_TOL overrides the
+    default for that precision, as in the JAX package, for artifact rows
+    that need more converged digits); restart
     defaults to 48 (float32) / 192 (float64) Krylov steps; maxiter counts
     restart cycles.  Returns (x, relres [K], iters [K]): the final
     rotation-carried preconditioned relative residual estimate and the
@@ -46,6 +51,9 @@ def gmres_solve_op(mv, diag, b, tol=None, restart=None, maxiter=20, x0=None):
     f32 = b.dtype == torch.complex64
     if tol is None:
         tol = 3e-5 if f32 else 1e-11
+        env = os.environ.get("BHS_GMRES_TOL_F32" if f32 else "BHS_GMRES_TOL")
+        if env:
+            tol = float(env)
     m = restart if restart is not None else (48 if f32 else 192)
     m = max(1, min(m, b.shape[-1]))
     return _gmres_cgs2(mv, diag, b, tol, m, maxiter, x0)

@@ -65,9 +65,9 @@ _SIGNATURES = {
     "bhs_coax_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P],
     # table, pairs, pairs_k, rowf, colf, sgn, diag, out, K, B, NO, H,
-    # n_pairs, s_b, s_bp, s_h, vec, dbl, stream
+    # n_pairs, n_tiles, s_b, s_bp, s_h, s_k, r0, r1, vec, dbl, stream
     "bhs_dense_assemble": [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _L, _L, _L, _I, _I, _P],
+                           _I, _I, _L, _L, _L, _L, _L, _L, _I, _I, _P],
     # tab, etab, theta, theta_k, m_out, m_in, e_r, e_b, out, K, NO, NMU, Ho,
     # Hi, rows, smem, scale, fold, dbl, stream
     "bhs_graf_fold": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

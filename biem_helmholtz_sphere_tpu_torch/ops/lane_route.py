@@ -68,13 +68,14 @@ def _check(name, pm, *tensors):
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in (*tensors, pm)):
+        kernels._device_error(name, (*tensors, pm))  # the kernel reads one card
     dt = tensors[0].dtype
     if dt not in kernels.REAL_OF:
         raise TypeError(f"{name}: dtype {dt}")
-    for t in tensors:
-        if t.device != dev or t.dtype != dt:
-            raise TypeError(f"{name}: operands differ in device or dtype")
-    if pm.device != dev or pm.dtype != kernels.REAL_OF[dt]:
+    if any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{name}: operands differ in dtype")
+    if pm.dtype != kernels.REAL_OF[dt]:
         raise TypeError(f"{name}: parity must be real {kernels.REAL_OF[dt]}")
 
 

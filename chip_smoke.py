@@ -194,6 +194,23 @@ non-zero before the result line):
    error), and
    `regular_singular_component` and `potential_coef` on the card against
    the CPU.
+12. parallel/ and the CLI (`parallel_and_frontends`): KD's row window at
+   the dense path's shapes (the 4x4 lattice, n_end=19, both dtypes) equal
+   entry for entry to the whole matrix's rows and to its plain version,
+   timed beside its bound; (a) a one-rank NCCL group in this process:
+   `sharded_sweep` on the bench (complex64, phase 4's 8 ks) bit for bit
+   `biem()` on the 8 ks in one call, `sharded_uscat` at 131,072 points
+   bit for bit `calc.uscat`, and `sharded_solve` in complex128 (dense at
+   n_end=19 against dense GMRES 1e-8, the offset table at the bench
+   against the single-card offset table 1e-10, phase 9 (a)'s lattice
+   against its density 1e-10), the launch counts read around them; (b) two
+   spawned gloo ranks with CUDA tensors on the one card: the same paths,
+   the sweep within 1e-4 of (a), the solves at (a)'s gates, both ranks bit
+   for bit equal, each rank's operator <= 0.55 of the whole one, the
+   per-rank peak memory; (c) the CLI: `accuracy --mode n_balls` (1,024 'ba'
+   spheres, n_end=19, float32) within 1e-4 of phase 9 (a)'s complex64
+   uscat(0), and `bench` at its defaults; (d) each path's seconds split
+   into compute and collectives.
 
 Phase 2 also holds KB's row-panel mode (d >= 4: degree blocks too large
 to stage whole) against its plain version, D^H and D in both dtypes, each
@@ -1113,9 +1130,7 @@ def bench_config(torch, dev, card):
     uin, _ = plane_wave(k=torch.tensor(K0, **f), direction=direction)
     calc = biem(c, centers=centers, radii=torch.ones(nb, **f), k=torch.tensor(K0, **f),
                 n_end=N_END, uin=uin)
-    x = torch.as_tensor(
-        np.random.default_rng(0).normal(size=(3, EVAL_POINTS)).astype(np.float32) * 20.0,
-        device=dev)
+    x = eval_points(torch, dev)
     torch.cuda.synchronize()
     reset()
     u = calc.uscat(x)
@@ -2483,9 +2498,12 @@ def n_balls_family(torch, dev, card):
             if not same_bits(torch, again.density, dens):
                 raise RuntimeError("[9] (a): a repeated solve differs")
             del again
+        if cdt == torch.complex128:  # for phase 12 (b)
+            SHARED["9a density"] = dens.cpu()
         del calc, captured, out
         torch.cuda.empty_cache()
     SHARED["9a"] = u_a["complex128"]  # for phase 11 (c)
+    SHARED["9a64"] = u_a["complex64"]  # for phase 12 (c)
     d_c = abs(u_a["complex64"] - u_a["complex128"])
     d_art = abs(u_a["complex128"] - ARTIFACT_3D)
     print(f"[9] (a) complex64 - complex128 {d_c:.3e}; complex128 - the JAX package's float32 "
@@ -3492,6 +3510,315 @@ def gumerov_and_surfaces(torch, dev, card):
     return launches
 
 
+N_END_SHARDED = 19  # phase 12: the dense solve's n_end (16 x 361 = 5,776 unknowns)
+SHARDED_TOL = {"sweep": 1e-4, "dense": 1e-8, "matfree": 1e-10, "lattice": 1e-10}
+
+
+def sharded_paths(torch, dev, world, device_mesh, stats):
+    """The paths of parallel/ at full width, on this process's rank of a
+    world-size group (phase 12): the bench sweep (complex64, the 8 ks of
+    phase 4), the points at 131,072 (rank 0's share), then in complex128
+    the dense solve at n_end=19, the offset table at the bench and phase 9
+    (a)'s lattice.  Returns {path: result on the host}; stats gets each
+    path's `_stats`."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.parallel import (
+        make_mesh, sharded_solve, sharded_sweep, sharded_uscat)
+
+    ba = create_from_branching_types("ba")
+    out = {}
+    for rdt in (torch.float32, torch.float64):
+        f = dict(dtype=rdt, device=dev)
+        centers = torch.as_tensor(lattice_centers(), **f)
+        radii = torch.ones(len(centers), **f)
+        direction = torch.tensor([1.0, 0.0, 0.0], **f)
+        if rdt == torch.float32:
+            st = stats["sweep"] = {}
+            out["sweep"] = sharded_sweep(
+                ba, centers=centers, radii=radii, ks=torch.as_tensor(sweep_ks()[: 2 * KB], **f),
+                n_end=N_END, direction=direction, _stats=st,
+                mesh=make_mesh(world, ("sweep",), device=device_mesh)).cpu()
+            k0 = torch.tensor(K0, **f)
+            uin, _ = plane_wave(k=k0, direction=direction)
+            calc = biem(ba, centers=centers, radii=radii, k=k0, n_end=N_END, uin=uin)
+            st = stats["points"] = {}
+            out["points"] = sharded_uscat(calc, eval_points(torch, dev), _stats=st,
+                                          mesh=make_mesh(world, ("points",),
+                                                         device=device_mesh)).cpu()
+            continue
+        solves = {"dense": (ba, centers, N_END_SHARDED, {}),
+                  "matfree": (ba, centers, N_END, {"matfree": True}),
+                  "lattice": (ba, square_lattice(N_SIDE_3D, 3), N_END_3D, {"lattice": True})}
+        for name, (c, cen, n_end, kw) in solves.items():
+            st = stats[name] = {}
+            k = torch.tensor(1.0 if name == "lattice" else float(sweep_ks()[0]), **f)
+            out[name] = sharded_solve(
+                c, centers=cen, radii=torch.ones(len(cen), **f), k=k, n_end=n_end,
+                direction=direction, mesh=make_mesh(world, ("rows",), device=device_mesh),
+                _stats=st, **kw).cpu()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return out
+
+
+def eval_points(torch, dev):
+    """Phase 4's 131,072 field points (float32)."""
+    return torch.as_tensor(
+        np.random.default_rng(0).normal(size=(3, EVAL_POINTS)).astype(np.float32) * 20.0,
+        device=dev)
+
+
+def _two_ranks_on_one_card(rank, world, device, out_dir):
+    """Phase 12 (b): one of two gloo ranks with CUDA tensors on one card."""
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    out = sharded_paths(torch, dev, world, "cuda", stats)
+    torch.save({"out": out, "stats": stats, "peak": torch.cuda.max_memory_allocated()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def format_comm_split(stats):
+    return ", ".join(
+        f"{name} {st['total_s']:.4f} s ({st['total_s'] - st['collective_s']:.4f} compute, "
+        f"{st['collective_s']:.4f} in {sum(st['collectives'].values())} collectives)"
+        for name, st in stats.items())
+
+
+def kd_window(torch, dev, card):
+    """KD's row window against KD's whole matrix (entry for entry) and its
+    plain version, at the dense path's shapes (the 4x4 lattice, n_end=19,
+    [B, H, B', H']), timed with its bound: the half window of two ranks.
+    Returns KD's row-window results by dtype name."""
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _assembly_parts
+    from biem_helmholtz_sphere_tpu_torch.ops.dense import _dense_assemble_plain, dense_assemble
+
+    results = {}
+    for cdt in (torch.complex64, torch.complex128):
+        name = str(cdt).split(".")[-1]
+        rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+        f = dict(dtype=rdt, device=dev)
+        nb = N_SIDE * N_SIDE
+        parts = _assembly_parts(
+            create_from_branching_types("ba"), N_END_SHARDED, lattice_centers(),
+            torch.ones(1, nb, **f), torch.tensor([float(sweep_ks()[0])], **f),
+            torch.ones(1, **f), torch.ones(1, nb, dtype=cdt, device=dev),
+            torch.zeros(1, nb, dtype=cdt, device=dev), stable=rdt == torch.float32)
+        h = parts[2].shape[-1]
+        n = nb * h
+        whole = dense_assemble(*parts).reshape(1, n, n)
+        for r0, r1 in ((0, n // 2), (n // 2, n), (n // 6, n // 2 + 1), (h - 5, h + 7)):
+            got = dense_assemble(*parts, rows=(r0, r1))
+            if not torch.equal(got.reshape(1, r1 - r0, n), whole[:, r0:r1]):
+                raise RuntimeError(f"[12] KD rows [{r0}, {r1}) {name}: differ from the whole "
+                                   "matrix's")
+            if not torch.equal(got, _dense_assemble_plain(*parts, False, (r0, r1))):
+                raise RuntimeError(f"[12] KD rows [{r0}, {r1}) {name}: differ from the plain "
+                                   "version")
+            if not same_bits(torch, dense_assemble(*parts, rows=(r0, r1)), got):
+                raise RuntimeError(f"[12] KD rows [{r0}, {r1}) {name}: two launches differ")
+        rows = (0, n // 2)
+        ms = cuda_ms(torch, lambda: dense_assemble(*parts, rows=rows), 10)
+        pms = cuda_ms(torch, lambda: _dense_assemble_plain(*parts, False, rows), 3)
+        whole_ms = cuda_ms(torch, lambda: dense_assemble(*parts), 10)
+        item = parts[2].element_size()
+        n_off = parts[0].shape[1]
+        nbytes = (n // 2) * n * item + n_off * h * h * item + 3 * nb * h * item
+        b = bound(nbytes, 12.0 * (n // 2) * n, name)
+        us = device_us(torch, lambda: dense_assemble(*parts, rows=rows), "dense_assemble")
+        print(f"[12] KD row window, rows [0, {n // 2}) of the {n} x {n} matrix (4x4 lattice, "
+              f"n_end={N_END_SHARDED}, {name}): {ms:.4f} ms (device {us:.2f} us a launch; the "
+              f"whole matrix {whole_ms:.4f} ms), plain {pms:.4f} ms, bound {b[0]:.6f} ms "
+              f"({b[1]}); equal entry for entry to the whole matrix's rows and to its plain "
+              f"version at 4 windows, bits repeated ({card})")
+        results[name] = {"ms": ms, "plain_ms": pms, "abs": 0.0, "rel": 0.0, "bound_ms": b[0],
+                         "bound_by": b[1], "library_ms": None, "device_us": us}
+    return results
+
+
+def device_us(torch, fn, kernel):
+    """Mean device microseconds of the kernel whose name holds `kernel`
+    over 5 calls of fn, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    if not evs:
+        raise RuntimeError(f"torch.profiler saw no {kernel} kernel")
+    total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                for e in evs)
+    return total / sum(e.count for e in evs)
+
+
+def parallel_and_frontends(torch, dev, card):
+    """Phase 12: parallel/ on the card at full width and the CLI.
+    Returns (KD row-window results, launches of the main paths)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.parallel._dryrun import spawn_ranks
+
+    reset, read = kernel_counts()
+    kd = kd_window(torch, dev, card)
+    ba = create_from_branching_types("ba")
+
+    # (a) a one-rank NCCL group in this process
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            torch.cuda.synchronize()
+            reset()
+            one = sharded_paths(torch, dev, 1, "cuda", stats)
+            torch.cuda.synchronize()
+            counts = read()
+        finally:
+            dist.destroy_process_group()
+    require_launched(counts, ["fused_ba_eval", "fused_ba_eval_few", "block_diag_cmm",
+                              "lane_gather", "lane_scatter", "spherical_jh", "coax_fold",
+                              "dense_assemble"], "[12] (a)")
+    f = dict(dtype=torch.float32, device=dev)
+    centers = torch.as_tensor(lattice_centers(), **f)
+    nb = len(centers)
+    ks = torch.as_tensor(sweep_ks()[: 2 * KB], **f)
+    direction = torch.tensor([1.0, 0.0, 0.0], **f)
+    uin, _ = plane_wave(k=ks, direction=direction[:, None].expand(3, len(ks)))
+    ref = biem(ba, centers=centers.expand(len(ks), nb, 3), radii=torch.ones(len(ks), nb, **f),
+               k=ks, n_end=N_END, uin=uin, eta=torch.ones(len(ks), **f))
+    u_ref = ref.uscat(torch.zeros(3, 1, **f))[0].cpu()
+    if not same_bits(torch, one["sweep"], u_ref):
+        raise RuntimeError("[12] (a): sharded_sweep differs from biem() on the same 8 ks")
+    k0 = torch.tensor(K0, **f)
+    uin, _ = plane_wave(k=k0, direction=direction)
+    calc = biem(ba, centers=centers, radii=torch.ones(nb, **f), k=k0, n_end=N_END, uin=uin)
+    if not same_bits(torch, one["points"], calc.uscat(eval_points(torch, dev)).cpu()):
+        raise RuntimeError("[12] (a): sharded_uscat differs from calc.uscat")
+    print(f"[12] (a) one-rank NCCL group: sharded_sweep on the bench (16 spheres, n_end={N_END}, "
+          f"complex64, 8 ks) bit for bit biem() on the 8 ks in one call; sharded_uscat at "
+          f"{EVAL_POINTS} points bit for bit calc.uscat; the dense (n_end={N_END_SHARDED}), "
+          f"offset-table (n_end={N_END}) and lattice ({N_SIDE_3D}x{N_SIDE_3D}, n_end="
+          f"{N_END_3D}) solves in complex128; launches {counts}")
+    ref_dens = reference_densities(torch, dev)
+    check_densities(torch, one, ref_dens, "(a)")
+    print(f"[12] (d) (a)'s split, s per call: {format_comm_split(stats)} ({card})")
+
+    # (b) two gloo ranks with CUDA tensors on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(_two_ranks_on_one_card, 2, tmp, "cuda", tmp, backend="gloo")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    for name in ("sweep", "points", "dense", "matfree", "lattice"):
+        if not same_bits(torch, ranks[0]["out"][name], ranks[1]["out"][name]):
+            raise RuntimeError(f"[12] (b): the two ranks' {name} differ")
+    e_sweep = float(((ranks[0]["out"]["sweep"] - one["sweep"]).abs() / one["sweep"].abs()).max())
+    if not e_sweep <= SHARDED_TOL["sweep"]:
+        raise RuntimeError(f"[12] (b): the sweep is {e_sweep:.3e} from (a)'s")
+    check_densities(torch, ranks[0]["out"], ref_dens, "(b)")
+    for name in ("dense", "matfree", "lattice"):
+        for r, res in enumerate(ranks):
+            mine, whole = res["stats"][name]["bytes"], res["stats"][name]["whole_bytes"]
+            if not mine <= 0.55 * whole:
+                raise RuntimeError(f"[12] (b) rank {r}: {name} holds {mine} of {whole} bytes")
+    print(f"[12] (b) two gloo ranks with CUDA tensors on one card ({wall:.1f} s with the "
+          f"spawn): the sweep within {e_sweep:.2e} of (a), the ranks bit for bit equal; per-rank "
+          "operator bytes (of the whole): " + ", ".join(
+              f"{n} {ranks[0]['stats'][n]['bytes'] / 2**20:.1f} MiB "
+              f"({ranks[0]['stats'][n]['bytes'] / ranks[0]['stats'][n]['whole_bytes']:.3f})"
+              for n in ("dense", "matfree", "lattice"))
+          + "; per-rank peak " + " / ".join(f"{res['peak'] / 2**30:.3f} GiB" for res in ranks))
+    for r, res in enumerate(ranks):
+        print(f"[12] (d) (b) rank {r}'s split, s per call: {format_comm_split(res['stats'])} ({card})")
+
+    # (c) the CLI on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_cli("accuracy", "--mode", "n_balls", "--branching-types", "ba", "--dtype",
+                "float32", "--n-balls-min-log4", "4", "--n-balls-max-log4", "4",
+                "--n-end-min-log2", "4.25", "--n-end-max-log2", "4.25", "--out-dir", tmp)
+        acc_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "accuracy.csv")) as fh:
+            lines = fh.read().splitlines()
+    head, rows = lines[0].split(","), [r.split(",") for r in lines[1:]]
+    if len(rows) != 1:
+        raise RuntimeError(f"[12] (c): accuracy wrote {len(rows)} rows")
+    row = dict(zip(head, rows[0]))
+    u_cli = complex(float(row["uscat_real"]), float(row["uscat_imag"]))
+    e_cli = abs(u_cli - SHARED["9a64"]) / abs(SHARED["9a64"])
+    print(f"[12] (c) accuracy --mode n_balls (1,024 'ba' spheres, n_end={row['n_end']}, "
+          f"float32): uscat(0) {u_cli:.8f}, {e_cli:.2e} from phase 9 (a)'s complex64, "
+          f"{row['solve_iters']} GMRES steps, relres {row['solve_relres']}, device "
+          f"{row['device']}, {row['seconds']} s in the row ({acc_s:.1f} s with the process)")
+    if row["n_end"] != "19" or row["n_balls"] != "1024" or not e_cli <= 1e-4:
+        raise RuntimeError(f"[12] (c): accuracy row {row}")
+    t0 = time.perf_counter()
+    bench = run_cli("bench").strip().splitlines()[-1]
+    print(f"[12] (c) bench at its defaults: {bench} ({time.perf_counter() - t0:.1f} s with "
+          f"the process; {card})")
+    if "per k-point" not in bench or "cuda:" not in bench:
+        raise RuntimeError(f"[12] (c): bench printed {bench!r}")
+    return kd, counts
+
+
+def run_cli(*args):
+    """`python -m biem_helmholtz_sphere_tpu_torch *args` from the checkout:
+    its standard output; raise with its errors if it fails."""
+    out = subprocess.run([sys.executable, "-m", "biem_helmholtz_sphere_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"[12] (c): {' '.join(args[:1])} exited {out.returncode}: "
+                           f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def reference_densities(torch, dev):
+    """The single-device references of phase 12's complex128 solves: dense
+    GMRES at n_end=19, the offset table at the bench, and phase 9 (a)'s
+    lattice density (its complex128 solve)."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+
+    f = dict(dtype=torch.float64, device=dev)
+    ba = create_from_branching_types("ba")
+    centers = torch.as_tensor(lattice_centers(), **f)
+    k = torch.tensor(float(sweep_ks()[0]), **f)
+    uin, _ = plane_wave(k=k, direction=torch.tensor([1.0, 0.0, 0.0], **f))
+    out = {}
+    for name, n_end, solver in (("dense", N_END_SHARDED, "gmres"), ("matfree", N_END, "matfree")):
+        calc = biem(ba, centers=centers, radii=torch.ones(len(centers), **f), k=k, n_end=n_end,
+                    uin=uin, solver=solver)
+        if name == "matfree" and calc.matrix is not None:
+            raise RuntimeError("[12]: the matfree reference formed a matrix")
+        out[name] = calc.density.cpu()
+        del calc
+        torch.cuda.empty_cache()
+    out["lattice"] = SHARED["9a density"]
+    return out
+
+
+def check_densities(torch, got, ref, label):
+    for name in ("dense", "matfree", "lattice"):
+        e = float((got[name] - ref[name]).abs().max() / ref[name].abs().max())
+        print(f"[12] {label} sharded_solve {name}: {e:.3e} of the largest entry from its "
+              f"single-device reference (gate {SHARDED_TOL[name]:g})")
+        if not e <= SHARDED_TOL[name]:
+            raise RuntimeError(f"[12] {label}: sharded_solve {name} is {e:.3e} off")
+
+
+
 def main():
     try:
         import torch
@@ -3539,6 +3866,8 @@ def main():
     results.update(c_results)
     launches.update(c_launches)
     gumerov_and_surfaces(torch, dev, card)
+    results["dense_assemble_rows"], p_launches = parallel_and_frontends(torch, dev, card)
+    launches["dense_assemble_rows"] = p_launches["dense_assemble"]
 
     sources = {
         "fused_ba_eval": ("csrc/fused_ba_eval.cu",
@@ -3560,6 +3889,9 @@ def main():
                       "biem_helmholtz_sphere_tpu/translation/_scaled.py:86"),
         "dense_assemble": ("csrc/dense_assemble.cu",
                            "biem_helmholtz_sphere_tpu/biem/_core.py:826"),
+        # the same kernel's row window on the row-sharded solve (phase 12)
+        "dense_assemble_rows": ("csrc/dense_assemble.cu",
+                                "biem_helmholtz_sphere_tpu/parallel/__init__.py:279"),
         "graf_fold": ("csrc/graf_fold.cu",
                       "biem_helmholtz_sphere_tpu/translation/_scaled.py:58"),
         "band_sr": ("csrc/band_sr.cu",

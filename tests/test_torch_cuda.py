@@ -1322,3 +1322,87 @@ def test_surfaces_given_numpy_run_on_the_card(cuda, name):
     ref = fn(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in args))
     assert ref.device.type == "cpu" and got.dtype == ref.dtype
     assert float((got.cpu() - ref).abs().max()) <= 1e-12 * max(float(ref.abs().max()), 1.0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("per_k", [False, True])
+def test_dense_assemble_row_window_matches_whole(cuda, dtype, per_k):
+    """KD's row window (the row-sharded solve's assembly) equals the rows of
+    KD's whole matrix entry for entry, in both of its layouts (the pair-major
+    one transposed), and its plain version: windows that cut a ball, K = 2,
+    one pair map for both k or one per k; one launch per window, bits
+    repeated."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=cuda)
+    if per_k:
+        geo = np.stack([_lattice(), _lattice(spacing=4.5)[::-1]])
+        ks = torch.tensor([1.3 + 0.1j, 2.1 + 0.05j], dtype=dtype, device=cuda)
+    else:
+        geo = _lattice()
+        ks = torch.tensor([1.3, 2.1], **f)
+    parts = _assembly_parts(
+        create_from_branching_types("ba"), 8, geo, torch.ones(2, 16, **f), ks,
+        torch.ones(2, **f), torch.ones(2, 16, dtype=dtype, device=cuda),
+        torch.full((2, 16), 0.3, dtype=dtype, device=cuda), stable=True)
+    n = 16 * 64
+    whole = dense_assemble(*parts).reshape(2, n, n)
+    pm = dense_assemble(*parts, pair_major=True).transpose(2, 3).reshape(2, n, n)
+    assert torch.equal(whole, pm) and bool(torch.isfinite(whole).all())
+    for r0, r1 in ((0, n), (0, n // 2), (n // 2, n), (37, 901), (63, 65), (100, 101),
+                   (n - 24, n)):
+        n0 = dense_assemble.launches
+        got = dense_assemble(*parts, rows=(r0, r1))
+        assert dense_assemble.launches == n0 + 1
+        assert got.shape == (2, r1 - r0, 16, 64)
+        assert torch.equal(got.reshape(2, r1 - r0, n), whole[:, r0:r1]), (r0, r1)
+        assert torch.equal(got, _dense_assemble_plain(*parts, False, (r0, r1))), (r0, r1)
+        assert _same_bits(dense_assemble(*parts, rows=(r0, r1)), got)
+
+
+def _two_card_rank(rank, world, device, out_dir):
+    """One NCCL rank of test_two_card_nccl_sharded_sweep_and_dense_solve."""
+    from biem_helmholtz_sphere_tpu_torch.parallel import make_mesh, sharded_solve, sharded_sweep
+
+    f = dict(dtype=torch.float64, device=torch.device("cuda", torch.cuda.current_device()))
+    ba = create_from_branching_types("ba")
+    centers = torch.as_tensor(_lattice(), **f)
+    x_dir = torch.tensor([1.0, 0.0, 0.0], **f)
+    u = sharded_sweep(ba, centers=centers, radii=torch.ones(16, **f),
+                      ks=torch.linspace(1.0, 1.5, 4, **f), n_end=8, direction=x_dir,
+                      mesh=make_mesh(world, ("sweep",)))
+    dens = sharded_solve(ba, centers=centers, radii=torch.ones(16, **f),
+                         k=torch.tensor(1.3, **f), n_end=8, direction=x_dir,
+                         mesh=make_mesh(world, ("rows",)))
+    torch.save({"sweep": u.cpu(), "dense": dens.cpu(), "device": u.device.index},
+               f"{out_dir}/rank{rank}.pt")
+
+
+@pytest.mark.requires_cuda
+def test_two_card_nccl_sharded_sweep_and_dense_solve(two_cards, tmp_path):
+    """Two NCCL ranks, one on each card: the sharded sweep and the
+    row-sharded dense solve equal on both ranks bit for bit, and within
+    1e-10 of the single-card biem() (complex128)."""
+    from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
+    from biem_helmholtz_sphere_tpu_torch.parallel._dryrun import spawn_ranks
+
+    spawn_ranks(_two_card_rank, 2, str(tmp_path), "cuda", str(tmp_path))
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert [r["device"] for r in ranks] == [0, 1]
+    for name in ("sweep", "dense"):
+        assert _same_bits(ranks[0][name], ranks[1][name]), name
+    dev = two_cards[0]
+    f = dict(dtype=torch.float64, device=dev)
+    ba = create_from_branching_types("ba")
+    centers = torch.as_tensor(_lattice(), **f)
+    x_dir = torch.tensor([1.0, 0.0, 0.0], **f)
+    ks = torch.linspace(1.0, 1.5, 4, **f)
+    uin, _ = plane_wave(k=ks, direction=x_dir[:, None].expand(3, 4))
+    ref = biem(ba, centers=centers.expand(4, 16, 3), radii=torch.ones(4, 16, **f), k=ks,
+               n_end=8, uin=uin).uscat(torch.zeros(3, 1, **f))[0]
+    assert _rel(ranks[0]["sweep"], ref.cpu()) < 1e-10
+    k = torch.tensor(1.3, **f)
+    uin, _ = plane_wave(k=k, direction=x_dir)
+    ref = biem(ba, centers=centers, radii=torch.ones(16, **f), k=k, n_end=8, uin=uin,
+               solver="gmres").density
+    assert _rel(ranks[0]["dense"], ref.cpu()) < 1e-8

@@ -31,7 +31,8 @@ j_layer = importlib.import_module("biem_helmholtz_sphere_tpu.biem._layer")
 j_utils = importlib.import_module("biem_helmholtz_sphere_tpu.utils")
 
 F64 = dict(dtype=torch.float64)
-SUBPACKAGES = ("coords", "harmonics", "special", "translation", "biem", "utils")
+SUBPACKAGES = ("coords", "harmonics", "special", "translation", "biem", "utils", "parallel",
+               "validation", "plot", "gui", "cli")
 
 
 def _public(mod):
