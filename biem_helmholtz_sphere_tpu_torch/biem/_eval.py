@@ -15,8 +15,9 @@ with Y evaluated at the observation direction x^ itself for every sphere
 (kind="outer") or outside every sphere (kind="inner") are NaN.  k may be
 complex and the centers may vary along the batch.  On the 3D "ba" tree
 the harmonic sum runs through the fused kernel
-(`_eval_fused.fused_ba_eval`); every other tree takes `harmonic_sum`, the
-JAX package's general evaluation in plain torch, chunked over the points.
+(`_eval_fused.fused_ba_eval`, KA); every other tree takes `harmonic_sum`:
+its near field through KE (`ops/harmonic_eval.py`), its far field the
+harmonics at x and one `torch.matmul` with the density.
 The same semantics as biem_helmholtz_sphere_tpu.biem._eval.biem_u.
 """
 
@@ -26,12 +27,13 @@ import torch
 from ..coords import from_cartesian
 from ..harmonics._eval import harmonics
 from ..harmonics._index import assume_n_end_from_num, basis
+from ..ops import harmonic_eval as _ke
 from ..translation._ops import ipow
-from ._eval_fused import _h_clamped, fused_ba_eval, is_ba_tree, regroup
+from ._eval_fused import fused_ba_eval, is_ba_tree, regroup
 from ._layer import blc
 
-# bytes of the [K, P_chunk, B, H] complex temporaries of one chunk of
-# `harmonic_sum` (its harmonics, the radial factor, their product)
+# bytes of the [K, P_chunk, H] complex harmonics of one chunk of the far
+# field in `harmonic_sum`
 _EVAL_BYTES = 1 << 30
 
 
@@ -42,27 +44,20 @@ def harmonic_sum(c, n_end, x, centers, k, w, far=False, per_ball=False):
     x: real [d, Kx, P] (Kx = 1 shares the points over the batch);
     centers: real [K, B, d]; k: real or complex [K]; w: complex [K, B, H].
     Near field: Y at the direction of x - c_b and rad_n = h_n(k |x - c_b|)
-    clamped (`_h_clamped`); far field: Y at x itself and rad = 1.  Plain
-    torch, chunked over the points so that each chunk's [K, P_chunk, B, H]
-    temporaries stay within _EVAL_BYTES (the chunking does not change the
-    arithmetic).
+    clamped (`_h_clamped`), through KE (`ops/harmonic_eval.py`: the CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors).  Far field:
+    Y at x itself and rad = 1, the harmonics of a chunk of points (within
+    _EVAL_BYTES) and one `torch.matmul` with w, a library product.
     """
-    d, _, n_p = x.shape
+    if not far:
+        return _ke.harmonic_eval(c, n_end, x, centers, k, w, per_ball=per_ball)
+    n_p = x.shape[-1]
     n_k, n_balls, h_num = w.shape
-    n_idx = torch.as_tensor(basis(c, n_end).n_root, dtype=torch.long, device=w.device)
-    per_point = 3 * n_k * (1 if far else n_balls) * h_num * w.element_size()
-    chunk = max(1, _EVAL_BYTES // per_point)
+    chunk = max(1, _EVAL_BYTES // (3 * n_k * h_num * w.element_size()))
     outs = []
     for s in range(0, n_p, chunk):
-        xs = x[..., s : s + chunk]
-        if far:  # one Y per point: [Kx, P, H] @ [K, H, B]
-            y = harmonics(c, from_cartesian(c, xs), n_end)
-            u = torch.matmul(y, w.transpose(1, 2))  # [K, P, B]
-        else:
-            rel = xs[..., None] - centers.permute(2, 0, 1)[:, :, None, :]  # [d, K, P, B]
-            sph = from_cartesian(c, rel)
-            rad = _h_clamped(d, n_end, k[:, None, None] * sph["r"]).index_select(-1, n_idx)
-            u = (harmonics(c, sph, n_end) * (rad * w[:, None])).sum(-1)  # [K, P, B]
+        y = harmonics(c, from_cartesian(c, x[..., s : s + chunk]), n_end)
+        u = torch.matmul(y, w.transpose(1, 2))  # [Kx, P, H] @ [K, H, B] -> [K, P, B]
         outs.append(u.transpose(0, 1) if per_ball else u.sum(-1).transpose(0, 1))
     return torch.cat(outs, dim=0)
 

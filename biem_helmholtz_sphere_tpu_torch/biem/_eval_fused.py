@@ -18,13 +18,13 @@ outgoing radial factor h_l(k r) (near field) or 1 (far field).
 per (point, ball) angles and clamped h_l(k r) itself, and sums the balls:
 on CUDA tensors it launches `csrc/fused_ba_eval.cu`, which keeps every
 recurrence in registers, in one of two modes chosen by the shape of the
-call (many points: points over threads; few points, P * K < _FEW_POINTS,
+call (many points: points over threads; few points, P * K < kernels.FEW_POINTS,
 e.g. uscat(0): balls over warps and orders over lanes), for real or
 complex k and each k's own centers; on CPU tensors it runs
 `_fused_ba_eval_plain`,
 the degree-major recurrence of the JAX package's
 biem_helmholtz_sphere_tpu/biem/_eval_fused.py::_fused_ba_dot_blocked with
-the radial table of biem/_eval.py::_h_clamped.
+the radial table of special/_family.py::_h_clamped.
 """
 
 from functools import lru_cache
@@ -35,13 +35,10 @@ import torch
 from ..harmonics._eval import _int_powers
 from ..harmonics._index import basis
 from ..ops import kernels
-from ..special._family import _rescale_for, spherical_h_scaled
+from ..special._family import _clamp_limit, _h_clamped, _rescale_for
 from ..special._jacobi import jacobi_recurrence
 
 _EVAL_CHUNK = 8192  # points per pass of the plain version (bounds [P, K, B, M])
-# P * K below this takes the few-point mode: fewer (point, k) pairs than
-# 4 per SM of a 132-SM H100 cannot fill the card one point per thread
-_FEW_POINTS = 4 * 132
 
 
 def is_ba_tree(c):
@@ -52,20 +49,6 @@ def is_ba_tree(c):
         and len(c.root.children) == 1
         and c.root.children[0].kind == "a"
     )
-
-
-def _clamp_limit(dtype):
-    return 700.0 if dtype in (torch.float64, torch.complex128) else 80.0
-
-
-def _h_clamped(d, n_end, z):
-    """Outgoing radial table h_n(z) with overflow-clamped magnitude.
-
-    Where |h_n(kr)| overflows, the density has underflowed to 0, so the
-    clamp only prevents 0 * inf = NaN in the harmonic sum.
-    """
-    hm, he = spherical_h_scaled(d, n_end, z)
-    return hm * torch.exp(torch.clamp(he, max=_clamp_limit(he.dtype)))
 
 
 @lru_cache(maxsize=32)
@@ -231,7 +214,7 @@ def fused_ba_eval(x, centers, k, w2, far=False, per_ball=False):
         (n_p, n_k, n_b) if per_ball else (n_p, n_k), dtype=cdt, device=x.device
     )
     sx = x.stride()
-    few = n_p * n_k < _FEW_POINTS
+    few = n_p * n_k < kernels.FEW_POINTS
     kernels.launch(
         "bhs_fused_ba_eval", x, sx[0], sx[1], sx[2], x.shape[1], centers, centers.stride(0),
         k, int(k.is_complex()), w2, cab, cb1, cbb, p0, out, n_p, n_k, n_b, n, int(far),

@@ -1,0 +1,189 @@
+"""The program of a tree's harmonics: the tables `csrc/harmonics.cuh` reads.
+
+A tree's flat harmonics Y_h (harmonics/_eval.py) are products of one
+factor per node, each factor a node "job" (harmonics/_index.py::basis's
+`node_jobs`):
+
+  'a'  : e^{i m phi} / sqrt(2 pi)                                job (m,)
+  'b'  : (sin th)^{nc} p~_{l-nc}^{(lam,lam)}(cos th)             job (nc, l)
+  'c'  : 2^{(n1+n2)/2+(s1+s2)/4+1/2} (cos th)^{n1} (sin th)^{n2}
+         p~_j^{(n2+(s2-1)/2, n1+(s1-1)/2)}(cos 2 th)            job (n1, n2, l)
+
+The program holds, as int32 / real tensors on one device:
+
+* `nodes` [n_nodes, 4], children before parents: kind (0 'a', 1 'b'/'bp',
+  2 'c'), node id, and for 'a' its two cartesian axes, for 'b'/'bp' its
+  child's id and its own axis, for 'c' its two children's ids: the
+  cartesian-to-angles map of `coords/_transform.py::from_cartesian`, node
+  by node;
+* `jobs` [n_jobs, 4], every node's jobs in `basis` order, node by node
+  (node ids ascending): the Jacobi family (-1 for 'a'), the recurrence
+  steps j (l - nc for 'b', (l - n1 - n2) / 2 for 'c'), and the prefactor's
+  powers (nc; n1, n2; m for 'a');
+* `coef` [n_coef, 4] the three-term coefficients of every family
+  (`special/_jacobi.py::jacobi_recurrence`), step j at `fam[f] + j`:
+  (1 / b_{j+1}, -a_j / b_{j+1}, b_j / b_{j+1}, 0), so that
+  p_{j+1} = (x c1 + c2) p_j - c3 p_{j-1}; `famr` [n_fam, 2] the seed
+  p_0 = 1 / b_0 and the prefactor's constant (the 'c' norm, else 1);
+* `hjob` [H, n_nodes] the job of each flat harmonic at each node (by node
+  id), host only: K3 plans its node tables from it (`translation/
+  _rotation.py::_k3_plan`);
+* the map h -> (root job, child state), as KE walks it: the child states
+  `cs` [n_cs, 4] (the root's first job, the number J of its root degrees,
+  the offset of its entries in program order, its first root degree l0),
+  with the child-state ids of `translation/_rotation.py::_coax_tables`
+  (a tuple of every non-root job, numbered in order of first appearance
+  in h); `csjob` [n_cs, n_nodes] each child state's job at each node (the
+  root's column is its first root job); `perm` [H] the flat h of each
+  program entry (entry woff + j of child state cs is its root degree
+  l0 + step j), so that w[..., perm] is the density in program order.
+
+A root 'a' (2D) is one child state whose J = 2 n_end - 1 entries are the
+root's jobs.  Built on the host in numpy and cached per (tree, n_end,
+dtype, device).
+"""
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..harmonics._index import basis
+from ..special._jacobi import jacobi_recurrence
+
+KIND_A, KIND_B, KIND_C = 0, 1, 2
+_KIND = {"a": KIND_A, "b": KIND_B, "bp": KIND_B, "c": KIND_C}
+
+
+@dataclass(frozen=True, eq=False)
+class HarmonicProgram:
+    """The tables of a tree's harmonics on one device (see the module)."""
+
+    n_nodes: int
+    h_num: int
+    n_cs: int
+    root_step: int  # root degrees per recurrence step: 1 'b', 2 'c' (0 'a')
+    nodes: torch.Tensor
+    jobs: torch.Tensor
+    fam: torch.Tensor
+    coef: torch.Tensor
+    famr: torch.Tensor
+    cs: torch.Tensor
+    csjob: torch.Tensor
+    perm: torch.Tensor
+
+
+@lru_cache(maxsize=64)
+def program_numpy(c, n_end):
+    """The program's tables as host numpy (int32 / float64) in a dict."""
+    b = basis(c, n_end)
+    by_nid = {node.nid: node for node in c.nodes}
+    n_nodes = len(c.nodes)
+
+    # children before parents: the reverse of the pre-order node ids
+    nodes = []
+    for node in reversed(c.nodes):
+        if node.kind == "a":
+            nodes.append((KIND_A, node.nid, node.axes[0], node.axes[1]))
+        elif node.kind in ("b", "bp"):
+            nodes.append((KIND_B, node.nid, node.children[0].nid, node.axis))
+        else:
+            nodes.append((KIND_C, node.nid, node.children[0].nid, node.children[1].nid))
+
+    jobs, job_base = [], np.zeros(n_nodes, dtype=np.int32)
+    fam_base, famr, coef = [], [], []
+    fam_of = {}
+
+    def family(nid, key, alpha, beta, steps, norm):
+        if (nid, key) not in fam_of:
+            a, bb = jacobi_recurrence(max(steps, 1), float(alpha), float(beta))
+            fam_of[(nid, key)] = len(fam_base)
+            fam_base.append(len(coef))
+            famr.append((1.0 / bb[0], norm))
+            for j in range(max(steps, 1)):
+                coef.append((1.0 / bb[j + 1], -a[j] / bb[j + 1], bb[j] / bb[j + 1], 0.0))
+        return fam_of[(nid, key)]
+
+    for nid in range(n_nodes):
+        node = by_nid[nid]
+        node_jobs = b.node_jobs[nid]
+        job_base[nid] = len(jobs)
+        if node.kind == "a":
+            jobs.extend((-1, 0, p[0], 0) for p in node_jobs)
+            continue
+        if node.kind in ("b", "bp"):
+            s = node.children[0].sdim
+            top = {}
+            for nc, ell in node_jobs:
+                top[nc] = max(top.get(nc, 0), ell - nc)
+            for nc, ell in node_jobs:
+                f = family(nid, nc, nc + (s - 1) / 2.0, nc + (s - 1) / 2.0, top[nc], 1.0)
+                jobs.append((f, ell - nc, nc, 0))
+            continue
+        s1, s2 = node.children[0].sdim, node.children[1].sdim
+        top = {}
+        for n1, n2, ell in node_jobs:
+            top[(n1, n2)] = max(top.get((n1, n2), 0), (ell - n1 - n2) // 2)
+        for n1, n2, ell in node_jobs:
+            norm = 2.0 ** ((n1 + n2) / 2.0 + (s1 + s2) / 4.0 + 0.5)
+            f = family(nid, (n1, n2), n2 + (s2 - 1) / 2.0, n1 + (s1 - 1) / 2.0,
+                       top[(n1, n2)], norm)
+            jobs.append((f, (ell - n1 - n2) // 2, n1, n2))
+
+    hjob = np.stack([job_base[nid] + b.node_job_index[nid] for nid in range(n_nodes)],
+                    axis=1).astype(np.int32)
+    # the map h -> (root job, child state), child states numbered as
+    # _coax_tables numbers them
+    root = c.root.nid
+    others = [nid for nid in range(n_nodes) if nid != root]
+    keys, members = {}, []
+    for h in range(b.num):
+        key = tuple(int(b.node_job_index[i][h]) for i in others)
+        if key not in keys:
+            keys[key] = len(keys)
+            members.append([])
+        members[keys[key]].append(h)
+    root_jobs = b.node_jobs[root]
+    root_job = b.node_job_index[root]
+    cs, csjob, perm = [], [], []
+    for hs in members:
+        hs = sorted(hs, key=lambda h: root_job[h])  # root jobs of one family by degree
+        first = int(root_job[hs[0]])
+        p0 = root_jobs[first]
+        l0 = 0 if c.root.kind == "a" else p0[-1]
+        cs.append((job_base[root] + first, len(hs), len(perm), l0))
+        csjob.append(hjob[hs[0]])
+        perm.extend(hs)
+    kind = _KIND[c.root.kind]
+    return dict(
+        n_nodes=n_nodes, h_num=b.num, n_cs=len(cs), root_kind=kind,
+        root_step={KIND_A: 0, KIND_B: 1, KIND_C: 2}[kind],
+        nodes=np.asarray(nodes, dtype=np.int32),
+        jobs=np.asarray(jobs, dtype=np.int32),
+        fam=np.asarray(fam_base, dtype=np.int32),
+        coef=np.asarray(coef, dtype=np.float64).reshape(-1, 4),
+        famr=np.asarray(famr, dtype=np.float64).reshape(-1, 2),
+        hjob=hjob,
+        cs=np.asarray(cs, dtype=np.int32),
+        csjob=np.asarray(csjob, dtype=np.int32),
+        perm=np.asarray(perm, dtype=np.int64),
+    )
+
+
+@lru_cache(maxsize=32)
+def harmonic_program(c, n_end, dtype, device):
+    """The program of (tree, n_end) on `device`, its real tables in the
+    real dtype `dtype`; cached."""
+    t = program_numpy(c, n_end)
+    dev = torch.device(device)
+
+    def put(key, dt=torch.int32):
+        return torch.as_tensor(t[key], dtype=dt, device=dev).contiguous()
+
+    return HarmonicProgram(
+        n_nodes=t["n_nodes"], h_num=t["h_num"], n_cs=t["n_cs"], root_step=t["root_step"],
+        nodes=put("nodes"), jobs=put("jobs"), fam=put("fam"),
+        coef=put("coef", dtype), famr=put("famr", dtype), cs=put("cs"),
+        csjob=put("csjob"), perm=put("perm", torch.int64),
+    )

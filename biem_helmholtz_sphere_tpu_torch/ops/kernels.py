@@ -27,8 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
            "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
-           "band_sr.cu")
-HEADERS = ("common.cuh", "mma_f64.cuh")
+           "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu")
+HEADERS = ("common.cuh", "mma_f64.cuh", "harmonics.cuh", "hankel.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -78,10 +78,26 @@ _SIGNATURES = {
     # Hi, Hop, Hip, NB, n_slots, w_max, fold, dbl, stream
     "bhs_band_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, sxd, sxk, sxp, kx, centers, sck, rad, hm, he, k, rescale, w, nodes,
+    # jobs, fam, coef, famr, n_nodes, cs, csjob, out, P, K, B, n, H, n_cs, d,
+    # root_step, per_ball, few, bpz, lim, wwin, hs_glob, dbl, stream
+    "bhs_harmonic_eval": [_P, _L, _L, _L, _I, _P, _L, _I, _P, _P, _P, _D, _P, _P, _P, _P, _P,
+                          _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+                          _I, _P, _I, _P],
+    # ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, blocks, tiles,
+    # ctile, ccol, work, rows, ang, grp, packed, N, n_tiles, Q, H, d, nnz,
+    # dbl, stream
+    "bhs_rotation_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _L, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take
 REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+# P * K below this takes KA's and KE's few-point mode: fewer (point, k)
+# pairs than 4 per SM of a 132-SM H100 cannot fill the card one point per
+# thread
+FEW_POINTS = 4 * 132
 
 _lock = threading.Lock()
 _lib = None

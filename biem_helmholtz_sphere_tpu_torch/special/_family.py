@@ -382,3 +382,18 @@ def spherical_h_scaled(d, n_end, z):
     Upward recurrence only (no Miller pass); |mant| normalized to ~1.
     """
     return spherical_jh(_H_ONLY, d, n_end, z)
+
+
+def _clamp_limit(dtype):
+    """The largest exponent `_h_clamped` keeps (and KA's and KE's chains)."""
+    return 700.0 if dtype in (torch.float64, torch.complex128) else 80.0
+
+
+def _h_clamped(d, n_end, z):
+    """Outgoing radial table h_n(z) with overflow-clamped magnitude.
+
+    Where |h_n(kr)| overflows, the density has underflowed to 0, so the
+    clamp only prevents 0 * inf = NaN in the harmonic sum.
+    """
+    hm, he = spherical_h_scaled(d, n_end, z)
+    return hm * torch.exp(torch.clamp(he, max=_clamp_limit(he.dtype)))

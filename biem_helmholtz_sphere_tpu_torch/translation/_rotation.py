@@ -25,6 +25,7 @@ host tables are numpy float64, built once per (tree, n_end) and cached.
 
 from dataclasses import replace
 from functools import cached_property, lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,7 +34,10 @@ from ..coords import from_cartesian, to_cartesian
 from ..harmonics._eval import _node_table, harmonics
 from ..harmonics._index import basis, harm_n_ndim
 from ..harmonics._quad import _node_rule, sphere_quadrature
+from ..ops import kernels
 from ..ops.block_diag import pack_layout, unpack
+from ..ops.harmonic_program import KIND_A, harmonic_program, program_numpy
+from ..ops.kernels import REAL_OF
 from ..special._family import spherical_jh_all
 from ._ops import _a_const, _surface_area, _unit_offsets, ipow
 
@@ -105,20 +109,179 @@ def _degree_groups(c, n_end, target=128):
     return tuple(groups)
 
 
+@lru_cache(maxsize=8)
+def _rot_tables_on(c, n_end, device):
+    """The rotation's quadrature tables built on `device` in plain torch
+    float64: (weights [Q], conj(Y) [Q, H] complex128, unit points [d, Q],
+    root degrees [H]), cached per (tree, n_end, device).  The rule's nodes
+    per tree node come from the host (`sphere_quadrature`, one small rule
+    each); the harmonics and the cartesian points are evaluated on the
+    device."""
+    sph, w = sphere_quadrature(c, 2 * (n_end - 1))
+    sph_t = {key: torch.as_tensor(v, dtype=torch.float64, device=device) for key, v in sph.items()}
+    return (torch.as_tensor(w, dtype=torch.float64, device=device),
+            harmonics(c, sph_t, n_end).conj_physical_(),
+            to_cartesian(c, sph_t, include_r=False),
+            torch.as_tensor(basis(c, n_end).n_root, dtype=torch.int64, device=device))
+
+
 @lru_cache(maxsize=32)
 def _rot_tables(c, n_end):
-    """Quadrature weights [Q], conj(Y) [Q, H] (complex128), unit points
-    [d, Q] and root degrees [H], as host numpy."""
-    sph, w = sphere_quadrature(c, 2 * (n_end - 1))
-    sph_t = {key: torch.as_tensor(v, dtype=torch.float64) for key, v in sph.items()}
-    y = harmonics(c, sph_t, n_end)
-    s_cart = to_cartesian(c, sph_t, include_r=False)
-    return (
-        w,
-        y.conj().resolve_conj().numpy(),
-        s_cart.numpy(),
-        np.asarray(basis(c, n_end).n_root, dtype=np.int64),
-    )
+    """`_rot_tables_on` the CPU, as host numpy (the plain version's)."""
+    return tuple(a.numpy() for a in _rot_tables_on(c, n_end, "cpu"))
+
+
+@lru_cache(maxsize=8)
+def _rot_ycw(c, n_end, dtype, device):
+    """conj(Y) w [Q, H] in the complex dtype `dtype` and the unit points
+    [d, Q] in its real dtype, on `device` (K3's inputs), cached."""
+    w, yc, s_cart, _ = _rot_tables_on(c, n_end, device)
+    return (yc * w[:, None]).to(dtype).contiguous(), s_cart.to(REAL_OF[dtype]).contiguous()
+
+
+class _K3Plan(NamedTuple):
+    """K3's host tables (int32 numpy), built once per (tree, n_end).
+
+    * `info` [n_blocks, 8]: the BlockInfo of each root-degree block: offset
+      o, size g, its degree group's size G, its row in the group, then as
+      int64 the group's entries per direction before it and its packed
+      offset;
+    * `tiles` [n_tiles, 4]: block, i0, j0 and the column tile (the block's
+      64 columns from j0) of each 64 x 64 tile;
+    * `ctile` [n_ct, 4]: per column tile its first work item and their
+      number; `ccol` [n_ct, 64, n_nodes] the table row of each of its
+      columns' factor at each node (bit 30: an 'a' node, two rows re, im);
+    * `work` [n_work, 8]: what fills a column tile's node tables, only the
+      rows its columns read: (node id, first row, lo, hi, kind, family,
+      p1, p2).  A 'b'/'c' family runs its recurrence from the seed to step
+      hi and keeps steps lo..hi; an 'a' node the powers of e^{i phi} up to
+      |m| = hi, keeping m and -m for |m| in lo..hi (two rows each, -m
+      after every +m).  The longest items first (a warp each, round robin);
+    * `rows` the most table rows of a column tile (its shared memory),
+      `nnz` the packed entries and `g_all` the degree groups' entries per
+      direction.
+    """
+
+    info: np.ndarray
+    tiles: np.ndarray
+    ctile: np.ndarray
+    ccol: np.ndarray
+    work: np.ndarray
+    rows: int
+    nnz: int
+    g_all: int
+
+
+_K3_TILE = 64  # rows and columns of a K3 tile (csrc/rotation_blocks.cu kTile)
+
+
+def _k3_column_tile(t, kinds, hs):
+    """The work items and table rows of the columns hs (flat harmonics) of
+    one tile: (items, ccol [64, n_nodes], rows)."""
+    jobs, hjob, n_nodes = t["jobs"], t["hjob"], t["n_nodes"]
+    items, ccol, row = [], np.zeros((_K3_TILE, n_nodes), dtype=np.int64), 0
+    for nid in range(n_nodes):
+        js = hjob[hs, nid]
+        if kinds[nid] == KIND_A:
+            am = np.abs(jobs[js, 2])
+            lo, hi = int(am.min()), int(am.max())
+            items.append((nid, row, lo, hi, KIND_A, -1, 0, 0))
+            m = jobs[js, 2]
+            ccol[: len(hs), nid] = ((row + 2 * (np.abs(m) - lo) + 2 * (hi - lo + 1) * (m < 0))
+                                    | (1 << 30))
+            row += 4 * (hi - lo + 1)
+            continue
+        fam, step = jobs[js, 0], jobs[js, 1]
+        for f in np.unique(fam):
+            sel = fam == f
+            lo, hi = int(step[sel].min()), int(step[sel].max())
+            _, _, p1, p2 = jobs[js[sel][0]]
+            items.append((nid, row, lo, hi, kinds[nid], int(f), int(p1), int(p2)))
+            ccol[: len(hs)][sel, nid] = row + step[sel] - lo
+            row += hi - lo + 1
+    # the longest first: a group of lanes takes one item at a time
+    items.sort(key=lambda it: -(it[3] + 1 if it[4] != KIND_A else it[3]))
+    return items, ccol, row
+
+
+@lru_cache(maxsize=32)
+def _k3_plan(c, n_end):
+    """K3's host tables (`_K3Plan`)."""
+    t = program_numpy(c, n_end)
+    kinds = {nid: kind for kind, nid, _, _ in t["nodes"]}
+    groups = _degree_groups(c, n_end)
+    sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    g_pre = np.concatenate([[0], np.cumsum([(e - s) ** 2 for s, e in groups])])
+    v_off = np.concatenate([[0], np.cumsum(np.square(sizes))])
+    ints, longs, tiles, ctile, ccols, work, rows = [], [], [], [], [], [], 0
+    for n, g in enumerate(sizes):
+        o = int(offs[n])
+        gi = next(i for i, (s, e) in enumerate(groups) if s <= o < e)
+        s, e = groups[gi]
+        ints.append((o, g, e - s, o - s))
+        longs.append((g_pre[gi], v_off[n]))
+        for j0 in range(0, g, _K3_TILE):
+            items, ccol, n_rows = _k3_column_tile(
+                t, kinds, np.arange(o + j0, o + min(j0 + _K3_TILE, g)))
+            tiles.extend((n, i0, j0, len(ctile)) for i0 in range(0, g, _K3_TILE))
+            ctile.append((len(work), len(items), 0, 0))
+            ccols.append(ccol)
+            work.extend(items)
+            rows = max(rows, n_rows)
+    info = np.concatenate([np.asarray(ints, dtype=np.int32).view(np.int64),
+                           np.asarray(longs, dtype=np.int64)], axis=1)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return _K3Plan(info.view(np.int32), i32(tiles), i32(ctile), i32(ccols), i32(work), rows,
+                   int(v_off[-1]), int(g_pre[-1]))
+
+
+def _rotation_blocks_k3(c, dirs, n_end):
+    """K3 on CUDA directions dirs [N, d]: (groups, blocks [N, g, g] per
+    degree group, packed values [N, nnz]), one launch (`rotation_blocks.
+    launches`)."""
+    d = c.c_ndim
+    rdt, dev = dirs.dtype, dirs.device
+    cdt = {torch.float32: torch.complex64, torch.float64: torch.complex128}.get(rdt)
+    if cdt is None:
+        raise TypeError(f"rotation_blocks: directions of dtype {rdt}")
+    ycw, s_cart = _rot_ycw(c, n_end, cdt, dev)
+    prog = harmonic_program(c, n_end, rdt, dev)
+    plan = _k3_plan(c, n_end)
+    n_dir = dirs.shape[0]
+    rot = _rotation_to_axis(dirs, _root_axis(c), d).contiguous()
+    grp = torch.zeros(n_dir * plan.g_all, dtype=cdt, device=dev)
+    packed = torch.empty((n_dir, plan.nnz), dtype=cdt, device=dev)
+    _k3_launch(ycw, s_cart, rot, prog, _k3_tables(c, n_end, dev), plan.rows, grp, packed)
+    groups = _degree_groups(c, n_end)
+    blocks, pos = [], 0
+    for s, e in groups:
+        g = e - s
+        blocks.append(grp[pos : pos + n_dir * g * g].view(n_dir, g, g))
+        pos += n_dir * g * g
+    return groups, blocks, packed
+
+
+def _k3_launch(ycw, s_cart, rot, prog, tabs, rows, grp, packed):
+    """One K3 launch (counted in `rotation_blocks.launches`): its C entry runs
+    the rotated nodes' angles into a scratch, then the tiles."""
+    (q_num, h_num), (n_dir, nnz), d = ycw.shape, packed.shape, s_cart.shape[0]
+    info_t, tiles_t, ctile_t, ccol_t, work_t = tabs
+    q_pad = -(-q_num // 32) * 32  # the rotated nodes' angles, [N, 3, n_nodes, q_pad]
+    ang = torch.empty(n_dir * 3 * prog.n_nodes * q_pad, dtype=s_cart.dtype, device=s_cart.device)
+    kernels.launch("bhs_rotation_blocks", ycw, s_cart, rot, prog.nodes, prog.jobs, prog.fam,
+                   prog.coef, prog.famr, prog.n_nodes, info_t, tiles_t, ctile_t, ccol_t, work_t,
+                   rows, ang, grp, packed, n_dir, tiles_t.shape[0], q_num, h_num, d, nnz,
+                   int(s_cart.dtype == torch.float64))
+    rotation_blocks.launches += 1
+
+
+@lru_cache(maxsize=32)
+def _k3_tables(c, n_end, device):
+    """`_k3_plan`'s tables on `device`: (info, tiles, ctile, ccol, work)."""
+    plan = _k3_plan(c, n_end)
+    return tuple(torch.as_tensor(a, device=device).contiguous()
+                 for a in (plan.info, plan.tiles, plan.ctile, plan.ccol, plan.work))
 
 
 def _rotation_to_axis(t_hat, axis, d):
@@ -163,6 +326,32 @@ _ROT_TEMPS = 4
 
 def rotation_blocks(c, t_hat, n_end):
     """D(R) as degree-group diagonal blocks: (groups, [complex [..., g, g]]).
+
+    On CUDA tensors K3 (`csrc/rotation_blocks.cu`, `_rotation_blocks_k3`);
+    on CPU tensors its plain version `_rotation_blocks_plain`.
+    """
+    groups, blocks, _ = _rotation_blocks_any(c, t_hat, n_end)
+    return groups, blocks
+
+
+def _rotation_blocks_any(c, t_hat, n_end):
+    """`rotation_blocks` and, from K3, the packed blocks [..., nnz] it also
+    writes (None from the plain version)."""
+    if t_hat.device.type == "cpu":
+        return _rotation_blocks_plain(c, t_hat, n_end) + (None,)
+    if t_hat.device.type != "cuda":
+        raise RuntimeError(f"rotation_blocks: unsupported device {t_hat.device}")
+    groups, blocks, vals = _rotation_blocks_k3(c, t_hat.reshape(-1, c.c_ndim), n_end)
+    batch = t_hat.shape[:-1]
+    return (groups, [b.view(batch + b.shape[-2:]) for b in blocks],
+            vals.view(batch + vals.shape[-1:]))
+
+
+rotation_blocks.launches = 0
+
+
+def _rotation_blocks_plain(c, t_hat, n_end):
+    """K3's plain version: D(R) as degree-group diagonal blocks.
 
     The harmonics at the rotated nodes are evaluated for a chunk of
     directions at a time, sized so that the chunk's [chunk, Q, H] values
@@ -219,12 +408,16 @@ def rotation_matrix(c, t_hat, n_end):
 
 class RotationD:
     """D(R) of a set of offset directions, in the two forms its users read:
-    `groups` / `blocks` (`rotation_blocks`, the sandwich's) and, built at
-    first use, `packed` (the degree blocks as a BlockDiag, KB's)."""
+    `groups` / `blocks` (`rotation_blocks`, the sandwich's) and `packed`
+    (the degree blocks as a BlockDiag, KB's): written by K3 beside the
+    groups on the card, built from them at first use on the CPU."""
 
     def __init__(self, c, t_hat, n_end):
         self.sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
-        self.groups, self.blocks = rotation_blocks(c, t_hat, n_end)
+        self.groups, self.blocks, vals = _rotation_blocks_any(c, t_hat, n_end)
+        if vals is not None:  # K3 wrote both forms
+            lay = pack_layout(self.sizes, None, sum(self.sizes), t_hat.device)
+            self.__dict__["packed"] = replace(lay, vals=vals)
 
     @cached_property
     def packed(self):

@@ -79,8 +79,9 @@ non-zero before the result line):
    table): relres <= 1e-11, uscat(0) within 1e-7 of the golden; (c) the
    'bpa' tree at the bench in two k-blocks with warm starts (KA not
    launched): uscat(0) within 1e-3 of the 'ba' golden, relres and the
-   boundary residual, then the general field evaluation at 131,072 points
-   against KA's 'ba' field (1e-3), with its time and peak memory; (d)
+   boundary residual, then the general field evaluation (KE, which must
+   launch) at 131,072 points against KA's 'ba' field (1e-3), with its time
+   and peak memory; (d)
    four lattice pitches (4, 4.5, 5, 5.5) along the batch in one call at
    n_end=19, complex64, the default solver (LU): each within 1e-4 of its
    geometry solved alone, and KD with its pair map per k against its
@@ -92,12 +93,13 @@ non-zero before the result line):
    plane wave along x0, the first 4 k of linspace(3.5, 4.5, 100), the
    default solver (which must take the factored GMRES: KB in its row-panel
    mode, KC, K5, K2): its first block split by stage (RHS, radial rows,
-   coax, the D build = K3 and its host tables, GMRES, uscat(0)), relres
-   <= 3e-5, the boundary residual (1e-3), the peak device memory, K3
-   alone with its bound and peak, a warm block repeated bit for bit and
-   split with KB's launches and time between CUDA events, uscat(0)
-   within 1e-3 of the same call in complex128 (factored), and the
-   general evaluation at 16,384 points; (b) the same lattice at n_end=12:
+   coax, the D build, and of it K3 and its tables on the card, GMRES,
+   uscat(0)), relres <= 3e-5, the boundary residual (1e-3), the peak
+   device memory, K3 and KE launched, K3 alone with its bound and peak,
+   a warm block repeated bit for bit and split with KB's launches and time
+   between CUDA events, uscat(0) within 1e-3 of the same call in
+   complex128 (factored), and the general evaluation (KE) at 16,384
+   points; (b) the same lattice at n_end=12:
    complex128 on its default route (the offset table) within 1e-7 of the
    JAX package's float64 golden (data/bench4d_golden_f64.json), complex64
    (factored) within 1e-3; (c) 'bpbpa' at (b)'s configuration within
@@ -228,6 +230,19 @@ the same products in the same order) and K2 in its zero-exponent mode
 bench's, its error relative to the largest entry of each (k, radius, l,
 l') degree block.
 
+Phase 2 also holds KE (`ops/harmonic_eval.py`, the general evaluation's
+near field) against its plain version at the shapes phases 7 (c), 8 (a),
+9 (b) and 10 (a) give it ('bpa' at 131,072 points, 'bba' at 16,384, 'a'
+and 'caa' at one point in its few-point mode), within 3e-5 / 1e-12 of the
+largest |u| (complex64 / complex128), and K3 (`rotation_blocks`) at
+phases 8 (a), 4 and 9 (a)'s directions (64 at 4D n_end=20, 36 and 1,984
+in 3D) per degree block within 5e-5 / 1e-12, its unitarity error within
+twice the plain version's; both launched twice and required bit-for-bit
+equal, timed beside their plain versions and bounds (no single PyTorch
+call evaluates a tree's harmonics: library none).  Phases 4, 8 (a) and 9
+(a, c) require K3 launched (phase 4 in its first block, D cached for the
+sweep), phases 7 (c), 8 (a), 9 (b-d) and 10 (a) KE.
+
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
 mantissas (|mant| ~ 1) and on the unscaled values, relative above 1.
@@ -352,6 +367,14 @@ def rel_err(torch, got, ref, mask=None):
     if not bool(torch.isfinite(d).all()):
         raise RuntimeError("kernel output is not finite")
     return float(d.max()), float(d.max() / r.max())
+
+
+def far_rel_err(torch, got, ref):
+    """max |got - ref| / max(|ref|, the median |ref|), point by point: an
+    error relative to each point's own field (the median keeps a point
+    where the field nearly cancels from setting the scale)."""
+    r = ref.abs()
+    return float(((got - ref).abs() / torch.clamp(r, min=float(r.median()))).max())
 
 
 def randc(torch, rng, shape, dtype, dev):
@@ -970,6 +993,194 @@ def check_kb_panels(torch, dev, card):
     return results
 
 
+KE_TOL = {"complex64": 3e-5, "complex128": 1e-12}  # of the largest |u| of each call
+K3_TOL = {"complex64": 5e-5, "complex128": 1e-12}  # of 1 (D is unitary), per degree block
+
+
+def ke_bound(n_p, n_k, n_b, h, n_end, d, name):
+    """KE's bound: x, the centers, the density in and the field out, once;
+    per (point, k, ball) 15 real operations a harmonic, KE's own inner
+    step (h times the root factor, 2; the complex product with the
+    density, 8; the Jacobi step, 5), and 15 a degree for the h chain."""
+    cs = 8 if name == "complex64" else 16
+    return bound(d * n_p * cs // 2 + n_k * n_b * d * cs // 2 + n_k * n_b * h * cs
+                 + n_p * n_k * cs, n_p * n_k * n_b * (15 * h + 15 * n_end), name)
+
+
+def k3_bound(c, n_end, n_dir, name):
+    """K3's bound: conj(Y) w [Q, H] read once, both forms of D written
+    once (the degree groups, zeros between their blocks included, and the
+    packed blocks); 8 real operations per node and exact degree-block
+    entry (a contraction: the FP64 tensor cores' rate in complex128) and 16
+    per node and harmonic at each direction's rotated nodes."""
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import _k3_plan, _rot_tables
+
+    cs = 8 if name == "complex64" else 16
+    q, h = _rot_tables(c, n_end)[1].shape
+    plan = _k3_plan(c, n_end)
+    nnz, g_all = plan.nnz, plan.g_all
+    g2 = sum(harm_n_ndim(n, c.c_ndim) ** 2 for n in range(n_end))
+    return bound(q * h * cs + n_dir * (g_all + nnz) * cs, 16 * n_dir * q * h, name,
+                 mma_flops=8 * n_dir * q * g2)
+
+
+def check_ke(torch, dev, card):
+    """Phase 2, KE (`ops/harmonic_eval.py`): the general evaluation against
+    its plain version at the shapes the main path gives it, both dtypes,
+    each launched twice and required bit-for-bit equal, within KE_TOL of
+    the largest |u| at the points outside every sphere and, at the points
+    a radius or more off every sphere, within KE_TOL of max(|u(x)|, the
+    median |u|) there (`far_rel_err`; near a sphere h_31 sets the largest
+    |u| far above the field elsewhere): (i) phase 7 (c),
+    'bpa' at the bench (16 spheres, n_end=32) at 131,072 points x 1 k
+    (many-point mode; timed, the record's row), (ii) phase 8 (a), 'bba' on
+    the hypercube at n_end=20 at 16,384 points, (iii) phase 9 (b), 'a' on
+    the 64 x 64 circles at n_end=32 at 1 point (few-point mode), (iv) phase
+    10 (a), 'caa' on the hypercube at n_end=14 at 1 point x 4 k.  Returns
+    the timed results of (i) by dtype name."""
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
+        _harmonic_eval_plain, harmonic_eval)
+
+    results = {}
+    cases = (("(i) 'bpa' bench", "bpa", N_END, lattice_centers(), EVAL_POINTS, 1, True),
+             ("(ii) 'bba' hypercube", "bba", N_END_4D, hypercube_centers(), EVAL_POINTS_4D, 1,
+              True),
+             ("(iii) 'a' 64x64 circles", "a", LADDER_2D[-1], square_lattice(N_SIDE_2D, 2), 1, 1,
+              True),
+             ("(iv) 'caa' hypercube", "caa", N_END_C, hypercube_centers(), 1, KB, True))
+    for label, tree, n_end, centers_np, n_p, n_k, timed in cases:
+        c = create_from_branching_types(tree)
+        d, nb = c.c_ndim, len(centers_np)
+        ell = basis(c, n_end).n_root
+        h = len(ell)
+        for cdt in (torch.complex64, torch.complex128):
+            name = str(cdt).split(".")[-1]
+            rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+            rng = np.random.default_rng(77)
+            f = dict(dtype=rdt, device=dev)
+            cen = torch.as_tensor(centers_np, **f).expand(n_k, nb, d)
+            scale = 20.0 if n_p > 1 else 0.0  # one point: the origin, uscat(0)
+            x = torch.as_tensor(rng.normal(size=(d, 1, n_p)) * scale, **f)
+            k = torch.as_tensor(np.linspace(7.0, 7.06, n_k), **f)
+            w = randc(torch, rng, (n_k, nb, h), cdt, dev) * torch.as_tensor(np.exp(-ell), **f)
+            dist = torch.linalg.vector_norm(x[:, 0, :, None] - cen[0].T[:, None, :], dim=0)
+            keep = (dist > 1.0).all(-1)
+            far = (dist >= 2.0).all(-1)  # a radius or more off every sphere
+            n0 = harmonic_eval.launches
+            got = harmonic_eval(c, n_end, x, cen, k, w)
+            ref = _harmonic_eval_plain(c, n_end, x, cen, k, w, False)
+            ea, er = rel_err(torch, got[keep], ref[keep])
+            ef = far_rel_err(torch, got[far], ref[far]) if bool(far.any()) else None
+            if not same_bits(torch, harmonic_eval(c, n_end, x, cen, k, w), got):
+                raise RuntimeError(f"harmonic_eval {label} {name}: two launches differ")
+            if harmonic_eval.launches - n0 < 2:
+                raise RuntimeError(f"harmonic_eval {label} {name}: the kernel did not launch")
+            line = (f"[2] harmonic_eval (KE) {label}, n_end={n_end}, {n_p} points x {n_k} k x "
+                    f"{nb} balls (H={h}) {name}: max_abs_err {ea:.3e} max_rel_err {er:.3e}, "
+                    f"at the {int(far.sum())} points a radius off every sphere "
+                    + ("none" if ef is None else f"{ef:.3e}")
+                    + " of max(|u(x)|, the median |u|) there")
+            if timed:
+                ms = cuda_ms(torch, lambda: harmonic_eval(c, n_end, x, cen, k, w), 5)
+                pms = cuda_ms(torch, lambda: _harmonic_eval_plain(c, n_end, x, cen, k, w, False),
+                              2)
+                b = ke_bound(n_p, n_k, nb, h, n_end, d, name)
+                kernel = "harmonic_eval_kernel" if n_p * n_k >= 4 * 132 else "harmonic_eval_few"
+                dus = device_us(torch, lambda: harmonic_eval(c, n_end, x, cen, k, w), kernel)
+                line += (f" kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler) plain "
+                         f"{pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) library none")
+                if label.startswith("(i)"):
+                    results[name] = {"abs": ea, "rel": er, "ms": ms, "plain_ms": pms,
+                                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            print(f"{line} ({card})")
+            if er > KE_TOL[name] or (ef is not None and ef > KE_TOL[name]):
+                raise RuntimeError(f"harmonic_eval {label} {name}: rel err {er:.3e}, at the "
+                                   f"points off the spheres {ef}")
+            del got, ref, x, w
+            torch.cuda.empty_cache()
+    return results
+
+
+def check_k3(torch, dev, card):
+    """Phase 2, K3 (`translation/_rotation.py::rotation_blocks`): D against
+    its plain version per degree block within K3_TOL, the unitarity error
+    max |D D^H - I| of each degree group within twice the plain version's,
+    both dtypes, launched twice and required bit-for-bit equal: (i) phase
+    8 (a), 'bba' on the hypercube at n_end=20, its 64 slot directions (the
+    record's row), (ii) phase 4, 'ba' at the bench, n_end=32, its 36 slots,
+    (iii) phase 9 (a), 'ba' on the 32 x 32 lattice at n_end=19, its half
+    table's 1,984 directions.  Each timed beside its plain version and its
+    bound.  Returns the results of (i) by dtype name."""
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _offsets, _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
+        _rotation_blocks_plain, rotation_blocks)
+
+    def half_dirs():  # the b < b' offsets: the lattice route's half table
+        return _offsets(square_lattice(N_SIDE_3D, 3))[0]
+
+    results = {}
+    cases = (("(i) 'bba' hypercube slots", "bba", N_END_4D,
+              lambda: _pair_routing(hypercube_centers()).uniq),
+             ("(ii) 'ba' bench slots", "ba", N_END, lambda: _pair_routing(lattice_centers()).uniq),
+             ("(iii) 'ba' 32x32 half table", "ba", N_END_3D, half_dirs))
+    for label, tree, n_end, dirs_of, in cases:
+        c = create_from_branching_types(tree)
+        t_np = np.asarray(dirs_of(), dtype=np.float64)
+        n_root = basis(c, n_end).n_root
+        for cdt in (torch.complex64, torch.complex128):
+            name = str(cdt).split(".")[-1]
+            rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+            t = torch.as_tensor(t_np, dtype=rdt, device=dev)
+            t = t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+            n0 = rotation_blocks.launches
+            groups, got = rotation_blocks(c, t, n_end)
+            if rotation_blocks.launches != n0 + 1:
+                raise RuntimeError(f"rotation_blocks {label} {name}: the kernel did not launch")
+            _, ref = _rotation_blocks_plain(c, t, n_end)
+            ea, uni_k, uni_p = 0.0, 0.0, 0.0
+            for (s, e), g, r in zip(groups, got, ref):
+                if not bool(torch.isfinite(g).all()):
+                    raise RuntimeError(f"rotation_blocks {label} {name}: not finite")
+                nr = torch.as_tensor(n_root[s:e], device=dev)
+                if not bool((g[:, nr[:, None] != nr[None, :]] == 0).all()):
+                    raise RuntimeError(f"rotation_blocks {label} {name}: nonzero off its blocks")
+                ea = max(ea, float((g - r).abs().max()))
+                eye = torch.eye(e - s, dtype=cdt, device=dev)
+                uk = float((g @ g.mH - eye).abs().max())
+                up = float((r @ r.mH - eye).abs().max())
+                if uk > 2 * up:
+                    raise RuntimeError(f"rotation_blocks {label} {name}: group [{s}, {e}) "
+                                       f"unitarity error {uk:.3e} > 2x the plain's {up:.3e}")
+                uni_k, uni_p = max(uni_k, uk), max(uni_p, up)
+            del ref
+            _, again = rotation_blocks(c, t, n_end)
+            if not all(same_bits(torch, a, b) for a, b in zip(again, got)):
+                raise RuntimeError(f"rotation_blocks {label} {name}: two launches differ")
+            del again, got
+            ms = cuda_ms(torch, lambda: rotation_blocks(c, t, n_end), 3)
+            pms = cuda_ms(torch, lambda: _rotation_blocks_plain(c, t, n_end), 1)
+            b = k3_bound(c, n_end, len(t_np), name)
+            dus = [device_us(torch, lambda: rotation_blocks(c, t, n_end), kn)
+                   for kn in ("rotated_angles_kernel", "rotation_blocks_kernel")]
+            print(f"[2] rotation_blocks (K3) {label}, n_end={n_end}, {len(t_np)} directions "
+                  f"{name}: max_abs_err {ea:.3e} (of 1), max |D D^H - I| kernel {uni_k:.3e} "
+                  f"plain {uni_p:.3e}; kernel {ms:.4f} ms (on the device, torch.profiler: angles "
+                  f"{dus[0]:.2f} us, tiles {dus[1]:.2f} us) plain {pms:.4f} ms bound "
+                  f"{b[0]:.6f} ms ({b[1]}) library none ({card})")
+            if ea > K3_TOL[name]:
+                raise RuntimeError(f"rotation_blocks {label} {name}: error {ea:.3e}")
+            if label.startswith("(i)"):
+                results[name] = {"abs": ea, "rel": ea, "ms": ms, "plain_ms": pms,
+                                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            torch.cuda.empty_cache()
+    return results
+
+
 def readme_golden(torch, dev):
     """Phase 3: the README problem through the port on the card, on the
     factored route and with the default solver (a direct LU)."""
@@ -1051,8 +1262,14 @@ def bench_config(torch, dev, card):
     block, sweep, ks = bench_sweep(torch, dev)
 
     torch.cuda.reset_peak_memory_stats()
-    block(ks[:KB] - 0.5, None)  # warm-up block: caches, allocator, kernel load
+    reset()
+    block(ks[:KB] - 0.5, None)  # warm-up block: caches, allocator, kernel load, D (K3)
     torch.cuda.synchronize()
+    k3_first = read()["rotation_blocks"]
+    print(f"[4] K3 (rotation_blocks) launches in the first block (D of the 36 slots, cached "
+          f"for the sweep): {k3_first}")
+    if k3_first <= 0:
+        raise RuntimeError("[4] the first block never launched K3")
     reset()
     t0 = time.perf_counter()
     run1 = sweep()
@@ -1064,9 +1281,13 @@ def bench_config(torch, dev, card):
     # the sweep evaluates uscat(0) only: the many-point KA runs in the field
     # evaluation path below, KD on the dense route (phase 5); KB's row panels
     # only in d >= 4 (phase 8), KG in 2D (phase 9), KS on 'c' trees (phase 10)
+    # KE evaluates trees other than 'ba' (phases 7-10); K3 ran in the first
+    # block, its D cached for the sweep
     require_launched(launches, [n for n in launches if n not in (
         "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold", "band_sr",
-        "band_f")], "[4] the sweep")
+        "band_f", "harmonic_eval", "rotation_blocks")], "[4] the sweep")
+    if launches["harmonic_eval"]:
+        raise RuntimeError("[4] the 'ba' bench launched KE")
     if launches["band_sr"] or launches["band_f"]:
         raise RuntimeError("[4] the 3D bench launched KS or KF")
     if launches["graf_fold"]:
@@ -1144,6 +1365,7 @@ def bench_config(torch, dev, card):
     if not bool(torch.isfinite(u[outside]).all()):
         raise RuntimeError("uscat is not finite outside the spheres")
     launches["fused_ba_eval"] = field["fused_ba_eval"]
+    launches["rotation_blocks"] = k3_first
     best = float("inf")
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1682,6 +1904,8 @@ def kernel_counts():
     from biem_helmholtz_sphere_tpu_torch.ops.lane_route import lane_gather, lane_scatter
     from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import harmonic_eval
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import rotation_blocks
 
     counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
                 "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
@@ -1694,7 +1918,9 @@ def kernel_counts():
                 "dense_assemble": (dense_assemble, "launches"),
                 "graf_fold": (graf_fold, "launches"),
                 "band_sr": (band_sr, "launches"),
-                "band_f": (band_f, "launches")}
+                "band_f": (band_f, "launches"),
+                "harmonic_eval": (harmonic_eval, "launches"),
+                "rotation_blocks": (rotation_blocks, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -1715,7 +1941,8 @@ def require_launched(counts, names, label):
 def complex_and_trees(torch, dev, card):
     """Phase 7: complex k, the 'bpa' tree with the general evaluation, and
     geometry along the batch, each path driven through biem() with the
-    launch counts set to 0 just before it and read just after."""
+    launch counts set to 0 just before it and read just after.  Returns
+    KE's launches in (c)'s field evaluation."""
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
     from biem_helmholtz_sphere_tpu_torch.biem import _core
     from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import (
@@ -1892,7 +2119,7 @@ def complex_and_trees(torch, dev, card):
           f"{[r[0].iters.tolist() for r in runs]}, max relres {worst:.3e}, BC residual max "
           f"{res_max:.3e} mean {res_mean:.3e} ({card})")
     require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
-                              "coax_fold"), "(c)")
+                              "coax_fold", "harmonic_eval"), "(c)")
     if counts["fused_ba_eval"] or counts["fused_ba_eval_few"]:
         raise RuntimeError("(c) the 'bpa' evaluation launched the 'ba' kernel")
     if worst > 3e-5 or not res_max <= 1e-3:
@@ -1924,16 +2151,20 @@ def complex_and_trees(torch, dev, card):
             best = min(best, time.perf_counter() - t0)
         times[label] = best
     h = N_END * N_END
-    b = bound(3 * EVAL_POINTS * 4 + nb * h * 8 + EVAL_POINTS * 8,
-              EVAL_POINTS * nb * (h * 20 + 15 * N_END), "complex64")
-    print(f"[7] (c) general evaluation ('bpa', plain torch, chunked) at {EVAL_POINTS} points, 1 k: "
-          f"{times['general']:.6f} s ({EVAL_POINTS / times['general']:.1f} pts/s), K5 launches "
-          f"{counts['spherical_jh']}, peak device memory above its inputs {peak:.3f} GiB; KA "
-          f"('ba') {times['KA']:.6f} s ({EVAL_POINTS / times['KA']:.1f} pts/s); rel diff of the "
-          f"two fields outside the spheres {diff:.3e}; bound {b[0]:.6f} ms ({b[1]}) ({card})")
-    require_launched(counts, ("spherical_jh",), "(c) general evaluation")
+    b = ke_bound(EVAL_POINTS, 1, nb, h, N_END, 3, "complex64")
+    print(f"[7] (c) general evaluation ('bpa', KE) at {EVAL_POINTS} points, 1 k: "
+          f"{times['general']:.6f} s ({EVAL_POINTS / times['general']:.1f} pts/s), launches "
+          f"KE {counts['harmonic_eval']}, K5 {counts['spherical_jh']}, peak device memory "
+          f"above its inputs {peak:.3f} GiB; KA ('ba') {times['KA']:.6f} s "
+          f"({EVAL_POINTS / times['KA']:.1f} pts/s); rel diff of the two fields outside the "
+          f"spheres {diff:.3e}; bound {b[0]:.6f} ms ({b[1]}); the plain torch version "
+          f"(PERF.md): 0.375-0.523 s ({card})")
+    require_launched(counts, ("spherical_jh", "harmonic_eval"), "(c) general evaluation")
+    if counts["fused_ba_eval"] or counts["fused_ba_eval_few"]:
+        raise RuntimeError("(c) the 'bpa' field launched the 'ba' kernel")
     if not bool(torch.isfinite(u_gen[keep]).all()) or not diff <= 1e-3:
         raise RuntimeError(f"(c) the general evaluation is off KA's field by {diff:.3e}")
+    launches = {"harmonic_eval": counts["harmonic_eval"]}
     del calc_bp, calc_ba, u_gen, u_ka
     torch.cuda.empty_cache()
 
@@ -1991,6 +2222,7 @@ def complex_and_trees(torch, dev, card):
         raise RuntimeError(f"(d) KD per k differs from its plain version ({ea:.3e})")
     del parts, table
     torch.cuda.empty_cache()
+    return launches
 
 
 def bc_residual_of(torch, calc, centers_np, balls):
@@ -2058,7 +2290,9 @@ def four_d(torch, dev, card):
         raise RuntimeError(f"(a) auto picks {route!r} for the 4D hypercube")
     stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
               (_core, "coax_fold_packed", "coax (K5 + K2)"),
-              (_core, "rotation_d", "D build (K3 and its host tables)"),
+              (_core, "rotation_d", "D build (K3 and its tables)"),
+              (_rotation, "_rot_ycw", "of it tables on the card"),
+              (_rotation, "_k3_launch", "of it K3"),
               (_core, "gmres_solve_op", "GMRES"),
               (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
     first = {}
@@ -2067,6 +2301,15 @@ def four_d(torch, dev, card):
         first["calc"] = solve(c4, torch.float32, ks, cube, N_END_4D)
         first["u0"] = uscat0(first["calc"])
 
+    # the first block builds D's tables cold on the card (phase 2 cached
+    # them): the quadrature, conj(Y) w, the program and K3's plan
+    from biem_helmholtz_sphere_tpu_torch.harmonics import _quad
+    from biem_helmholtz_sphere_tpu_torch.ops import harmonic_program as _hp
+
+    for fn in (_rotation._rot_tables_on, _rotation._rot_tables, _rotation._rot_ycw,
+               _rotation._k3_plan, _rotation._k3_tables, _hp.program_numpy, _hp.harmonic_program,
+               _quad.sphere_quadrature):
+        fn.cache_clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
@@ -2075,15 +2318,20 @@ def four_d(torch, dev, card):
     counts = read()
     panels = counts.pop("block_diag_cmm_panels")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    labels = [label for _, _, label in stages]
+    nested = ("of it tables on the card", "of it K3")  # inside the D build's timer
+    d_parts = [acc.pop(n, 0.0) for n in nested]
+    labels = [label for _, _, label in stages if label not in nested]
     print(f"[8] (a) 'bba' 4D hypercube ({nb} unit spheres, pitch 4), n_end={N_END_4D} (H={h4}, "
           f"{n_sys} unknowns), complex64, auto -> factored GMRES, first block of {KB} k: "
           f"{total:.3f} s; split, s per block (synchronising timers): "
-          f"{format_split(acc, total, labels, 1)}; launches {counts}, of them KB with row "
-          f"panels {panels}; GMRES iters {calc.iters.tolist()}, max relres "
+          f"{format_split(acc, total, labels, 1)}; of the D build: its tables on the card "
+          f"{d_parts[0]:.6f}, K3 {d_parts[1]:.6f} (before K3, PERF.md: first block "
+          f"3.153-4.160, D build 2.891-3.772, K3 0.728-1.009, host tables 2.2-2.8); launches "
+          f"{counts}, of them KB with row panels {panels}; GMRES iters {calc.iters.tolist()}, "
+          f"max relres "
           f"{float(calc.relres.max()):.3e}; peak device memory {peak:.3f} GiB ({card})")
     require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
-                              "coax_fold"), "(a)")
+                              "coax_fold", "rotation_blocks", "harmonic_eval"), "(a)")
     if panels <= 0 or panels > counts["block_diag_cmm"]:
         raise RuntimeError(f"(a) KB's row-panel mode launched {panels} times")
     launches = dict(counts, block_diag_cmm_panels=panels)
@@ -2094,7 +2342,7 @@ def four_d(torch, dev, card):
           f"{res_mean:.3e}")
     if not bool(torch.isfinite(calc.density).all()) or worst > 3e-5 or not res_max <= 1e-3:
         raise RuntimeError(f"(a) relres {worst:.3e} or BC residual {res_max:.3e} off its gate")
-    # K3 alone, the first block's D of the 64 slots again (its host tables cached)
+    # K3 alone, the first block's D of the 64 slots again (its tables cached)
     routing = _core._pair_routing(cube)
     t_vec = torch.as_tensor(routing.uniq, dtype=torch.float32, device=dev)
     t_hat = t_vec / torch.linalg.vector_norm(t_vec, dim=-1, keepdim=True)
@@ -2106,15 +2354,14 @@ def four_d(torch, dev, card):
     torch.cuda.synchronize()
     t_k3 = time.perf_counter() - t0
     k3_peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
-    g2 = sum((e - s) ** 2 for s, e in _rotation._degree_groups(c4, N_END_4D))
     q = len(_rotation._rot_tables(c4, N_END_4D)[0])
     n_d = len(routing.uniq)
-    b = bound(n_d * g2 * 8 + q * h4 * 8, n_d * q * (8 * g2 + 16 * h4), "complex64")
+    b = k3_bound(c4, N_END_4D, n_d, "complex64")
     # D's unitarity in complex64: each degree group's D D^H against I
     rot = _core.rotation_d(c4, N_END_4D, routing.uniq, torch.float32, dev)
     unit = max(float((dg @ dg.mH - torch.eye(dg.shape[-1], device=dev)).abs().max())
                for dg in rot.blocks)
-    print(f"[8] (a) K3 rotation_blocks alone (plain torch, chunked): {n_d} directions x {q} "
+    print(f"[8] (a) K3 rotation_blocks alone (the kernel): {n_d} directions x {q} "
           f"nodes x {h4} harmonics, complex64: {t_k3:.4f} s, peak device memory above its "
           f"inputs {k3_peak:.3f} GiB, bound {b[0]:.6f} ms ({b[1]}); D's unitarity error "
           f"max |D D^H - I| {unit:.3e} ({card})")
@@ -2171,21 +2418,25 @@ def four_d(torch, dev, card):
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     best = float("inf")
+    reset()
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         u = one.uscat(x)
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
+    ev_counts = read()
+    require_launched(ev_counts, ("harmonic_eval",), "(a) general evaluation")
     ev_peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
     outside = (torch.linalg.vector_norm(
         x[:, :, None] - torch.as_tensor(cube.T, dtype=torch.float32, device=dev)[:, None, :],
         dim=0) > 1.0).all(-1)
-    b = bound(4 * EVAL_POINTS_4D * 4 + nb * h4 * 8 + EVAL_POINTS_4D * 8,
-              EVAL_POINTS_4D * nb * (h4 * 20 + 15 * N_END_4D), "complex64")
-    print(f"[8] (a) general evaluation at {EVAL_POINTS_4D} points, 1 k, 4D n_end={N_END_4D}: "
-          f"{best:.6f} s ({EVAL_POINTS_4D / best:.1f} pts/s), peak device memory above its "
-          f"inputs {ev_peak:.3f} GiB, bound {b[0]:.6f} ms ({b[1]}) ({card})")
+    b = ke_bound(EVAL_POINTS_4D, 1, nb, h4, N_END_4D, 4, "complex64")
+    print(f"[8] (a) general evaluation (KE, {ev_counts['harmonic_eval'] // 3} launches a "
+          f"call) at {EVAL_POINTS_4D} points, 1 k, 4D n_end={N_END_4D}: {best:.6f} s "
+          f"({EVAL_POINTS_4D / best:.1f} pts/s), peak device memory above its inputs "
+          f"{ev_peak:.3f} GiB, bound {b[0]:.6f} ms ({b[1]}); the plain torch version "
+          f"(PERF.md) 0.107-0.151 s ({card})")
     if not bool(torch.isfinite(u[outside]).all()):
         raise RuntimeError("(a) the 4D field is not finite outside the spheres")
     del calc, one, u, x
@@ -2458,8 +2709,8 @@ def n_balls_family(torch, dev, card):
         counts = read()
         peak = peak_gib()
         calc, centers = out["calc"], out["centers"]
-        require_launched(counts, ["coax_fold", "spherical_jh", "fused_ba_eval_few"],
-                         f"[9] (a) {name}")
+        require_launched(counts, ["coax_fold", "spherical_jh", "fused_ba_eval_few",
+                                  "rotation_blocks"], f"[9] (a) {name}")
         if counts["block_diag_cmm"] or counts["graf_fold"]:
             raise RuntimeError(f"[9] (a): the lattice route launched KB or KG: {counts}")
         dens, relres = calc.density, float(calc.relres.max())
@@ -2572,7 +2823,7 @@ def n_balls_family(torch, dev, card):
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t_all
     counts = read()
-    require_launched(counts, ["graf_fold", "spherical_jh"], "[9] (b)")
+    require_launched(counts, ["graf_fold", "spherical_jh", "harmonic_eval"], "[9] (b)")
     if counts["block_diag_cmm"] or counts["coax_fold"]:
         raise RuntimeError(f"[9] (b): the 2D lattice route launched KB or K2: {counts}")
     kg_launches = counts["graf_fold"]
@@ -2604,7 +2855,8 @@ def n_balls_family(torch, dev, card):
         counts = read()
         if calc.matrix is not None or counts["block_diag_cmm"]:
             raise RuntimeError(f"[9] (c) {tree} {n_side}: not the lattice route: {counts}")
-        require_launched(counts, ["graf_fold" if tree == "a" else "coax_fold"], "[9] (c)")
+        require_launched(counts, ["graf_fold", "harmonic_eval"] if tree == "a" else
+                         ["coax_fold", "rotation_blocks"], "[9] (c)")
         t0 = time.perf_counter()
         route32 = "LU" if tree == "a" else "lattice"
         calc32 = solve(tree, n_side, n_end, torch.complex64,
@@ -2647,7 +2899,7 @@ def n_balls_family(torch, dev, card):
                     k=torch.tensor(k, **f), n_end=n_end, uin=incident(2, rdt))
         got = u0(calc)
         counts = read()
-        require_launched(counts, ["graf_fold", "dense_assemble"], "[9] (d)")
+        require_launched(counts, ["graf_fold", "dense_assemble", "harmonic_eval"], "[9] (d)")
         g = golden2d["pair" if k == 1.0 else "pair k=16"]
         print(f"[9] (d) 'a' pair k={k} n_end={n_end} {str(cdt).split('.')[-1]} (LU): "
               f"{got:.10f} off the golden by {abs(got - ref):.3e} (tolerance {tol:.0e}), off "
@@ -3002,7 +3254,8 @@ def c_trees(torch, dev, card):
           f"{format_split(acc, total, labels, 1)}; launches {counts}; GMRES iters "
           f"{calc.iters.tolist()}, max relres {float(calc.relres.max()):.3e}; peak device "
           f"memory {peak:.3f} GiB ({card})")
-    require_launched(counts, ("band_sr", "band_f", "lane_gather", "lane_scatter", "spherical_jh"),
+    require_launched(counts, ("band_sr", "band_f", "lane_gather", "lane_scatter", "spherical_jh",
+                              "harmonic_eval"),
                      "(a)")
     for name in ("block_diag_cmm", "coax_fold", "dense_assemble", "graf_fold"):
         if counts[name]:
@@ -3855,11 +4108,13 @@ def main():
 
     results = check_kernels(torch, dev, card)
     results["block_diag_cmm_panels"] = check_kb_panels(torch, dev, card)
+    results["harmonic_eval"] = check_ke(torch, dev, card)
+    results["rotation_blocks"] = check_k3(torch, dev, card)
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
     matfree_route(torch, dev, card)
-    complex_and_trees(torch, dev, card)
+    launches["harmonic_eval"] = complex_and_trees(torch, dev, card)["harmonic_eval"]
     launches["block_diag_cmm_panels"] = four_d(torch, dev, card)["block_diag_cmm_panels"]
     results["graf_fold"], launches["graf_fold"] = n_balls_family(torch, dev, card)
     c_results, c_launches = c_trees(torch, dev, card)
@@ -3899,6 +4154,12 @@ def main():
         # KS's F pass: the band kernel's prefix F_N of the same band scan
         "band_f": ("csrc/band_sr.cu",
                    "biem_helmholtz_sphere_tpu/translation/_ops.py:160"),
+        # the general evaluation's near field (phase 7 (c)'s launches)
+        "harmonic_eval": ("csrc/harmonic_eval.cu",
+                          "biem_helmholtz_sphere_tpu/biem/_eval.py:146"),
+        # the rotation D (phase 4's first block)
+        "rotation_blocks": ("csrc/rotation_blocks.cu",
+                            "biem_helmholtz_sphere_tpu/translation/_rotation.py:251"),
     }
     record = {"kernels": [
         {

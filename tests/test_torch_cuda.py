@@ -176,7 +176,7 @@ def test_fused_ba_eval_both_modes(cuda, dtype, n_pts):
     (1 point x 4 k, uscat(0)) and its many-point mode (131,072 points x
     1 k): near, far and per ball against the plain version; the mode the
     shape selects is the one launched; two launches are bitwise equal."""
-    from biem_helmholtz_sphere_tpu_torch.biem._eval_fused import _FEW_POINTS
+    from biem_helmholtz_sphere_tpu_torch.ops.kernels import FEW_POINTS
 
     rdt = torch.float32 if dtype == torch.complex64 else torch.float64
     rng = np.random.default_rng(43)
@@ -197,7 +197,7 @@ def test_fused_ba_eval_both_modes(cuda, dtype, n_pts):
                             device=cuda)[:, None, :]
     keep = (torch.linalg.vector_norm(near[:, 0, :, None] - cen.T[:, None, :], dim=0)
             > 1.0).all(-1)
-    few = n_pts * n_k < _FEW_POINTS
+    few = n_pts * n_k < FEW_POINTS
     for far, xx in ((False, near), (True, far_x)):
         for per_ball in (False, True):
             counts = (fused_ba_eval.launches, fused_ba_eval.few_launches)
@@ -1406,3 +1406,169 @@ def test_two_card_nccl_sharded_sweep_and_dense_solve(two_cards, tmp_path):
     ref = biem(ba, centers=centers, radii=torch.ones(16, **f), k=k, n_end=8, uin=uin,
                solver="gmres").density
     assert _rel(ranks[0]["dense"], ref.cpu()) < 1e-8
+
+
+# KE (the general evaluation) and K3 (the rotation D)
+KE_TREES = [("a", 16), ("bpa", 12), ("bba", 8), ("bpbpa", 6), ("caa", 8), ("bcaa", 5)]
+KE_TOL = {torch.complex64: 3e-5, torch.complex128: 1e-12}
+K3_TOL = {torch.complex64: 5e-5, torch.complex128: 1e-12}
+
+
+def _ke_case(dev, dtype, btype, n_end, complex_k, seed=61, n_pts=300):
+    """(tree, n_end, x [d, K, P], per-k centers [K, B, d], k [K], w
+    [K, B, H], the mask of points outside every sphere [P, K]) with unit
+    spheres and some points within 0.05 of a sphere."""
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    rng = np.random.default_rng(seed)
+    c = create_from_branching_types(btype)
+    d, n_k, n_b = c.c_ndim, 3, 4
+    ell = basis(c, n_end).n_root
+    centers = rng.normal(size=(n_k, n_b, d)) * 3.0
+    x = rng.normal(size=(d, n_k, n_pts)) * 5.0
+    # points just outside the first sphere of each k
+    n_near = min(20, n_pts // 2)
+    u = rng.normal(size=(d, n_k, n_near))
+    x[:, :, :n_near] = centers[:, 0].T[:, :, None] + 1.05 * u / np.linalg.norm(u, axis=0)
+    k = np.linspace(0.5, 3.0, n_k) + (0.1j if complex_k else 0.0)
+    w = _randc(rng, (n_k, n_b, len(ell))) * np.exp(-0.3 * ell)
+    f = dict(dtype=rdt, device=dev)
+    xt, ct = torch.as_tensor(x, **f), torch.as_tensor(centers, **f)
+    keep = (torch.linalg.vector_norm(xt[..., None] - ct.permute(2, 0, 1)[:, :, None], dim=0)
+            > 1.0).all(-1).T
+    return (c, n_end, xt, ct,
+            torch.as_tensor(k, dtype=dtype if complex_k else rdt, device=dev),
+            torch.as_tensor(w, dtype=dtype, device=dev), keep)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("btype,n_end", KE_TREES)
+def test_harmonic_eval_against_its_plain_version(cuda, dtype, btype, n_end):
+    """KE on every tree kind ('a', 'bpa', 'bba', 'bpbpa', 'caa', 'bcaa'),
+    in both modes (300 and 4 points x 3 k), real and complex k, each k's
+    own centers and points, summed and per ball, against its plain version
+    within 3e-5 (complex64) / 1e-12 (complex128) of the largest |u|; a
+    second launch is bitwise equal."""
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
+        _harmonic_eval_plain, harmonic_eval)
+
+    for complex_k, n_pts in ((False, 300), (True, 300), (False, 4), (True, 4)):
+        c, n, x, cen, k, w, keep = _ke_case(cuda, dtype, btype, n_end, complex_k, n_pts=n_pts)
+        for per_ball in (False, True):
+            before = (harmonic_eval.launches, harmonic_eval.few_launches)
+            got = harmonic_eval(c, n, x, cen, k, w, per_ball=per_ball)
+            assert (harmonic_eval.launches, harmonic_eval.few_launches) == (
+                before[0] + 1, before[1] + int(n_pts == 4))
+            ref = _harmonic_eval_plain(c, n, x, cen, k, w, per_ball)
+            assert got.shape == ref.shape
+            assert bool(torch.isfinite(got[keep]).all())
+            assert _rel(got[keep], ref[keep]) < KE_TOL[dtype], (complex_k, per_ball)
+            again = harmonic_eval(c, n, x, cen, k, w, per_ball=per_ball)
+            assert _same_bits(again, got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("btype,n_end,dtype,layout", [
+    ("bba", 32, torch.complex128, (2048, False)),
+    ("bpa", 128, torch.complex128, (2048, True)),
+    ("bpa", 128, torch.complex64, (2048, False)),
+])
+def test_harmonic_eval_at_large_n_end(cuda, btype, n_end, dtype, layout):
+    """KE where the density and the radial tables do not fit in shared
+    memory together (4D n_end=32 and 'bpa' n_end=128 in complex128, 'bpa'
+    n_end=128 in complex64): the density in windows, the radial tables in
+    shared memory or in a device scratch as `layout` says, against its
+    plain version as above, real and complex k, summed and per ball."""
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
+        _harmonic_eval_plain, _many_point_layout, harmonic_eval)
+
+    elt = torch.empty((), dtype=dtype).element_size()
+    c = create_from_branching_types(btype)
+    assert _many_point_layout(c, n_end, elt) == layout
+    for complex_k in (False, True):
+        c, n, x, cen, k, w, keep = _ke_case(cuda, dtype, btype, n_end, complex_k, n_pts=600)
+        for per_ball in (False, True):
+            got = harmonic_eval(c, n, x, cen, k, w, per_ball=per_ball)
+            ref = _harmonic_eval_plain(c, n, x, cen, k, w, per_ball)
+            assert bool(torch.isfinite(got[keep]).all())
+            assert _rel(got[keep], ref[keep]) < KE_TOL[dtype], (complex_k, per_ball)
+            assert _same_bits(harmonic_eval(c, n, x, cen, k, w, per_ball=per_ball), got)
+
+
+def _k3_dirs(dev, rdt, d, n_dir=40, seed=67):
+    t = np.random.default_rng(seed).normal(size=(n_dir, d))
+    t[0] = 0.0
+    t[0, -1] = 1.0  # the root axis itself, and its opposite
+    t[1] = -t[0]
+    return torch.as_tensor(t / np.linalg.norm(t, axis=1, keepdims=True), dtype=rdt, device=dev)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("btype,n_end", [("ba", 19), ("bpa", 10), ("bba", 12), ("bcaa", 6),
+                                         ("ba", 64)])
+def test_rotation_blocks_against_its_plain_version(cuda, dtype, btype, n_end):
+    """K3 per degree block against its plain version (5e-5 complex64,
+    1e-12 complex128, of 1: D is unitary), exact zeros between the blocks
+    of a group, the packed form equal to the groups' blocks, the unitarity
+    error within twice the plain version's, and a second launch bitwise
+    equal; up to 3D n_end=64, where every job of the tree would not fit in
+    K3's shared memory (its tiles hold only the rows they read)."""
+    from biem_helmholtz_sphere_tpu_torch.harmonics import harm_n_ndim
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
+        RotationD, _rotation_blocks_plain, rotation_blocks)
+
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    c = create_from_branching_types(btype)
+    dirs = _k3_dirs(cuda, rdt, c.c_ndim)
+    before = rotation_blocks.launches
+    groups, got = rotation_blocks(c, dirs, n_end)
+    assert rotation_blocks.launches == before + 1
+    _, ref = _rotation_blocks_plain(c, dirs, n_end)
+    n_root = basis(c, n_end).n_root
+    for (s, e), g, r in zip(groups, got, ref):
+        nr = torch.as_tensor(n_root[s:e], device=cuda)
+        same = nr[:, None] == nr[None, :]
+        assert bool((g[:, ~same] == 0).all())
+        err = float((g - r).abs().max())
+        eye = torch.eye(e - s, dtype=dtype, device=cuda)
+        uni_g = float((g @ g.mH - eye).abs().max())
+        uni_r = float((r @ r.mH - eye).abs().max())
+        assert err < K3_TOL[dtype], (s, e, err, uni_g, uni_r)
+        assert uni_g <= 2 * uni_r, (s, e, err, uni_g, uni_r)
+    _, again = rotation_blocks(c, dirs, n_end)
+    assert all(_same_bits(a, b) for a, b in zip(again, got))
+    rot = RotationD(c, dirs, n_end)
+    sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
+    assert _same_bits(rot.packed.vals, pack(_dense_of(groups, rot.blocks), sizes).vals)
+
+
+def _dense_of(groups, blocks):
+    h = groups[-1][1]
+    out = blocks[0].new_zeros(blocks[0].shape[:-2] + (h, h))
+    for (s, e), b in zip(groups, blocks):
+        out[..., s:e, s:e] = b
+    return out
+
+
+@pytest.mark.requires_cuda
+def test_ke_and_k3_raise_on_a_broken_launch(cuda, monkeypatch):
+    """Given CUDA tensors and a launch that fails, KE and K3 raise: no
+    fallback to their plain versions."""
+    from biem_helmholtz_sphere_tpu_torch.ops import harmonic_eval as ke_mod
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation
+
+    launch = kernels.launch
+
+    def broken(name, *args):
+        if name in ("bhs_harmonic_eval", "bhs_rotation_blocks"):
+            raise RuntimeError(f"{name}: CUDA error 1")
+        return launch(name, *args)
+
+    c, n, x, cen, k, w, _ = _ke_case(cuda, torch.complex64, "bpa", 6, False)
+    dirs = _k3_dirs(cuda, torch.float32, 3, n_dir=4)
+    monkeypatch.setattr(kernels, "launch", broken)
+    with pytest.raises(RuntimeError, match="bhs_harmonic_eval"):
+        ke_mod.harmonic_eval(c, n, x, cen, k, w)
+    with pytest.raises(RuntimeError, match="bhs_rotation_blocks"):
+        _rotation.rotation_blocks(c, dirs, n)

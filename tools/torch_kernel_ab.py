@@ -1,4 +1,4 @@
-"""A/B device times of KB, KA, K5, KC, K2 and KS source variants on one card.
+"""A/B device times of KB, KA, K5, KC, K2, KS, KE and K3 source variants on one card.
 
     python tools/torch_kernel_ab.py [-k SUBSTRING] DIR [DIR ...]
 
@@ -24,8 +24,12 @@ distances x 63 bands; compared on the values mant exp(e)), the KC gather
 and K2 for a k-block (4 k x 9 radii); and KS (its KF and KS launches) at
 chip_smoke.py phase 10 (a)'s shapes: 'caa' at n_end = 14 (H = 1,015,
 Q = 43,740 nodes), 4 k x 40 offsets of the hypercube {-2, 2}^4,
-complex64 in fold mode and complex128 unscaled.  With -k, only the cases
-whose name contains SUBSTRING run (`-k KS` builds KS's inputs alone).
+complex64 in fold mode and complex128 unscaled; KE (`harmonic_eval`) at
+phase 7 (c)'s shapes ('bpa' at the bench, 131,072 points x 1 k) and K3
+(`rotation_blocks`, its angle pass and tiles) at phase 8 (a)'s ('bba' on the
+hypercube at n_end = 20, its 64 slot directions), both timed as KS is.
+With -k, only the cases whose name contains SUBSTRING run (`-k KS`, `-k
+KE`, `-k K3` build that case's inputs alone).
 """
 
 import functools
@@ -166,6 +170,48 @@ def ks_case(torch, dev, cdt):
             lambda: _band_sr_plain(*args()[0], **args()[1]), None, None)
 
 
+def ke_k3_cases(torch, dev, cdt):
+    """KE's and K3's cases: (kernel call, plain call, None, None: timed
+    between CUDA events), their arguments built at first use."""
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.harmonics import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
+        _harmonic_eval_plain, harmonic_eval)
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
+        _rotation_blocks_plain, rotation_blocks)
+    from chip_smoke import EVAL_POINTS, N_END, N_END_4D, hypercube_centers, lattice_centers
+
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=dev)
+
+    @functools.cache
+    def ke_args():
+        c = create_from_branching_types("bpa")
+        rng = np.random.default_rng(77)
+        ell = basis(c, N_END).n_root
+        x = torch.as_tensor(rng.normal(size=(3, 1, EVAL_POINTS)) * 20.0, **f)
+        w = torch.as_tensor((rng.normal(size=(1, 16, len(ell))) + 1j) * np.exp(-ell),
+                            dtype=cdt, device=dev)
+        cen = torch.as_tensor(lattice_centers(), **f)[None]
+        return c, N_END, x, cen, torch.tensor([7.0], **f), w
+
+    @functools.cache
+    def k3_args():
+        t = torch.as_tensor(_pair_routing(hypercube_centers()).uniq, **f)
+        return create_from_branching_types("bba"), t / t.norm(dim=-1, keepdim=True), N_END_4D
+
+    def flat(blocks):
+        return torch.cat([b.flatten(1) for b in blocks], dim=-1)
+
+    return {"KE": (lambda: harmonic_eval(*ke_args()),
+                   lambda: _harmonic_eval_plain(*ke_args(), False), None, None),
+            "K3": (lambda: flat(rotation_blocks(*k3_args())[1]),
+                   lambda: flat(_rotation_blocks_plain(*k3_args())[1]), None, None)}
+
+
 def _event_us(torch, fn):
     """Microseconds of one call of fn() between CUDA events, after a
     warm-up call."""
@@ -211,8 +257,9 @@ def main():
 
     dev = torch.device("cuda", 0)
     for cdt in (torch.complex64, torch.complex128):
-        cs = {} if only == "KS" else cases(torch, dev, cdt)
-        cs = {name: case for name, case in {**cs, "KS": ks_case(torch, dev, cdt)}.items()
+        cs = {} if only in ("KS", "KE", "K3") else cases(torch, dev, cdt)
+        cs = {name: case for name, case in
+              {**cs, "KS": ks_case(torch, dev, cdt), **ke_k3_cases(torch, dev, cdt)}.items()
               if only in name}
         times = {v: {name: [] for name in cs} for v in variants}
         for v in variants:
