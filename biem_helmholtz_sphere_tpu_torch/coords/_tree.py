@@ -112,6 +112,13 @@ class SphericalCoordinates:
         walk(self.root)
         return tuple(out)
 
+    def node_by_id(self, nid):
+        """The node whose id is nid; KeyError when the tree has none."""
+        for node in self.nodes:
+            if node.nid == nid:
+                return node
+        raise KeyError(nid)
+
     def draw(self, ax=None):
         """Draw the coordinate tree on a matplotlib axes (a new figure's
         when ax is None); returns the axes.  Each node is a dot labelled

@@ -145,75 +145,4 @@ __device__ __forceinline__ c2_t<T> factor_product(const Prog<T>& pg, const int* 
   return y;
 }
 
-// K3's node tables: job factors at a chunk of points, row r of a table
-// `ld` apart ('a' jobs two rows: re, im), one column a point.  fill_item
-// runs one work item (translation/_rotation.py::_k3_plan `work`: node id,
-// first row, lo, hi, kind, family, prefactor powers p1, p2) at G points
-// at once (columns 0..G-1 of `tab`), their angles (x, c, s) `stride`
-// apart: a 'b'/'c' family by its recurrence from the seed to step hi,
-// keeping steps lo..hi in consecutive rows, G independent chains a step
-// sharing the step's coefficients; or an 'a' node by the powers of
-// e^{i phi} up to |m| = hi, keeping m and -m for |m| = lo..hi (the rows of
-// -m, the conjugates, after all those of +m).
-struct alignas(16) FillItem {
-  int nid, row, lo, hi, kind, fam, p1, p2;
-};
-
-template <typename T, int G>
-__device__ __forceinline__ void fill_item(const FillItem& it, const Prog<T>& pg, const T* x,
-                                          const T* c, const T* s, int stride, T* tab, int ld) {
-  if (it.kind == kA) {  // the powers in double: |m| roundings of double, not of T
-    const int cnt = it.hi - it.lo + 1;
-    double2 p[G], z[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const double cg = c[g * stride], sg = s[g * stride];
-      const double rn = 1.0 / sqrt(cg * cg + sg * sg);  // e^{i phi} of T's rounded (c, s)
-      z[g] = make_double2(cg * rn, sg * rn);
-      p[g] = make_double2(0.39894228040143267794, 0.0);
-    }
-    for (int m = 0; m <= it.hi; ++m) {
-      if (m >= it.lo) {
-        T* rp = tab + (size_t)(it.row + 2 * (m - it.lo)) * ld;
-        T* rm = rp + (size_t)2 * cnt * ld;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          rp[g] = (T)p[g].x;
-          rp[ld + g] = (T)p[g].y;
-          rm[g] = (T)p[g].x;
-          rm[ld + g] = (T)-p[g].y;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) p[g] = cmul<double>(p[g], z[g]);
-    }
-    return;
-  }
-  const T p0 = pg.famr[2 * it.fam], norm = pg.famr[2 * it.fam + 1];
-  const int crow = pg.fam[it.fam];
-  T* row = tab + (size_t)it.row * ld;  // step j at row + (j - lo) ld
-  T pn[G], pm[G], xg[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const T cg = c[g * stride], sg = s[g * stride];
-    const T pref = it.kind == kB ? int_pow<T>(sg, it.p1)
-                                 : norm * int_pow<T>(cg, it.p1) * int_pow<T>(sg, it.p2);
-    xg[g] = x[g * stride];
-    pn[g] = pref * p0;
-    pm[g] = 0;
-    if (it.lo == 0) row[g] = pn[g];
-  }
-#pragma unroll 4
-  for (int j = 1; j <= it.hi; ++j) {
-    const auto cf = coef_row(pg.coef, crow + j - 1);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const T pp = t_fma(t_fma(xg[g], cf.x, cf.y), pn[g], -cf.z * pm[g]);
-      pm[g] = pn[g];
-      pn[g] = pp;
-      if (j >= it.lo) row[(size_t)(j - it.lo) * ld + g] = pp;
-    }
-  }
-}
-
 }  // namespace hprog

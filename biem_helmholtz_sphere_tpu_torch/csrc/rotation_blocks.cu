@@ -1,53 +1,69 @@
 // K3: the rotation D(R) of every direction, degree block by degree block.
 //
-// Replaces the quadrature of biem_helmholtz_sphere_tpu/translation/
-// _rotation.py:251-294 (rotation_blocks), whose plain version is
-// translation/_rotation.py::_rotation_blocks_plain.  For each direction n
-// and root-degree block l (g = harm_n_ndim(l, d) rows at offset o):
+// Replaces no Pallas kernel: the JAX package computes D by quadrature in
+// XLA (biem_helmholtz_sphere_tpu/translation/_rotation.py:251-294,
+// rotation_blocks).  The plain version is translation/_rotation.py::
+// _rotation_blocks_plain.  For each direction n and root-degree block l
+// (g = harm_n_ndim(l, d) rows at offset o):
 //
 //   D_l[n][i, j] = sum_q ycw[q, o + i] Y_{o + j}(R_n^T s_q)
 //
-// with ycw = conj(Y) w at the quadrature nodes s_q (cached on the card) and
-// R_n the rotation taking the root axis to the direction (`_rotation_to_
-// axis`, [N, d, d]).  Only exact degree blocks are computed: the zeros
-// between the blocks of a degree group hold by construction (the wrapper's
-// buffer starts at zero), which is the mask the plain version applies.
-// Each entry is written to both forms the callers read: the degree groups
-// (`RotationD.blocks`, the sandwich's) and the packed blocks
-// (`RotationD.packed`, KB's).
+// with ycw = conj(Y) w at the quadrature nodes s_q (cached on the card, in
+// `_rot_ycw`'s layout: chunk-major lines of 32 nodes, each block's rows
+// padded to 8) and R_n the rotation taking the root axis to the direction
+// (`_rotation_to_axis`, [N, d, d]).  Only exact degree blocks are
+// computed: the zeros between the blocks of a degree group hold by
+// construction (the wrapper's buffer starts at zero), which is the mask
+// the plain version applies.  Each entry is written to both forms the
+// callers read: the degree groups (`RotationD.blocks`, the sandwich's) and
+// the packed blocks (`RotationD.packed`, KB's).
 //
-// Two kernels, one call.  rotated_angles_kernel rotates every node for
-// every direction once and writes each tree node's angles there (the
-// evaluator's tree_angles) to a scratch [N][3][n_nodes][Qp]; the tiles of
-// a direction all read them.  rotation_blocks_kernel: a CTA per direction
-// and 64 x 64 tile of one block runs the reduction over the nodes in
-// chunks (32 nodes in complex64, 16 in complex128).  Per chunk it fills
-// the node tables of the job factors that the tile's 64 columns read, and
-// only those (translation/_rotation.py::_k3_plan: at most ~180 rows at
-// any n_end, so the shared memory does not grow with n_end), with the
-// device evaluator (harmonics.cuh: a recurrence per 'b'/'c' family from
-// its seed, kept from the lowest step read, and the powers of e^{i phi}
-// per 'a' node, a node a lane), forms the tile's 64 columns of harmonics
-// as products of table rows, and multiplies them into the tile;
-// [N, Q, H] is never formed.  The chunk's rows of ycw arrive by cp.async
-// while its tables are filled, the next chunk's angles while it is worked.
-// (Each Y_h from its nodes' seeds, a recurrence per entry, ran slower than
-// the plain version at phase 8 (a)'s shapes.)  The product:
-// - complex64: a 4 x 4 register tile a thread on the FP32 CUDA cores (no
-//   TF32), rows 4 ty + i and columns tx + 16 j;
-// - complex128: on the FP64 tensor cores (DMMA, mma_f64.cuh), a warp per
-//   16 rows x 32 columns: A' = [Re ycw, Im ycw] node by node and B' =
-//   [[Re Y, Im Y], [-Im Y, Re Y]], four real products per complex one;
-// both summed in two levels, 64 nodes apart, then their partials (one
-// sequence over ~10^4 nodes left D D^H - I at 4.7x the plain version's in
-// complex128, the 4D n_end = 12 case of the card tests; 256 nodes apart,
-// 2.2x in complex64 at the 3D bench's n_end = 32).
-// One CTA sums every node of its entries in a fixed order (no atomics), so
+// What bounds it: operations, 8 N Q sum_l g_l^2 real ones (a contraction:
+// the FP32 CUDA cores, or the FP64 tensor cores in complex128), beside
+// which the harmonics at each direction's rotated nodes are ~16 N Q H
+// (chip_smoke.py::k3_bound).
+//
+// The design (translation/_rotation.py::_k3_plan, _k3_jobs, _k3_slab):
+// - One harmonic generation per direction.  rotated_harmonics_kernel, a
+//   thread per (direction, node), rotates the node, takes its angles and
+//   evaluates every harmonic of the tree there by the program's child
+//   states (ops/harmonic_program.py: the subtree's factors once per child
+//   state, the root's recurrence through its degrees; e^{i m phi} by a
+//   double sincos), H values a thread, into a scratch of lines.  Generating
+//   them inside the product, a degree block at a time, costs ~sum_l l^2
+//   recurrence steps a node where the whole tree costs ~H: producer warps
+//   doing so were latency-bound and took 2.9-9x the product (PERF.md, PR
+//   16).  The nodes go in slabs of at most _K3_SCRATCH bytes of harmonics.
+// - Work sized to the block.  A block's columns of every direction sit
+//   side by side (column n g + j is direction n's column j: conj(Y) w is
+//   the same for every direction), cut into strips of W columns; its rows
+//   into shares of at most 64, a multiple of 8.  A CTA computes one share
+//   of one strip: its product is padded to 8 rows and 4 (complex64) or 16
+//   (complex128) columns only, not to 64 x 64 tiles (3D blocks have at most
+//   2 l + 1 rows; 64 x 64 tiles computed 3.0x the needed entries at
+//   n_end = 32 and 8.5x at n_end = 19).  Every share of a strip reads the
+//   same generated harmonics.
+// - The loads under the product.  Per chunk of 32 nodes a CTA needs its
+//   strip's lines of harmonics and its share's lines of conj(Y) w.  Both
+//   lie chunk-major in device memory, in the lines of shared memory
+//   (padding included), so they arrive as one cp.async.bulk per direction
+//   of the strip and one for the share (a copy a line added half the
+//   product's time: small copies are slow), issued by warp 0's lanes two chunks
+//   ahead into a ring of 3 stages; full mbarriers (the expected bytes) and
+//   empty ones (the 8 warps' releases) take the place of CTA barriers.
+//   Persistent: a CTA an SM walks its units, the loads running ahead
+//   across them.
+// - The product: complex64 an 8 x 4 register tile a thread on the FP32
+//   CUDA cores (no TF32), 16-byte loads of two nodes; complex128 on the
+//   FP64 tensor cores (DMMA m16n8k8, mma_f64.cuh) as D^T = Y^T conj(Y) w:
+//   a warp's 4 slots of 16 columns x 8 rows, the real and imaginary planes
+//   in four real products, read in fragment order from lines of 36 (no
+//   select).  Both sum in two levels, 64 nodes apart, then their partials
+//   (one sequence over ~10^4 nodes left D D^H - I at 4.7x the plain
+//   version's), slab after slab into D.
+// Each entry is summed by one thread in a fixed order (no atomics), so
 // results repeat bit for bit.
-//
-// What bounds it: operations, 8 N Q sum_l g_l^2 real ones; the node tables
-// cost at most a few thousand recurrence steps a node and tile (the
-// families of its columns, each run from its seed).
+#include <cstdint>
 #include <type_traits>
 
 #include "harmonics.cuh"
@@ -55,56 +71,123 @@
 
 namespace {
 
+constexpr int kQ = 32;  // nodes a chunk (_K3_KQ)
 constexpr int kThreads = 256;
-constexpr int kTile = 64;       // rows and columns of a CTA's tile
-constexpr int kPad = kTile + 4;
-constexpr int kSumNodes = 64;   // nodes summed apart
-constexpr int kQp = 32;         // the angle scratch's node axis, padded to it
+constexpr int kStages = 3;
 
-// nodes per chunk: 32 in complex64, 16 in complex128 (its accumulators take
-// 128 registers a lane: one CTA an SM)
-template <typename T>
-struct Kq {
-  static constexpr int value = std::is_same<T, double>::value ? 16 : 32;
+// per dtype: a line's stride (a chunk's nodes and padding, so that a
+// warp's 16-byte loads of consecutive lines miss no bank twice) and a ring
+// stage's lines (_K3_LINES)
+template <typename T> struct Cfg;
+template <> struct Cfg<float> {
+  static constexpr int S = kQ + 2, kLines = 280;
+};
+template <> struct Cfg<double> {
+  static constexpr int S = kQ + 4, kLines = 128;
 };
 
-// per block: o, g, group size G, row of the block in its group, the group's
-// entries before it per direction, the packed offset of the block
+// per block (_K3Plan.info): o, g, group size G, row in the group, first
+// row of ycw, strip columns W; the group's entries before it per
+// direction, the packed offset of the block
 struct BlockInfo {
-  int o, g, G, oi;
+  int o, g, G, oi, op, W;
   long long gpre, voff;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-// global -> shared, asynchronously; zero-filled when !ok (src is then not read)
-template <int B>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
-  if constexpr (B == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "n"(B), "r"(ok ? B : 0)
-                 : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned),
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// The angles of every node at every direction: ang [N][3][nn][Qp] (x, c, s)
+template <typename T>
+__device__ __forceinline__ T ipow(T x, int n) {  // x^n by squaring
+  T r = 1;
+  for (; n; n >>= 1, x *= x)
+    if (n & 1) r *= x;
+  return r;
+}
+
+// A job's seed: its prefactor (powers by squaring) times p_0
+template <typename T>
+__device__ __forceinline__ T seed(const hprog::Prog<T>& pg, int kind, int4 job, T c, T s) {
+  const T pref = kind == hprog::kB ? ipow<T>(s, job.z)
+                                   : pg.famr[2 * job.x + 1] * ipow<T>(c, job.z) * ipow<T>(s, job.w);
+  return pref * pg.famr[2 * job.x];
+}
+
+// The subtree's factors of a child state (nodes but the root, node 0) at
+// the jobs job_of[nid]: a 'b'/'c' node by its recurrence from the seed, an
+// 'a' node's e^{i m phi} / sqrt(2 pi) in double from phi (atan2 of the
+// node's (s, c), once a point), then rounded to T (e^{i phi}'s powers in T
+// doubled D D^H - I in complex64)
+template <typename T>
+__device__ __forceinline__ c2_t<T> subtree_factor(const hprog::Prog<T>& pg, const int* kind,
+                                                  const int* __restrict__ job_of, const T* ax,
+                                                  const T* ac, const T* as, const double* phi) {
+  c2_t<T> y = cmake<T>(1, 0);
+  for (int nid = 1; nid < pg.n_nodes; ++nid) {
+    const int4 job = pg.jobs[job_of[nid]];
+    if (kind[nid] == hprog::kA) {
+      double sn, cs;
+      sincos(job.z * phi[nid], &sn, &cs);
+      y = cmul<T>(y, cmake<T>((T)(0.39894228040143267794 * cs), (T)(0.39894228040143267794 * sn)));
+    } else {
+      T pn = seed<T>(pg, kind[nid], job, ac[nid], as[nid]), pm = 0;
+      const int row = pg.fam[job.x];
+      for (int j = 0; j < job.y; ++j) hprog::jacobi_step<T>(pg, row + j, ax[nid], pn, pm);
+      y = cscale<T>(y, pn);
+    }
+  }
+  return y;
+}
+
+// Every harmonic at every direction's rotated nodes q0 .. q0 + qn - 1:
+// harm [qn / 32][N][H][S], chunk-major in K3's lines (a padding node past
+// Q repeats the last; conj(Y) w is 0 there); a complex64 line (272 bytes,
+// straddling 32-byte sectors) written whole, its padding too (lines
+// written in part cut the write rate by a quarter)
 template <typename T>
 __global__ void __launch_bounds__(128)
-rotated_angles_kernel(const T* __restrict__ s_cart, const T* __restrict__ rot,
-                      hprog::Prog<T> pg, T* __restrict__ ang, int N, int Q, int Qp, int d) {
+rotated_harmonics_kernel(const T* __restrict__ s_cart, const T* __restrict__ rot,
+                         hprog::Prog<T> pg, const int4* __restrict__ cs_tab,
+                         const int* __restrict__ csjob, const long long* __restrict__ perm,
+                         int n_cs, c2_t<T>* __restrict__ harm, int N, int Q, int q0, int qn,
+                         int H, int d) {
   const long long e = (long long)blockIdx.x * 128 + threadIdx.x;
-  if (e >= (long long)N * Qp) return;
-  const int n = (int)(e / Qp), qp = (int)(e % Qp);
-  const int q = qp < Q ? qp : Q - 1;
+  if (e >= (long long)N * qn) return;
+  const int n = (int)(e / qn), ql = (int)(e % qn);
+  const int q = q0 + ql < Q ? q0 + ql : Q - 1;
   const T* R = rot + (size_t)n * d * d;
   T v[hprog::kMaxNodes + 1];
   for (int j = 0; j < d; ++j) {  // (R^T s)_j = sum_i R[i, j] s_i
@@ -114,277 +197,359 @@ rotated_angles_kernel(const T* __restrict__ s_cart, const T* __restrict__ rot,
   }
   T ax[hprog::kMaxNodes], ac[hprog::kMaxNodes], as[hprog::kMaxNodes];
   hprog::tree_angles<T>(pg, v, ax, ac, as);
-  const int nn = pg.n_nodes;
-  T* out = ang + (size_t)n * 3 * nn * Qp + qp;
-  for (int nid = 0; nid < nn; ++nid) {
-    out[(size_t)(0 * nn + nid) * Qp] = ax[nid];
-    out[(size_t)(1 * nn + nid) * Qp] = ac[nid];
-    out[(size_t)(2 * nn + nid) * Qp] = as[nid];
+  int kind[hprog::kMaxNodes];
+  hprog::node_kinds<T>(pg, kind);
+  double phi[hprog::kMaxNodes];
+  for (int nid = 1; nid < pg.n_nodes; ++nid)
+    phi[nid] = kind[nid] == hprog::kA ? atan2((double)as[nid], (double)ac[nid]) : 0.0;
+  c2_t<T>* out = harm + ((size_t)(ql / kQ) * N + n) * H * Cfg<T>::S + ql % kQ;
+  for (int cs = 0; cs < n_cs; ++cs) {
+    const int4 ci = cs_tab[cs];  // first root job, J, first entry, l0
+    const c2_t<T> y =
+        subtree_factor<T>(pg, kind, csjob + (size_t)cs * pg.n_nodes, ax, ac, as, phi);
+    const int4 job = pg.jobs[ci.x];
+    T pn = seed<T>(pg, kind[0], job, ac[0], as[0]), pm = 0;
+    const int row = pg.fam[job.x];
+    for (int j = 0; j < ci.y; ++j) {
+      c2_t<T>* line = out + (size_t)perm[ci.z + j] * Cfg<T>::S;
+      line[0] = cscale<T>(y, pn);
+      if constexpr (Cfg<T>::S * sizeof(c2_t<T>) % 32 != 0)  // whole lines, whole sectors
+        if (ql % kQ < Cfg<T>::S - kQ) line[kQ] = cmake<T>(0, 0);
+      if (j + 1 < ci.y) hprog::jacobi_step<T>(pg, row + j, ax[0], pn, pm);
+    }
   }
 }
 
-// shared memory of a CTA: the chunk's rows of ycw (As) and tile columns of
-// harmonics (Bs), two chunks' angles, the node tables (`rows` rows), the
-// tile columns' table rows
+// shared memory of a CTA: the ring (per stage the strip's W lines of
+// harmonics, then the share's lines of conj(Y) w), the stages' full and
+// empty barriers
 template <typename T>
-size_t smem_bytes(int n_nodes, int rows) {
-  constexpr int KQ = Kq<T>::value;
-  return sizeof(c2_t<T>) * 2 * KQ * kPad + sizeof(T) * (2 * 3 * n_nodes + rows) * KQ +
-         sizeof(int) * kTile * n_nodes;
+constexpr size_t smem_bytes() {
+  return sizeof(c2_t<T>) * kStages * Cfg<T>::kLines * Cfg<T>::S +
+         sizeof(uint64_t) * 2 * kStages;
 }
 
+// One unit of work (_k3_jobs): a share of one strip of one block
+struct Unit {
+  BlockInfo bi;
+  int c0, r0, nr, wu, nr8;
+};
+__device__ __forceinline__ Unit unit_at(const BlockInfo* __restrict__ blocks,
+                                        const int4* __restrict__ desc, int k, int N) {
+  const int4 dc = desc[k];  // block, the strip's first column, the share's first row, rows
+  Unit u;
+  u.bi = blocks[dc.x];
+  u.c0 = dc.y;
+  u.r0 = dc.z;
+  u.nr = dc.w;
+  u.wu = min(u.bi.W, N * u.bi.g - u.c0);
+  u.nr8 = (u.nr + 7) & ~7;
+  return u;
+}
+
+// Persistent: a CTA an SM takes units blockIdx.x, + gridDim.x, ... (the
+// largest blocks first), step by step (unit, chunk of 32 nodes), the loads
+// running two steps ahead across units, so that a unit's stores overlap the
+// next one's loads (a CTA a unit spent its start and end with the SM idle:
+// 3D units hold 8-24 chunks).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rotation_blocks_kernel(const c2_t<T>* __restrict__ ycw, const T* __restrict__ ang_all,
-                       hprog::Prog<T> pg, const BlockInfo* __restrict__ blocks,
-                       const int4* __restrict__ tiles, const int4* __restrict__ ctile,
-                       const int* __restrict__ ccol, const hprog::FillItem* __restrict__ work,
-                       int rows, c2_t<T>* __restrict__ grp, c2_t<T>* __restrict__ packed, int N,
-                       int n_tiles, int Q, int Qp, int H, long long nnz) {
+__global__ void __launch_bounds__(kThreads, 1)
+rotation_blocks_kernel(const c2_t<T>* __restrict__ ycw, const c2_t<T>* __restrict__ harm,
+                       const BlockInfo* __restrict__ blocks, const int4* __restrict__ desc,
+                       int n_units, c2_t<T>* __restrict__ grp, c2_t<T>* __restrict__ packed,
+                       int N, int hp, int H, int q0, int qn, int first, int last,
+                       long long nnz) {
   using T2 = c2_t<T>;
-  constexpr bool kDmma = std::is_same<T, double>::value;
-  constexpr int KQ = Kq<T>::value;
-  const int nn = pg.n_nodes;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T2(*As)[kPad] = reinterpret_cast<T2(*)[kPad]>(smem_raw);  // [KQ][kPad]
-  T2(*Bs)[kPad] = As + KQ;                                  // [KQ][kPad]
-  T* Ang = reinterpret_cast<T*>(Bs + KQ);                   // [2][3][nn][KQ]: x, c, s
-  T* Tab = Ang + 2 * 3 * nn * KQ;                           // [rows][KQ]
-  int* Cs = reinterpret_cast<int*>(Tab + (size_t)rows * KQ);  // [kTile][nn]
+  constexpr int S = Cfg<T>::S, kLines = Cfg<T>::kLines;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T2* ring = reinterpret_cast<T2*>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)kStages * kLines * S);
+  uint64_t* empty = full + kStages;
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x / n_tiles;
-  const int4 tl = tiles[blockIdx.x % n_tiles];  // block, i0, j0, column tile
-  const BlockInfo bi = blocks[tl.x];
-  const int i0 = tl.y, j0 = tl.z;
-  const int4 ct = ctile[tl.w];  // its first work item, their number
-  const T* ang_n = ang_all + (size_t)n * 3 * nn * Qp;
-  // the table row of each tile column at each node (bit 30 for 'a'), as an
-  // offset into Tab
-  for (int e = tid; e < kTile * nn; e += kThreads) {
-    const int v = ccol[(size_t)tl.w * kTile * nn + e];
-    Cs[e] = (v & ((1 << 30) - 1)) * KQ | (v & (1 << 30));
+  const int nq = qn / kQ;
+  const int my_units =
+      (int)blockIdx.x < n_units ? (n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int n_steps = my_units * nq;
+  const size_t stage = (size_t)kLines * S;
+  const int tid = threadIdx.x, lane = tid % 32, wp = tid / 32;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);  // warp 0's expected bytes
+      mbar_init(&empty[s], kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  auto load_ang = [&](int q0, T* dst) {  // 3 nn rows of KQ angles, 16-byte copies
-    constexpr int kPer = 16 / sizeof(T);
-    for (int e = tid; e < 3 * nn * (KQ / kPer); e += kThreads) {
-      const int r = e / (KQ / kPer), u = (e % (KQ / kPer)) * kPer;
-      cp_async<16>(dst + r * KQ + u, ang_n + (size_t)r * Qp + q0 + u, true);
+  __syncthreads();
+
+  // step t's lines into its stage, as they lie in device memory: the
+  // strip's columns a bulk copy per direction n (block columns ja..jb-1:
+  // harm's lines of chunk c, direction n, harmonics o + ja..), then the
+  // share's rows of conj(Y) w in one, across warp 0's lanes
+  auto issue = [&](int t) {
+    const Unit u = unit_at(blocks, desc, blockIdx.x + (t / nq) * gridDim.x, N);
+    const int c = t % nq, st = t % kStages, g = u.bi.g;
+    const int n_a = u.c0 / g, n_dirs = (u.c0 + u.wu - 1) / g - n_a + 1;
+    T2* line0 = ring + st * stage;
+    if (lane == 0) mbar_arrive_tx(&full[st], (u.wu + u.nr8) * S * sizeof(T2));
+    __syncwarp();
+    for (int k = lane; k <= n_dirs; k += 32) {
+      if (k == n_dirs) {
+        bulk_load(line0 + (size_t)u.bi.W * S,
+                  ycw + ((size_t)(q0 / kQ + c) * hp + u.bi.op + u.r0) * S,
+                  u.nr8 * S * sizeof(T2), &full[st]);
+      } else {
+        const int n = n_a + k;
+        const int ja = max(0, u.c0 - n * g), jb = min(g, u.c0 + u.wu - n * g);
+        bulk_load(line0 + (size_t)(n * g + ja - u.c0) * S,
+                  harm + (((size_t)c * N + n) * H + u.bi.o + ja) * S,
+                  (jb - ja) * S * sizeof(T2), &full[st]);
+      }
     }
   };
-  auto load_rows = [&](int q0) {  // the chunk's rows of ycw, zero past Q and g
-    for (int e = tid; e < KQ * kTile; e += kThreads) {
-      const int qq = e / kTile, i = e % kTile;
-      const int q = q0 + qq;
-      const bool ok = q < Q && i0 + i < bi.g;
-      cp_async<sizeof(T2)>(&As[qq][i], ycw + (ok ? (size_t)q * H + bi.o + i0 + i : 0), ok);
+  if (wp == 0)
+    for (int t = 0; t < kStages - 1 && t < n_steps; ++t) issue(t);
+
+  // warp 0 issues step t + 2 once every warp is done with step t - 1,
+  // whose stage it takes; each warp then waits for step t
+  auto next = [&](int t) {
+    if (wp == 0 && t + kStages - 1 < n_steps) {
+      if (t >= 1) mbar_wait(&empty[(t - 1) % kStages], ((t - 1) / kStages) & 1);
+      issue(t + kStages - 1);
+    }
+    mbar_wait(&full[t % kStages], (t / kStages) & 1);
+  };
+  auto release = [&](int t) {  // this warp is done with step t
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[t % kStages]);
+  };
+  // D's entry (share row i, strip column cc) of unit u: the slab's sum
+  // added to the earlier slabs' in the degree groups; both forms written
+  // at the last
+  auto store = [&](const Unit& un, int i, int cc, T2 v) {
+    if (i < un.nr && cc < un.wu) {
+      const int n = (un.c0 + cc) / un.bi.g, j = (un.c0 + cc) % un.bi.g;
+      const long long G = un.bi.G;
+      T2* g = grp + un.bi.gpre * N + n * G * G + (un.bi.oi + un.r0 + i) * G + un.bi.oi + j;
+      if (!first) v = cadd<T>(*g, v);
+      *g = v;
+      if (last) packed[n * nnz + un.bi.voff + (long long)(un.r0 + i) * un.bi.g + j] = v;
     }
   };
 
-  // complex64: thread (ty, tx) takes rows 4 ty + i, columns tx + 16 j (a
-  // warp's column loads are consecutive: no bank conflict)
-  const int ty = tid / 16, tx = tid % 16;
-  T2 acc[4][4], part[4][4];
-  // complex128: warp wp takes rows 16 (wp % 4) + ., columns 32 (wp / 4) + .
-  const int lane = tid % 32, wp = tid / 32, g8 = lane >> 2, t4 = lane & 3;
-  double dacc[8][4], dpart[8][4];
+  Unit u{};
+  if constexpr (std::is_same<T, double>::value) {
+    // warp wp takes slots 4 wp .. 4 wp + 3 of the share's (16 columns, 8
+    // rows) slots, column-tile major; D^T[16 x 8] += Y^T A (m16n8k8), the
+    // planes as D_re += Yr Ar - Yi Ai, D_im += Yr Ai + Yi Ar
+    const int g8 = lane >> 2, t4 = lane & 3;
+    int rt_n = 1, n_slots = 0;
+    double pre[4][4], pim[4][4], are[4][4], aim[4][4];
+    for (int t = 0; t < n_steps; ++t) {
+      const int c = t % nq;
+      if (c == 0) {
+        u = unit_at(blocks, desc, blockIdx.x + (t / nq) * gridDim.x, N);
+        rt_n = u.nr8 / 8;
+        n_slots = rt_n * ((u.wu + 15) / 16);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int s = 0; s < 4; ++s)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = part[i][j] = cmake<T>(0, 0);
+          for (int i = 0; i < 4; ++i) pre[s][i] = pim[s][i] = are[s][i] = aim[s][i] = 0;
+      }
+      next(t);
+      const double2* Bs = reinterpret_cast<const double2*>(ring + (t % kStages) * stage);
+      const double2* As = Bs + (size_t)u.bi.W * S;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+      for (int kb = 0; kb < kQ; kb += 8) {
+        double yr[4], yi[4];
+        int cur = -1;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dacc[i][j] = dpart[i][j] = 0;
-
-  // cp.async groups, oldest first: angles A_c, rows R_c, angles A_{c+1}, ...
-  load_ang(0, Ang);
-  cp_commit();
-  load_rows(0);
-  cp_commit();
-  for (int q0 = 0, c = 0; q0 < Q; q0 += KQ, ++c) {
-    // the next chunk's angles arrive while this chunk is worked
-    if (q0 + KQ < Q) load_ang(q0 + KQ, Ang + ((c + 1) & 1) * 3 * nn * KQ);
-    cp_commit();
-    cp_wait<2>();  // A_c is in (R_c and A_{c+1} may not be)
-    __syncthreads();
-    const T* ang = Ang + (c & 1) * 3 * nn * KQ;
-    // the tile columns' job factors at the chunk's rotated nodes: a work
-    // item a group of KQ lanes, a node a lane (the longest items first)
-    constexpr int kItemsPerWarp = 32 / KQ;
-    for (int w = (tid / 32) * kItemsPerWarp + (tid % 32) / KQ; w < ct.y;
-         w += (kThreads / 32) * kItemsPerWarp) {
-      const int qq = tid % KQ;
-      const hprog::FillItem it = work[ct.x + w];
-      hprog::fill_item<T, 1>(it, pg, ang + (0 * nn + it.nid) * KQ + qq,
-                             ang + (1 * nn + it.nid) * KQ + qq, ang + (2 * nn + it.nid) * KQ + qq,
-                             1, Tab + qq, KQ);
-    }
-    __syncthreads();
-    // the tile's columns of harmonics at them: products of table rows
-#pragma unroll 4
-    for (int e = tid; e < KQ * kTile; e += kThreads) {
-      const int qq = e % KQ, j = e / KQ;
-      T2 y = cmake<T>(0, 0);
-      if (q0 + qq < Q && j0 + j < bi.g) {
-        y = cmake<T>(1, 0);
-        for (int nid = 0; nid < nn; ++nid) {
-          const int v = Cs[j * nn + nid];
-          const T* row = Tab + (v & ((1 << 30) - 1)) + qq;
-          y = (v >> 30) ? cmul<T>(y, cmake<T>(row[0], row[KQ])) : cscale<T>(y, row[0]);
+        for (int s = 0; s < 4; ++s) {
+          const int k = 4 * wp + s;
+          if (k < n_slots) {
+            const int mt = k / rt_n, rt = k % rt_n;
+            if (mt != cur) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const double2 v =
+                    Bs[(size_t)(16 * mt + g8 + 8 * (i & 1)) * S + kb + t4 + 4 * (i >> 1)];
+                yr[i] = v.x;
+                yi[i] = v.y;
+              }
+              cur = mt;
+            }
+            double ar[2], ai[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const double2 w = As[(size_t)(8 * rt + g8) * S + kb + t4 + 4 * i];
+              ar[i] = w.x;
+              ai[i] = w.y;
+            }
+            mma_f64(pre[s], yr, ar);
+            mma_f64(pim[s], yr, ai);
+            mma_f64(pim[s], yi, ar);
+            ai[0] = -ai[0];
+            ai[1] = -ai[1];
+            mma_f64(pre[s], yi, ai);
+          }
         }
       }
-      Bs[qq][j] = y;
-    }
-    cp_wait<1>();  // R_c is in: it arrived while the tables were filled
-    __syncthreads();
-    const bool fold = (q0 + KQ) % kSumNodes == 0 || q0 + KQ >= Q;
-    if constexpr (kDmma) {
-      const double* ad = reinterpret_cast<const double*>(&As[0][0]);
-      const int rb = 16 * (wp % 4), cb = 32 * (wp / 4);
+      release(t);
+      if ((c & 1) || c == nq - 1) {
 #pragma unroll
-      for (int kb = 0; kb < 2 * KQ; kb += 16) {  // k' = 2 node + part
-        double a[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int kp = kb + t4 + 4 * (i >> 1);
-          a[i] = ad[((kp >> 1) * kPad + rb + g8 + 8 * (i & 1)) * 2 + (kp & 1)];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = cb + 4 * nt + (g8 >> 1);
-          double bfr[4];
+        for (int s = 0; s < 4; ++s)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int kp = kb + t4 + 4 * i;
-            const T2 yv = Bs[kp >> 1][col];
-            // B'[2q][Re] = Re Y, B'[2q+1][Re] = -Im Y; B'[2q][Im] = Im Y, B'[2q+1][Im] = Re Y
-            bfr[i] = (g8 & 1) == 0 ? ((kp & 1) ? -yv.y : yv.x) : ((kp & 1) ? yv.x : yv.y);
+            are[s][i] += pre[s][i];
+            aim[s][i] += pim[s][i];
+            pre[s][i] = pim[s][i] = 0;
           }
-          mma_f64(dpart[nt], a, bfr);
+      }
+      if (c == nq - 1) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int k = 4 * wp + s;
+          if (k < n_slots) {
+            const int mt = k / rt_n, rt = k % rt_n;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              store(u, 8 * rt + 2 * t4 + (i & 1), 16 * mt + g8 + 8 * (i >> 1),
+                    cmake<T>(are[s][i], aim[s][i]));
+          }
         }
       }
-      if (fold) {
+    }
+  } else {
+    // thread (tr, tc): rows tr + TR i, columns tc + TC j (neighbouring
+    // threads on neighbouring columns: D's rows are stored whole)
+    int TR = 1, TC = 1, tr = 0, tc = 0;
+    bool live = false;
+    float2 part[8][4], acc[8][4];
+    for (int t = 0; t < n_steps; ++t) {
+      const int c = t % nq;
+      if (c == 0) {
+        u = unit_at(blocks, desc, blockIdx.x + (t / nq) * gridDim.x, N);
+        TR = u.nr8 / 8;
+        TC = (u.wu + 3) / 4;
+        tc = tid % TC;
+        tr = tid / TC;
+        live = tr < TR;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[i][j] = acc[i][j] = make_float2(0.f, 0.f);
+      }
+      next(t);
+      const float2* Bs = reinterpret_cast<const float2*>(ring + (t % kStages) * stage);
+      const float2* As = Bs + (size_t)u.bi.W * S;
+      if (live) {
+#pragma unroll 2
+        for (int qq = 0; qq < kQ; qq += 2) {  // two nodes a 16-byte load
+          float4 b[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            b[j] = *reinterpret_cast<const float4*>(Bs + (size_t)(tc + TC * j) * S + qq);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 a = *reinterpret_cast<const float4*>(As + (size_t)(tr + TR * i) * S + qq);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              part[i][j] = cfma<float>(make_float2(a.x, a.y), make_float2(b[j].x, b[j].y),
+                                       part[i][j]);
+              part[i][j] = cfma<float>(make_float2(a.z, a.w), make_float2(b[j].z, b[j].w),
+                                       part[i][j]);
+            }
+          }
+        }
+      }
+      release(t);
+      if ((c & 1) || c == nq - 1) {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            dacc[i][j] += dpart[i][j];
-            dpart[i][j] = 0;
+            acc[i][j] = cadd<float>(acc[i][j], part[i][j]);
+            part[i][j] = make_float2(0.f, 0.f);
           }
       }
-    } else {
-#pragma unroll 4
-      for (int qq = 0; qq < KQ; ++qq) {
-        T2 a[4], b[4];
+      if (c == nq - 1 && live) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = As[qq][4 * ty + i];
-          b[i] = Bs[qq][tx + 16 * i];
-        }
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] = cfma<T>(a[i], b[j], part[i][j]);
-      }
-      if (fold) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = cadd<T>(acc[i][j], part[i][j]);
-            part[i][j] = cmake<T>(0, 0);
-          }
+          for (int j = 0; j < 4; ++j) store(u, tr + TR * i, tc + TC * j, acc[i][j]);
       }
     }
-    __syncthreads();
-    // the next chunk's rows arrive while its tables are filled
-    if (q0 + KQ < Q) load_rows(q0 + KQ);
-    cp_commit();
-  }
-  cp_wait<0>();
-
-  const long long G = bi.G;
-  T2* gout = grp + bi.gpre * N + (long long)n * G * G;
-  T2* pout = packed + (long long)n * nnz + bi.voff;
-  auto store = [&](int i, int j, T2 v) {
-    if (i < bi.g && j < bi.g) {
-      gout[(long long)(bi.oi + i) * G + bi.oi + j] = v;
-      pout[(long long)i * bi.g + j] = v;
-    }
-  };
-  if constexpr (kDmma) {
-    const int rb = 16 * (wp % 4), cb = 32 * (wp / 4);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int j = j0 + cb + 4 * nt + t4;
-      store(i0 + rb + g8, j, cmake<T>(dacc[nt][0], dacc[nt][1]));
-      store(i0 + rb + g8 + 8, j, cmake<T>(dacc[nt][2], dacc[nt][3]));
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) store(i0 + 4 * ty + i, j0 + tx + 16 * j, acc[i][j]);
   }
 }
 
 template <typename T>
 cudaError_t run(const void* ycw, const void* s_cart, const void* rot, const void* nodes,
                 const void* jobs, const void* fam, const void* coef, const void* famr,
-                int n_nodes, const void* blocks, const void* tiles, const void* ctile,
-                const void* ccol, const void* work, int rows, void* ang, void* grp,
-                void* packed, int N, int n_tiles, int Q, int H, int d, long long nnz,
-                cudaStream_t stream) {
+                int n_nodes, const void* cs_tab, const void* csjob, const void* perm, int n_cs,
+                const void* blocks, const void* desc, int n_cta, void* harm, int slab,
+                void* grp, void* packed, int N, int Q, int Qp, int hp, int H, int d,
+                long long nnz, cudaStream_t stream) {
   using T2 = c2_t<T>;
-  if (N == 0 || n_tiles == 0) return cudaSuccess;
-  if (n_nodes > hprog::kMaxNodes) return cudaErrorInvalidValue;
+  if (N == 0 || n_cta == 0) return cudaSuccess;
+  if (n_nodes > hprog::kMaxNodes || Qp % kQ != 0 || slab <= 0 || slab % kQ != 0)
+    return cudaErrorInvalidValue;
   hprog::Prog<T> pg{static_cast<const int4*>(nodes), static_cast<const int4*>(jobs),
                     static_cast<const int*>(fam), static_cast<const T*>(coef),
                     static_cast<const T*>(famr), n_nodes};
-  const int Qp = (Q + kQp - 1) / kQp * kQp;
-  const long long n_ang = (long long)N * Qp;
-  rotated_angles_kernel<T><<<(unsigned)((n_ang + 127) / 128), 128, 0, stream>>>(
-      static_cast<const T*>(s_cart), static_cast<const T*>(rot), pg, static_cast<T*>(ang), N, Q,
-      Qp, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes<T>(n_nodes, rows);
+  constexpr size_t smem = smem_bytes<T>();
   auto kernel = rotation_blocks_kernel<T>;
-  err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)((long long)N * n_tiles), kThreads, smem, stream>>>(
-      static_cast<const T2*>(ycw), static_cast<const T*>(ang), pg,
-      static_cast<const BlockInfo*>(blocks), static_cast<const int4*>(tiles),
-      static_cast<const int4*>(ctile), static_cast<const int*>(ccol),
-      static_cast<const hprog::FillItem*>(work), rows, static_cast<T2*>(grp),
-      static_cast<T2*>(packed), N, n_tiles, Q, Qp, H, nnz);
-  return cudaGetLastError();
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = n_cta < sms ? n_cta : sms;  // persistent: a CTA an SM
+  // slab after slab of nodes: the harmonics there, then the CTAs' sums
+  for (int q0 = 0; q0 < Qp; q0 += slab) {
+    const int qn = Qp - q0 < slab ? Qp - q0 : slab;
+    const long long n_thr = (long long)N * qn;
+    rotated_harmonics_kernel<T><<<(unsigned)((n_thr + 127) / 128), 128, 0, stream>>>(
+        static_cast<const T*>(s_cart), static_cast<const T*>(rot), pg,
+        static_cast<const int4*>(cs_tab), static_cast<const int*>(csjob),
+        static_cast<const long long*>(perm), n_cs, static_cast<T2*>(harm), N, Q, q0, qn, H, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+        static_cast<const T2*>(ycw), static_cast<const T2*>(harm),
+        static_cast<const BlockInfo*>(blocks), static_cast<const int4*>(desc), n_cta,
+        static_cast<T2*>(grp), static_cast<T2*>(packed), N, hp, H, q0, qn, q0 == 0,
+        q0 + qn >= Qp, nnz);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// ycw [Q, H] complex; s_cart [d, Q]; rot [N, d, d]; the program's tables
-// (ops/harmonic_program.py); K3's plan (translation/_rotation.py::_k3_plan):
-// blocks [n_blocks] of BlockInfo (8 int32 each), tiles [n_tiles] of
-// (block, i0, j0, column tile), ctile [n_ct] of (first item, items, 0, 0),
-// ccol [n_ct, 64, n_nodes], work [n_work] of FillItem, rows the node
-// tables' rows; ang a scratch of N 3 n_nodes Qp reals (Qp: Q rounded up to
-// 32); grp the degree groups, each [N, G, G] at N gpre, zero-filled;
-// packed [N, nnz].
+// ycw [Qp / 32, hp, S] complex (`_rot_ycw`: conj(Y) w chunk-major in K3's
+// lines, blocks' rows padded to 8, nodes to Qp, a multiple of 32); s_cart
+// [d, Q]; rot [N, d, d]; the program's tables (ops/harmonic_program.py:
+// nodes, jobs, fam, coef, famr, the child states cs [n_cs, 4], csjob
+// [n_cs, n_nodes], perm [H] int64); K3's plan (translation/_rotation.py::
+// _k3_plan, _k3_jobs): blocks [n_blocks] of BlockInfo (12 int32 each),
+// desc [n_cta, 4]; harm a scratch of slab / 32 x N x H lines (slab a
+// multiple of 32 nodes); grp the degree groups, each [N, G, G] at N gpre,
+// zero-filled; packed [N, nnz].
 extern "C" int bhs_rotation_blocks(const void* ycw, const void* s_cart, const void* rot,
                                    const void* nodes, const void* jobs, const void* fam,
                                    const void* coef, const void* famr, int n_nodes,
-                                   const void* blocks, const void* tiles, const void* ctile,
-                                   const void* ccol, const void* work, int rows, void* ang,
-                                   void* grp, void* packed, int N, int n_tiles, int Q, int H,
-                                   int d, long long nnz, int dbl, void* stream) {
+                                   const void* cs_tab, const void* csjob, const void* perm,
+                                   int n_cs, const void* blocks, const void* desc, int n_cta,
+                                   void* harm, int slab, void* grp, void* packed, int N, int Q,
+                                   int Qp, int hp, int H, int d, long long nnz, int dbl,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbl)
-    return (int)run<double>(ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, blocks,
-                            tiles, ctile, ccol, work, rows, ang, grp, packed, N, n_tiles, Q, H,
-                            d, nnz, st);
-  return (int)run<float>(ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, blocks, tiles,
-                         ctile, ccol, work, rows, ang, grp, packed, N, n_tiles, Q, H, d, nnz,
-                         st);
+    return (int)run<double>(ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, cs_tab,
+                            csjob, perm, n_cs, blocks, desc, n_cta, harm, slab, grp, packed, N,
+                            Q, Qp, hp, H, d, nnz, st);
+  return (int)run<float>(ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, cs_tab, csjob,
+                         perm, n_cs, blocks, desc, n_cta, harm, slab, grp, packed, N, Q, Qp, hp,
+                         H, d, nnz, st);
 }

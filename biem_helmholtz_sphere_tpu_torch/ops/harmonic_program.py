@@ -26,8 +26,7 @@ The program holds, as int32 / real tensors on one device:
   p_{j+1} = (x c1 + c2) p_j - c3 p_{j-1}; `famr` [n_fam, 2] the seed
   p_0 = 1 / b_0 and the prefactor's constant (the 'c' norm, else 1);
 * `hjob` [H, n_nodes] the job of each flat harmonic at each node (by node
-  id), host only: K3 plans its node tables from it (`translation/
-  _rotation.py::_k3_plan`);
+  id), host only (the child states' jobs `csjob` are its rows);
 * the map h -> (root job, child state), as KE walks it: the child states
   `cs` [n_cs, 4] (the root's first job, the number J of its root degrees,
   the offset of its entries in program order, its first root degree l0),

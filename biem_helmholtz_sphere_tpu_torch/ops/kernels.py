@@ -84,11 +84,11 @@ _SIGNATURES = {
     "bhs_harmonic_eval": [_P, _L, _L, _L, _I, _P, _L, _I, _P, _P, _P, _D, _P, _P, _P, _P, _P,
                           _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D,
                           _I, _P, _I, _P],
-    # ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, blocks, tiles,
-    # ctile, ccol, work, rows, ang, grp, packed, N, n_tiles, Q, H, d, nnz,
-    # dbl, stream
-    "bhs_rotation_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _L, _I, _P],
+    # ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, cs, csjob, perm,
+    # n_cs, blocks, desc, n_cta, harm, slab, grp, packed, N, Q, Qp, hp, H, d,
+    # nnz, dbl, stream
+    "bhs_rotation_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
+                            _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

@@ -36,7 +36,7 @@ from ..harmonics._index import basis, harm_n_ndim
 from ..harmonics._quad import _node_rule, sphere_quadrature
 from ..ops import kernels
 from ..ops.block_diag import pack_layout, unpack
-from ..ops.harmonic_program import KIND_A, harmonic_program, program_numpy
+from ..ops.harmonic_program import harmonic_program, program_numpy
 from ..ops.kernels import REAL_OF
 from ..special._family import spherical_jh_all
 from ._ops import _a_const, _surface_area, _unit_offsets, ipow
@@ -131,109 +131,153 @@ def _rot_tables(c, n_end):
     return tuple(a.numpy() for a in _rot_tables_on(c, n_end, "cpu"))
 
 
+# K3's shapes (csrc/rotation_blocks.cu): nodes a chunk; rows of one CTA's
+# share of a degree block; a ring stage's lines (a line: one row of conj(Y)
+# w or one column of harmonics, at a chunk's nodes), by complex128; the
+# consumer threads; the bytes of one slab of the harmonics at the rotated
+# nodes (every direction and harmonic at a run of nodes)
+_K3_KQ = 32
+_K3_RMAX = 64
+_K3_LINES = {False: 280, True: 128}
+_K3_LINE = {False: 34, True: 36}  # a line's stride: 32 nodes, then padding
+_K3_THREADS = 256
+_K3_SCRATCH = 2 << 30
+
+
+@lru_cache(maxsize=32)
+def _k3_layout(c, n_end):
+    """(src [hp], op [n_end]): K3's rows of conj(Y) w, each root-degree block
+    n at rows op[n].. and padded with rows of zeros (src -1, else the flat
+    harmonic of the row) to a multiple of 8."""
+    src, op = [], []
+    o = 0
+    for n in range(n_end):
+        g = harm_n_ndim(n, c.c_ndim)
+        op.append(len(src))
+        src.extend(range(o, o + g))
+        src.extend([-1] * (-g % 8))
+        o += g
+    return np.asarray(src), np.asarray(op)
+
+
 @lru_cache(maxsize=8)
 def _rot_ycw(c, n_end, dtype, device):
-    """conj(Y) w [Q, H] in the complex dtype `dtype` and the unit points
-    [d, Q] in its real dtype, on `device` (K3's inputs), cached."""
+    """K3's inputs on `device`, cached: conj(Y) w in the complex dtype
+    `dtype`, chunk-major [qp / 32, hp, line] (rows by `_k3_layout`, each
+    row's 32 nodes of a chunk in a line of `_K3_LINE` values, as in K3's
+    shared memory, zero on the padding rows, nodes and line ends: a CTA's
+    rows of a chunk are one bulk copy), and the unit points [d, Q] in its
+    real dtype."""
     w, yc, s_cart, _ = _rot_tables_on(c, n_end, device)
-    return (yc * w[:, None]).to(dtype).contiguous(), s_cart.to(REAL_OF[dtype]).contiguous()
+    src, _ = _k3_layout(c, n_end)
+    q_num = w.shape[0]
+    n_chunks = -(-q_num // _K3_KQ)
+    out = torch.zeros((n_chunks, len(src), _K3_LINE[dtype == torch.complex128]), dtype=dtype,
+                      device=device)
+    keep = np.nonzero(src >= 0)[0]
+    rows = torch.zeros((len(keep), n_chunks * _K3_KQ), dtype=dtype, device=device)
+    rows[:, :q_num] = (yc * w[:, None]).to(dtype).T[torch.as_tensor(src[keep], device=device)]
+    out[:, torch.as_tensor(keep, device=device), :_K3_KQ] = (
+        rows.view(len(keep), n_chunks, _K3_KQ).transpose(0, 1))
+    return out, s_cart.to(REAL_OF[dtype]).contiguous()
 
 
 class _K3Plan(NamedTuple):
-    """K3's host tables (int32 numpy), built once per (tree, n_end).
+    """K3's host tables, built once per (tree, n_end, dtype).
 
-    * `info` [n_blocks, 8]: the BlockInfo of each root-degree block: offset
-      o, size g, its degree group's size G, its row in the group, then as
-      int64 the group's entries per direction before it and its packed
-      offset;
-    * `tiles` [n_tiles, 4]: block, i0, j0 and the column tile (the block's
-      64 columns from j0) of each 64 x 64 tile;
-    * `ctile` [n_ct, 4]: per column tile its first work item and their
-      number; `ccol` [n_ct, 64, n_nodes] the table row of each of its
-      columns' factor at each node (bit 30: an 'a' node, two rows re, im);
-    * `work` [n_work, 8]: what fills a column tile's node tables, only the
-      rows its columns read: (node id, first row, lo, hi, kind, family,
-      p1, p2).  A 'b'/'c' family runs its recurrence from the seed to step
-      hi and keeps steps lo..hi; an 'a' node the powers of e^{i phi} up to
-      |m| = hi, keeping m and -m for |m| in lo..hi (two rows each, -m
-      after every +m).  The longest items first (a warp each, round robin);
-    * `rows` the most table rows of a column tile (its shared memory),
-      `nnz` the packed entries and `g_all` the degree groups' entries per
+    * `info` [n_blocks, 10] int32: the BlockInfo of each root-degree block:
+      offset o, size g, its degree group's size G, its row in the group,
+      its first row in `_rot_ycw`'s layout, the columns W of each of its
+      CTAs, then as int64 the group's entries per direction before it and
+      its packed offset;
+    * `shares` per block: its rows cut into CTA shares of at most 64, each
+      (first row, rows), a multiple of 8 but the last;
+    * `nnz` the packed entries and `g_all` the degree groups' entries per
       direction.
     """
 
     info: np.ndarray
-    tiles: np.ndarray
-    ctile: np.ndarray
-    ccol: np.ndarray
-    work: np.ndarray
-    rows: int
+    shares: tuple
     nnz: int
     g_all: int
 
 
-_K3_TILE = 64  # rows and columns of a K3 tile (csrc/rotation_blocks.cu kTile)
-
-
-def _k3_column_tile(t, kinds, hs):
-    """The work items and table rows of the columns hs (flat harmonics) of
-    one tile: (items, ccol [64, n_nodes], rows)."""
-    jobs, hjob, n_nodes = t["jobs"], t["hjob"], t["n_nodes"]
-    items, ccol, row = [], np.zeros((_K3_TILE, n_nodes), dtype=np.int64), 0
-    for nid in range(n_nodes):
-        js = hjob[hs, nid]
-        if kinds[nid] == KIND_A:
-            am = np.abs(jobs[js, 2])
-            lo, hi = int(am.min()), int(am.max())
-            items.append((nid, row, lo, hi, KIND_A, -1, 0, 0))
-            m = jobs[js, 2]
-            ccol[: len(hs), nid] = ((row + 2 * (np.abs(m) - lo) + 2 * (hi - lo + 1) * (m < 0))
-                                    | (1 << 30))
-            row += 4 * (hi - lo + 1)
-            continue
-        fam, step = jobs[js, 0], jobs[js, 1]
-        for f in np.unique(fam):
-            sel = fam == f
-            lo, hi = int(step[sel].min()), int(step[sel].max())
-            _, _, p1, p2 = jobs[js[sel][0]]
-            items.append((nid, row, lo, hi, kinds[nid], int(f), int(p1), int(p2)))
-            ccol[: len(hs)][sel, nid] = row + step[sel] - lo
-            row += hi - lo + 1
-    # the longest first: a group of lanes takes one item at a time
-    items.sort(key=lambda it: -(it[3] + 1 if it[4] != KIND_A else it[3]))
-    return items, ccol, row
+def _k3_width(octs, double):
+    """The columns W of a CTA whose share of a block has at most octs x 8
+    rows: as many as its consumers' tiles hold (complex64: 256 threads of
+    8 x 4 entries; complex128: 8 warps of 4 slots of 16 columns x 8 rows)
+    and a ring stage's lines allow."""
+    if double:
+        return 16 * min(32 // octs, (_K3_LINES[True] - 8 * octs) // 16)
+    return 4 * min(_K3_THREADS // octs, (_K3_LINES[False] - 8 * octs) // 4)
 
 
 @lru_cache(maxsize=32)
-def _k3_plan(c, n_end):
-    """K3's host tables (`_K3Plan`)."""
-    t = program_numpy(c, n_end)
-    kinds = {nid: kind for kind, nid, _, _ in t["nodes"]}
+def _k3_plan(c, n_end, double):
+    """K3's host tables (`_K3Plan`) for complex128 (double) or complex64."""
     groups = _degree_groups(c, n_end)
     sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
     offs = np.concatenate([[0], np.cumsum(sizes)])
     g_pre = np.concatenate([[0], np.cumsum([(e - s) ** 2 for s, e in groups])])
     v_off = np.concatenate([[0], np.cumsum(np.square(sizes))])
-    ints, longs, tiles, ctile, ccols, work, rows = [], [], [], [], [], [], 0
+    _, op = _k3_layout(c, n_end)
+    ints, longs, shares = [], [], []
     for n, g in enumerate(sizes):
         o = int(offs[n])
         gi = next(i for i, (s, e) in enumerate(groups) if s <= o < e)
         s, e = groups[gi]
-        ints.append((o, g, e - s, o - s))
+        # rows in shares of at most 64 (8-row octets), cut evenly
+        n_oct = -(-g // 8)
+        n_parts = -(-n_oct // (_K3_RMAX // 8))
+        octs = [n_oct // n_parts + (k < n_oct % n_parts) for k in range(n_parts)]
+        r = 8 * np.concatenate([[0], np.cumsum(octs)])
+        shares.append(tuple((int(r[k]), int(min(r[k + 1], g) - r[k])) for k in range(n_parts)))
+        ints.append((o, g, e - s, o - s, int(op[n]), _k3_width(max(octs), double)))
         longs.append((g_pre[gi], v_off[n]))
-        for j0 in range(0, g, _K3_TILE):
-            items, ccol, n_rows = _k3_column_tile(
-                t, kinds, np.arange(o + j0, o + min(j0 + _K3_TILE, g)))
-            tiles.extend((n, i0, j0, len(ctile)) for i0 in range(0, g, _K3_TILE))
-            ctile.append((len(work), len(items), 0, 0))
-            ccols.append(ccol)
-            work.extend(items)
-            rows = max(rows, n_rows)
     info = np.concatenate([np.asarray(ints, dtype=np.int32).view(np.int64),
                            np.asarray(longs, dtype=np.int64)], axis=1)
-    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
-    return _K3Plan(info.view(np.int32), i32(tiles), i32(ctile), i32(ccols), i32(work), rows,
-                   int(v_off[-1]), int(g_pre[-1]))
+    return _K3Plan(info.view(np.int32), tuple(shares), int(v_off[-1]), int(g_pre[-1]))
+
+
+@lru_cache(maxsize=32)
+def _k3_jobs(c, n_end, double, n_dir):
+    """K3's CTAs at n_dir directions, desc [n_cta, 4] int32: a degree
+    block's columns of every direction side by side (column n g + j is
+    direction n's column j: conj(Y) w is the same for every direction),
+    cut into strips of W columns; a CTA per strip and share of its rows:
+    block, the strip's first column, the share's first row and rows (the
+    largest blocks first)."""
+    plan = _k3_plan(c, n_end, double)
+    desc = [(blk, c0, r0, nr)
+            for blk in sorted(range(len(plan.info)), key=lambda b: -plan.info[b, 1])
+            for c0 in range(0, n_dir * int(plan.info[blk, 1]), int(plan.info[blk, 5]))
+            for r0, nr in plan.shares[blk]]
+    return np.ascontiguousarray(desc, dtype=np.int32).reshape(-1, 4)
+
+
+def _k3_slab(n_dir, h_num, q_pad, double):
+    """Nodes a slab of K3's harmonics at the rotated nodes holds: a multiple
+    of 64 (two chunks: the sums' first level) within `_K3_SCRATCH` bytes of
+    [slab / 32, N, H, line] values, or all q_pad nodes."""
+    per_chunk = n_dir * h_num * _K3_LINE[double] * (16 if double else 8)
+    return min(q_pad, max(64, _K3_SCRATCH // per_chunk // 2 * 64))
+
+
+def _k3_ratios(c, n_end, double, n_dir):
+    """K3's plan at n_dir directions, counted: (product entries computed /
+    entries needed, harmonic generations per direction / H).  A CTA
+    computes its share's rows to a multiple of 8 and its strip's columns to
+    the consumers' step (4 in complex64, 16 in complex128); the harmonics
+    pass writes each program entry of each direction once at each node."""
+    plan = _k3_plan(c, n_end, double)
+    desc = _k3_jobs(c, n_end, double, n_dir)
+    g, w = plan.info[desc[:, 0], 1].astype(np.int64), plan.info[desc[:, 0], 5]
+    wu = np.minimum(w, n_dir * g - desc[:, 1])
+    step = 16 if double else 4
+    done = (-(-desc[:, 3] // 8) * 8) * (-(-wu // step) * step)
+    needed = n_dir * sum(int(x) ** 2 for x in plan.info[:, 1])
+    h_num = int(plan.info[:, 1].sum())
+    return float(done.sum()) / needed, len(program_numpy(c, n_end)["perm"]) / h_num
 
 
 def _rotation_blocks_k3(c, dirs, n_end):
@@ -245,14 +289,18 @@ def _rotation_blocks_k3(c, dirs, n_end):
     cdt = {torch.float32: torch.complex64, torch.float64: torch.complex128}.get(rdt)
     if cdt is None:
         raise TypeError(f"rotation_blocks: directions of dtype {rdt}")
+    double = cdt == torch.complex128
     ycw, s_cart = _rot_ycw(c, n_end, cdt, dev)
     prog = harmonic_program(c, n_end, rdt, dev)
-    plan = _k3_plan(c, n_end)
+    plan = _k3_plan(c, n_end, double)
     n_dir = dirs.shape[0]
     rot = _rotation_to_axis(dirs, _root_axis(c), d).contiguous()
     grp = torch.zeros(n_dir * plan.g_all, dtype=cdt, device=dev)
     packed = torch.empty((n_dir, plan.nnz), dtype=cdt, device=dev)
-    _k3_launch(ycw, s_cart, rot, prog, _k3_tables(c, n_end, dev), plan.rows, grp, packed)
+    if n_dir:
+        desc = _k3_jobs(c, n_end, double, n_dir)
+        _k3_launch(ycw, s_cart, rot, prog, _k3_tables(c, n_end, double, dev),
+                   torch.as_tensor(desc, device=dev), grp, packed)
     groups = _degree_groups(c, n_end)
     blocks, pos = [], 0
     for s, e in groups:
@@ -262,26 +310,26 @@ def _rotation_blocks_k3(c, dirs, n_end):
     return groups, blocks, packed
 
 
-def _k3_launch(ycw, s_cart, rot, prog, tabs, rows, grp, packed):
-    """One K3 launch (counted in `rotation_blocks.launches`): its C entry runs
-    the rotated nodes' angles into a scratch, then the tiles."""
-    (q_num, h_num), (n_dir, nnz), d = ycw.shape, packed.shape, s_cart.shape[0]
-    info_t, tiles_t, ctile_t, ccol_t, work_t = tabs
-    q_pad = -(-q_num // 32) * 32  # the rotated nodes' angles, [N, 3, n_nodes, q_pad]
-    ang = torch.empty(n_dir * 3 * prog.n_nodes * q_pad, dtype=s_cart.dtype, device=s_cart.device)
+def _k3_launch(ycw, s_cart, rot, prog, info, desc, grp, packed):
+    """One K3 launch (counted in `rotation_blocks.launches`): its C entry
+    runs, slab by slab of nodes, the harmonics at the rotated nodes into a
+    scratch, then the CTAs of `desc`, which add the slab's sums to D."""
+    (n_chunks, h_pad, line), (n_dir, nnz), (d, q_num) = ycw.shape, packed.shape, s_cart.shape
+    double = s_cart.dtype == torch.float64
+    slab = _k3_slab(n_dir, prog.h_num, n_chunks * _K3_KQ, double)
+    harm = torch.empty(slab // _K3_KQ * n_dir * prog.h_num * line, dtype=ycw.dtype,
+                       device=ycw.device)
     kernels.launch("bhs_rotation_blocks", ycw, s_cart, rot, prog.nodes, prog.jobs, prog.fam,
-                   prog.coef, prog.famr, prog.n_nodes, info_t, tiles_t, ctile_t, ccol_t, work_t,
-                   rows, ang, grp, packed, n_dir, tiles_t.shape[0], q_num, h_num, d, nnz,
-                   int(s_cart.dtype == torch.float64))
+                   prog.coef, prog.famr, prog.n_nodes, prog.cs, prog.csjob, prog.perm, prog.n_cs,
+                   info, desc, desc.shape[0], harm, slab, grp, packed, n_dir, q_num,
+                   n_chunks * _K3_KQ, h_pad, prog.h_num, d, nnz, int(double))
     rotation_blocks.launches += 1
 
 
 @lru_cache(maxsize=32)
-def _k3_tables(c, n_end, device):
-    """`_k3_plan`'s tables on `device`: (info, tiles, ctile, ccol, work)."""
-    plan = _k3_plan(c, n_end)
-    return tuple(torch.as_tensor(a, device=device).contiguous()
-                 for a in (plan.info, plan.tiles, plan.ctile, plan.ccol, plan.work))
+def _k3_tables(c, n_end, double, device):
+    """`_k3_plan`'s block table on `device`."""
+    return torch.as_tensor(_k3_plan(c, n_end, double).info, device=device).contiguous()
 
 
 def _rotation_to_axis(t_hat, axis, d):

@@ -238,8 +238,11 @@ largest |u| (complex64 / complex128), and K3 (`rotation_blocks`) at
 phases 8 (a), 4 and 9 (a)'s directions (64 at 4D n_end=20, 36 and 1,984
 in 3D) per degree block within 5e-5 / 1e-12, its unitarity error within
 twice the plain version's; both launched twice and required bit-for-bit
-equal, timed beside their plain versions and bounds (no single PyTorch
-call evaluates a tree's harmonics: library none).  Phases 4, 8 (a) and 9
+equal, timed beside their plain versions and bounds (KE: no single
+PyTorch call evaluates a tree's harmonics, library none; K3: its
+yardstick is one cuBLAS batched GEMM per degree block with the harmonics
+already formed, `k3_library_ms`, and its plan's product padding and
+harmonic generations per direction are printed beside).  Phases 4, 8 (a) and 9
 (a, c) require K3 launched (phase 4 in its first block, D cached for the
 sweep), phases 7 (c), 8 (a), 9 (b-d) and 10 (a) KE.
 
@@ -1018,11 +1021,36 @@ def k3_bound(c, n_end, n_dir, name):
 
     cs = 8 if name == "complex64" else 16
     q, h = _rot_tables(c, n_end)[1].shape
-    plan = _k3_plan(c, n_end)
+    plan = _k3_plan(c, n_end, name == "complex128")
     nnz, g_all = plan.nnz, plan.g_all
     g2 = sum(harm_n_ndim(n, c.c_ndim) ** 2 for n in range(n_end))
     return bound(q * h * cs + n_dir * (g_all + nnz) * cs, 16 * n_dir * q * h, name,
                  mma_flops=8 * n_dir * q * g2)
+
+
+def k3_library_ms(torch, c, n_end, n_dir, cdt, dev):
+    """K3's yardstick: ms of one cuBLAS batched complex GEMM per degree
+    block, conj(Y) w's [g, Q] rows (broadcast over the directions) times
+    [Q, g] harmonics per direction already formed (random values of the
+    same shapes; K3 forms them itself), block after block."""
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import harm_n_ndim
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import _rot_tables
+
+    q = len(_rot_tables(c, n_end)[0])
+    sizes = [harm_n_ndim(n, c.c_ndim) for n in range(n_end)]
+    gen = torch.Generator(device=dev).manual_seed(71)
+    b = torch.randn(n_dir * q * max(sizes), dtype=cdt, device=dev, generator=gen)
+    a = torch.randn(q * max(sizes), dtype=cdt, device=dev, generator=gen)
+
+    def run():
+        for g in sizes:
+            torch.bmm(a[: g * q].view(1, g, q).expand(n_dir, g, q),
+                      b[: n_dir * q * g].view(n_dir, q, g))
+
+    ms = cuda_ms(torch, run, 3)
+    del a, b
+    torch.cuda.empty_cache()
+    return ms
 
 
 def check_ke(torch, dev, card):
@@ -1118,7 +1146,7 @@ def check_k3(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
-        _rotation_blocks_plain, rotation_blocks)
+        _k3_ratios, _rotation_blocks_plain, rotation_blocks)
 
     def half_dirs():  # the b < b' offsets: the lattice route's half table
         return _offsets(square_lattice(N_SIDE_3D, 3))[0]
@@ -1165,18 +1193,22 @@ def check_k3(torch, dev, card):
             ms = cuda_ms(torch, lambda: rotation_blocks(c, t, n_end), 3)
             pms = cuda_ms(torch, lambda: _rotation_blocks_plain(c, t, n_end), 1)
             b = k3_bound(c, n_end, len(t_np), name)
-            dus = [device_us(torch, lambda: rotation_blocks(c, t, n_end), kn)
-                   for kn in ("rotated_angles_kernel", "rotation_blocks_kernel")]
+            dus = [device_us(torch, lambda: rotation_blocks(c, t, n_end), kn, per_call=True)
+                   for kn in ("rotated_harmonics_kernel", "rotation_blocks_kernel")]
+            lms = k3_library_ms(torch, c, n_end, len(t_np), cdt, dev)
+            pad, gen = _k3_ratios(c, n_end, cdt == torch.complex128, len(t_np))
             print(f"[2] rotation_blocks (K3) {label}, n_end={n_end}, {len(t_np)} directions "
                   f"{name}: max_abs_err {ea:.3e} (of 1), max |D D^H - I| kernel {uni_k:.3e} "
-                  f"plain {uni_p:.3e}; kernel {ms:.4f} ms (on the device, torch.profiler: angles "
-                  f"{dus[0]:.2f} us, tiles {dus[1]:.2f} us) plain {pms:.4f} ms bound "
-                  f"{b[0]:.6f} ms ({b[1]}) library none ({card})")
+                  f"plain {uni_p:.3e}; kernel {ms:.4f} ms (on the device per call, torch.profiler: "
+                  f"harmonics {dus[0]:.2f} us, blocks {dus[1]:.2f} us) plain {pms:.4f} ms bound "
+                  f"{b[0]:.6f} ms ({b[1]}) library {lms:.4f} ms (cuBLAS, the harmonics formed); "
+                  f"plan: product entries computed / needed {pad:.4f}, harmonic generations "
+                  f"per direction / H {gen:.4f} ({card})")
             if ea > K3_TOL[name]:
                 raise RuntimeError(f"rotation_blocks {label} {name}: error {ea:.3e}")
             if label.startswith("(i)"):
                 results[name] = {"abs": ea, "rel": ea, "ms": ms, "plain_ms": pms,
-                                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                                 "bound_ms": b[0], "bound_by": b[1], "library_ms": lms}
             torch.cuda.empty_cache()
     return results
 
@@ -2307,7 +2339,8 @@ def four_d(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.ops import harmonic_program as _hp
 
     for fn in (_rotation._rot_tables_on, _rotation._rot_tables, _rotation._rot_ycw,
-               _rotation._k3_plan, _rotation._k3_tables, _hp.program_numpy, _hp.harmonic_program,
+               _rotation._k3_layout, _rotation._k3_plan, _rotation._k3_jobs,
+               _rotation._k3_tables, _hp.program_numpy, _hp.harmonic_program,
                _quad.sphere_quadrature):
         fn.cache_clear()
     torch.cuda.synchronize()
@@ -2325,8 +2358,8 @@ def four_d(torch, dev, card):
           f"{n_sys} unknowns), complex64, auto -> factored GMRES, first block of {KB} k: "
           f"{total:.3f} s; split, s per block (synchronising timers): "
           f"{format_split(acc, total, labels, 1)}; of the D build: its tables on the card "
-          f"{d_parts[0]:.6f}, K3 {d_parts[1]:.6f} (before K3, PERF.md: first block "
-          f"3.153-4.160, D build 2.891-3.772, K3 0.728-1.009, host tables 2.2-2.8); launches "
+          f"{d_parts[0]:.6f}, K3 {d_parts[1]:.6f} (PR 15's K3, PERF.md: first block 1.087, "
+          f"D build 0.373, K3 0.325, tables on the card 0.014); launches "
           f"{counts}, of them KB with row panels {panels}; GMRES iters {calc.iters.tolist()}, "
           f"max relres "
           f"{float(calc.relres.max()):.3e}; peak device memory {peak:.3f} GiB ({card})")
@@ -3893,23 +3926,27 @@ def kd_window(torch, dev, card):
     return results
 
 
-def device_us(torch, fn, kernel):
+def device_us(torch, fn, kernel, per_call=False):
     """Mean device microseconds of the kernel whose name holds `kernel`
-    over 5 calls of fn, from torch.profiler."""
+    over 5 calls of fn, from torch.profiler: per launch, or per call of fn
+    (per_call; a call that launches it several times).  A window whose
+    trace holds no such kernel (the profiler has dropped a short kernel's
+    events) is profiled again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
-    if not evs:
-        raise RuntimeError(f"torch.profiler saw no {kernel} kernel")
-    total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                for e in evs)
-    return total / sum(e.count for e in evs)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        if evs:
+            total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                        for e in evs)
+            return total / (5 if per_call else sum(e.count for e in evs))
+    raise RuntimeError(f"torch.profiler saw no {kernel} kernel")
 
 
 def parallel_and_frontends(torch, dev, card):

@@ -1505,22 +1505,29 @@ def _k3_dirs(dev, rdt, d, n_dir=40, seed=67):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("btype,n_end", [("ba", 19), ("bpa", 10), ("bba", 12), ("bcaa", 6),
-                                         ("ba", 64)])
-def test_rotation_blocks_against_its_plain_version(cuda, dtype, btype, n_end):
+@pytest.mark.parametrize("btype,n_end,n_dir", [("ba", 19, 40), ("bpa", 10, 40), ("bba", 12, 40),
+                                               ("bcaa", 6, 40), ("ba", 64, 40), ("ba", 19, 37),
+                                               ("ba", 19, 200), ("bba", 24, 40)])
+def test_rotation_blocks_against_its_plain_version(cuda, dtype, btype, n_end, n_dir):
     """K3 per degree block against its plain version (5e-5 complex64,
     1e-12 complex128, of 1: D is unitary), exact zeros between the blocks
     of a group, the packed form equal to the groups' blocks, the unitarity
     error within twice the plain version's, and a second launch bitwise
-    equal; up to 3D n_end=64, where every job of the tree would not fit in
-    K3's shared memory (its tiles hold only the rows they read)."""
+    equal; up to 3D n_end=64 (every job of the tree would not fit in
+    shared memory: its pieces hold only the rows they read), direction
+    counts that are no multiple of what a strip stacks (37 and 200 at
+    n_end=19, blocks of 1 to 37 rows), and 4D n_end=24, whose largest
+    block (g = 576) spans 9 CTA shares of 64 rows, more than a thread
+    block cluster holds."""
     from biem_helmholtz_sphere_tpu_torch.harmonics import harm_n_ndim
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
-        RotationD, _rotation_blocks_plain, rotation_blocks)
+        RotationD, _k3_plan, _rotation_blocks_plain, rotation_blocks)
 
     rdt = torch.float32 if dtype == torch.complex64 else torch.float64
     c = create_from_branching_types(btype)
-    dirs = _k3_dirs(cuda, rdt, c.c_ndim)
+    if n_end == 24:
+        assert max(len(s) for s in _k3_plan(c, n_end, dtype == torch.complex128).shares) > 8
+    dirs = _k3_dirs(cuda, rdt, c.c_ndim, n_dir=n_dir)
     before = rotation_blocks.launches
     groups, got = rotation_blocks(c, dirs, n_end)
     assert rotation_blocks.launches == before + 1

@@ -1,6 +1,6 @@
 """The port's remaining public surfaces against the JAX package's, on the
 CPU from the same numpy inputs: the coordinate constructors and the tree
-drawing, the harmonics' phase marker, degree index and radial factors,
+drawing, `node_by_id`, the harmonics' phase marker, degree index and radial factors,
 `orthonormal_jacobi_all`, `potential_coef`, and `utils`; and every name of
 the JAX subpackages' public lists present in the port's.
 
@@ -261,3 +261,21 @@ def test_timed_records_into_the_sink():
         assert set(sink) == {"block"} and sink["block"] >= 0.01
         with mod.timed("no sink"):
             pass
+
+
+@pytest.mark.parametrize("btype", ["ba", "bpbpa", "caa"])
+def test_node_by_id_matches_jax(btype):
+    """`SphericalCoordinates.node_by_id`: for every id the same node (kind,
+    id, cartesian axes, sphere dimension) as the JAX package's, and KeyError
+    for an id the tree lacks, as there."""
+    c, jc = coords.create_from_branching_types(btype), j_coords.create_from_branching_types(btype)
+    assert len(c.nodes) == len(jc.nodes)
+    for node in jc.nodes:
+        got, ref = c.node_by_id(node.nid), jc.node_by_id(node.nid)
+        assert (got.kind, got.nid, tuple(got.axes), got.sdim) == (
+            ref.kind, ref.nid, tuple(ref.axes), ref.sdim)
+    for bad in (len(jc.nodes), -1):
+        with pytest.raises(KeyError):
+            jc.node_by_id(bad)
+        with pytest.raises(KeyError):
+            c.node_by_id(bad)

@@ -6,8 +6,9 @@ Run from the repository root on a machine with a CUDA card and nvcc (no
 JAX needed).  Each DIR holds a full copy of
 biem_helmholtz_sphere_tpu_torch/csrc/ with the variant's edits, and may
 hold a file `py_params` of Python assignments applied to
-ops/block_diag.py (e.g. `_LANE_TILE = 4` when a variant changes KB's
-register tile).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
+ops/block_diag.py and translation/_rotation.py (e.g. `_LANE_TILE = 4` when
+a variant changes KB's register tile, `_K3_LINES = {False: 210, True: 96}`
+when it changes K3's ring).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
 DIR.  For each variant the script builds the kernel library from DIR,
 checks every case against its plain version (relative error printed),
 then times each case in turns (v1 .. vn, vn .. v1, three times) and
@@ -26,10 +27,15 @@ chip_smoke.py phase 10 (a)'s shapes: 'caa' at n_end = 14 (H = 1,015,
 Q = 43,740 nodes), 4 k x 40 offsets of the hypercube {-2, 2}^4,
 complex64 in fold mode and complex128 unscaled; KE (`harmonic_eval`) at
 phase 7 (c)'s shapes ('bpa' at the bench, 131,072 points x 1 k) and K3
-(`rotation_blocks`, its angle pass and tiles) at phase 8 (a)'s ('bba' on the
-hypercube at n_end = 20, its 64 slot directions), both timed as KS is.
+(`rotation_blocks`, its harmonics pass and its product, slab by slab) at
+phase 8 (a)'s ('bba' on the hypercube at n_end = 20, its 64 slot
+directions), phase 4's ("K3 bench": the 36 slots at n_end = 32) and phase
+9 (a)'s ("K3 lattice": the 32 x 32 lattice's 1,984 half-table directions
+at n_end = 19), all timed as KS is.  A variant of another interface (K3's
+parent commit) is timed by that commit's own copy of this script, run
+from its unpacked tree in the same call (or by tools/torch_k3_ab.py).
 With -k, only the cases whose name contains SUBSTRING run (`-k KS`, `-k
-KE`, `-k K3` build that case's inputs alone).
+KE`, `-k K3` build those cases' inputs alone).
 """
 
 import functools
@@ -175,14 +181,15 @@ def ke_k3_cases(torch, dev, cdt):
     between CUDA events), their arguments built at first use."""
     import numpy as np
 
-    from biem_helmholtz_sphere_tpu_torch.biem._core import _pair_routing
+    from biem_helmholtz_sphere_tpu_torch.biem._core import _offsets, _pair_routing
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics import basis
     from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
         _harmonic_eval_plain, harmonic_eval)
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
         _rotation_blocks_plain, rotation_blocks)
-    from chip_smoke import EVAL_POINTS, N_END, N_END_4D, hypercube_centers, lattice_centers
+    from chip_smoke import (EVAL_POINTS, N_END, N_END_3D, N_END_4D, N_SIDE_3D,
+                            hypercube_centers, lattice_centers, square_lattice)
 
     rdt = torch.float32 if cdt == torch.complex64 else torch.float64
     f = dict(dtype=rdt, device=dev)
@@ -199,17 +206,25 @@ def ke_k3_cases(torch, dev, cdt):
         return c, N_END, x, cen, torch.tensor([7.0], **f), w
 
     @functools.cache
-    def k3_args():
-        t = torch.as_tensor(_pair_routing(hypercube_centers()).uniq, **f)
-        return create_from_branching_types("bba"), t / t.norm(dim=-1, keepdim=True), N_END_4D
+    def k3_args(shape):
+        tree, n_end, dirs = {
+            "4d": ("bba", N_END_4D, lambda: _pair_routing(hypercube_centers()).uniq),
+            "bench": ("ba", N_END, lambda: _pair_routing(lattice_centers()).uniq),
+            "lattice": ("ba", N_END_3D, lambda: _offsets(square_lattice(N_SIDE_3D, 3))[0]),
+        }[shape]
+        t = torch.as_tensor(dirs(), **f)
+        return create_from_branching_types(tree), t / t.norm(dim=-1, keepdim=True), n_end
 
     def flat(blocks):
         return torch.cat([b.flatten(1) for b in blocks], dim=-1)
 
+    def k3(shape):
+        return (lambda: flat(rotation_blocks(*k3_args(shape))[1]),
+                lambda: flat(_rotation_blocks_plain(*k3_args(shape))[1]), None, None)
+
     return {"KE": (lambda: harmonic_eval(*ke_args()),
                    lambda: _harmonic_eval_plain(*ke_args(), False), None, None),
-            "K3": (lambda: flat(rotation_blocks(*k3_args())[1]),
-                   lambda: flat(_rotation_blocks_plain(*k3_args())[1]), None, None)}
+            "K3": k3("4d"), "K3 bench": k3("bench"), "K3 lattice": k3("lattice")}
 
 
 def _event_us(torch, fn):
@@ -228,6 +243,7 @@ def main():
     import torch
 
     from biem_helmholtz_sphere_tpu_torch.ops import block_diag, kernels
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation
     from tools.torch_profile_sweep import _per_launch_us
 
     if not torch.cuda.is_available():
@@ -240,19 +256,23 @@ def main():
     if not variants:
         print(__doc__, file=sys.stderr)
         return 2
-    defaults = {k: getattr(block_diag, k) for k in
-                ("_BUF_BYTES", "_ITEMS_PER_LAUNCH", "_ROW_TILE", "_LANE_TILE")}
+    defaults = [(mod, k, getattr(mod, k)) for mod, names in (
+        (block_diag, ("_BUF_BYTES", "_ITEMS_PER_LAUNCH", "_ROW_TILE", "_LANE_TILE")),
+        (_rotation, ("_K3_LINES", "_K3_SCRATCH"))) for k in names]
 
     def use(vdir):
         kernels.CSRC = Path(vdir).resolve()
         kernels.BUILD_DIR = Path(vdir).resolve() / "out"
         kernels._lib = None
-        for name, val in defaults.items():
-            setattr(block_diag, name, val)
+        for mod, name, val in defaults:
+            setattr(mod, name, val)
         params = Path(vdir) / "py_params"
-        if params.exists():
-            exec(params.read_text(), vars(block_diag))
-        block_diag._plan.cache_clear()
+        if params.exists():  # the same assignments in both modules
+            for mod in (block_diag, _rotation):
+                exec(params.read_text(), vars(mod))
+        for fn in (block_diag._plan, _rotation._k3_plan, _rotation._k3_jobs,
+                   _rotation._k3_tables):
+            fn.cache_clear()
         kernels.library()
 
     dev = torch.device("cuda", 0)
