@@ -78,12 +78,15 @@ _SIGNATURES = {
     # Hi, Hop, Hip, NB, n_slots, w_max, fold, dbl, stream
     "bhs_band_sr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, sxd, sxk, sxp, kx, centers, sck, rad, hm, he, k, rescale, w, nodes,
-    # jobs, fam, coef, famr, n_nodes, cs, csjob, out, P, K, B, n, H, n_cs, d,
-    # root_step, per_ball, few, bpz, lim, wwin, hs_glob, dbl, stream
+    # x, sxd, sxk, sxp, kx, centers, sck, rad, hm, he, k, rescale, w, ke_perm,
+    # nodes, jobs, fam, coef, famr, n_nodes, shape, walk, wfam, wroot, wstep,
+    # wjob, runs, out, P, K, B, n, H, n_cs, d, root_step, per_ball, few, bpz,
+    # lim, wwin, threads, pt, wpb, hs_glob, dbl, stream
     "bhs_harmonic_eval": [_P, _L, _L, _L, _I, _P, _L, _I, _P, _P, _P, _D, _P, _P, _P, _P, _P,
-                          _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D,
-                          _I, _P, _I, _P],
+                          _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _D, _I, _I, _I, _I, _P, _I, _P],
+    # shape, rad, threads, pt, n_end, wwin, glob, dbl, &blocks (no stream)
+    "bhs_harmonic_eval_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ycw, s_cart, rot, nodes, jobs, fam, coef, famr, n_nodes, cs, csjob, perm,
     # n_cs, blocks, desc, n_cta, harm, slab, grp, packed, N, Q, Qp, hp, H, d,
     # nnz, dbl, stream

@@ -242,7 +242,15 @@ equal, timed beside their plain versions and bounds (KE: no single
 PyTorch call evaluates a tree's harmonics, library none; K3: its
 yardstick is one cuBLAS batched GEMM per degree block with the harmonics
 already formed, `k3_library_ms`, and its plan's product padding and
-harmonic generations per direction are printed beside).  Phases 4, 8 (a) and 9
+harmonic generations per direction are printed beside).  KE's lines also
+give, at (i) and (ii), its bound's share of the kernel's device time and
+of the time around the wrapper, and for every shape the ptxas registers,
+stack frame and spills of the kernel instance it ran and its local-memory
+instructions (tools/torch_ke_ab.py's `ptxas_report`, `local_memory`;
+phase 2 fails if any lies in an inner loop with floating-point work);
+at (iii) and (iv) the time around the wrapper split into its host work,
+K5's h table (with the even-d cylinder seeds) and the kernel
+(`ke_split`).  Phases 4, 8 (a) and 9
 (a, c) require K3 launched (phase 4 in its first block, D cached for the
 sweep), phases 7 (c), 8 (a), 9 (b-d) and 10 (a) KE.
 
@@ -1053,6 +1061,49 @@ def k3_library_ms(torch, c, n_end, n_dir, cdt, dev):
     return ms
 
 
+def ke_instance(report, dbl, rad, shape, few, pt, glob):
+    """(mangled name, ptxas figures) of the KE kernel instance a call ran:
+    the many-point kernel <T, R, PT, S, GLOB> or the few-point one <T, R,
+    S>."""
+    t = "d" if dbl else "f"
+    pat = (f"harmonic_eval_few_kernelI{t}Li{rad}ELi{shape}EE" if few else
+           f"harmonic_eval_kernelI{t}Li{rad}ELi{pt}ELi{shape}ELb{int(glob)}EE")
+    hits = [(n, v) for n, v in report.items() if pat in n]
+    if len(hits) != 1:
+        raise RuntimeError(f"ptxas report: {len(hits)} KE instances match {pat}")
+    return hits[0]
+
+
+def ke_split(torch, fn, k5_fn):
+    """KE's wrapper at one call, split: ms around it (CUDA events), its host
+    time (the enqueue with the card idle, perf_counter, median of 5), K5's
+    h table alone (ms around `k5_fn` and its host time: with the even-d
+    cylinder seeds), and the device us of KE's kernel and of the call's
+    other kernels (torch.profiler, per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def host_ms(f):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    out = {"ms": cuda_ms(torch, fn, 5), "host_ms": host_ms(fn), "k5_ms": cuda_ms(torch, k5_fn, 5),
+           "k5_host_ms": host_ms(k5_fn)}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    evs = [(e.key, getattr(e, "device_time_total", 0.0)) for e in prof.key_averages()]
+    out["ke_us"] = sum(t for k, t in evs if "harmonic_eval" in k) / 5
+    out["other_us"] = sum(t for k, t in evs if "harmonic_eval" not in k) / 5
+    return out
+
+
 def check_ke(torch, dev, card):
     """Phase 2, KE (`ops/harmonic_eval.py`): the general evaluation against
     its plain version at the shapes the main path gives it, both dtypes,
@@ -1069,9 +1120,14 @@ def check_ke(torch, dev, card):
     the timed results of (i) by dtype name."""
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops import harmonic_eval as ke_mod
     from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
-        _harmonic_eval_plain, harmonic_eval)
+        _harmonic_eval_plain, harmonic_eval, tree_radius)
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_program import shape_code
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from tools.torch_ke_ab import instance_name, local_memory, ptxas_report, sass_functions
 
+    report, sass = ptxas_report("harmonic_eval.cu"), sass_functions()
     results = {}
     cases = (("(i) 'bpa' bench", "bpa", N_END, lattice_centers(), EVAL_POINTS, 1, True),
              ("(ii) 'bba' hypercube", "bba", N_END_4D, hypercube_centers(), EVAL_POINTS_4D, 1,
@@ -1111,15 +1167,50 @@ def check_ke(torch, dev, card):
                     f"at the {int(far.sum())} points a radius off every sphere "
                     + ("none" if ef is None else f"{ef:.3e}")
                     + " of max(|u(x)|, the median |u|) there")
+            few = n_p * n_k < 4 * 132
+            glob = ke_mod._many_point_layout(c, n_end, w.element_size())[1]
+            inst, pt = ke_instance(report, cdt == torch.complex128, 1 if d == 3 else 0,
+                                   shape_code(c), few, ke_mod._PT[rdt], glob)
+            n_local, n_inner, _ = local_memory(sass[inst])
+            line += (f"; instance {instance_name(inst)}: {pt['registers']} registers, "
+                     f"{pt['stack']} bytes stack frame, {pt['spill_stores']} / "
+                     f"{pt['spill_loads']} bytes spill stores / loads (ptxas -v), {n_local} "
+                     f"LDL/STL, {n_inner} of them in its inner FMA loops (cuobjdump)")
+            if n_inner:
+                raise RuntimeError(f"harmonic_eval {label} {name}: local memory in the inner "
+                                   f"loops of {instance_name(inst)}")
             if timed:
                 ms = cuda_ms(torch, lambda: harmonic_eval(c, n_end, x, cen, k, w), 5)
                 pms = cuda_ms(torch, lambda: _harmonic_eval_plain(c, n_end, x, cen, k, w, False),
                               2)
                 b = ke_bound(n_p, n_k, nb, h, n_end, d, name)
-                kernel = "harmonic_eval_kernel" if n_p * n_k >= 4 * 132 else "harmonic_eval_few"
+                kernel = "harmonic_eval_few" if few else "harmonic_eval_kernel"
                 dus = device_us(torch, lambda: harmonic_eval(c, n_end, x, cen, k, w), kernel)
                 line += (f" kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler) plain "
                          f"{pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) library none")
+                if not few:
+                    wwin, glob, threads = ke_mod._many_point_layout(c, n_end, w.element_size())
+                    pt_ = ke_mod._PT[rdt]
+                    per_sm = ke_mod._blocks_per_sm(shape_code(c), 1 if d == 3 else 0, threads,
+                                                   n_end, wwin, glob, int(rdt == torch.float64))
+                    bpz = ke_mod._ball_slices(-(-n_p // (threads * pt_)) * n_k, nb,
+                                              per_sm * ke_mod._sm_count(dev))
+                    line += (f"; the bound is {b[0] * 1e3 / dus:.3f} of the kernel's device time, "
+                             f"{b[0] / ms:.3f} of the time around the wrapper; plan: {threads} "
+                             f"threads x {pt_} points a CTA, {per_sm} CTAs an SM, {bpz} balls a "
+                             f"slice, density window {wwin} of {h}")
+                else:
+                    rel = x[..., None] - cen.permute(2, 0, 1)[:, :, None, :]
+                    sp = ke_split(torch, lambda: harmonic_eval(c, n_end, x, cen, k, w),
+                                  lambda: spherical_h_scaled(d, n_end, k[:, None, None]
+                                                             * tree_radius(c, rel)))
+                    own = sp["host_ms"] - sp["k5_host_ms"]
+                    line += (f"; split: around the wrapper {sp['ms']:.4f} ms, its host work "
+                             f"{sp['host_ms']:.4f} ms (of it K5's h table with its host work "
+                             f"{sp['k5_host_ms']:.4f}, KE's own {own:.4f}), "
+                             f"K5's h table alone {sp['k5_ms']:.4f} ms around it, on the device "
+                             f"KE {sp['ke_us']:.2f} us, K5 and the cylinder seeds "
+                             f"{sp['other_us']:.2f} us")
                 if label.startswith("(i)"):
                     results[name] = {"abs": ea, "rel": er, "ms": ms, "plain_ms": pms,
                                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None}

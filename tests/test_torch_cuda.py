@@ -1409,7 +1409,8 @@ def test_two_card_nccl_sharded_sweep_and_dense_solve(two_cards, tmp_path):
 
 
 # KE (the general evaluation) and K3 (the rotation D)
-KE_TREES = [("a", 16), ("bpa", 12), ("bba", 8), ("bpbpa", 6), ("caa", 8), ("bcaa", 5)]
+KE_TREES = [("a", 16), ("bpa", 12), ("bba", 8), ("bpbpa", 6), ("caa", 8), ("bcaa", 5),
+            ("bbba", 5), ("cbaba", 3)]
 KE_TOL = {torch.complex64: 3e-5, torch.complex128: 1e-12}
 K3_TOL = {torch.complex64: 5e-5, torch.complex128: 1e-12}
 
@@ -1444,21 +1445,23 @@ def _ke_case(dev, dtype, btype, n_end, complex_k, seed=61, n_pts=300):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("btype,n_end", KE_TREES)
 def test_harmonic_eval_against_its_plain_version(cuda, dtype, btype, n_end):
-    """KE on every tree kind ('a', 'bpa', 'bba', 'bpbpa', 'caa', 'bcaa'),
-    in both modes (300 and 4 points x 3 k), real and complex k, each k's
-    own centers and points, summed and per ball, against its plain version
-    within 3e-5 (complex64) / 1e-12 (complex128) of the largest |u|; a
-    second launch is bitwise equal."""
+    """KE on every tree kind ('a', 'bpa', 'bba', 'bpbpa', 'caa', 'bcaa',
+    'bbba': every node count's instance; 'cbaba', 5 nodes: the generic
+    one), in both modes (301 and 300 points x 3 k, 301 no multiple of the
+    points a thread or a CTA's; 4 and 3 points x 3 k), real and complex k,
+    each k's own centers and points, summed and per ball, against its
+    plain version within 3e-5 (complex64) / 1e-12 (complex128) of the
+    largest |u|; a second launch is bitwise equal."""
     from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
         _harmonic_eval_plain, harmonic_eval)
 
-    for complex_k, n_pts in ((False, 300), (True, 300), (False, 4), (True, 4)):
+    for complex_k, n_pts in ((False, 301), (True, 300), (False, 4), (True, 3)):
         c, n, x, cen, k, w, keep = _ke_case(cuda, dtype, btype, n_end, complex_k, n_pts=n_pts)
         for per_ball in (False, True):
             before = (harmonic_eval.launches, harmonic_eval.few_launches)
             got = harmonic_eval(c, n, x, cen, k, w, per_ball=per_ball)
             assert (harmonic_eval.launches, harmonic_eval.few_launches) == (
-                before[0] + 1, before[1] + int(n_pts == 4))
+                before[0] + 1, before[1] + int(n_pts < 10))
             ref = _harmonic_eval_plain(c, n, x, cen, k, w, per_ball)
             assert got.shape == ref.shape
             assert bool(torch.isfinite(got[keep]).all())
@@ -1468,17 +1471,58 @@ def test_harmonic_eval_against_its_plain_version(cuda, dtype, btype, n_end):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_harmonic_eval_at_the_bench_shape_repeats_over_ball_slices(cuda, dtype):
+    """KE at chip_smoke's shape (i), 'bpa' at the bench (16 spheres, 4 x 4
+    at pitch 4), n_end=32, 131,072 points: in complex64 the balls split
+    into several slices over the card's waves (complex128 fills whole
+    waves unsliced), a second launch bitwise equal, within KE_TOL of its
+    plain version at the points a radius off every sphere."""
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
+        _PT, _ball_slices, _blocks_per_sm, _harmonic_eval_plain, _many_point_layout,
+        _sm_count, harmonic_eval)
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_program import shape_code
+
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    rng = np.random.default_rng(77)
+    c, n_end, n_p = create_from_branching_types("bpa"), 32, 1 << 17
+    g = (np.arange(4) - 1.5) * 4.0
+    centers = np.stack([*np.meshgrid(g, g), np.zeros((4, 4))], -1).reshape(16, 3)
+    f = dict(dtype=rdt, device=cuda)
+    cen = torch.as_tensor(centers, **f).expand(1, 16, 3)
+    x = torch.as_tensor(rng.normal(size=(3, 1, n_p)) * 20.0, **f)
+    k = torch.tensor([7.0], **f)
+    ell = basis(c, n_end).n_root
+    w = torch.as_tensor(_randc(rng, (1, 16, len(ell))) * np.exp(-ell), dtype=dtype, device=cuda)
+    elt = torch.empty((), dtype=dtype).element_size()
+    wwin, glob, threads = _many_point_layout(c, n_end, elt)
+    slots = _blocks_per_sm(shape_code(c), 1, threads, n_end, wwin, glob,
+                           int(dtype == torch.complex128)) * _sm_count(cuda)
+    bpz = _ball_slices(-(-n_p // (threads * _PT[rdt])), 16, slots)
+    assert bpz < 16 or dtype == torch.complex128  # several slices
+    got = harmonic_eval(c, n_end, x, cen, k, w)
+    assert _same_bits(harmonic_eval(c, n_end, x, cen, k, w), got)
+    ref = _harmonic_eval_plain(c, n_end, x, cen, k, w, False)
+    far = (torch.linalg.vector_norm(x[:, 0, :, None] - cen[0].T[:, None, :], dim=0)
+           >= 2.0).all(-1)
+    r = ref[far].abs()
+    err = float(((got[far] - ref[far]).abs() / torch.clamp(r, min=float(r.median()))).max())
+    assert err < KE_TOL[dtype], err
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("btype,n_end,dtype,layout", [
-    ("bba", 32, torch.complex128, (2048, False)),
-    ("bpa", 128, torch.complex128, (2048, True)),
-    ("bpa", 128, torch.complex64, (2048, False)),
+    ("bba", 32, torch.complex128, (2048, False, 128)),
+    ("bpa", 128, torch.complex128, (2048, True, 128)),
+    ("bpa", 128, torch.complex64, (2048, True, 128)),
 ])
 def test_harmonic_eval_at_large_n_end(cuda, btype, n_end, dtype, layout):
     """KE where the density and the radial tables do not fit in shared
-    memory together (4D n_end=32 and 'bpa' n_end=128 in complex128, 'bpa'
-    n_end=128 in complex64): the density in windows, the radial tables in
-    shared memory or in a device scratch as `layout` says, against its
-    plain version as above, real and complex k, summed and per ball."""
+    memory together (4D n_end=32 in complex128, 'bpa' n_end=128 in both
+    dtypes): the density in windows, the radial tables in shared memory or
+    in a device scratch as `layout` (wwin, glob, threads a CTA) says,
+    against its plain version as above, real and complex k, summed and per
+    ball."""
     from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import (
         _harmonic_eval_plain, _many_point_layout, harmonic_eval)
 

@@ -8,7 +8,8 @@ biem_helmholtz_sphere_tpu_torch/csrc/ with the variant's edits, and may
 hold a file `py_params` of Python assignments applied to
 ops/block_diag.py and translation/_rotation.py (e.g. `_LANE_TILE = 4` when
 a variant changes KB's register tile, `_K3_LINES = {False: 210, True: 96}`
-when it changes K3's ring).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
+when it changes K3's ring) and ops/harmonic_eval.py (`_PT = {torch.float32: 4,
+torch.float64: 1}` when it takes KE to four points a thread in complex64).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
 DIR.  For each variant the script builds the kernel library from DIR,
 checks every case against its plain version (relative error printed),
 then times each case in turns (v1 .. vn, vn .. v1, three times) and
@@ -26,7 +27,9 @@ and K2 for a k-block (4 k x 9 radii); and KS (its KF and KS launches) at
 chip_smoke.py phase 10 (a)'s shapes: 'caa' at n_end = 14 (H = 1,015,
 Q = 43,740 nodes), 4 k x 40 offsets of the hypercube {-2, 2}^4,
 complex64 in fold mode and complex128 unscaled; KE (`harmonic_eval`) at
-phase 7 (c)'s shapes ('bpa' at the bench, 131,072 points x 1 k) and K3
+phase 7 (c)'s shapes ('bpa' at the bench, 131,072 points x 1 k) and
+phase 8 (a)'s ("KE 4d": 'bba' on the hypercube at n_end = 20, 16,384
+points; `-k KE` builds only KE and K5 for them) and K3
 (`rotation_blocks`, its harmonics pass and its product, slab by slab) at
 phase 8 (a)'s ('bba' on the hypercube at n_end = 20, its 64 slot
 directions), phase 4's ("K3 bench": the 36 slots at n_end = 32) and phase
@@ -188,7 +191,7 @@ def ke_k3_cases(torch, dev, cdt):
         _harmonic_eval_plain, harmonic_eval)
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
         _rotation_blocks_plain, rotation_blocks)
-    from chip_smoke import (EVAL_POINTS, N_END, N_END_3D, N_END_4D, N_SIDE_3D,
+    from chip_smoke import (EVAL_POINTS, EVAL_POINTS_4D, N_END, N_END_3D, N_END_4D, N_SIDE_3D,
                             hypercube_centers, lattice_centers, square_lattice)
 
     rdt = torch.float32 if cdt == torch.complex64 else torch.float64
@@ -222,8 +225,21 @@ def ke_k3_cases(torch, dev, cdt):
         return (lambda: flat(rotation_blocks(*k3_args(shape))[1]),
                 lambda: flat(_rotation_blocks_plain(*k3_args(shape))[1]), None, None)
 
+    @functools.cache
+    def ke4_args():
+        c = create_from_branching_types("bba")
+        rng = np.random.default_rng(77)
+        ell = basis(c, N_END_4D).n_root
+        x = torch.as_tensor(rng.normal(size=(4, 1, EVAL_POINTS_4D)) * 20.0, **f)
+        w = torch.as_tensor((rng.normal(size=(1, 16, len(ell))) + 1j) * np.exp(-ell),
+                            dtype=cdt, device=dev)
+        cen = torch.as_tensor(hypercube_centers(), **f)[None]
+        return c, N_END_4D, x, cen, torch.tensor([7.0], **f), w
+
     return {"KE": (lambda: harmonic_eval(*ke_args()),
                    lambda: _harmonic_eval_plain(*ke_args(), False), None, None),
+            "KE 4d": (lambda: harmonic_eval(*ke4_args()),
+                      lambda: _harmonic_eval_plain(*ke4_args(), False), None, None),
             "K3": k3("4d"), "K3 bench": k3("bench"), "K3 lattice": k3("lattice")}
 
 
@@ -243,6 +259,7 @@ def main():
     import torch
 
     from biem_helmholtz_sphere_tpu_torch.ops import block_diag, kernels
+    from biem_helmholtz_sphere_tpu_torch.ops import harmonic_eval as ke_mod
     from biem_helmholtz_sphere_tpu_torch.translation import _rotation
     from tools.torch_profile_sweep import _per_launch_us
 
@@ -258,7 +275,12 @@ def main():
         return 2
     defaults = [(mod, k, getattr(mod, k)) for mod, names in (
         (block_diag, ("_BUF_BYTES", "_ITEMS_PER_LAUNCH", "_ROW_TILE", "_LANE_TILE")),
-        (_rotation, ("_K3_LINES", "_K3_SCRATCH"))) for k in names]
+        (_rotation, ("_K3_LINES", "_K3_SCRATCH")),
+        (ke_mod, ("_PT", "_THREADS", "_UNIT_COST"))) for k in names]
+    if only == "KE":  # KE's cases launch KE and K5 alone: build and bind those two
+        kernels.SOURCES = ("harmonic_eval.cu", "spherical_jh.cu")
+        kernels._SIGNATURES = {n: a for n, a in kernels._SIGNATURES.items()
+                               if n.startswith(("bhs_harmonic_eval", "bhs_spherical_jh"))}
 
     def use(vdir):
         kernels.CSRC = Path(vdir).resolve()
@@ -267,11 +289,12 @@ def main():
         for mod, name, val in defaults:
             setattr(mod, name, val)
         params = Path(vdir) / "py_params"
-        if params.exists():  # the same assignments in both modules
-            for mod in (block_diag, _rotation):
+        if params.exists():  # the same assignments in every module
+            for mod in (block_diag, _rotation, ke_mod):
                 exec(params.read_text(), vars(mod))
         for fn in (block_diag._plan, _rotation._k3_plan, _rotation._k3_jobs,
-                   _rotation._k3_tables):
+                   _rotation._k3_tables, ke_mod._many_point_layout, ke_mod._blocks_per_sm,
+                   ke_mod._ball_slices):
             fn.cache_clear()
         kernels.library()
 
