@@ -141,6 +141,33 @@ def basis(c, n_end):
     )
 
 
+def _zonal_jobs(c, n_end):
+    """The root's zonal jobs (0, n'') for n'' < 2 n_end - 1, by n'': those
+    of `basis(c, 2 n_end - 1)`'s 'b'/'bp' root with nc = 0, without
+    enumerating that basis (every child subtree has a degree-0 state, so
+    (0, n'') is a root job at every n'' of that basis)."""
+    if c.root.kind not in ("b", "bp"):
+        raise ValueError(f"zonal jobs need a 'b'/'bp' root (got {c.root.kind!r})")
+    return [(0, n) for n in range(2 * n_end - 1)]
+
+
+@lru_cache(maxsize=64)
+def _child_states(c, n_end):
+    """[num] int64: the child state of each flat harmonic, the tuple of its
+    jobs at every non-root node, numbered in order of first appearance in
+    h (the ids of the coaxial factor's blocks and of the harmonic program's
+    child states)."""
+    b = basis(c, n_end)
+    others = [node.nid for node in c.nodes if node.nid != c.root.nid]
+    if not others:
+        return np.zeros(b.num, dtype=np.int64)
+    keys = np.stack([b.node_job_index[i] for i in others], axis=1)
+    _, first, inv = np.unique(keys, axis=0, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv.reshape(-1)]
+
+
 def index_array_harmonics(c, n_end):
     """Root degree per flat harmonic (numpy int32 [num])."""
     return basis(c, n_end).n_root

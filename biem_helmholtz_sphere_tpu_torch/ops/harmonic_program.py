@@ -32,7 +32,7 @@ The program holds, as int32 / real tensors on one device:
 * the map h -> (root job, child state), as K3 walks it: the child states
   `cs` [n_cs, 4] (the root's first job, the number J of its root degrees,
   the offset of its entries in program order, its first root degree l0),
-  with the child-state ids of `translation/_rotation.py::_coax_tables`
+  with the child-state ids of `harmonics/_index.py::_child_states`
   (a tuple of every non-root job, numbered in order of first appearance
   in h); `csjob` [n_cs, n_nodes] each child state's job at each node (the
   root's column is its first root job); `perm` [H] the flat h of each
@@ -79,7 +79,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..harmonics._index import basis
+from ..harmonics._index import _child_states, basis
 from ..special._jacobi import jacobi_recurrence
 
 KIND_A, KIND_B, KIND_C = 0, 1, 2
@@ -172,17 +172,11 @@ def program_numpy(c, n_end):
     coef.append((0.0, 0.0, 0.0, 0.0))  # read a step ahead by KE, never used
     hjob = np.stack([job_base[nid] + b.node_job_index[nid] for nid in range(n_nodes)],
                     axis=1).astype(np.int32)
-    # the map h -> (root job, child state), child states numbered as
-    # _coax_tables numbers them
+    # the map h -> (root job, child state), child states numbered as the
+    # coaxial factor's (`_child_states`), each with its h ascending
     root = c.root.nid
-    others = [nid for nid in range(n_nodes) if nid != root]
-    keys, members = {}, []
-    for h in range(b.num):
-        key = tuple(int(b.node_job_index[i][h]) for i in others)
-        if key not in keys:
-            keys[key] = len(keys)
-            members.append([])
-        members[keys[key]].append(h)
+    cs_of = _child_states(c, n_end)
+    members = np.split(np.argsort(cs_of, kind="stable"), np.cumsum(np.bincount(cs_of))[:-1])
     root_jobs = b.node_jobs[root]
     root_job = b.node_job_index[root]
     cs, csjob, perm = [], [], []

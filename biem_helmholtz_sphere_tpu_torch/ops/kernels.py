@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
            "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
-           "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu")
+           "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu", "coax_u.cu")
 HEADERS = ("common.cuh", "mma_f64.cuh", "harmonics.cuh", "hankel.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -92,6 +92,9 @@ _SIGNATURES = {
     # nnz, dbl, stream
     "bhs_rotation_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
                             _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P],
+    # t, tzw, rows, cols, order, tiles, u, u_img, q, nb, nnz, n_tiles, dbl,
+    # stream
+    "bhs_coax_u": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

@@ -3,7 +3,8 @@ r"""Rotation + coaxial (S|R) translation for 'b'-rooted trees.
     SR(t) = D(R) SR_e(|t|) D(R)^H,        R e = t^
 
 *  `SR_e(r)`, translation along the root axis, is block-diagonal over the
-   child states; its static tables come from `_coax_tables` and the
+   child states; its host index vectors come from `_coax_index`, its root
+   tables from `_coax_tables_on` (built on the device), and the
    scale-compensated band sum lives in `_scaled.coaxial_scaled`.
 *  `D(R)`, the harmonic representation of the rotation R, preserves
    degree (block-diagonal over degrees), is unitary, and is computed
@@ -20,7 +21,8 @@ r"""Rotation + coaxial (S|R) translation for 'b'-rooted trees.
    of the sandwich and the packed form of the factored matvec (KB).
 
 The same math as biem_helmholtz_sphere_tpu.translation._rotation; the
-host tables are numpy float64, built once per (tree, n_end) and cached.
+host index vectors are numpy, built once per (tree, n_end) and cached, and
+everything O(H q) or larger is built on the device.
 """
 
 from dataclasses import replace
@@ -32,7 +34,7 @@ import torch
 
 from ..coords import from_cartesian, to_cartesian
 from ..harmonics._eval import _node_table, harmonics
-from ..harmonics._index import basis, harm_n_ndim
+from ..harmonics._index import _child_states, _zonal_jobs, basis, harm_n_ndim
 from ..harmonics._quad import _node_rule, sphere_quadrature
 from ..ops import kernels
 from ..ops.block_diag import pack_layout, unpack
@@ -52,42 +54,56 @@ def _root_axis(c):
 
 
 @lru_cache(maxsize=32)
-def _coax_tables(c, n_end):
-    """Static numpy tables for the coaxial factor.
-
-    Returns (zf [NB] zonal prefactors, w [q] quadrature weights,
-    tz [q, NB] zonal root factors, t_cols [q, H] root factors per
-    harmonic, ell [H] root degree, cs [H] child-state id).
-    """
+def _coax_index(c, n_end):
+    """The coaxial factor's host index vectors (numpy, cached per (tree,
+    n_end)): (zf [NB] zonal prefactors, th [q] and w [q] the root rule's
+    angles and weights, ell [H] root degree, cs [H] child-state id).
+    Nothing here enumerates the basis at 2 n_end - 1: the zonal jobs come
+    from `_zonal_jobs`."""
+    _root_axis(c)
     b = basis(c, n_end)
     root = c.root
     nid = root.nid
-    jobs = b.node_jobs[nid]
     th, w = _node_rule(root, 4 * (n_end - 1) + 2)
-    th_t = torch.as_tensor(th, dtype=torch.float64)
-    t_tab = _node_table(root, jobs, {nid: th_t}).numpy()  # [q, J]
-    # child-state id: tuple of all non-root jobs
-    nids = [n.nid for n in c.nodes if n.nid != nid]
-    keys = {}
-    cs = np.empty(b.num, dtype=np.int64)
-    for h in range(b.num):
-        key = tuple(int(b.node_job_index[i][h]) for i in nids)
-        cs[h] = keys.setdefault(key, len(keys))
-    ell = np.array([jobs[j][1] for j in b.node_job_index[nid]], dtype=np.int64)
+    ell = np.asarray([p[1] for p in b.node_jobs[nid]], dtype=np.int64)[b.node_job_index[nid]]
+    # Y_{(n'',0)}(z^) and conj(Y_{(n'',0)}(s^)) each carry 1/sqrt(omega_child)
+    tz0 = _node_table(root, _zonal_jobs(c, n_end), {nid: torch.zeros(1, dtype=torch.float64)})
+    zf = tz0.numpy()[0] / _surface_area(root.children[0].sdim + 1)
+    return zf, th, w, ell, _child_states(c, n_end)
 
-    # zonal bands: root jobs (0, n'') for n'' < 2 n_end - 1
-    b2 = basis(c, 2 * n_end - 1)
-    jobs2 = b2.node_jobs[nid]
-    zsel = [(i, p[1]) for i, p in enumerate(jobs2) if p[0] == 0]
-    zidx = np.array([i for i, _ in sorted(zsel, key=lambda t: t[1])])
-    tz = _node_table(root, jobs2, {nid: th_t}).numpy()[:, zidx]
-    tz0 = _node_table(
-        root, jobs2, {nid: torch.zeros(1, dtype=torch.float64)}
-    ).numpy()[0, zidx]
-    omega_child = _surface_area(root.children[0].sdim + 1)
-    zf = tz0 / omega_child
-    t_cols = t_tab[:, b.node_job_index[nid]]  # [q, H]
-    return zf, w, tz, t_cols, ell, cs
+
+def _coax_root(c, n_end, device):
+    """The root factors at the rule's nodes, float64 on `device`: (t_cols
+    [q, H] of each harmonic, tz [q, NB] of the zonal jobs (0, n''))."""
+    th = _coax_index(c, n_end)[1]
+    b = basis(c, n_end)
+    root = c.root
+    ang = {root.nid: torch.as_tensor(th, dtype=torch.float64, device=device)}
+    t_tab = _node_table(root, b.node_jobs[root.nid], ang)  # [q, J]
+    idx = torch.as_tensor(b.node_job_index[root.nid], dtype=torch.int64, device=device)
+    return t_tab[:, idx], _node_table(root, _zonal_jobs(c, n_end), ang)
+
+
+@lru_cache(maxsize=8)
+def _coax_tables_on(c, n_end, device):
+    """KU's root tables, built on `device` in float64 and cached per (tree,
+    n_end, device): t [H, q] (the root factors transposed: one harmonic's
+    nodes contiguous) and tz w [q, NB]."""
+    t_cols, tz = _coax_root(c, n_end, device)
+    w = torch.as_tensor(_coax_index(c, n_end)[2], dtype=torch.float64, device=device)
+    return t_cols.T.contiguous(), (tz * w[:, None]).contiguous()
+
+
+@lru_cache(maxsize=32)
+def _coax_tables(c, n_end):
+    """The coaxial factor's tables as host numpy, the JAX package's six:
+    (zf [NB] zonal prefactors, w [q] quadrature weights, tz [q, NB] zonal
+    root factors, t_cols [q, H] root factors per harmonic, ell [H] root
+    degree, cs [H] child-state id), from `_coax_index` and the root factors
+    on the CPU."""
+    zf, _, w, ell, cs = _coax_index(c, n_end)
+    t_cols, tz = _coax_root(c, n_end, "cpu")
+    return zf, w, tz.numpy(), t_cols.numpy(), ell, cs
 
 
 @lru_cache(maxsize=256)
@@ -506,7 +522,7 @@ def _coaxial_sr_plain(c, rad, n_end):
     masked to the child-state blocks.  Complex [..., H, H]."""
     from ._scaled import _coax_bands
 
-    zf, _, _, _, ell, cs = _coax_tables(c, n_end)
+    zf, _, _, ell, cs = _coax_index(c, n_end)
     n_bands = 2 * n_end - 1
     rdt, dev = rad.real.dtype, rad.device
     u = _coax_bands(c, n_end, rdt, dev).flatten(0, 1)[:n_bands]  # [NB, H, H]

@@ -17,8 +17,10 @@ tensors `_coax_fold_packed_plain`.  Its radius-independent bands are kept
 at the packed entries only ([NG * G, nnz], 2.1% of the dense [NB, H, H]
 at n_end=32), and for the kernel also as tiles of _TILE entries of one
 top group (l + l') // _GROUP, each with only the bands below its top
-group's end (`_coax_tiles`).  `coaxial_scaled` keeps the dense (mant, S)
-for the translation surface.
+group's end (`_coax_tiles` plans them on the host from the entries'
+degrees).  KU (`ops/coax_u.py`, one launch on the card) forms both from
+the root tables built on the device.  `coaxial_scaled` keeps the dense
+(mant, S) for the translation surface.
 
 2D (Graf's closed form): the entries ARE gathered radial values, so
 `graf_2d_scaled` gathers (mantissa, exponent) of h_{|m - m'|}(k|t|) from
@@ -42,18 +44,17 @@ import torch
 from ..ops import kernels
 from ..ops.band_sr import band_coefs, band_sr
 from ..ops.block_diag import BlockDiag, pack_layout
+from ..ops.coax_u import _GROUP, _TILE, _CoaxPlan, coax_u
 from ..ops.graf import graf_fold, graf_gather
 from ..special._family import spherical_h_scaled
 from ._ops import (_a_const, _a_node_m, _a_node_m_on, _band_consts, _band_inputs,
                    _polar_offsets, _quad_tables, _unit_offsets, ipow)
-from ._rotation import _coax_tables, _offsets_of, _root_axis, _sandwich
+from ._rotation import _coax_index, _coax_tables_on, _offsets_of, _root_axis, _sandwich
 
-# Bands per scale group: the within-group exponent spread (G-1) *
-# ln(2N/(e k t)) stays inside the float32 exp range for k t > ~1e-4 N.
-_GROUP = 8
-# Packed entries per tile of the K2 kernel (= csrc/coax_fold.cu kTile), and
-# the most U slabs (groups of _GROUP bands of a tile) a K2 work unit holds
-_TILE = 64
+# Bands per scale group, _GROUP (ops/coax_u.py): the within-group exponent
+# spread (G-1) * ln(2N/(e k t)) stays inside the float32 exp range for
+# k t > ~1e-4 N.  Packed entries per tile of the K2 and KU kernels, _TILE;
+# the most U slabs (groups of _GROUP bands of a tile) a K2 work unit holds:
 _UNIT_SLABS = 24
 # A tile's cost in the K2 kernel beside its slabs' (its entries, phases,
 # fold factors and stores), in slabs: tools/torch_k2_trace.py on an H100
@@ -75,19 +76,16 @@ def _band_groups(radm, rade, iazf, ng):
 @lru_cache(maxsize=4)
 def _coax_bands(c, n_end, dtype, device):
     """Radius-independent band matrices U [NG, G, H, H] (real, zero-padded
-    bands), exactly masked to the Gaunt support l + l' >= n''."""
-    _, w, tz, t_cols, ell, _ = _coax_tables(c, n_end)
-    kw = dict(dtype=dtype, device=device)
-    tzw = torch.as_tensor(tz * w[:, None], **kw)  # [q, NB]
-    tc = torch.as_tensor(t_cols, **kw)  # [q, H]
-    h_num = tc.shape[1]
-    n_bands = 2 * n_end - 1
+    bands), exactly masked to the Gaunt support l + l' >= n'': each band
+    formed in float64 from the root tables on `device` and rounded once."""
+    ell = _coax_index(c, n_end)[3]
+    t, tzw = _coax_tables_on(c, n_end, torch.device(device))  # [H, q], [q, NB]
+    h_num, n_bands = t.shape[0], tzw.shape[1]
     ng = -(-n_bands // _GROUP)
-    u = torch.zeros(ng * _GROUP, h_num, h_num, **kw)
+    u = torch.zeros(ng * _GROUP, h_num, h_num, dtype=dtype, device=device)
     lsum = torch.as_tensor(ell[:, None] + ell[None, :], device=device)
     for n in range(n_bands):
-        u_n = (tc * tzw[:, n : n + 1]).T @ tc  # sum_q tz_n w T_a T_b
-        u[n] = torch.where(lsum >= n, u_n, 0.0)
+        u[n] = torch.where(lsum >= n, (t * tzw[:, n]) @ t.T, 0.0)  # sum_q tz_n w T_a T_b
     return u.reshape(ng, _GROUP, h_num, h_num)
 
 
@@ -100,7 +98,7 @@ def coaxial_scaled(c, r, n_end, k):
     """
     _root_axis(c)
     d = c.c_ndim
-    zf, _, _, _, ell, cs = _coax_tables(c, n_end)
+    zf, _, _, ell, cs = _coax_index(c, n_end)
     rdt, dev = r.dtype, r.device
     cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
     u_g = _coax_bands(c, n_end, rdt, dev)  # [NG, G, H, H]
@@ -143,7 +141,7 @@ def coaxial_scaled(c, r, n_end, k):
 def _child_state_blocks(c, n_end):
     """(sizes, perm) of the coaxial factor's blocks: the harmonics of each
     child state (the order m on "ba"), in basis order, made contiguous."""
-    cs = _coax_tables(c, n_end)[5]
+    cs = _coax_index(c, n_end)[4]
     return np.bincount(cs), np.argsort(cs, kind="stable")
 
 
@@ -169,61 +167,61 @@ class CoaxPacked:
                 self.unit_slabs, int(self.u.dtype == torch.float64))
 
 
-def _coax_tiles(u, lsum, n_sm):
-    """The K2 kernel's tiles and work units of the packed entries (numpy).
+def _coax_tiles(lsum, n_sm):
+    """The K2 kernel's tiles and work units of the packed entries (host
+    numpy, from their degrees: no loop over tiles or units).
 
-    u [NG * G, nnz] bands at the packed entries; lsum [nnz] l + l' of
-    each; n_sm the card's multiprocessors.  Entries are ordered by top
-    group lsum // _GROUP, largest first (stable), and each run of one top
-    group is cut into tiles of _TILE (the run's last one ragged).  A tile
-    of top group g holds its bands 0 .. G (g + 1) - 1 as g + 1 slabs of the
-    image, slab s at [h, j, b] = u[G s + 4 h + b, order[tile start + j]],
-    zero for j past the tile.  Each run is dealt out in work units of
-    consecutive tiles (counts differing by at most one), at most
-    _UNIT_SLABS slabs a unit where a tile fits, and the runs' unit counts
-    grow, the run with the costliest unit first (a tile costs its slabs
-    and _TILE_COST), until there are n_sm units.  Bands above lsum are
-    zero in u (the Gaunt mask), so no entry needs a group above its top.
+    lsum [nnz] l + l' of each packed entry; n_sm the card's
+    multiprocessors.  Entries are ordered by top group lsum // _GROUP,
+    largest first (stable), and each run of one top group is cut into
+    tiles of _TILE (the run's last one ragged).  A tile of top group g holds
+    its bands 0 .. G (g + 1) - 1 as g + 1 slabs of the image (KU fills it,
+    `ops/coax_u.py`).  Each run is dealt out in work units of consecutive
+    tiles (counts differing by at most one), at most _UNIT_SLABS slabs a
+    unit where a tile fits, and the runs' unit counts grow, the run with
+    the costliest unit first (a tile costs its slabs and _TILE_COST), until
+    there are n_sm units.  Bands above lsum are zero in u (the Gaunt mask),
+    so no entry needs a group above its top.
 
     Returns (order [nnz], units [n_units, 4] = (first entry of order,
-    entries, top group, first slab), image [slabs, 2, _TILE, 4], the most
-    slabs of a unit).
+    entries, top group, first slab), tiles [n_tiles, 4] = (first entry of
+    order, entries, top group, slab), the image's slabs, the most slabs of
+    a unit).
     """
     top = lsum // _GROUP
     order = np.argsort(-top, kind="stable")
     cuts = np.flatnonzero(np.diff(top[order])) + 1
-    runs = [(int(a), int(b), int(top[order[a]])) for a, b in
-            zip(np.r_[0, cuts], np.r_[cuts, len(order)])]
-    n_tiles = [-(-(b - a) // _TILE) for a, b, _ in runs]
-    size = [g + 1 for _, _, g in runs]  # slabs per tile
-    n_units = [-(-n // max(1, _UNIT_SLABS // s)) for n, s in zip(n_tiles, size)]
-
-    def heaviest(r):  # the cost of run r's largest unit
-        return -(-n_tiles[r] // n_units[r]) * (size[r] + _TILE_COST)
-
-    while sum(n_units) < n_sm:
-        r = max((r for r in range(len(runs)) if n_units[r] < n_tiles[r]), key=heaviest,
-                default=None)
-        if r is None:
+    start, stop = np.r_[0, cuts], np.r_[cuts, len(order)]
+    g = top[order[start]]
+    n_tiles = -(-(stop - start) // _TILE)
+    size = g + 1  # slabs per tile
+    n_units = -(-n_tiles // np.maximum(1, _UNIT_SLABS // size))
+    while n_units.sum() < n_sm:  # one unit more a step, at most n_sm steps
+        # the cost of each run's largest unit, of the runs that can be cut further
+        cost = np.where(n_units < n_tiles, -(-n_tiles // n_units) * (size + _TILE_COST), -1.0)
+        if cost.max() < 0:
             break
-        n_units[r] += 1
-    units, slab = [], 0
-    image = np.zeros((sum(n * s for n, s in zip(n_tiles, size)), 2, _TILE, 4))
-    for (a, b, g), n, k in zip(runs, n_tiles, n_units):
-        t0 = 0
-        for i in range(k):
-            t1 = t0 + n // k + (i < n % k)
-            e0, e1 = a + t0 * _TILE, min(b, a + t1 * _TILE)
-            units.append((e0, e1 - e0, g, slab))
-            for s0 in range(e0, e1, _TILE):
-                ent = order[s0 : min(s0 + _TILE, e1)]
-                blk = u[: (g + 1) * _GROUP, ent].reshape(g + 1, 2, 4, len(ent))
-                image[slab : slab + g + 1, :, : len(ent)] = blk.transpose(0, 1, 3, 2)
-                slab += g + 1
-            t0 = t1
-    units = np.asarray(units, dtype=np.int64).reshape(-1, 4)
-    most = int(((-(-units[:, 1] // _TILE)) * (units[:, 2] + 1)).max())
-    return order, units, image, most
+        n_units[int(np.argmax(cost))] += 1
+
+    def ranks(counts):  # (run of each item, its index within the run)
+        run = np.repeat(np.arange(len(counts)), counts)
+        return run, np.arange(len(run)) - np.repeat(np.cumsum(counts) - counts, counts)
+
+    run, i = ranks(n_units)
+    k, n = n_units[run], n_tiles[run]
+    unit_tiles = n // k + (i < n % k)  # tiles of each unit
+    t0 = np.cumsum(unit_tiles) - unit_tiles  # first tile, counted from the first run's
+    t0 -= t0[np.cumsum(n_units) - n_units][run]
+    e0 = start[run] + t0 * _TILE
+    e1 = np.minimum(stop[run], e0 + unit_tiles * _TILE)
+    unit_slabs = unit_tiles * size[run]
+    units = np.stack([e0, e1 - e0, g[run], np.cumsum(unit_slabs) - unit_slabs], axis=1)
+    run, i = ranks(n_tiles)
+    t_start = start[run] + i * _TILE
+    t_slabs = size[run]
+    tiles = np.stack([t_start, np.minimum(_TILE, stop[run] - t_start), g[run],
+                      np.cumsum(t_slabs) - t_slabs], axis=1)
+    return order, units, tiles, int(t_slabs.sum()), int(unit_slabs.max())
 
 
 def _coax_packed(c, n_end, dtype, device):
@@ -231,9 +229,11 @@ def _coax_packed(c, n_end, dtype, device):
     is the current card: the tables live there, sized by its SM count).
 
     U_n[a, b] = sum_q t[q, a] tz[q, n] w[q] t[q, b], masked to the Gaunt
-    support l_a + l_b >= n, is formed at the packed (a, b) only, in float64
-    on the host; bands are zero-padded to whole groups of _GROUP.  The K2
-    kernel reads it as `_coax_tiles` lays it out.
+    support l_a + l_b >= n, is formed at the packed (a, b) only, in float64,
+    by KU (`ops/coax_u.py`) from the root tables built on the device; bands
+    are zero-padded to whole groups of _GROUP.  The host builds only the
+    index vectors and the tile plan (`_coax_tiles`); the K2 kernel reads U
+    as the plan lays it out.
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -241,40 +241,46 @@ def _coax_packed(c, n_end, dtype, device):
     return _coax_packed_on(c, n_end, dtype, device)
 
 
+def _layout_on(lay, device):
+    """The BlockDiag layout `lay` with its index tensors on `device`."""
+    return replace(lay, **{f: getattr(lay, f).to(device) for f in
+                           ("offs", "sizes", "voffs", "rows", "cols", "perm")
+                           if getattr(lay, f) is not None})
+
+
 @lru_cache(maxsize=4)
-def _coax_packed_on(c, n_end, dtype, device):
-    zf, w, tz, t_cols, ell, _ = _coax_tables(c, n_end)
-    sizes, perm = _child_state_blocks(c, n_end)
-    layout = pack_layout(sizes, perm, len(ell), device)
-    rows, cols = layout.rows.cpu().numpy(), layout.cols.cpu().numpy()
-    n_bands = 2 * n_end - 1
-    ng = -(-n_bands // _GROUP)
-    u = (tz * w[:, None]).T @ (t_cols[:, rows] * t_cols[:, cols])  # [NB, nnz]
-    lsum = ell[rows] + ell[cols]
-    u = np.where(lsum[None, :] >= np.arange(n_bands)[:, None], u, 0.0)
-    u = np.concatenate([u, np.zeros((ng * _GROUP - n_bands, u.shape[1]))])
+def _coax_plan_on(c, n_end, device):
+    """The host's share of the packed coaxial tables, on `device`: (layout
+    of the child-state blocks, KU's plan, K2's units, the most slabs of a
+    unit, l_row [nnz], l_col [nnz]), from the index vectors and the tile
+    plan (`_coax_tiles`), cached per (tree, n_end, device)."""
+    ell = _coax_index(c, n_end)[3]
+    host = pack_layout(*_child_state_blocks(c, n_end), len(ell), "cpu")
+    rows, cols = host.rows.numpy(), host.cols.numpy()
     n_sm = 132  # the H100's; the card's own where the tables live on one
     if device.type == "cuda":
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    order, units, image, unit_slabs = _coax_tiles(u, lsum, n_sm)
+    order, units, tiles, slabs, unit_slabs = _coax_tiles(ell[rows] + ell[cols], n_sm)
     l_pair = ell[rows] + 65536 * ell[cols]
-    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
-    kw = dict(dtype=dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
+    plan = _CoaxPlan(order=torch.as_tensor(np.stack([order, l_pair[order]], axis=1), **i32),
+                     tiles=torch.as_tensor(tiles, **i32), slabs=slabs,
+                     ng=-(-(2 * n_end - 1) // _GROUP))
+    return (_layout_on(host, device), plan, torch.as_tensor(units, **i32), unit_slabs,
+            torch.as_tensor(ell[rows], **i32), torch.as_tensor(ell[cols], **i32))
+
+
+@lru_cache(maxsize=4)
+def _coax_packed_on(c, n_end, dtype, device):
+    layout, plan, units, unit_slabs, l_row, l_col = _coax_plan_on(c, n_end, device)
+    u, u_tiles = coax_u(_coax_tables_on(c, n_end, device), layout, plan, dtype)
+    n_bands = 2 * n_end - 1
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
     iazf = ipow(np.arange(n_bands), cdt, device) * torch.as_tensor(
-        _a_const(c.c_ndim) * zf, **kw
+        _a_const(c.c_ndim) * _coax_index(c, n_end)[0], dtype=dtype, device=device
     )
-    return CoaxPacked(
-        layout=layout,
-        u=torch.as_tensor(u, **kw),
-        iazf=iazf,
-        l_row=torch.as_tensor(ell[rows], **i32),
-        l_col=torch.as_tensor(ell[cols], **i32),
-        order=torch.as_tensor(np.stack([order, l_pair[order]], axis=1), **i32),
-        units=torch.as_tensor(units, **i32),
-        u_tiles=torch.as_tensor(image, **kw),
-        unit_slabs=unit_slabs,
-    )
+    return CoaxPacked(layout=layout, u=u, iazf=iazf, l_row=l_row, l_col=l_col,
+                      order=plan.order, units=units, u_tiles=u_tiles, unit_slabs=unit_slabs)
 
 
 def _coax_fold_packed_plain(radm, rade, e_r, e_b, tab):

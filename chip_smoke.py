@@ -254,6 +254,20 @@ K5's h table (with the even-d cylinder seeds) and the kernel
 (a, c) require K3 launched (phase 4 in its first block, D cached for the
 sweep), phases 7 (c), 8 (a), 9 (b-d) and 10 (a) KE.
 
+Phase 2 also holds KU (`ops/coax_u.py::coax_u`, the coaxial band tables
+U at the packed entries and K2's tile image, formed on the card from the
+root tables built there) against its plain version at (i) phase 8 (a)'s
+'bba' n_end=20, (ii) the bench's 'ba' n_end=32, (iii) 'ba' n_end=64 and
+(iv) the 5D pair's 'bbba' n_end=8, both table dtypes, each entry within
+1e-14 of its sum of magnitudes (and one float32 rounding), exactly 0
+wherever that sum is, launched twice and required bit-for-bit equal, timed
+beside its plain version, its bound and its yardstick (the DGEMM of the
+materialised factors, `ku_library_ms`), and (v) 'ba' at n_end=96, untimed
+(no size ceiling).  Phases 4 (first block), 8 (a) and 9 (a) clear the
+coax tables' caches and require KU launched; phase 8 (a) splits its coax
+stage into the tables (host index and plan, the root tables on the card,
+KU) and K5 + K2.
+
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
 mantissas (|mant| ~ 1) and on the unscaled values, relative above 1.
@@ -1304,6 +1318,113 @@ def check_k3(torch, dev, card):
     return results
 
 
+KU_TOL = 1e-14  # of each entry's sum of magnitudes sum_q |tz w t_a t_b|
+# KU's shapes (label, tree, n_end, timed): phase 8 (a)'s, the bench's, the
+# accuracy range's top, the 5D pair's, and one past any size ceiling
+KU_CASES = (("(i) 'bba' 4D first block", "bba", N_END_4D, True),
+            ("(ii) 'ba' bench", "ba", N_END, True),
+            ("(iii) 'ba'", "ba", 64, True),
+            ("(iv) 'bbba' 5D pair", "bbba", N_END_5D, True),
+            ("(v) 'ba', no size ceiling", "ba", 96, False))
+
+
+def ku_bound(tables, plan, name):
+    """KU's bound for tables in `name`'s real type: the root tables, the
+    entries' rows, cols and order and the tiles read once, u and the tile
+    image written once; per entry q products t_a t_b and, per band inside
+    l + l' >= n, 2 q operations of a float64 contraction (the FP64 tensor
+    cores' rate)."""
+    t, tzw = tables
+    (h, q), nb = t.shape, tzw.shape[1]
+    rs = 4 if name == "complex64" else 8
+    nnz = plan.order.shape[0]
+    o = plan.order[:, 1].long()
+    n_bands = int((((o & 0xFFFF) + (o >> 16)).clamp(max=nb - 1) + 1).sum())
+    nbytes = ((h * q + q * nb) * 8 + nnz * 24 + plan.tiles.numel() * 4
+              + (plan.ng * 8 * nnz + plan.slabs * 512) * rs)
+    return bound(nbytes, q * nnz, "complex128", mma_flops=2 * q * n_bands)
+
+
+def ku_library_ms(torch, tables, layout):
+    """KU's yardstick: ms of the PyTorch product of the materialised
+    factors, (tz w)^T (t_a t_b) at every packed entry (one elementwise pass
+    and one DGEMM; it neither masks nor lays out the tiles)."""
+    t, tzw = tables
+    return cuda_ms(torch, lambda: torch.matmul(tzw.T, (t[layout.rows] * t[layout.cols]).T), 3)
+
+
+def check_ku(torch, dev, card):
+    """Phase 2, KU (`ops/coax_u.py::coax_u`): u and the tile image against
+    the plain version at KU_CASES, both table dtypes, each entry within
+    KU_TOL of its sum of magnitudes (and, in float32, one rounding of the
+    plain value), exactly 0 wherever that sum is; launched twice and
+    required bit-for-bit equal; timed beside its plain version, its bound
+    and its yardstick.  Returns the results of (i) by the complex dtype
+    whose path reads those tables."""
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.coax_u import _coax_u_plain, coax_u
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coax_tables_on
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _coax_plan_on
+
+    results = {}
+    for label, tree, n_end, timed in KU_CASES:
+        c = create_from_branching_types(tree)
+        clear_coax_caches()  # the host index, plan and root tables timed cold
+        t0 = time.perf_counter()
+        layout, plan = _coax_plan_on(c, n_end, dev)[:2]
+        t_plan = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = _coax_tables_on(c, n_end, dev)
+        torch.cuda.synchronize()
+        t_tab = time.perf_counter() - t0
+        (h, q), nb, nnz = tables[0].shape, tables[1].shape[1], plan.order.shape[0]
+        mag = _coax_u_plain(tuple(x.abs() for x in tables), layout, plan, torch.float64)
+        for rdt in (torch.float32, torch.float64):
+            name = "complex64" if rdt == torch.float32 else "complex128"
+            n0 = coax_u.launches
+            got = coax_u(tables, layout, plan, rdt)
+            if coax_u.launches != n0 + 1:
+                raise RuntimeError(f"coax_u {label} {name}: the kernel did not launch")
+            ref = _coax_u_plain(tables, layout, plan, rdt)
+            rel = 2.0 ** -23 if rdt == torch.float32 else 0.0
+            ea, er = 0.0, 0.0
+            for g, r, m in zip(got, ref, mag):
+                d = (g.double() - r.double()).abs()
+                if not bool(torch.isfinite(g).all()):
+                    raise RuntimeError(f"coax_u {label} {name}: not finite")
+                if not bool((d <= KU_TOL * m + rel * r.double().abs()).all()):
+                    raise RuntimeError(f"coax_u {label} {name}: off its plain version")
+                if not bool((g[m == 0] == 0).all()):
+                    raise RuntimeError(f"coax_u {label} {name}: not 0 where it must be")
+                ea = max(ea, float(d.max()))
+                er = max(er, float((d / m.clamp_min(1e-300))[m > 0].max()))
+            if not same_bits(torch, coax_u(tables, layout, plan, rdt), got):
+                raise RuntimeError(f"coax_u {label} {name}: two launches differ")
+            del ref
+            line = (f"[2] coax_u (KU) {label}, n_end={n_end}: q={q}, {nb} bands, H={h}, "
+                    f"nnz={nnz}, {plan.slabs} slabs, {plan.tiles.shape[0]} tiles, tables "
+                    f"{rdt}: max_abs_err {ea:.3e}, largest error / sum of magnitudes {er:.3e}")
+            if timed:
+                ms = cuda_ms(torch, lambda: coax_u(tables, layout, plan, rdt), 5)
+                dus = device_us(torch, lambda: coax_u(tables, layout, plan, rdt), "coax_u_kernel")
+                pms = cuda_ms(torch, lambda: _coax_u_plain(tables, layout, plan, rdt), 2)
+                b = ku_bound(tables, plan, name)
+                lms = ku_library_ms(torch, tables, layout)
+                line += (f"; kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler) "
+                         f"plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) library {lms:.4f} ms "
+                         f"(matmul of the materialised factors); host index and plan "
+                         f"{t_plan:.4f} s, root tables on the card {t_tab:.4f} s (cold)")
+                if label.startswith("(i)"):
+                    results[name] = {"abs": ea, "rel": er, "ms": ms, "plain_ms": pms,
+                                     "bound_ms": b[0], "bound_by": b[1], "library_ms": lms}
+            print(f"{line} ({card})")
+            del got
+        del mag, tables, layout, plan
+        torch.cuda.empty_cache()
+    return results
+
+
 def readme_golden(torch, dev):
     """Phase 3: the README problem through the port on the card, on the
     factored route and with the default solver (a direct LU)."""
@@ -1385,14 +1506,16 @@ def bench_config(torch, dev, card):
     block, sweep, ks = bench_sweep(torch, dev)
 
     torch.cuda.reset_peak_memory_stats()
+    clear_coax_caches()  # phase 2 built the bench's; the first block builds them (KU)
     reset()
-    block(ks[:KB] - 0.5, None)  # warm-up block: caches, allocator, kernel load, D (K3)
+    block(ks[:KB] - 0.5, None)  # warm-up block: caches, allocator, kernel load, D (K3), U (KU)
     torch.cuda.synchronize()
-    k3_first = read()["rotation_blocks"]
-    print(f"[4] K3 (rotation_blocks) launches in the first block (D of the 36 slots, cached "
-          f"for the sweep): {k3_first}")
-    if k3_first <= 0:
-        raise RuntimeError("[4] the first block never launched K3")
+    first = read()
+    k3_first, ku_first = first["rotation_blocks"], first["coax_u"]
+    print(f"[4] launches in the first block of K3 (rotation_blocks, D of the 36 slots) "
+          f"{k3_first}, of KU (coax_u, the coax tables) {ku_first}, both cached for the sweep")
+    if k3_first <= 0 or ku_first <= 0:
+        raise RuntimeError("[4] the first block never launched K3 or KU")
     reset()
     t0 = time.perf_counter()
     run1 = sweep()
@@ -1408,7 +1531,7 @@ def bench_config(torch, dev, card):
     # block, its D cached for the sweep
     require_launched(launches, [n for n in launches if n not in (
         "fused_ba_eval", "dense_assemble", "block_diag_cmm_panels", "graf_fold", "band_sr",
-        "band_f", "harmonic_eval", "rotation_blocks")], "[4] the sweep")
+        "band_f", "harmonic_eval", "rotation_blocks", "coax_u")], "[4] the sweep")
     if launches["harmonic_eval"]:
         raise RuntimeError("[4] the 'ba' bench launched KE")
     if launches["band_sr"] or launches["band_f"]:
@@ -1489,6 +1612,7 @@ def bench_config(torch, dev, card):
         raise RuntimeError("uscat is not finite outside the spheres")
     launches["fused_ba_eval"] = field["fused_ba_eval"]
     launches["rotation_blocks"] = k3_first
+    launches["coax_u"] = ku_first
     best = float("inf")
     for _ in range(5):
         t0 = time.perf_counter()
@@ -2029,6 +2153,7 @@ def kernel_counts():
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import coax_fold
     from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import harmonic_eval
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import rotation_blocks
+    from biem_helmholtz_sphere_tpu_torch.ops.coax_u import coax_u
 
     counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
                 "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
@@ -2043,7 +2168,8 @@ def kernel_counts():
                 "band_sr": (band_sr, "launches"),
                 "band_f": (band_f, "launches"),
                 "harmonic_eval": (harmonic_eval, "launches"),
-                "rotation_blocks": (rotation_blocks, "launches")}
+                "rotation_blocks": (rotation_blocks, "launches"),
+                "coax_u": (coax_u, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -2059,6 +2185,18 @@ def require_launched(counts, names, label):
     missing = [n for n in names if counts[n] <= 0]
     if missing:
         raise RuntimeError(f"{label}: the path never launched {missing}: {counts}")
+
+
+def clear_coax_caches():
+    """Forget every coax table (host index vectors and plan, root tables,
+    KU's U): the next 'b'/'bp'-rooted block in d >= 3 builds them cold."""
+    from biem_helmholtz_sphere_tpu_torch.harmonics import _index
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation, _scaled
+
+    for fn in (_rotation._coax_index, _rotation._coax_tables_on, _rotation._coax_tables,
+               _scaled._coax_plan_on, _scaled._coax_packed_on, _scaled._child_state_blocks,
+               _index._child_states):
+        fn.cache_clear()
 
 
 def complex_and_trees(torch, dev, card):
@@ -2374,7 +2512,7 @@ def four_d(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
     from biem_helmholtz_sphere_tpu_torch.ops.dense import _dense_assemble_plain, dense_assemble
-    from biem_helmholtz_sphere_tpu_torch.translation import _rotation
+    from biem_helmholtz_sphere_tpu_torch.translation import _rotation, _scaled
 
     reset, read = kernel_counts()
     c4, c4p, c5 = (create_from_branching_types(t) for t in ("bba", "bpbpa", "bbba"))
@@ -2412,7 +2550,12 @@ def four_d(torch, dev, card):
     if route != "matfree":
         raise RuntimeError(f"(a) auto picks {route!r} for the 4D hypercube")
     stages = [(_core, "_rhs_dispatch", "RHS"), (_core, "_radial_rows_scaled", "radial rows"),
-              (_core, "coax_fold_packed", "coax (K5 + K2)"),
+              (_core, "coax_fold_packed", "coax (tables + K5 + K2)"),
+              (_scaled, "_coax_packed_on", "of it the tables (KU and host index)"),
+              (_scaled, "_coax_plan_on", "of them host index and plan"),
+              (_scaled, "_coax_tables_on", "of them root tables on the card"),
+              (_scaled, "coax_u", "of them KU"),
+              (_scaled, "spherical_h_scaled", "of it K5"),
               (_core, "rotation_d", "D build (K3 and its tables)"),
               (_rotation, "_rot_ycw", "of it tables on the card"),
               (_rotation, "_k3_launch", "of it K3"),
@@ -2434,6 +2577,7 @@ def four_d(torch, dev, card):
                _rotation._k3_tables, _hp.program_numpy, _hp.harmonic_program,
                _quad.sphere_quadrature):
         fn.cache_clear()
+    clear_coax_caches()  # and the coax tables: host index and plan, root tables, U
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
@@ -2444,18 +2588,27 @@ def four_d(torch, dev, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     nested = ("of it tables on the card", "of it K3")  # inside the D build's timer
     d_parts = [acc.pop(n, 0.0) for n in nested]
+    # inside the coax timer; K2 is the rest of it (`coax_fold` counts its
+    # launches through its module's name, so it is not wrapped)
+    coax_nested = ("of it the tables (KU and host index)", "of them host index and plan",
+                   "of them root tables on the card", "of them KU", "of it K5")
+    c_parts = [acc.pop(n, 0.0) for n in coax_nested]
+    c_parts.append(acc.get("coax (tables + K5 + K2)", 0.0) - c_parts[0] - c_parts[4])
+    nested += coax_nested
     labels = [label for _, _, label in stages if label not in nested]
     print(f"[8] (a) 'bba' 4D hypercube ({nb} unit spheres, pitch 4), n_end={N_END_4D} (H={h4}, "
           f"{n_sys} unknowns), complex64, auto -> factored GMRES, first block of {KB} k: "
           f"{total:.3f} s; split, s per block (synchronising timers): "
-          f"{format_split(acc, total, labels, 1)}; of the D build: its tables on the card "
-          f"{d_parts[0]:.6f}, K3 {d_parts[1]:.6f} (PR 15's K3, PERF.md: first block 1.087, "
-          f"D build 0.373, K3 0.325, tables on the card 0.014); launches "
+          f"{format_split(acc, total, labels, 1)}; of the coax: the tables {c_parts[0]:.6f} "
+          f"(host index and plan {c_parts[1]:.6f}, root tables on the card {c_parts[2]:.6f}, "
+          f"KU {c_parts[3]:.6f}), K5 {c_parts[4]:.6f}, K2 and the rest {c_parts[5]:.6f}; of the "
+          f"D build: its "
+          f"tables on the card {d_parts[0]:.6f}, K3 {d_parts[1]:.6f}; launches "
           f"{counts}, of them KB with row panels {panels}; GMRES iters {calc.iters.tolist()}, "
           f"max relres "
           f"{float(calc.relres.max()):.3e}; peak device memory {peak:.3f} GiB ({card})")
     require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
-                              "coax_fold", "rotation_blocks", "harmonic_eval"), "(a)")
+                              "coax_fold", "rotation_blocks", "harmonic_eval", "coax_u"), "(a)")
     if panels <= 0 or panels > counts["block_diag_cmm"]:
         raise RuntimeError(f"(a) KB's row-panel mode launched {panels} times")
     launches = dict(counts, block_diag_cmm_panels=panels)
@@ -2522,7 +2675,9 @@ def four_d(torch, dev, card):
     finally:
         _core.block_diag_cmm = real_kb
     kb_ms = sum(st.elapsed_time(en) for st, en in events)
-    print(f"[8] (a) warm block split, s per block: {format_split(acc_w, total_w, labels, 1)}; "
+    w_parts = [acc_w.pop(n, 0.0) for n in nested]
+    print(f"[8] (a) warm block split, s per block: {format_split(acc_w, total_w, labels, 1)}, "
+          f"of the coax K5 {w_parts[-1]:.6f}; "
           f"KB {len(events)} launches, {kb_ms:.3f} ms between CUDA events ({card})")
     # the field: uscat(0) against complex128 on the factored route
     calc128 = solve(c4, torch.float64, ks, cube, N_END_4D, solver="matfree", stable=True)
@@ -2803,7 +2958,7 @@ def n_balls_family(torch, dev, card):
 
     # (a) the 3D lattice: 1,024 'ba' spheres at n_end = 19 (369,664 unknowns)
     stages = [(_core, "_rhs_dispatch", "RHS"), (_lattice, "_radial_factors", "radial rows"),
-              (_lattice, "_offset_table", "half table (K5 + K2 + K3 + sandwich)"),
+              (_lattice, "_offset_table", "half table (K5 + KU + K2 + K3 + sandwich)"),
               (_lattice, "_kernel_fft", "kernel build"), (_core, "gmres_solve_op", "GMRES"),
               (_core.BIEMResultCalculator, "uscat", "uscat(0)")]
     u_a = {}
@@ -2824,6 +2979,7 @@ def n_balls_family(torch, dev, card):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        clear_coax_caches()  # the half table's coax tables built cold (KU)
         reset()
         _core.gmres_solve_op = capture
         try:  # the first (cold) solve, split by stage
@@ -2834,7 +2990,7 @@ def n_balls_family(torch, dev, card):
         peak = peak_gib()
         calc, centers = out["calc"], out["centers"]
         require_launched(counts, ["coax_fold", "spherical_jh", "fused_ba_eval_few",
-                                  "rotation_blocks"], f"[9] (a) {name}")
+                                  "rotation_blocks", "coax_u"], f"[9] (a) {name}")
         if counts["block_diag_cmm"] or counts["graf_fold"]:
             raise RuntimeError(f"[9] (a): the lattice route launched KB or KG: {counts}")
         dens, relres = calc.density, float(calc.relres.max())
@@ -3381,7 +3537,7 @@ def c_trees(torch, dev, card):
     require_launched(counts, ("band_sr", "band_f", "lane_gather", "lane_scatter", "spherical_jh",
                               "harmonic_eval"),
                      "(a)")
-    for name in ("block_diag_cmm", "coax_fold", "dense_assemble", "graf_fold"):
+    for name in ("block_diag_cmm", "coax_fold", "coax_u", "dense_assemble", "graf_fold"):
         if counts[name]:
             raise RuntimeError(f"(a) a 'c' root launched {name}: {counts}")
     launches = {"band_sr": counts["band_sr"], "band_f": counts["band_f"]}
@@ -4238,6 +4394,7 @@ def main():
     results["block_diag_cmm_panels"] = check_kb_panels(torch, dev, card)
     results["harmonic_eval"] = check_ke(torch, dev, card)
     results["rotation_blocks"] = check_k3(torch, dev, card)
+    results["coax_u"] = check_ku(torch, dev, card)
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
@@ -4288,6 +4445,8 @@ def main():
         # the rotation D (phase 4's first block)
         "rotation_blocks": ("csrc/rotation_blocks.cu",
                             "biem_helmholtz_sphere_tpu/translation/_rotation.py:251"),
+        # the coax band tables U (phase 4's first block)
+        "coax_u": ("csrc/coax_u.cu", "biem_helmholtz_sphere_tpu/translation/_scaled.py:135"),
     }
     record = {"kernels": [
         {

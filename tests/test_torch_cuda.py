@@ -58,11 +58,17 @@ from biem_helmholtz_sphere_tpu_torch.special._family import (
     _spherical_jh_scaled_plain,
     spherical_jh,
 )
-from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coaxial_sr_plain, coaxial_sr
+from biem_helmholtz_sphere_tpu_torch.ops.coax_u import _coax_u_plain, coax_u
+from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
+    _coax_tables_on,
+    _coaxial_sr_plain,
+    coaxial_sr,
+)
 from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
     _child_state_blocks,
     _coax_fold_packed_plain,
     _coax_packed,
+    _coax_plan_on,
     coax_fold,
 )
 
@@ -531,6 +537,38 @@ def test_coax_fold_kernel_matches_plain(cuda, dtype, case):
     assert got.shape == ref.shape and bool(torch.isfinite(ref).all())
     assert float((got - ref).abs().max() / ref.abs().max()) < _tol(dtype)
     assert _same_bits(coax_fold(*args), got)
+
+
+# KU's cases (tree, n_end): phase 8 (a)'s 4D first block, the bench's, and
+# the 5D pair's
+_KU_CASES = {"bba-20": ("bba", 20), "ba-32": ("ba", 32), "bbba-8": ("bbba", 8)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(_KU_CASES))
+def test_coax_u_kernel_matches_plain(cuda, dtype, case):
+    """KU against its plain version on the card: each entry of u and of the
+    tile image within 1e-14 of its sum of magnitudes sum_q |tz w t_a t_b|
+    (and, in float32, within one rounding of the plain value), exactly 0
+    wherever that sum is (bands above l + l', slots past a ragged tile);
+    one launch per call, and two launches are bit for bit equal."""
+    tree, n_end = _KU_CASES[case]
+    c = create_from_branching_types(tree)
+    layout, plan = _coax_plan_on(c, n_end, cuda)[:2]
+    t, tzw = _coax_tables_on(c, n_end, cuda)
+    n0 = coax_u.launches
+    got = coax_u((t, tzw), layout, plan, dtype)
+    assert coax_u.launches == n0 + 1
+    ref = _coax_u_plain((t, tzw), layout, plan, dtype)
+    mag = _coax_u_plain((t.abs(), tzw.abs()), layout, plan, torch.float64)
+    rel = 2.0 ** -23 if dtype == torch.float32 else 0.0
+    for g, r, m in zip(got, ref, mag):
+        assert g.shape == r.shape and g.dtype == dtype
+        d = (g.double() - r.double()).abs()
+        assert bool((d <= 1e-14 * m + rel * r.double().abs()).all())
+        assert bool((g[m == 0] == 0).all())
+    assert _same_bits(coax_u((t, tzw), layout, plan, dtype), got)
 
 
 @pytest.mark.requires_cuda

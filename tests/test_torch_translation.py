@@ -34,6 +34,7 @@ from biem_helmholtz_sphere_tpu_torch.translation._scaled import (
     _child_state_blocks,
     _coax_fold_packed_plain,
     _coax_packed,
+    _coax_tiles,
     coax_fold,
     coax_fold_packed,
 )
@@ -187,6 +188,7 @@ def test_coax_tiles_cover_every_packed_entry_once(n_end):
     rows = np.arange(nbp)[:, None]
     assert not np.any(u[rows >= _GROUP * (top[None, :] + 1)])
     units = tab.units.numpy()
+    np.testing.assert_array_equal(units, _coax_tiles(lsum, 132)[1])  # the host planner's
     assert 1 <= len(units) <= (132 if n_end <= 32 else nnz)
     assert units[0, 0] == 0 and np.array_equal(units[1:, 0], np.cumsum(units[:-1, 1]))
     assert units[-1, 0] + units[-1, 1] == nnz and np.all(units[:, 1] >= 1)
