@@ -223,6 +223,16 @@ def item_stages(items, block_sizes, buf):
     return foot, panels
 
 
+def _on_card(items, device):
+    """The work list on `device` without a host sync: the plan is built at
+    a matvec inside GMRES's step loop, whose host must not wait on the card
+    (a pageable copy would), so on the card it goes through pinned memory."""
+    items = torch.as_tensor(items)
+    if device.type != "cuda":
+        return items.to(device)
+    return items.pin_memory().to(device, non_blocking=True)
+
+
 @lru_cache(maxsize=32)
 def _plan(block_sizes, seg_ptr, n_k, per_k, elem_bytes, device):
     """(items on the device, item count, elements per staging buffer, and
@@ -234,7 +244,7 @@ def _plan(block_sizes, seg_ptr, n_k, per_k, elem_bytes, device):
         budget = _SMEM_MAX // 2 // elem_bytes
     items = work_list(block_sizes, seg_ptr, n_k, per_k, budget)
     if not len(items):
-        return torch.as_tensor(items, device=device), 0, 0, False
+        return _on_card(items, device), 0, 0, False
     foot, panels = item_stages(items, block_sizes, budget)
     # a multiple of 4 elements keeps the second buffer 16-byte aligned;
     # the kernel's column panels at this buffer equal those at the budget
@@ -242,7 +252,7 @@ def _plan(block_sizes, seg_ptr, n_k, per_k, elem_bytes, device):
     g = np.asarray(block_sizes)
     paneled = bool((panels > 1).any() or (items[:, 9] > 0).any()
                    or (items[:, 10] < g[items[:, 5]]).any())
-    return torch.as_tensor(items, device=device), len(items), buf, paneled
+    return _on_card(items, device), len(items), buf, paneled
 
 
 def _block_diag_cmm_plain(dense, x, seg, adjoint):

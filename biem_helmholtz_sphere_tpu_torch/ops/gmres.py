@@ -3,9 +3,19 @@
 Port of biem_helmholtz_sphere_tpu/ops/cplx.py::gmres_solve_op/_gmres_cgs2:
 Arnoldi with CGS2 orthogonalization, complex Givens rotations kept as
 their accumulated product Q, and back-substitution, batched over the
-leading axis of b (independent systems that iterate together).  The step
-loop is a Python loop that stops the moment every system's
-rotation-carried residual estimate is under tolerance.
+leading axis of b (independent systems that iterate together).
+
+The JAX package runs a whole solve as one device program (a scan of steps
+under lax.cond, a while loop of restarts).  Here the host loops over the
+steps, but never waits on each: a cycle's state and its flag word (any
+system active, any residual non-finite, the steps that ran) stay on the
+device (ops/gmres_step.py, K6 on the card), a step that finds no system
+active leaves the state unchanged, and the host reads the word only every
+`lag` steps, `lag` steps late, through a pinned buffer and a CUDA event.
+So a cycle may launch up to 2 (lag - 1) matvecs past convergence whose
+steps do nothing; the lag is fixed per call, so the results and the number
+of matvecs do not depend on timing, and replicated solves (parallel/) call
+`mv` equally often on every rank.
 
 A non-finite residual raises FloatingPointError: `resid > target` is
 False for NaN, so a NaN solve would otherwise look converged after one
@@ -16,22 +26,12 @@ import os
 
 import torch
 
+from .gmres_step import _inv_or_zero, arnoldi_state, arnoldi_step, backsolve
 
-def _inv_or_zero(a, tiny):
-    return torch.where(a > tiny, 1.0 / torch.clamp(a, min=tiny), torch.zeros_like(a))
-
-
-def _active(resid, target):
-    """True while any system is above target; raise on a non-finite residual."""
-    bad, active = torch.stack(
-        [~torch.isfinite(resid).all(), (resid > target).any()]
-    ).tolist()
-    if bad:
-        raise FloatingPointError(
-            "GMRES residual is not finite: the operator or right-hand side "
-            "produced NaN/inf"
-        )
-    return active
+# Steps between the host's reads of the flag word on the card, each read
+# `_LAG_CUDA` steps late (PERF.md section 5: the lags measured); CPU
+# tensors read it before every step.
+_LAG_CUDA = 2
 
 
 def gmres_solve_op(mv, diag, b, tol=None, restart=None, maxiter=20, x0=None):
@@ -47,6 +47,10 @@ def gmres_solve_op(mv, diag, b, tol=None, restart=None, maxiter=20, x0=None):
     restart cycles.  Returns (x, relres [K], iters [K]): the final
     rotation-carried preconditioned relative residual estimate and the
     Krylov steps each system needed.
+
+    Counts (read by chip_smoke.py): `gmres_solve_op.host_reads` (reads of
+    the flag word), `.steps_issued` (Arnoldi steps launched, each after a
+    matvec) and `.steps_run` (those not masked).
     """
     f32 = b.dtype == torch.complex64
     if tol is None:
@@ -59,79 +63,92 @@ def gmres_solve_op(mv, diag, b, tol=None, restart=None, maxiter=20, x0=None):
     return _gmres_cgs2(mv, diag, b, tol, m, maxiter, x0)
 
 
-def _gmres_cgs2(mv, diag, b, tol, m, maxiter, x0):
+gmres_solve_op.host_reads = 0
+gmres_solve_op.steps_issued = 0
+gmres_solve_op.steps_run = 0
+
+
+class _FlagReader:
+    """The host's view of the flag word: `post` queues a copy of the word
+    (on the card into a pinned buffer, with an event after it), `read`
+    waits for the newest copy and returns it as a list.  One buffer is
+    enough: `_cycle` reads every copy before it posts the next."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.buf = torch.empty(3, dtype=torch.int32, pin_memory=self.cuda)
+        self.event = torch.cuda.Event() if self.cuda else None
+
+    def post(self, flag):
+        self.buf.copy_(flag, non_blocking=self.cuda)
+        if self.cuda:
+            self.event.record(torch.cuda.current_stream(self.device))
+
+    def read(self):
+        if self.cuda:
+            self.event.synchronize()
+        gmres_solve_op.host_reads += 1
+        return self.buf.tolist()
+
+
+def _raise_if_bad(word):
+    if word[1]:
+        raise FloatingPointError(
+            "GMRES residual is not finite: the operator or right-hand side "
+            "produced NaN/inf"
+        )
+
+
+def _cycle(mv, st, target, tiny, m, lag, flags):
+    """A cycle's Arnoldi steps; returns the host copy of its final flag
+    word.  Before step j (j a multiple of lag, j >= lag - 1) the host
+    reads the word after step j - lag (posted after every step that is a
+    multiple of lag, and at the start when lag is 1) and stops when it says
+    no system is active."""
+    if lag == 1:
+        flags.post(st.flag)
+    for j in range(m):
+        if j % lag == 0 and j >= lag - 1:
+            word = flags.read()
+            _raise_if_bad(word)
+            if not word[0]:
+                break
+        arnoldi_step(st, mv(st.V[:, j]), j, target, tiny)
+        gmres_solve_op.steps_issued += 1
+        if j % lag == 0:
+            flags.post(st.flag)
+    else:
+        if (m - 1) % lag:
+            flags.post(st.flag)
+        word = flags.read()
+        _raise_if_bad(word)
+    gmres_solve_op.steps_run += word[2]
+    return word
+
+
+def _gmres_cgs2(mv, diag, b, tol, m, maxiter, x0, lag=None):
     rdt = b.real.dtype
-    n_sys, n = b.shape
+    n_sys = b.shape[0]
     tiny = float(torch.finfo(rdt).tiny) ** 0.5
-    kw = dict(dtype=b.dtype, device=b.device)
-
-    def pre_mv(x):
-        return mv(x) / diag
-
+    if lag is None:
+        lag = _LAG_CUDA if b.device.type == "cuda" else 1
     b_pre = b / diag
     bnorm = torch.linalg.vector_norm(b_pre, dim=-1)
-    target = tol * bnorm
-    if not bool(torch.isfinite(bnorm).all()):
-        raise FloatingPointError("GMRES right-hand side is not finite")
-
-    def cycle(x):
-        r = b_pre - pre_mv(x)
-        beta = torch.linalg.vector_norm(r, dim=-1)
-        V = torch.zeros((n_sys, m + 1, n), **kw)
-        V[:, 0] = r * _inv_or_zero(beta, tiny)[:, None]
-        R = torch.zeros((n_sys, m, m), **kw)  # R[k, col, row]
-        g = torch.zeros((n_sys, m + 1), **kw)
-        g[:, 0] = beta
-        Q = torch.eye(m + 1, **kw).expand(n_sys, m + 1, m + 1).clone()
-        resid = beta
-        steps = torch.zeros(n_sys, dtype=torch.int32, device=b.device)
-        j_f = 0
-        for j in range(m):
-            if not _active(resid, target):
-                break
-            steps += (resid > target).to(torch.int32)
-            w = pre_mv(V[:, j])
-            vj = V[:, : j + 1]
-            h1 = (vj.conj() @ w[:, :, None])[..., 0]  # [K, j+1]
-            w = w - (h1[:, None, :] @ vj)[:, 0]
-            h2 = (vj.conj() @ w[:, :, None])[..., 0]  # CGS2: reorthogonalize
-            w = w - (h2[:, None, :] @ vj)[:, 0]
-            h = h1 + h2
-            hn = torch.linalg.vector_norm(w, dim=-1)
-            V[:, j + 1] = w * _inv_or_zero(hn, tiny)[:, None]
-            # rotate the new column by the accumulated rotations
-            hr = (Q[:, :, : j + 1] @ h[:, :, None])[..., 0]  # [K, m+1]
-            a = hr[:, j]
-            rr = torch.sqrt(a.abs() ** 2 + hn * hn)
-            inv_r = _inv_or_zero(rr, tiny)
-            uj = torch.where(rr > tiny, a.conj() * inv_r, torch.ones_like(a))
-            vj_ = (hn * inv_r).to(b.dtype)
-            qj, qj1 = Q[:, j].clone(), Q[:, j + 1].clone()
-            Q[:, j] = uj[:, None] * qj + vj_[:, None] * qj1
-            Q[:, j + 1] = qj1 * uj.conj()[:, None] - qj * vj_[:, None]
-            hr[:, j] = rr
-            R[:, j] = hr[:, :m]
-            gj = g[:, j].clone()
-            g[:, j] = uj * gj
-            g[:, j + 1] = -gj * vj_
-            resid = (gj * vj_).abs()
-            j_f = j + 1
-        _active(resid, target)  # raises on a non-finite final estimate
-        # back-substitution on the rotated (upper-triangular) system
-        y = torch.zeros((n_sys, m), **kw)
-        for col in reversed(range(j_f)):
-            s = (R[:, col + 1 : j_f, col] * y[:, col + 1 : j_f]).sum(-1)
-            rll = R[:, col, col]
-            scale = _inv_or_zero(rll.abs(), tiny)
-            y[:, col] = (g[:, col] - s) * (rll.conj() * (scale * scale))
-        corr = (y[:, None, :j_f] @ V[:, :j_f])[:, 0]
-        return x + corr, resid, steps
+    target = tol * bnorm  # a non-finite right-hand side marks the word non-finite
+    flags = _FlagReader(b.device)
 
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype).expand_as(b).clone()
     nsteps = torch.zeros(n_sys, dtype=torch.int32, device=b.device)
     for _ in range(maxiter):
-        x, resid, steps = cycle(x)
-        nsteps += steps
-        if not bool((resid > target).any()):
+        st = arnoldi_state(b_pre - mv(x) / diag, diag, target, m)
+        word = _cycle(mv, st, target, tiny, m, lag, flags)
+        # back-substitution on the rotated (upper-triangular) system; y is 0
+        # past the steps that ran
+        y = backsolve(st.R, st.g, st.flag, tiny)
+        x = x + (y[:, None, :] @ st.V[:, :m])[:, 0]
+        nsteps += st.steps
+        resid = st.resid
+        if not word[0]:
             break
     return x, resid * _inv_or_zero(bnorm, tiny), nsteps

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
            "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
-           "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu", "coax_u.cu")
+           "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu", "coax_u.cu",
+           "gmres_step.cu")
 HEADERS = ("common.cuh", "mma_f64.cuh", "harmonics.cuh", "hankel.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -95,6 +96,12 @@ _SIGNATURES = {
     # t, tzw, rows, cols, order, tiles, u, u_img, q, nb, nnz, n_tiles, dbl,
     # stream
     "bhs_coax_u": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # V, R, g, Q, resid, steps, flag, w, diag, target, cwork, rwork, K, n, m,
+    # j, nblk, ept, tiny, dbl, stream
+    "bhs_arnoldi_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _D, _I, _P],
+    # R, g, flag, y, K, m, tiny, dbl, stream
+    "bhs_gmres_backsolve": [_P, _P, _P, _P, _I, _I, _D, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

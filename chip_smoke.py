@@ -268,6 +268,26 @@ coax tables' caches and require KU launched; phase 8 (a) splits its coax
 stage into the tables (host index and plan, the root tables on the card,
 KU) and K5 + K2.
 
+Phase 2 also holds K6 (`ops/gmres_step.py`: `arnoldi_step`, one Arnoldi
+step of GMRES, and `backsolve`, a cycle's back-substitution) against
+their plain versions: from the same state and matvec at steps 0, 7 and 47
+of (i) the bench block's factored operator (complex64, 4 x 16,384, basis
+48) and steps 0, 10 and 20 of (ii) phase 6 (a)'s offset table
+(complex128, basis 192), target 0 so that every step runs: V, R, Q, g and
+resid within 1e-5 / 1e-13 of each tensor's largest entry, steps and the
+flag word equal, two launches bit for bit, a masked launch (no system
+active, or a residual non-finite) leaving the state unchanged; each step
+timed beside the plain step and its bound (rows 0..j of V read once;
+this design's traffic, the rows read four times, printed beside), and
+the back-substitution at each state's j_f beside
+`torch.linalg.solve_triangular`.  Phase 4 prints the lag s of the host's
+reads of the flag word, the reads, the steps launched and run per solve
+and K6's launches per k-block, and runs a bench block with its GMRES under
+torch.cuda.set_sync_debug_mode("error") (`no_host_sync`); phases 4, 6 (a),
+8 (a), 9 (a, b) and 12 (a) require K6 launched, and phase 12 (a) runs the
+three sharded solves on the one NCCL rank under the same check
+(`sharded_no_host_sync`).
+
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
 mantissas (|mant| ~ 1) and on the unscaled values, relative above 1.
@@ -1425,6 +1445,173 @@ def check_ku(torch, dev, card):
     return results
 
 
+K6_TOL = {"complex64": 1e-5, "complex128": 1e-13}  # of each state tensor's largest entry
+# K6's shapes (label, complex dtype name, restart m, the steps j held): the
+# bench block (phase 4, the factored operator) and phase 6 (a)'s complex128
+# offset table, both 4 k x 16,384 unknowns
+K6_CASES = (("(i) bench block", "complex64", 48, (0, 7, 47)),
+            ("(ii) offset table", "complex128", 192, (0, 10, 20)))
+
+
+def k6_bound(n_sys, n, j, name, v_reads=1):
+    """K6's bound for step j, from the bytes the step must move: rows 0..j
+    of V read once, w and diag read, V[j+1] written, the rows of Q in the
+    rotation and rows j, j+1 of Q and row j of R; 8 real operations per
+    complex multiply-add of the two passes' projections and updates.
+    v_reads=4 gives instead this design's traffic (each pass of CGS2 reads
+    the rows twice: once for its dots, once for its update)."""
+    cs = 8 if name == "complex64" else 16
+    nbytes = ((v_reads * (j + 1) + 3) * n_sys * n * cs
+              + n_sys * ((j + 2) ** 2 // 2 + 3 * (j + 2)) * cs)
+    return bound(nbytes, 32 * (j + 1) * n_sys * n, name)
+
+
+def backsolve_bound(n_sys, j_f, name):
+    """The back-substitution's bound: R's upper triangle over the j_f
+    columns and g read, y written; a complex multiply-add per entry."""
+    cs = 8 if name == "complex64" else 16
+    tri = n_sys * j_f * (j_f + 1) // 2
+    return bound((tri + 2 * n_sys * j_f) * cs, 8 * tri, name)
+
+
+def k6_operator(torch, dev, name, m):
+    """(mv, diag, r): phase 4's bench operator (the factored route, c64)
+    or phase 6 (a)'s offset table (c128, unscaled), 4 k x 16,384
+    unknowns, and a random vector."""
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+
+    c = create_from_branching_types("ba")
+    rdt = torch.float32 if name == "complex64" else torch.float64
+    cdt = torch.complex64 if name == "complex64" else torch.complex128
+    centers_np = lattice_centers()
+    nb = len(centers_np)
+    args = (torch.ones(KB, nb, dtype=rdt, device=dev),
+            torch.as_tensor(sweep_ks()[:KB], dtype=rdt, device=dev),
+            torch.ones(KB, dtype=rdt, device=dev),
+            torch.ones(KB, nb, dtype=cdt, device=dev), torch.zeros(KB, nb, dtype=cdt, device=dev))
+    if name == "complex64":
+        mv, diag = _core._factored_operator(c, N_END, centers_np, *args)
+    else:
+        mv, diag = _core._matfree_operator(c, N_END, centers_np, *args, stable=False)
+    r = randc(torch, np.random.default_rng(19), (KB, nb * N_END * N_END), cdt, dev)
+    return mv, diag, r
+
+
+def check_k6(torch, dev, card):
+    """Phase 2, K6 (`ops/gmres_step.py::arnoldi_step`, one Arnoldi step,
+    and `backsolve`): from the same state and matvec at steps j of the
+    bench block's and phase 6 (a)'s solves (target 0: every step runs), the
+    kernel's V, R, Q, g and resid within K6_TOL of the plain step's, steps
+    and the flag word equal; launched twice and required bit-for-bit
+    equal; a masked launch changes nothing; timed beside the plain step
+    and the bound; then the back-substitution of the last state's R and g
+    against its plain version, timed beside `torch.linalg.solve_triangular`.
+    Returns the results of (i) step j = 7 by dtype name, and of the
+    back-substitution at (i), under "gmres_backsolve"."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
+        _arnoldi_step_plain, _backsolve_plain, arnoldi_state, arnoldi_step, backsolve)
+
+    def clone(st):
+        return type(st)(*[t.clone() if isinstance(t, torch.Tensor) else t for t in st])
+
+    def tensors(st):
+        return {k: t for k, t in st._asdict().items()
+                if isinstance(t, torch.Tensor) and k not in ("cwork", "rwork")}
+
+    results = {"arnoldi_step": {}, "gmres_backsolve": {}}
+    for label, name, m, js in K6_CASES:
+        mv, diag, r = k6_operator(torch, dev, name, m)
+        n_sys, n = r.shape
+        rdt = r.real.dtype
+        target = torch.zeros(n_sys, dtype=rdt, device=dev)
+        tiny = float(torch.finfo(rdt).tiny) ** 0.5
+        st = arnoldi_state(r, diag, target, m)
+        for j in range(max(js) + 1):
+            w = mv(st.V[:, j])
+            if j in js:
+                got, again, ref = clone(st), clone(st), clone(st)
+                n0 = arnoldi_step.launches
+                arnoldi_step(got, w, j, target, tiny)
+                arnoldi_step(again, w, j, target, tiny)
+                if arnoldi_step.launches != n0 + 2:
+                    raise RuntimeError(f"arnoldi_step {label} j={j}: the kernel did not launch")
+                _arnoldi_step_plain(ref, w, j, target, tiny)
+                if ref.flag.tolist() != [1, 0, j + 1]:
+                    raise RuntimeError(f"arnoldi_step {label} j={j}: the step ran masked")
+                errs = {}
+                for key, t in tensors(got).items():
+                    want = getattr(ref, key)
+                    if not same_bits(torch, t, getattr(again, key)):
+                        raise RuntimeError(f"arnoldi_step {label} j={j}: two launches differ")
+                    if t.dtype == torch.int32:
+                        if not torch.equal(t, want):
+                            raise RuntimeError(f"arnoldi_step {label} j={j}: {key} differs")
+                        continue
+                    errs[key] = rel_err(torch, t, want)
+                worst = max(e[1] for e in errs.values())
+                if worst > K6_TOL[name]:
+                    raise RuntimeError(f"arnoldi_step {label} j={j}: off its plain version {errs}")
+                for word in ([0, 0, j], [1, 1, j]):
+                    masked = clone(st)
+                    masked.flag.copy_(torch.tensor(word, dtype=torch.int32))
+                    before = clone(masked)
+                    arnoldi_step(masked, w, j, target, tiny)
+                    if not all(same_bits(torch, t, getattr(before, k))
+                               for k, t in tensors(masked).items()):
+                        raise RuntimeError(f"arnoldi_step {label} j={j}: a masked launch "
+                                           f"changed the state")
+                scratch = clone(st)
+                ms = cuda_ms(torch, lambda: arnoldi_step(scratch, w, j, target, tiny), 10)
+                dus = device_us(torch, lambda: arnoldi_step(scratch, w, j, target, tiny), "k6_",
+                                per_call=True)
+                pms = cuda_ms(torch, lambda: _arnoldi_step_plain(scratch, w, j, target, tiny), 5)
+                b = k6_bound(n_sys, n, j, name)
+                traffic = k6_bound(n_sys, n, j, name, v_reads=4)[0]
+                print(f"[2] arnoldi_step (K6) {label}, {n_sys} x {n} unknowns, m={m}, step "
+                      f"j={j} {name}: max_abs_err {max(e[0] for e in errs.values()):.3e}, "
+                      f"largest error / largest entry {worst:.3e} (V {errs['V'][1]:.2e}, R "
+                      f"{errs['R'][1]:.2e}, Q {errs['Q'][1]:.2e}, g {errs['g'][1]:.2e}, resid "
+                      f"{errs['resid'][1]:.2e}); kernel {ms:.4f} ms ({dus:.2f} us on the device "
+                      f"over its 7 launches, torch.profiler; the bound's share {b[0] * 1e3 / dus:.3f}"
+                      f"; this design's traffic, V read four times, {traffic:.6f} ms, its share "
+                      f"{traffic * 1e3 / dus:.3f}) plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) "
+                      f"library none ({card})")
+                if j == 7:
+                    results["arnoldi_step"][name] = {
+                        "abs": max(e[0] for e in errs.values()), "rel": worst, "ms": ms,
+                        "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                del got, again, ref, scratch
+            _arnoldi_step_plain(st, w, j, target, tiny)
+        j_f = int(st.flag[2])
+        n0 = backsolve.launches
+        y = backsolve(st.R, st.g, st.flag, tiny)
+        if backsolve.launches != n0 + 1:
+            raise RuntimeError(f"backsolve {label}: the kernel did not launch")
+        ref = _backsolve_plain(st.R, st.g, st.flag, tiny)
+        ea, er = rel_err(torch, y, ref)
+        if er > K6_TOL[name] or not same_bits(torch, backsolve(st.R, st.g, st.flag, tiny), y):
+            raise RuntimeError(f"backsolve {label}: off its plain version ({er:.3e}) or not "
+                               f"repeated bit for bit")
+        ms = cuda_ms(torch, lambda: backsolve(st.R, st.g, st.flag, tiny), 10)
+        dus = device_us(torch, lambda: backsolve(st.R, st.g, st.flag, tiny), "k6_backsolve")
+        pms = cuda_ms(torch, lambda: _backsolve_plain(st.R, st.g, st.flag, tiny), 3)
+        upper = st.R[:, :j_f, :j_f].transpose(1, 2)
+        rhs = st.g[:, :j_f, None]
+        lms = cuda_ms(torch, lambda: torch.linalg.solve_triangular(upper, rhs, upper=True), 10)
+        b = backsolve_bound(n_sys, j_f, name)
+        print(f"[2] gmres_backsolve (K6) {label}, j_f={j_f} {name}: max_abs_err {ea:.3e} "
+              f"max_rel_err {er:.3e}; kernel {ms:.4f} ms ({dus:.2f} us on the device) plain "
+              f"{pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) library {lms:.4f} ms "
+              f"(torch.linalg.solve_triangular) ({card})")
+        results["gmres_backsolve"][name] = {
+            "abs": ea, "rel": er, "ms": ms, "plain_ms": pms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": lms}
+        del st, mv, diag, r, y, ref
+        torch.cuda.empty_cache()
+    return results
+
+
 def readme_golden(torch, dev):
     """Phase 3: the README problem through the port on the card, on the
     factored route and with the default solver (a direct LU)."""
@@ -1495,6 +1682,9 @@ def bench_config(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch import biem, plane_wave
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.ops import gmres as _gmres
+
     reset, read = kernel_counts()
 
     c = create_from_branching_types("ba")
@@ -1517,11 +1707,13 @@ def bench_config(torch, dev, card):
     if k3_first <= 0 or ku_first <= 0:
         raise RuntimeError("[4] the first block never launched K3 or KU")
     reset()
+    gm0 = gmres_counts()
     t0 = time.perf_counter()
     run1 = sweep()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read()
+    gm = {k: v - gm0[k] for k, v in gmres_counts().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[4] launches in the sweep: {launches}")
     # the sweep evaluates uscat(0) only: the many-point KA runs in the field
@@ -1548,6 +1740,15 @@ def bench_config(torch, dev, card):
     print(f"[4] peak device memory {peak:.3f} GiB (warm-up block and sweep, "
           f"torch.cuda.max_memory_allocated) ({card})")
 
+    n_solves = len(run1)
+    print(f"[4] GMRES (K6): lag s = {_gmres._LAG_CUDA} steps between the host's reads of the "
+          f"flag word; per solve {gm['host_reads'] / n_solves:.2f} host reads, "
+          f"{gm['steps_issued'] / n_solves:.2f} steps launched (each after a matvec), "
+          f"{gm['steps_run'] / n_solves:.2f} run, so {gm['steps_issued'] - gm['steps_run']} "
+          f"matvecs and masked steps past convergence in the sweep; K6 launches per k-block: "
+          f"arnoldi_step {launches['arnoldi_step'] / n_blocks:.1f}, gmres_backsolve "
+          f"{launches['gmres_backsolve'] / n_blocks:.1f}")
+    no_host_sync(torch, _core, lambda: block(ks[:KB], None), "[4] the bench block")
     iters = [calc.iters.tolist() for calc, _ in run1]
     relres = [calc.relres.tolist() for calc, _ in run1]
     for calc, _ in run1:
@@ -1871,9 +2072,10 @@ def stage_bounds(torch, c, centers_np, card, iters):
     the shapes this run gives them: the sandwich (two degree-group
     products per offset), LU (8/3 n^3 real operations per system), K3 (D by
     quadrature: the per-group contraction and the harmonics at the rotated
-    points) and K6 (a CGS2 Krylov step reads the basis four times: two
-    passes of a projection and an update), for `iters` {label: (steps,
-    dtype name)} Krylov steps per 4-k block."""
+    points) and K6 (a CGS2 Krylov step reads the basis's rows so far once,
+    w and diag, and writes the next row; two passes of a projection and
+    an update), for `iters` {label: (steps, dtype name)} Krylov steps per
+    4-k block."""
     from biem_helmholtz_sphere_tpu_torch.biem._core import _offsets, _pair_routing
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import (
         _degree_groups, _rot_tables)
@@ -1898,7 +2100,7 @@ def stage_bounds(torch, c, centers_np, card, iters):
     n = KB * nb * N_END * N_END
     for label, (m, name) in iters.items():
         cs = 8 if name == "complex64" else 16
-        b = bound(2 * m * (m + 1) * n * cs, 16 * m * (m + 1) * n, name)
+        b = bound((m * (m + 1) // 2 + 3 * m) * n * cs, 16 * m * (m + 1) * n, name)
         print(f"[6] bound: K6 GMRES {m} CGS2 steps on {KB} x {n // KB} unknowns ({label}, "
               f"{name}): {b[0]:.6f} ms ({b[1]}) ({card})")
 
@@ -1977,7 +2179,8 @@ def matfree_route(torch, dev, card):
           f"peak device memory {peak:.3f} GiB ({card})")
     if calc.matrix is not None or calc.relres is None:
         raise RuntimeError("(a) the default route formed the matrix or did not iterate")
-    for name in ("lane_gather", "lane_scatter", "spherical_jh", "coax_fold"):
+    for name in ("lane_gather", "lane_scatter", "spherical_jh", "coax_fold", "arnoldi_step",
+                 "gmres_backsolve"):
         if launches[name] <= 0:
             raise RuntimeError(f"(a) the offset-table route never launched {name}")
     if launches["block_diag_cmm"] != 0:
@@ -2154,6 +2357,7 @@ def kernel_counts():
     from biem_helmholtz_sphere_tpu_torch.ops.harmonic_eval import harmonic_eval
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import rotation_blocks
     from biem_helmholtz_sphere_tpu_torch.ops.coax_u import coax_u
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import arnoldi_step, backsolve
 
     counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
                 "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
@@ -2169,7 +2373,9 @@ def kernel_counts():
                 "band_f": (band_f, "launches"),
                 "harmonic_eval": (harmonic_eval, "launches"),
                 "rotation_blocks": (rotation_blocks, "launches"),
-                "coax_u": (coax_u, "launches")}
+                "coax_u": (coax_u, "launches"),
+                "arnoldi_step": (arnoldi_step, "launches"),
+                "gmres_backsolve": (backsolve, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -2179,6 +2385,44 @@ def kernel_counts():
         return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
 
     return reset, read
+
+
+def gmres_counts():
+    """The GMRES loop's counts: host reads of the flag word, Arnoldi steps
+    launched and run (`ops/gmres.py::gmres_solve_op`)."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres import gmres_solve_op
+
+    return {k: getattr(gmres_solve_op, k) for k in ("host_reads", "steps_issued", "steps_run")}
+
+
+def no_host_sync(torch, module, run, label):
+    """run() with `module.gmres_solve_op` under torch.cuda.set_sync_debug_mode
+    ("error"): a solve (its matvecs, K6's steps and back-substitution, the
+    reads of the flag word through a pinned buffer and an event) that
+    waits on the card raises.  Requires K6 launched."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import arnoldi_step
+
+    solve = module.gmres_solve_op
+
+    def guarded(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return solve(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    n0 = arnoldi_step.launches
+    module.gmres_solve_op = guarded
+    try:
+        run()
+    finally:
+        module.gmres_solve_op = solve
+    torch.cuda.synchronize()
+    if arnoldi_step.launches == n0:
+        raise RuntimeError(f"{label}: K6 never launched")
+    print(f"{label}: the GMRES solve ran under torch.cuda.set_sync_debug_mode('error'): no "
+          f"host sync between the reads of the flag word")
 
 
 def require_launched(counts, names, label):
@@ -2608,7 +2852,8 @@ def four_d(torch, dev, card):
           f"max relres "
           f"{float(calc.relres.max()):.3e}; peak device memory {peak:.3f} GiB ({card})")
     require_launched(counts, ("block_diag_cmm", "lane_gather", "lane_scatter", "spherical_jh",
-                              "coax_fold", "rotation_blocks", "harmonic_eval", "coax_u"), "(a)")
+                              "coax_fold", "rotation_blocks", "harmonic_eval", "coax_u",
+                              "arnoldi_step", "gmres_backsolve"), "(a)")
     if panels <= 0 or panels > counts["block_diag_cmm"]:
         raise RuntimeError(f"(a) KB's row-panel mode launched {panels} times")
     launches = dict(counts, block_diag_cmm_panels=panels)
@@ -2990,7 +3235,8 @@ def n_balls_family(torch, dev, card):
         peak = peak_gib()
         calc, centers = out["calc"], out["centers"]
         require_launched(counts, ["coax_fold", "spherical_jh", "fused_ba_eval_few",
-                                  "rotation_blocks", "coax_u"], f"[9] (a) {name}")
+                                  "rotation_blocks", "coax_u", "arnoldi_step",
+                                  "gmres_backsolve"], f"[9] (a) {name}")
         if counts["block_diag_cmm"] or counts["graf_fold"]:
             raise RuntimeError(f"[9] (a): the lattice route launched KB or KG: {counts}")
         dens, relres = calc.density, float(calc.relres.max())
@@ -3103,7 +3349,8 @@ def n_balls_family(torch, dev, card):
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t_all
     counts = read()
-    require_launched(counts, ["graf_fold", "spherical_jh", "harmonic_eval"], "[9] (b)")
+    require_launched(counts, ["graf_fold", "spherical_jh", "harmonic_eval", "arnoldi_step",
+                              "gmres_backsolve"], "[9] (b)")
     if counts["block_diag_cmm"] or counts["coax_fold"]:
         raise RuntimeError(f"[9] (b): the 2D lattice route launched KB or K2: {counts}")
     kg_launches = counts["graf_fold"]
@@ -4095,6 +4342,29 @@ def sharded_paths(torch, dev, world, device_mesh, stats):
     return out
 
 
+def sharded_no_host_sync(torch, dev):
+    """Phase 12 (a)'s sharded solves in complex128 (dense, the offset table,
+    the lattice) on the one-rank NCCL group, untimed (`_stats` times the
+    collectives between device synchronizations), each with its GMRES under
+    `no_host_sync`."""
+    from biem_helmholtz_sphere_tpu_torch import parallel
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+
+    ba = create_from_branching_types("ba")
+    f = dict(dtype=torch.float64, device=dev)
+    direction = torch.tensor([1.0, 0.0, 0.0], **f)
+    for name, cen, n_end, kw in (
+            ("dense", lattice_centers(), N_END_SHARDED, {}),
+            ("offset table", lattice_centers(), N_END, {"matfree": True}),
+            ("lattice", square_lattice(N_SIDE_3D, 3), N_END_3D, {"lattice": True})):
+        k = torch.tensor(1.0 if name == "lattice" else float(sweep_ks()[0]), **f)
+        no_host_sync(torch, parallel, lambda: parallel.sharded_solve(
+            ba, centers=cen, radii=torch.ones(len(cen), **f), k=k, n_end=n_end,
+            direction=direction, mesh=parallel.make_mesh(1, ("rows",), device="cuda"), **kw),
+            f"[12] (a) sharded_solve, {name}, one NCCL rank")
+        torch.cuda.empty_cache()
+
+
 def eval_points(torch, dev):
     """Phase 4's 131,072 field points (float32)."""
     return torch.as_tensor(
@@ -4222,11 +4492,12 @@ def parallel_and_frontends(torch, dev, card):
             one = sharded_paths(torch, dev, 1, "cuda", stats)
             torch.cuda.synchronize()
             counts = read()
+            sharded_no_host_sync(torch, dev)
         finally:
             dist.destroy_process_group()
     require_launched(counts, ["fused_ba_eval", "fused_ba_eval_few", "block_diag_cmm",
                               "lane_gather", "lane_scatter", "spherical_jh", "coax_fold",
-                              "dense_assemble"], "[12] (a)")
+                              "dense_assemble", "arnoldi_step", "gmres_backsolve"], "[12] (a)")
     f = dict(dtype=torch.float32, device=dev)
     centers = torch.as_tensor(lattice_centers(), **f)
     nb = len(centers)
@@ -4395,6 +4666,7 @@ def main():
     results["harmonic_eval"] = check_ke(torch, dev, card)
     results["rotation_blocks"] = check_k3(torch, dev, card)
     results["coax_u"] = check_ku(torch, dev, card)
+    results.update(check_k6(torch, dev, card))
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
@@ -4447,6 +4719,9 @@ def main():
                             "biem_helmholtz_sphere_tpu/translation/_rotation.py:251"),
         # the coax band tables U (phase 4's first block)
         "coax_u": ("csrc/coax_u.cu", "biem_helmholtz_sphere_tpu/translation/_scaled.py:135"),
+        # GMRES's Arnoldi step and back-substitution (phase 4's sweep)
+        "arnoldi_step": ("csrc/gmres_step.cu", "biem_helmholtz_sphere_tpu/ops/cplx.py:569"),
+        "gmres_backsolve": ("csrc/gmres_step.cu", "biem_helmholtz_sphere_tpu/ops/cplx.py:627"),
     }
     record = {"kernels": [
         {

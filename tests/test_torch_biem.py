@@ -20,7 +20,7 @@ from biem_helmholtz_sphere_tpu import plane_wave as j_plane_wave
 from biem_helmholtz_sphere_tpu.coords import create_from_branching_types as j_tree
 from biem_helmholtz_sphere_tpu_torch import BIEMResultCalculator, biem, plane_wave
 from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
-from biem_helmholtz_sphere_tpu_torch.ops.gmres import gmres_solve_op
+from biem_helmholtz_sphere_tpu_torch.ops.gmres import _gmres_cgs2, gmres_solve_op
 
 N_END = 4
 KS = np.array([1.3, 1.7])
@@ -156,13 +156,20 @@ def test_density0_warm_start_cuts_iterations():
 
 def test_gmres_raises_on_a_nan_operator():
     """resid > target is False for NaN: the solver must raise instead of
-    reporting a converged solve after one step."""
+    reporting a converged solve after one step, at every lag of the host's
+    reads of the flag word (None: gmres_solve_op's own, 1 on the CPU)."""
     b = torch.ones(2, 8, dtype=torch.complex128)
     diag = torch.ones_like(b)
-    with pytest.raises(FloatingPointError):
-        gmres_solve_op(lambda x: x * float("nan"), diag, b)
-    with pytest.raises(FloatingPointError):
-        gmres_solve_op(lambda x: x, diag, b * float("nan"))
+    for lag in (None, 2, 4, 8):
+        def solve(mv, rhs):
+            if lag is None:
+                return gmres_solve_op(mv, diag, rhs)
+            return _gmres_cgs2(mv, diag, rhs, 1e-11, 8, 20, None, lag=lag)
+
+        with pytest.raises(FloatingPointError):
+            solve(lambda x: x * float("nan"), b)
+        with pytest.raises(FloatingPointError):
+            solve(lambda x: x, b * float("nan"))
 
 
 def test_gmres_matches_a_direct_solve():

@@ -1661,3 +1661,207 @@ def test_ke_and_k3_raise_on_a_broken_launch(cuda, monkeypatch):
         ke_mod.harmonic_eval(c, n, x, cen, k, w)
     with pytest.raises(RuntimeError, match="bhs_rotation_blocks"):
         _rotation.rotation_blocks(c, dirs, n)
+
+
+# K6's shapes: (K, n, m, dtype, the steps j held): (i) the bench block,
+# (ii) phase 6 (a)'s complex128 offset table, (iii) the 4D first block,
+# (iv) the 32 x 32 lattice, (v) one system at an odd n
+_K6_CASES = {
+    "i-bench": (4, 16384, 48, torch.complex64, (0, 7, 47)),
+    "ii-offset-table-c128": (4, 16384, 192, torch.complex128, (0, 31, 191)),
+    "iii-4d": (4, 45920, 48, torch.complex64, (0, 47)),
+    "iv-lattice": (1, 369664, 48, torch.complex64, (0, 47)),
+    "v-odd-c64": (1, 1001, 12, torch.complex64, (0, 11)),
+    "v-odd-c128": (1, 1001, 12, torch.complex128, (0, 11)),
+}
+K6_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-13}
+
+
+def _k6_operator(device, n_sys, n, dtype, seed=0):
+    """(mv, diag, r): a Jacobi-preconditioned operator I + 0.85 S + 0.1 S^5
+    (S the cyclic shift) scaled by a random diagonal, whose GMRES residual
+    falls ~0.95 a step (so no step up to 191 is masked at target 0), and a
+    random vector."""
+    g = torch.Generator().manual_seed(seed)
+    d = (torch.rand(n_sys, n, generator=g, dtype=torch.float64) + 1.0) * torch.exp(
+        1j * torch.rand(n_sys, n, generator=g, dtype=torch.float64))
+    d = d.to(dtype).to(device)
+    r = torch.randn(n_sys, n, generator=g, dtype=torch.complex128).to(dtype).to(device)
+
+    def mv(x):
+        return d * (x + 0.85 * torch.roll(x, 1, -1) + 0.1 * torch.roll(x, 5, -1))
+
+    return mv, d, r
+
+
+def _clone_state(st):
+    return type(st)(*[t.clone() if isinstance(t, torch.Tensor) else t for t in st])
+
+
+def _state_tensors(st):
+    return {name: t for name, t in st._asdict().items()
+            if isinstance(t, torch.Tensor) and name not in ("cwork", "rwork")}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(_K6_CASES))
+def test_k6_step_matches_the_plain_step(cuda, case):
+    """K6 (one Arnoldi step) against its plain version from the same state
+    and matvec at steps j of a solve: V, R (the rotated column h), Q, g and
+    resid within 1e-5 (complex64) / 1e-13 (complex128) of each tensor's
+    largest entry, steps and the flag word equal; a second launch bit for
+    bit; a masked launch (no system active, or a residual non-finite)
+    changes no state tensor."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
+        _arnoldi_step_plain, arnoldi_state, arnoldi_step)
+
+    n_sys, n, m, dtype, js = _K6_CASES[case]
+    rdt = kernels.REAL_OF[dtype]
+    mv, d, r = _k6_operator(cuda, n_sys, n, dtype)
+    target = torch.zeros(n_sys, dtype=rdt, device=cuda)
+    tiny = float(torch.finfo(rdt).tiny) ** 0.5
+    st = arnoldi_state(r, d, target, m)
+    for j in range(max(js) + 1):
+        w = mv(st.V[:, j])
+        if j in js:
+            got, again, ref = _clone_state(st), _clone_state(st), _clone_state(st)
+            n0 = arnoldi_step.launches
+            arnoldi_step(got, w, j, target, tiny)
+            arnoldi_step(again, w, j, target, tiny)
+            assert arnoldi_step.launches == n0 + 2
+            _arnoldi_step_plain(ref, w, j, target, tiny)
+            assert ref.flag.tolist() == [1, 0, j + 1], "the step ran masked"
+            for name, t in _state_tensors(got).items():
+                want = getattr(ref, name)
+                if t.dtype in (torch.int32,):
+                    assert torch.equal(t, want), (name, j)
+                else:
+                    assert _rel(t, want) <= K6_TOL[dtype], (name, j, _rel(t, want))
+                assert _same_bits(t, getattr(again, name)), (name, j)
+            for word in ([0, 0, j], [1, 1, j]):
+                masked = _clone_state(st)
+                masked.flag.copy_(torch.tensor(word, dtype=torch.int32))
+                before = _clone_state(masked)
+                arnoldi_step(masked, w, j, target, tiny)
+                for name, t in _state_tensors(masked).items():
+                    assert _same_bits(t, getattr(before, name)), (name, word)
+        _arnoldi_step_plain(st, w, j, target, tiny)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_k6_backsolve_matches_the_plain_version(cuda, dtype):
+    """The back-substitution kernel against its plain version at every j_f
+    of a 48-step (complex64) / 192-step (complex128) cycle's R and g."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
+        _arnoldi_step_plain, _backsolve_plain, arnoldi_state, backsolve)
+
+    m = 48 if dtype == torch.complex64 else 192
+    rdt = kernels.REAL_OF[dtype]
+    mv, d, r = _k6_operator(cuda, 3, 4097, dtype, seed=1)
+    target = torch.zeros(3, dtype=rdt, device=cuda)
+    tiny = float(torch.finfo(rdt).tiny) ** 0.5
+    st = arnoldi_state(r, d, target, m)
+    for j in range(m):
+        _arnoldi_step_plain(st, mv(st.V[:, j]), j, target, tiny)
+    for j_f in range(1, m + 1):
+        flag = torch.tensor([0, 0, j_f], dtype=torch.int32, device=cuda)
+        n0 = backsolve.launches
+        y = backsolve(st.R, st.g, flag, tiny)
+        assert backsolve.launches == n0 + 1
+        ref = _backsolve_plain(st.R, st.g, flag, tiny)
+        assert bool((y[:, j_f:] == 0).all())
+        assert _rel(y, ref) <= K6_TOL[dtype], (j_f, _rel(y, ref))
+        assert _same_bits(backsolve(st.R, st.g, flag, tiny), y)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_k6_solves_match_the_plain_solve(cuda, dtype, monkeypatch):
+    """Whole restarted solves on the card (every step and back-substitution
+    through K6, the plain versions never called) against the same solves
+    on the CPU (the plain versions): relres <= tol, x within 10 tol, the
+    iterations equal in complex128 and within 1 in complex64; cold and
+    warm, K = 3 at an odd n."""
+    from biem_helmholtz_sphere_tpu_torch.ops import gmres_step
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres import gmres_solve_op
+
+    tol = 3e-5 if dtype == torch.complex64 else 1e-11
+    mv, d, b = _k6_operator(cuda, 3, 4097, dtype, seed=2)
+    cpu = torch.device("cpu")
+
+    def mv_cpu(x):
+        return mv(x.to(cuda)).to(cpu)
+
+    def refuse(*args):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for x0 in (None, 0.5 * b / d):
+        monkeypatch.setattr(gmres_step, "_arnoldi_step_plain", refuse)
+        monkeypatch.setattr(gmres_step, "_backsolve_plain", refuse)
+        n0, i0 = gmres_step.arnoldi_step.launches, gmres_solve_op.steps_issued
+        x, relres, iters = gmres_solve_op(mv, d, b, restart=24, x0=x0)
+        assert gmres_step.arnoldi_step.launches - n0 == gmres_solve_op.steps_issued - i0 > 0
+        monkeypatch.undo()
+        xc, relc, itc = gmres_solve_op(mv_cpu, d.cpu(), b.cpu(), restart=24,
+                                       x0=None if x0 is None else x0.cpu())
+        assert float(relres.max()) <= tol and float(relc.max()) <= tol
+        assert _rel(x.cpu(), xc) <= 10 * tol
+        slack = 0 if dtype == torch.complex128 else 1
+        assert int((iters.cpu() - itc).abs().max()) <= slack, (iters, itc)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("route", ["factored", "dense-gmres", "offset-table", "lattice"])
+def test_gmres_routes_make_no_host_sync(cuda, route, monkeypatch):
+    """Every GMRES route's solve (its matvec, K6's steps and back-
+    substitution, the reads of the flag word through a pinned buffer and
+    an event) runs under torch.cuda.set_sync_debug_mode("error"): no
+    operation in it waits on the card, and K6 launched."""
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import arnoldi_step
+
+    tree, centers, n_end, kw = {
+        "factored": ("ba", _lattice(), 8, dict(solver="matfree", stable=True)),
+        "dense-gmres": ("ba", _lattice(), 8, dict(solver="gmres")),
+        "offset-table": ("ba", _lattice(), 8, dict(solver="matfree", stable=False)),
+        "lattice": ("a", _square_lattice(8, 2), 8, dict()),
+    }[route]
+    solve = _core.gmres_solve_op
+    ran = []
+
+    def guarded(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = solve(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran.append(out[2].max())
+        return out
+
+    monkeypatch.setattr(_core, "gmres_solve_op", guarded)
+    for dtype in (torch.float32, torch.float64):
+        n0 = arnoldi_step.launches
+        _solve_nd(cuda, tree, dtype, centers, n_end, 1.0, **kw)
+        assert arnoldi_step.launches > n0
+    assert len(ran) == 2
+
+
+@pytest.mark.requires_cuda
+def test_k6_raises_on_a_broken_launch(cuda, monkeypatch):
+    """Given CUDA tensors and a K6 launch that fails, the solve raises: no
+    fallback to the plain step."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres import gmres_solve_op
+
+    launch = kernels.launch
+
+    def broken(name, *args):
+        if name == "bhs_arnoldi_step":
+            raise RuntimeError(f"{name}: CUDA error 1")
+        return launch(name, *args)
+
+    mv, d, b = _k6_operator(cuda, 2, 999, torch.complex64)
+    monkeypatch.setattr(kernels, "launch", broken)
+    with pytest.raises(RuntimeError, match="bhs_arnoldi_step"):
+        gmres_solve_op(mv, d, b)

@@ -18,12 +18,13 @@ _TILE_COST balances the units with.
 """
 
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+from tools.ab_common import card_line  # noqa: E402
 
 MARKS = 36  # int64 per CTA: start-relative clocks, then top group and tiles
 EDITS = (
@@ -78,10 +79,7 @@ def main():
     if not torch.cuda.is_available():
         print("torch_k2_trace: CUDA is not available", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     vdir = traced_copy()
     kernels.CSRC, kernels.BUILD_DIR, kernels._lib = vdir, vdir / "out", None
     dev = torch.device("cuda", 0)

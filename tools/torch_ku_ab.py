@@ -3,8 +3,9 @@
     python tools/torch_ku_ab.py LABEL
 
 Run from the repository root on a machine with a CUDA card and nvcc (no
-JAX needed).  In this fresh process, after a warm-up (the kernels built
-and loaded, a small 'ba' solve), it times with synchronising host timers
+JAX needed).  In this fresh process, after a warm-up
+(`ab_common.warm_up`: the kernels built and loaded, a small 'ba' solve),
+it times with synchronising host timers
 (`chip_smoke.split_stages`):
 
 - phase 8 (a)'s first block, cold: 'bba' on the hypercube {-2, 2}^4,
@@ -20,9 +21,10 @@ The tables are split by whatever stages the tree under test has: the host
 index and plan, the root tables on the card and KU (`_coax_plan_on`,
 `_coax_tables_on`, `coax_u`), or the host numpy tables (`_coax_tables`,
 which enumerate the basis at 2 n_end - 1) and, the rest of
-`_coax_packed_on`, the host product, mask, tile fill and copies.  A copy
-run from an unpacked parent tree times the parent's: run parent, this,
-this, parent in one call.  Prints LABEL and one JSON object of seconds.
+`_coax_packed_on`, the host product, mask, tile fill and copies.  To time
+the parent's in turns with this tree's (parent, this, this, parent):
+`python tools/ab_common.py PARENT_DIR tools/torch_ku_ab.py`.  Prints the
+card, then LABEL and one JSON object of seconds.
 """
 
 import json
@@ -31,6 +33,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+from tools.ab_common import card_line, warm_up  # noqa: E402
 
 
 def stages_of(mods):
@@ -58,7 +62,6 @@ def main():
     from biem_helmholtz_sphere_tpu_torch.biem import _core
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
-    from biem_helmholtz_sphere_tpu_torch.ops import kernels
     from biem_helmholtz_sphere_tpu_torch.translation import _scaled
 
     if not torch.cuda.is_available():
@@ -80,9 +83,8 @@ def main():
                     radii=torch.ones(n_k, len(centers), **f), k=kt, n_end=n_end, uin=uin)
         return calc.uscat(torch.zeros(d, 1, **f))
 
-    kernels.library()
-    solve(create_from_branching_types("ba"), [1.0, 1.1], cs.lattice_centers(), 4)  # warm-up
-    torch.cuda.synchronize()
+    print(f"card: {card_line()}", flush=True)
+    warm_up(torch)
     stages = stages_of((_core, _scaled))
     out = {}
     c4 = create_from_branching_types("bba")

@@ -19,7 +19,6 @@ exits non-zero if a check fails.
 """
 
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -27,6 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (the phase-12 paths and helpers)
+from tools.ab_common import card_line  # noqa: E402
 
 
 def rank_main(rank, world, device, out_dir):
@@ -56,9 +56,7 @@ def main():
         print(f"torch_parallel_cards: {world} ranks need as many cards, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     kernels.library()  # built once, before the ranks load it
     with tempfile.TemporaryDirectory() as tmp:
         spawn_ranks(rank_main, world, tmp, "cuda", tmp)

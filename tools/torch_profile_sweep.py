@@ -61,12 +61,13 @@ host; compare device times, not the wall time, with unprofiled runs.
 """
 
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+from tools.ab_common import busy_us, card_line, device_events  # noqa: E402
 
 
 def _device_time(evt):
@@ -80,11 +81,8 @@ def _device_time(evt):
 PORT_KERNELS = ("fused_ba_eval_kernel", "fused_ba_eval_few_kernel", "block_diag_cmm_kernel",
                 "lane_gather_kernel", "lane_scatter_kernel", "spherical_jh_kernel",
                 "coax_fold_kernel", "dense_assemble_kernel", "graf_fold_kernel", "band_f_kernel",
-                "band_sr_kernel")
-
-
-def _device_events(prof):
-    return [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                "band_sr_kernel", "k6_project", "k6_reduce", "k6_normalize_rotate",
+                "k6_givens", "k6_backsolve")
 
 
 def _port_kernel_name(name):
@@ -105,28 +103,12 @@ def _port_kernel_rows(prof):
     device events (not `key_averages()`, whose keys may be the host ops
     that launched them)."""
     rows = {}
-    for e in _device_events(prof):
+    for e in device_events(prof):
         key = _port_kernel_name(e.name)
         if key is not None:
             t, n = rows.get(key, (0.0, 0))
             rows[key] = (t + e.time_range.end - e.time_range.start, n + 1)
     return rows
-
-
-def _busy_us(prof):
-    """Union of the device kernels' intervals, in microseconds."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in _device_events(prof))
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy, len(spans)
 
 
 def _per_launch_us(torch, fn, reps=20):
@@ -153,7 +135,7 @@ def _all_device_us(torch, fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in _device_events(prof)) / reps
+    return sum(e.time_range.end - e.time_range.start for e in device_events(prof)) / reps
 
 
 def plain_stage_device_times(torch, dev):
@@ -506,10 +488,7 @@ def main():
     if not torch.cuda.is_available():
         print("torch_profile_sweep: CUDA is not available", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda", 0)
     if "--host-only" in sys.argv[1:]:
         print(f"card: {card}")
@@ -531,11 +510,11 @@ def main():
         sweep()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us, n_kernels = _busy_us(prof)
+    busy, n_kernels = busy_us(prof)
     print(f"card: {card}")
     print(f"profiled sweep of {len(ks)} k: wall {wall:.6f} s, device busy "
-          f"{busy_us * 1e-6:.6f} s over {n_kernels} device events, idle share "
-          f"{1.0 - busy_us * 1e-6 / wall:.4f}")
+          f"{busy * 1e-6:.6f} s over {n_kernels} device events, idle share "
+          f"{1.0 - busy * 1e-6 / wall:.4f}")
     rows = [(e.key, _device_time(e), e.count) for e in prof.key_averages()]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
