@@ -97,9 +97,12 @@ _SIGNATURES = {
     # stream
     "bhs_coax_u": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # V, R, g, Q, resid, steps, flag, w, diag, target, cwork, rwork, K, n, m,
-    # j, nblk, ept, tiny, dbl, stream
+    # j, grid, per_round, unit, lmax, cw, rb, stages, resident_rows,
+    # max_pieces, x_smem, boxes, smem, tiny, dbl, stream
     "bhs_arnoldi_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _D, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _I, _P],
+    # dbl, out int [3] (no stream)
+    "bhs_arnoldi_capacity": [_I, _P],
     # R, g, flag, y, K, m, tiny, dbl, stream
     "bhs_gmres_backsolve": [_P, _P, _P, _P, _I, _I, _D, _I, _P],
 }

@@ -269,16 +269,20 @@ stage into the tables (host index and plan, the root tables on the card,
 KU) and K5 + K2.
 
 Phase 2 also holds K6 (`ops/gmres_step.py`: `arnoldi_step`, one Arnoldi
-step of GMRES, and `backsolve`, a cycle's back-substitution) against
-their plain versions: from the same state and matvec at steps 0, 7 and 47
-of (i) the bench block's factored operator (complex64, 4 x 16,384, basis
-48) and steps 0, 10 and 20 of (ii) phase 6 (a)'s offset table
-(complex128, basis 192), target 0 so that every step runs: V, R, Q, g and
-resid within 1e-5 / 1e-13 of each tensor's largest entry, steps and the
-flag word equal, two launches bit for bit, a masked launch (no system
-active, or a residual non-finite) leaving the state unchanged; each step
-timed beside the plain step and its bound (rows 0..j of V read once;
-this design's traffic, the rows read four times, printed beside), and
+step of GMRES in one cooperative launch, and `backsolve`, a cycle's
+back-substitution) against their plain versions: from the same state and
+matvec at steps 0, 7 and 47 of (i) the bench block's factored operator
+(complex64, 4 x 16,384, basis 48), steps 0, 10 and 20 of (ii) phase 6
+(a)'s offset table (complex128, basis 192) and steps 0, 580 and 1,161 of
+(iii) phase 9 (b)'s cold rung (complex64, 1 x 12,288, basis 4,608),
+target 0 so that every step runs: V, R, Q, g and resid within 1e-5 /
+1e-13 of each tensor's largest entry, steps and the flag word equal, two
+launches bit for bit, a masked launch (no system active, or a residual
+non-finite) leaving the state unchanged; one launch a step (torch.profiler
+counts the step's kernels); each step's grid (CTAs, SMs used), whether its
+tile was resident or streamed, its device time beside the plain step and
+its bound (rows 0..j of V read once; this design's traffic, the rows read
+once resident or four times streamed, printed beside), and
 the back-substitution at each state's j_f beside
 `torch.linalg.solve_triangular`.  Phase 4 prints the lag s of the host's
 reads of the flag word, the reads, the steps launched and run per solve
@@ -1446,11 +1450,14 @@ def check_ku(torch, dev, card):
 
 
 K6_TOL = {"complex64": 1e-5, "complex128": 1e-13}  # of each state tensor's largest entry
-# K6's shapes (label, complex dtype name, restart m, the steps j held): the
-# bench block (phase 4, the factored operator) and phase 6 (a)'s complex128
-# offset table, both 4 k x 16,384 unknowns
-K6_CASES = (("(i) bench block", "complex64", 48, (0, 7, 47)),
-            ("(ii) offset table", "complex128", 192, (0, 10, 20)))
+# K6's shapes (label, complex dtype name, restart m, the steps j held, the
+# operator): the bench block (phase 4, the factored operator) and phase 6
+# (a)'s complex128 offset table, both 4 k x 16,384 unknowns; phase 9 (b)'s
+# cold rung (the 64 x 64 lattice of 'a' circles at n_end=2, 1 x 12,288
+# unknowns, basis COLD_RESTART)
+K6_CASES = (("(i) bench block", "complex64", 48, (0, 7, 47), "bench"),
+            ("(ii) offset table", "complex128", 192, (0, 10, 20), "bench"),
+            ("(iii) cold rung", "complex64", COLD_RESTART, (0, 580, 1161), "cold"))
 
 
 def k6_bound(n_sys, n, j, name, v_reads=1):
@@ -1474,16 +1481,27 @@ def backsolve_bound(n_sys, j_f, name):
     return bound((tri + 2 * n_sys * j_f) * cs, 8 * tri, name)
 
 
-def k6_operator(torch, dev, name, m):
+def k6_operator(torch, dev, name, m, kind="bench"):
     """(mv, diag, r): phase 4's bench operator (the factored route, c64)
     or phase 6 (a)'s offset table (c128, unscaled), 4 k x 16,384
-    unknowns, and a random vector."""
-    from biem_helmholtz_sphere_tpu_torch.biem import _core
+    unknowns, or (kind "cold") phase 9 (b)'s cold rung ('a' on the 64 x 64
+    lattice at n_end=2, k = 1, c64, 12,288 unknowns); and a random vector."""
+    from biem_helmholtz_sphere_tpu_torch.biem import _core, _lattice
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 
-    c = create_from_branching_types("ba")
     rdt = torch.float32 if name == "complex64" else torch.float64
     cdt = torch.complex64 if name == "complex64" else torch.complex128
+    if kind == "cold":
+        c = create_from_branching_types("a")
+        centers = square_lattice(N_SIDE_2D, 2)
+        nb = len(centers)
+        ones, k1 = torch.ones(1, nb, dtype=rdt, device=dev), torch.ones(1, dtype=rdt, device=dev)
+        mv, diag = _lattice.lattice_operator(
+            c, 2, centers, ones, k1, k1, torch.ones(1, nb, dtype=cdt, device=dev),
+            torch.zeros(1, nb, dtype=cdt, device=dev), stable=True)
+        r = randc(torch, np.random.default_rng(19), (1, nb * 3), cdt, dev)
+        return mv, diag, r
+    c = create_from_branching_types("ba")
     centers_np = lattice_centers()
     nb = len(centers_np)
     args = (torch.ones(KB, nb, dtype=rdt, device=dev),
@@ -1498,19 +1516,31 @@ def k6_operator(torch, dev, name, m):
     return mv, diag, r
 
 
+def device_us_launches(torch, fn, kernel):
+    """(mean device microseconds per launch, launches per call, the kernels'
+    names) of the kernels whose names hold `kernel` (profile_kernels).  The
+    profiler may drop a short kernel's event: launches per call is the
+    count over the 5 calls rounded up, so one dropped event reads as 1."""
+    total, count, names = profile_kernels(torch, fn, kernel)
+    return total / count, -(-count // 5), names
+
+
 def check_k6(torch, dev, card):
     """Phase 2, K6 (`ops/gmres_step.py::arnoldi_step`, one Arnoldi step,
     and `backsolve`): from the same state and matvec at steps j of the
-    bench block's and phase 6 (a)'s solves (target 0: every step runs), the
-    kernel's V, R, Q, g and resid within K6_TOL of the plain step's, steps
-    and the flag word equal; launched twice and required bit-for-bit
-    equal; a masked launch changes nothing; timed beside the plain step
-    and the bound; then the back-substitution of the last state's R and g
-    against its plain version, timed beside `torch.linalg.solve_triangular`.
-    Returns the results of (i) step j = 7 by dtype name, and of the
-    back-substitution at (i), under "gmres_backsolve"."""
+    bench block's, phase 6 (a)'s and phase 9 (b)'s cold rung's solves
+    (target 0: every step runs), the kernel's V, R, Q, g and resid within
+    K6_TOL of the plain step's, steps and the flag word equal; launched
+    twice and required bit-for-bit equal; a masked launch changes nothing;
+    one launch a step (torch.profiler), timed beside the plain step and the
+    bound, with its grid and whether the tile was resident; then the
+    back-substitution of the last state's R and g against its plain
+    version, timed beside `torch.linalg.solve_triangular`.  Returns the
+    results of (i) step j = 7 by dtype name, and of the back-substitution
+    at (i) and (ii), under "gmres_backsolve"."""
     from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
-        _arnoldi_step_plain, _backsolve_plain, arnoldi_state, arnoldi_step, backsolve)
+        _arnoldi_step_plain, _backsolve_plain, _capacity, _cuda_plan, arnoldi_state,
+        arnoldi_step, backsolve)
 
     def clone(st):
         return type(st)(*[t.clone() if isinstance(t, torch.Tensor) else t for t in st])
@@ -1520,13 +1550,16 @@ def check_k6(torch, dev, card):
                 if isinstance(t, torch.Tensor) and k not in ("cwork", "rwork")}
 
     results = {"arnoldi_step": {}, "gmres_backsolve": {}}
-    for label, name, m, js in K6_CASES:
-        mv, diag, r = k6_operator(torch, dev, name, m)
+    for label, name, m, js, kind in K6_CASES:
+        mv, diag, r = k6_operator(torch, dev, name, m, kind)
         n_sys, n = r.shape
         rdt = r.real.dtype
         target = torch.zeros(n_sys, dtype=rdt, device=dev)
         tiny = float(torch.finfo(rdt).tiny) ** 0.5
         st = arnoldi_state(r, diag, target, m)
+        plan = _cuda_plan(n_sys, n, r.dtype, dev)
+        n_sm = _capacity(r.dtype == torch.complex128, dev.index or 0)[1]
+        sms = min(plan.grid, n_sm)
         for j in range(max(js) + 1):
             w = mv(st.V[:, j])
             if j in js:
@@ -1563,20 +1596,28 @@ def check_k6(torch, dev, card):
                                            f"changed the state")
                 scratch = clone(st)
                 ms = cuda_ms(torch, lambda: arnoldi_step(scratch, w, j, target, tiny), 10)
-                dus = device_us(torch, lambda: arnoldi_step(scratch, w, j, target, tiny), "k6_",
-                                per_call=True)
+                dus, n_launch, names = device_us_launches(
+                    torch, lambda: arnoldi_step(scratch, w, j, target, tiny), "k6_")
+                if n_launch != 1 or len(names) != 1:
+                    raise RuntimeError(f"arnoldi_step {label} j={j}: {n_launch} launches of "
+                                       f"{names} a step")
                 pms = cuda_ms(torch, lambda: _arnoldi_step_plain(scratch, w, j, target, tiny), 5)
                 b = k6_bound(n_sys, n, j, name)
-                traffic = k6_bound(n_sys, n, j, name, v_reads=4)[0]
+                resident = j + 1 <= plan.resident_rows
+                traffic = k6_bound(n_sys, n, j, name, v_reads=1 if resident else 4)[0]
                 print(f"[2] arnoldi_step (K6) {label}, {n_sys} x {n} unknowns, m={m}, step "
                       f"j={j} {name}: max_abs_err {max(e[0] for e in errs.values()):.3e}, "
                       f"largest error / largest entry {worst:.3e} (V {errs['V'][1]:.2e}, R "
                       f"{errs['R'][1]:.2e}, Q {errs['Q'][1]:.2e}, g {errs['g'][1]:.2e}, resid "
-                      f"{errs['resid'][1]:.2e}); kernel {ms:.4f} ms ({dus:.2f} us on the device "
-                      f"over its 7 launches, torch.profiler; the bound's share {b[0] * 1e3 / dus:.3f}"
-                      f"; this design's traffic, V read four times, {traffic:.6f} ms, its share "
-                      f"{traffic * 1e3 / dus:.3f}) plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) "
-                      f"library none ({card})")
+                      f"{errs['resid'][1]:.2e}); {n_launch} launch a step ({names[0]}), grid {plan.grid} "
+                      f"CTAs on {sms} of {n_sm} SMs, slices of <= {plan.lmax} entries, tile "
+                      f"{'resident' if resident else 'streamed'} (resident to j+1 = "
+                      f"{plan.resident_rows}, ring {plan.stages} x {plan.rb} rows x {plan.cw}); "
+                      f"kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler; the "
+                      f"bound's share, V read once, {b[0] * 1e3 / dus:.3f}; this design's "
+                      f"traffic, V read {'once' if resident else 'four times'}, {traffic:.6f} ms,"
+                      f" its share {traffic * 1e3 / dus:.3f}) plain {pms:.4f} ms bound "
+                      f"{b[0]:.6f} ms ({b[1]}) library none ({card})")
                 if j == 7:
                     results["arnoldi_step"][name] = {
                         "abs": max(e[0] for e in errs.values()), "rel": worst, "ms": ms,
@@ -1601,12 +1642,12 @@ def check_k6(torch, dev, card):
         lms = cuda_ms(torch, lambda: torch.linalg.solve_triangular(upper, rhs, upper=True), 10)
         b = backsolve_bound(n_sys, j_f, name)
         print(f"[2] gmres_backsolve (K6) {label}, j_f={j_f} {name}: max_abs_err {ea:.3e} "
-              f"max_rel_err {er:.3e}; kernel {ms:.4f} ms ({dus:.2f} us on the device) plain "
-              f"{pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) library {lms:.4f} ms "
-              f"(torch.linalg.solve_triangular) ({card})")
-        results["gmres_backsolve"][name] = {
+              f"max_rel_err {er:.3e}; kernel {ms:.4f} ms ({dus:.2f} us on the device, 1 "
+              f"launch, a CTA a system) plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) "
+              f"library {lms:.4f} ms (torch.linalg.solve_triangular) ({card})")
+        results["gmres_backsolve"].setdefault(name, {
             "abs": ea, "rel": er, "ms": ms, "plain_ms": pms, "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": lms}
+            "bound_by": b[1], "library_ms": lms})
         del st, mv, diag, r, y, ref
         torch.cuda.empty_cache()
     return results
@@ -4443,10 +4484,9 @@ def kd_window(torch, dev, card):
     return results
 
 
-def device_us(torch, fn, kernel, per_call=False):
-    """Mean device microseconds of the kernel whose name holds `kernel`
-    over 5 calls of fn, from torch.profiler: per launch, or per call of fn
-    (per_call; a call that launches it several times).  A window whose
+def profile_kernels(torch, fn, kernel):
+    """(device microseconds, launches, names) of the kernels whose names
+    hold `kernel` over 5 calls of fn under torch.profiler.  A window whose
     trace holds no such kernel (the profiler has dropped a short kernel's
     events) is profiled again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile
@@ -4462,8 +4502,16 @@ def device_us(torch, fn, kernel, per_call=False):
         if evs:
             total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
                         for e in evs)
-            return total / (5 if per_call else sum(e.count for e in evs))
+            return total, sum(e.count for e in evs), sorted({e.key for e in evs})
     raise RuntimeError(f"torch.profiler saw no {kernel} kernel")
+
+
+def device_us(torch, fn, kernel, per_call=False):
+    """Mean device microseconds of the kernel whose name holds `kernel`
+    over 5 calls of fn (profile_kernels): per launch, or per call of fn
+    (per_call; a call that launches it several times)."""
+    total, count, _ = profile_kernels(torch, fn, kernel)
+    return total / (5 if per_call else count)
 
 
 def parallel_and_frontends(torch, dev, card):

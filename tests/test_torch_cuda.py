@@ -1665,7 +1665,14 @@ def test_ke_and_k3_raise_on_a_broken_launch(cuda, monkeypatch):
 
 # K6's shapes: (K, n, m, dtype, the steps j held): (i) the bench block,
 # (ii) phase 6 (a)'s complex128 offset table, (iii) the 4D first block,
-# (iv) the 32 x 32 lattice, (v) one system at an odd n
+# (iv) the 32 x 32 lattice, (v) one system at an odd n, (vi) the 2D
+# lattice's cold rung (4,096 circles x 3 harmonics, basis 4,608; its
+# steps take every reduction and tile mode: 100 a spread reduction with h
+# kept local, 200 a resident tile with h from the scratch, 580 and 1,161
+# a streamed tile), and the plan's rarer paths: (vii) slices past half
+# the shared memory (x and s in a scratch), (viii) more systems than
+# CTAs (rounds), (ix) a streamed tile of an odd n in complex64 (a copy a
+# row and piece)
 _K6_CASES = {
     "i-bench": (4, 16384, 48, torch.complex64, (0, 7, 47)),
     "ii-offset-table-c128": (4, 16384, 192, torch.complex128, (0, 31, 191)),
@@ -1673,6 +1680,10 @@ _K6_CASES = {
     "iv-lattice": (1, 369664, 48, torch.complex64, (0, 47)),
     "v-odd-c64": (1, 1001, 12, torch.complex64, (0, 11)),
     "v-odd-c128": (1, 1001, 12, torch.complex128, (0, 11)),
+    "vi-cold-rung": (1, 12288, 4608, torch.complex64, (0, 100, 200, 580, 1161)),
+    "vii-spill-c128": (2, 262144, 12, torch.complex128, (0, 11)),
+    "viii-rounds": (300, 64, 6, torch.complex64, (0, 5)),
+    "ix-odd-streamed": (1, 300001, 24, torch.complex64, (0, 23)),
 }
 K6_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-13}
 
@@ -1773,6 +1784,34 @@ def test_k6_backsolve_matches_the_plain_version(cuda, dtype):
         assert bool((y[:, j_f:] == 0).all())
         assert _rel(y, ref) <= K6_TOL[dtype], (j_f, _rel(y, ref))
         assert _same_bits(backsolve(st.R, st.g, flag, tiny), y)
+
+
+@pytest.mark.requires_cuda
+def test_k6_backsolve_at_the_cold_rung(cuda):
+    """The back-substitution kernel against its plain version on the 2D
+    cold rung's shape (K 1, n 12,288, basis 4,608, complex64) after its
+    1,162 steps: j_f = 1,162 (and the whole basis, j_f = m, on the same R)."""
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
+        _arnoldi_step_plain, _backsolve_plain, arnoldi_state, backsolve)
+
+    m, j_f = 4608, 1162
+    mv, d, r = _k6_operator(cuda, 1, 12288, torch.complex64, seed=3)
+    target = torch.zeros(1, dtype=torch.float32, device=cuda)
+    tiny = float(torch.finfo(torch.float32).tiny) ** 0.5
+    st = arnoldi_state(r, d, target, m)
+    for j in range(j_f):
+        _arnoldi_step_plain(st, mv(st.V[:, j]), j, target, tiny)
+    assert st.flag.tolist() == [1, 0, j_f]
+    n0 = backsolve.launches
+    y = backsolve(st.R, st.g, st.flag, tiny)
+    assert backsolve.launches == n0 + 1
+    ref = _backsolve_plain(st.R, st.g, st.flag, tiny)
+    assert bool((y[:, j_f:] == 0).all())
+    assert _rel(y, ref) <= K6_TOL[torch.complex64], _rel(y, ref)
+    assert _same_bits(backsolve(st.R, st.g, st.flag, tiny), y)
+    # every column of R past j_f is 0 below its (0) diagonal: y = 0 there too
+    full = torch.tensor([0, 0, m], dtype=torch.int32, device=cuda)
+    assert _same_bits(backsolve(st.R, st.g, full, tiny)[:, :j_f], y[:, :j_f])
 
 
 @pytest.mark.requires_cuda

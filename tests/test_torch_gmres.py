@@ -11,7 +11,7 @@ flag word changes nothing but the matvecs past convergence: the results
 are bit for bit the same at lags 1, 2, 4 and 8, the matvecs are those the
 lag's schedule gives, and the reads at most ceil(steps / lag) plus one a
 cycle.  A masked step changes no state tensor; the plain back-substitution
-equals the loop it replaced.
+equals the loop it replaced; K6's launch plan cuts K x n over the card.
 """
 
 import math
@@ -27,7 +27,6 @@ from biem_helmholtz_sphere_tpu_torch.ops import gmres, gmres_step
 from biem_helmholtz_sphere_tpu_torch.ops.gmres import gmres_solve_op
 from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
     _backsolve_plain,
-    _slices,
     arnoldi_state,
     arnoldi_step,
 )
@@ -236,14 +235,70 @@ def test_plain_backsolve_equals_the_loop_it_replaced(cdt):
         assert not bool(y[:, j_f:].abs().any())
 
 
+@pytest.mark.parametrize("elt", [8, 16])
 @pytest.mark.parametrize("n_sys,n", [(4, 16384), (4, 45920), (1, 369664), (1, 1001),
-                                     (1, 12288), (200, 7)])
-def test_kernel_slices_cover_n(n_sys, n):
-    """K6's slices of n: cover n, at most one slice of padding, and as many
-    entries a thread as keep two waves of CTAs (the H100's 132 SMs)."""
-    ept, nblk = _slices(n_sys, n, 132)
-    assert ept in (1, 2, 4)
-    span = gmres_step._THREADS * ept
-    assert (nblk - 1) * span < n <= nblk * span
-    if ept > 1:
-        assert n_sys * nblk >= 2 * 132
+                                     (1, 12288), (200, 7), (3, 4097)])
+def test_k6_plan_cuts_the_card(n_sys, n, elt):
+    """K6's plan (`_plan`) on an H100 (132 SMs, 232,448 bytes of shared
+    memory a CTA) holding 1 or 2 of its CTAs an SM: every entry of K x n in
+    exactly one CTA's slice of its round, a slice within lmax entries and
+    two systems; every SM given work whenever K n >= 32 SMs; the grid
+    within the co-resident capacity; the tile resident exactly while it
+    fits the shared memory beside x, s and the fixed scratch (and the
+    mbarrier slots), the ring's stages fitting it."""
+    n_sm, smem = 132, 232448
+    for capacity in (n_sm, 2 * n_sm):
+        p = gmres_step._plan(n_sys, n, elt, n_sm, capacity, smem)
+        assert 1 <= p.grid <= capacity
+        assert p.rounds == -(-n_sys // p.per_round) and p.per_round <= p.grid
+        if n_sys * n >= 32 * n_sm:
+            assert p.grid >= n_sm
+        for rho in range(p.rounds):
+            kr = min(p.per_round, n_sys - rho * p.per_round)
+            big_n, ga, nu = gmres_step._round_cut(kr, n, p.grid, p.unit)
+            lo = [gmres_step._slice_lo(b, big_n, ga, nu, p.unit) for b in range(p.grid + 1)]
+            assert lo[0] == 0 and lo[-1] == big_n
+            sizes = np.diff(lo)
+            assert (sizes >= 0).all() and sizes.max() <= p.lmax
+            if n_sys * n >= 32 * n_sm and rho == 0:
+                assert (sizes[:n_sm] > 0).all()
+            for b in range(p.grid):
+                if sizes[b]:  # at most two systems; slice_of finds it
+                    assert (lo[b + 1] - 1) // n - lo[b] // n <= 1
+                    for f in (lo[b], lo[b + 1] - 1):
+                        assert gmres_step._slice_of(f, ga, nu, p.unit) == b
+        fixed = gmres_step._fixed_smem(elt)
+        xs = 2 * p.lmax * elt if p.x_smem else 0
+        area = smem - -(-(fixed + xs) // 128) * 128
+        assert area == gmres_step._ring_area(elt, p.lmax, p.x_smem, smem) > 0
+        assert p.x_smem == (2 * p.lmax * elt <= (smem - fixed) // 2)
+        chunks = -(-p.lmax // p.cw)
+        assert p.cw % p.unit == 0 and p.cw * elt <= 2048
+        # boxes of V's tensor map where a row is a multiple of 16 bytes: two a
+        # stage where some slice spans two systems; else rows padded by 4
+        assert p.boxes == (0 if n * elt % 16 else 2 if _straddles(p, n_sys, n) else 1)
+        assert p.row_bytes == (p.cw + (0 if p.boxes or elt == 16 else 4)) * elt
+        stage = (p.boxes or 1) * p.rb * p.row_bytes
+        assert 2 <= p.stages <= gmres_step._SLOTS and p.stages * stage <= area
+        last_row = 0 if p.boxes else p.row_bytes
+        if p.resident_rows:
+            assert gmres_step._tile_fits(p.resident_rows, p.rb, chunks, stage, last_row, area)
+            groups = -(-p.resident_rows // p.rb)
+            last = (p.resident_rows - (groups - 1) * p.rb) * last_row or stage
+            assert groups * chunks <= gmres_step._SLOTS
+            assert smem - area + (groups * chunks - 1) * stage + last <= smem
+        assert not gmres_step._tile_fits(p.resident_rows + 1, p.rb, chunks, stage, last_row,
+                                         area)
+
+
+def _straddles(p, n_sys, n):
+    """Whether some CTA's slice spans two systems in some round of plan p."""
+    for rho in range(p.rounds):
+        kr = min(p.per_round, n_sys - rho * p.per_round)
+        big_n, ga, nu = gmres_step._round_cut(kr, n, p.grid, p.unit)
+        for b in range(ga):
+            lo = gmres_step._slice_lo(b, big_n, ga, nu, p.unit)
+            hi = gmres_step._slice_lo(b + 1, big_n, ga, nu, p.unit)
+            if hi > lo and (hi - 1) // n != lo // n:
+                return True
+    return False

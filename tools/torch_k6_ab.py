@@ -21,7 +21,13 @@ and loaded, a small 'ba' solve), it measures:
 - phase 8 (a)'s first block's GMRES: 'bba' on {-2, 2}^4 at n_end=20,
   complex64, the first 4 k of the 4D sweep, solver auto (the factored
   GMRES), split as phase 8 (a) does; the first (cold tables) and a
-  repeat.
+  repeat;
+- K6 alone on the device (torch.profiler, every kernel named k6_ a step):
+  the Arnoldi step at chip_smoke phase 2's held steps, on its operators
+  (the bench block at j = 0, 7, 47; the complex128 offset table at 0, 10,
+  20; the cold rung at 0, 580, 1161), each state advanced by the tree's
+  own K6 with target 0, and the back-substitution at each state's j_f
+  (48, 21, 1,162).
 
 With --lags (only where ops/gmres.py has `_LAG_CUDA`) it repeats the bench
 sweep's wall, split, idle share and the cold rung at each lag in the list
@@ -145,6 +151,77 @@ def four_d_gmres(torch, cs, _core):
     return out
 
 
+def k6_us_per_call(torch, fn, kernel):
+    """Device microseconds per call of fn of the kernels whose names hold
+    `kernel` (torch.profiler, 5 calls): each kernel's mean per launch times
+    its launches per call, counted and rounded (the profiler may drop a
+    short kernel's event), summed over the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key and e.count]
+        if evs:
+            return sum(e.device_time_total / e.count * max(1, round(e.count / 5)) for e in evs)
+    raise RuntimeError(f"torch.profiler saw no {kernel} kernel")
+
+
+def k6_alone(torch, cs, _lattice):
+    """K6's device microseconds a step at phase 2's held steps, and the
+    back-substitution's at each case's j_f."""
+    import numpy as np
+
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import (
+        arnoldi_state, arnoldi_step, backsolve)
+
+    dev = torch.device("cuda", 0)
+    cases = (("bench c64", "complex64", 48, (0, 7, 47)),
+             ("offset table c128", "complex128", 192, (0, 10, 20)),
+             ("cold rung c64", "complex64", cs.COLD_RESTART, (0, 580, 1161)))
+    out = {}
+    for label, name, m, js in cases:
+        if label.startswith("cold"):
+            c = create_from_branching_types("a")
+            centers = cs.square_lattice(cs.N_SIDE_2D, 2)
+            nb = len(centers)
+            f32 = dict(dtype=torch.float32, device=dev)
+            c64 = dict(dtype=torch.complex64, device=dev)
+            ones, k1 = torch.ones(1, nb, **f32), torch.ones(1, **f32)
+            mv, diag = _lattice.lattice_operator(c, 2, centers, ones, k1, k1,
+                                                 torch.ones(1, nb, **c64),
+                                                 torch.zeros(1, nb, **c64), stable=True)
+            r = cs.randc(torch, np.random.default_rng(19), (1, nb * 3), torch.complex64, dev)
+        else:
+            mv, diag, r = cs.k6_operator(torch, dev, name, m)
+        n_sys = r.shape[0]
+        target = torch.zeros(n_sys, dtype=r.real.dtype, device=dev)
+        tiny = float(torch.finfo(r.real.dtype).tiny) ** 0.5
+        st = arnoldi_state(r, diag, target, m)
+        row = {}
+        for j in range(max(js) + 1):
+            w = mv(st.V[:, j])
+            if j in js:
+                scratch = type(st)(*[t.clone() if isinstance(t, torch.Tensor) else t
+                                     for t in st])
+                row[f"step {j} us"] = round(k6_us_per_call(
+                    torch, lambda: arnoldi_step(scratch, w, j, target, tiny), "k6_"), 3)
+                del scratch
+            arnoldi_step(st, w, j, target, tiny)
+        j_f = int(st.flag[2])
+        row[f"backsolve j_f={j_f} us"] = round(k6_us_per_call(
+            torch, lambda: backsolve(st.R, st.g, st.flag, tiny), "k6_backsolve"), 3)
+        out[label] = row
+        del st, mv, diag, r
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -171,6 +248,7 @@ def main():
     out["bench"] = bench(torch, cs, _core)
     out["cold rung"] = cold_rung(torch, cs, _core, _lattice, gmres.gmres_solve_op)
     out["4D"] = four_d_gmres(torch, cs, _core)
+    out["K6 alone"] = k6_alone(torch, cs, _lattice)
     counters = ("host_reads", "steps_issued", "steps_run")
     out["by lag"] = []
     for lag in lags:
