@@ -47,6 +47,7 @@ band scan (KS, ops/band_sr.py).
 
 import warnings
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, Literal
 
 import numpy as np
@@ -58,8 +59,9 @@ from ..ops.dense import dense_assemble
 from ..ops.gmres import gmres_solve_op
 from ..ops.kernels import default_device
 from ..ops.lane_route import lane_gather, lane_scatter, make_route
+from ..ops.plane_rhs import plane_wave_rhs
 from ..special._family import spherical_jh_all, spherical_jh_scaled
-from ..translation._ops import _a_const, check_method, ipow, translation_matrix
+from ..translation._ops import check_method, translation_matrix
 from ..translation._rotation import _sandwich, rotation_d, unique_radii
 from ..translation._scaled import coax_fold_packed, graf_2d_folded, sr_banded_folded
 
@@ -207,26 +209,15 @@ def _rhs_plane_wave(c, n_end, centers, radii, alpha, beta, kw, direction,
                (alpha_b j_{n_h}(k rho_b) + beta_b k j'_{n_h}(k rho_b))
 
     kw [K] (real or complex), direction [d, K] (unit), centers [B, d] or
-    [K, B, d], radii/alpha/beta [K, B].
+    [K, B, d], radii/alpha/beta [K, B].  j and j' from one K5 launch, then
+    KR (`ops/plane_rhs.py`; on CPU tensors its plain version): with k rho
+    formed straight into the complex argument K5 reads, three launches.
     """
-    from ..coords import from_cartesian
-    from ..harmonics._eval import harmonics
-
-    d = c.c_ndim
-    dev = radii.device
-    n_idx = torch.as_tensor(basis(c, n_end).n_root, dtype=torch.long, device=dev)
-    j, jp, _, _ = spherical_jh_all(d, n_end, kw[:, None] * radii)
-    term = 0.0
-    if has_uin:
-        term = term + alpha[..., None] * j.index_select(-1, n_idx)
-    if has_grad:
-        term = term + beta[..., None] * (jp.index_select(-1, n_idx) * kw[:, None, None])
-    y_dir = harmonics(c, from_cartesian(c, direction), n_end)  # [K, H]
-    cy = y_dir.conj() * ipow(n_idx, y_dir.dtype, dev) * (-_a_const(d))
-    centers = centers.expand(kw.shape[0], -1, -1) if centers.ndim == 2 else centers
-    ip = torch.einsum("dk,kbd->kb", direction, centers)
-    phase = torch.exp(1j * kw[:, None] * ip)  # e^{i k d^.c_b}, complex k too
-    return (phase[..., None] * term) * cy[:, None, :]
+    z = torch.empty(radii.shape, dtype=_complex_of(radii.dtype), device=radii.device)
+    torch.mul(kw[:, None], radii, out=z)
+    j, jp, _, _ = spherical_jh_all(c.c_ndim, n_end, z)
+    return plane_wave_rhs(c, n_end, j, jp, kw, direction, centers, alpha, beta, has_uin,
+                          has_grad)
 
 
 def _rhs_expansion(c, n_end, centers, radii, alpha, beta, uin, uin_grad, first):
@@ -295,7 +286,7 @@ def _radial_rows(c, n_end, radii, k, eta, alpha, beta):
     alpha j_n + beta k j_n', blc = i k^{d-2} rho^{d-1} (k j_n' - i eta j_n).
     radii/alpha/beta [K, B], k/eta [K]."""
     d = c.c_ndim
-    n_idx = torch.as_tensor(basis(c, n_end).n_root, dtype=torch.long, device=radii.device)
+    n_idx = _degree_tables(c, n_end, radii.dtype, radii.device)[0]
     j, jp, h, hp = (t.index_select(-1, n_idx)
                     for t in spherical_jh_all(d, n_end, k[:, None] * radii))
     k_b = k[:, None, None]
@@ -315,7 +306,7 @@ def _radial_rows_scaled(c, n_end, radii, k, eta, alpha, beta):
     maximum.  radii/alpha/beta [K, B], k/eta [K]; outputs [K, B, H].
     """
     d = c.c_ndim
-    n_idx = torch.as_tensor(basis(c, n_end).n_root, dtype=torch.long, device=radii.device)
+    n_idx = _degree_tables(c, n_end, radii.dtype, radii.device)[0]
     (jm, je), (jpm, jpe), (hm, he), (hpm, hpe) = spherical_jh_scaled(
         d, n_end, k[:, None] * radii
     )
@@ -369,12 +360,37 @@ def _radial_factors(c, n_end, radii, k, eta, alpha, beta, stable):
     return rowf, colf, diag, (e_r_max, e_b_max)
 
 
+@lru_cache(maxsize=32)
+def _degree_tables(c, n_end, dtype, device):
+    """(n_idx [H] int64, each flat harmonic's root degree; starts [n_end]
+    int64, each degree's first harmonic; pm [H] in the real `dtype`, the
+    mirror parity (-1)^n) on `device`: every k-block reads them, so they
+    are copied to the card once."""
+    n_root = basis(c, n_end).n_root
+    return (torch.as_tensor(n_root, dtype=torch.long, device=device),
+            torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=device),
+            torch.as_tensor(1.0 - 2.0 * (n_root % 2), dtype=dtype, device=device))
+
+
+def _geometry_key(centers_np):
+    """A geometry's cache key: the bytes and shape of its float64 centers."""
+    t = np.ascontiguousarray(centers_np, dtype=np.float64)
+    return t.tobytes(), t.shape
+
+
 def _offsets(centers_np):
     """(uniq [NO, d], pid [B, B], uniq_r [NR], r_inv [NO]) on the host: the
     distinct b < b' offset vectors c_b - c_b' (rounded to 12 decimals, so a
     lattice's repeats merge), each pair's index into them (the mirror b > b'
     pair sharing its pair's; the diagonal 0), their distinct lengths and
-    each offset's index into those."""
+    each offset's index into those.  Cached on the centers' values (every
+    k-block of a sweep asks again): the arrays are shared, never written."""
+    return _offsets_of(*_geometry_key(centers_np))
+
+
+@lru_cache(maxsize=16)
+def _offsets_of(t_bytes, shape):
+    centers_np = np.frombuffer(t_bytes, dtype=np.float64).reshape(shape)
     n_balls = centers_np.shape[0]
     bu, bv = np.triu_indices(n_balls, k=1)
     uniq, inv = np.unique(np.round(centers_np[bu] - centers_np[bv], 12), axis=0,
@@ -464,6 +480,41 @@ def _pair_routing(centers_np, radius_slots=True):
                        uniq_r, g_max)
 
 
+# The matrix-free operators' per-geometry tables, cached on the centers'
+# values as `rotation_d` caches D: a sweep's k-blocks share one geometry,
+# so from the second block on neither `_pair_routing` nor `make_route`
+# runs.
+@lru_cache(maxsize=16)
+def _routing_of(t_bytes, shape, radius_slots):
+    """`_pair_routing` of the centers with key (t_bytes, shape)."""
+    centers_np = np.frombuffer(t_bytes, dtype=np.float64).reshape(shape)
+    return _pair_routing(centers_np, radius_slots)
+
+
+@lru_cache(maxsize=16)
+def _route_of(t_bytes, shape, radius_slots, device, o0, o1):
+    """(KC's tables `make_route` of the lanes of slots [o0, o1), those
+    lanes' padded indices less slot o0's first, int64) on `device`."""
+    routing = _routing_of(t_bytes, shape, radius_slots)
+    lanes = slice(routing.slot_ptr[o0], routing.slot_ptr[o1])
+    route = make_route(routing.src[lanes], routing.dst[lanes], routing.dn[lanes], shape[0],
+                       device)
+    lane = torch.as_tensor(routing.lane[lanes] - o0 * 2 * routing.p_max, device=device)
+    return route, lane
+
+
+@lru_cache(maxsize=16)
+def _factored_geometry(t_bytes, shape, dtype, device):
+    """The factored operator's tables of one geometry: (routing, KC's
+    route, D's and X's lane segments, the distinct distances [NR] in the
+    real `dtype` on `device`)."""
+    routing = _routing_of(t_bytes, shape, True)
+    route, _ = _route_of(t_bytes, shape, True, device, 0, len(routing.uniq))
+    return (routing, route, LaneSegments(tuple(int(v) for v in routing.slot_ptr)),
+            LaneSegments(tuple(int(v) for v in routing.rad_ptr)),
+            torch.as_tensor(routing.uniq_r, dtype=dtype, device=device))
+
+
 def _matfree_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, method=None,
                       sr_map=None, stable=False):
     """The unique-offset matrix-free operator: (mv, diag) on [K, B*H] vectors.
@@ -503,21 +554,21 @@ def _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, met
     """
     n_k, n_balls = radii.shape
     dev = radii.device
-    routing = _pair_routing(centers_np, radius_slots=False)
+    key = _geometry_key(centers_np)
+    routing = _routing_of(*key, False)
     if offsets is None:
         table, _, rowf, colf, pm, diag = _assembly_parts(
             c, n_end, centers_np, radii, k, eta, alpha, beta, method, stable)
-        o0, lanes = 0, slice(None)
+        o0, o1 = 0, len(routing.uniq)
     else:
         rowf, colf, diag, fold = _radial_factors(c, n_end, radii, k, eta, alpha, beta,
                                                  stable)
-        n_root = basis(c, n_end).n_root
-        pm = torch.as_tensor(1.0 - 2.0 * (n_root % 2), dtype=radii.dtype, device=dev)
+        pm = _degree_tables(c, n_end, radii.dtype, dev)[2]
         uniq = routing.uniq[offsets]
         uniq_r, r_inv = unique_radii(np.linalg.norm(uniq, axis=1))
         table = _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method)
         o0 = offsets.start or 0
-        lanes = slice(routing.slot_ptr[o0], routing.slot_ptr[o0 + len(uniq)])
+        o1 = o0 + len(uniq)
     if sr_map is not None:
         table = sr_map(table)
     h_num = rowf.shape[-1]
@@ -532,9 +583,7 @@ def _offset_table_operator(c, n_end, centers_np, radii, k, eta, alpha, beta, met
             return (diag_mv * x_flat.reshape(n_k, n_balls, h_num)).reshape(n_k, -1)
 
     else:
-        route = make_route(routing.src[lanes], routing.dst[lanes], routing.dn[lanes],
-                           n_balls, dev)
-        lane = torch.as_tensor(routing.lane[lanes] - o0 * lps, device=dev)
+        route, lane = _route_of(*key, False, dev, o0, o1)
         # y[k, o, p] = SR[k, o] w[k, o, p]: w @ SR^T, SR^T a view of the table
         sr_t = table.reshape(n_k * n_off, h_num, h_num).transpose(1, 2)
         # the padding lanes stay zero: index_copy_ writes the routed lanes only
@@ -571,23 +620,20 @@ def _factored_operator(c, n_end, centers_np, radii, k, eta, alpha, beta):
     reg_row, blc_col, diag, (e_r_max, e_b_max) = _radial_factors(
         c, n_end, radii, k, eta, alpha, beta, stable=True)
 
-    routing = _pair_routing(centers_np)
-    route = make_route(routing.src, routing.dst, routing.dn, n_balls, dev)
-    d_seg = LaneSegments(tuple(int(v) for v in routing.slot_ptr))
-    x_seg = LaneSegments(tuple(int(v) for v in routing.rad_ptr))
+    # the geometry's routing, KC's tables, the lane segments and the
+    # distances: built at its first k-block, then cached
+    routing, route, d_seg, x_seg, uniq_r = _factored_geometry(
+        *_geometry_key(centers_np), rdt, dev)
 
     # the coaxial factor with the degree-level fold of the ball-max
     # exponents (constant on degree blocks, which D preserves:
     # F .* (D X D^H) = D (F .* X) D^H), packed into its child-state
     # blocks: K5 + K2, no [K, NR, H, H] tensor
-    n_root = basis(c, n_end).n_root
-    starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
+    _, starts, pm = _degree_tables(c, n_end, rdt, dev)
     x_blocks = coax_fold_packed(
-        c, n_end, torch.as_tensor(routing.uniq_r, dtype=rdt, device=dev), k,
-        e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
+        c, n_end, uniq_r, k, e_r_max[:, starts].contiguous(), e_b_max[:, starts].contiguous(),
     )
     d_blocks = rotation_d(c, n_end, routing.uniq, rdt, dev).packed
-    pm = torch.as_tensor((-1.0) ** (n_root % 2), dtype=rdt, device=dev)
     blc_col, reg_row, diag = (
         t.expand(n_k, n_balls, h_num).contiguous() for t in (blc_col, reg_row, diag)
     )
@@ -663,8 +709,7 @@ def _offset_table(c, n_end, uniq, uniq_r, r_inv, k, fold, method=None):
         return graf_2d_folded(c, t_cart, n_end, k, e_r, e_b)
     if c.root.kind not in ("b", "bp"):
         return sr_banded_folded(c, t_cart, n_end, k, e_r, e_b)
-    n_root = basis(c, n_end).n_root
-    starts = torch.as_tensor(np.searchsorted(n_root, np.arange(n_end)), device=dev)
+    starts = _degree_tables(c, n_end, rdt, dev)[1]
     x = coax_fold_packed(c, n_end, torch.as_tensor(uniq_r, dtype=rdt, device=dev), k,
                          e_r[:, starts].contiguous(), e_b[:, starts].contiguous())
     r_inv = torch.as_tensor(r_inv, device=dev)
@@ -698,9 +743,8 @@ def _assembly_parts(c, n_end, centers_np, radii, k, eta, alpha, beta, method=Non
     """
     n_k, n_balls = radii.shape
     dev, rdt = radii.device, radii.dtype
-    n_root = basis(c, n_end).n_root
-    h_num = len(n_root)
-    sgn = torch.as_tensor(1.0 - 2.0 * (n_root % 2), dtype=rdt, device=dev)
+    h_num = basis(c, n_end).num
+    sgn = _degree_tables(c, n_end, rdt, dev)[2]
     rowf, colf, diag, fold = _radial_factors(c, n_end, radii, k, eta, alpha, beta, stable)
     if n_balls == 1:
         table = torch.zeros((n_k, 0, h_num, h_num), dtype=rowf.dtype, device=dev)
@@ -896,7 +940,12 @@ def biem(
     radii_f = radii.to(rdt).expand(batch + (n_balls,)).reshape(n_k, n_balls)
     alpha_f = alpha.expand(batch + (n_balls,)).reshape(n_k, n_balls)
     beta_f = beta.expand(batch + (n_balls,)).reshape(n_k, n_balls)
-    centers_t = torch.as_tensor(centers_np, dtype=rdt, device=radii.device)
+    # the RHS reads the centers where they already lie (no copy from the host)
+    if centers_np.ndim == 2:
+        centers_t = centers.reshape((-1,) + centers.shape[-2:])[0].to(rdt)
+    else:
+        centers_t = centers.to(rdt).expand(batch + centers.shape[-2:]).reshape(
+            centers_np.shape)
     args = (c, n_end, radii_f, k_f, eta_f, alpha_f, beta_f)
 
     f_exp = None

@@ -28,7 +28,9 @@ The program holds, as int32 / real tensors on one device:
   [n_fam, 2] the seed p_0 = 1 / b_0 and the prefactor's constant (the 'c'
   norm, else 1);
 * `hjob` [H, n_nodes] the job of each flat harmonic at each node (by node
-  id), host only (the child states' jobs `csjob` are its rows);
+  id; the child states' jobs `csjob` are its rows) and `n_root` [H] each
+  harmonic's root degree: KR (`csrc/plane_rhs.cu`) evaluates Y_h by them
+  at one direction per k;
 * the map h -> (root job, child state), as K3 walks it: the child states
   `cs` [n_cs, 4] (the root's first job, the number J of its root degrees,
   the offset of its entries in program order, its first root degree l0),
@@ -102,6 +104,8 @@ class HarmonicProgram:
     cs: torch.Tensor
     csjob: torch.Tensor
     perm: torch.Tensor
+    hjob: torch.Tensor
+    n_root: torch.Tensor
     # KE's walk (`ke_walk_numpy`)
     shape: int
     walk: torch.Tensor
@@ -198,6 +202,7 @@ def program_numpy(c, n_end):
         coef=np.asarray(coef, dtype=np.float64).reshape(-1, 4),
         famr=np.asarray(famr, dtype=np.float64).reshape(-1, 2),
         hjob=hjob,
+        n_root=np.asarray(b.n_root, dtype=np.int32),
         cs=np.asarray(cs, dtype=np.int32),
         csjob=np.asarray(csjob, dtype=np.int32),
         perm=np.asarray(perm, dtype=np.int64),
@@ -297,7 +302,8 @@ def harmonic_program(c, n_end, dtype, device):
         n_nodes=t["n_nodes"], h_num=t["h_num"], n_cs=t["n_cs"], root_step=t["root_step"],
         nodes=put("nodes"), jobs=put("jobs"), fam=put("fam"),
         coef=put("coef", dtype), famr=put("famr", dtype), cs=put("cs"),
-        csjob=put("csjob"), perm=put("perm", torch.int64),
+        csjob=put("csjob"), perm=put("perm", torch.int64), hjob=put("hjob"),
+        n_root=put("n_root"),
         shape=t["shape"], walk=put("walk"), wfam=put("wfam"), wroot=put("wroot", dtype),
         wstep=put("wstep"),
         wjob=put("wjob"), ke_perm=put("ke_perm"),

@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
            "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
            "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu", "coax_u.cu",
-           "gmres_step.cu")
+           "gmres_step.cu", "plane_rhs.cu")
 HEADERS = ("common.cuh", "mma_f64.cuh", "harmonics.cuh", "hankel.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -105,6 +105,13 @@ _SIGNATURES = {
     "bhs_arnoldi_capacity": [_I, _P],
     # R, g, flag, y, K, m, tiny, dbl, stream
     "bhs_gmres_backsolve": [_P, _P, _P, _P, _I, _I, _D, _I, _P],
+    # out, j, jp, k, sk, kc, dir, sdd, sdk, centers, sck, scb, scd, alpha,
+    # sak, sab, beta, sbk, sbb, n_root, hjob, nodes, jobs, fam, coef, famr,
+    # n_nodes, K, B, H, ne, d, has_uin, has_grad, b_per, k_per, neg_a, dbl,
+    # stream
+    "bhs_plane_rhs": [_P, _P, _P, _P, _L, _I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _P, _L,
+                      _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _D, _I, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

@@ -33,8 +33,10 @@ non-zero before the result line):
    uscat(0) against the committed float64 golden of the JAX package, the
    sound-soft boundary residual, the peak device memory, a bit-for-bit
    repeat of the sweep, a stage split with synchronising timers in a pass
-   of its own, one matvec with at most 3 block_diag_cmm launches and no
-   index_select, and the field evaluation path (uscat at 131,072 points
+   of its own, KR (the plane-wave right-hand side) launched once a k-block
+   and the RHS stage of a warm block at most 3 kernels and no copy on the
+   card (torch.profiler), one matvec with at most 3 block_diag_cmm
+   launches and no index_select, and the field evaluation path (uscat at 131,072 points
    for one k, its launch counts read around it) with its throughput;
 5. the dense route on the 4x4 lattice, the first KB k of the sweep:
    (a) n_end=19 (5,776 unknowns, the LU tier) in complex64 with the
@@ -291,6 +293,17 @@ torch.cuda.set_sync_debug_mode("error") (`no_host_sync`); phases 4, 6 (a),
 8 (a), 9 (a, b) and 12 (a) require K6 launched, and phase 12 (a) runs the
 three sharded solves on the one NCCL rank under the same check
 (`sharded_no_host_sync`).
+
+Phase 2 also holds KR (`ops/plane_rhs.py::plane_wave_rhs`, the plane-wave
+right-hand side from K5's j and j' and Y at each k's direction by the
+tree's program) against its plain version per (k, sphere, degree) block
+(1e-5 / 1e-12), launched twice and required bit-for-bit equal: (i) at the
+bench, timed beside its plain version and its bound (the [K, B, H] output
+written, j and j' read; library none: no PyTorch call evaluates a tree's
+harmonics) and run once under set_sync_debug_mode("error") with its
+program cached; (ii) the bench with complex k, a direction and centers
+per k and both terms; (iii) phase 9 (b)'s 4,096 circles (complex k, both
+terms).  Every phase that solves with a plane wave on the card runs it.
 
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
@@ -1449,6 +1462,104 @@ def check_ku(torch, dev, card):
     return results
 
 
+KR_TOL = {"complex64": 1e-5, "complex128": 1e-12}  # of each (k, sphere, degree) block's largest
+
+
+def kr_case(torch, dev, cdt, tree, n_end, centers_np, n_k, per_k=False):
+    """KR's arguments as `_core._rhs_plane_wave` gives them: (c, n_end, j,
+    j', k, direction, centers, alpha, beta, has_uin, has_grad).  The bench
+    (per_k False): k = linspace(7, 7.06), one direction (x0, normalised
+    as plane_wave does, so each k holds its own copy of the same bits), the
+    centers shared, alpha 1 broadcast, the u_in term only; per_k: k + 0.1i,
+    a direction and the centers moved per k, alpha and beta random, both
+    terms."""
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_jh_all
+
+    c = create_from_branching_types(tree)
+    d = c.c_ndim
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=dev)
+    rng = np.random.default_rng(21)
+    n_b = len(centers_np)
+    k = torch.linspace(7.0, 7.06, n_k, **f)
+    direction = torch.zeros((d, n_k), **f)
+    direction[0] = 1.0
+    centers = torch.as_tensor(centers_np, **f)
+    alpha = torch.ones((1, 1), dtype=cdt, device=dev).expand(n_k, n_b)
+    beta = torch.zeros((1, 1), dtype=cdt, device=dev).expand(n_k, n_b)
+    if per_k:
+        k = k.to(cdt) + 0.1j
+        direction = torch.as_tensor(rng.normal(size=(d, n_k)), **f)
+        centers = centers + torch.as_tensor(rng.normal(size=(n_k, n_b, d)) * 0.1, **f)
+        alpha, beta = (randc(torch, rng, (n_k, n_b), cdt, dev) for _ in range(2))
+    direction = direction / torch.linalg.vector_norm(direction, dim=0, keepdim=True)
+    z = (k[:, None] * torch.ones((n_k, n_b), **f)).to(cdt)
+    j, jp, _, _ = spherical_jh_all(d, n_end, z)
+    return c, n_end, j, jp, k, direction, centers, alpha, beta, True, per_k
+
+
+def check_kr(torch, dev, card):
+    """Phase 2, KR (`ops/plane_rhs.py::plane_wave_rhs`, the plane-wave
+    right-hand side): against its plain version, per (k, sphere, degree)
+    block within KR_TOL, launched twice and required bit-for-bit equal, at
+    (i) the bench (timed beside its plain version and its bound; the same
+    call under set_sync_debug_mode("error") once the program is cached),
+    (ii) the bench with complex k, a direction and centers per k and both
+    terms, (iii) phase 9 (b)'s 4,096 circles at n_end=32.  Returns the
+    results of (i) by dtype name."""
+    from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.plane_rhs import (
+        plane_wave_rhs, plane_wave_rhs_plain)
+
+    results = {}
+    cases = (("(i) bench", "ba", N_END, lattice_centers(), KB, False),
+             ("(ii) bench, complex k, a direction and centers per k, both terms", "ba", N_END,
+              lattice_centers(), KB, True),
+             ("(iii) 4,096 'a' circles, complex k, both terms", "a", 32,
+              square_lattice(N_SIDE_2D, 2), 1, True))
+    for label, tree, n_end, centers_np, n_k, per_k in cases:
+        for cdt in (torch.complex64, torch.complex128):
+            name = str(cdt).split(".")[-1]
+            args = kr_case(torch, dev, cdt, tree, n_end, centers_np, n_k, per_k)
+            n0 = plane_wave_rhs.launches
+            got = plane_wave_rhs(*args)
+            if plane_wave_rhs.launches != n0 + 1:
+                raise RuntimeError(f"plane_wave_rhs {label} {name}: the kernel did not launch")
+            ref = plane_wave_rhs_plain(*args)
+            n_root = basis(args[0], n_end).n_root
+            er = ball_degree_rel_err(torch, got, ref, n_root)
+            ea = float((got - ref).abs().max())
+            if not same_bits(torch, plane_wave_rhs(*args), got):
+                raise RuntimeError(f"plane_wave_rhs {label} {name}: two launches differ")
+            line = (f"[2] plane_wave_rhs (KR) {label}: {tuple(got.shape)} {name}: max_abs_err "
+                    f"{ea:.3e}, largest error / its (k, sphere, degree) block's largest "
+                    f"{er:.3e}")
+            if er > KR_TOL[name]:
+                raise RuntimeError(f"plane_wave_rhs {label} {name}: {er:.3e} > {KR_TOL[name]}")
+            if label.startswith("(i)"):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    plane_wave_rhs(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                ms = cuda_ms(torch, lambda: plane_wave_rhs(*args), 20)
+                dus = device_us(torch, lambda: plane_wave_rhs(*args), "plane_rhs_kernel")
+                pms = cuda_ms(torch, lambda: plane_wave_rhs_plain(*args), 5)
+                cs = got.element_size()
+                b = bound(cs * (got.numel() + 2 * args[2].numel()), 0, name)
+                line += (f"; kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler) "
+                         f"plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}: [K, B, H] written, "
+                         f"j and j' read) library none (no PyTorch call evaluates a tree's "
+                         f"harmonics); no host sync once the program is cached")
+                results[name] = {"abs": ea, "rel": er, "ms": ms, "plain_ms": pms,
+                                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            print(f"{line} ({card})")
+            del got, ref, args
+    return results
+
+
 K6_TOL = {"complex64": 1e-5, "complex128": 1e-13}  # of each state tensor's largest entry
 # K6's shapes (label, complex dtype name, restart m, the steps j held, the
 # operator): the bench block (phase 4, the factored operator) and phase 6
@@ -1790,6 +1901,16 @@ def bench_config(torch, dev, card):
           f"arnoldi_step {launches['arnoldi_step'] / n_blocks:.1f}, gmres_backsolve "
           f"{launches['gmres_backsolve'] / n_blocks:.1f}")
     no_host_sync(torch, _core, lambda: block(ks[:KB], None), "[4] the bench block")
+    if launches["plane_wave_rhs"] != n_blocks:
+        raise RuntimeError(f"[4] KR launched {launches['plane_wave_rhs']} times in {n_blocks} "
+                           "k-blocks, not once a block")
+    kinds = rhs_stage_kernels(torch, _core, lambda: block(ks[:KB], None))
+    print(f"[4] KR (plane_wave_rhs) launches per k-block {launches['plane_wave_rhs'] / n_blocks:.1f}"
+          f"; the RHS stage of a warm block ran {sum(kinds.values())} kernels on the card "
+          f"(torch.profiler): {kinds}")
+    if sum(kinds.values()) > 3 or any(n.startswith("Memcpy") for n in kinds):
+        raise RuntimeError(f"[4] the RHS stage of a warm block ran more than 3 kernels or a copy: "
+                           f"{kinds}")
     iters = [calc.iters.tolist() for calc, _ in run1]
     relres = [calc.relres.tolist() for calc, _ in run1]
     for calc, _ in run1:
@@ -1864,6 +1985,38 @@ def bench_config(torch, dev, card):
     print(f"[4] uscat throughput {EVAL_POINTS / best:.1f} pts/s "
           f"({EVAL_POINTS} points, best of 5: {best:.6f} s) ({card})")
     return launches
+
+
+def rhs_stage_kernels(torch, module, run):
+    """{device event name: count} of `module._rhs_dispatch` (the RHS stage)
+    within run(), under torch.profiler (a window that shows fewer than the
+    stage's K5 and KR is profiled again, up to three runs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rhs = module._rhs_dispatch
+    kinds = {}
+
+    def profiled(*args, **kw):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = rhs(*args, **kw)
+            torch.cuda.synchronize()
+        kinds.clear()
+        for e in prof.events():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                kinds[e.name[:60]] = kinds.get(e.name[:60], 0) + 1
+        return out
+
+    module._rhs_dispatch = profiled
+    try:
+        for _ in range(3):
+            run()
+            if sum(kinds.values()) >= 2:
+                break
+    finally:
+        module._rhs_dispatch = rhs
+    torch.cuda.synchronize()
+    return kinds
 
 
 def bc_residual(torch, calc):
@@ -2399,6 +2552,7 @@ def kernel_counts():
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import rotation_blocks
     from biem_helmholtz_sphere_tpu_torch.ops.coax_u import coax_u
     from biem_helmholtz_sphere_tpu_torch.ops.gmres_step import arnoldi_step, backsolve
+    from biem_helmholtz_sphere_tpu_torch.ops.plane_rhs import plane_wave_rhs
 
     counters = {"fused_ba_eval": (fused_ba_eval, "launches"),
                 "fused_ba_eval_few": (fused_ba_eval, "few_launches"),
@@ -2416,7 +2570,8 @@ def kernel_counts():
                 "rotation_blocks": (rotation_blocks, "launches"),
                 "coax_u": (coax_u, "launches"),
                 "arnoldi_step": (arnoldi_step, "launches"),
-                "gmres_backsolve": (backsolve, "launches")}
+                "gmres_backsolve": (backsolve, "launches"),
+                "plane_wave_rhs": (plane_wave_rhs, "launches")}
 
     def reset():
         for obj, attr in counters.values():
@@ -4715,6 +4870,7 @@ def main():
     results["rotation_blocks"] = check_k3(torch, dev, card)
     results["coax_u"] = check_ku(torch, dev, card)
     results.update(check_k6(torch, dev, card))
+    results["plane_wave_rhs"] = check_kr(torch, dev, card)
     readme_golden(torch, dev)
     launches = bench_config(torch, dev, card)
     launches.update(dense_assemble=dense_route(torch, dev, card)["dense_assemble"])
@@ -4770,6 +4926,8 @@ def main():
         # GMRES's Arnoldi step and back-substitution (phase 4's sweep)
         "arnoldi_step": ("csrc/gmres_step.cu", "biem_helmholtz_sphere_tpu/ops/cplx.py:569"),
         "gmres_backsolve": ("csrc/gmres_step.cu", "biem_helmholtz_sphere_tpu/ops/cplx.py:627"),
+        # the plane-wave right-hand side (phase 4's sweep, one a k-block)
+        "plane_wave_rhs": ("csrc/plane_rhs.cu", "biem_helmholtz_sphere_tpu/biem/_core.py:239"),
     }
     record = {"kernels": [
         {

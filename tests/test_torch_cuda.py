@@ -1904,3 +1904,112 @@ def test_k6_raises_on_a_broken_launch(cuda, monkeypatch):
     monkeypatch.setattr(kernels, "launch", broken)
     with pytest.raises(RuntimeError, match="bhs_arnoldi_step"):
         gmres_solve_op(mv, d, b)
+
+
+# KR (ops/plane_rhs.py): (tree, n_end, centers, K, per-k inputs and both
+# terms): the bench; the bench with complex k, a direction and centers per k;
+# phase 9 (b)'s 4,096 circles; 3D n_end=64 (H = 4,096); the 4D hypercube at
+# n_end=20; the 5D pair; 'caa' per k; 40 k x 130 spheres (the grid's ranges
+# of spheres and of k)
+_KR_CASES = {
+    "bench": ("ba", 32, lambda: _lattice(), 4, False),
+    "bench-per-k": ("ba", 32, lambda: _lattice(), 4, True),
+    "circles-4096": ("a", 32, lambda: _lattice(64)[:, :2], 1, True),
+    "ba-n64": ("ba", 64, lambda: _lattice(), 4, False),
+    "bba-4d": ("bba", 20, lambda: np.array(list(np.ndindex(2, 2, 2, 2))) * 4.0 - 2.0, 4, True),
+    "bbba-5d": ("bbba", 8, lambda: np.array([[0.0, 2, 0, 0, 0], [0.0, -2, 0, 0, 0]]), 4, False),
+    "caa-per-k": ("caa", 14, lambda: np.array(list(np.ndindex(2, 2, 2, 2))) * 4.0 - 2.0, 4,
+                  True),
+    "split": ("ba", 8, lambda: np.random.default_rng(3).normal(size=(130, 3)) * 20, 40, True),
+}
+
+
+def _kr_args(dev, cdt, case):
+    """KR's arguments as `_core._rhs_plane_wave` gives them for a case of
+    _KR_CASES (K5's j and j' at k rho)."""
+    tree, n_end, centers_of, n_k, per_k = _KR_CASES[case]
+    c = create_from_branching_types(tree)
+    d = c.c_ndim
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=dev)
+    rng = np.random.default_rng(21)
+    centers = torch.as_tensor(centers_of(), **f)
+    n_b = centers.shape[0]
+    k = torch.linspace(7.0, 7.06, n_k, **f)
+    direction = torch.zeros((d, n_k), **f)
+    direction[0] = 1.0
+    alpha = torch.ones((1, 1), dtype=cdt, device=dev).expand(n_k, n_b)
+    beta = torch.zeros((1, 1), dtype=cdt, device=dev).expand(n_k, n_b)
+    if per_k:
+        k = k.to(cdt) + 0.1j
+        direction = torch.as_tensor(rng.normal(size=(d, n_k)), **f)
+        centers = centers + torch.as_tensor(rng.normal(size=(n_k, n_b, d)) * 0.1, **f)
+        alpha = torch.as_tensor(_randc(rng, (n_k, n_b)), dtype=cdt, device=dev)
+        beta = torch.as_tensor(_randc(rng, (n_k, n_b)), dtype=cdt, device=dev)
+    direction = direction / torch.linalg.vector_norm(direction, dim=0, keepdim=True)
+    radii = torch.as_tensor(rng.uniform(0.5, 1.0, size=(n_k, n_b)), **f)
+    j, jp, _, _ = special.spherical_jh_all(d, n_end, (k[:, None] * radii).to(cdt))
+    return c, n_end, j, jp, k, direction, centers, alpha, beta, True, per_k
+
+
+def _degree_rel(got, ref, n_root):
+    """Max over (k, sphere, degree) blocks of the error over the block's
+    largest |ref|."""
+    h = len(n_root)
+    d, r = ((x.abs().reshape(-1, h)) for x in (got - ref, ref))
+    g = torch.as_tensor(n_root, dtype=torch.long, device=got.device).expand_as(d)
+    n_l = int(n_root.max()) + 1
+    dm = d.new_zeros(d.shape[0], n_l).scatter_reduce(1, g, d, "amax")
+    rm = r.new_zeros(d.shape[0], n_l).scatter_reduce(1, g, r, "amax")
+    return float((dm / rm.clamp_min(torch.finfo(rm.dtype).tiny)).max())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", list(_KR_CASES))
+def test_plane_wave_rhs_kernel_matches_plain(cuda, dtype, case):
+    """KR against its plain version per (k, sphere, degree) block (1e-5 in
+    complex64, 1e-12 in complex128: j_n falls by orders of magnitude from
+    degree to degree, so a gate relative to the largest entry would pass a
+    spoiled high degree), two launches bit for bit, one launch counted, and,
+    its program cached, no host sync."""
+    from biem_helmholtz_sphere_tpu_torch.ops.plane_rhs import (
+        plane_wave_rhs, plane_wave_rhs_plain)
+
+    args = _kr_args(cuda, dtype, case)
+    n0 = plane_wave_rhs.launches
+    got = plane_wave_rhs(*args)
+    assert plane_wave_rhs.launches == n0 + 1
+    ref = plane_wave_rhs_plain(*args)
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert _degree_rel(got, ref, basis(args[0], args[1]).n_root) <= (
+        1e-5 if dtype == torch.complex64 else 1e-12)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = plane_wave_rhs(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _same_bits(again, got)
+
+
+@pytest.mark.requires_cuda
+def test_plane_wave_rhs_in_biem_matches_the_cpu(cuda):
+    """The bench's RHS through `_core._rhs_dispatch` (K5 and KR on the card)
+    against the same call on the CPU tensors (K5's and KR's plain
+    versions), complex128, per degree block within 1e-12."""
+    from biem_helmholtz_sphere_tpu_torch import plane_wave
+    from biem_helmholtz_sphere_tpu_torch.biem import _core
+
+    c = create_from_branching_types("ba")
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        f = dict(dtype=torch.float64, device=dev)
+        k = torch.linspace(7.0, 7.06, 4, **f)
+        uin, grad = plane_wave(k=k, direction=torch.tensor([[1.0] * 4, [0.5] * 4, [0.0] * 4],
+                                                           **f))
+        ones = torch.ones((4, 16), dtype=torch.complex128, device=dev)
+        out.append(_core._rhs_dispatch(c, 32, torch.as_tensor(_lattice(), **f),
+                                       torch.ones(4, 16, **f), ones, 0.5 * ones, uin, grad,
+                                       (4,)).cpu())
+    assert _degree_rel(out[0], out[1], basis(c, 32).n_root) <= 1e-12

@@ -184,7 +184,7 @@ TEST_MODULES = (
     "test_torch_dense",
     "test_torch_ctrees", "test_torch_dims", "test_torch_graf", "test_torch_gumerov",
     "test_torch_kernels", "test_torch_lattice", "test_torch_matfree", "test_torch_parallel",
-    "test_torch_surfaces", "test_torch_trees", "test_torch_frontends",
+    "test_torch_surfaces", "test_torch_trees", "test_torch_frontends", "test_torch_plane_rhs",
 )
 
 

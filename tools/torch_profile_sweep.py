@@ -32,8 +32,11 @@ warm starts) once to warm up and once under torch.profiler, then prints:
   points, 1 k) and the cylinder seeds `cyl_jh01` (4 x 16 arguments);
 - the host microseconds per call of the K5 wrapper in its three modes and
   of the KC gather and K2 wrappers at the same shapes, with a
-  `torch.empty` and the stream queries beside them (only these with
-  --host-only).
+  `torch.empty` and the stream queries beside them, and of the bench
+  block's right-hand side and its per-block host work
+  (tools/torch_rhs_ab.py's `other_host_times`: the RHS stage, the pair
+  routing and KC's tables, the factored operator's build, the input
+  checks, the geometry read) (only these with --host-only).
 
 With --4d it profiles chip_smoke.py phase 8 (a)'s 4D path instead ('bba',
 16 unit spheres at the corners of {-2, 2}^4, n_end=20, complex64, the
@@ -359,8 +362,10 @@ def wrapper_host_times(torch, dev):
 
 
 def _print_host_times(torch, dev):
+    from tools.torch_rhs_ab import other_host_times
+
     print("host us per call (bench widths, complex64):")
-    for label, us in wrapper_host_times(torch, dev).items():
+    for label, us in (wrapper_host_times(torch, dev) | other_host_times(torch, dev)).items():
         print(f"  {us:9.2f} us  {label}")
 
 
