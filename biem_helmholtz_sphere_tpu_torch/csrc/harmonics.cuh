@@ -1,5 +1,5 @@
 // The device-side evaluator of a tree's harmonics, shared by KE
-// (harmonic_eval.cu) and K3 (rotation_blocks.cu).
+// (harmonic_eval.cu), K3 (rotation_blocks.cu) and KR (plane_rhs.cu).
 //
 // It reads the program of ops/harmonic_program.py (the tables named there)
 // and computes the node factors of harmonics/_eval.py::_node_table (the

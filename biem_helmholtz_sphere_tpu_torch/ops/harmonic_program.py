@@ -28,9 +28,9 @@ The program holds, as int32 / real tensors on one device:
   [n_fam, 2] the seed p_0 = 1 / b_0 and the prefactor's constant (the 'c'
   norm, else 1);
 * `hjob` [H, n_nodes] the job of each flat harmonic at each node (by node
-  id; the child states' jobs `csjob` are its rows) and `n_root` [H] each
-  harmonic's root degree: KR (`csrc/plane_rhs.cu`) evaluates Y_h by them
-  at one direction per k;
+  id; the child states' jobs `csjob` are its rows): KR's generic instance
+  (`csrc/plane_rhs.cu`, trees of more than 4 nodes) evaluates Y_h by it
+  from the seeds;
 * the map h -> (root job, child state), as K3 walks it: the child states
   `cs` [n_cs, 4] (the root's first job, the number J of its root degrees,
   the offset of its entries in program order, its first root degree l0),
@@ -68,6 +68,10 @@ first value.  The walk's tables:
 * `wjob` [n_cs, n_nodes]: the rows of `csjob` in walk order;
 * `ke_perm` [H] (int32 on the device): the flat h of each entry in KE's
   order (w[..., ke_perm] is the density as KE reads it);
+* `wcs` [H] (int32): the child state (its index in walk order) of each
+  entry in KE's order (KR, `csrc/plane_rhs.cu`, starts a thread's run of
+  entries there), and `ke_hn` [H, 2] (int32) each entry's flat h and root
+  degree n_h (KR's one load for both);
 * `shape`: the tree's shape for the kernel, the node kinds in pre-order as
   n_nodes << 8 | sum kind_i << 2 i for trees of at most 4 nodes, else 0
   (the kernel's generic instance).
@@ -105,7 +109,6 @@ class HarmonicProgram:
     csjob: torch.Tensor
     perm: torch.Tensor
     hjob: torch.Tensor
-    n_root: torch.Tensor
     # KE's walk (`ke_walk_numpy`)
     shape: int
     walk: torch.Tensor
@@ -114,6 +117,8 @@ class HarmonicProgram:
     wstep: torch.Tensor
     wjob: torch.Tensor
     ke_perm: torch.Tensor
+    wcs: torch.Tensor
+    ke_hn: torch.Tensor
 
 
 @lru_cache(maxsize=64)
@@ -272,6 +277,8 @@ def ke_walk_numpy(c, n_end):
         wstep=np.asarray(wstep, dtype=i32).reshape(-1, 4),
         wjob=np.ascontiguousarray(csjob[order]).astype(i32),
         ke_perm=np.asarray(ke_perm, dtype=np.int64),
+        wcs=np.repeat(np.arange(len(order)), [n_j for _, n_j, _, _ in walk]).astype(i32),
+        ke_hn=np.stack([ke_perm, t["n_root"][ke_perm]], axis=1).astype(i32).reshape(-1, 2),
     )
 
 
@@ -303,8 +310,7 @@ def harmonic_program(c, n_end, dtype, device):
         nodes=put("nodes"), jobs=put("jobs"), fam=put("fam"),
         coef=put("coef", dtype), famr=put("famr", dtype), cs=put("cs"),
         csjob=put("csjob"), perm=put("perm", torch.int64), hjob=put("hjob"),
-        n_root=put("n_root"),
         shape=t["shape"], walk=put("walk"), wfam=put("wfam"), wroot=put("wroot", dtype),
         wstep=put("wstep"),
-        wjob=put("wjob"), ke_perm=put("ke_perm"),
+        wjob=put("wjob"), ke_perm=put("ke_perm"), wcs=put("wcs"), ke_hn=put("ke_hn"),
     )

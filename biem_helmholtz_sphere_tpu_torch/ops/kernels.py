@@ -29,7 +29,7 @@ SOURCES = ("fused_ba_eval.cu", "block_diag_cmm.cu", "lane_route.cu",
            "spherical_jh.cu", "coax_fold.cu", "dense_assemble.cu", "graf_fold.cu",
            "band_sr.cu", "harmonic_eval.cu", "rotation_blocks.cu", "coax_u.cu",
            "gmres_step.cu", "plane_rhs.cu")
-HEADERS = ("common.cuh", "mma_f64.cuh", "harmonics.cuh", "hankel.cuh")
+HEADERS = ("common.cuh", "mma_f64.cuh", "harmonics.cuh", "harmonic_walk.cuh", "hankel.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,9 +93,9 @@ _SIGNATURES = {
     # nnz, dbl, stream
     "bhs_rotation_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
                             _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P],
-    # t, tzw, rows, cols, order, tiles, u, u_img, q, nb, nnz, n_tiles, dbl,
-    # stream
-    "bhs_coax_u": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # t, tzw, rows, cols, order, tiles, u, u_img, where, q, nb, nnz, n_tiles,
+    # ng, direct, smem, dbl, stream
+    "bhs_coax_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P],
     # V, R, g, Q, resid, steps, flag, w, diag, target, cwork, rwork, K, n, m,
     # j, grid, per_round, unit, lmax, cw, rb, stages, resident_rows,
     # max_pieces, x_smem, boxes, smem, tiny, dbl, stream
@@ -105,13 +105,9 @@ _SIGNATURES = {
     "bhs_arnoldi_capacity": [_I, _P],
     # R, g, flag, y, K, m, tiny, dbl, stream
     "bhs_gmres_backsolve": [_P, _P, _P, _P, _I, _I, _D, _I, _P],
-    # out, j, jp, k, sk, kc, dir, sdd, sdk, centers, sck, scb, scd, alpha,
-    # sak, sab, beta, sbk, sbb, n_root, hjob, nodes, jobs, fam, coef, famr,
-    # n_nodes, K, B, H, ne, d, has_uin, has_grad, b_per, k_per, neg_a, dbl,
-    # stream
-    "bhs_plane_rhs": [_P, _P, _P, _P, _L, _I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _P, _L,
-                      _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _D, _I, _P],
+    # pack (csrc/plane_rhs.cu's slots: ops/plane_rhs.py _SLOTS), out, j, jp,
+    # k, dir, centers, alpha, beta, stream
+    "bhs_plane_rhs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 # the real dtype of each complex dtype the kernels take

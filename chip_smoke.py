@@ -264,8 +264,11 @@ root tables built there) against its plain version at (i) phase 8 (a)'s
 1e-14 of its sum of magnitudes (and one float32 rounding), exactly 0
 wherever that sum is, launched twice and required bit-for-bit equal, timed
 beside its plain version, its bound and its yardstick (the DGEMM of the
-materialised factors, `ku_library_ms`), and (v) 'ba' at n_end=96, untimed
-(no size ceiling).  Phases 4 (first block), 8 (a) and 9 (a) clear the
+materialised factors, `ku_library_ms`), with its device time's share of
+the bound, and (v) 'ba' at n_end=96, untimed (no size ceiling); it prints
+each KU instance's ptxas registers, stack and spills and its DMMA count
+in the built library's SASS (cuobjdump) and fails on an instance with no
+DMMA or with spills.  Phases 4 (first block), 8 (a) and 9 (a) clear the
 coax tables' caches and require KU launched; phase 8 (a) splits its coax
 stage into the tables (host index and plan, the root tables on the card,
 KU) and K5 + K2.
@@ -301,9 +304,17 @@ tree's program) against its plain version per (k, sphere, degree) block
 bench, timed beside its plain version and its bound (the [K, B, H] output
 written, j and j' read; library none: no PyTorch call evaluates a tree's
 harmonics) and run once under set_sync_debug_mode("error") with its
-program cached; (ii) the bench with complex k, a direction and centers
-per k and both terms; (iii) phase 9 (b)'s 4,096 circles (complex k, both
-terms).  Every phase that solves with a plane wave on the card runs it.
+program and kept Y cached; (ii) the bench with complex k, a direction and
+centers per k and both terms; (iii) phase 9 (b)'s 4,096 circles (complex
+k, both terms).  At each, a cold call (the kept table and launch packs
+cleared), a warm call (the same direction: Y read from the table) and a
+call after the direction changed (to another, then to the last axis: a
+pole), each against its plain version and for the same bits (warm
+against cold; changed against a cold call at the new direction); at
+(i) the device time of a warm call and of one whose direction changes
+every call, and the wrapper's host time per call; the
+ptxas figures of the instances run, which must have no stack frame.
+Every phase that solves with a plane wave on the card runs it.
 
 The spherical functions (K5) are compared on values: mant_k exp(e_k - e_p)
 against mant_p, entry by entry; their max_abs_err is on those aligned
@@ -1369,8 +1380,10 @@ def ku_bound(tables, plan, name):
     """KU's bound for tables in `name`'s real type: the root tables, the
     entries' rows, cols and order and the tiles read once, u and the tile
     image written once; per entry q products t_a t_b and, per band inside
-    l + l' >= n, 2 q operations of a float64 contraction (the FP64 tensor
-    cores' rate)."""
+    l + l' >= n (the bands outside are zero by definition: no work), 2 q
+    operations of a float64 contraction (the FP64 tensor cores' rate).  The
+    same count as csrc/coax_u.cu's header (3.61 GFLOP, 54.5 us at 'ba'
+    n_end=64)."""
     t, tzw = tables
     (h, q), nb = t.shape, tzw.shape[1]
     rs = 4 if name == "complex64" else 8
@@ -1403,7 +1416,26 @@ def check_ku(torch, dev, card):
     from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coax_tables_on
     from biem_helmholtz_sphere_tpu_torch.translation._scaled import _coax_plan_on
 
+    from biem_helmholtz_sphere_tpu_torch.ops import kernels
+    from tools.torch_ke_ab import ptxas_report, sass_functions
+
     results = {}
+    kernels.library()
+    report, sass = ptxas_report("coax_u.cu"), sass_functions()
+    for mangled, fig in sorted(report.items()):
+        if "coax_u_kernel" not in mangled:
+            continue
+        dbl = "coax_u_kernelId" in mangled
+        direct = "Lb1E" in mangled
+        dmma = sass[mangled].count("DMMA") if mangled in sass else 0
+        print(f"[2] coax_u (KU) instance <{'double' if dbl else 'float'}, "
+              f"{'true' if direct else 'false'}>: {fig['registers']} "
+              f"registers, {fig['stack']} bytes stack frame, {fig['spill_stores']} / "
+              f"{fig['spill_loads']} bytes spill stores / loads (ptxas -v), {dmma} DMMA in its "
+              f"SASS (cuobjdump)")
+        if dmma == 0 or fig["spill_stores"] or fig["spill_loads"]:
+            raise RuntimeError(f"coax_u instance {mangled}: {dmma} DMMA, spills "
+                               f"{fig['spill_stores']} / {fig['spill_loads']}")
     for label, tree, n_end, timed in KU_CASES:
         c = create_from_branching_types(tree)
         clear_coax_caches()  # the host index, plan and root tables timed cold
@@ -1444,13 +1476,19 @@ def check_ku(torch, dev, card):
                     f"{rdt}: max_abs_err {ea:.3e}, largest error / sum of magnitudes {er:.3e}")
             if timed:
                 ms = cuda_ms(torch, lambda: coax_u(tables, layout, plan, rdt), 5)
-                dus = device_us(torch, lambda: coax_u(tables, layout, plan, rdt), "coax_u_kernel")
+                dus = device_us(torch, lambda: coax_u(tables, layout, plan, rdt), "coax_u_",
+                                per_call=True)  # its two passes
+                p1 = device_us(torch, lambda: coax_u(tables, layout, plan, rdt),
+                               "coax_u_kernel", per_call=True)
                 pms = cuda_ms(torch, lambda: _coax_u_plain(tables, layout, plan, rdt), 2)
                 b = ku_bound(tables, plan, name)
                 lms = ku_library_ms(torch, tables, layout)
-                line += (f"; kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler) "
+                line += (f"; kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler, "
+                         f"{100 * b[0] * 1e3 / dus:.1f}% of the bound; of it the tiles' pass "
+                         f"{p1:.2f} us, u's rows {dus - p1:.2f} us) "
                          f"plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}) library {lms:.4f} ms "
-                         f"(matmul of the materialised factors); host index and plan "
+                         f"(matmul of the materialised factors; the kernel "
+                         f"{'below' if ms < lms else 'above'} it); host index and plan "
                          f"{t_plan:.4f} s, root tables on the card {t_tab:.4f} s (cold)")
                 if label.startswith("(i)"):
                     results[name] = {"abs": ea, "rel": er, "ms": ms, "plain_ms": pms,
@@ -1499,19 +1537,37 @@ def kr_case(torch, dev, cdt, tree, n_end, centers_np, n_k, per_k=False):
     return c, n_end, j, jp, k, direction, centers, alpha, beta, True, per_k
 
 
+def kr_cold():
+    """Drop KR's kept Y tables and launch packs: the next call forms Y."""
+    from biem_helmholtz_sphere_tpu_torch.ops import plane_rhs
+
+    plane_rhs.kr_table.cache_clear()
+    plane_rhs._packs.clear()
+
+
 def check_kr(torch, dev, card):
     """Phase 2, KR (`ops/plane_rhs.py::plane_wave_rhs`, the plane-wave
     right-hand side): against its plain version, per (k, sphere, degree)
-    block within KR_TOL, launched twice and required bit-for-bit equal, at
-    (i) the bench (timed beside its plain version and its bound; the same
-    call under set_sync_debug_mode("error") once the program is cached),
-    (ii) the bench with complex k, a direction and centers per k and both
-    terms, (iii) phase 9 (b)'s 4,096 circles at n_end=32.  Returns the
-    results of (i) by dtype name."""
+    block within KR_TOL, at (i) the bench, (ii) the bench with complex k, a
+    direction and centers per k and both terms, (iii) phase 9 (b)'s 4,096
+    circles at n_end=32: a cold call (`kr_cold`), a warm call (the same
+    bits) and calls after the direction changed, to another and then to the
+    last axis (a pole; each the bits of a cold call there); at (i) timed
+    beside its plain version and its bound, warm and with the direction
+    changed at every call, the wrapper's host time, the
+    same call under set_sync_debug_mode("error") once the program and the
+    kept Y are cached.  The ptxas figures of each instance run, which must
+    have no stack frame.  Returns the results of (i) by dtype name."""
     from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
+    from biem_helmholtz_sphere_tpu_torch.ops.harmonic_program import shape_code
     from biem_helmholtz_sphere_tpu_torch.ops.plane_rhs import (
         plane_wave_rhs, plane_wave_rhs_plain)
+    from biem_helmholtz_sphere_tpu_torch.ops import kernels
+    from tools.torch_ke_ab import ptxas_report
+    from tools.torch_rhs_ab import _host_us
 
+    kernels.library()
+    report = ptxas_report("plane_rhs.cu")
     results = {}
     cases = (("(i) bench", "ba", N_END, lattice_centers(), KB, False),
              ("(ii) bench, complex k, a direction and centers per k, both terms", "ba", N_END,
@@ -1522,22 +1578,49 @@ def check_kr(torch, dev, card):
         for cdt in (torch.complex64, torch.complex128):
             name = str(cdt).split(".")[-1]
             args = kr_case(torch, dev, cdt, tree, n_end, centers_np, n_k, per_k)
+            n_root = basis(args[0], n_end).n_root
+            turned = list(args)
+            turned[5] = args[5] * 0.8 + torch.roll(args[5], 1, dims=0) * 0.6  # another one
+            turned[5] = turned[5] / torch.linalg.vector_norm(turned[5], dim=0, keepdim=True)
+            pole = list(args)  # the last axis: x = 1 in the polar recurrences
+            pole[5] = torch.zeros_like(args[5])
+            pole[5][-1] = 1.0
+            errs = []
+            kr_cold()
             n0 = plane_wave_rhs.launches
-            got = plane_wave_rhs(*args)
+            got = plane_wave_rhs(*args)  # cold: every slice formed
             if plane_wave_rhs.launches != n0 + 1:
                 raise RuntimeError(f"plane_wave_rhs {label} {name}: the kernel did not launch")
-            ref = plane_wave_rhs_plain(*args)
-            n_root = basis(args[0], n_end).n_root
-            er = ball_degree_rel_err(torch, got, ref, n_root)
-            ea = float((got - ref).abs().max())
-            if not same_bits(torch, plane_wave_rhs(*args), got):
-                raise RuntimeError(f"plane_wave_rhs {label} {name}: two launches differ")
-            line = (f"[2] plane_wave_rhs (KR) {label}: {tuple(got.shape)} {name}: max_abs_err "
-                    f"{ea:.3e}, largest error / its (k, sphere, degree) block's largest "
-                    f"{er:.3e}")
-            if er > KR_TOL[name]:
-                raise RuntimeError(f"plane_wave_rhs {label} {name}: {er:.3e} > {KR_TOL[name]}")
+            for call, out, a in (("cold", got, args), ("warm", plane_wave_rhs(*args), args),
+                                 ("turned", plane_wave_rhs(*turned), turned),
+                                 ("pole", plane_wave_rhs(*pole), pole)):
+                ref = plane_wave_rhs_plain(*a)
+                er = ball_degree_rel_err(torch, out, ref, n_root)
+                errs.append((call, float((out - ref).abs().max()), er))
+                if er > KR_TOL[name]:
+                    raise RuntimeError(f"plane_wave_rhs {label} {name} {call}: {er:.3e} > "
+                                       f"{KR_TOL[name]}")
+                if call == "warm" and not same_bits(torch, out, got):
+                    raise RuntimeError(f"plane_wave_rhs {label} {name}: warm differs from cold")
+                if call in ("turned", "pole"):
+                    kr_cold()
+                    if not same_bits(torch, plane_wave_rhs(*a), out):
+                        raise RuntimeError(f"plane_wave_rhs {label} {name}: after a change of "
+                                           f"direction differs from cold there")
+            ea = max(e[1] for e in errs)
+            line = (f"[2] plane_wave_rhs (KR) {label}: {tuple(got.shape)} {name}: "
+                    + ", ".join(f"{c_} max_abs_err {a_:.3e} block {r_:.3e}" for c_, a_, r_ in errs)
+                    + " (largest error / its (k, sphere, degree) block's largest); cold, warm "
+                      "and changed-direction bits equal (turned, then to the last axis)")
+            fig = next(v for k_, v in report.items()
+                       if f"plane_rhs_kernelI{'d' if cdt == torch.complex128 else 'f'}"
+                          f"Li{shape_code(args[0])}E" in k_)
+            line += (f"; instance: {fig['registers']} registers, {fig['stack']} bytes stack "
+                     f"frame, {fig['spill_stores']} / {fig['spill_loads']} bytes spills (ptxas)")
+            if fig["stack"] or fig["spill_stores"] or fig["spill_loads"]:
+                raise RuntimeError(f"plane_wave_rhs {label} {name}: a stack frame or spills")
             if label.startswith("(i)"):
+                plane_wave_rhs(*args)
                 torch.cuda.synchronize()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
@@ -1546,17 +1629,31 @@ def check_kr(torch, dev, card):
                     torch.cuda.set_sync_debug_mode("default")
                 ms = cuda_ms(torch, lambda: plane_wave_rhs(*args), 20)
                 dus = device_us(torch, lambda: plane_wave_rhs(*args), "plane_rhs_kernel")
+                flip = [args, turned]
+                state = [0]
+
+                def changing():  # the direction changes at every call: every slice formed
+                    state[0] ^= 1
+                    return plane_wave_rhs(*flip[state[0]])
+
+                ms_new = cuda_ms(torch, changing, 20)
+                dus_new = device_us(torch, changing, "plane_rhs_kernel")
+                host = _host_us(torch, lambda: plane_wave_rhs(*args), 200)
                 pms = cuda_ms(torch, lambda: plane_wave_rhs_plain(*args), 5)
                 cs = got.element_size()
                 b = bound(cs * (got.numel() + 2 * args[2].numel()), 0, name)
-                line += (f"; kernel {ms:.4f} ms ({dus:.2f} us on the device, torch.profiler) "
-                         f"plain {pms:.4f} ms bound {b[0]:.6f} ms ({b[1]}: [K, B, H] written, "
-                         f"j and j' read) library none (no PyTorch call evaluates a tree's "
-                         f"harmonics); no host sync once the program is cached")
-                results[name] = {"abs": ea, "rel": er, "ms": ms, "plain_ms": pms,
-                                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                line += (f"; warm: kernel {ms:.4f} ms ({dus:.2f} us on the device, "
+                         f"torch.profiler, {100 * b[0] * 1e3 / dus:.1f}% of the bound), "
+                         f"wrapper host {host:.1f} us a call; direction changed every call: "
+                         f"{ms_new:.4f} ms ({dus_new:.2f} us on the device); plain {pms:.4f} ms "
+                         f"bound {b[0]:.6f} ms ({b[1]}: [K, B, H] written, j and j' read) "
+                         f"library none (no PyTorch call evaluates a tree's harmonics); no host "
+                         f"sync once the program and the kept Y are cached")
+                results[name] = {"abs": ea, "rel": max(e[2] for e in errs), "ms": ms,
+                                 "plain_ms": pms, "bound_ms": b[0], "bound_by": b[1],
+                                 "library_ms": None}
             print(f"{line} ({card})")
-            del got, ref, args
+            del got, args, turned
     return results
 
 
@@ -4643,12 +4740,17 @@ def profile_kernels(torch, fn, kernel):
     """(device microseconds, launches, names) of the kernels whose names
     hold `kernel` over 5 calls of fn under torch.profiler.  A window whose
     trace holds no such kernel (the profiler has dropped a short kernel's
-    events) is profiled again, up to three windows."""
+    events) is profiled again, up to four windows.  Where every window
+    misses it (CUPTI has been seen to drop a kernel's records for the rest
+    of a process), the 5 calls are timed between CUDA events instead (the
+    call's whole time: an upper bound on the kernel's) and the launches
+    are the wrappers' own counts over them; the line printed says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen = []
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 fn()
@@ -4658,7 +4760,23 @@ def profile_kernels(torch, fn, kernel):
             total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
                         for e in evs)
             return total, sum(e.count for e in evs), sorted({e.key for e in evs})
-    raise RuntimeError(f"torch.profiler saw no {kernel} kernel")
+        seen = sorted({e.key for e in prof.key_averages()})
+    _, read = kernel_counts()
+    before = read()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        fn()
+    end.record()
+    end.synchronize()
+    count = sum(read().values()) - sum(before.values())
+    if count < 1:
+        raise RuntimeError(f"torch.profiler saw no {kernel} kernel and no wrapper counted a launch")
+    print(f"[2] torch.profiler saw no {kernel} kernel in 4 windows of 5 calls (the last window "
+          f"held {len(seen)} other kernel names: {seen[:4]}); timed between CUDA events "
+          f"instead, {count} launches by the wrappers' counts")
+    return start.elapsed_time(end) * 1e3, count, [f"{kernel}* (CUDA events)"]
 
 
 def device_us(torch, fn, kernel, per_call=False):

@@ -294,3 +294,120 @@ def test_tile_plan_has_no_size_ceiling():
     assert len(lsum) == 1398144
     _, units, most = _check_plan(lsum, 132)
     assert most <= max(_UNIT_SLABS, -(-(2 * n_end - 1) // _GROUP))
+
+
+# ---- KU's plan on the card (csrc/coax_u.cu), on the host ------------------
+
+# KU's cases (tree, n_end): chip_smoke.py phase 2's (i) 4D first block, (ii)
+# the bench, (iii) 'ba' at 64 and (v) 96, past any size ceiling
+_KU_PLAN_CASES = {"bba-20": ("bba", 20), "ba-32": ("ba", 32), "ba-64": ("ba", 64),
+                  "ba-96": ("ba", 96)}
+
+
+@pytest.mark.parametrize("case", list(_KU_PLAN_CASES))
+def test_ku_plan_covers_every_band_of_every_tile_once(case):
+    """KU's tiles cover every packed entry once (`_check_plan`), and its
+    warps (`ku._ku_work`) cover each tile's 64 rows x band groups 0 .. g
+    exactly once, in one pass up to 16 groups (n_end <= 64) and in passes of
+    16 past that; its shared memory is the same at every n_end and leaves
+    an H100's SM room for two CTAs."""
+    tree, n_end = _KU_PLAN_CASES[case]
+    c = create_from_branching_types(tree)
+    ell = _coax_index(c, n_end)[3]
+    lay = pack_layout(*_child_state_blocks(c, n_end), len(ell), CPU)
+    lsum = ell[lay.rows.numpy()] + ell[lay.cols.numpy()]
+    _check_plan(lsum, 132)
+    tiles = _coax_tiles(lsum, 132)[2]
+    for g in np.unique(tiles[:, 2]):
+        work = ku._ku_work(int(g))
+        hits = np.zeros((_TILE, g + 1), np.int64)
+        for _, w, m0, grp in work:
+            assert m0 == 16 * (w % 4) and grp % 2 == (w // 4) % 2
+            hits[m0:m0 + 16, grp] += 1
+        assert (hits == 1).all()
+        assert max(p for p, _, _, _ in work) + 1 == -(-(g + 1) // ku._KU_GROUPS_PASS)
+        per = np.bincount([p * 8 + w for p, w, _, _ in work])
+        assert per.max() <= ku._KU_GROUPS_W
+    assert (g + 1 <= ku._KU_GROUPS_PASS) == (n_end <= 64)
+    assert ku._ku_smem() == 105216 and 2 * (ku._ku_smem() + 1024) <= 228 * 1024
+
+
+def _ku_emulate(tables, layout, plan, dtype, direct):
+    """csrc/coax_u.cu's two passes on the host in float64: per tile P =
+    t_a t_b over its 64 rows (zero past a ragged end), per (pass, warp, m
+    tile, group) of `_ku_work` the product of its 16 rows with the group's 8
+    bands, written from the MMA fragments' lanes (row g or g + 8, bands
+    2 t and 2 t + 1) to the image, masked to l + l' >= n; then each
+    entry's column of u read back from the image, tile by tile where
+    `direct` (each CTA its own tile's), else through the map `where` (pass
+    2)."""
+    t, tzw = (x.numpy() for x in tables)
+    q, nb = tzw.shape
+    nnz = layout.rows.shape[0]
+    order, tiles = plan.order.numpy(), plan.tiles.numpy()
+    rows, cols = layout.rows.numpy(), layout.cols.numpy()
+    z = np.zeros((q, plan.ng * _GROUP))
+    z[:, :nb] = tzw
+    u = np.zeros((plan.ng * _GROUP, nnz))
+    img = np.full((plan.slabs, 2, _TILE, 4), np.nan)
+    for first, n, g, slab in tiles:
+        e = order[first:first + n, 0]
+        ls = np.full(_TILE, -1)
+        ls[:n] = (order[first:first + n, 1] & 0xFFFF) + (order[first:first + n, 1] >> 16)
+        p = np.zeros((_TILE, q))
+        p[:n] = t[rows[e]] * t[cols[e]]
+        for _, _, m0, grp in ku._ku_work(int(g)):
+            d = p[m0:m0 + 16] @ z[:, grp * _GROUP:(grp + 1) * _GROUP]  # [16, 8]
+            for lane in range(32):
+                gl, tq = lane >> 2, lane & 3
+                for h in range(2):
+                    j, n0 = m0 + gl + 8 * h, grp * _GROUP + 2 * tq
+                    v = [d[gl + 8 * h, 2 * tq + c] if n0 + c <= ls[j] else 0.0 for c in (0, 1)]
+                    img[slab + grp, tq >> 1, j, 2 * (tq & 1):2 * (tq & 1) + 2] = v
+        if direct:  # the tile's own columns of u from its slabs (0 above: u starts at 0)
+            u[:(g + 1) * _GROUP, e] = img[slab:slab + g + 1, :, :n, :].transpose(
+                0, 1, 3, 2).reshape(-1, n)
+    if direct:
+        return torch.as_tensor(u).to(dtype), torch.as_tensor(img).to(dtype)
+    where = np.empty(nnz, np.int64)  # pass 1's map: tile << 6 | row of each entry
+    for ti, (first, n, _, _) in enumerate(tiles):
+        where[order[first:first + n, 0]] = ti << 6 | np.arange(n)
+    for e in range(nnz):  # pass 2: each entry's column of u from the image, 0 above
+        first, n, g, slab = tiles[where[e] >> 6]
+        u[:(g + 1) * _GROUP, e] = img[slab:slab + g + 1, :, where[e] & 63, :].reshape(-1)
+    return torch.as_tensor(u).to(dtype), torch.as_tensor(img).to(dtype)
+
+
+@pytest.mark.parametrize("direct", [True, False], ids=["direct", "two-pass"])
+@pytest.mark.parametrize("tree,n_end,groups_w", [("ba", 8, 8), ("bba", 5, 8), ("ba", 9, 1)])
+def test_ku_emulation_matches_the_plain_version(tree, n_end, groups_w, direct, monkeypatch):
+    """The host emulation of KU's tiles, warps, fragment lanes and second
+    pass (`_ku_emulate`) fills u and the image as the plain version does: each
+    entry within 1e-14 of its sum of magnitudes, exactly 0 wherever that
+    sum is, every image slot written; with one group a warp (two a pass)
+    the passes take a 'ba' n_end=9 tile's three groups; u written by pass
+    1 itself (direct) or by pass 2 from the image."""
+    monkeypatch.setattr(ku, "_KU_GROUPS_W", groups_w)
+    monkeypatch.setattr(ku, "_KU_GROUPS_PASS", 2 * groups_w)
+    c = create_from_branching_types(tree)
+    layout, plan = _coax_plan_on(c, n_end, CPU)[:2]
+    tables = _coax_tables_on(c, n_end, CPU)
+    got = _ku_emulate(tables, layout, plan, torch.float64, direct)
+    ref = _coax_u_plain(tables, layout, plan, torch.float64)
+    mag = _coax_u_plain(tuple(x.abs() for x in tables), layout, plan, torch.float64)
+    for gt, r, m in zip(got, ref, mag):
+        assert bool(torch.isfinite(gt).all())
+        assert bool(((gt - r).abs() <= 1e-14 * m).all())
+        assert bool((gt[m == 0] == 0).all())
+
+
+def test_ku_writes_u_itself_only_where_its_tiles_are_one_wave():
+    """KU's first pass writes u itself where its tiles are one wave of a
+    CTA an SM on a 132-SM H100 (the 5D pair's 32 tiles); the bench's 346,
+    the 4D first block's 463 and 'ba' n_end=64's 2,740 take the second
+    pass."""
+    for tree, n_end, n_tiles, direct in (("bbba", 8, 32, True), ("ba", 32, 346, False),
+                                         ("bba", 20, 463, False), ("ba", 64, 2740, False)):
+        plan = _coax_plan_on(create_from_branching_types(tree), n_end, CPU)[1]
+        assert plan.tiles.shape[0] == n_tiles
+        assert ku._ku_direct(n_tiles, 132) == direct

@@ -539,9 +539,11 @@ def test_coax_fold_kernel_matches_plain(cuda, dtype, case):
     assert _same_bits(coax_fold(*args), got)
 
 
-# KU's cases (tree, n_end): phase 8 (a)'s 4D first block, the bench's, and
-# the 5D pair's
-_KU_CASES = {"bba-20": ("bba", 20), "ba-32": ("ba", 32), "bbba-8": ("bbba", 8)}
+# KU's cases (tree, n_end): chip_smoke.py phase 2's (i) phase 8 (a)'s 4D
+# first block, (ii) the bench's, (iii) 'ba' at 64 (every band group in one
+# pass), (iv) the 5D pair's and (v) 'ba' at 96 (two passes: no size ceiling)
+_KU_CASES = {"bba-20": ("bba", 20), "ba-32": ("ba", 32), "ba-64": ("ba", 64),
+             "bbba-8": ("bbba", 8), "ba-96": ("ba", 96)}
 
 
 @pytest.mark.requires_cuda
@@ -1005,7 +1007,16 @@ def test_spherical_h_d2_at_the_lattice_offsets(cuda, dtype):
 def test_lattice_solve_on_the_card_matches_the_cpu(cuda, btype):
     """The lattice-FFT route (8 x 8 lattice, solver="auto") on the card
     against the same call on the CPU: 'a' at n_end = 12 through KG, 'ba'
-    at n_end = 5 through K2, both dtypes, stable and plain."""
+    at n_end = 5 through K2, both dtypes, stable and plain.  float64: the
+    card's density and uscat within 1e-9 of the CPU's.  float32 (GMRES to
+    its 3e-5 residual): the card's within 1e-4 of the CPU's float32 solve,
+    or within a fifth of that solve's own distance from the float64 one
+    where that is larger, and no further from the float64 solve than the
+    CPU's float32 solve is, plus 1e-4.  On the 2D lattice both float32
+    solves are 6e-4-1.7e-3 off float64 at k = 1 (within 7% of each other)
+    and two correct float32 solves differ by up to 1.07e-4 with the
+    ulp-level bits of their inputs; card against CPU reads at most 0.07 of
+    that distance, in 3D at most 0.01 (tools/torch_lattice_f32.py)."""
     from biem_helmholtz_sphere_tpu_torch.biem import _core
     from biem_helmholtz_sphere_tpu_torch.ops.graf import graf_fold
 
@@ -1014,15 +1025,22 @@ def test_lattice_solve_on_the_card_matches_the_cpu(cuda, btype):
     centers = _square_lattice(8, d)
     assert _core._route("auto", 64, 64 * 9, torch.float64, cuda, True, False,
                         centers) == "lattice"
-    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
-        for stable in (True, False):
+    for stable in (True, False):
+        exact = _solve_nd(torch.device("cpu"), btype, torch.float64, centers, n_end, 1.0,
+                          stable=stable)
+        for dtype in (torch.float64, torch.float32):
             n0 = graf_fold.launches
             got = _solve_nd(cuda, btype, dtype, centers, n_end, 1.0, stable=stable)
             assert (graf_fold.launches > n0) == (btype == "a")
-            ref = _solve_nd(torch.device("cpu"), btype, dtype, centers, n_end, 1.0,
-                            stable=stable)
-            for g, r in zip(got, ref):
-                assert _rel(g, r) < tol
+            ref = exact if dtype == torch.float64 else _solve_nd(
+                torch.device("cpu"), btype, dtype, centers, n_end, 1.0, stable=stable)
+            for g, r, e in zip(got, ref, exact):
+                if dtype == torch.float64:
+                    assert _rel(g, r) < 1e-9
+                else:
+                    g, r = g.to(e.dtype), r.to(e.dtype)
+                    assert _rel(g, r) < max(1e-4, 0.2 * _rel(r, e))
+                    assert _rel(g, e) <= _rel(r, e) + 1e-4
 
 
 def _block_rel(got, ref, n_o, n_i, floor=0.0):
@@ -1952,16 +1970,16 @@ def _kr_args(dev, cdt, case):
     return c, n_end, j, jp, k, direction, centers, alpha, beta, True, per_k
 
 
-def _degree_rel(got, ref, n_root):
+def _degree_rel(got, ref, n_root, held=0.0):
     """Max over (k, sphere, degree) blocks of the error over the block's
-    largest |ref|."""
+    largest |ref|, over the blocks whose largest |ref| is at least `held`."""
     h = len(n_root)
     d, r = ((x.abs().reshape(-1, h)) for x in (got - ref, ref))
     g = torch.as_tensor(n_root, dtype=torch.long, device=got.device).expand_as(d)
     n_l = int(n_root.max()) + 1
     dm = d.new_zeros(d.shape[0], n_l).scatter_reduce(1, g, d, "amax")
     rm = r.new_zeros(d.shape[0], n_l).scatter_reduce(1, g, r, "amax")
-    return float((dm / rm.clamp_min(torch.finfo(rm.dtype).tiny)).max())
+    return float((dm / rm.clamp_min(torch.finfo(rm.dtype).tiny))[rm >= held].max())
 
 
 @pytest.mark.requires_cuda
@@ -2013,3 +2031,96 @@ def test_plane_wave_rhs_in_biem_matches_the_cpu(cuda):
                                        torch.ones(4, 16, **f), ones, 0.5 * ones, uin, grad,
                                        (4,)).cpu())
     assert _degree_rel(out[0], out[1], basis(c, 32).n_root) <= 1e-12
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("case", list(_KR_CASES))
+def test_plane_wave_rhs_cold_warm_and_turned(cuda, dtype, case):
+    """KR with its kept Y: a cold call (the table and launch packs dropped:
+    every slice formed), a warm one (the same direction: every slice read
+    from the table) and one after the direction turned (every slice formed
+    again), to a generic direction and then to the last axis (the z axis in
+    3D: the pole, x = 1, of the tree's polar angles), each within 1e-5 /
+    1e-12 of the plain version per (k, sphere, degree) block; warm gives
+    cold's bits, each turned call a cold call's bits at its direction."""
+    from biem_helmholtz_sphere_tpu_torch.ops import plane_rhs
+
+    args = _kr_args(cuda, dtype, case)
+    turned = list(args)
+    turned[5] = args[5] * 0.8 + torch.roll(args[5], 1, dims=0) * 0.6  # another direction
+    turned[5] = turned[5] / torch.linalg.vector_norm(turned[5], dim=0, keepdim=True)
+    pole = list(args)
+    pole[5] = torch.zeros_like(args[5])
+    pole[5][-1] = 1.0
+    n_root = basis(args[0], args[1]).n_root
+    tol = 1e-5 if dtype == torch.complex64 else 1e-12
+
+    def cold(a):
+        plane_rhs.kr_table.cache_clear()
+        plane_rhs._packs.clear()
+        return plane_rhs.plane_wave_rhs(*a)
+
+    first = cold(args)
+    warm = plane_rhs.plane_wave_rhs(*args)
+    after = plane_rhs.plane_wave_rhs(*turned)
+    at_pole = plane_rhs.plane_wave_rhs(*pole)
+    for out, a in ((first, args), (warm, args), (after, turned), (at_pole, pole)):
+        assert bool(torch.isfinite(out).all())
+        assert _degree_rel(out, plane_rhs.plane_wave_rhs_plain(*a), n_root) <= tol
+    assert _same_bits(warm, first)
+    assert _same_bits(cold(turned), after)
+    assert _same_bits(cold(pole), at_pole)
+
+
+# the (k, sphere, degree) blocks complex64 holds to 1e-5: largest |f| at
+# least float32's smallest normal over its epsilon (at 'ba' n_end = 64 and
+# k rho = 3.5 .. 7, j_n falls below it past n ~ 35 in both versions alike)
+_F32_HELD = float(torch.finfo(torch.float32).tiny / torch.finfo(torch.float32).eps)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["bench", "ba-n64", "bba-4d"])
+def test_plane_wave_rhs_complex64_at_the_pole_against_complex128(cuda, case):
+    """At a direction on the last axis (the z axis in 3D, x = 1 in the
+    polar recurrences) KR in complex64 and its plain version in complex64
+    each within 1e-5 per (k, sphere, degree) block (those float32 holds:
+    `_F32_HELD`) of the plain version in complex128 on the same inputs
+    (complex64's, widened).  Both form Y in double, rounded once: the plain
+    complex64 version reads 9.5e-8 at 'ba' n_end=64 on the CPU, where Y in
+    float32 read 1.35e-5."""
+    from biem_helmholtz_sphere_tpu_torch.ops import plane_rhs
+
+    def cast(args, cdt, rdt):
+        return [a.to(cdt if a.is_complex() else rdt) if isinstance(a, torch.Tensor) else a
+                for a in args]
+
+    low = list(_kr_args(cuda, torch.complex64, case))
+    low[5] = torch.zeros_like(low[5])
+    low[5][-1] = 1.0
+    ref = plane_rhs.plane_wave_rhs_plain(*cast(low, torch.complex128, torch.float64))
+    n_root = basis(low[0], low[1]).n_root
+    for out in (plane_rhs.plane_wave_rhs(*low), plane_rhs.plane_wave_rhs_plain(*low)):
+        assert bool(torch.isfinite(out).all())
+        assert _degree_rel(out.to(torch.complex128), ref, n_root, _F32_HELD) <= 1e-5
+
+
+@pytest.mark.requires_cuda
+def test_plane_wave_rhs_on_a_side_stream_has_the_same_bits(cuda):
+    """KR keeps a table per stream: a call under a side stream (its own
+    table, formed cold there) gives the default stream's bits, warm and
+    cold, and the default stream's table goes on as before."""
+    from biem_helmholtz_sphere_tpu_torch.ops import plane_rhs
+
+    args = _kr_args(cuda, torch.complex64, "bench")
+    plane_rhs.kr_table.cache_clear()
+    plane_rhs._packs.clear()
+    ref = plane_rhs.plane_wave_rhs(*args)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [plane_rhs.plane_wave_rhs(*args) for _ in range(2)]
+    torch.cuda.current_stream().wait_stream(side)
+    for out in got:
+        assert _same_bits(out, ref)
+    assert _same_bits(plane_rhs.plane_wave_rhs(*args), ref)

@@ -1,4 +1,4 @@
-"""A/B device times of KB, KA, K5, KC, K2, KS, KE and K3 source variants on one card.
+"""A/B device times of KB, KA, K5, KC, K2, KS, KE, K3 and KU source variants on one card.
 
     python tools/torch_kernel_ab.py [-k SUBSTRING] DIR [DIR ...]
 
@@ -34,7 +34,10 @@ points; `-k KE` builds only KE and K5 for them) and K3
 phase 8 (a)'s ('bba' on the hypercube at n_end = 20, its 64 slot
 directions), phase 4's ("K3 bench": the 36 slots at n_end = 32) and phase
 9 (a)'s ("K3 lattice": the 32 x 32 lattice's 1,984 half-table directions
-at n_end = 19), all timed as KS is.  A variant of another interface (K3's
+at n_end = 19), all timed as KS is; KU (`coax_u`, the coax band tables:
+"KU bench" at 'ba' n_end = 32, "KU 64" at 'ba' n_end = 64, "KU 4d" at
+phase 8 (a)'s 'bba' n_end = 20, tables in the complex dtype's real type;
+`-k KU` builds only KU).  A variant of another interface (K3's
 parent commit) is timed by that commit's own copy of this script, run
 from its unpacked tree in the same call (or by tools/torch_k3_ab.py).
 With -k, only the cases whose name contains SUBSTRING run (`-k KS`, `-k
@@ -243,6 +246,29 @@ def ke_k3_cases(torch, dev, cdt):
             "K3": k3("4d"), "K3 bench": k3("bench"), "K3 lattice": k3("lattice")}
 
 
+def ku_cases(torch, dev, cdt):
+    """KU's cases: (kernel call, plain call, None, 20 launches timed) at
+    chip_smoke.py phase 2's (ii), (iii) and (i)."""
+    from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
+    from biem_helmholtz_sphere_tpu_torch.ops.coax_u import _coax_u_plain, coax_u
+    from biem_helmholtz_sphere_tpu_torch.translation._rotation import _coax_tables_on
+    from biem_helmholtz_sphere_tpu_torch.translation._scaled import _coax_plan_on
+
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    out = {}
+    for name, tree, n_end in (("KU bench", "ba", 32), ("KU 64", "ba", 64), ("KU 4d", "bba", 20)):
+        c = create_from_branching_types(tree)
+        layout, plan = _coax_plan_on(c, n_end, dev)[:2]
+        tables = _coax_tables_on(c, n_end, dev)
+
+        def run(fn, tables=tables, layout=layout, plan=plan):
+            return torch.cat([x.reshape(-1) for x in fn(tables, layout, plan, rdt)])
+
+        out[name] = (functools.partial(run, coax_u), functools.partial(run, _coax_u_plain),
+                     None, 20)
+    return out
+
+
 def _event_us(torch, fn):
     """Microseconds of one call of fn() between CUDA events, after a
     warm-up call."""
@@ -281,6 +307,9 @@ def main():
         kernels.SOURCES = ("harmonic_eval.cu", "spherical_jh.cu")
         kernels._SIGNATURES = {n: a for n, a in kernels._SIGNATURES.items()
                                if n.startswith(("bhs_harmonic_eval", "bhs_spherical_jh"))}
+    if only == "KU":  # KU's cases launch KU alone
+        kernels.SOURCES = ("coax_u.cu",)
+        kernels._SIGNATURES = {n: a for n, a in kernels._SIGNATURES.items() if n == "bhs_coax_u"}
 
     def use(vdir):
         kernels.CSRC = Path(vdir).resolve()
@@ -300,10 +329,13 @@ def main():
 
     dev = torch.device("cuda", 0)
     for cdt in (torch.complex64, torch.complex128):
-        cs = {} if only in ("KS", "KE", "K3") else cases(torch, dev, cdt)
-        cs = {name: case for name, case in
-              {**cs, "KS": ks_case(torch, dev, cdt), **ke_k3_cases(torch, dev, cdt)}.items()
-              if only in name}
+        cs = {} if only in ("KS", "KE", "K3", "KU") else cases(torch, dev, cdt)
+        if only == "KU":
+            cs = ku_cases(torch, dev, cdt)
+        else:
+            cs = {name: case for name, case in
+                  {**cs, "KS": ks_case(torch, dev, cdt), **ke_k3_cases(torch, dev, cdt)}.items()
+                  if only in name}
         times = {v: {name: [] for name in cs} for v in variants}
         for v in variants:
             use(v)

@@ -84,7 +84,8 @@ def _device_time(evt):
 PORT_KERNELS = ("fused_ba_eval_kernel", "fused_ba_eval_few_kernel", "block_diag_cmm_kernel",
                 "lane_gather_kernel", "lane_scatter_kernel", "spherical_jh_kernel",
                 "coax_fold_kernel", "dense_assemble_kernel", "graf_fold_kernel", "band_f_kernel",
-                "band_sr_kernel", "k6_arnoldi_step", "k6_backsolve")
+                "band_sr_kernel", "k6_arnoldi_step", "k6_backsolve", "coax_u_kernel",
+                "coax_u_rows_kernel", "plane_rhs_kernel")
 
 
 def _port_kernel_name(name):

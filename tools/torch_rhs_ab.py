@@ -27,7 +27,14 @@ two warm-started blocks of 4), once run to warm its caches:
   operator's build (`_factored_operator`, its kernels enqueued), the input
   checks and the geometry read (`centers.detach().cpu()`);
 - the host functions of a warm sweep under cProfile, the 25 with the most
-  own time.
+  own time;
+- KR alone (`plane_wave_rhs`) at the bench block's arguments
+  (chip_smoke.kr_case, both dtypes): the device microseconds per launch
+  (torch.profiler) of a warm call (the same direction as the last), of a
+  call whose direction differs from the last one's, and of a cold call
+  (the kept table and launch packs dropped, where the tree has them), the
+  milliseconds around the wrapper (CUDA events) and its host microseconds
+  per call.
 
 With --host-only it prints only the last (tools/torch_profile_sweep.py
 --host-only prints them too).  To time the parent's in turns with this
@@ -208,6 +215,41 @@ def host_profile(torch, sweep, top=25):
             for (f, line, name), (_, nc, tt, ct, _) in rows}
 
 
+def kr_alone(torch, cs, dev):
+    """{dtype: {row: value}} of KR alone at the bench block's arguments."""
+    from biem_helmholtz_sphere_tpu_torch.ops import plane_rhs
+
+    out = {}
+    for cdt in (torch.complex64, torch.complex128):
+        args = cs.kr_case(torch, dev, cdt, "ba", cs.N_END, cs.lattice_centers(), cs.KB, False)
+        turned = list(args)
+        turned[5] = args[5] * 0.8 + torch.roll(args[5], 1, dims=0) * 0.6
+        turned[5] = turned[5] / torch.linalg.vector_norm(turned[5], dim=0, keepdim=True)
+        flip, state = [args, turned], [0]
+
+        def warm():
+            return plane_rhs.plane_wave_rhs(*args)
+
+        def changing():
+            state[0] ^= 1
+            return plane_rhs.plane_wave_rhs(*flip[state[0]])
+
+        def cold():
+            if hasattr(plane_rhs, "kr_table"):
+                plane_rhs.kr_table.cache_clear()
+                plane_rhs._packs.clear()
+            return plane_rhs.plane_wave_rhs(*args)
+
+        out[str(cdt).split(".")[-1]] = {
+            "device us, warm": round(cs.device_us(torch, warm, "plane_rhs_kernel"), 2),
+            "device us, direction changed": round(
+                cs.device_us(torch, changing, "plane_rhs_kernel"), 2),
+            "device us, cold": round(cs.device_us(torch, cold, "plane_rhs_kernel"), 2),
+            "ms around the wrapper, warm": round(cs.cuda_ms(torch, warm, 20), 4),
+            "host us per call, warm": round(_host_us(torch, warm, 200), 2)}
+    return out
+
+
 def main():
     import torch
 
@@ -227,6 +269,7 @@ def main():
     if "--host-only" not in args:
         out["bench"] = bench(torch, cs, _core)
     out["host us per call"] = other_host_times(torch, torch.device("cuda", 0))
+    out["KR alone"] = kr_alone(torch, cs, torch.device("cuda", 0))
     print(args[0], json.dumps(out), flush=True)
     return 0
 
