@@ -37,9 +37,21 @@
 // Design, two launches per group of offsets (the wrapper cuts K NO into
 // groups whose F fits its scratch budget):
 // - KF (band_f_kernel): F_N(q) for every N < NB, node and offset of the
-//   group, once: a thread per node runs the Gegenbauer recurrence into
-//   shared memory and forms the prefix sums, writing F [G, NB, Qp] (zero
-//   past Q), each band's nodes contiguous.
+//   group, once, written as F [G, NB, Qp] (zero past Q), each band's nodes
+//   contiguous.  What bounds it: F's write, 8 (complex64) or 16 bytes per
+//   band, node and offset at 3.35 TB/s; the NB (NB + 1) / 2 complex-by-real
+//   products per node and offset come to ~40 % of that time on the FP32
+//   and FP64 pipes, the recurrence (its division without a divide:
+//   `kf_div`) about as much again.  A thread takes two nodes and, per
+//   chunk of kFWidth = 16 bands, holds their accumulators in registers
+//   while it walks n upwards, forming C_n by the recurrence in registers
+//   (a chunk after the first reruns it, so any NB fits); the chunk's
+//   coefficients come into shared memory a slice of 16 rows at a time by
+//   cp.async, the next slice's copies in flight while this one is summed,
+//   row n holding its bands side by side, so that one warp-uniform 16-byte
+//   load feeds 8 FMAs (complex64) or 4 DFMAs (complex128).  Each warp
+//   stores 512 contiguous bytes per instruction, streaming (st.global.cs:
+//   F is far beyond L2, and KS reads it later).
 // - KS (band_sr_kernel): a CTA per (4 offsets, 64 columns, slot), a slot
 //   being two consecutive M-tiles of at most 16 rows of one root degree
 //   (the host's `row_plan`), so F_N is a column factor.  The 4 offsets
@@ -88,7 +100,9 @@ constexpr int kBrow = kCols + 4;  // staged columns per node (+4: banks)
 constexpr int kStages = 4;        // the cp.async ring
 constexpr int kSumNodes = 256;    // complex64: nodes summed apart
 constexpr int kMaxDim = 32;       // the largest d
-constexpr int kFThreads = 128;    // KF: a thread per node
+constexpr int kFThreads = 128;    // KF: threads a CTA
+constexpr int kFNodes = 2;        // KF: nodes a thread
+constexpr int kFWidth = 16;       // KF: bands a thread accumulates at once (a chunk)
 
 constexpr int KQ = 16;            // nodes per staged chunk
 constexpr int kK = 16;            // the f64 MMA's depth (m16n8k16)
@@ -136,14 +150,160 @@ __device__ __forceinline__ float2 cfma_conj(float2 a, float2 b, float2 acc) {
 
 // ---------------------------------------------------------------- KF
 
+// The recurrence's factors of a row n: 2 (n + nu), n + 2 nu - 1 and
+// RN(1 / (n + 1)), each rounded as the recurrence with a division rounds
+// them (below)
+template <typename T>
+struct KfRow {
+  T a, b, y;
+};
+
+// A slice of a chunk's coefficients: rows n0 .. n0 + W - 1 of the chunk
+// of bands N0 .. N0 + W - 1 (chunk c, `kf_chunks`).  A chunk's slices are
+// its rows below N0, W at a time, then its own W rows (n0 = N0: the
+// triangle).
+struct KfSlice {
+  int c, N0, n0;
+};
+
+template <int W>
+__device__ __forceinline__ KfSlice kf_chunk_start(int c, int NB) {
+  const int N0 = NB > W ? min(c * W, NB - W) : 0;
+  return {c, N0, 0};
+}
+
+template <int W>
+__device__ __forceinline__ KfSlice kf_next(KfSlice s, int NB) {
+  if (s.n0 == s.N0) return kf_chunk_start<W>(s.c + 1, NB);
+  return {s.c, s.N0, min(s.n0 + W, s.N0)};
+}
+
+// The slice's coefficients into `cs`, row n (of kLd values) holding
+// coef[N0 + j, n] at column j, zero where n > N0 + j or N0 + j >= NB (the
+// prefix's triangle, the bands past the last), by asynchronous copies
+// (the caller commits and waits); and the recurrence's factors of its
+// rows into `rf`.
+template <typename T, int W>
+__device__ __forceinline__ void kf_stage(c2_t<T>* cs, KfRow<T>* rf, const c2_t<T>* __restrict__ ck,
+                                         KfSlice s, int NB, T nu, int tid) {
+  constexpr int kLd = W + 16 / (int)sizeof(c2_t<T>);
+  if (tid < W) {
+    const int n = s.n0 + tid;
+    rf[tid] = {2 * ((T)n + nu), (T)n + 2 * nu - 1, (T)1 / (T)(n + 1)};
+  }
+  for (int e = tid; e < W * W; e += kFThreads) {
+    const int j = e / W;
+    const int nn = e - j * W;  // consecutive threads: consecutive n, one row of coef
+    const int N = s.N0 + j;
+    const int n = s.n0 + nn;
+    const bool ok = N < NB && n <= N;
+    const c2_t<T>* src = ck + (ok ? (size_t)N * NB + n : 0);
+    if constexpr (sizeof(c2_t<T>) == 16)
+      cp16(cs + nn * kLd + j, src, ok);
+    else
+      cp8(cs + nn * kLd + j, src, ok);
+  }
+}
+
+// acc[i][j] += coef[N0 + j, n] C_n at the thread's nodes i, for the columns
+// j >= j0 (compile-time in the triangle: its zeros are skipped), from row
+// n of the staged coefficients: one warp-uniform 16-byte shared load for
+// two columns (complex64) or one (complex128), one FMA per part
+template <typename T, int W>
+__device__ __forceinline__ void kf_row(c2_t<T> (&acc)[kFNodes][W], const c2_t<T>* row,
+                                       const T (&cc)[kFNodes], int j0) {
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int j = 0; j < W; j += 2) {
+      if (j + 1 < j0) continue;
+      const float4 v = *reinterpret_cast<const float4*>(row + j);
+#pragma unroll
+      for (int i = 0; i < kFNodes; ++i) {
+        if (j >= j0) {
+          acc[i][j].x = t_fma(v.x, cc[i], acc[i][j].x);
+          acc[i][j].y = t_fma(v.y, cc[i], acc[i][j].y);
+        }
+        acc[i][j + 1].x = t_fma(v.z, cc[i], acc[i][j + 1].x);
+        acc[i][j + 1].y = t_fma(v.w, cc[i], acc[i][j + 1].y);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j < j0) continue;
+      const double2 v = row[j];
+#pragma unroll
+      for (int i = 0; i < kFNodes; ++i) {
+        acc[i][j].x = t_fma(v.x, cc[i], acc[i][j].x);
+        acc[i][j].y = t_fma(v.y, cc[i], acc[i][j].y);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float t_mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double t_mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// a / b rounded to nearest without a divide, from y = RN(1 / b), for an
+// integer 1 <= b <= 2^20: q0 = RN(a y) lies within 1.5 ulp of a / b, so r =
+// a - b q0 is exact by the FMA, and q0 + r y lies within 2^-p ulp of a /
+// b, which is at least 2^-21 ulp from a midpoint between two floats (or on
+// a float): RN(q0 + r y) is RN(a / b) wherever the quotient is a normal
+// number, for finite |a| >= 2^-100 in float and 2^-1000 in double by the
+// check of every float a and of 2^31 double a for each b = 1 .. 256
+// (tools/kf_div_check.cu).  A zero a may give a zero of the other sign,
+// which F never sees (a sum that starts at +0 stays +0 through zero
+// terms); an infinite a gives NaN (the recurrence has overflowed).  The
+// division's own code, its reciprocal refined and its slow-path call,
+// costs 10-25 instructions a node and step, and its branches fence the
+// scheduler.
+template <typename T>
+__device__ __forceinline__ T kf_div(T a, T b, T y) {
+  const T q0 = t_mul_rn(a, y);
+  return t_fma(t_fma(-b, q0, a), y, q0);
+}
+
+// C_{n+1} from C_n = cc and C_{n-1} = cm at each node by (n + 1) C_{n+1} =
+// 2 (n + nu) x C_n - (n + 2 nu - 1) C_{n-1}, from the row's factors: the
+// expression and roundings of that recurrence with its division
+template <typename T>
+__device__ __forceinline__ void kf_step(T (&cm)[kFNodes], T (&cc)[kFNodes],
+                                        const T (&x)[kFNodes], int n, KfRow<T> f) {
+#pragma unroll
+  for (int i = 0; i < kFNodes; ++i) {
+    const T cn = kf_div<T>(f.a * x[i] * cc[i] - f.b * cm[i], (T)(n + 1), f.y);
+    cm[i] = cc[i];
+    cc[i] = cn;
+  }
+}
+
+// KF: F [G, NB, Qp], F_N(q) = w_q sum_{n <= N} coef[k, o, N, n] C_n(x_q),
+// x_q = t^_o . s_q, for the offsets ko0 .. ko0 + G - 1 (blockIdx.y) and a
+// tile of kFThreads * kFNodes nodes (blockIdx.x).  Each thread holds the
+// accumulators of a chunk of W bands at its two nodes in registers and
+// walks n upwards, forming C_n by the recurrence as it goes; a chunk after
+// the first (`kf_chunks`) reruns it.  The chunk's coefficients come slice
+// after slice through two shared buffers, the next slice's copies in
+// flight while this one's rows are summed (one barrier a slice): its rows
+// below N0 in a loop, its own W rows unrolled, column j from row j on.
+// Every sum runs in ascending n with the same FMAs as a single sum per (N,
+// node), the recurrence's quotients are the division's (`kf_div`), and
+// past Q a node has x = 0, w = 0: F has the bits of a thread per node
+// running the recurrence with its division and each sum in that order,
+// wherever every numerator is zero or finite and at least `kf_div`'s
+// bound.  No atomics: one thread writes each value, and launches repeat
+// bit for bit.
 template <typename T>
 __global__ void __launch_bounds__(kFThreads)
 band_f_kernel(const c2_t<T>* __restrict__ coef, const T* __restrict__ t_hat, long long t_k,
               const T* __restrict__ w, const T* __restrict__ s_cart, c2_t<T>* __restrict__ F,
               int ko0, int NO, int d, int Q, int Qp, int NB, T nu) {
   using T2 = c2_t<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cz = reinterpret_cast<T*>(smem_raw);  // [NB][kFThreads] C_n, a column a thread
+  constexpr int W = kFWidth;
+  constexpr int kLd = W + 16 / (int)sizeof(T2);  // a staged row (+16 bytes: banks)
+  constexpr bool kPair = sizeof(T2) == 8;        // complex64: two adjacent nodes a lane
+  __shared__ __align__(16) T2 cs[2][W * kLd];
+  __shared__ KfRow<T> rf[2][W];
   __shared__ T th[kMaxDim];
 
   const int z = blockIdx.y;
@@ -151,35 +311,80 @@ band_f_kernel(const c2_t<T>* __restrict__ coef, const T* __restrict__ t_hat, lon
   const int k = ko / NO;
   const int o = ko - k * NO;
   const int tid = threadIdx.x;
-  const int q = blockIdx.x * kFThreads + tid;
+  const int lane = tid & 31;
+  const int qw = blockIdx.x * (kFThreads * kFNodes) + (tid >> 5) * (32 * kFNodes);
+  const T2* ck = coef + (size_t)ko * NB * NB;
+  T2* fz = F + (size_t)z * NB * Qp;
+  KfSlice s = kf_chunk_start<W>(0, NB);
+  kf_stage<T, W>(cs[0], rf[0], ck, s, NB, nu, tid);
+  cp_commit();
   if (tid < d) th[tid] = __ldg(t_hat + k * t_k + (long long)o * d + tid);
   __syncthreads();
-  if (q >= Qp) return;
-  // C_0 .. C_{NB-1} at the node: (n + 1) C_{n+1} = 2 (n + nu) x C_n
-  // - (n + 2 nu - 1) C_{n-1}
-  T x = 0;
-  if (q < Q)
-    for (int a = 0; a < d; ++a) x = t_fma(th[a], __ldg(s_cart + (size_t)a * Q + q), x);
-  T cm = 0, cc = 1;
-  for (int n = 0; n < NB; ++n) {
-    cz[n * kFThreads + tid] = cc;
-    const T cn = (2 * ((T)n + nu) * x * cc - ((T)n + 2 * nu - 1) * cm) / (T)(n + 1);
-    cm = cc;
-    cc = cn;
+  int q[kFNodes];
+  T x[kFNodes], wq[kFNodes];
+#pragma unroll
+  for (int i = 0; i < kFNodes; ++i) {
+    q[i] = kPair ? qw + kFNodes * lane + i : qw + 32 * i + lane;
+    x[i] = 0;
+    if (q[i] < Q)
+      for (int a = 0; a < d; ++a) x[i] = t_fma(th[a], __ldg(s_cart + (size_t)a * Q + q[i]), x[i]);
+    wq[i] = q[i] < Q ? __ldg(w + q[i]) : (T)0;
   }
-  const T2* ck = coef + (size_t)ko * NB * NB;
-  const T wq = q < Q ? __ldg(w + q) : (T)0;
-  T2* fz = F + (size_t)z * NB * Qp + q;
-  for (int N = 0; N < NB; ++N) {
-    T2 s = cmake<T>(0, 0);
-    const T2* cN = ck + (size_t)N * NB;
-    for (int n = 0; n <= N; ++n) {
-      const T2 cf = __ldg(cN + n);
-      const T c = cz[n * kFThreads + tid];
-      s.x = t_fma(cf.x, c, s.x);
-      s.y = t_fma(cf.y, c, s.y);
+  T2 acc[kFNodes][W];
+  T cm[kFNodes], cc[kFNodes];
+  for (int sl = 0;; ++sl) {
+    if (s.n0 == 0) {  // a chunk's first slice: the recurrence from C_0
+#pragma unroll
+      for (int i = 0; i < kFNodes; ++i) {
+        cm[i] = 0;
+        cc[i] = 1;
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[i][j] = cmake<T>(0, 0);
+      }
     }
-    fz[(size_t)N * Qp] = cscale<T>(s, wq);
+    cp_wait<0>();
+    __syncthreads();  // slice sl has landed; every thread is done with slice sl - 1
+    const KfSlice nx = kf_next<W>(s, NB);
+    const bool more = nx.c * W < NB;
+    if (more) kf_stage<T, W>(cs[(sl + 1) & 1], rf[(sl + 1) & 1], ck, nx, NB, nu, tid);
+    cp_commit();
+    const T2* buf = cs[sl & 1];
+    const KfRow<T>* rb = rf[sl & 1];
+    if (s.n0 < s.N0) {  // rows below the chunk: every column
+      const int rows = min(W, s.N0 - s.n0);
+#pragma unroll 1
+      for (int nn = 0; nn < rows; ++nn) {
+        kf_row<T, W>(acc, buf + nn * kLd, cc, 0);
+        kf_step<T>(cm, cc, x, s.n0 + nn, rb[nn]);
+      }
+    } else {  // the chunk's own rows, then its stored bands
+#pragma unroll
+      for (int nn = 0; nn < W; ++nn) {
+        if (s.N0 + nn >= NB) break;  // NB < W only
+        kf_row<T, W>(acc, buf + nn * kLd, cc, nn);
+        if (nn + 1 < W) kf_step<T>(cm, cc, x, s.N0 + nn, rb[nn]);
+      }
+      // F_N = w_q acc[N - N0], streamed past L1
+      const int j_lo = s.c * W - s.N0;
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        if (j < j_lo || s.N0 + j >= NB) continue;
+        T2* fr = fz + (size_t)(s.N0 + j) * Qp;
+        if constexpr (kPair) {
+          if (q[0] < Qp) {
+            const T2 a = cscale<T>(acc[0][j], wq[0]);
+            const T2 b = cscale<T>(acc[1][j], wq[1]);
+            __stcs(reinterpret_cast<float4*>(fr + q[0]), make_float4(a.x, a.y, b.x, b.y));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kFNodes; ++i)
+            if (q[i] < Qp) __stcs(fr + q[i], cscale<T>(acc[i][j], wq[i]));
+        }
+      }
+    }
+    if (!more) break;
+    s = nx;
   }
 }
 
@@ -513,12 +718,9 @@ template <typename T>
 cudaError_t run_f(const void* coef, const void* t_hat, long long t_k, const void* w,
                   const void* s_cart, void* F, int ko0, int G, int NO, int d, int Q, int Qp,
                   int NB, double nu, cudaStream_t st) {
-  auto kernel = band_f_kernel<T>;
-  const size_t smem = (size_t)kFThreads * NB * sizeof(T);
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Qp + kFThreads - 1) / kFThreads), (unsigned)G);
-  kernel<<<grid, kFThreads, smem, st>>>(
+  constexpr int kFTile = kFThreads * kFNodes;  // nodes a CTA
+  const dim3 grid((unsigned)((Qp + kFTile - 1) / kFTile), (unsigned)G);
+  band_f_kernel<T><<<grid, kFThreads, 0, st>>>(
       static_cast<const c2_t<T>*>(coef), static_cast<const T*>(t_hat), t_k,
       static_cast<const T*>(w), static_cast<const T*>(s_cart), static_cast<c2_t<T>*>(F), ko0,
       NO, d, Q, Qp, NB, (T)nu);
@@ -555,8 +757,8 @@ extern "C" int bhs_band_f(const void* coef, const void* t_hat, long long t_k, co
                           const void* s_cart, void* F, int ko0, int G, int NO, int d, int Q,
                           int Qp, int NB, double nu, int dbl, void* stream) {
   if (G <= 0 || Q <= 0) return 0;
-  if (d < 1 || d > kMaxDim || NB <= 0 || NO <= 0 || Qp < Q || Qp % 16 != 0 || G > 65535 ||
-      (long long)kFThreads * NB * (dbl ? 8 : 4) > 232448)
+  if (d < 1 || d > kMaxDim || NB <= 0 || NB > (1 << 20) || NO <= 0 || Qp < Q || Qp % 16 != 0 ||
+      G > 65535)  // NB: kf_div's divisors n + 1 <= 2^20
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dbl ? run_f<double>(coef, t_hat, t_k, w, s_cart, F, ko0, G, NO, d, Q, Qp, NB,

@@ -48,6 +48,11 @@ _QSUM = 256  # nodes summed apart before their partial sums join (kSumNodes)
 _F_BYTES = 1 << 29  # the F scratch of one group of offsets, at most
 _PLAIN_BYTES = 1 << 30  # the plain version's temporaries per block product
 _CLAMP = 80.0  # the JAX package's clamp of the band exponent differences
+# KF (csrc/band_sr.cu): the bands a thread accumulates at once (kFWidth),
+# its threads a CTA (kFThreads) and nodes a thread (kFNodes)
+_KF_WIDTH = 16
+_KF_THREADS = 128
+_KF_NODES = 2
 
 
 def _degree_runs(n):
@@ -253,12 +258,41 @@ def _band_f_plain(coef, t_hat, tab, ko0, ko1):
     return torch.nn.functional.pad(f.transpose(-1, -2), (0, tab.q_pad - tab.w.shape[0]))
 
 
+def kf_chunks(n_b, width):
+    """KF's chunks of bands, as the kernel cuts them: (N0, lo, hi) each,
+    with N0 .. N0 + width - 1 the bands a thread accumulates and lo .. hi -
+    1 those it stores.  The last chunk starts at n_b - width, so that it is
+    full, and recomputes the bands it shares with the one before without
+    storing them; the stored ranges cover 0 .. n_b - 1 once, in order."""
+    return [(min(c * width, n_b - width) if n_b > width else 0, c * width,
+             min((c + 1) * width, n_b)) for c in range(-(-n_b // width))]
+
+
+def kf_nodes(q_pad, dtype):
+    """The node of each (CTA, warp, lane, i) of KF's grid, int [ceil(q_pad /
+    256), 4, 32, 2] (a node at or past q_pad is not stored): in complex64 a
+    lane's two adjacent nodes (one 16-byte store of both), in complex128
+    lanes l and l + 32 of its warp's 64 nodes (each store 32 consecutive
+    nodes)."""
+    warps = _KF_THREADS // 32
+    tile = 32 * warps * _KF_NODES
+    base = (np.arange(-(-q_pad // tile))[:, None, None, None] * tile
+            + np.arange(warps)[None, :, None, None] * 32 * _KF_NODES)
+    lane = np.arange(32)[None, None, :, None]
+    i = np.arange(_KF_NODES)[None, None, None, :]
+    if dtype == torch.complex64:
+        return base + _KF_NODES * lane + i
+    return base + 32 * i + lane
+
+
 def band_f(coef, t_hat, tab, ko0, ko1, out=None):
     """KF wrapper: F [ko1 - ko0, NB, q_pad], F_N at every node for the
     flattened offsets ko0 .. ko1 - 1 (zero past Q); arguments as `band_sr`,
     coef and t_hat contiguous.  On CPU tensors the plain version; on CUDA
-    tensors it launches csrc/band_sr.cu's KF, into `out` (a scratch of at
-    least ko1 - ko0 leading rows) when given, or raises."""
+    tensors it launches csrc/band_sr.cu's KF (a CTA per offset and tile of
+    256 nodes, `kf_nodes`; the bands in chunks of _KF_WIDTH, `kf_chunks`),
+    into `out` (a scratch of at least ko1 - ko0 leading rows) when given,
+    or raises."""
     if coef.device.type == "cpu":
         return _band_f_plain(coef, t_hat, tab, ko0, ko1)
     n_k, n_off, n_b, _ = coef.shape

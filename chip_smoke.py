@@ -146,14 +146,17 @@ non-zero before the result line):
    first 4 k, the default solver (which must take the offset-table
    matrix-free GMRES: KS in fold mode, KC, K5; no KB, K2, KD or KG):
    a stage split, relres <= 3e-5, the boundary residual (1e-3), the peak
-   memory; KS's and KF's registers, shared memory and spills (ptxas -v)
-   and each KS instance's DMMA / HMMA count in the built library's SASS
-   (complex128 must run DMMA, complex64 no tensor-core instruction); KS
+   memory; KS's and KF's registers, shared memory and spills (ptxas -v;
+   a KF instance must not spill) and each KS instance's DMMA / HMMA count
+   in the built library's SASS (complex128 must run DMMA, complex64 no
+   tensor-core instruction); KS
    alone at these shapes timed in turns with its plain version (plain,
    KS, KS, plain) beside its bound and its achieved TFLOP/s, per degree
    block (1e-4) and bit for bit on repeat, a cuBLAS product of the same
    [H, Q] x [Q, H] shape x K NO as a yardstick, KF (F_N for one group of
-   offsets) against its plain version per band (1e-5) with its time; then
+   offsets) against its plain version per band (1e-5), zero past Q, with
+   its time, its device time and its share of the bound, also at
+   KF_WIDE_BANDS = 33 bands (past two of its chunks); then
    the block in complex128 unscaled (KS's unscaled mode, relres <= 1e-11),
    uscat(0) within 1e-4 of it, and KS (1e-11) and KF (1e-13) alone there
    in the same way; (b) the 'caa' pair by
@@ -365,6 +368,7 @@ OVERFLOW_PAIR = (0.15, 2.05, 14)  # (b): k, +-x1 of the centers, n_end (test_bie
 N_END_BCAA = 8  # (c): the 5D 'bcaa' pair, H = 540
 N_SIDE_C, N_END_C_LATTICE = 8, 6  # (d): the 'caa' lattice
 N_END_KS, N_OFF_KS = 10, 4  # (e): KS against its plain version in every mode
+KF_WIDE_BANDS, KF_WIDE_OFFSETS = 33, 8  # (a): KF past two of its chunks of 16 bands
 ANCHORS = (  # (c): (tree, lattice side, n_end, value)
     ("a", 8, 19, -1.0537360062 + 0.0214642340j),  # tests/test_biem.py:866
     ("a", 16, 53, -0.9986093441 - 0.0011085159j),  # reference accuracy_n_balls_a.csv:82
@@ -3350,9 +3354,11 @@ def four_d(torch, dev, card):
         h_kd, cs = parts[0].shape[-1], (8 if rdt == torch.float32 else 16)
         b = bound(4 * h_kd * h_kd * cs + parts[0].numel() * cs + 6 * h_kd * cs + h_kd * cs // 2
                   + 4 * 12, 12 * 2 * h_kd * h_kd, name)
+        us = device_us(torch, lambda: dense_assemble(*parts), "dense_assemble")
         print(f"[8] (d) dense_assemble 1 k x 2x2 blocks of {h_kd}x{h_kd} {name}: equal to the "
-              f"plain version {same}, max_abs_err {ea:.3e} kernel {ms:.4f} ms plain {pms:.4f} "
-              f"ms bound {b[0]:.6f} ms ({b[1]}) ({card})")
+              f"plain version {same}, max_abs_err {ea:.3e} kernel {ms:.4f} ms (device {us:.2f} "
+              f"us a launch: {b[0] * 1e3 / us:.3f} of the bound) plain {pms:.4f} ms bound "
+              f"{b[0]:.6f} ms ({b[1]}) ({card})")
         if not same:
             raise RuntimeError(f"(d) KD {name} differs from its plain version ({ea:.3e})")
         del parts, got
@@ -3780,8 +3786,10 @@ def n_balls_family(torch, dev, card):
                     # exponent sum, exp and scaling ~5 operations
                     b = bound(n_o * h * h * cs + n_o * n_mu * (cs + cs // 2) + n_o * cs // 2
                               + 2 * h * (4 + cs // 2), 5 * n_o * h * h, name)
-                    line += (f"; kernel {ms:.4f} ms plain {pms:.4f} ms bound {b[0]:.6f} ms "
-                             f"({b[1]}); library: none")
+                    us = device_us(torch, lambda: graf_fold(*args), "graf_fold")
+                    line += (f"; kernel {ms:.4f} ms (device {us:.2f} us a launch: "
+                             f"{b[0] * 1e3 / us:.3f} of the bound) plain {pms:.4f} ms bound "
+                             f"{b[0]:.6f} ms ({b[1]}); library: none")
                     results[name] = {"abs": ka, "rel": kr, "ms": ms, "plain_ms": pms,
                                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
                 print(f"{line} ({card})")
@@ -3853,13 +3861,13 @@ def band_sr_bound(tab, n_k, n_off, name):
     return bound(nbytes, 0, name, mma_flops=8.0 * n_k * n_off * h_out * h_in * q)
 
 
-def band_f_bound(tab, n_g, d, name):
-    """KF's bound for n_g offsets: F [n_g, Q, NB] written, coef, the nodes
-    and weights read; the recurrence (~6 operations a band) and the prefix
-    sums (NB (NB + 1) / 2 complex-by-real products) at the CUDA cores'
-    rate, the larger."""
+def band_f_bound(tab, n_g, d, name, n_b=None):
+    """KF's bound for n_g offsets of n_b bands (the tables' by default): F
+    [n_g, Q, NB] written, coef, the nodes and weights read; the recurrence
+    (~6 operations a band) and the prefix sums (NB (NB + 1) / 2
+    complex-by-real products) at the CUDA cores' rate, the larger."""
     cs = 8 if name == "complex64" else 16
-    q, n_b = tab.w.shape[0], tab.n_bands
+    q, n_b = tab.w.shape[0], n_b or tab.n_bands
     nbytes = n_g * q * n_b * cs + n_g * n_b * n_b * cs + (d + 1) * q * cs // 2
     return bound(nbytes, n_g * q * (6.0 * n_b + 4.0 * n_b * (n_b + 1) / 2), name)
 
@@ -3868,15 +3876,25 @@ def ks_build_report(torch):
     """KS's and KF's registers, shared memory and spills from ptxas (-v, kept
     by the build), and each KS instance's FP64 MMAs (DMMA) and any tensor-core
     float products (HMMA: TF32 among them) counted in cuobjdump's SASS of the
-    built library; raises if a complex128 instance has no DMMA or a
-    complex64 one any tensor-core instruction."""
+    built library; raises if a KF instance spills, a complex128 KS instance
+    has no DMMA or a complex64 one any tensor-core instruction."""
     import shutil
 
     from biem_helmholtz_sphere_tpu_torch.ops import kernels
 
+    from tools.torch_ke_ab import ptxas_report
+
     lines = [ln.strip() for ln in kernels.ptxas_path("band_sr.cu").read_text().splitlines()
              if "band_" in ln or "Used" in ln or "spill" in ln]
     print("[10] ptxas -v, csrc/band_sr.cu:\n    " + "\n    ".join(lines))
+    kf = {n: fig for n, fig in ptxas_report("band_sr.cu").items() if "band_f_kernel" in n}
+    for n, fig in kf.items():
+        print(f"[10] KF instance {n}: {fig.get('registers')} registers, {fig.get('stack')} bytes "
+              f"stack, {fig.get('spill_stores')} / {fig.get('spill_loads')} bytes spill stores / "
+              "loads (ptxas -v)")
+    if len(kf) != 2 or any(fig.get("spill_stores", 1) or fig.get("spill_loads", 1)
+                           for fig in kf.values()):
+        raise RuntimeError(f"KF instances {kf}: two wanted, none spilling")
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -3955,38 +3973,58 @@ def ks_in_turns(torch, args, kw, name, card, label):
 
 def kf_alone(torch, args, name, launches, card, label):
     """KF for the first group of offsets of the main path's call, timed
-    (CUDA events) beside its plain version (host-timed) and its bound, held
-    to it per band (complex64 1e-5, complex128 1e-13 of each band's largest
-    |F|), bits repeated."""
-    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_f_plain, band_f, offset_groups
+    (CUDA events around the wrapper; device us a launch by torch.profiler)
+    beside its plain version (host-timed) and its bound, held to it per
+    band (complex64 1e-5, complex128 1e-13 of each band's largest |F|),
+    bits repeated; then at KF_WIDE_BANDS bands (past two of KF's chunks in
+    either dtype) on the same nodes and directions, for KF_WIDE_OFFSETS
+    offsets, coefficients from h's mantissas and exponents."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import (
+        _band_f_plain, band_coefs, band_f, offset_groups)
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts
 
     coef, t_hat, tab = args[0].contiguous(), args[1].contiguous(), args[2]
     n_k, n_off, n_b = coef.shape[:3]
+    d = t_hat.shape[-1]
     groups = offset_groups(n_k * n_off, tab.q_pad, n_b, coef.element_size())
-    ko0, ko1 = groups[0]
-    ms = cuda_ms(torch, lambda: band_f(coef, t_hat, tab, ko0, ko1), 3)
-    got = band_f(coef, t_hat, tab, ko0, ko1)
-    same = same_bits(torch, band_f(coef, t_hat, tab, ko0, ko1), got)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = _band_f_plain(coef, t_hat, tab, ko0, ko1)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    scale = ref.abs().amax(dim=2, keepdim=True).clamp_min(torch.finfo(ref.real.dtype).tiny)
-    diff = (got - ref).abs()
-    err, err_abs = float((diff / scale).max()), float(diff.max())
-    del got, ref, diff
-    torch.cuda.empty_cache()
-    b = band_f_bound(tab, ko1 - ko0, t_hat.shape[-1], name)
-    print(f"[10] {label} KF band_f, one group of {ko1 - ko0} offsets x {tab.w.shape[0]} nodes x "
-          f"{n_b} bands, {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, host-timed), bound "
-          f"{b[0]:.3f} ms ({b[1]}); {len(groups)} groups: KF ~{ms * len(groups):.3f} ms a "
-          f"table; launches on the path {launches}; per band {err:.3e} (max abs {err_abs:.3e}); "
-          f"bits repeated {same} ({card})")
-    if not same or not err <= (1e-5 if name == "complex64" else 1e-13):
-        raise RuntimeError(f"{label} KF {name}: {err:.3e}, bits repeated {same}")
-    return {"abs": err_abs, "rel": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": None}
+    rdt = t_hat.dtype
+    kr = torch.linspace(3.0, 12.0, n_k * n_off, dtype=rdt, device=t_hat.device)
+    hm, he = spherical_h_scaled(d, KF_WIDE_BANDS, kr.reshape(n_k, n_off))
+    wide = band_coefs(hm, d, *_band_consts(d), he=he).contiguous()
+    out = {}
+    for case, cf, (ko0, ko1) in (("", coef, groups[0]),
+                                 (" wide", wide, (0, min(KF_WIDE_OFFSETS, n_k * n_off)))):
+        nb = cf.shape[2]
+        ms = cuda_ms(torch, lambda: band_f(cf, t_hat, tab, ko0, ko1), 3)
+        us = device_us(torch, lambda: band_f(cf, t_hat, tab, ko0, ko1), "band_f_kernel")
+        got = band_f(cf, t_hat, tab, ko0, ko1)
+        same = same_bits(torch, band_f(cf, t_hat, tab, ko0, ko1), got)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = _band_f_plain(cf, t_hat, tab, ko0, ko1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        scale = ref.abs().amax(dim=2, keepdim=True).clamp_min(torch.finfo(ref.real.dtype).tiny)
+        diff = (got - ref).abs()
+        err, err_abs = float((diff / scale).max()), float(diff.max())
+        zero_past_q = not bool(got[..., tab.w.shape[0]:].any())
+        del got, ref, diff
+        torch.cuda.empty_cache()
+        b = band_f_bound(tab, ko1 - ko0, d, name, nb)
+        tail = (f"{len(groups)} groups: KF ~{ms * len(groups):.3f} ms a table; launches on the "
+                f"path {launches}; " if not case else "")
+        print(f"[10] {label} KF band_f{case}, one group of {ko1 - ko0} offsets x "
+              f"{tab.w.shape[0]} nodes x {nb} bands, {name}: {ms:.3f} ms (device {us:.2f} us a "
+              f"launch: {b[0] * 1e3 / us:.3f} of the bound; plain {plain_ms:.3f} ms, "
+              f"host-timed), bound {b[0]:.3f} ms ({b[1]}); {tail}per band {err:.3e} (max abs "
+              f"{err_abs:.3e}); zero past Q {zero_past_q}; bits repeated {same} ({card})")
+        if not same or not zero_past_q or not err <= (1e-5 if name == "complex64" else 1e-13):
+            raise RuntimeError(f"{label} KF{case} {name}: {err:.3e}, bits repeated {same}, zero "
+                               f"past Q {zero_past_q}")
+        out[case] = {"abs": err_abs, "rel": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "device_us": us}
+    return out[""]
 
 
 def c_trees(torch, dev, card):

@@ -11,6 +11,10 @@ float64 masked scan 1e-5 per degree block (the masked scan in float32
 itself keeps ~2e-6 there).
 """
 
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
 import _jax_golden
 import jax.numpy as jnp
 import numpy as np
@@ -25,12 +29,17 @@ from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
 from biem_helmholtz_sphere_tpu_torch.harmonics._index import basis
 from biem_helmholtz_sphere_tpu_torch.ops.band_sr import (
     _F_BYTES,
+    _KF_NODES,
+    _KF_THREADS,
+    _KF_WIDTH,
     _band_f_plain,
     _band_sr_plain,
     _gegenbauer,
     band_coefs,
     band_sr,
     col_span,
+    kf_chunks,
+    kf_nodes,
     offset_groups,
     row_plan,
     row_tiles,
@@ -95,13 +104,25 @@ def _masked_scan_case():
     return _offsets(np.random.default_rng(17), 4, 3), np.array([[1.1], [1.7]])
 
 
+def _wide_scan_case():
+    """(offsets [4, 1], k [1, 1], n_end) of
+    test_band_sr_matches_the_jax_masked_scan_across_kf_chunks: n_end = 9,
+    NB = 17 bands, one more than KF's chunk of 16."""
+    return _offsets(np.random.default_rng(29), 4, 1), np.array([[1.3]]), 9
+
+
 def jax_golden():
-    """The JAX package's `_sr_banded` ((R|R)) that
-    test_band_sr_matches_the_jax_masked_scan reads: its band scan compiles
-    for minutes on the CPU."""
+    """The JAX package's `_sr_banded` that
+    test_band_sr_matches_the_jax_masked_scan ((R|R)) and
+    test_band_sr_matches_the_jax_masked_scan_across_kf_chunks ((S|R)) read:
+    its band scan compiles for minutes on the CPU."""
     t, k = _masked_scan_case()
-    return {"caa RR": tonp(j_sr_banded(j_tree("caa"), j_from_cartesian(
-        j_tree("caa"), jnp.asarray(t)), 4, 4, jnp.asarray(k), "RR"))}
+    tw, kw, n_w = _wide_scan_case()
+    caa = j_tree("caa")
+    return {"caa RR": tonp(j_sr_banded(caa, j_from_cartesian(caa, jnp.asarray(t)), 4, 4,
+                                       jnp.asarray(k), "RR")),
+            "caa SR wide": tonp(j_sr_banded(caa, j_from_cartesian(caa, jnp.asarray(tw)), n_w,
+                                            n_w, jnp.asarray(kw), "SR"))}
 
 
 def test_band_sr_matches_the_jax_masked_scan():
@@ -116,6 +137,21 @@ def test_band_sr_matches_the_jax_masked_scan():
     assert got.shape == ref.shape == (2, 3, 30, 30)
     n_o = _quad_tables(c, 4, 4, torch.float64, "cpu").n_o_host
     assert block_rel(got, ref, n_o, n_o) < 1e-12
+
+
+def test_band_sr_matches_the_jax_masked_scan_across_kf_chunks():
+    """`_sr_banded` ((S|R)) against the JAX package's on 'caa' at n_end=9,
+    where NB = 17 bands cross KF's chunk of 16 (`kf_chunks`),
+    one offset and one k (1e-12 per degree block; the JAX values
+    committed: `jax_golden`)."""
+    t, k, n_end = _wide_scan_case()
+    ref = _jax_golden.load("test_torch_band_sr")["caa SR wide"]
+    c = create_from_branching_types("caa")
+    tab = _quad_tables(c, n_end, n_end, torch.float64, "cpu")
+    assert tab.n_bands == 17 and len(kf_chunks(tab.n_bands, _KF_WIDTH)) == 2
+    got = _sr_banded(c, None, torch.as_tensor(t), n_end, n_end, torch.as_tensor(k), "SR").numpy()
+    assert got.shape == ref.shape == (1, 1, 285, 285)
+    assert block_rel(got, ref, tab.n_o_host, tab.n_o_host) < 1e-12
 
 
 def test_scaled_band_scan_matches_unscaled_caa():
@@ -278,6 +314,92 @@ def test_band_f_plain_is_the_prefix_kernel():
                          for big in range(n_b)], -1) * tab.w.numpy()[:, None]
         scale = np.abs(want).max(axis=0)
         assert (np.abs(got[i, :, :n_q].numpy().T - want) / scale).max() < 1e-13
+
+
+@pytest.mark.parametrize("width", [_KF_WIDTH, 5, 32])
+def test_kf_chunks_store_every_band_once(width):
+    """KF's chunks (its width of 16, and two others) at NB = 1 .. 130: each
+    holds width bands inside 0 .. max(NB, width) - 1, the last one full
+    once NB >= width; the stored ranges lie inside their chunk and cover 0
+    .. NB - 1 once, in order."""
+    for n_b in range(1, 131):
+        chunks = kf_chunks(n_b, width)
+        assert len(chunks) == -(-n_b // width)
+        stored = []
+        for n0, lo, hi in chunks:
+            assert 0 <= n0 <= lo < hi <= n0 + width and n0 + width <= max(n_b, width)
+            stored += range(lo, hi)
+        assert stored == list(range(n_b))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_kf_nodes_cover_the_padded_nodes_once(dtype):
+    """KF's node tiles: every node 0 .. q_pad - 1 once over the grid of
+    ceil(q_pad / 256) CTAs; complex64 a lane's two nodes adjacent from an
+    even one (one 16-byte store), complex128 each of a warp's stores 32
+    consecutive nodes."""
+    for q_pad in (16, 48, 256, 272, 15888, 43744):
+        nodes = kf_nodes(q_pad, dtype)
+        assert nodes.shape == (-(-q_pad // 256), _KF_THREADS // 32, 32, _KF_NODES)
+        assert np.array_equal(np.sort(nodes[nodes < q_pad]), np.arange(q_pad))
+        if dtype == torch.complex64:
+            assert (nodes[..., 0] % 2 == 0).all() and (nodes[..., 1] == nodes[..., 0] + 1).all()
+        else:
+            assert (np.diff(nodes, axis=2) == 1).all()
+
+
+def test_kf_constants_match_the_kernel():
+    """The plan's width, threads and nodes a thread are csrc/band_sr.cu's."""
+    src = (Path(__file__).resolve().parent.parent / "biem_helmholtz_sphere_tpu_torch" / "csrc"
+           / "band_sr.cu").read_text()
+    for name, value in (("kFWidth", _KF_WIDTH), ("kFThreads", _KF_THREADS),
+                        ("kFNodes", _KF_NODES)):
+        assert int(re.search(name + r" = (\d+);", src).group(1)) == value, name
+
+
+def _emulate_kf(coef, t_hat, tab, ko0, ko1, width):
+    """KF's order of work written out in float64 numpy: per chunk
+    (`kf_chunks`) the recurrence from C_0, each band's accumulator summing
+    coef[N, n] C_n in ascending n (the rows below the chunk, then its
+    triangle), F = w acc for the chunk's stored bands, zero past Q."""
+    n_k, n_off, n_b, _ = coef.shape
+    d = t_hat.shape[-1]
+    cf = coef.reshape(n_k * n_off, n_b, n_b)[ko0:ko1].numpy()
+    x = t_hat.expand(n_k, n_off, d).reshape(-1, d)[ko0:ko1].numpy() @ tab.s_cart.numpy()
+    n_q, nu = x.shape[1], 0.5 * (d - 2.0)
+    out = np.zeros((ko1 - ko0, n_b, tab.q_pad), dtype=complex)
+    for n0, lo, hi in kf_chunks(n_b, width):
+        acc = np.zeros((ko1 - ko0, width, n_q), dtype=complex)
+        cm, cc = np.zeros_like(x), np.ones_like(x)
+        for n in range(min(n0 + width, n_b)):
+            for j in range(max(n - n0, 0), min(width, n_b - n0)):
+                acc[:, j] += cf[:, n0 + j, n, None] * cc
+            cm, cc = cc, (2.0 * (n + nu) * x * cc - (n + 2.0 * nu - 1.0) * cm) / (n + 1.0)
+        out[:, lo:hi, :n_q] = acc[:, lo - n0:hi - n0] * tab.w.numpy()
+    return out
+
+
+@pytest.mark.parametrize("width", [_KF_WIDTH, 32])
+def test_kf_emulation_matches_the_plain_version(width):
+    """KF's chunked, ascending-n accumulation (`_emulate_kf`, float64) at NB
+    = 70 bands, past two chunks of its width (16; and of 32), against KF's
+    plain version: 1e-13 of each band's largest |F|, for offsets 1 .. 4 of
+    6 at per-k directions, on 50 random unit nodes in 4D (q_pad 64)."""
+    rng = np.random.default_rng(23)
+    n_b, n_q, d = 70, 50, 4
+    s = rng.normal(size=(d, n_q))
+    tab = SimpleNamespace(w=torch.as_tensor(rng.random(n_q), **F64), q_pad=64,
+                          s_cart=torch.as_tensor(s / np.linalg.norm(s, axis=0), **F64))
+    t = rng.normal(size=(2, 3, d))
+    t_hat = torch.as_tensor(t / np.linalg.norm(t, axis=-1, keepdims=True), **F64)
+    coef = torch.tril(torch.as_tensor(rng.normal(size=(2, 3, n_b, n_b))
+                                      + 1j * rng.normal(size=(2, 3, n_b, n_b))))
+    assert len(kf_chunks(n_b, width)) >= 3
+    ref = _band_f_plain(coef, t_hat, tab, 1, 5).numpy()
+    got = _emulate_kf(coef, t_hat, tab, 1, 5, width)
+    assert got.shape == ref.shape == (4, n_b, 64) and not ref[..., n_q:].any()
+    scale = np.abs(ref).max(axis=2, keepdims=True)
+    assert (np.abs(got - ref) / scale).max() < 1e-13
 
 
 def _emulate_kernel(coef, t_hat, tab):

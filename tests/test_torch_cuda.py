@@ -1148,29 +1148,88 @@ def test_band_sr_kernel_matches_plain(cuda, case, dtype, mode):
     assert _same_bits(band_sr(coef, t_hat, tab, *args), got)
 
 
+def _kf_inputs(n_b, dtype, dev):
+    """(coef [2, 3, NB, NB], t_hat [2, 3, 4] per-k directions, nodes) of KF
+    at n_b bands on 'caa': the band scan's product rule for NB bands (exact
+    to degree 2 (NB - 1), at most 64: KF needs no exact rule), coefficients
+    from h's mantissas with their band exponents (the scaled modes') at k
+    |t| in [3, 5]."""
+    from types import SimpleNamespace
+
+    from biem_helmholtz_sphere_tpu_torch.coords import to_cartesian
+    from biem_helmholtz_sphere_tpu_torch.harmonics._quad import sphere_quadrature
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_coefs
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts
+
+    c = create_from_branching_types("caa")
+    rdt = kernels.REAL_OF[dtype]
+    sph, w = sphere_quadrature(c, min(2 * (n_b - 1), 64))
+    sph_t = {key: torch.as_tensor(v, dtype=torch.float64, device=dev) for key, v in sph.items()}
+    nodes = SimpleNamespace(w=torch.as_tensor(w, dtype=rdt, device=dev),
+                            s_cart=to_cartesian(c, sph_t, include_r=False).to(rdt),
+                            q_pad=-(-len(w) // 16) * 16)
+    rng = np.random.default_rng(43)
+    t = rng.normal(size=(2, 3, 4))
+    t_hat = torch.as_tensor(t / np.linalg.norm(t, axis=-1, keepdims=True), dtype=rdt, device=dev)
+    hm, he = spherical_h_scaled(4, n_b, torch.as_tensor(3.0 + 2.0 * rng.random((2, 3)),
+                                                        dtype=rdt, device=dev))
+    return band_coefs(hm, 4, *_band_consts(4), he=he).contiguous(), t_hat, nodes
+
+
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_b", [None, 15, 16, 17, 33])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-def test_band_f_kernel_matches_plain(cuda, dtype):
+def test_band_f_kernel_matches_plain(cuda, dtype, n_b):
     """KF (F_N at every node for a group of offsets) against its plain
     version, the f that `_band_sr_plain` forms, per band N relative to the
     band's largest |F| (complex64 1e-5, complex128 1e-13), zero past Q,
-    bits repeated; for offsets 3 .. 5 of 6 at per-k directions, with band
-    exponents past the clamp at 80."""
+    bits repeated: (None) offsets 3 .. 5 of 6 at per-k directions, with band
+    exponents past the clamp at 80; (n_b) offsets 2 .. 4 of 6 at NB bands one
+    below, at and one above KF's chunk of 16, and past two chunks (33), on
+    node counts not a multiple of KF's tile of 256 but at 16 (8,100 at NB =
+    15, 11,560 at 17, 78,408 at 33)."""
     from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_f_plain, band_f
 
-    coef, t_hat, tab, _ = _band_inputs("caa-n_end_add-per-k", dtype, "clamp", cuda)
-    coef, t_hat = coef.contiguous(), t_hat.contiguous()
+    if n_b is None:
+        coef, t_hat, tab, _ = _band_inputs("caa-n_end_add-per-k", dtype, "clamp", cuda)
+        coef, t_hat, ko0, ko1 = coef.contiguous(), t_hat.contiguous(), 3, 6
+    else:
+        coef, t_hat, tab = _kf_inputs(n_b, dtype, cuda)
+        ko0, ko1 = 2, 5
     n0 = band_f.launches
-    got = band_f(coef, t_hat, tab, 3, 6)
+    got = band_f(coef, t_hat, tab, ko0, ko1)
     assert band_f.launches == n0 + 1
-    ref = _band_f_plain(coef, t_hat, tab, 3, 6)
-    n_q = tab.w.shape[0]
-    assert got.shape == ref.shape == (3, tab.n_bands, tab.q_pad)
+    ref = _band_f_plain(coef, t_hat, tab, ko0, ko1)
+    n_q, nb = tab.w.shape[0], coef.shape[2]
+    assert got.shape == ref.shape == (ko1 - ko0, nb, tab.q_pad)
     assert not bool(got[..., n_q:].any())
     scale = ref.abs().amax(dim=2, keepdim=True).clamp_min(torch.finfo(ref.real.dtype).tiny)
     err = float(((got - ref).abs() / scale).max())
     assert err < (1e-5 if dtype == torch.complex64 else 1e-13), err
-    assert _same_bits(band_f(coef, t_hat, tab, 3, 6), got)
+    assert _same_bits(band_f(coef, t_hat, tab, ko0, ko1), got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_band_f_kernel_where_its_quotients_are_subnormal(cuda, dtype):
+    """KF where the recurrence's quotients fall below the range its
+    division without a divide is exact in (x = t^ . s ~ 1e-33 in float32,
+    1e-305 in float64: C_1 is that small, subnormal in places): against
+    its plain version per band (complex64 1e-5, complex128 1e-13), zero
+    past Q, bits repeated."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_f_plain, band_f
+
+    coef, t_hat, tab = _kf_inputs(17, dtype, cuda)
+    t_hat = torch.zeros_like(t_hat)
+    t_hat[..., 0] = 1e-33 if dtype == torch.complex64 else 1e-305
+    got = band_f(coef, t_hat, tab, 2, 5)
+    ref = _band_f_plain(coef, t_hat, tab, 2, 5)
+    assert not bool(got[..., tab.w.shape[0]:].any())
+    scale = ref.abs().amax(dim=2, keepdim=True).clamp_min(torch.finfo(ref.real.dtype).tiny)
+    err = float(((got - ref).abs() / scale).max())
+    assert err < (1e-5 if dtype == torch.complex64 else 1e-13), err
+    assert _same_bits(band_f(coef, t_hat, tab, 2, 5), got)
 
 
 @pytest.mark.requires_cuda

@@ -1,4 +1,4 @@
-"""A/B device times of KB, KA, K5, KC, K2, KS, KE, K3 and KU source variants on one card.
+"""A/B device times of KB, KA, K5, KC, K2, KS, KF, KE, K3 and KU source variants on one card.
 
     python tools/torch_kernel_ab.py [-k SUBSTRING] DIR [DIR ...]
 
@@ -12,7 +12,8 @@ when it changes K3's ring) and ops/harmonic_eval.py (`_PT = {torch.float32: 4,
 torch.float64: 1}` when it takes KE to four points a thread in complex64).  `biem_helmholtz_sphere_tpu_torch/csrc` itself is a valid
 DIR.  For each variant the script builds the kernel library from DIR,
 checks every case against its plain version (relative error printed),
-then times each case in turns (v1 .. vn, vn .. v1, three times) and
+then times each case in turns (v1 .. vn, vn .. v1, three times; the
+card's name and power limit first, `tools/ab_common.py`) and
 prints the median, fastest and slowest device microseconds per launch of
 each case and variant, in complex64 and complex128: the device time of
 the port's kernels per launch (torch.profiler), or, for KS, one call
@@ -26,7 +27,11 @@ distances x 63 bands; compared on the values mant exp(e)), the KC gather
 and K2 for a k-block (4 k x 9 radii); and KS (its KF and KS launches) at
 chip_smoke.py phase 10 (a)'s shapes: 'caa' at n_end = 14 (H = 1,015,
 Q = 43,740 nodes), 4 k x 40 offsets of the hypercube {-2, 2}^4,
-complex64 in fold mode and complex128 unscaled; KE (`harmonic_eval`) at
+complex64 in fold mode and complex128 unscaled; KF (`band_f`) alone there
+("KF": the first group of offsets, 53 in complex64, 26 in complex128, at
+27 bands; "KF wide": 8 offsets at 33 bands; `-k KF` builds only KF and
+K5, and prints whether each variant's F equals the first variant's bit
+for bit: give the parent's csrc/ first to compare against it); KE (`harmonic_eval`) at
 phase 7 (c)'s shapes ('bpa' at the bench, 131,072 points x 1 k) and
 phase 8 (a)'s ("KE 4d": 'bba' on the hypercube at n_end = 20, 16,384
 points; `-k KE` builds only KE and K5 for them) and K3
@@ -147,39 +152,75 @@ def cases(torch, dev, cdt):
     }
 
 
-def ks_case(torch, dev, cdt):
-    """KS's case: (kernel call, plain call, None, None: timed between CUDA
-    events), its arguments built at first use."""
+@functools.cache
+def _ks_args(torch, dev, cdt):
+    """KS's arguments at chip_smoke.py phase 10 (a)'s shapes: complex64 in
+    fold mode, complex128 unscaled."""
     import numpy as np
 
     from biem_helmholtz_sphere_tpu_torch.coords import create_from_branching_types
-    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_coefs, band_sr
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import band_coefs
     from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
     from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts, _quad_tables
     from chip_smoke import KB, N_END_C, hypercube_centers, sweep_ks_4d
 
-    @functools.cache
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    f = dict(dtype=rdt, device=dev)
+    tab = _quad_tables(create_from_branching_types("caa"), N_END_C, N_END_C, rdt, dev)
+    cube = hypercube_centers()
+    t = np.unique(np.round((cube[:, None] - cube[None]).reshape(-1, 4), 9), axis=0)
+    t = t[np.linalg.norm(t, axis=1) > 0][:40]
+    r = np.linalg.norm(t, axis=1)
+    t_hat = torch.as_tensor((t / r[:, None])[None], **f)
+    k = torch.as_tensor(sweep_ks_4d()[:KB], **f)
+    hm, he = spherical_h_scaled(4, tab.n_bands, k[:, None] * torch.as_tensor(r, **f))
+    if cdt == torch.complex128:
+        return (band_coefs(hm * torch.exp(he), 4, *_band_consts(4)), t_hat, tab), {}
+    rng = np.random.default_rng(3)
+    h = tab.yo.shape[1]
+    kw = dict(he=he, e_r=-torch.as_tensor(rng.random((KB, h)) * 5, **f),
+              e_b=-torch.as_tensor(rng.random((KB, h)) * 5, **f))
+    return (band_coefs(hm, 4, *_band_consts(4), he=he), t_hat, tab), kw
+
+
+def ks_case(torch, dev, cdt):
+    """KS's case: (kernel call, plain call, None, None: timed between CUDA
+    events), its arguments built at first use."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import _band_sr_plain, band_sr
+
     def args():
-        rdt = torch.float32 if cdt == torch.complex64 else torch.float64
-        f = dict(dtype=rdt, device=dev)
-        tab = _quad_tables(create_from_branching_types("caa"), N_END_C, N_END_C, rdt, dev)
-        cube = hypercube_centers()
-        t = np.unique(np.round((cube[:, None] - cube[None]).reshape(-1, 4), 9), axis=0)
-        t = t[np.linalg.norm(t, axis=1) > 0][:40]
-        r = np.linalg.norm(t, axis=1)
-        t_hat = torch.as_tensor((t / r[:, None])[None], **f)
-        k = torch.as_tensor(sweep_ks_4d()[:KB], **f)
-        hm, he = spherical_h_scaled(4, tab.n_bands, k[:, None] * torch.as_tensor(r, **f))
-        if cdt == torch.complex128:
-            return (band_coefs(hm * torch.exp(he), 4, *_band_consts(4)), t_hat, tab), {}
-        rng = np.random.default_rng(3)
-        h = tab.yo.shape[1]
-        kw = dict(he=he, e_r=-torch.as_tensor(rng.random((KB, h)) * 5, **f),
-                  e_b=-torch.as_tensor(rng.random((KB, h)) * 5, **f))
-        return (band_coefs(hm, 4, *_band_consts(4), he=he), t_hat, tab), kw
+        return _ks_args(torch, dev, cdt)
 
     return (lambda: band_sr(*args()[0], **args()[1]),
             lambda: _band_sr_plain(*args()[0], **args()[1]), None, None)
+
+
+def kf_cases(torch, dev, cdt):
+    """KF's cases (device us a launch over 20 launches): "KF", the first
+    group of offsets of KS's case (53 in complex64, 26 in complex128), and
+    "KF wide", chip_smoke.py's KF_WIDE_OFFSETS offsets at KF_WIDE_BANDS
+    bands on the same nodes, coefficients from h's mantissas and
+    exponents."""
+    from biem_helmholtz_sphere_tpu_torch.ops.band_sr import (
+        _band_f_plain, band_coefs, band_f, offset_groups)
+    from biem_helmholtz_sphere_tpu_torch.special._family import spherical_h_scaled
+    from biem_helmholtz_sphere_tpu_torch.translation._ops import _band_consts
+    from chip_smoke import KF_WIDE_BANDS, KF_WIDE_OFFSETS
+
+    @functools.cache
+    def args(wide):
+        (coef, t_hat, tab), _ = _ks_args(torch, dev, cdt)
+        n_k, n_off, n_b = coef.shape[:3]
+        if not wide:
+            return coef, t_hat, tab, *offset_groups(n_k * n_off, tab.q_pad, n_b,
+                                                   coef.element_size())[0]
+        kr = torch.linspace(3.0, 12.0, n_k * n_off, dtype=t_hat.dtype, device=dev)
+        hm, he = spherical_h_scaled(4, KF_WIDE_BANDS, kr.reshape(n_k, n_off))
+        return (band_coefs(hm, 4, *_band_consts(4), he=he).contiguous(), t_hat, tab, 0,
+                KF_WIDE_OFFSETS)
+
+    return {name: (lambda w=wide: band_f(*args(w)), lambda w=wide: _band_f_plain(*args(w)),
+                   None, 20) for name, wide in (("KF", False), ("KF wide", True))}
 
 
 def ke_k3_cases(torch, dev, cdt):
@@ -310,6 +351,10 @@ def main():
     if only == "KU":  # KU's cases launch KU alone
         kernels.SOURCES = ("coax_u.cu",)
         kernels._SIGNATURES = {n: a for n, a in kernels._SIGNATURES.items() if n == "bhs_coax_u"}
+    if only == "KF":  # KF's cases launch KF and K5 (the wide case's coefficients)
+        kernels.SOURCES = ("band_sr.cu", "spherical_jh.cu")
+        kernels._SIGNATURES = {n: a for n, a in kernels._SIGNATURES.items()
+                               if n.startswith(("bhs_band_", "bhs_spherical_jh"))}
 
     def use(vdir):
         kernels.CSRC = Path(vdir).resolve()
@@ -327,16 +372,23 @@ def main():
             fn.cache_clear()
         kernels.library()
 
+    from tools.ab_common import card_line
+
+    print(f"card: {card_line()}")
     dev = torch.device("cuda", 0)
     for cdt in (torch.complex64, torch.complex128):
-        cs = {} if only in ("KS", "KE", "K3", "KU") else cases(torch, dev, cdt)
+        cs = {} if only in ("KS", "KF", "KE", "K3", "KU") else cases(torch, dev, cdt)
         if only == "KU":
             cs = ku_cases(torch, dev, cdt)
+        elif only == "KF":
+            cs = kf_cases(torch, dev, cdt)
         else:
             cs = {name: case for name, case in
-                  {**cs, "KS": ks_case(torch, dev, cdt), **ke_k3_cases(torch, dev, cdt)}.items()
+                  {**cs, "KS": ks_case(torch, dev, cdt), **kf_cases(torch, dev, cdt),
+                   **ke_k3_cases(torch, dev, cdt)}.items()
                   if only in name}
         times = {v: {name: [] for name in cs} for v in variants}
+        first = {}  # KF's output of the first variant, for its bits
         for v in variants:
             use(v)
             for name, (kfn, pfn, mask, _) in cs.items():
@@ -344,8 +396,16 @@ def main():
                 if mask is not None:
                     got, ref = got[mask], ref[mask]
                 err = float((got - ref).abs().max() / ref.abs().max())
+                bits = ""
+                if name.startswith("KF"):
+                    if name in first:
+                        bits = (f"; bits equal to {variants[0]}'s: "
+                                f"{torch.equal(torch.view_as_real(got).view(torch.uint8), first[name])}")
+                    else:
+                        first[name] = torch.view_as_real(got).view(torch.uint8).clone()
                 del got, ref
-                print(f"{v} {cdt} {name}: max rel err {err:.3e}")
+                print(f"{v} {cdt} {name}: max rel err {err:.3e}{bits}")
+        first.clear()
         for _ in range(3):
             for v in variants + variants[::-1]:
                 use(v)
